@@ -1,0 +1,527 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100 is assumed
+for the roofline bounds).
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line: ``device`` (name and power limit),
+``build`` (compiles ``src/repro_torch/kernels/csrc/*.cu`` with nvcc),
+``kernels`` (every hand-written kernel against its plain PyTorch version on
+the card), ``serve`` (qwen1.5-0.5b at full width and depth in bf16 through
+``ServeEngine``, static and continuous batching, with the launch counts of the
+flash-attention kernel), ``linreg`` (the LinReg DS example at 262144 x 1024
+through the tsmm kernel).  Then one ``{"kernels": [...]}`` line with each
+kernel's time at its main-path shape beside its roofline bound, the plain
+version's time and a PyTorch library call's time, the device line again, and
+last ``{"ok": true, "device": {...}}``.
+
+Any failing phase raises: the script exits non-zero and prints no result.  It
+needs a CUDA device and raises at once without one.  It imports the port
+(``repro_torch``) and nothing of the JAX reference.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+from repro_torch.configs import get_config                       # noqa: E402
+from repro_torch.examples import linreg_ds                       # noqa: E402
+from repro_torch.kernels import _build, ops                      # noqa: E402
+from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
+                                                 flash_attention_plain)
+from repro_torch.kernels.tsmm import tsmm_upper, tsmm_upper_plain  # noqa: E402
+from repro_torch.models.model import build_model                 # noqa: E402
+from repro_torch.runtime.serve_engine import (EngineConfig, Request,  # noqa: E402
+                                              ServeEngine)
+
+# Published dense peaks of one H100 SXM at its full power limit.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
+
+SEED = 0
+FLASH_MAIN = dict(b=8, hq=16, hkv=16, s=2048, d=64, causal=True, window=None)
+LINREG_M, LINREG_N, LINREG_LAM = 262144, 1024, 1e-3
+
+# (b, hq, hkv, s, d, causal, window): the reference's kernel test cases
+FLASH_CASES = [
+    (2, 4, 2, 256, 64, True, None),
+    (1, 4, 4, 256, 32, False, None),
+    (2, 8, 2, 512, 64, True, 128),
+    (1, 2, 1, 512, 128, True, None),
+    (1, 4, 1, 256, 64, False, 64),
+]
+TSMM_CASES = [(512, 256), (1024, 512), (768, 384), (2048, 128)]
+
+# Tolerances.  fp32: the kernels multiply in full fp32 and differ from the
+# plain version only in the order of the sums (the reference's own kernel
+# tests use the same numbers).  bf16: inputs and P carry 8 bits of mantissa.
+FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+             torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
+
+
+def tsmm_tol(dtype: torch.dtype, m: int) -> dict:
+    """The reference's tolerances (m <= 2048); the absolute rounding error of
+    an fp32 sum grows with its length, so atol scales with m beyond 512."""
+    grow = max(1.0, m / 512)
+    if dtype == torch.float32:
+        return dict(rtol=2e-5, atol=2e-4 * grow)
+    return dict(rtol=3e-2, atol=0.9 * grow)
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def device_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int, warmup: int = 1) -> float:
+    """Mean milliseconds of ``fn`` over ``iters`` runs, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def compare(out: torch.Tensor, ref: torch.Tensor, rtol: float,
+            atol: float) -> dict:
+    """Max abs / rel error of ``out`` against ``ref``; raises beyond
+    ``atol + rtol * |ref|``."""
+    o, r = out.to(torch.float64), ref.to(torch.float64)
+    if o.shape != r.shape or not bool(torch.isfinite(o).all()):
+        raise AssertionError(f"shape {tuple(o.shape)} vs {tuple(r.shape)} or "
+                             f"non-finite values")
+    err = (o - r).abs()
+    excess = float((err - (atol + rtol * r.abs())).max())
+    res = {"max_abs_err": float(err.max()),
+           "max_rel_err": float((err / r.abs().clamp_min(1e-6)).max()),
+           "ref_max_abs": float(r.abs().max()),
+           "rtol": rtol, "atol": atol}
+    if excess > 0:
+        raise AssertionError(f"kernel disagrees with its plain version: {res}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# kernels
+# ---------------------------------------------------------------------------
+
+
+def flash_inputs(b, hq, hkv, s, d, dtype, gen, views=False):
+    """Seeded q, k, v [B,H,S,D]; with ``views`` they are ``transpose(1, 2)``
+    views of [B,S,H,D] tensors, as the model hands them to the kernel."""
+    def one(h):
+        shape = (b, s, h, d) if views else (b, h, s, d)
+        t = torch.randn(shape, generator=gen, device="cuda",
+                        dtype=torch.float32).to(dtype)
+        return t.transpose(1, 2) if views else t
+    return one(hq), one(hkv), one(hkv)
+
+
+def visible_pairs(sq: int, skv: int, causal: bool, window) -> int:
+    """Number of (query, key) pairs inside the band."""
+    q = torch.arange(sq, dtype=torch.int64)
+    hi = torch.minimum(q, torch.tensor(skv - 1)) if causal \
+        else torch.full_like(q, skv - 1)
+    lo = (q - window + 1).clamp_min(0) if window else torch.zeros_like(q)
+    return int((hi - lo + 1).clamp_min(0).sum())
+
+
+def flash_bound_ms(b, hq, hkv, s, d, causal, window, dtype) -> dict:
+    esize = torch.empty((), dtype=dtype).element_size()
+    flops = 4.0 * d * visible_pairs(s, s, causal, window) * b * hq
+    nbytes = (2 * b * hq * s * d + 2 * b * hkv * s * d) * esize
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flop": flops, "bytes": nbytes}
+
+
+def tsmm_bound_ms(m, n, dtype) -> dict:
+    esize = torch.empty((), dtype=dtype).element_size()
+    flops = float(m) * n * (n + 1)          # 2 flop x n(n+1)/2 pairs x m
+    nbytes = (m * n + n * n) * esize
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flop": flops, "bytes": nbytes}
+
+
+def check_flash(gen) -> list:
+    cases = []
+
+    def run(tag, b, hq, hkv, s, d, causal, window, dtype, views=False):
+        q, k, v = flash_inputs(b, hq, hkv, s, d, dtype, gen, views)
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        ref = flash_attention_plain(q, k, v, causal=causal, window=window)
+        res = compare(out, ref, **FLASH_TOL[dtype])
+        res.update(case=tag, shape=[b, hq, hkv, s, d], causal=causal,
+                   window=window, dtype=str(dtype).split(".")[-1])
+        cases.append(res)
+
+    for c in FLASH_CASES:
+        run("reference case fp32", *c, torch.float32)
+        run("reference case bf16", *c, torch.bfloat16)
+    run("bf16 case of the reference", 1, 2, 2, 256, 64, True, None,
+        torch.bfloat16)
+    for dtype in (torch.float32, torch.bfloat16):
+        run("ragged S", 2, 4, 2, 600, 64, True, None, dtype)
+        run("ragged S, window, strided views", 1, 4, 4, 333, 128, True, 100,
+            dtype, views=True)
+    run("main path", **FLASH_MAIN, dtype=torch.bfloat16, views=True)
+
+    def run_odd(tag, q, k, v, causal, dtype):
+        out = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        res = compare(out, flash_attention_plain(q, k, v, causal=causal),
+                      **FLASH_TOL[dtype])
+        res.update(case=tag, shape=[list(q.shape), list(k.shape)],
+                   causal=causal, window=None,
+                   dtype=str(dtype).split(".")[-1])
+        cases.append(res)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        # more keys than queries, and the other way round
+        q, _, _ = flash_inputs(2, 4, 2, 100, 64, dtype, gen)
+        _, k, v = flash_inputs(2, 4, 2, 300, 64, dtype, gen)
+        run_odd("Sq < Skv", q, k, v, False, dtype)
+        run_odd("Sq < Skv, causal", q, k, v, True, dtype)
+        q, _, _ = flash_inputs(1, 2, 2, 200, 32, dtype, gen)
+        _, k, v = flash_inputs(1, 2, 2, 70, 32, dtype, gen)
+        run_odd("Sq > Skv, causal", q, k, v, True, dtype)
+        # rows off the 16-byte grid: the wrapper copies before it launches
+        wide = [t[..., 4:68] for t in flash_inputs(1, 2, 2, 130, 72, dtype,
+                                                   gen)]
+        run_odd("misaligned views", *wide, True, dtype)
+    # unsupported shapes raise, they do not fall back
+    q, k, v = flash_inputs(1, 2, 2, 64, 48, torch.float32, gen)
+    for bad in (lambda: flash_attention(q, k, v),
+                lambda: flash_attention(q.half(), k.half(), v.half())):
+        try:
+            bad()
+        except (ValueError, TypeError):
+            continue
+        raise AssertionError("an unsupported flash_attention call did not "
+                             "raise")
+    return cases
+
+
+def check_tsmm(gen) -> list:
+    cases = []
+
+    def run(tag, m, n, dtype, reg=0.0):
+        x = torch.randn((m, n), generator=gen, device="cuda",
+                        dtype=torch.float32).to(dtype)
+        out = tsmm_upper(x, reg=reg)
+        torch.cuda.synchronize()
+        res = compare(out, tsmm_upper_plain(x, reg=reg), **tsmm_tol(dtype, m))
+        # and against the float64 Gram matrix, which no fp32 sum touches
+        x64 = x.to(torch.float64)
+        g64 = x64.T @ x64 + reg * torch.eye(n, dtype=torch.float64,
+                                            device="cuda")
+        blk = torch.arange(n, device="cuda") // 128
+        g64 = g64 * (blk[:, None] <= blk[None, :])
+        res["max_abs_err_vs_f64"] = compare(
+            out, g64, **tsmm_tol(dtype, m))["max_abs_err"]
+        del x64, g64
+        full = ops.tsmm(x, reg=reg)
+        if not torch.equal(full, full.T):
+            raise AssertionError("ops.tsmm is not symmetric")
+        res.update(case=tag, shape=[m, n], reg=reg,
+                   dtype=str(dtype).split(".")[-1])
+        cases.append(res)
+
+    for m, n in TSMM_CASES:
+        run("reference case fp32", m, n, torch.float32)
+    run("bf16 case of the reference", 512, 256, torch.bfloat16)
+    run("ridge", 512, 256, torch.float32, reg=7.25)
+    run("ragged m and n, split over m", 5000, 200, torch.float32, reg=0.5)
+    run("ragged m and n, split over m", 5000, 200, torch.bfloat16, reg=0.5)
+    run("LinReg DS", LINREG_M, LINREG_N, torch.float32, reg=LINREG_LAM)
+    x = torch.randn((64, 30), generator=gen, device="cuda")
+    try:
+        tsmm_upper(x)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("an unsupported tsmm_upper call did not raise")
+    return cases
+
+
+def time_kernels(gen) -> dict:
+    """Each kernel at its main-path shape: kernel, plain version, and one
+    PyTorch library call (a yardstick; the port never calls it)."""
+    m = FLASH_MAIN
+    q, k, v = flash_inputs(m["b"], m["hq"], m["hkv"], m["s"], m["d"],
+                           torch.bfloat16, gen, views=True)
+    flash = {
+        "ms": time_ms(lambda: flash_attention(q, k, v, causal=True), 20, 3),
+        "plain_ms": time_ms(
+            lambda: flash_attention_plain(q, k, v, causal=True), 2),
+        "library_ms": time_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+            20, 3),
+        "shape": "q,k,v [8,16,2048,64] bf16 causal, transposed views",
+    }
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    flash["fp32_body_ms"] = time_ms(
+        lambda: flash_attention(q32, k32, v32, causal=True), 3)
+    del q, k, v, q32, k32, v32
+    x = torch.randn((LINREG_M, LINREG_N), generator=gen, device="cuda",
+                    dtype=torch.float32)
+    tsmm = {
+        "ms": time_ms(lambda: tsmm_upper(x, reg=LINREG_LAM), 5),
+        "plain_ms": time_ms(lambda: tsmm_upper_plain(x, reg=LINREG_LAM), 3),
+        "library_ms": time_ms(lambda: x.T @ x, 5),
+        "shape": f"x [{LINREG_M},{LINREG_N}] fp32",
+    }
+    return {"flash_attention": flash, "tsmm_upper": tsmm}
+
+
+# ---------------------------------------------------------------------------
+# serve
+# ---------------------------------------------------------------------------
+
+
+def make_requests(vocab: int, n: int = 8, max_new: int = 32) -> list:
+    rng = np.random.default_rng(SEED)
+    lengths = rng.integers(256, 2049, size=n)
+    lengths[0], lengths[-1] = 2048, 256
+    return [Request(prompt=[int(t) for t in rng.integers(1, vocab, size=ln)],
+                    max_new_tokens=max_new) for ln in lengths]
+
+
+def padded_batch(reqs, device) -> torch.Tensor:
+    plen = max(len(r.prompt) for r in reqs)
+    toks = np.zeros((len(reqs), plen), np.int64)
+    for i, r in enumerate(reqs):
+        toks[i, plen - len(r.prompt):] = r.prompt
+    return torch.from_numpy(toks).to(device)
+
+
+def serve_run(engine: ServeEngine, reqs) -> dict:
+    """One ``generate`` with the kernel counts taken around it."""
+    ops.reset_launch_counts()
+    for key in engine.stats:
+        engine.stats[key] = 0
+    t0 = time.perf_counter()
+    outs = engine.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()["flash_attention"]
+    n_layers = engine.model.cfg.n_layers
+    rounds = engine.stats["admission_rounds"]
+    if any(len(c.tokens) != r.max_new_tokens for c, r in zip(outs, reqs)):
+        raise AssertionError("a request did not complete with all its tokens")
+    if engine.use_kernel and launches < n_layers * rounds:
+        raise AssertionError(
+            f"flash kernel launched {launches} times in {rounds} admission "
+            f"rounds of {n_layers} layers")
+    new_tokens = sum(len(c.tokens) for c in outs)
+    return {"tokens": [c.tokens for c in outs], "wall_s": wall,
+            "flash_launches": launches, "stats": dict(engine.stats),
+            "prefill_s": max(c.prefill_time_s for c in outs),
+            "decode_s": max(c.decode_time_s for c in outs),
+            "new_tokens": new_tokens, "tokens_per_s": new_tokens / wall}
+
+
+def _summary(run: dict) -> dict:
+    return {k: v for k, v in run.items() if k != "tokens"}
+
+
+def phase_serve() -> dict:
+    cfg = get_config("qwen1.5-0.5b")
+    reqs = make_requests(cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)                          # bf16, 24 layers
+    params = model.init(SEED)
+    n_params = sum(t.numel() for t in _leaves(params))
+
+    static = ServeEngine(model, params, EngineConfig(max_len=4096))
+    run1 = serve_run(static, reqs)
+    main_launches = run1["flash_launches"]            # the main path's count
+    run2 = serve_run(static, reqs)
+    if run1["tokens"] != run2["tokens"]:
+        raise AssertionError("two generate runs gave different tokens")
+    cont = ServeEngine(model, params, EngineConfig(
+        max_len=4096, batching="continuous", slots=4))
+    run3 = serve_run(cont, reqs)
+    if run3["stats"]["admission_rounds"] < 2:
+        raise AssertionError("continuous batching made no refill round")
+
+    # prefill logits with the kernel against without, bf16, full depth
+    toks = padded_batch(reqs, model.device)
+    with torch.no_grad():
+        lg_k, _ = model.prefill(params, toks, model.init_cache(8, 4096),
+                                use_kernel=True)
+        lg_p, _ = model.prefill(params, toks, model.init_cache(8, 4096),
+                                use_kernel=False)
+    torch.cuda.synchronize()
+    if lg_k.shape != (8, cfg.vocab_size) or not bool(
+            torch.isfinite(lg_k).all()):
+        raise AssertionError("prefill logits: wrong shape or non-finite")
+    # bf16 activations keep 8 bits of mantissa and the two paths round P and
+    # the output at different places in each of 24 layers; logits have a
+    # standard deviation near 1.
+    bf16_tol = 0.25
+    bf16_err = float((lg_k - lg_p).abs().max())
+    if bf16_err > bf16_tol:
+        raise AssertionError(f"bf16 prefill logits differ by {bf16_err}")
+    peak_bytes = torch.cuda.max_memory_allocated()
+    del params, static, cont, lg_k, lg_p
+    torch.cuda.empty_cache()
+
+    # fp32, 4 layers, full width: greedy streams with and without the kernel
+    cfg4 = dataclasses.replace(cfg, n_layers=4, dtype="float32")
+    model4 = build_model(cfg4)
+    params4 = model4.init(SEED)
+    with_k = serve_run(ServeEngine(model4, params4, EngineConfig(max_len=4096),
+                                   use_kernel=True), reqs)
+    without = serve_run(ServeEngine(model4, params4,
+                                    EngineConfig(max_len=4096),
+                                    use_kernel=False), reqs)
+    if without["flash_launches"] != 0:
+        raise AssertionError("use_kernel=False launched the kernel")
+    if with_k["tokens"] != without["tokens"]:
+        raise AssertionError("fp32 greedy streams with and without the kernel "
+                             "differ")
+    with torch.no_grad():
+        l4k, _ = model4.prefill(params4, toks, model4.init_cache(8, 4096),
+                                use_kernel=True)
+        l4p, _ = model4.prefill(params4, toks, model4.init_cache(8, 4096),
+                                use_kernel=False)
+    fp32_err = float((l4k - l4p).abs().max())
+    if fp32_err > 1e-3:       # fp32 sums in another order, 4 layers
+        raise AssertionError(f"fp32 prefill logits differ by {fp32_err}")
+    return {"phase": "serve", "arch": cfg.name, "dtype": cfg.dtype,
+            "n_layers": cfg.n_layers, "n_params": n_params,
+            "prompt_lens": [len(r.prompt) for r in reqs],
+            "main_path_flash_launches": main_launches,
+            "static": _summary(run1), "static_again": _summary(run2),
+            "continuous_slots4": _summary(run3),
+            "bf16_prefill_logits_max_abs_diff": bf16_err,
+            "bf16_prefill_logits_tol": bf16_tol,
+            "fp32_4layer_streams_identical": True,
+            "fp32_4layer_prefill_logits_max_abs_diff": fp32_err,
+            "fp32_4layer_with_kernel": _summary(with_k),
+            "fp32_4layer_without_kernel": _summary(without),
+            "max_memory_allocated_bytes": peak_bytes}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# ---------------------------------------------------------------------------
+# linreg
+# ---------------------------------------------------------------------------
+
+
+def phase_linreg() -> dict:
+    ops.reset_launch_counts()
+    r = linreg_ds.execute_small(LINREG_M, LINREG_N, LINREG_LAM, seed=SEED)
+    launches = ops.launch_counts()["tsmm_upper"]
+    if launches < 1:
+        raise AssertionError("LinReg DS did not launch the tsmm kernel")
+    beta = r.pop("beta")
+    bound = 1e-4     # fp32 Gram and solve of a well-conditioned system
+    if beta.shape != (LINREG_N, 1) or not bool(torch.isfinite(beta).all()) \
+            or r["max_abs_err_vs_f64"] > bound:
+        raise AssertionError(f"LinReg DS: beta is off: {r}")
+    return {"phase": "linreg", **r, "lam": LINREG_LAM, "bound": bound,
+            "tsmm_launches": launches}
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--stop-after", choices=["build", "kernels"],
+                    help="development aid: end early (exit 0, no result line)")
+    ap.add_argument("--ptxas", action="store_true",
+                    help="print each kernel's registers and shared memory")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
+                         "this script needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False     # fp32 stays fp32
+    smi = device_line()
+    emit({"phase": "device", "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    emit({"phase": "build", "seconds": _build.build(verbose=args.ptxas),
+          "dir": str(_build.build_dir()), "sources": list(_build.SOURCES)})
+
+    if args.stop_after == "build":
+        return
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    flash_cases, tsmm_cases = check_flash(gen), check_tsmm(gen)
+    times = time_kernels(gen)
+    emit({"phase": "kernels", "flash_attention": flash_cases,
+          "tsmm_upper": tsmm_cases, "times": times})
+    if args.stop_after == "kernels":
+        return
+
+    serve = phase_serve()
+    emit(serve)
+    linreg = phase_linreg()
+    emit(linreg)
+
+    def err_of(cases, tag):
+        return next(c["max_abs_err"] for c in cases if c["case"] == tag)
+
+    fm = FLASH_MAIN
+    kernels = [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:104",
+         "launches": serve["main_path_flash_launches"],
+         "max_abs_err": err_of(flash_cases, "main path"),
+         **flash_bound_ms(fm["b"], fm["hq"], fm["hkv"], fm["s"], fm["d"],
+                          fm["causal"], fm["window"], torch.bfloat16),
+         **times["flash_attention"]},
+        {"name": "tsmm_upper", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/tsmm.cu",
+         "replaces": "src/repro/kernels/tsmm.py:101",
+         "launches": linreg["tsmm_launches"],
+         "max_abs_err": err_of(tsmm_cases, "LinReg DS"),
+         **tsmm_bound_ms(LINREG_M, LINREG_N, torch.float32),
+         **times["tsmm_upper"]},
+    ]
+    emit({"kernels": kernels})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,52 @@
+"""Carries the reference's parameter and cache trees over to the port.
+
+The reference keeps its trees as pytrees of JAX arrays.  numpy has no
+bfloat16, so the caller turns every floating leaf into a **float32 numpy
+array** (integers stay integers) and hands the nested dicts over; the
+functions here build the port's trees on a device.  Nothing here imports the
+reference: the tests do the JAX side.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.transformer import torch_dtype
+
+# leaves the reference keeps in fp32 whatever cfg.dtype says
+_FP32_LEAVES = ("ln1", "ln2", "final_norm")
+
+
+def _convert(tree: Any, name: str, device, dtype: torch.dtype) -> Any:
+    if isinstance(tree, dict):
+        return {k: _convert(v, k, device, dtype) for k, v in tree.items()}
+    t = torch.tensor(np.asarray(tree), device=device)    # always a copy
+    if t.is_floating_point():
+        t = t.to(torch.float32 if name in _FP32_LEAVES else dtype)
+    return t
+
+
+def params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
+                      device: Union[str, torch.device] = "cuda",
+                      dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """The reference's param tree (nested dicts of float32 numpy arrays, the
+    layer stack with its leading layer axis) as the port's tree on ``device``:
+    same keys and shapes, norm scales in fp32, everything else in ``dtype``
+    (default ``cfg.dtype``)."""
+    return _convert(tree, "", torch.device(device),
+                    dtype or torch_dtype(cfg.dtype))
+
+
+def cache_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
+                     device: Union[str, torch.device] = "cuda",
+                     dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """The reference's decode cache as the port's: ``pos`` becomes a host
+    integer, ``k``/``v`` take ``dtype`` (default ``cfg.dtype``), ``kpos``
+    stays int32."""
+    out = _convert({k: v for k, v in tree.items() if k != "pos"}, "",
+                   torch.device(device), dtype or torch_dtype(cfg.dtype))
+    out["pos"] = int(np.asarray(tree["pos"]))
+    return out

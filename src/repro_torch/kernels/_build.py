@@ -1,0 +1,105 @@
+"""Builds the CUDA sources under ``csrc/`` at first use and loads them.
+
+Each ``csrc/<name>.cu`` has a plain C interface and becomes one shared
+library, compiled with ``nvcc`` for ``sm_90a`` and loaded through ``ctypes``
+(seconds per file; no PyTorch headers).  Libraries go to ``build/repro_torch``
+at the root of the checkout (``REPRO_TORCH_BUILD_DIR`` overrides), named by a
+hash of the source, so an unchanged source is built once per directory.
+
+Nothing here runs at import time: a machine without ``nvcc`` can import every
+module of the package.  A build that fails raises; there is no other path for
+a CUDA tensor.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("flash_attention", "tsmm")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> Path:
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(set CUDA_HOME or put nvcc on PATH)")
+
+
+def _target(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha1(src.read_bytes()
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return build_dir() / f"lib{name}_{digest}.so"
+
+
+def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> float:
+    """Compile the named sources that have no library yet, all at once (one
+    ``nvcc`` process each).  Returns the seconds it took."""
+    t0 = time.perf_counter()
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    procs: List = []
+    for name in names:
+        target = _target(name)
+        if target.exists():
+            continue
+        tmp = target.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        if verbose:
+            cmd.insert(1, "-Xptxas=-v")
+        procs.append((name, tmp, target, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failures = []
+    for name, tmp, target, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        if verbose and log:
+            print(log)
+        os.replace(tmp, target)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu``, built first if need be."""
+    lib = _libs.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(_target(name)))
+        _libs[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str, error_string: str) -> None:
+    """Raise if a kernel's C entry point returned an error code."""
+    if code != 0:
+        fn = getattr(lib, error_string)
+        fn.restype = ctypes.c_char_p
+        fn.argtypes = [ctypes.c_int]
+        raise RuntimeError(f"{what}: {fn(code).decode()} (code {code})")

@@ -1,0 +1,240 @@
+"""Shared model primitives (PyTorch counterpart of ``repro.models.layers``).
+
+Plain functions on tensors.  Layouts are the reference's: weights
+``[d_in, d_out]`` applied as ``x @ w``, attention tensors ``[B, H, S, D]``.
+
+  * attention is *chunked* (online softmax over KV blocks) above 2048
+    positions, so a long prefill never materializes an S x S score tensor —
+    the plain-PyTorch analogue of the flash kernel in
+    :mod:`repro_torch.kernels`, and what the kernel path is held against;
+  * sliding-window layers visit a bounded band of KV chunks.
+
+``moe_ffn`` is not ported yet.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+# ---------------------------------------------------------------------------
+# Small pieces
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """RMS norm in fp32, scaled by ``1 + scale`` (``scale`` starts at zero)."""
+    x32 = x.to(torch.float32)
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return ((x32 * torch.rsqrt(var + eps))
+            * (1.0 + scale.to(torch.float32))).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [..., S, D]; positions broadcastable to x.shape[:-1].  Split-half
+    rotation, computed in fp32."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                        # [D/2]
+    angles = positions[..., None].to(torch.float32) * freqs       # [..., S, D/2]
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor,
+          b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x @ w (+ b)``; the weights follow the activation's type."""
+    y = x @ w.to(x.dtype)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def _band_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+               window: Optional[int]) -> torch.Tensor:
+    mask = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                      device=q_pos.device)
+    if causal:
+        mask &= k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        mask &= k_pos[None, :] > q_pos[:, None] - window
+    return mask
+
+
+def attention_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset: int = 0,
+                    window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Direct softmax attention (the kernels' plain version + small-S path).
+
+    q: [B, Hq, Sq, Dk], k: [B, Hkv, Skv, Dk], v: [B, Hkv, Skv, Dv].
+    ``q_offset``: absolute position of q[0] relative to k[0] (decode).
+    Supports Dk != Dv.
+    """
+    b, hq, sq, dk = q.shape
+    _, hkv, skv, dv = v.shape
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(dk)
+    qg = q.reshape(b, hkv, g, sq, dk).to(torch.float32)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.to(torch.float32)) * scale
+    q_pos = torch.arange(sq, device=q.device) + q_offset
+    k_pos = torch.arange(skv, device=q.device)
+    mask = _band_mask(q_pos, k_pos, causal, window)
+    s = s.masked_fill(~mask, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m) * mask
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p / l, v.to(torch.float32))
+    return o.reshape(b, hq, sq, dv).to(q.dtype)
+
+
+def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      q_chunk: int = 1024, kv_chunk: int = 1024,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """Online-softmax attention over KV chunks (flash-style, plain PyTorch).
+
+    Each query chunk visits only the KV chunks its causal/window band can
+    intersect; chunks wholly inside the band skip the mask.  Peak memory is
+    O(q_chunk * kv_chunk) scores per head.
+    """
+    b, hq, sq, dk = q.shape
+    _, hkv, skv, dv = v.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(dk)
+    if sq <= 2048 and skv <= 2048:
+        return attention_dense(q, k, v, causal=causal, window=window,
+                               scale=scale)
+    q_chunk = min(q_chunk, sq)
+    kv_chunk = min(kv_chunk, skv)
+    # pad ragged tails; padded keys are masked off via the k_pos < skv check,
+    # padded queries are sliced off.
+    pad_q = (-sq) % q_chunk
+    pad_k = (-skv) % kv_chunk
+    sq_p, skv_p = sq + pad_q, skv + pad_k
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, pad_q))
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, pad_k))
+    nq, nk = sq_p // q_chunk, skv_p // kv_chunk
+    g = hq // hkv
+    qr = q.reshape(b, hkv, g, nq, q_chunk, dk)
+
+    def kv_step(qi, qc, carry, j, masked):
+        m, l, acc = carry
+        kj = k[:, :, j * kv_chunk:(j + 1) * kv_chunk]
+        vj = v[:, :, j * kv_chunk:(j + 1) * kv_chunk]
+        # operands in the working type, fp32 result
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qc, kj).to(torch.float32) * scale
+        if masked:
+            q_pos = qi * q_chunk + torch.arange(q_chunk, device=q.device)
+            k_pos = j * kv_chunk + torch.arange(kv_chunk, device=q.device)
+            mask = _band_mask(q_pos, k_pos, causal, window)
+            mask &= (k_pos < skv)[None, :]               # padded keys
+            s = s.masked_fill(~mask, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        if masked:
+            p = p * mask
+        l_new = l * alpha + p.sum(dim=-1)
+        acc_new = acc * alpha[..., None] + torch.einsum(
+            "bhgqk,bhkd->bhgqd", p.to(q.dtype), vj).to(torch.float32)
+        return m_new, l_new, acc_new
+
+    def interior_range(qi, lo, kv_hi):
+        """KV-chunk indices fully inside the band (no masking needed)."""
+        q_lo, q_hi = qi * q_chunk, (qi + 1) * q_chunk - 1
+        int_lo, int_hi = lo, kv_hi
+        if causal:
+            int_hi = min(int_hi, (q_lo + 1) // kv_chunk)
+        if window is not None:
+            int_lo = max(int_lo, -(-(q_hi - window + 1) // kv_chunk))
+        if pad_k:
+            int_hi = min(int_hi, skv // kv_chunk)    # padded tail needs mask
+        return int_lo, max(int_hi, int_lo)
+
+    outs = []
+    for qi in range(nq):
+        kv_hi = min(nk, -(-((qi + 1) * q_chunk) // kv_chunk)) if causal else nk
+        lo = max(0, (qi * q_chunk - (window or 0)) // kv_chunk) if window else 0
+        qc = qr[:, :, :, qi]
+        carry = (
+            torch.full((b, hkv, g, q_chunk), NEG_INF, dtype=torch.float32,
+                       device=q.device),
+            torch.zeros((b, hkv, g, q_chunk), dtype=torch.float32,
+                        device=q.device),
+            torch.zeros((b, hkv, g, q_chunk, dv), dtype=torch.float32,
+                        device=q.device))
+        int_lo, int_hi = interior_range(qi, lo, kv_hi)
+        for j in range(lo, kv_hi):
+            carry = kv_step(qi, qc, carry, j,
+                            masked=not (int_lo <= j < int_hi))
+        _, l, acc = carry
+        outs.append(acc / l[..., None].clamp_min(1e-30))
+    o = torch.stack(outs, dim=3)                     # [b,hkv,g,nq,qc,dv]
+    o = o.reshape(b, hq, sq_p, dv)
+    return o[:, :, :sq].to(q.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              q_offset: int = 0, scale: Optional[float] = None,
+              use_kernel: bool = False) -> torch.Tensor:
+    """Dispatch: dense for small/decode, chunked for long prefill.
+
+    ``use_kernel=True`` routes to the hand-written flash kernel
+    (:mod:`repro_torch.kernels.ops`): launched for CUDA tensors, its plain
+    version for CPU tensors.
+    """
+    sq, skv = q.shape[2], k.shape[2]
+    if use_kernel and sq > 1 and q.shape[-1] == v.shape[-1]:
+        from repro_torch.kernels import ops as kops
+        return kops.flash_attention(q, k, v, causal=causal, window=window,
+                                    scale=scale)
+    if sq == 1 or (sq <= 2048 and skv <= 2048):
+        return attention_dense(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset, scale=scale)
+    return attention_chunked(q, k, v, causal=causal, window=window,
+                             scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# FFN
+# ---------------------------------------------------------------------------
+
+
+def _act(name: str):
+    if name == "silu":
+        return F.silu
+    # the reference's gelu is the tanh approximation
+    return lambda t: F.gelu(t, approximate="tanh")
+
+
+def ffn(x: torch.Tensor, params: Dict[str, torch.Tensor], gated: bool,
+        act: str = "silu") -> torch.Tensor:
+    """Dense MLP. gated: SwiGLU (w_gate, w_up, w_down); else (w_up, w_down)."""
+    actf = _act(act)
+    if gated:
+        h = actf(dense(x, params["w_gate"])) * dense(x, params["w_up"])
+    else:
+        h = actf(dense(x, params["w_up"], params.get("b_up")))
+    return dense(h, params["w_down"], params.get("b_down"))

@@ -1,0 +1,65 @@
+"""Model facade: ``build_model(cfg)`` -> init / forward / prefill / decode.
+
+The single entry point the launcher, the serve engine, tests and examples
+use; arch-specific wiring lives in transformer.py.  A model is bound to one
+device: ``"cuda"`` unless the caller asks for the CPU, and building it raises
+when that device is absent.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Union
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import transformer as T
+
+
+def require_device(device: Union[str, torch.device]) -> torch.device:
+    """``device`` as a ``torch.device``; raises if it names a CUDA device and
+    there is none (nothing falls back to the CPU by itself)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: this entry point runs on the GPU unless "
+            "device='cpu' is passed")
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ArchConfig
+    device: torch.device
+
+    # ------------------------------------------------------------- params
+    def init(self, seed: Union[int, torch.Generator] = 0) -> T.Params:
+        """Random weights on the model's device, from a seed or from a
+        ``torch.Generator`` that lives on that device."""
+        gen = seed
+        if not isinstance(gen, torch.Generator):
+            gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        return T.init_params(self.cfg, gen)
+
+    def forward(self, params, tokens, *, use_kernel: bool = False):
+        return T.forward(self.cfg, params, tokens, use_kernel=use_kernel)
+
+    # ------------------------------------------------------------ serving
+    def init_cache(self, batch: int, max_len: int) -> T.Cache:
+        return T.init_cache(self.cfg, batch, max_len, self.device)
+
+    def prefill(self, params, tokens, cache, *, use_kernel: bool = False):
+        """Writes ``cache`` in place and returns it beside the logits."""
+        return T.prefill(self.cfg, params, tokens, cache,
+                         use_kernel=use_kernel)
+
+    def decode_step(self, params, token, cache, *, use_kernel: bool = False):
+        """Writes ``cache`` in place and returns it beside the logits."""
+        return T.decode_step(self.cfg, params, token, cache,
+                             use_kernel=use_kernel)
+
+
+def build_model(cfg: ArchConfig,
+                device: Union[str, torch.device] = "cuda") -> Model:
+    T.require_dense(cfg)
+    return Model(cfg, require_device(device))

@@ -1,0 +1,338 @@
+"""Decoder-LM transformer assembly (PyTorch counterpart of
+``repro.models.transformer``), driven by :class:`ArchConfig`.
+
+Ported so far: the dense family (one homogeneous stack of GQA blocks, e.g.
+``qwen1.5-0.5b``).  Every other family raises ``NotImplementedError``.
+
+Params are nested dicts of tensors; leaves of the layer stack carry a leading
+layer axis, as in the reference, and the stack runs as a python loop over it.
+
+The decode cache is ``{"pos": int, "self": {"k", "v": [L,B,Hkv,cap,hd],
+"kpos": [L,cap]}}``.  ``pos`` is a host integer, so that a decode step never
+waits for a device scalar.  ``prefill`` and ``decode_step`` **write the cache
+tensors in place** and return a dict that holds the same tensors.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+
+Params = Dict[str, Any]
+Cache = Dict[str, Any]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def require_dense(cfg: ArchConfig) -> None:
+    if (cfg.family != "dense" or cfg.moe is not None or cfg.mla is not None
+            or cfg.enc_dec is not None or cfg.window_pattern is not None
+            or cfg.frontend != "none"):
+        raise NotImplementedError(
+            f"arch '{cfg.name}' (family {cfg.family}): not ported yet; the "
+            f"port runs the dense decoder family only")
+
+
+# ---------------------------------------------------------------------------
+# Parameter init
+# ---------------------------------------------------------------------------
+
+
+def _norm_init(gen: torch.Generator, shape, scale: float,
+               dtype: torch.dtype) -> torch.Tensor:
+    return (torch.randn(shape, generator=gen, device=gen.device,
+                        dtype=torch.float32) * scale).to(dtype)
+
+
+def attn_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
+              lead: Tuple[int, ...] = ()) -> Params:
+    """GQA projection weights; ``lead`` prepends stack axes to every leaf."""
+    if cfg.mla is not None:
+        raise NotImplementedError("MLA attention: not ported yet")
+    d, hd = cfg.d_model, cfg.head_dim_
+    nh, nkv = cfg.n_heads, cfg.n_kv_heads
+    std = d ** -0.5
+    p = {
+        "w_q": _norm_init(gen, lead + (d, nh * hd), std, dtype),
+        "w_k": _norm_init(gen, lead + (d, nkv * hd), std, dtype),
+        "w_v": _norm_init(gen, lead + (d, nkv * hd), std, dtype),
+        "w_o": _norm_init(gen, lead + (nh * hd, d), (nh * hd) ** -0.5, dtype),
+    }
+    if cfg.qkv_bias:
+        for name, width in (("b_q", nh * hd), ("b_k", nkv * hd),
+                            ("b_v", nkv * hd)):
+            p[name] = torch.zeros(lead + (width,), dtype=dtype,
+                                  device=gen.device)
+    return p
+
+
+def mlp_init(gen: torch.Generator, cfg: ArchConfig, d_ff: int,
+             dtype: torch.dtype, lead: Tuple[int, ...] = ()) -> Params:
+    d = cfg.d_model
+    std = d ** -0.5
+    p = {"w_up": _norm_init(gen, lead + (d, d_ff), std, dtype),
+         "w_down": _norm_init(gen, lead + (d_ff, d), d_ff ** -0.5, dtype)}
+    if cfg.gated_mlp:
+        p["w_gate"] = _norm_init(gen, lead + (d, d_ff), std, dtype)
+    return p
+
+
+def block_init(gen: torch.Generator, cfg: ArchConfig, *, dtype: torch.dtype,
+               lead: Tuple[int, ...] = ()) -> Params:
+    d = cfg.d_model
+    zeros = lambda: torch.zeros(lead + (d,), dtype=torch.float32,
+                                device=gen.device)
+    return {"ln1": zeros(), "ln2": zeros(),
+            "attn": attn_init(gen, cfg, dtype, lead),
+            "mlp": mlp_init(gen, cfg, cfg.d_ff if cfg.d_ff else 4 * d, dtype,
+                            lead)}
+
+
+def init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
+    """Random weights on ``gen.device`` with the reference's shapes, types and
+    scales: norm scales are fp32 zeros, matrices ``N(0, fan_in^-1)`` in
+    ``cfg.dtype``, the layer stack has a leading layer axis."""
+    require_dense(cfg)
+    dtype = torch_dtype(cfg.dtype)
+    d = cfg.d_model
+    params: Params = {
+        "embed": _norm_init(gen, (cfg.vocab_size, d), 1.0, dtype),
+        "final_norm": torch.zeros((d,), dtype=torch.float32,
+                                  device=gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = _norm_init(gen, (d, cfg.vocab_size), d ** -0.5,
+                                       dtype)
+    params["blocks"] = block_init(gen, cfg, dtype=dtype, lead=(cfg.n_layers,))
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Attention sublayer apply (dense QKV path + caches)
+# ---------------------------------------------------------------------------
+
+
+def gqa_attention(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
+                  positions: torch.Tensor, window: Optional[int],
+                  causal: bool = True,
+                  kv_cache: Optional[Dict[str, torch.Tensor]] = None,
+                  pos: Optional[int] = None,
+                  use_kernel: bool = False,
+                  ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Standard GQA self-attention.  x: [B,S,d].
+
+    kv_cache: {"k","v": [B,Hkv,cap,hd], "kpos": [cap]}, written in place.
+    ``pos`` is the decode position as a host integer (the whole batch shares
+    it); it is needed when ``S == 1`` and a cache is given.
+    """
+    b, s, _ = x.shape
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q = L.dense(x, p["w_q"], p.get("b_q")).reshape(b, s, nh, hd).transpose(1, 2)
+    k = L.dense(x, p["w_k"], p.get("b_k")).reshape(b, s, nkv, hd).transpose(1, 2)
+    v = L.dense(x, p["w_v"], p.get("b_v")).reshape(b, s, nkv, hd).transpose(1, 2)
+
+    q = L.apply_rope(q, positions[:, None, :], cfg.rope_theta)
+    k = L.apply_rope(k, positions[:, None, :], cfg.rope_theta)
+    if kv_cache is None:
+        out = L.attention(q, k, v, causal=causal, window=window,
+                          use_kernel=use_kernel)
+    else:
+        ck, cv, kpos = kv_cache["k"], kv_cache["v"], kv_cache["kpos"]
+        cap = ck.shape[2]
+        if s == 1:                                     # decode
+            slot = pos % cap
+            ck[:, :, slot:slot + 1] = k
+            cv[:, :, slot:slot + 1] = v
+            kpos[slot] = pos
+            valid = (kpos >= 0) & (kpos <= pos)
+            if window is not None:
+                valid &= kpos > pos - window
+            out = _masked_dense_attention(q, ck, cv,
+                                          valid[None, None, None, :])
+        else:                                          # prefill
+            if s >= cap:
+                ck.copy_(k[:, :, s - cap:])
+                cv.copy_(v[:, :, s - cap:])
+                kpos.copy_(positions[0, s - cap:])
+            else:
+                ck[:, :, :s] = k
+                cv[:, :, :s] = v
+                kpos[:s] = positions[0]
+            # attention still runs on the un-truncated k, v
+            out = L.attention(q, k, v, causal=causal, window=window,
+                              use_kernel=use_kernel)
+    out = out.transpose(1, 2).reshape(b, s, nh * hd)
+    return L.dense(out, p["w_o"]), kv_cache
+
+
+def _masked_dense_attention(q, k, v, mask) -> torch.Tensor:
+    """Softmax attention of q over a cache under an explicit key mask
+    [1,1,1,Skv] (decode)."""
+    b, hq, sq, dk = q.shape
+    _, hkv, skv, dv = v.shape
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(dk)
+    qg = q.reshape(b, hkv, g, sq, dk).to(torch.float32)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.to(torch.float32)) * scale
+    mask = mask[:, :, None]
+    s = s.masked_fill(~mask, L.NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m) * mask
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p / l, v.to(torch.float32))
+    return o.reshape(b, hq, sq, dv).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+
+def block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
+                positions: torch.Tensor, window: Optional[int],
+                causal: bool = True, kv_cache: Optional[Dict] = None,
+                pos: Optional[int] = None, use_kernel: bool = False):
+    """One transformer block. Returns (x, cache, aux_loss)."""
+    h_in = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    attn_out, new_cache = gqa_attention(cfg, p["attn"], h_in,
+                                        positions=positions, window=window,
+                                        causal=causal, kv_cache=kv_cache,
+                                        pos=pos, use_kernel=use_kernel)
+    x = x + attn_out
+    h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    out = L.ffn(h2, p["mlp"], cfg.gated_mlp,
+                act="silu" if cfg.gated_mlp else "gelu")
+    return x + out, new_cache, 0.0
+
+
+def _layer(tree: Any, i: int) -> Any:
+    """Layer ``i`` of a stacked tree: views, no copies."""
+    if isinstance(tree, dict):
+        return {name: _layer(leaf, i) for name, leaf in tree.items()}
+    return tree[i]
+
+
+def scan_stack(stacked: Params, x: torch.Tensor, body_fn: Callable,
+               cache: Optional[Dict] = None):
+    """Run a homogeneous layer stack: a python loop over the leading layer
+    axis.  body_fn(p, h, c) -> (h, c, aux).  Layer caches are views of the
+    stacked cache, which the blocks write in place."""
+    leaf = stacked
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    n_layers = leaf.shape[0]
+    aux_total = 0.0
+    for i in range(n_layers):
+        c = _layer(cache, i) if cache is not None else None
+        x, _, aux = body_fn(_layer(stacked, i), x, c)
+        aux_total = aux_total + aux
+    return x, cache, aux_total
+
+
+# ---------------------------------------------------------------------------
+# Cache construction
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               device: torch.device) -> Cache:
+    """Zero-filled decode cache on ``device``."""
+    require_dense(cfg)
+    dtype = torch_dtype(cfg.dtype)
+    nkv, hd = cfg.n_kv_heads, cfg.head_dim_
+    shape = (cfg.n_layers, batch, nkv, max_len, hd)
+    return {"pos": 0,
+            "self": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                     "v": torch.zeros(shape, dtype=dtype, device=device),
+                     "kpos": torch.full((cfg.n_layers, max_len), -1,
+                                        dtype=torch.int32, device=device)}}
+
+
+# ---------------------------------------------------------------------------
+# Forward / prefill / decode
+# ---------------------------------------------------------------------------
+
+
+def _stack_runner(cfg: ArchConfig, params: Params, x: torch.Tensor,
+                  positions: torch.Tensor, cache: Optional[Cache],
+                  use_kernel: bool, pos: Optional[int] = None):
+    """Run the layer stack. Returns (x, new_cache, aux)."""
+    require_dense(cfg)
+
+    def body(p, h, c):
+        return block_apply(cfg, p, h, positions=positions, window=None,
+                           kv_cache=c, pos=pos, use_kernel=use_kernel)
+    x, c2, aux = scan_stack(params["blocks"], x, body,
+                            cache["self"] if cache else None)
+    return x, ({"self": c2} if cache is not None else None), aux
+
+
+def _head(cfg: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Final norm and logits: the product runs in the working type and is
+    cast to fp32 afterwards."""
+    h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        return (h @ params["embed"].to(h.dtype).T).to(torch.float32)
+    return (h @ params["lm_head"].to(h.dtype)).to(torch.float32)
+
+
+def _positions(b: int, s: int, device: torch.device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+
+
+def forward_hidden(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
+                   use_kernel: bool = False):
+    """Trunk only: returns (pre-head hidden [B,S,d], aux_loss)."""
+    b, s = tokens.shape
+    x = params["embed"][tokens]
+    x, _, aux = _stack_runner(cfg, params, x, _positions(b, s, x.device),
+                              None, use_kernel)
+    return x, aux
+
+
+def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
+            use_kernel: bool = False):
+    """Full-sequence forward.  Returns (logits [B,S,V] fp32, aux_loss)."""
+    x, aux = forward_hidden(cfg, params, tokens, use_kernel=use_kernel)
+    return _head(cfg, params, x), aux
+
+
+def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
+            cache: Cache, *, use_kernel: bool = False
+            ) -> Tuple[torch.Tensor, Cache]:
+    """Fill the decode cache (in place) from a prompt; returns (last-token
+    logits [B,V], cache).  Only the last position goes through the head."""
+    b, s = tokens.shape
+    x = params["embed"][tokens]
+    x, c2, _ = _stack_runner(cfg, params, x, _positions(b, s, x.device),
+                             cache, use_kernel)
+    new_cache: Cache = {"pos": s}
+    new_cache.update(c2)
+    logits = _head(cfg, params, x[:, -1:])
+    return logits[:, 0], new_cache
+
+
+def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
+                cache: Cache, *, use_kernel: bool = False
+                ) -> Tuple[torch.Tensor, Cache]:
+    """One decoding step.  token: [B] int.  Returns (logits [B,V], cache);
+    the cache tensors are updated in place."""
+    b = token.shape[0]
+    pos = int(cache["pos"])
+    x = params["embed"][token[:, None]]
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    x, c2, _ = _stack_runner(cfg, params, x, positions, cache, use_kernel,
+                             pos=pos)
+    new_cache: Cache = {"pos": pos + 1}
+    new_cache.update(c2)
+    logits = _head(cfg, params, x)
+    return logits[:, 0], new_cache

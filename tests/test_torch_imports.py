@@ -1,0 +1,139 @@
+"""The port stands alone: it imports neither jax nor the reference package,
+registers only what is ported, and its entry points refuse to run without a
+GPU unless the caller asks for the CPU."""
+import dataclasses
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+MODULES = [
+    "repro_torch", "repro_torch.configs", "repro_torch.convert",
+    "repro_torch.kernels.ops", "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.tsmm", "repro_torch.kernels._build",
+    "repro_torch.models.layers", "repro_torch.models.transformer",
+    "repro_torch.models.model", "repro_torch.runtime.serve_engine",
+    "repro_torch.launch.serve", "repro_torch.examples.linreg_ds",
+    "chip_smoke",
+]
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_import_leaves_no_jax_and_no_reference(module):
+    code = (
+        "import sys, importlib\n"
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "assert 'triton' not in sys.modules\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_sources_name_neither_jax_nor_the_reference_package():
+    pattern = re.compile(
+        r"^\s*(import jax|from jax|import repro\b|from repro\b|from repro\.)",
+        re.M)
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    hits = [str(f) for f in files if pattern.search(f.read_text())]
+    assert not hits, hits
+
+
+def test_csrc_sources_have_a_plain_c_interface():
+    for name in ("flash_attention", "tsmm"):
+        text = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
+        assert 'extern "C"' in text and "torch/extension.h" not in text
+        assert "cudaGetLastError" in text
+
+
+def _needs_no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: the refusal cannot be shown")
+
+
+def test_build_model_raises_without_cuda():
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    assert build_model(cfg, device="cpu").device.type == "cpu"
+    _needs_no_gpu()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model(cfg)
+
+
+def test_launcher_and_example_raise_without_cuda():
+    from repro_torch.examples import linreg_ds
+    from repro_torch.launch import serve
+    _needs_no_gpu()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", "qwen1.5-0.5b", "--reduced"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        linreg_ds.execute_small(256, 64)
+
+
+def test_launcher_runs_on_the_cpu_when_asked(capsys):
+    from repro_torch.launch import serve
+    serve.main(["--arch", "qwen1.5-0.5b", "--reduced", "--device", "cpu",
+                "--batch", "2", "--max-new", "4"])
+    out = capsys.readouterr().out
+    assert "req1:" in out and "flash kernel off" in out
+
+
+def test_chip_smoke_fails_without_cuda():
+    _needs_no_gpu()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_only_ported_archs_are_registered():
+    from repro_torch import configs
+    assert configs.PORTED_ARCH_IDS == ["qwen1.5-0.5b"]
+    cfg = configs.get_config("qwen1.5-0.5b")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff,
+            cfg.vocab_size, cfg.qkv_bias) == (24, 1024, 16, 2816, 151936, True)
+    with pytest.raises(KeyError):
+        configs.get_config("no-such-arch")
+
+
+@pytest.mark.parametrize("arch_id", [
+    "whisper-small", "pixtral-12b", "zamba2-2.7b", "phi3.5-moe-42b-a6.6b",
+    "deepseek-v3-671b", "stablelm-12b", "qwen1.5-4b", "qwen1.5-110b",
+    "gemma3-12b", "mamba2-1.3b"])
+def test_unported_arch_raises_not_implemented(arch_id):
+    from repro_torch import configs
+    assert arch_id in configs.ARCH_IDS
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        configs.get_config(arch_id)
+
+
+def test_config_copy_equals_the_reference():
+    """The port keeps its own copy of the config schema; it must not drift."""
+    from repro.configs import ARCH_IDS, get_config as ref_get
+    from repro_torch import configs
+    assert configs.ARCH_IDS == ARCH_IDS
+    ref, mine = ref_get("qwen1.5-0.5b"), configs.get_config("qwen1.5-0.5b")
+    assert dataclasses.asdict(ref) == dataclasses.asdict(mine)
+    assert dataclasses.asdict(ref.reduced()) == dataclasses.asdict(
+        mine.reduced())
+    assert ref.n_params == mine.n_params
+
+
+def test_non_dense_family_raises_in_the_model():
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(),
+                              family="ssm")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        build_model(cfg, device="cpu")

@@ -1,0 +1,168 @@
+"""The plain PyTorch versions of the port's kernels against the reference's
+Pallas kernels in interpret mode (as tests/test_kernels.py runs them), from
+the same numpy inputs.  The CUDA kernels themselves are held against these
+plain versions on the GPU by chip_smoke.py.
+
+Tolerances are the reference's own: fp32 rtol 2e-5 (both sides multiply in
+full fp32 and differ in the order of the sums), bf16 3e-2 (8 bits of
+mantissa)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as ref_ops
+from repro.kernels import tsmm as ref_tsmm
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
+from repro_torch.kernels.tsmm import TILE, _splits, tsmm_upper, tsmm_upper_plain
+from repro_torch.models.layers import attention_dense
+
+
+def randn(rng, shape):
+    return rng.normal(size=shape).astype(np.float32)
+
+
+def to_np(t):
+    return t.to(torch.float32).numpy()
+
+
+# --------------------------------------------------------------- tsmm
+@pytest.mark.parametrize("m,n,bm,bn", [
+    (512, 256, 256, 128),
+    (1024, 512, 512, 256),
+    (768, 384, 256, 128),
+    (2048, 128, 512, 128),
+])
+def test_tsmm_shapes(m, n, bm, bn):
+    x = randn(np.random.default_rng(7), (m, n))
+    expect = np.asarray(ref_ops.tsmm(jnp.asarray(x), bm=bm, bn=bn))
+    out = ops.tsmm(torch.from_numpy(x))
+    np.testing.assert_allclose(to_np(out), expect, rtol=2e-5, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype,jdtype,tol", [
+    (torch.float32, jnp.float32, 2e-5), (torch.bfloat16, jnp.bfloat16, 3e-2)])
+def test_tsmm_dtypes(dtype, jdtype, tol):
+    x = randn(np.random.default_rng(8), (512, 256))
+    expect = np.asarray(ref_ops.tsmm(jnp.asarray(x, jdtype), bm=256, bn=128),
+                        np.float32)
+    out = ops.tsmm(torch.from_numpy(x).to(dtype))
+    assert out.dtype == dtype
+    np.testing.assert_allclose(to_np(out), expect, rtol=tol, atol=tol * 30)
+
+
+def test_tsmm_symmetry():
+    x = torch.from_numpy(randn(np.random.default_rng(9), (512, 256)))
+    out = ops.tsmm(x)
+    assert torch.equal(out, out.T)
+
+
+def test_tsmm_ridge_epilogue():
+    x = randn(np.random.default_rng(10), (512, 256))
+    reg = 7.25
+    out = to_np(ops.tsmm(torch.from_numpy(x), reg=reg))
+    plain = to_np(ops.tsmm(torch.from_numpy(x)))
+    np.testing.assert_allclose(out - plain, reg * np.eye(256, dtype=np.float32),
+                               rtol=0, atol=1e-4)
+    expect = np.asarray(ref_ops.tsmm(jnp.asarray(x), bm=256, bn=128, reg=reg))
+    np.testing.assert_allclose(out, expect, rtol=2e-5, atol=2e-4)
+
+
+def test_tsmm_upper_tiles_match_the_reference_kernel():
+    """Same upper tiles as the TPU kernel at bn = 128, whole diagonal tiles
+    included.  Below them the port writes zeros; the reference kernel leaves
+    those tiles unwritten (interpret mode shows NaN there) and relies on the
+    mirror in ops.tsmm to drop them."""
+    x = randn(np.random.default_rng(11), (512, 384))
+    expect = np.asarray(ref_tsmm.tsmm_upper(jnp.asarray(x), bm=256, bn=TILE,
+                                            reg=0.5))
+    out = to_np(tsmm_upper(torch.from_numpy(x), reg=0.5))
+    blk = np.arange(384) // TILE
+    upper = blk[:, None] <= blk[None, :]
+    np.testing.assert_allclose(out[upper], expect[upper], rtol=2e-5, atol=2e-4)
+    assert np.all(out[~upper] == 0)
+    assert np.any(out[1:TILE, 0] != 0)          # diagonal tile is whole
+
+
+def test_tsmm_split_heuristic():
+    assert _splits(512, 256) == 1                # short: one pass
+    assert _splits(262144, 1024) == 29           # 36 tiles x 29 <= 4 waves
+    assert _splits(262144, 128) == 256           # one tile: >= 1024 rows each
+    assert _splits(4096, 4096) == 2              # 528 tiles x 2 = 4 waves
+
+
+def test_tsmm_rejects_a_vector():
+    with pytest.raises(ValueError):
+        tsmm_upper(torch.zeros(8))
+
+
+# ----------------------------------------------------------- flash attn
+FLASH_CASES = [
+    (2, 4, 2, 256, 64, True, None),
+    (1, 4, 4, 256, 32, False, None),
+    (2, 8, 2, 512, 64, True, 128),
+    (1, 2, 1, 512, 128, True, None),
+    (1, 4, 1, 256, 64, False, 64),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", FLASH_CASES)
+def test_flash_attention_sweep(b, hq, hkv, s, d, causal, window):
+    rng = np.random.default_rng(7)
+    q, k, v = randn(rng, (b, hq, s, d)), randn(rng, (b, hkv, s, d)), \
+        randn(rng, (b, hkv, s, d))
+    expect = np.asarray(ref_ops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window, bq=128, bk=128))
+    out = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=causal,
+                              window=window)
+    np.testing.assert_allclose(to_np(out), expect, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_bf16():
+    rng = np.random.default_rng(12)
+    q, k, v = (randn(rng, (1, 2, 256, 64)) for _ in range(3))
+    expect = np.asarray(ref_ops.flash_attention(
+        *(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)), bq=128, bk=128),
+        np.float32)
+    out = ops.flash_attention(
+        *(torch.from_numpy(t).to(torch.bfloat16) for t in (q, k, v)))
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(to_np(out), expect, rtol=3e-2, atol=3e-2)
+
+
+def test_flash_attention_scale_argument():
+    rng = np.random.default_rng(13)
+    q, k, v = (randn(rng, (1, 2, 128, 32)) for _ in range(3))
+    expect = np.asarray(ref_ops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale=0.3,
+        bq=64, bk=64))
+    out = ops.flash_attention(*(torch.from_numpy(t) for t in (q, k, v)),
+                              scale=0.3)
+    np.testing.assert_allclose(to_np(out), expect, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("s,window", [(600, None), (333, 100), (77, 5)])
+def test_flash_attention_ragged_length(s, window):
+    """Lengths the reference kernel refuses (S % block != 0): the plain
+    version is the port's own attention_dense, at any S."""
+    rng = np.random.default_rng(14)
+    q, k, v = (torch.from_numpy(randn(rng, (2, 4, s, 32))) for _ in range(3))
+    out = flash_attention(q, k[:, :2], v[:, :2], causal=True, window=window)
+    expect = attention_dense(q, k[:, :2], v[:, :2], causal=True,
+                             window=window)
+    assert out.shape == (2, 4, s, 32)
+    assert torch.equal(out, expect)
+    assert torch.equal(out, flash_attention_plain(q, k[:, :2], v[:, :2],
+                                                  causal=True, window=window))
+
+
+def test_cpu_tensors_launch_nothing():
+    ops.reset_launch_counts()
+    x = torch.ones(64, 32)
+    ops.tsmm(x)
+    ops.flash_attention(*(torch.ones(1, 1, 8, 32) for _ in range(3)))
+    assert ops.launch_counts() == {"flash_attention": 0, "tsmm_upper": 0}
