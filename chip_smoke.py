@@ -7,13 +7,14 @@ for the roofline bounds).
 Phases, each printing one JSON line: ``device`` (name and power limit),
 ``build`` (compiles ``src/repro_torch/kernels/csrc/*.cu`` with nvcc),
 ``kernels`` (every hand-written kernel against its plain PyTorch version on
-the card), ``serve`` (qwen1.5-0.5b at full width and depth in bf16 through
-``ServeEngine``, static and continuous batching, with the launch counts of the
-flash-attention kernel), ``linreg`` (the LinReg DS example at 262144 x 1024
-through the tsmm kernel).  Then one ``{"kernels": [...]}`` line with each
-kernel's time at its main-path shape beside its roofline bound, the plain
-version's time and a PyTorch library call's time, the device line again, and
-last ``{"ok": true, "device": {...}}``.
+the card), ``serve`` twice (qwen1.5-0.5b, then mamba2-1.3b, at full width
+and depth in bf16 through ``ServeEngine``, static and continuous batching,
+with the launch counts of the flash-attention or the SSD-scan kernel),
+``linreg`` (the LinReg DS example at 262144 x 1024 through the tsmm kernel).
+Then one ``{"kernels": [...]}`` line with each kernel's time at its main-path
+shape beside its roofline bound, the plain version's time and a PyTorch
+library call's time (null where no single call computes the function), the
+device line again, and last ``{"ok": true, "device": {...}}``.
 
 Any failing phase raises: the script exits non-zero and prints no result.  It
 needs a CUDA device and raises at once without one.  It imports the port
@@ -40,6 +41,7 @@ from repro_torch.examples import linreg_ds                       # noqa: E402
 from repro_torch.kernels import _build, ops                      # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
                                                  flash_attention_plain)
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
 from repro_torch.kernels.tsmm import tsmm_upper, tsmm_upper_plain  # noqa: E402
 from repro_torch.models.model import build_model                 # noqa: E402
 from repro_torch.runtime.serve_engine import (EngineConfig, Request,  # noqa: E402
@@ -62,6 +64,10 @@ FLASH_CASES = [
     (1, 4, 1, 256, 64, False, 64),
 ]
 TSMM_CASES = [(512, 256), (1024, 512), (768, 384), (2048, 128)]
+# (b, s, h, p, n, chunk): the reference's kernel test cases
+SSD_CASES = [(2, 128, 4, 16, 32, 32), (1, 256, 2, 64, 128, 64),
+             (2, 64, 8, 32, 16, 16)]
+SSD_MAIN = dict(b=8, s=2048, h=64, p=64, g=1, n=128, chunk=256)
 
 # Tolerances.  fp32: the kernels multiply in full fp32 and differ from the
 # plain version only in the order of the sums (the reference's own kernel
@@ -77,6 +83,33 @@ def tsmm_tol(dtype: torch.dtype, m: int) -> dict:
     if dtype == torch.float32:
         return dict(rtol=2e-5, atol=2e-4 * grow)
     return dict(rtol=3e-2, atol=0.9 * grow)
+
+
+def ssd_tol(dtype: torch.dtype, log_a: torch.Tensor, chunk: int,
+            y_ref: torch.Tensor, st_ref: torch.Tensor) -> dict:
+    """fp32: the reference's rtol = atol = 2e-4.  Each decay
+    exp(cum_i - cum_j) carries an absolute error near eps * |cum| from the
+    fp32 cumsum, whatever the order of its sums; where 4 * eps * max|cum|
+    over a chunk exceeds 2e-4 (the serve path's decays reach |cum| ~ 2000)
+    it takes rtol's place, and atol becomes rtol * max|ref|, for the
+    elements whose terms cancel to near zero.  bf16: y is rounded to 8 bits
+    of mantissa on both sides, and the two fp32 values it is rounded from may
+    fall either side of a rounding boundary: one bf16 step is 2^-7 relative;
+    the state stays fp32."""
+    b, s, h = log_a.shape
+    pad = (-s) % chunk
+    la = F.pad(log_a.abs(), (0, 0, 0, pad)).reshape(b, -1, chunk, h)
+    rel = 4 * 2.0 ** -23 * float(la.sum(dim=2).max())
+
+    def tol(ref):
+        if rel <= 2e-4:
+            return dict(rtol=2e-4, atol=2e-4)
+        return dict(rtol=rel, atol=rel * float(ref.abs().max()))
+    out = {"y": tol(y_ref), "state": tol(st_ref)}
+    if dtype == torch.bfloat16:
+        out["y"] = dict(rtol=max(1e-2, out["y"]["rtol"]),
+                        atol=max(1e-2, out["y"]["atol"]))
+    return out
 
 
 def emit(obj: dict) -> None:
@@ -271,6 +304,102 @@ def check_tsmm(gen) -> list:
     return cases
 
 
+def ssd_inputs(b, s, h, p, g, n, dtype, gen, model_like=False, init=False,
+               views=False):
+    """Pre-scaled inputs of the scan on the card.  By default drawn as the
+    reference's kernel tests draw x, dt and A_log (dt in [0.01, 0.2], A_log
+    in [-1, 1]); ``model_like`` draws them as the serve path makes them
+    (dt = softplus of a unit normal, A_log = log(linspace(1, 16))).  With
+    ``views`` B and C are views into one [b, s, h*p + 2*g*n] tensor, as the
+    model hands them over."""
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float32)
+    x = rand(b, s, h, p).to(dtype)
+    if model_like:
+        dt = F.softplus(rand(b, s, h))
+        a_log = torch.log(torch.linspace(1.0, 16.0, h, device="cuda"))
+    else:
+        dt = 0.01 + 0.19 * torch.rand((b, s, h), generator=gen, device="cuda")
+        a_log = 2 * torch.rand((h,), generator=gen, device="cuda") - 1
+    log_a = dt * -torch.exp(a_log)
+    xbar = x * dt[..., None].to(dtype)
+    if views:
+        proj = rand(b, s, h * p + 2 * g * n).to(dtype)
+        bm = proj[..., h * p:h * p + g * n].reshape(b, s, g, n)
+        cm = proj[..., h * p + g * n:].reshape(b, s, g, n)
+    else:
+        bm, cm = rand(b, s, g, n).to(dtype), rand(b, s, g, n).to(dtype)
+    st = rand(b, h, p, n) if init else None
+    return xbar, log_a, bm, cm, st
+
+
+def ssd_bound_ms(b, s, h, p, g, n, chunk, dtype, init=False) -> dict:
+    """flop: the lower-triangle pairs of each chunk (C B^T and P Xbar), C S^T
+    and the state update; bytes: xbar, y, B and C by group, log_a, the
+    states; each read or written once."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    flops = 0.0
+    for r0 in range(0, s, chunk):
+        ln = min(chunk, s - r0)
+        flops += ln * (ln + 1) * (n + p) + 4 * ln * p * n
+    flops *= b * h
+    nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * esize \
+        + 4 * b * s * h + 4 * b * h * p * n * (2 if init else 1)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flop": flops, "bytes": nbytes}
+
+
+def check_ssd(gen) -> list:
+    cases = []
+
+    def run(tag, b, s, h, p, g, n, chunk, dtype, **kw):
+        xbar, log_a, bm, cm, st = ssd_inputs(b, s, h, p, g, n, dtype, gen,
+                                             **kw)
+        y, state = ssd_scan(xbar, log_a, bm, cm, chunk=chunk, init_state=st)
+        torch.cuda.synchronize()
+        y_ref, st_ref = ssd_scan_plain(xbar, log_a, bm, cm, chunk=chunk,
+                                       init_state=st)
+        tol = ssd_tol(dtype, log_a, chunk, y_ref, st_ref)
+        res = compare(y, y_ref, **tol["y"])
+        res["state"] = compare(state, st_ref, **tol["state"])
+        res.update(case=tag, shape=[b, s, h, p, g, n], chunk=chunk,
+                   dtype=str(dtype).split(".")[-1])
+        cases.append(res)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s, h, p, n, chunk in SSD_CASES:
+            run("reference case", b, s, h, p, 1, n, chunk, dtype)
+        run("ragged S", 2, 600, 4, 64, 1, 128, 256, dtype)
+        run("ragged S, B/C views", 1, 333, 4, 32, 1, 64, 64, dtype,
+            views=True)
+        run("groups G = 2", 2, 256, 8, 64, 2, 128, 64, dtype)
+        run("initial state", 2, 300, 4, 64, 1, 128, 128, dtype, init=True)
+        run("initial state, decays of the serve path", 1, 700, 4, 64, 1, 128,
+            256, dtype, init=True, model_like=True)
+    m = SSD_MAIN
+    run("main path", m["b"], m["s"], m["h"], m["p"], m["g"], m["n"],
+        m["chunk"], torch.bfloat16, model_like=True, views=True)
+    # unsupported calls raise, they do not fall back
+    xbar, log_a, bm, cm, _ = ssd_inputs(1, 64, 2, 48, 1, 16, torch.float32,
+                                        gen)
+    good = ssd_inputs(1, 64, 2, 16, 1, 16, torch.float32, gen)
+    for bad in (lambda: ssd_scan(xbar, log_a, bm, cm, chunk=16),
+                lambda: ssd_scan(good[0].half(), good[1], good[2].half(),
+                                 good[3].half(), chunk=16),
+                lambda: ssd_scan(good[0], good[1].bfloat16(), good[2],
+                                 good[3], chunk=16),
+                lambda: ssd_scan(*good[:4], chunk=4096)):
+        try:
+            bad()
+        except (ValueError, TypeError):
+            continue
+        raise AssertionError("an unsupported ssd_scan call did not raise")
+    return cases
+
+
 def time_kernels(gen) -> dict:
     """Each kernel at its main-path shape: kernel, plain version, and one
     PyTorch library call (a yardstick; the port never calls it)."""
@@ -298,7 +427,25 @@ def time_kernels(gen) -> dict:
         "library_ms": time_ms(lambda: x.T @ x, 5),
         "shape": f"x [{LINREG_M},{LINREG_N}] fp32",
     }
-    return {"flash_attention": flash, "tsmm_upper": tsmm}
+    del x
+    m = SSD_MAIN
+    xbar, log_a, bm, cm, _ = ssd_inputs(m["b"], m["s"], m["h"], m["p"],
+                                        m["g"], m["n"], torch.bfloat16, gen,
+                                        model_like=True, views=True)
+    ssd = {
+        "ms": time_ms(lambda: ssd_scan(xbar, log_a, bm, cm,
+                                       chunk=m["chunk"]), 10, 2),
+        "plain_ms": time_ms(lambda: ssd_scan_plain(xbar, log_a, bm, cm,
+                                                   chunk=m["chunk"]), 2),
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes an SSD scan",
+        "shape": "xbar [8,2048,64,64] bf16, B/C [8,2048,1,128] views, "
+                 "chunk 256",
+    }
+    x32, b32, c32 = xbar.float(), bm.float(), cm.float()
+    ssd["fp32_body_ms"] = time_ms(
+        lambda: ssd_scan(x32, log_a, b32, c32, chunk=m["chunk"]), 3)
+    return {"flash_attention": flash, "tsmm_upper": tsmm, "ssd_scan": ssd}
 
 
 # ---------------------------------------------------------------------------
@@ -322,8 +469,9 @@ def padded_batch(reqs, device) -> torch.Tensor:
     return torch.from_numpy(toks).to(device)
 
 
-def serve_run(engine: ServeEngine, reqs) -> dict:
-    """One ``generate`` with the kernel counts taken around it."""
+def serve_run(engine: ServeEngine, reqs, kernel: str) -> dict:
+    """One ``generate`` with the kernel counts taken around it; ``kernel``
+    is the one the model's prefill must launch once per layer and round."""
     ops.reset_launch_counts()
     for key in engine.stats:
         engine.stats[key] = 0
@@ -331,18 +479,19 @@ def serve_run(engine: ServeEngine, reqs) -> dict:
     outs = engine.generate(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ops.launch_counts()["flash_attention"]
+    launches = ops.launch_counts()[kernel]
     n_layers = engine.model.cfg.n_layers
     rounds = engine.stats["admission_rounds"]
     if any(len(c.tokens) != r.max_new_tokens for c, r in zip(outs, reqs)):
         raise AssertionError("a request did not complete with all its tokens")
     if engine.use_kernel and launches < n_layers * rounds:
         raise AssertionError(
-            f"flash kernel launched {launches} times in {rounds} admission "
+            f"{kernel} launched {launches} times in {rounds} admission "
             f"rounds of {n_layers} layers")
     new_tokens = sum(len(c.tokens) for c in outs)
     return {"tokens": [c.tokens for c in outs], "wall_s": wall,
-            "flash_launches": launches, "stats": dict(engine.stats),
+            "kernel": kernel, "launches": launches,
+            "stats": dict(engine.stats),
             "prefill_s": max(c.prefill_time_s for c in outs),
             "decode_s": max(c.decode_time_s for c in outs),
             "new_tokens": new_tokens, "tokens_per_s": new_tokens / wall}
@@ -352,23 +501,39 @@ def _summary(run: dict) -> dict:
     return {k: v for k, v in run.items() if k != "tokens"}
 
 
-def phase_serve() -> dict:
-    cfg = get_config("qwen1.5-0.5b")
+# Each serve path: the arch and the kernel its prefill launches once per layer
+# and admission round.  Then the tolerance of its bf16 prefill logits, kernel
+# path against plain path at full depth (logits have a standard deviation
+# near 1): bf16 activations keep 8 bits of mantissa and the two paths round
+# at other places in every layer.  qwen: P and the attention output, in 24
+# layers.  mamba2: the kernel path forms x * dt and the D * x residual in
+# bf16, as the reference's kernel wrapper does, the plain path in fp32, in
+# 48 layers.
+SERVE_PATHS = [("qwen1.5-0.5b", "flash_attention", 0.25),
+               ("mamba2-1.3b", "ssd_scan", 0.5)]
+
+
+def phase_serve(arch: str, kernel: str, bf16_tol: float) -> dict:
+    """``arch`` at full width and depth (bf16, random weights from the seed)
+    through ServeEngine, static twice and continuous with 4 slots, with the
+    launches of ``kernel``; then its prefill logits and, at 4 layers in fp32,
+    its greedy streams with the kernel against without it."""
+    cfg = get_config(arch)
     reqs = make_requests(cfg.vocab_size)
     torch.cuda.reset_peak_memory_stats()
-    model = build_model(cfg)                          # bf16, 24 layers
+    model = build_model(cfg)
     params = model.init(SEED)
     n_params = sum(t.numel() for t in _leaves(params))
 
     static = ServeEngine(model, params, EngineConfig(max_len=4096))
-    run1 = serve_run(static, reqs)
-    main_launches = run1["flash_launches"]            # the main path's count
-    run2 = serve_run(static, reqs)
+    run1 = serve_run(static, reqs, kernel)
+    main_launches = run1["launches"]                  # the main path's count
+    run2 = serve_run(static, reqs, kernel)
     if run1["tokens"] != run2["tokens"]:
         raise AssertionError("two generate runs gave different tokens")
     cont = ServeEngine(model, params, EngineConfig(
         max_len=4096, batching="continuous", slots=4))
-    run3 = serve_run(cont, reqs)
+    run3 = serve_run(cont, reqs, kernel)
     if run3["stats"]["admission_rounds"] < 2:
         raise AssertionError("continuous batching made no refill round")
 
@@ -383,13 +548,10 @@ def phase_serve() -> dict:
     if lg_k.shape != (8, cfg.vocab_size) or not bool(
             torch.isfinite(lg_k).all()):
         raise AssertionError("prefill logits: wrong shape or non-finite")
-    # bf16 activations keep 8 bits of mantissa and the two paths round P and
-    # the output at different places in each of 24 layers; logits have a
-    # standard deviation near 1.
-    bf16_tol = 0.25
     bf16_err = float((lg_k - lg_p).abs().max())
     if bf16_err > bf16_tol:
         raise AssertionError(f"bf16 prefill logits differ by {bf16_err}")
+    logit_std = float(lg_p.std())
     peak_bytes = torch.cuda.max_memory_allocated()
     del params, static, cont, lg_k, lg_p
     torch.cuda.empty_cache()
@@ -399,11 +561,11 @@ def phase_serve() -> dict:
     model4 = build_model(cfg4)
     params4 = model4.init(SEED)
     with_k = serve_run(ServeEngine(model4, params4, EngineConfig(max_len=4096),
-                                   use_kernel=True), reqs)
+                                   use_kernel=True), reqs, kernel)
     without = serve_run(ServeEngine(model4, params4,
                                     EngineConfig(max_len=4096),
-                                    use_kernel=False), reqs)
-    if without["flash_launches"] != 0:
+                                    use_kernel=False), reqs, kernel)
+    if without["launches"] != 0:
         raise AssertionError("use_kernel=False launched the kernel")
     if with_k["tokens"] != without["tokens"]:
         raise AssertionError("fp32 greedy streams with and without the kernel "
@@ -419,11 +581,12 @@ def phase_serve() -> dict:
     return {"phase": "serve", "arch": cfg.name, "dtype": cfg.dtype,
             "n_layers": cfg.n_layers, "n_params": n_params,
             "prompt_lens": [len(r.prompt) for r in reqs],
-            "main_path_flash_launches": main_launches,
+            "kernel": kernel, "main_path_launches": main_launches,
             "static": _summary(run1), "static_again": _summary(run2),
             "continuous_slots4": _summary(run3),
             "bf16_prefill_logits_max_abs_diff": bf16_err,
             "bf16_prefill_logits_tol": bf16_tol,
+            "bf16_prefill_logits_std": logit_std,
             "fp32_4layer_streams_identical": True,
             "fp32_4layer_prefill_logits_max_abs_diff": fp32_err,
             "fp32_4layer_with_kernel": _summary(with_k),
@@ -473,6 +636,7 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False     # fp32 stays fp32
+    torch.backends.cudnn.allow_tf32 = False
     smi = device_line()
     emit({"phase": "device", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -484,26 +648,29 @@ def main() -> None:
         return
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flash_cases, tsmm_cases = check_flash(gen), check_tsmm(gen)
+    ssd_cases = check_ssd(gen)
     times = time_kernels(gen)
     emit({"phase": "kernels", "flash_attention": flash_cases,
-          "tsmm_upper": tsmm_cases, "times": times})
+          "tsmm_upper": tsmm_cases, "ssd_scan": ssd_cases, "times": times})
     if args.stop_after == "kernels":
         return
 
-    serve = phase_serve()
-    emit(serve)
+    serve = {}
+    for arch, kernel, bf16_tol in SERVE_PATHS:
+        serve[kernel] = phase_serve(arch, kernel, bf16_tol)
+        emit(serve[kernel])
     linreg = phase_linreg()
     emit(linreg)
 
     def err_of(cases, tag):
         return next(c["max_abs_err"] for c in cases if c["case"] == tag)
 
-    fm = FLASH_MAIN
+    fm, sm = FLASH_MAIN, SSD_MAIN
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:104",
-         "launches": serve["main_path_flash_launches"],
+         "launches": serve["flash_attention"]["main_path_launches"],
          "max_abs_err": err_of(flash_cases, "main path"),
          **flash_bound_ms(fm["b"], fm["hq"], fm["hkv"], fm["s"], fm["d"],
                           fm["causal"], fm["window"], torch.bfloat16),
@@ -515,6 +682,14 @@ def main() -> None:
          "max_abs_err": err_of(tsmm_cases, "LinReg DS"),
          **tsmm_bound_ms(LINREG_M, LINREG_N, torch.float32),
          **times["tsmm_upper"]},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:102",
+         "launches": serve["ssd_scan"]["main_path_launches"],
+         "max_abs_err": err_of(ssd_cases, "main path"),
+         **ssd_bound_ms(sm["b"], sm["s"], sm["h"], sm["p"], sm["g"], sm["n"],
+                        sm["chunk"], torch.bfloat16),
+         **times["ssd_scan"]},
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -18,6 +18,7 @@ ARCH_IDS: List[str] = [
 
 _MODULES = {
     "qwen1.5-0.5b": "repro_torch.configs.qwen15_0p5b",
+    "mamba2-1.3b": "repro_torch.configs.mamba2_1p3b",
 }
 
 PORTED_ARCH_IDS: List[str] = list(_MODULES)

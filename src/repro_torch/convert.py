@@ -16,8 +16,10 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.transformer import torch_dtype
 
-# leaves the reference keeps in fp32 whatever cfg.dtype says
-_FP32_LEAVES = ("ln1", "ln2", "final_norm")
+# leaves the reference keeps in fp32 whatever cfg.dtype says: norm scales,
+# the Mamba2 block's A_log / D / dt_bias / norm_scale, the SSM cache's state
+_FP32_LEAVES = ("ln1", "ln2", "ln", "final_norm", "A_log", "D", "dt_bias",
+                "norm_scale", "state")
 
 
 def _convert(tree: Any, name: str, device, dtype: torch.dtype) -> Any:
@@ -34,8 +36,9 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
                       dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """The reference's param tree (nested dicts of float32 numpy arrays, the
     layer stack with its leading layer axis) as the port's tree on ``device``:
-    same keys and shapes, norm scales in fp32, everything else in ``dtype``
-    (default ``cfg.dtype``)."""
+    same keys and shapes, the leaves the reference keeps in fp32 (norm
+    scales, ``A_log``, ``D``, ``dt_bias``) in fp32, everything else in
+    ``dtype`` (default ``cfg.dtype``)."""
     return _convert(tree, "", torch.device(device),
                     dtype or torch_dtype(cfg.dtype))
 
@@ -44,8 +47,8 @@ def cache_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
                      device: Union[str, torch.device] = "cuda",
                      dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """The reference's decode cache as the port's: ``pos`` becomes a host
-    integer, ``k``/``v`` take ``dtype`` (default ``cfg.dtype``), ``kpos``
-    stays int32."""
+    integer, ``k``/``v`` and the SSM's ``conv`` take ``dtype`` (default
+    ``cfg.dtype``), the SSM's ``state`` stays fp32, ``kpos`` stays int32."""
     out = _convert({k: v for k, v in tree.items() if k != "pos"}, "",
                    torch.device(device), dtype or torch_dtype(cfg.dtype))
     out["pos"] = int(np.asarray(tree["pos"]))

@@ -2,9 +2,10 @@
 
   tsmm             — G = X^T X (+ reg I), half-compute (paper's flagship op)
   flash_attention  — blockwise online-softmax attention (prefill hot-spot)
+  ssd_scan         — Mamba2 SSD chunked scan (prefill hot-spot of the SSMs)
 
 ``ops`` holds the public wrappers; each kernel's module holds the wrapper that
 launches it, its plain PyTorch version and its launch count.  The CUDA sources
 are under ``csrc/`` and are built at first use (``_build``).  Still to be
-ported from the reference: ``ssd_scan_kernel``, ``matmul_epilogue``.
+ported from the reference: ``matmul_epilogue``.
 """

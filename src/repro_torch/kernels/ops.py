@@ -7,15 +7,17 @@ PyTorch version.  Each kernel's wrapper counts its launches.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import tsmm as _tsmm
 
 _WRAPPERS = {"flash_attention": _fa.flash_attention,
-             "tsmm_upper": _tsmm.tsmm_upper}
+             "tsmm_upper": _tsmm.tsmm_upper,
+             "ssd_scan": _ssd.ssd_scan}
 
 
 def tsmm(x: torch.Tensor, *, reg: float = 0.0) -> torch.Tensor:
@@ -34,6 +36,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None) -> torch.Tensor:
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                scale=scale)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, *,
+             chunk: int = 256, init_state: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD scan through the hand-written kernel (the models' API).
+
+    x: [B,S,H,P]; dt: [B,S,H]; A_log: [H]; B/C: [B,S,G,N]; D: [H];
+    init_state: [B,H,P,N] fp32 or None.  Returns (y [B,S,H,P] in
+    ``x.dtype``, final_state [B,H,P,N] fp32).  As the reference's wrapper:
+    dt clamped at 1e-6, ``A = -exp(A_log)`` and ``log_a = dt * A`` in fp32,
+    ``xbar = x * dt`` and the ``D * x`` residual in ``x.dtype``.  Unlike it,
+    the groups of B and C are not repeated to heads (the kernel reads them
+    by index) and ``init_state`` is passed on.
+    """
+    dt32 = dt.to(torch.float32).clamp_min(1e-6)
+    log_a = dt32 * -torch.exp(A_log.to(torch.float32))
+    xbar = x * dt32[..., None].to(x.dtype)
+    y, state = _ssd.ssd_scan(xbar, log_a, B, C, chunk=chunk,
+                             init_state=init_state)
+    return y + x * D.to(x.dtype)[None, None, :, None], state
 
 
 def launch_counts() -> Dict[str, int]:

@@ -53,7 +53,7 @@ def main(argv=None) -> None:
     print(f"prefill {outs[0].prefill_time_s*1e3:.1f}ms, "
           f"decode {outs[0].decode_time_s*1e3:.1f}ms "
           f"({args.max_new} steps, batch {args.batch}, "
-          f"device {model.device}, flash kernel "
+          f"device {model.device}, kernels "
           f"{'on' if engine.use_kernel else 'off'})")
 
 

@@ -61,5 +61,5 @@ class Model:
 
 def build_model(cfg: ArchConfig,
                 device: Union[str, torch.device] = "cuda") -> Model:
-    T.require_dense(cfg)
+    T.require_ported(cfg)
     return Model(cfg, require_device(device))

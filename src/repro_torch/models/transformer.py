@@ -2,15 +2,18 @@
 ``repro.models.transformer``), driven by :class:`ArchConfig`.
 
 Ported so far: the dense family (one homogeneous stack of GQA blocks, e.g.
-``qwen1.5-0.5b``).  Every other family raises ``NotImplementedError``.
+``qwen1.5-0.5b``) and the ssm family (one homogeneous stack of Mamba2 blocks,
+``mamba2-1.3b``).  Every other family raises ``NotImplementedError``.
 
 Params are nested dicts of tensors; leaves of the layer stack carry a leading
 layer axis, as in the reference, and the stack runs as a python loop over it.
 
 The decode cache is ``{"pos": int, "self": {"k", "v": [L,B,Hkv,cap,hd],
-"kpos": [L,cap]}}``.  ``pos`` is a host integer, so that a decode step never
-waits for a device scalar.  ``prefill`` and ``decode_step`` **write the cache
-tensors in place** and return a dict that holds the same tensors.
+"kpos": [L,cap]}}`` for the dense family and ``{"pos": int, "mamba":
+{"conv": [L,B,W-1,C], "state": [L,B,H,P,N] fp32}}`` for the ssm family.
+``pos`` is a host integer, so that a decode step never waits for a device
+scalar.  ``prefill`` and ``decode_step`` **write the cache tensors in place**
+and return a dict that holds the same tensors.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
@@ -33,13 +37,16 @@ def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def require_dense(cfg: ArchConfig) -> None:
-    if (cfg.family != "dense" or cfg.moe is not None or cfg.mla is not None
-            or cfg.enc_dec is not None or cfg.window_pattern is not None
-            or cfg.frontend != "none"):
+def require_ported(cfg: ArchConfig) -> None:
+    """Raise unless ``cfg`` is of a family the port runs: the plain dense
+    decoder, or the attention-free ssm stack."""
+    plain = (cfg.moe is None and cfg.mla is None and cfg.enc_dec is None
+             and cfg.window_pattern is None and cfg.frontend == "none")
+    if not plain or cfg.family not in ("dense", "ssm") or (
+            cfg.family == "ssm" and cfg.ssm is None):
         raise NotImplementedError(
             f"arch '{cfg.name}' (family {cfg.family}): not ported yet; the "
-            f"port runs the dense decoder family only")
+            f"port runs the dense and ssm families only")
 
 
 # ---------------------------------------------------------------------------
@@ -101,7 +108,7 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
     """Random weights on ``gen.device`` with the reference's shapes, types and
     scales: norm scales are fp32 zeros, matrices ``N(0, fan_in^-1)`` in
     ``cfg.dtype``, the layer stack has a leading layer axis."""
-    require_dense(cfg)
+    require_ported(cfg)
     dtype = torch_dtype(cfg.dtype)
     d = cfg.d_model
     params: Params = {
@@ -112,7 +119,14 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
     if not cfg.tie_embeddings:
         params["lm_head"] = _norm_init(gen, (d, cfg.vocab_size), d ** -0.5,
                                        dtype)
-    params["blocks"] = block_init(gen, cfg, dtype=dtype, lead=(cfg.n_layers,))
+    lead = (cfg.n_layers,)
+    if cfg.family == "ssm":
+        params["blocks"] = {
+            "ln": torch.zeros(lead + (d,), dtype=torch.float32,
+                              device=gen.device),
+            "mamba": M.mamba_block_init(gen, d, cfg.ssm, dtype, lead)}
+    else:
+        params["blocks"] = block_init(gen, cfg, dtype=dtype, lead=lead)
     return params
 
 
@@ -214,6 +228,19 @@ def block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
     return x + out, new_cache, 0.0
 
 
+def mamba_layer_apply(cfg: ArchConfig, p: Params, x: torch.Tensor,
+                      cache: Optional[Dict] = None, use_kernel: bool = False):
+    """Pre-norm residual Mamba2 layer.  Returns (x, cache, aux_loss); the
+    layer's cache views are written in place."""
+    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    out, new_cache = M.mamba_block_apply(p["mamba"], h, cfg.ssm, cache,
+                                         use_kernel=use_kernel)
+    if cache is not None:
+        cache["conv"].copy_(new_cache["conv"])
+        cache["state"].copy_(new_cache["state"])
+    return x + out, cache, 0.0
+
+
 def _layer(tree: Any, i: int) -> Any:
     """Layer ``i`` of a stacked tree: views, no copies."""
     if isinstance(tree, dict):
@@ -246,8 +273,17 @@ def scan_stack(stacked: Params, x: torch.Tensor, body_fn: Callable,
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device: torch.device) -> Cache:
     """Zero-filled decode cache on ``device``."""
-    require_dense(cfg)
+    require_ported(cfg)
     dtype = torch_dtype(cfg.dtype)
+    if cfg.family == "ssm":
+        s = cfg.ssm
+        conv_ch = s.d_inner(cfg.d_model) + 2 * s.n_groups * s.state_size
+        return {"pos": 0, "mamba": {
+            "conv": torch.zeros((cfg.n_layers, batch, s.conv_width - 1,
+                                 conv_ch), dtype=dtype, device=device),
+            "state": torch.zeros((cfg.n_layers, batch, s.n_heads(cfg.d_model),
+                                  s.head_dim, s.state_size),
+                                 dtype=torch.float32, device=device)}}
     nkv, hd = cfg.n_kv_heads, cfg.head_dim_
     shape = (cfg.n_layers, batch, nkv, max_len, hd)
     return {"pos": 0,
@@ -266,7 +302,13 @@ def _stack_runner(cfg: ArchConfig, params: Params, x: torch.Tensor,
                   positions: torch.Tensor, cache: Optional[Cache],
                   use_kernel: bool, pos: Optional[int] = None):
     """Run the layer stack. Returns (x, new_cache, aux)."""
-    require_dense(cfg)
+    require_ported(cfg)
+    if cfg.family == "ssm":
+        def mamba_body(p, h, c):
+            return mamba_layer_apply(cfg, p, h, c, use_kernel)
+        x, c2, aux = scan_stack(params["blocks"], x, mamba_body,
+                                cache["mamba"] if cache else None)
+        return x, ({"mamba": c2} if cache is not None else None), aux
 
     def body(p, h, c):
         return block_apply(cfg, p, h, positions=positions, window=None,

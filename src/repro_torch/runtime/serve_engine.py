@@ -17,8 +17,9 @@ continuation exact).  Histories are left-padded with token 0 to the longest
 one and there is no padding mask, exactly as in the reference: the token
 streams of the two engines are compared.
 
-On a CUDA model the prefill takes the hand-written flash-attention kernel
-(``use_kernel=True``); on a CPU model it takes the plain path.  Seconds are
+On a CUDA model the prefill takes the hand-written kernels
+(``use_kernel=True``: flash attention for the dense family, the SSD scan for
+the ssm family); on a CPU model it takes the plain path.  Seconds are
 read after the device has finished (``torch.cuda.synchronize``), so
 ``prefill_time_s`` and ``decode_time_s`` are execution times, not launch
 times.

@@ -17,6 +17,7 @@ MODULES = [
     "repro_torch", "repro_torch.configs", "repro_torch.convert",
     "repro_torch.kernels.ops", "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.tsmm", "repro_torch.kernels._build",
+    "repro_torch.kernels.ssd_scan", "repro_torch.models.mamba",
     "repro_torch.models.layers", "repro_torch.models.transformer",
     "repro_torch.models.model", "repro_torch.runtime.serve_engine",
     "repro_torch.launch.serve", "repro_torch.examples.linreg_ds",
@@ -50,7 +51,7 @@ def test_sources_name_neither_jax_nor_the_reference_package():
 
 
 def test_csrc_sources_have_a_plain_c_interface():
-    for name in ("flash_attention", "tsmm"):
+    for name in ("flash_attention", "tsmm", "ssd_scan"):
         text = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
         assert 'extern "C"' in text and "torch/extension.h" not in text
         assert "cudaGetLastError" in text
@@ -64,19 +65,22 @@ def _needs_no_gpu():
 def test_build_model_raises_without_cuda():
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
-    cfg = get_config("qwen1.5-0.5b").reduced()
-    assert build_model(cfg, device="cpu").device.type == "cpu"
+    cfgs = [get_config("qwen1.5-0.5b").reduced(), get_config("mamba2-1.3b")]
+    for cfg in cfgs:
+        assert build_model(cfg, device="cpu").device.type == "cpu"
     _needs_no_gpu()
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        build_model(cfg)
+    for cfg in cfgs:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build_model(cfg)
 
 
 def test_launcher_and_example_raise_without_cuda():
     from repro_torch.examples import linreg_ds
     from repro_torch.launch import serve
     _needs_no_gpu()
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        serve.main(["--arch", "qwen1.5-0.5b", "--reduced"])
+    for arch in ("qwen1.5-0.5b", "mamba2-1.3b"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve.main(["--arch", arch, "--reduced"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         linreg_ds.execute_small(256, 64)
 
@@ -86,7 +90,15 @@ def test_launcher_runs_on_the_cpu_when_asked(capsys):
     serve.main(["--arch", "qwen1.5-0.5b", "--reduced", "--device", "cpu",
                 "--batch", "2", "--max-new", "4"])
     out = capsys.readouterr().out
-    assert "req1:" in out and "flash kernel off" in out
+    assert "req1:" in out and "kernels off" in out
+
+
+def test_launcher_serves_mamba_on_the_cpu_when_asked(capsys):
+    from repro_torch.launch import serve
+    serve.main(["--arch", "mamba2-1.3b", "--reduced", "--device", "cpu",
+                "--batch", "2", "--prompt-len", "40", "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert "req1:" in out and "kernels off" in out
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -99,10 +111,14 @@ def test_chip_smoke_fails_without_cuda():
 
 def test_only_ported_archs_are_registered():
     from repro_torch import configs
-    assert configs.PORTED_ARCH_IDS == ["qwen1.5-0.5b"]
+    assert configs.PORTED_ARCH_IDS == ["qwen1.5-0.5b", "mamba2-1.3b"]
     cfg = configs.get_config("qwen1.5-0.5b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff,
             cfg.vocab_size, cfg.qkv_bias) == (24, 1024, 16, 2816, 151936, True)
+    cfg = configs.get_config("mamba2-1.3b")
+    assert (cfg.family, cfg.n_layers, cfg.d_model, cfg.vocab_size,
+            cfg.ssm.state_size, cfg.ssm.chunk_size) == (
+                "ssm", 48, 2048, 50280, 128, 256)
     with pytest.raises(KeyError):
         configs.get_config("no-such-arch")
 
@@ -110,7 +126,7 @@ def test_only_ported_archs_are_registered():
 @pytest.mark.parametrize("arch_id", [
     "whisper-small", "pixtral-12b", "zamba2-2.7b", "phi3.5-moe-42b-a6.6b",
     "deepseek-v3-671b", "stablelm-12b", "qwen1.5-4b", "qwen1.5-110b",
-    "gemma3-12b", "mamba2-1.3b"])
+    "gemma3-12b"])
 def test_unported_arch_raises_not_implemented(arch_id):
     from repro_torch import configs
     assert arch_id in configs.ARCH_IDS
@@ -118,12 +134,13 @@ def test_unported_arch_raises_not_implemented(arch_id):
         configs.get_config(arch_id)
 
 
-def test_config_copy_equals_the_reference():
+@pytest.mark.parametrize("arch_id", ["qwen1.5-0.5b", "mamba2-1.3b"])
+def test_config_copy_equals_the_reference(arch_id):
     """The port keeps its own copy of the config schema; it must not drift."""
     from repro.configs import ARCH_IDS, get_config as ref_get
     from repro_torch import configs
     assert configs.ARCH_IDS == ARCH_IDS
-    ref, mine = ref_get("qwen1.5-0.5b"), configs.get_config("qwen1.5-0.5b")
+    ref, mine = ref_get(arch_id), configs.get_config(arch_id)
     assert dataclasses.asdict(ref) == dataclasses.asdict(mine)
     assert dataclasses.asdict(ref.reduced()) == dataclasses.asdict(
         mine.reduced())
@@ -131,9 +148,12 @@ def test_config_copy_equals_the_reference():
 
 
 def test_non_dense_family_raises_in_the_model():
+    """A family still unported (the hybrid SSM + shared attention) raises;
+    the ssm family builds."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
-    cfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(),
-                              family="ssm")
+    ssm = get_config("mamba2-1.3b").reduced()
+    assert build_model(ssm, device="cpu").cfg is ssm
+    cfg = dataclasses.replace(ssm, family="hybrid")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         build_model(cfg, device="cpu")

@@ -5,7 +5,7 @@ plain versions on the GPU by chip_smoke.py.
 
 Tolerances are the reference's own: fp32 rtol 2e-5 (both sides multiply in
 full fp32 and differ in the order of the sums), bf16 3e-2 (8 bits of
-mantissa)."""
+mantissa); the SSD scan 2e-4 in fp32 (sums through exp of cumulative sums)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,11 +13,13 @@ import torch
 
 from repro.kernels import ops as ref_ops
 from repro.kernels import tsmm as ref_tsmm
+from repro.models.mamba import ssd_decode_step as ref_ssd_decode_step
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.tsmm import TILE, _splits, tsmm_upper, tsmm_upper_plain
 from repro_torch.models.layers import attention_dense
+from repro_torch.models.mamba import ssd_decode_step
 
 
 def randn(rng, shape):
@@ -160,9 +162,90 @@ def test_flash_attention_ragged_length(s, window):
                                                   causal=True, window=window))
 
 
+# ------------------------------------------------------------- ssd scan
+def ssd_inputs(rng, b, s, h, p, g, n):
+    """x, dt, A_log, B, C, D drawn as tests/test_kernels.py draws them."""
+    return (randn(rng, (b, s, h, p)),
+            rng.uniform(0.01, 0.2, (b, s, h)).astype(np.float32),
+            rng.uniform(-1, 1, (h,)).astype(np.float32),
+            randn(rng, (b, s, g, n)), randn(rng, (b, s, g, n)),
+            randn(rng, (h,)))
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 128, 4, 16, 32, 32),
+    (1, 256, 2, 64, 128, 64),
+    (2, 64, 8, 32, 16, 16),
+])
+def test_ssd_scan_sweep(b, s, h, p, n, chunk):
+    args = ssd_inputs(np.random.default_rng(7), b, s, h, p, 1, n)
+    ey, es = ref_ops.ssd_scan(*(jnp.asarray(a) for a in args), chunk=chunk)
+    y, st = ops.ssd_scan(*(torch.from_numpy(a) for a in args), chunk=chunk)
+    np.testing.assert_allclose(to_np(y), np.asarray(ey), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(to_np(st), np.asarray(es), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_ssd_scan_matches_sequential_decode():
+    b, s, h, p, n = 1, 32, 2, 8, 16
+    x, dt, A_log, B, C, D = ssd_inputs(np.random.default_rng(15), b, s, h, p,
+                                       1, n)
+    y, st = ops.ssd_scan(*(torch.from_numpy(a) for a in (x, dt, A_log, B, C,
+                                                         D)), chunk=8)
+    ref_st = jnp.zeros((b, h, p, n))
+    my_st = torch.zeros((b, h, p, n))
+    for t in range(s):
+        ref_y, ref_st = ref_ssd_decode_step(
+            ref_st, jnp.asarray(x[:, t]), jnp.asarray(dt[:, t]),
+            jnp.asarray(A_log), jnp.asarray(B[:, t]), jnp.asarray(C[:, t]),
+            jnp.asarray(D))
+        my_y, my_st = ssd_decode_step(
+            my_st, *(torch.from_numpy(a) for a in (
+                x[:, t], dt[:, t], A_log, B[:, t], C[:, t], D)))
+        np.testing.assert_allclose(to_np(y[:, t]), np.asarray(ref_y),
+                                   rtol=2e-4, atol=2e-4)
+        np.testing.assert_allclose(to_np(my_y), np.asarray(ref_y),
+                                   rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(to_np(st), np.asarray(ref_st), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_ssd_scan_groups_read_by_index():
+    """G > 1: the reference repeats B and C to heads; the port reads them by
+    group index.  Same function."""
+    args = ssd_inputs(np.random.default_rng(16), 2, 64, 8, 16, 2, 32)
+    ey, es = ref_ops.ssd_scan(*(jnp.asarray(a) for a in args), chunk=32)
+    y, st = ops.ssd_scan(*(torch.from_numpy(a) for a in args), chunk=32)
+    np.testing.assert_allclose(to_np(y), np.asarray(ey), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(to_np(st), np.asarray(es), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_ssd_scan_bf16():
+    """bf16 x, B, C: xbar and the D residual are formed in bf16 on both
+    sides (the reference wrapper's arithmetic), the scan in fp32."""
+    args = ssd_inputs(np.random.default_rng(17), 1, 128, 4, 32, 1, 32)
+    cast = {0, 3, 4}                                   # x, B, C
+    ey, es = ref_ops.ssd_scan(*(jnp.asarray(a, jnp.bfloat16) if i in cast
+                                else jnp.asarray(a)
+                                for i, a in enumerate(args)), chunk=32)
+    y, st = ops.ssd_scan(*(torch.from_numpy(a).to(torch.bfloat16) if i in cast
+                           else torch.from_numpy(a)
+                           for i, a in enumerate(args)), chunk=32)
+    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    np.testing.assert_allclose(to_np(y), np.asarray(ey, np.float32),
+                               rtol=3e-2, atol=3e-2)
+    np.testing.assert_allclose(to_np(st), np.asarray(es), rtol=3e-2,
+                               atol=3e-2)
+
+
 def test_cpu_tensors_launch_nothing():
     ops.reset_launch_counts()
     x = torch.ones(64, 32)
     ops.tsmm(x)
     ops.flash_attention(*(torch.ones(1, 1, 8, 32) for _ in range(3)))
-    assert ops.launch_counts() == {"flash_attention": 0, "tsmm_upper": 0}
+    ops.ssd_scan(torch.ones(1, 8, 2, 16), torch.ones(1, 8, 2),
+                 torch.zeros(2), torch.ones(1, 8, 1, 16),
+                 torch.ones(1, 8, 1, 16), torch.ones(2), chunk=4)
+    assert ops.launch_counts() == {"flash_attention": 0, "tsmm_upper": 0,
+                                   "ssd_scan": 0}

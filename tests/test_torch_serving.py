@@ -1,6 +1,7 @@
 """The port's serve engine on the CPU: the reference's five engine cases
 (tests/test_serving.py) on the port, and token streams identical to the
-reference engine's at temperature 0 from the same weights."""
+reference engine's at temperature 0 from the same weights, for qwen1.5-0.5b
+and mamba2-1.3b (reduced, fp32)."""
 import dataclasses
 
 import jax
@@ -186,3 +187,52 @@ def test_frontend_is_not_ported(setup):
     with pytest.raises(NotImplementedError):
         engine.generate([Request(prompt=[1, 2], max_new_tokens=2)],
                         frontend=torch.zeros(1, 2, 64))
+
+
+# ------------------------------------------------------------- mamba2
+@pytest.fixture(scope="module")
+def mamba_setup():
+    ref_cfg = dataclasses.replace(ref_get_config("mamba2-1.3b").reduced(),
+                                  dtype="float32")
+    ref_model = ref_build_model(ref_cfg)
+    ref_params = ref_model.init(jax.random.PRNGKey(0))
+    tree = jax.tree.map(lambda a: np.asarray(a, np.float32), ref_params)
+    cfg = dataclasses.replace(get_config("mamba2-1.3b").reduced(),
+                              dtype="float32")
+    model = build_model(cfg, device="cpu")
+    return ref_model, ref_params, model, params_from_numpy(tree, cfg, "cpu")
+
+
+@pytest.mark.parametrize("engine_kw", [
+    dict(batching="static"),
+    dict(batching="continuous", slots=2),
+    dict(batching="continuous", slots=3),
+], ids=["static", "continuous-2", "continuous-3"])
+def test_mamba_token_streams_identical_to_the_reference_engine(mamba_setup,
+                                                               engine_kw):
+    """Every history the engines prefill here is at most 13 tokens, less
+    than the reduced chunk of 32, which the reference's scan accepts."""
+    ref_model, ref_params, model, params = mamba_setup
+    ref_engine = RS.ServeEngine(ref_model, ref_params,
+                                RS.EngineConfig(max_len=64, **engine_kw))
+    engine = ServeEngine(model, params, EngineConfig(max_len=64, **engine_kw))
+    ref_out = ref_engine.generate(
+        [RS.Request(prompt=p, max_new_tokens=n) for p, n in REQS])
+    out = engine.generate([Request(prompt=p, max_new_tokens=n)
+                           for p, n in REQS])
+    assert [c.tokens for c in out] == [c.tokens for c in ref_out]
+    assert [c.rid for c in out] == [c.rid for c in ref_out]
+    assert engine.stats == ref_engine.stats
+
+
+def test_mamba_kernel_route_gives_the_same_streams_on_the_cpu(mamba_setup):
+    _, _, model, params = mamba_setup
+    reqs = [Request(prompt=p, max_new_tokens=n) for p, n in REQS]
+    base = ServeEngine(model, params, EngineConfig(
+        max_len=64, batching="continuous", slots=2))
+    forced = ServeEngine(model, params, EngineConfig(
+        max_len=64, batching="continuous", slots=2), use_kernel=True)
+    assert base.use_kernel is False and forced.use_kernel is True
+    assert [c.tokens for c in forced.generate(reqs)] == \
+        [c.tokens for c in base.generate(reqs)]
+    assert forced.stats["admission_rounds"] >= 2

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Where the serve path's time goes on the GPU: profiles one prefill and a few
-decode steps of qwen1.5-0.5b (full width, bf16, random weights) with
+decode steps of a ported arch (full width, bf16, random weights) with
 torch.profiler and prints device time by kernel, the device's busy share and
 the host time per step.
 
-    python3 tools/profile_serve.py [--layers 24] [--batch 8] [--prompt 2048]
-                                   [--steps 8] [--max-len 4096]
+    python3 tools/profile_serve.py [--arch qwen1.5-0.5b] [--layers N]
+                                   [--batch 8] [--prompt 2048] [--steps 8]
+                                   [--max-len 4096]
+
+``--layers`` defaults to the arch's full depth.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
-from repro_torch.configs import get_config                  # noqa: E402
+from repro_torch.configs import PORTED_ARCH_IDS, get_config  # noqa: E402
 from repro_torch.models.model import build_model            # noqa: E402
 
 
@@ -48,7 +51,8 @@ def window(name, fn, n_steps):
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--layers", type=int, default=24)
+    ap.add_argument("--arch", default="qwen1.5-0.5b", choices=PORTED_ARCH_IDS)
+    ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt", type=int, default=2048)
     ap.add_argument("--steps", type=int, default=8)
@@ -57,7 +61,9 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    cfg = dataclasses.replace(get_config("qwen1.5-0.5b"), n_layers=args.layers)
+    cfg = get_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = build_model(cfg)
     params = model.init(0)
     gen = torch.Generator(device="cuda").manual_seed(0)
