@@ -7,10 +7,13 @@ for the roofline bounds).
 Phases, each printing one JSON line: ``device`` (name and power limit),
 ``build`` (compiles ``src/repro_torch/kernels/csrc/*.cu`` with nvcc),
 ``kernels`` (every hand-written kernel against its plain PyTorch version on
-the card), ``serve`` twice (qwen1.5-0.5b, then mamba2-1.3b, at full width
-and depth in bf16 through ``ServeEngine``, static and continuous batching,
-with the launch counts of the flash-attention or the SSD-scan kernel),
-``linreg`` (the LinReg DS example at 262144 x 1024 through the tsmm kernel).
+the card, and faulty controls of the epilogue kernel that the same check
+must catch), ``serve`` three times (qwen1.5-0.5b, mamba2-1.3b and
+zamba2-2.7b, at full width and depth in bf16 through ``ServeEngine``, static
+and continuous batching, with the launch count of every kernel held against
+the count the arch's path must give, and the bf16 prefill logits with the
+kernels against without them and against the controls), ``linreg`` (the LinReg DS example at
+262144 x 1024 through the tsmm kernel).
 Then one ``{"kernels": [...]}`` line with each kernel's time at its main-path
 shape beside its roofline bound, the plain version's time and a PyTorch
 library call's time (null where no single call computes the function), the
@@ -41,6 +44,8 @@ from repro_torch.examples import linreg_ds                       # noqa: E402
 from repro_torch.kernels import _build, ops                      # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
                                                  flash_attention_plain)
+from repro_torch.kernels.matmul_epilogue import (  # noqa: E402
+    LN_MAX_N, matmul_epilogue, matmul_epilogue_plain)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
 from repro_torch.kernels.tsmm import tsmm_upper, tsmm_upper_plain  # noqa: E402
 from repro_torch.models.model import build_model                 # noqa: E402
@@ -53,6 +58,8 @@ PEAK_BYTES = 3.35e12
 
 SEED = 0
 FLASH_MAIN = dict(b=8, hq=16, hkv=16, s=2048, d=64, causal=True, window=None)
+# zamba2-2.7b's shared attention blocks: 32 heads of 80
+FLASH_D80 = dict(b=8, hq=32, hkv=32, s=2048, d=80, causal=True, window=None)
 LINREG_M, LINREG_N, LINREG_LAM = 262144, 1024, 1e-3
 
 # (b, hq, hkv, s, d, causal, window): the reference's kernel test cases
@@ -68,6 +75,22 @@ TSMM_CASES = [(512, 256), (1024, 512), (768, 384), (2048, 128)]
 SSD_CASES = [(2, 128, 4, 16, 32, 32), (1, 256, 2, 64, 128, 64),
              (2, 64, 8, 32, 16, 16)]
 SSD_MAIN = dict(b=8, s=2048, h=64, p=64, g=1, n=128, chunk=256)
+# (m, n, k): the reference's kernel test shapes
+MM_CASES = [(512, 256, 256), (256, 512, 384)]
+# zamba2-2.7b's path: the MLP gate silu(x @ w_gate) of a prefill round of
+# 8 x 2048 tokens, bf16 out; the head at one token a request, fp32 logits
+MM_GATE = dict(m=8 * 2048, n=10240, k=2560, epilogue="silu",
+               dtype=torch.bfloat16, out_dtype=torch.bfloat16)
+MM_HEAD = dict(m=8, n=32000, k=2560, epilogue=None, dtype=torch.bfloat16,
+               out_dtype=torch.float32)
+# qwen1.5-0.5b's path: the gate of a prefill round and the head of the widest
+# vocabulary of the three archs (151936), fp32 logits
+MM_QWEN_GATE = dict(m=8 * 2048, n=2816, k=1024, epilogue="silu",
+                    dtype=torch.bfloat16, out_dtype=torch.bfloat16)
+MM_QWEN_HEAD = dict(m=8, n=151936, k=1024, epilogue=None,
+                    dtype=torch.bfloat16, out_dtype=torch.float32)
+MM_MAMBA_HEAD = dict(m=8, n=50280, k=2048, epilogue=None,
+                     dtype=torch.bfloat16, out_dtype=torch.float32)
 
 # Tolerances.  fp32: the kernels multiply in full fp32 and differ from the
 # plain version only in the order of the sums (the reference's own kernel
@@ -83,6 +106,18 @@ def tsmm_tol(dtype: torch.dtype, m: int) -> dict:
     if dtype == torch.float32:
         return dict(rtol=2e-5, atol=2e-4 * grow)
     return dict(rtol=3e-2, atol=0.9 * grow)
+
+
+def mm_tol(out_dtype: torch.dtype, k: int) -> dict:
+    """fp32 out: the reference's rtol 2e-5 / atol 2e-4 (K <= 384); kernel and
+    plain version differ in the order of the fp32 sums, whose absolute error
+    grows with K, so atol scales with K beyond 256.  bf16 out: both round an
+    fp32 value once, and two values a sum-order apart may round to
+    neighbouring bf16 numbers, 2^-8 to 2^-7 apart relative: rtol 1e-2."""
+    atol = 2e-4 * max(1.0, k / 256)
+    if out_dtype == torch.float32:
+        return dict(rtol=2e-5, atol=atol)
+    return dict(rtol=1e-2, atol=1e-2 + atol)
 
 
 def ssd_tol(dtype: torch.dtype, log_a: torch.Tensor, chunk: int,
@@ -225,6 +260,13 @@ def check_flash(gen) -> list:
         run("ragged S, window, strided views", 1, 4, 4, 333, 128, True, 100,
             dtype, views=True)
     run("main path", **FLASH_MAIN, dtype=torch.bfloat16, views=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        run("D = 80, GQA", 2, 4, 2, 256, 80, True, None, dtype)
+        run("D = 80, ragged S, window, strided views", 1, 4, 4, 333, 80,
+            True, 100, dtype, views=True)
+        run("D = 80, not causal", 1, 2, 2, 130, 80, False, None, dtype)
+    run("zamba2 main path, D = 80", **FLASH_D80, dtype=torch.bfloat16,
+        views=True)
 
     def run_odd(tag, q, k, v, causal, dtype):
         out = flash_attention(q, k, v, causal=causal)
@@ -301,6 +343,165 @@ def check_tsmm(gen) -> list:
         pass
     else:
         raise AssertionError("an unsupported tsmm_upper call did not raise")
+    return cases
+
+
+def mm_inputs(m, n, k, dtype, gen, epilogue=None, model_like=False,
+              w_transposed=False):
+    """Seeded x [m, k], w [k, n] (a transposed view of an [n, k] tensor with
+    ``w_transposed``), bias [n] for the bias epilogue.  By default unit
+    normals, as the reference's kernel tests draw them; ``model_like``
+    scales w by k^-0.5, as the model's init does."""
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float32)
+    x = rand(m, k).to(dtype)
+    w = rand(n, k).T if w_transposed else rand(k, n)
+    w = (w * (k ** -0.5 if model_like else 1.0)).to(dtype)
+    bias = rand(n).to(dtype) if epilogue == "bias" else None
+    return x, w, bias
+
+
+def mm_bound_ms(m, n, k, dtype, out_dtype, **_) -> dict:
+    """2 m n k flop; x and w read once, out written once."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    osize = torch.empty((), dtype=out_dtype).element_size()
+    flops = 2.0 * m * n * k
+    nbytes = (m * k + k * n) * esize + m * n * osize
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flop": flops, "bytes": nbytes}
+
+
+def bf16_accumulator_fault(x, w, bias=None, *, epilogue=None,
+                           out_dtype=None):
+    """A control, not a kernel: ``epilogue(x @ w)`` with the accumulator
+    kept in the operands' type and rounded after every 32-deep step over K,
+    as a kernel that lost its fp32 accumulator would give it."""
+    acc = torch.zeros((x.shape[0], w.shape[1]), dtype=x.dtype,
+                      device=x.device)
+    for k0 in range(0, x.shape[1], 32):
+        acc += x[:, k0:k0 + 32] @ w[k0:k0 + 32]
+    out = acc.float()
+    if epilogue == "silu":
+        out = F.silu(out)
+    elif epilogue is not None:
+        raise ValueError(f"control: epilogue {epilogue!r} is on no path")
+    return out.to(out_dtype or x.dtype)
+
+
+def coarse_flush_fault(x, w, bias=None, *, epilogue=None, out_dtype=None):
+    """A control, not a kernel: the plain version with its one flush rounded
+    to 6 bits of mantissa, one fewer than bf16 keeps."""
+    out = matmul_epilogue_plain(x, w, bias, epilogue=epilogue,
+                                out_dtype=torch.float32)
+    bits = (out.view(torch.int32) + (1 << 16)) & -(1 << 17)
+    return bits.view(torch.float32).to(out_dtype or x.dtype)
+
+
+# Faults the epilogue kernel could have.  ``check_mm`` holds each against the
+# plain version at the path shapes, as it holds the kernel; ``phase_serve``
+# runs the kernel path with each in the kernel's place and reports how far it
+# moves the bf16 prefill logits, beside the bound those logits are held to.
+CONTROLS = {"bf16_accumulator": bf16_accumulator_fault,
+            "flush_one_bit_coarser": coarse_flush_fault}
+
+
+def check_controls(gen) -> list:
+    """Each control against the plain version at each path shape, with the
+    kernel's tolerance.  A bf16 accumulator must fail everywhere, a coarser
+    flush wherever the output is fp32; a coarser flush to bf16 stays within
+    one bf16 step of the plain version, which no check of a bf16 output can
+    tell from sound rounding."""
+    cases = []
+    for tag, c in (("zamba2 gate", MM_GATE), ("zamba2 head", MM_HEAD),
+                   ("qwen gate", MM_QWEN_GATE), ("qwen head", MM_QWEN_HEAD),
+                   ("mamba2 head", MM_MAMBA_HEAD)):
+        x, w, _ = mm_inputs(c["m"], c["n"], c["k"], c["dtype"], gen,
+                            model_like=True)
+        kw = dict(epilogue=c["epilogue"], out_dtype=c["out_dtype"])
+        ref = matmul_epilogue_plain(x, w, **kw).to(torch.float64)
+        tol = mm_tol(c["out_dtype"], c["k"])
+        for name, fault in CONTROLS.items():
+            err = (fault(x, w, **kw).to(torch.float64) - ref).abs()
+            caught = bool((err > tol["atol"] + tol["rtol"] * ref.abs()).any())
+            must = name == "bf16_accumulator" \
+                or c["out_dtype"] == torch.float32
+            if must and not caught:
+                raise AssertionError(f"control {name} at the {tag} shape "
+                                     f"passes the kernel's check")
+            cases.append({"case": f"control {name}, {tag} path shape",
+                          "caught": caught, "max_abs_err": float(err.max()),
+                          "ref_max_abs": float(ref.abs().max()), **tol})
+        del x, w, ref, err
+    return cases
+
+
+def check_mm(gen) -> list:
+    cases = []
+
+    def run(tag, m, n, k, dtype, epilogue=None, out_dtype=None, **kw):
+        x, w, bias = mm_inputs(m, n, k, dtype, gen, epilogue, **kw)
+        out = matmul_epilogue(x, w, bias, epilogue=epilogue,
+                              out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        ref = matmul_epilogue_plain(x, w, bias, epilogue=epilogue,
+                                    out_dtype=out_dtype)
+        if out.dtype != ref.dtype or not out.is_contiguous():
+            raise AssertionError(f"matmul_epilogue: output {out.dtype}, "
+                                 f"contiguous {out.is_contiguous()}")
+        res = compare(out, ref, **mm_tol(out.dtype, k))
+        res.update(case=tag, shape=[m, n, k], epilogue=epilogue,
+                   dtype=str(dtype).split(".")[-1],
+                   out_dtype=str(out.dtype).split(".")[-1])
+        cases.append(res)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for m, n, k in MM_CASES:
+            for epi in (None, "bias", "silu", "gelu"):
+                run("reference case", m, n, k, dtype, epi)
+        run("layernorm, full row", 256, 256, 256, dtype, "layernorm")
+        run(f"layernorm at the widest row, {LN_MAX_N}", 40, LN_MAX_N, 200,
+            dtype, "layernorm", model_like=True)
+        for epi in (None, "bias", "silu", "gelu", "layernorm"):
+            run("ragged m, n and k, transposed w", 77, 131, 45, dtype, epi,
+                w_transposed=True)
+        run("ragged, odd n (unaligned rows)", 1000, 1001, 520, dtype, "silu",
+            model_like=True)
+    run("cast sinking fp32 -> bf16", 256, 256, 256, torch.float32, "silu",
+        torch.bfloat16)
+    run("cast sinking bf16 -> fp32", 256, 256, 256, torch.bfloat16, "gelu",
+        torch.float32)
+    run("decode-step gate, 8 rows", 8, 10240, 2560, torch.bfloat16, "silu",
+        model_like=True)
+    h = MM_MAMBA_HEAD
+    run("mamba2 head, vocab 50280", h["m"], h["n"], h["k"], h["dtype"],
+        h["epilogue"], h["out_dtype"], model_like=True)
+    g, h = MM_GATE, MM_HEAD
+    run("zamba2 gate main path", g["m"], g["n"], g["k"], g["dtype"],
+        g["epilogue"], g["out_dtype"], model_like=True)
+    run("zamba2 head main path", h["m"], h["n"], h["k"], h["dtype"],
+        h["epilogue"], h["out_dtype"], model_like=True)
+    g, h = MM_QWEN_GATE, MM_QWEN_HEAD
+    run("qwen gate main path", g["m"], g["n"], g["k"], g["dtype"],
+        g["epilogue"], g["out_dtype"], model_like=True)
+    run("qwen decode-step gate, 8 rows", 8, g["n"], g["k"], g["dtype"],
+        g["epilogue"], g["out_dtype"], model_like=True)
+    run("qwen head main path, vocab 151936", h["m"], h["n"], h["k"],
+        h["dtype"], h["epilogue"], h["out_dtype"], model_like=True)
+    # unsupported calls raise, they do not fall back
+    x, w, _ = mm_inputs(16, LN_MAX_N + 1, 32, torch.float32, gen)
+    for bad in (lambda: matmul_epilogue(x, w, epilogue="layernorm"),
+                lambda: matmul_epilogue(x.half(), w.half()),
+                lambda: matmul_epilogue(x, w.bfloat16()),
+                lambda: matmul_epilogue(x, w, out_dtype=torch.float16)):
+        try:
+            bad()
+        except (ValueError, TypeError):
+            continue
+        raise AssertionError("an unsupported matmul_epilogue call did not "
+                             "raise")
     return cases
 
 
@@ -445,7 +646,50 @@ def time_kernels(gen) -> dict:
     x32, b32, c32 = xbar.float(), bm.float(), cm.float()
     ssd["fp32_body_ms"] = time_ms(
         lambda: ssd_scan(x32, log_a, b32, c32, chunk=m["chunk"]), 3)
-    return {"flash_attention": flash, "tsmm_upper": tsmm, "ssd_scan": ssd}
+    del xbar, log_a, bm, cm, x32, b32, c32
+    m = FLASH_D80
+    q, k, v = flash_inputs(m["b"], m["hq"], m["hkv"], m["s"], m["d"],
+                           torch.bfloat16, gen, views=True)
+    flash["d80"] = {
+        "ms": time_ms(lambda: flash_attention(q, k, v, causal=True), 20, 3),
+        "plain_ms": time_ms(
+            lambda: flash_attention_plain(q, k, v, causal=True), 2),
+        "library_ms": time_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+            20, 3),
+        "shape": "q,k,v [8,32,2048,80] bf16 causal, transposed views "
+                 "(zamba2-2.7b)",
+    }
+    del q, k, v
+    mm = {}
+    gate_lib = (lambda x, w: F.silu(x @ w),
+                "two calls: x @ w (bf16 out), then F.silu")
+    head_lib = (lambda x, w: (x @ w).float(),
+                "two calls: x @ w (bf16 out), then .float()")
+    for name, c, (lib_fn, lib_note) in (
+            ("gate", MM_GATE, gate_lib), ("head", MM_HEAD, head_lib),
+            ("qwen_gate", MM_QWEN_GATE, gate_lib),
+            ("qwen_head", MM_QWEN_HEAD, head_lib)):
+        x, w, _ = mm_inputs(c["m"], c["n"], c["k"], c["dtype"], gen,
+                            model_like=True)
+        kw = dict(epilogue=c["epilogue"], out_dtype=c["out_dtype"])
+        mm[name] = {
+            "ms": time_ms(lambda: matmul_epilogue(x, w, **kw), 20, 3),
+            "plain_ms": time_ms(lambda: matmul_epilogue_plain(x, w, **kw), 3),
+            "library_ms": time_ms(lambda: lib_fn(x, w), 20, 3),
+            "library_note": lib_note,
+            "shape": f"x [{c['m']},{c['k']}] w [{c['k']},{c['n']}] "
+                     f"{str(c['dtype']).split('.')[-1]}, "
+                     f"{c['epilogue'] or 'no'} epilogue, "
+                     f"{str(c['out_dtype']).split('.')[-1]} out",
+            **mm_bound_ms(**c),
+        }
+        x32, w32 = x.float(), w.float()
+        mm[name]["fp32_body_ms"] = time_ms(
+            lambda: matmul_epilogue(x32, w32, **kw), 3)
+        del x, w, x32, w32
+    return {"flash_attention": flash, "tsmm_upper": tsmm, "ssd_scan": ssd,
+            "matmul_epilogue": mm}
 
 
 # ---------------------------------------------------------------------------
@@ -469,9 +713,27 @@ def padded_batch(reqs, device) -> torch.Tensor:
     return torch.from_numpy(toks).to(device)
 
 
-def serve_run(engine: ServeEngine, reqs, kernel: str) -> dict:
-    """One ``generate`` with the kernel counts taken around it; ``kernel``
-    is the one the model's prefill must launch once per layer and round."""
+def expected_launches(cfg, rounds: int, steps: int) -> dict:
+    """Launches of each kernel that ``rounds`` admission rounds and ``steps``
+    decode steps of ``cfg``'s kernel path must make.  Per round: flash once
+    for each attention layer (or application of a shared block), the SSD
+    scan once for each Mamba2 layer, the epilogue kernel once for each gated
+    MLP and once for the head.  Per decode step: the MLP gates and the head
+    (decode attention and the one-token SSM step are plain)."""
+    n_attn = {"dense": cfg.n_layers,
+              "hybrid": cfg.n_layers // cfg.hybrid.attn_every
+              if cfg.hybrid else 0}.get(cfg.family, 0)
+    n_ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    n_gate = n_attn if cfg.gated_mlp else 0
+    return {"flash_attention": n_attn * rounds, "tsmm_upper": 0,
+            "ssd_scan": n_ssd * rounds,
+            "matmul_epilogue": (n_gate + 1) * (rounds + steps)}
+
+
+def serve_run(engine: ServeEngine, reqs) -> dict:
+    """One ``generate`` with every kernel's count set to 0 just before it and
+    read just after; each count must be the one the path must give (all 0
+    without ``use_kernel``)."""
     ops.reset_launch_counts()
     for key in engine.stats:
         engine.stats[key] = 0
@@ -479,19 +741,20 @@ def serve_run(engine: ServeEngine, reqs, kernel: str) -> dict:
     outs = engine.generate(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ops.launch_counts()[kernel]
-    n_layers = engine.model.cfg.n_layers
+    launches = ops.launch_counts()
     rounds = engine.stats["admission_rounds"]
+    expected = expected_launches(engine.model.cfg, rounds,
+                                 engine.stats["decode_steps"])
+    if not engine.use_kernel:
+        expected = {name: 0 for name in expected}
     if any(len(c.tokens) != r.max_new_tokens for c, r in zip(outs, reqs)):
         raise AssertionError("a request did not complete with all its tokens")
-    if engine.use_kernel and launches < n_layers * rounds:
-        raise AssertionError(
-            f"{kernel} launched {launches} times in {rounds} admission "
-            f"rounds of {n_layers} layers")
+    if launches != expected:
+        raise AssertionError(f"launches {launches} in {rounds} admission "
+                             f"rounds, expected {expected}")
     new_tokens = sum(len(c.tokens) for c in outs)
     return {"tokens": [c.tokens for c in outs], "wall_s": wall,
-            "kernel": kernel, "launches": launches,
-            "stats": dict(engine.stats),
+            "launches": launches, "stats": dict(engine.stats),
             "prefill_s": max(c.prefill_time_s for c in outs),
             "decode_s": max(c.decode_time_s for c in outs),
             "new_tokens": new_tokens, "tokens_per_s": new_tokens / wall}
@@ -501,23 +764,46 @@ def _summary(run: dict) -> dict:
     return {k: v for k, v in run.items() if k != "tokens"}
 
 
-# Each serve path: the arch and the kernel its prefill launches once per layer
-# and admission round.  Then the tolerance of its bf16 prefill logits, kernel
+def control_logits(model, params, toks, fault) -> torch.Tensor:
+    """Prefill logits of the kernel path with ``ops.matmul_epilogue`` (the
+    MLP gates and the head) replaced by ``fault`` for this one call."""
+    real = ops.matmul_epilogue
+    ops.matmul_epilogue = fault
+    try:
+        with torch.no_grad():
+            logits, _ = model.prefill(params, toks, model.init_cache(8, 4096),
+                                      use_kernel=True)
+        torch.cuda.synchronize()
+    finally:
+        ops.matmul_epilogue = real
+    return logits
+
+
+# Each serve path: the arch, then the bound on its bf16 prefill logits, kernel
 # path against plain path at full depth (logits have a standard deviation
-# near 1): bf16 activations keep 8 bits of mantissa and the two paths round
-# at other places in every layer.  qwen: P and the attention output, in 24
-# layers.  mamba2: the kernel path forms x * dt and the D * x residual in
-# bf16, as the reference's kernel wrapper does, the plain path in fp32, in
-# 48 layers.
-SERVE_PATHS = [("qwen1.5-0.5b", "flash_attention", 0.25),
-               ("mamba2-1.3b", "ssd_scan", 0.5)]
+# near 1).  The two paths round at other places in every layer: qwen, P and
+# the attention output, and the MLP gate rounded once instead of twice;
+# mamba2, x * dt and the D * x residual in bf16 on the kernel path, as the
+# reference's kernel wrapper does, in fp32 on the plain one; zamba2, both;
+# and the epilogue kernel's head writes fp32 logits where the plain head
+# rounds them to bf16 first.  Each bound is 1.5 x the largest reading of
+# these sound paths on an H100 (qwen 0.104, mamba2 0.305, zamba2 0.254),
+# rounded up to a multiple of 0.05.  No such bound tells a subtle rounding
+# fault from the sound paths' own rounding: the CONTROLS move the readings by
+# less than 0.05, so ``check_controls`` holds them at the kernel's level.  Last,
+# the depth of the fp32 comparison of greedy streams with and without the
+# kernels: 4 layers, and for zamba2 12, the least depth with two applications
+# of shared blocks (attn_every 6).
+SERVE_PATHS = [("qwen1.5-0.5b", 0.2, 4), ("mamba2-1.3b", 0.5, 4),
+               ("zamba2-2.7b", 0.4, 12)]
 
 
-def phase_serve(arch: str, kernel: str, bf16_tol: float) -> dict:
+def phase_serve(arch: str, bf16_tol: float, fp32_layers: int) -> dict:
     """``arch`` at full width and depth (bf16, random weights from the seed)
     through ServeEngine, static twice and continuous with 4 slots, with the
-    launches of ``kernel``; then its prefill logits and, at 4 layers in fp32,
-    its greedy streams with the kernel against without it."""
+    launches of every kernel; then its prefill logits and, at
+    ``fp32_layers`` layers in fp32, its greedy streams with the kernels
+    against without them."""
     cfg = get_config(arch)
     reqs = make_requests(cfg.vocab_size)
     torch.cuda.reset_peak_memory_stats()
@@ -526,18 +812,18 @@ def phase_serve(arch: str, kernel: str, bf16_tol: float) -> dict:
     n_params = sum(t.numel() for t in _leaves(params))
 
     static = ServeEngine(model, params, EngineConfig(max_len=4096))
-    run1 = serve_run(static, reqs, kernel)
+    run1 = serve_run(static, reqs)
     main_launches = run1["launches"]                  # the main path's count
-    run2 = serve_run(static, reqs, kernel)
+    run2 = serve_run(static, reqs)
     if run1["tokens"] != run2["tokens"]:
         raise AssertionError("two generate runs gave different tokens")
     cont = ServeEngine(model, params, EngineConfig(
         max_len=4096, batching="continuous", slots=4))
-    run3 = serve_run(cont, reqs, kernel)
+    run3 = serve_run(cont, reqs)
     if run3["stats"]["admission_rounds"] < 2:
         raise AssertionError("continuous batching made no refill round")
 
-    # prefill logits with the kernel against without, bf16, full depth
+    # prefill logits with the kernels against without, bf16, full depth
     toks = padded_batch(reqs, model.device)
     with torch.no_grad():
         lg_k, _ = model.prefill(params, toks, model.init_cache(8, 4096),
@@ -553,50 +839,56 @@ def phase_serve(arch: str, kernel: str, bf16_tol: float) -> dict:
         raise AssertionError(f"bf16 prefill logits differ by {bf16_err}")
     logit_std = float(lg_p.std())
     peak_bytes = torch.cuda.max_memory_allocated()
+    controls = {name: float((control_logits(model, params, toks, fault)
+                             - lg_p).abs().max())
+                for name, fault in CONTROLS.items()}
     del params, static, cont, lg_k, lg_p
     torch.cuda.empty_cache()
 
-    # fp32, 4 layers, full width: greedy streams with and without the kernel
-    cfg4 = dataclasses.replace(cfg, n_layers=4, dtype="float32")
-    model4 = build_model(cfg4)
-    params4 = model4.init(SEED)
-    with_k = serve_run(ServeEngine(model4, params4, EngineConfig(max_len=4096),
-                                   use_kernel=True), reqs, kernel)
-    without = serve_run(ServeEngine(model4, params4,
+    # fp32, fewer layers, full width: greedy streams with and without kernels
+    cfg_s = dataclasses.replace(cfg, n_layers=fp32_layers, dtype="float32")
+    model_s = build_model(cfg_s)
+    params_s = model_s.init(SEED)
+    with_k = serve_run(ServeEngine(model_s, params_s,
+                                   EngineConfig(max_len=4096),
+                                   use_kernel=True), reqs)
+    without = serve_run(ServeEngine(model_s, params_s,
                                     EngineConfig(max_len=4096),
-                                    use_kernel=False), reqs, kernel)
-    if without["launches"] != 0:
-        raise AssertionError("use_kernel=False launched the kernel")
+                                    use_kernel=False), reqs)
     if with_k["tokens"] != without["tokens"]:
-        raise AssertionError("fp32 greedy streams with and without the kernel "
-                             "differ")
+        raise AssertionError("fp32 greedy streams with and without the "
+                             "kernels differ")
     with torch.no_grad():
-        l4k, _ = model4.prefill(params4, toks, model4.init_cache(8, 4096),
-                                use_kernel=True)
-        l4p, _ = model4.prefill(params4, toks, model4.init_cache(8, 4096),
-                                use_kernel=False)
-    fp32_err = float((l4k - l4p).abs().max())
-    if fp32_err > 1e-3:       # fp32 sums in another order, 4 layers
+        lsk, _ = model_s.prefill(params_s, toks, model_s.init_cache(8, 4096),
+                                 use_kernel=True)
+        lsp, _ = model_s.prefill(params_s, toks, model_s.init_cache(8, 4096),
+                                 use_kernel=False)
+    fp32_err = float((lsk - lsp).abs().max())
+    if fp32_err > 1e-3:       # fp32 sums in another order, a few layers
         raise AssertionError(f"fp32 prefill logits differ by {fp32_err}")
+    del params_s
+    torch.cuda.empty_cache()
     return {"phase": "serve", "arch": cfg.name, "dtype": cfg.dtype,
             "n_layers": cfg.n_layers, "n_params": n_params,
             "prompt_lens": [len(r.prompt) for r in reqs],
-            "kernel": kernel, "main_path_launches": main_launches,
+            "main_path_launches": main_launches,
             "static": _summary(run1), "static_again": _summary(run2),
             "continuous_slots4": _summary(run3),
             "bf16_prefill_logits_max_abs_diff": bf16_err,
             "bf16_prefill_logits_tol": bf16_tol,
             "bf16_prefill_logits_std": logit_std,
-            "fp32_4layer_streams_identical": True,
-            "fp32_4layer_prefill_logits_max_abs_diff": fp32_err,
-            "fp32_4layer_with_kernel": _summary(with_k),
-            "fp32_4layer_without_kernel": _summary(without),
+            "bf16_prefill_logits_max_abs_diff_of_controls": controls,
+            "fp32_layers": fp32_layers,
+            "fp32_streams_identical": True,
+            "fp32_prefill_logits_max_abs_diff": fp32_err,
+            "fp32_with_kernels": _summary(with_k),
+            "fp32_without_kernels": _summary(without),
             "max_memory_allocated_bytes": peak_bytes}
 
 
 def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
+    if isinstance(tree, (dict, list)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
             yield from _leaves(v)
     else:
         yield tree
@@ -648,29 +940,47 @@ def main() -> None:
         return
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flash_cases, tsmm_cases = check_flash(gen), check_tsmm(gen)
-    ssd_cases = check_ssd(gen)
+    ssd_cases, mm_cases = check_ssd(gen), check_mm(gen)
+    control_cases = check_controls(gen)
     times = time_kernels(gen)
     emit({"phase": "kernels", "flash_attention": flash_cases,
-          "tsmm_upper": tsmm_cases, "ssd_scan": ssd_cases, "times": times})
+          "tsmm_upper": tsmm_cases, "ssd_scan": ssd_cases,
+          "matmul_epilogue": mm_cases,
+          "matmul_epilogue_controls": control_cases, "times": times})
     if args.stop_after == "kernels":
         return
 
     serve = {}
-    for arch, kernel, bf16_tol in SERVE_PATHS:
-        serve[kernel] = phase_serve(arch, kernel, bf16_tol)
-        emit(serve[kernel])
+    for arch, bf16_tol, fp32_layers in SERVE_PATHS:
+        serve[arch] = phase_serve(arch, bf16_tol, fp32_layers)
+        emit(serve[arch])
     linreg = phase_linreg()
     emit(linreg)
 
     def err_of(cases, tag):
         return next(c["max_abs_err"] for c in cases if c["case"] == tag)
 
-    fm, sm = FLASH_MAIN, SSD_MAIN
+    def path_launches(kernel):
+        """The kernel's launches summed over every serve path's main run."""
+        return sum(run["main_path_launches"][kernel]
+                   for run in serve.values())
+
+    fm, sm, f80 = FLASH_MAIN, SSD_MAIN, FLASH_D80
+    times["flash_attention"]["d80"].update(
+        max_abs_err=err_of(flash_cases, "zamba2 main path, D = 80"),
+        **flash_bound_ms(f80["b"], f80["hq"], f80["hkv"], f80["s"], f80["d"],
+                         f80["causal"], f80["window"], torch.bfloat16))
+    mm_times = times["matmul_epilogue"]
+    for name, tag in (("gate", "zamba2 gate main path"),
+                      ("head", "zamba2 head main path"),
+                      ("qwen_gate", "qwen gate main path"),
+                      ("qwen_head", "qwen head main path, vocab 151936")):
+        mm_times[name]["max_abs_err"] = err_of(mm_cases, tag)
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:104",
-         "launches": serve["flash_attention"]["main_path_launches"],
+         "launches": path_launches("flash_attention"),
          "max_abs_err": err_of(flash_cases, "main path"),
          **flash_bound_ms(fm["b"], fm["hq"], fm["hkv"], fm["s"], fm["d"],
                           fm["causal"], fm["window"], torch.bfloat16),
@@ -685,11 +995,17 @@ def main() -> None:
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:102",
-         "launches": serve["ssd_scan"]["main_path_launches"],
+         "launches": path_launches("ssd_scan"),
          "max_abs_err": err_of(ssd_cases, "main path"),
          **ssd_bound_ms(sm["b"], sm["s"], sm["h"], sm["p"], sm["g"], sm["n"],
                         sm["chunk"], torch.bfloat16),
          **times["ssd_scan"]},
+        {"name": "matmul_epilogue", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/matmul_epilogue.cu",
+         "replaces": "src/repro/kernels/matmul_epilogue.py:116",
+         "launches": path_launches("matmul_epilogue"), **mm_times["gate"],
+         "head": mm_times["head"], "qwen_gate": mm_times["qwen_gate"],
+         "qwen_head": mm_times["qwen_head"]},
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -25,6 +25,8 @@ _FP32_LEAVES = ("ln1", "ln2", "ln", "final_norm", "A_log", "D", "dt_bias",
 def _convert(tree: Any, name: str, device, dtype: torch.dtype) -> Any:
     if isinstance(tree, dict):
         return {k: _convert(v, k, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):               # the hybrid's shared_attn blocks
+        return [_convert(v, name, device, dtype) for v in tree]
     t = torch.tensor(np.asarray(tree), device=device)    # always a copy
     if t.is_floating_point():
         t = t.to(torch.float32 if name in _FP32_LEAVES else dtype)
@@ -36,7 +38,8 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
                       dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """The reference's param tree (nested dicts of float32 numpy arrays, the
     layer stack with its leading layer axis) as the port's tree on ``device``:
-    same keys and shapes, the leaves the reference keeps in fp32 (norm
+    same keys and shapes, lists (the hybrid's ``shared_attn``, one block
+    dict each) kept as lists, the leaves the reference keeps in fp32 (norm
     scales, ``A_log``, ``D``, ``dt_bias``) in fp32, everything else in
     ``dtype`` (default ``cfg.dtype``)."""
     return _convert(tree, "", torch.device(device),

@@ -22,7 +22,7 @@ from pathlib import Path
 from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_attention", "tsmm", "ssd_scan")
+SOURCES = ("flash_attention", "tsmm", "ssd_scan", "matmul_epilogue")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 

@@ -12,7 +12,8 @@
 // KV loop runs inside the block over exactly the tiles the band can touch,
 // where the TPU kernel used a sequential fourth grid axis and skipped blocks.
 // KV tiles hold 64 keys; a block owns 64 query rows (128 in the bf16 body for
-// D <= 64).  Q, K, V tiles sit in shared memory with padded rows, so that
+// D <= 64).  D is 32, 64, 80 (zamba2's heads: five 16-deep k-steps, the last
+// one through `ldmatrix.x2`) or 128.  Q, K, V tiles sit in shared memory with padded rows, so that
 // fragment loads hit distinct banks; the running state lives in registers.
 // The kernel reads q/k/v through (batch, head, row) strides with a unit
 // stride along D, and masks the ragged edge itself: Sq and Skv are arbitrary.
@@ -108,6 +109,14 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(smem_ptr)));
+}
+
+// Two 8x8 bf16 matrices, from the addresses of lanes 0-15.
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2],
+                                            const void* smem_ptr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(smem_ptr)));
 }
 
 // The same with each matrix transposed on the way.
@@ -317,7 +326,7 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16_mma(const Params p) {
           sacc[mt][nt][0] = sacc[mt][nt][1] = sacc[mt][nt][2] =
               sacc[mt][nt][3] = 0.f;
 #pragma unroll
-        for (int ks = 0; ks < KS; ks += 2) {
+        for (int ks = 0; ks + 1 < KS; ks += 2) {
           uint32_t kf[4];  // b0, b1 of k-step ks, then of k-step ks + 1
           ldmatrix_x4(kf, tK + (nt * 8 + (lane & 7)) * LD + ks * 16 +
                               (lane >> 3) * 8);
@@ -326,6 +335,14 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16_mma(const Params p) {
             mma_16816(sacc[mt][nt], qf[mt][ks], kf[0], kf[1]);
             mma_16816(sacc[mt][nt], qf[mt][ks + 1], kf[2], kf[3]);
           }
+        }
+        if (KS % 2) {  // D = 80: five k-steps, the last one alone
+          uint32_t kf[2];
+          ldmatrix_x2(kf, tK + (nt * 8 + (lane & 7)) * LD + (KS - 1) * 16 +
+                              ((lane >> 3) & 1) * 8);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            mma_16816(sacc[mt][nt], qf[mt][KS - 1], kf[0], kf[1]);
         }
       }
 
@@ -579,6 +596,7 @@ cudaError_t dispatch_d(const Params& p, int dtype, cudaStream_t stream) {
   if (dtype == 0)
     return launch(flash_fwd_fma<D>, p, BQ, 256, fma_smem, stream);
   // two 16-row tiles per warp while the accumulators fit the register file
+  // (D = 80 with two would hold 184 accumulator and Q registers a thread)
   constexpr int MT = D <= 64 ? 2 : 1;
   const size_t mma_smem =
       sizeof(__nv_bfloat16) * (64 * MT + 4 * BK) * (D + 8);
@@ -611,6 +629,8 @@ extern "C" int repro_flash_attention_fwd(
       return (int)dispatch_d<32>(p, dtype, s);
     case 64:
       return (int)dispatch_d<64>(p, dtype, s);
+    case 80:
+      return (int)dispatch_d<80>(p, dtype, s);
     case 128:
       return (int)dispatch_d<128>(p, dtype, s);
     default:

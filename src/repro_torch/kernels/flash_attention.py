@@ -26,7 +26,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.models.layers import attention_dense
 
-SUPPORTED_HEAD_DIMS = (32, 64, 128)
+SUPPORTED_HEAD_DIMS = (32, 64, 80, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -69,8 +69,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rows are not 16-byte aligned with unit stride along D is made contiguous
     first.  The output is allocated as ``[B,Sq,Hq,D]`` and returned as its
     ``transpose(1, 2)`` view, so the caller's merge of heads is free.
-    ``Sq`` and ``Skv`` are arbitrary; ``D`` must be 32, 64 or 128 and the type
-    float32 or bfloat16, anything else raises.  Forward only.
+    ``Sq`` and ``Skv`` are arbitrary; ``D`` must be 32, 64, 80 or 128 and the
+    type float32 or bfloat16, anything else raises.  Forward only.
     """
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, window=window,

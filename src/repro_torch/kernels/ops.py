@@ -12,12 +12,14 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import matmul_epilogue as _mme
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import tsmm as _tsmm
 
 _WRAPPERS = {"flash_attention": _fa.flash_attention,
              "tsmm_upper": _tsmm.tsmm_upper,
-             "ssd_scan": _ssd.ssd_scan}
+             "ssd_scan": _ssd.ssd_scan,
+             "matmul_epilogue": _mme.matmul_epilogue}
 
 
 def tsmm(x: torch.Tensor, *, reg: float = 0.0) -> torch.Tensor:
@@ -58,6 +60,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     y, state = _ssd.ssd_scan(xbar, log_a, B, C, chunk=chunk,
                              init_state=init_state)
     return y + x * D.to(x.dtype)[None, None, :, None], state
+
+
+# The reference's signature without its block sizes; any m, n and k.
+matmul_epilogue = _mme.matmul_epilogue
 
 
 def launch_counts() -> Dict[str, int]:

@@ -7,7 +7,9 @@ Plain functions on tensors.  Layouts are the reference's: weights
     positions, so a long prefill never materializes an S x S score tensor —
     the plain-PyTorch analogue of the flash kernel in
     :mod:`repro_torch.kernels`, and what the kernel path is held against;
-  * sliding-window layers visit a bounded band of KV chunks.
+  * sliding-window layers visit a bounded band of KV chunks;
+  * the gated MLP's ``act(x @ w_gate)`` goes through the matmul-epilogue
+    kernel under ``use_kernel``.
 
 ``moe_ffn`` is not ported yet.
 """
@@ -230,10 +232,22 @@ def _act(name: str):
 
 
 def ffn(x: torch.Tensor, params: Dict[str, torch.Tensor], gated: bool,
-        act: str = "silu") -> torch.Tensor:
-    """Dense MLP. gated: SwiGLU (w_gate, w_up, w_down); else (w_up, w_down)."""
+        act: str = "silu", use_kernel: bool = False) -> torch.Tensor:
+    """Dense MLP. gated: SwiGLU (w_gate, w_up, w_down); else (w_up, w_down).
+
+    ``use_kernel=True`` computes the gated branch's ``act(x @ w_gate)``
+    through the hand-written matmul-epilogue kernel on the flattened
+    ``[B*S, d]`` view (its plain version for CPU tensors); ``w_up`` and
+    ``w_down`` stay plain products.
+    """
     actf = _act(act)
-    if gated:
+    if gated and use_kernel:
+        from repro_torch.kernels import ops as kops
+        gate = kops.matmul_epilogue(
+            x.reshape(-1, x.shape[-1]), params["w_gate"].to(x.dtype),
+            epilogue=act, out_dtype=x.dtype).reshape(*x.shape[:-1], -1)
+        h = gate * dense(x, params["w_up"])
+    elif gated:
         h = actf(dense(x, params["w_gate"])) * dense(x, params["w_up"])
     else:
         h = actf(dense(x, params["w_up"], params.get("b_up")))

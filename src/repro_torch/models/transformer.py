@@ -2,15 +2,20 @@
 ``repro.models.transformer``), driven by :class:`ArchConfig`.
 
 Ported so far: the dense family (one homogeneous stack of GQA blocks, e.g.
-``qwen1.5-0.5b``) and the ssm family (one homogeneous stack of Mamba2 blocks,
-``mamba2-1.3b``).  Every other family raises ``NotImplementedError``.
+``qwen1.5-0.5b``), the ssm family (one homogeneous stack of Mamba2 blocks,
+``mamba2-1.3b``) and the hybrid family (a Mamba2 stack with a shared
+attention+MLP block after every ``attn_every`` layers, the shared blocks
+alternating, ``zamba2-2.7b``).  Every other family raises
+``NotImplementedError``.
 
 Params are nested dicts of tensors; leaves of the layer stack carry a leading
 layer axis, as in the reference, and the stack runs as a python loop over it.
 
 The decode cache is ``{"pos": int, "self": {"k", "v": [L,B,Hkv,cap,hd],
 "kpos": [L,cap]}}`` for the dense family and ``{"pos": int, "mamba":
-{"conv": [L,B,W-1,C], "state": [L,B,H,P,N] fp32}}`` for the ssm family.
+{"conv": [L,B,W-1,C], "state": [L,B,H,P,N] fp32}}`` for the ssm family; the
+hybrid family has ``mamba`` and ``attn``, the latter stacked over the
+``L // attn_every`` applications of a shared block, not over layers.
 ``pos`` is a host integer, so that a decode step never waits for a device
 scalar.  ``prefill`` and ``decode_step`` **write the cache tensors in place**
 and return a dict that holds the same tensors.
@@ -39,14 +44,19 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def require_ported(cfg: ArchConfig) -> None:
     """Raise unless ``cfg`` is of a family the port runs: the plain dense
-    decoder, or the attention-free ssm stack."""
+    decoder, the attention-free ssm stack, or the hybrid of the two."""
     plain = (cfg.moe is None and cfg.mla is None and cfg.enc_dec is None
              and cfg.window_pattern is None and cfg.frontend == "none")
-    if not plain or cfg.family not in ("dense", "ssm") or (
-            cfg.family == "ssm" and cfg.ssm is None):
+    if not plain or cfg.family not in ("dense", "ssm", "hybrid") or (
+            cfg.family in ("ssm", "hybrid") and cfg.ssm is None) or (
+            cfg.family == "hybrid" and cfg.hybrid is None):
         raise NotImplementedError(
             f"arch '{cfg.name}' (family {cfg.family}): not ported yet; the "
-            f"port runs the dense and ssm families only")
+            f"port runs the dense, ssm and hybrid families only")
+    if cfg.family == "hybrid" and cfg.n_layers % cfg.hybrid.attn_every:
+        raise ValueError(f"hybrid arch '{cfg.name}': n_layers "
+                         f"{cfg.n_layers} is not a multiple of attn_every "
+                         f"{cfg.hybrid.attn_every}")
 
 
 # ---------------------------------------------------------------------------
@@ -120,11 +130,15 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
         params["lm_head"] = _norm_init(gen, (d, cfg.vocab_size), d ** -0.5,
                                        dtype)
     lead = (cfg.n_layers,)
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         params["blocks"] = {
             "ln": torch.zeros(lead + (d,), dtype=torch.float32,
                               device=gen.device),
             "mamba": M.mamba_block_init(gen, d, cfg.ssm, dtype, lead)}
+        if cfg.family == "hybrid":
+            params["shared_attn"] = [
+                block_init(gen, cfg, dtype=dtype)
+                for _ in range(cfg.hybrid.n_shared_attn_blocks)]
     else:
         params["blocks"] = block_init(gen, cfg, dtype=dtype, lead=lead)
     return params
@@ -224,7 +238,8 @@ def block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
     x = x + attn_out
     h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     out = L.ffn(h2, p["mlp"], cfg.gated_mlp,
-                act="silu" if cfg.gated_mlp else "gelu")
+                act="silu" if cfg.gated_mlp else "gelu",
+                use_kernel=use_kernel)
     return x + out, new_cache, 0.0
 
 
@@ -275,22 +290,27 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     """Zero-filled decode cache on ``device``."""
     require_ported(cfg)
     dtype = torch_dtype(cfg.dtype)
-    if cfg.family == "ssm":
-        s = cfg.ssm
-        conv_ch = s.d_inner(cfg.d_model) + 2 * s.n_groups * s.state_size
-        return {"pos": 0, "mamba": {
-            "conv": torch.zeros((cfg.n_layers, batch, s.conv_width - 1,
-                                 conv_ch), dtype=dtype, device=device),
-            "state": torch.zeros((cfg.n_layers, batch, s.n_heads(cfg.d_model),
-                                  s.head_dim, s.state_size),
-                                 dtype=torch.float32, device=device)}}
-    nkv, hd = cfg.n_kv_heads, cfg.head_dim_
-    shape = (cfg.n_layers, batch, nkv, max_len, hd)
-    return {"pos": 0,
-            "self": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                     "v": torch.zeros(shape, dtype=dtype, device=device),
-                     "kpos": torch.full((cfg.n_layers, max_len), -1,
-                                        dtype=torch.int32, device=device)}}
+
+    def kvc(n: int) -> Dict[str, torch.Tensor]:
+        shape = (n, batch, cfg.n_kv_heads, max_len, cfg.head_dim_)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device),
+                "kpos": torch.full((n, max_len), -1, dtype=torch.int32,
+                                   device=device)}
+
+    if cfg.family == "dense":
+        return {"pos": 0, "self": kvc(cfg.n_layers)}
+    s = cfg.ssm
+    conv_ch = s.d_inner(cfg.d_model) + 2 * s.n_groups * s.state_size
+    cache: Cache = {"pos": 0, "mamba": {
+        "conv": torch.zeros((cfg.n_layers, batch, s.conv_width - 1, conv_ch),
+                            dtype=dtype, device=device),
+        "state": torch.zeros((cfg.n_layers, batch, s.n_heads(cfg.d_model),
+                              s.head_dim, s.state_size),
+                             dtype=torch.float32, device=device)}}
+    if cfg.family == "hybrid":
+        cache["attn"] = kvc(cfg.n_layers // cfg.hybrid.attn_every)
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -309,6 +329,9 @@ def _stack_runner(cfg: ArchConfig, params: Params, x: torch.Tensor,
         x, c2, aux = scan_stack(params["blocks"], x, mamba_body,
                                 cache["mamba"] if cache else None)
         return x, ({"mamba": c2} if cache is not None else None), aux
+    if cfg.family == "hybrid":
+        return _hybrid_stack(cfg, params, x, positions, cache, use_kernel,
+                             pos)
 
     def body(p, h, c):
         return block_apply(cfg, p, h, positions=positions, window=None,
@@ -318,13 +341,43 @@ def _stack_runner(cfg: ArchConfig, params: Params, x: torch.Tensor,
     return x, ({"self": c2} if cache is not None else None), aux
 
 
-def _head(cfg: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Final norm and logits: the product runs in the working type and is
-    cast to fp32 afterwards."""
+def _hybrid_stack(cfg: ArchConfig, params: Params, x: torch.Tensor,
+                  positions: torch.Tensor, cache: Optional[Cache],
+                  use_kernel: bool, pos: Optional[int]):
+    """The hybrid stack: for each segment, ``attn_every`` Mamba2 layers and
+    then shared block ``seg % n_shared`` with its own attention cache
+    ``cache["attn"][seg]``.  Caches are written in place."""
+    every = cfg.hybrid.attn_every
+    shared = params["shared_attn"]
+    for seg in range(cfg.n_layers // every):
+        for i in range(seg * every, (seg + 1) * every):
+            c = _layer(cache["mamba"], i) if cache is not None else None
+            x, _, _ = mamba_layer_apply(cfg, _layer(params["blocks"], i), x,
+                                        c, use_kernel)
+        a_cache = _layer(cache["attn"], seg) if cache is not None else None
+        x, _, _ = block_apply(cfg, shared[seg % len(shared)], x,
+                              positions=positions, window=None,
+                              kv_cache=a_cache, pos=pos,
+                              use_kernel=use_kernel)
+    new_cache = ({"mamba": cache["mamba"], "attn": cache["attn"]}
+                 if cache is not None else None)
+    return x, new_cache, 0.0
+
+
+def _head(cfg: ArchConfig, params: Params, x: torch.Tensor,
+          use_kernel: bool = False) -> torch.Tensor:
+    """Final norm and logits in fp32.  Plain: the product runs in the working
+    type and is cast afterwards.  ``use_kernel``: the matmul-epilogue kernel
+    accumulates in fp32 and writes fp32 logits in its one flush (cast
+    sinking)."""
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if cfg.tie_embeddings:
-        return (h @ params["embed"].to(h.dtype).T).to(torch.float32)
-    return (h @ params["lm_head"].to(h.dtype)).to(torch.float32)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if use_kernel:
+        from repro_torch.kernels import ops as kops
+        logits = kops.matmul_epilogue(h.reshape(-1, h.shape[-1]),
+                                      w.to(h.dtype), out_dtype=torch.float32)
+        return logits.reshape(*h.shape[:-1], -1)
+    return (h @ w.to(h.dtype)).to(torch.float32)
 
 
 def _positions(b: int, s: int, device: torch.device) -> torch.Tensor:
@@ -345,7 +398,7 @@ def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
             use_kernel: bool = False):
     """Full-sequence forward.  Returns (logits [B,S,V] fp32, aux_loss)."""
     x, aux = forward_hidden(cfg, params, tokens, use_kernel=use_kernel)
-    return _head(cfg, params, x), aux
+    return _head(cfg, params, x, use_kernel), aux
 
 
 def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
@@ -359,7 +412,7 @@ def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
                              cache, use_kernel)
     new_cache: Cache = {"pos": s}
     new_cache.update(c2)
-    logits = _head(cfg, params, x[:, -1:])
+    logits = _head(cfg, params, x[:, -1:], use_kernel)
     return logits[:, 0], new_cache
 
 
@@ -376,5 +429,5 @@ def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
                              pos=pos)
     new_cache: Cache = {"pos": pos + 1}
     new_cache.update(c2)
-    logits = _head(cfg, params, x)
+    logits = _head(cfg, params, x, use_kernel)
     return logits[:, 0], new_cache

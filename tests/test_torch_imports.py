@@ -17,7 +17,8 @@ MODULES = [
     "repro_torch", "repro_torch.configs", "repro_torch.convert",
     "repro_torch.kernels.ops", "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.tsmm", "repro_torch.kernels._build",
-    "repro_torch.kernels.ssd_scan", "repro_torch.models.mamba",
+    "repro_torch.kernels.ssd_scan", "repro_torch.kernels.matmul_epilogue",
+    "repro_torch.configs.zamba2_2p7b", "repro_torch.models.mamba",
     "repro_torch.models.layers", "repro_torch.models.transformer",
     "repro_torch.models.model", "repro_torch.runtime.serve_engine",
     "repro_torch.launch.serve", "repro_torch.examples.linreg_ds",
@@ -51,7 +52,7 @@ def test_sources_name_neither_jax_nor_the_reference_package():
 
 
 def test_csrc_sources_have_a_plain_c_interface():
-    for name in ("flash_attention", "tsmm", "ssd_scan"):
+    for name in ("flash_attention", "tsmm", "ssd_scan", "matmul_epilogue"):
         text = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
         assert 'extern "C"' in text and "torch/extension.h" not in text
         assert "cudaGetLastError" in text
@@ -65,7 +66,8 @@ def _needs_no_gpu():
 def test_build_model_raises_without_cuda():
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
-    cfgs = [get_config("qwen1.5-0.5b").reduced(), get_config("mamba2-1.3b")]
+    cfgs = [get_config("qwen1.5-0.5b").reduced(), get_config("mamba2-1.3b"),
+            get_config("zamba2-2.7b")]
     for cfg in cfgs:
         assert build_model(cfg, device="cpu").device.type == "cpu"
     _needs_no_gpu()
@@ -78,7 +80,7 @@ def test_launcher_and_example_raise_without_cuda():
     from repro_torch.examples import linreg_ds
     from repro_torch.launch import serve
     _needs_no_gpu()
-    for arch in ("qwen1.5-0.5b", "mamba2-1.3b"):
+    for arch in ("qwen1.5-0.5b", "mamba2-1.3b", "zamba2-2.7b"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             serve.main(["--arch", arch, "--reduced"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -101,6 +103,14 @@ def test_launcher_serves_mamba_on_the_cpu_when_asked(capsys):
     assert "req1:" in out and "kernels off" in out
 
 
+def test_launcher_serves_zamba2_on_the_cpu_when_asked(capsys):
+    from repro_torch.launch import serve
+    serve.main(["--arch", "zamba2-2.7b", "--reduced", "--device", "cpu",
+                "--batch", "2", "--prompt-len", "20", "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert "req1:" in out and "kernels off" in out
+
+
 def test_chip_smoke_fails_without_cuda():
     _needs_no_gpu()
     proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
@@ -111,7 +121,8 @@ def test_chip_smoke_fails_without_cuda():
 
 def test_only_ported_archs_are_registered():
     from repro_torch import configs
-    assert configs.PORTED_ARCH_IDS == ["qwen1.5-0.5b", "mamba2-1.3b"]
+    assert configs.PORTED_ARCH_IDS == ["qwen1.5-0.5b", "mamba2-1.3b",
+                                       "zamba2-2.7b"]
     cfg = configs.get_config("qwen1.5-0.5b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff,
             cfg.vocab_size, cfg.qkv_bias) == (24, 1024, 16, 2816, 151936, True)
@@ -119,12 +130,16 @@ def test_only_ported_archs_are_registered():
     assert (cfg.family, cfg.n_layers, cfg.d_model, cfg.vocab_size,
             cfg.ssm.state_size, cfg.ssm.chunk_size) == (
                 "ssm", 48, 2048, 50280, 128, 256)
+    cfg = configs.get_config("zamba2-2.7b")
+    assert (cfg.family, cfg.n_layers, cfg.d_model, cfg.head_dim_,
+            cfg.hybrid.attn_every, cfg.hybrid.n_shared_attn_blocks) == (
+                "hybrid", 54, 2560, 80, 6, 2)
     with pytest.raises(KeyError):
         configs.get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("arch_id", [
-    "whisper-small", "pixtral-12b", "zamba2-2.7b", "phi3.5-moe-42b-a6.6b",
+    "whisper-small", "pixtral-12b", "phi3.5-moe-42b-a6.6b",
     "deepseek-v3-671b", "stablelm-12b", "qwen1.5-4b", "qwen1.5-110b",
     "gemma3-12b"])
 def test_unported_arch_raises_not_implemented(arch_id):
@@ -134,7 +149,8 @@ def test_unported_arch_raises_not_implemented(arch_id):
         configs.get_config(arch_id)
 
 
-@pytest.mark.parametrize("arch_id", ["qwen1.5-0.5b", "mamba2-1.3b"])
+@pytest.mark.parametrize("arch_id", ["qwen1.5-0.5b", "mamba2-1.3b",
+                                     "zamba2-2.7b"])
 def test_config_copy_equals_the_reference(arch_id):
     """The port keeps its own copy of the config schema; it must not drift."""
     from repro.configs import ARCH_IDS, get_config as ref_get
@@ -148,12 +164,19 @@ def test_config_copy_equals_the_reference(arch_id):
 
 
 def test_non_dense_family_raises_in_the_model():
-    """A family still unported (the hybrid SSM + shared attention) raises;
-    the ssm family builds."""
-    from repro_torch.configs import get_config
+    """A family still unported (mixture of experts, sliding-window
+    patterns) raises, and so does a hybrid config without its
+    HybridConfig; the ssm and hybrid families build."""
+    from repro_torch.configs import MoEConfig, get_config
     from repro_torch.models.model import build_model
     ssm = get_config("mamba2-1.3b").reduced()
     assert build_model(ssm, device="cpu").cfg is ssm
-    cfg = dataclasses.replace(ssm, family="hybrid")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model(cfg, device="cpu")
+    hybrid = get_config("zamba2-2.7b").reduced()
+    assert build_model(hybrid, device="cpu").cfg is hybrid
+    dense = get_config("qwen1.5-0.5b").reduced()
+    for cfg in (dataclasses.replace(dense, family="moe",
+                                    moe=MoEConfig(4, 2, 64)),
+                dataclasses.replace(dense, window_pattern=(8, None)),
+                dataclasses.replace(ssm, family="hybrid")):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            build_model(cfg, device="cpu")

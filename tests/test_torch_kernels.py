@@ -5,18 +5,22 @@ plain versions on the GPU by chip_smoke.py.
 
 Tolerances are the reference's own: fp32 rtol 2e-5 (both sides multiply in
 full fp32 and differ in the order of the sums), bf16 3e-2 (8 bits of
-mantissa); the SSD scan 2e-4 in fp32 (sums through exp of cumulative sums)."""
+mantissa); the SSD scan 2e-4 in fp32 (sums through exp of cumulative sums);
+the matmul epilogue 2e-5 / 2e-4 in fp32 and 3e-2 in bf16."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ops as ref_ops
+from repro.kernels import ref as ref_oracles
 from repro.kernels import tsmm as ref_tsmm
 from repro.models.mamba import ssd_decode_step as ref_ssd_decode_step
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
+from repro_torch.kernels.matmul_epilogue import (matmul_epilogue,
+                                                 matmul_epilogue_plain)
 from repro_torch.kernels.tsmm import TILE, _splits, tsmm_upper, tsmm_upper_plain
 from repro_torch.models.layers import attention_dense
 from repro_torch.models.mamba import ssd_decode_step
@@ -239,6 +243,109 @@ def test_ssd_scan_bf16():
                                atol=3e-2)
 
 
+# ------------------------------------------------------ matmul epilogue
+def _mm_inputs(seed, m, n, k, epilogue):
+    rng = np.random.default_rng(seed)
+    x, w = randn(rng, (m, k)), randn(rng, (k, n))
+    bias = randn(rng, (n,)) if epilogue == "bias" else None
+    return x, w, bias
+
+
+def _th(*arrays, dtype=torch.float32):
+    return [None if a is None else torch.from_numpy(a).to(dtype)
+            for a in arrays]
+
+
+def _jx(*arrays, dtype=jnp.float32):
+    return [None if a is None else jnp.asarray(a, dtype) for a in arrays]
+
+
+@pytest.mark.parametrize("epilogue", [None, "bias", "silu", "gelu"])
+@pytest.mark.parametrize("m,n,k,bm,bn,bk", [
+    (512, 256, 256, 256, 128, 128),
+    (256, 512, 384, 128, 256, 128),     # non-square, 3 k-steps
+])
+def test_matmul_epilogue_sweep(epilogue, m, n, k, bm, bn, bk):
+    x, w, bias = _mm_inputs(7, m, n, k, epilogue)
+    expect = np.asarray(ref_ops.matmul_epilogue(
+        *_jx(x, w, bias), epilogue=epilogue, bm=bm, bn=bn, bk=bk))
+    out = ops.matmul_epilogue(*_th(x, w, bias), epilogue=epilogue)
+    assert out.dtype == torch.float32 and out.shape == (m, n)
+    np.testing.assert_allclose(to_np(out), expect, rtol=2e-5, atol=2e-4)
+
+
+def test_matmul_epilogue_layernorm_full_row():
+    x, w, _ = _mm_inputs(8, 256, 256, 256, None)
+    expect = np.asarray(ref_ops.matmul_epilogue(
+        *_jx(x, w), epilogue="layernorm", bm=128, bn=256, bk=128))
+    out = to_np(ops.matmul_epilogue(*_th(x, w), epilogue="layernorm"))
+    np.testing.assert_allclose(out, expect, rtol=2e-5, atol=2e-4)
+    np.testing.assert_allclose(out.mean(axis=-1), 0.0, atol=1e-4)
+
+
+@pytest.mark.parametrize("out_dtype,jdtype,tol", [
+    (torch.bfloat16, jnp.bfloat16, 3e-2), (torch.float32, jnp.float32, 2e-4)])
+def test_matmul_epilogue_cast_sinking(out_dtype, jdtype, tol):
+    """out_dtype narrows during the single write (fp32 accumulate)."""
+    x, w, _ = _mm_inputs(9, 256, 256, 256, None)
+    expect = np.asarray(ref_ops.matmul_epilogue(
+        *_jx(x, w), epilogue="silu", out_dtype=jdtype, bm=128, bn=128,
+        bk=128), np.float32)
+    out = ops.matmul_epilogue(*_th(x, w), epilogue="silu",
+                              out_dtype=out_dtype)
+    assert out.dtype == out_dtype
+    np.testing.assert_allclose(to_np(out), expect, rtol=tol, atol=tol)
+
+
+def test_matmul_epilogue_bf16_inputs_and_fp32_logits():
+    """bf16 operands with gelu, as the reference's case; and the serving
+    head's cast sinking, bf16 operands to fp32 output."""
+    x, w, _ = _mm_inputs(10, 256, 256, 256, None)
+    expect = np.asarray(ref_ops.matmul_epilogue(
+        *_jx(x, w, dtype=jnp.bfloat16), epilogue="gelu", bm=128, bn=128,
+        bk=128), np.float32)
+    out = ops.matmul_epilogue(*_th(x, w, dtype=torch.bfloat16),
+                              epilogue="gelu")
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(to_np(out), expect, rtol=3e-2, atol=3e-2)
+    logits = ops.matmul_epilogue(*_th(x, w, dtype=torch.bfloat16),
+                                 out_dtype=torch.float32)
+    expect = np.asarray(ref_ops.matmul_epilogue(
+        *_jx(x, w, dtype=jnp.bfloat16), out_dtype=jnp.float32, bm=128,
+        bn=128, bk=128))
+    assert logits.dtype == torch.float32
+    np.testing.assert_allclose(to_np(logits), expect, rtol=2e-5, atol=2e-4)
+
+
+@pytest.mark.parametrize("epilogue", [None, "bias", "silu", "gelu",
+                                      "layernorm"])
+def test_matmul_epilogue_ragged_shapes(epilogue):
+    """m, n and k the reference kernel refuses (no exact tiling), against the
+    reference's oracle; w read through a transposed view."""
+    x, w, bias = _mm_inputs(11, 77, 131, 45, epilogue)
+    expect = np.asarray(ref_oracles.matmul_epilogue_ref(
+        *_jx(x, w, bias), epilogue=epilogue))
+    wt = torch.from_numpy(np.ascontiguousarray(w.T)).T     # strides (1, k)
+    for w_arg in (torch.from_numpy(w), wt):
+        out = matmul_epilogue(torch.from_numpy(x), w_arg,
+                              *_th(bias) if bias is not None else [],
+                              epilogue=epilogue)
+        np.testing.assert_allclose(to_np(out), expect, rtol=2e-5, atol=2e-4)
+    assert torch.equal(out, matmul_epilogue_plain(
+        torch.from_numpy(x), wt, *_th(bias) if bias is not None else [],
+        epilogue=epilogue))
+
+
+def test_matmul_epilogue_rejects_what_the_reference_rejects():
+    x, w = torch.zeros(8, 16), torch.zeros(16, 4)
+    for bad in (lambda: matmul_epilogue(x, w, epilogue="relu"),
+                lambda: matmul_epilogue(x, w, torch.zeros(4)),
+                lambda: matmul_epilogue(x, w, epilogue="bias"),
+                lambda: matmul_epilogue(x, w.T, epilogue=None)):
+        with pytest.raises(ValueError):
+            bad()
+
+
 def test_cpu_tensors_launch_nothing():
     ops.reset_launch_counts()
     x = torch.ones(64, 32)
@@ -247,5 +354,6 @@ def test_cpu_tensors_launch_nothing():
     ops.ssd_scan(torch.ones(1, 8, 2, 16), torch.ones(1, 8, 2),
                  torch.zeros(2), torch.ones(1, 8, 1, 16),
                  torch.ones(1, 8, 1, 16), torch.ones(2), chunk=4)
+    ops.matmul_epilogue(torch.ones(4, 8), torch.ones(8, 3), epilogue="silu")
     assert ops.launch_counts() == {"flash_attention": 0, "tsmm_upper": 0,
-                                   "ssd_scan": 0}
+                                   "ssd_scan": 0, "matmul_epilogue": 0}

@@ -410,4 +410,4 @@ def test_full_config_shapes_and_parameter_count():
             s.chunk_size) == (48, 2048, 4096, 64, 64, 128, 256)
     assert 1.2e9 < cfg.n_params < 1.5e9
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        TT.require_ported(dataclasses.replace(cfg, family="hybrid"))
+        TT.require_ported(dataclasses.replace(cfg, family="moe"))

@@ -209,3 +209,27 @@ def test_full_config_parameter_count():
     per_layer = 4 * d * cfg.n_heads * hd + 3 * cfg.n_heads * hd + 3 * d * ff
     assert cfg.n_params == 2 * v * d + cfg.n_layers * per_layer
     assert 0.61e9 < cfg.n_params < 0.63e9
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mamba2-1.3b"])
+def test_ffn_and_head_take_the_epilogue_kernel_route(arch):
+    """use_kernel=True routes the MLP gate and the head through the
+    matmul-epilogue wrapper; on CPU tensors its plain version (an fp32
+    product, the epilogue, one cast) gives what the plain route gives."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as TL
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    params = build_model(cfg, "cpu").init(3)
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(2, 9, cfg.d_model)).astype(np.float32))
+    ops.reset_launch_counts()
+    pairs = [(TT._head(cfg, params, x), TT._head(cfg, params, x,
+                                                 use_kernel=True))]
+    if cfg.gated_mlp:
+        mlp = {k: v[0] for k, v in params["blocks"]["mlp"].items()}
+        pairs.append((TL.ffn(x, mlp, True), TL.ffn(x, mlp, True,
+                                                   use_kernel=True)))
+    for plain, kernel in pairs:
+        assert kernel.dtype == plain.dtype and kernel.shape == plain.shape
+        torch.testing.assert_close(kernel, plain, rtol=1e-6, atol=1e-6)
+    assert ops.launch_counts()["matmul_epilogue"] == 0     # CPU: plain

@@ -4,11 +4,13 @@ decode steps of a ported arch (full width, bf16, random weights) with
 torch.profiler and prints device time by kernel, the device's busy share and
 the host time per step.
 
-    python3 tools/profile_serve.py [--arch qwen1.5-0.5b] [--layers N]
+    python3 tools/profile_serve.py [--arch qwen1.5-0.5b|mamba2-1.3b|zamba2-2.7b]
+                                   [--layers N]
                                    [--batch 8] [--prompt 2048] [--steps 8]
                                    [--max-len 4096]
 
-``--layers`` defaults to the arch's full depth.
+``--layers`` defaults to the arch's full depth.  Prefill and decode take the
+kernel path, as ``ServeEngine`` does on the GPU.
 """
 from __future__ import annotations
 
@@ -82,7 +84,7 @@ def main() -> None:
         for _ in range(args.steps):
             tok = torch.argmax(state["logits"], dim=-1)
             state["logits"], state["cache"] = model.decode_step(
-                params, tok, state["cache"])
+                params, tok, state["cache"], use_kernel=True)
             tok.cpu()                    # the engine reads each token back
 
     prefill()                            # warm up: build and load the kernel
