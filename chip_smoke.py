@@ -7,13 +7,16 @@ for the roofline bounds).
 Phases, each printing one JSON line: ``device`` (name and power limit),
 ``build`` (compiles ``src/repro_torch/kernels/csrc/*.cu`` with nvcc),
 ``kernels`` (every hand-written kernel against its plain PyTorch version on
-the card, and faulty controls of the epilogue kernel that the same check
-must catch), ``serve`` three times (qwen1.5-0.5b, mamba2-1.3b and
-zamba2-2.7b, at full width and depth in bf16 through ``ServeEngine``, static
-and continuous batching, with the launch count of every kernel held against
-the count the arch's path must give, and the bf16 prefill logits with the
-kernels against without them and against the controls), ``linreg`` (the LinReg DS example at
-262144 x 1024 through the tsmm kernel).
+the card, faulty controls of the epilogue kernel that the same check must
+catch, and the SSD scan's rounding plan against one bf16 rounding of its
+state path), with ``--ptxas`` a ``ptxas`` line (registers, shared memory
+and spills of every kernel), ``serve`` three times (qwen1.5-0.5b,
+mamba2-1.3b and zamba2-2.7b, at full width and depth in bf16 through
+``ServeEngine``, static and continuous batching, with the launch count of
+every kernel held against the count the arch's path must give, and the bf16
+prefill logits with the kernels against without them and against the
+controls), ``linreg`` (the LinReg DS example at 262144 x 1024 through the
+tsmm kernel).
 Then one ``{"kernels": [...]}`` line with each kernel's time at its main-path
 shape beside its roofline bound, the plain version's time and a PyTorch
 library call's time (null where no single call computes the function), the
@@ -28,6 +31,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -42,11 +46,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config                       # noqa: E402
 from repro_torch.examples import linreg_ds                       # noqa: E402
 from repro_torch.kernels import _build, ops                      # noqa: E402
-from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
-                                                 flash_attention_plain)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_plain, flash_body)
 from repro_torch.kernels.matmul_epilogue import (  # noqa: E402
     LN_MAX_N, matmul_epilogue, matmul_epilogue_plain)
-from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    ssd_scan, ssd_scan_plain, ssd_scan_split_plain)
 from repro_torch.kernels.tsmm import tsmm_upper, tsmm_upper_plain  # noqa: E402
 from repro_torch.models.model import build_model                 # noqa: E402
 from repro_torch.runtime.serve_engine import (EngineConfig, Request,  # noqa: E402
@@ -75,6 +80,8 @@ TSMM_CASES = [(512, 256), (1024, 512), (768, 384), (2048, 128)]
 SSD_CASES = [(2, 128, 4, 16, 32, 32), (1, 256, 2, 64, 128, 64),
              (2, 64, 8, 32, 16, 16)]
 SSD_MAIN = dict(b=8, s=2048, h=64, p=64, g=1, n=128, chunk=256)
+# zamba2-2.7b's Mamba2 layers: 80 heads of 64, state 64
+SSD_ZAMBA = dict(b=8, s=2048, h=80, p=64, g=1, n=64, chunk=256)
 # (m, n, k): the reference's kernel test shapes
 MM_CASES = [(512, 256, 256), (256, 512, 384)]
 # zamba2-2.7b's path: the MLP gate silu(x @ w_gate) of a prefill round of
@@ -91,6 +98,12 @@ MM_QWEN_HEAD = dict(m=8, n=151936, k=1024, epilogue=None,
                     dtype=torch.bfloat16, out_dtype=torch.float32)
 MM_MAMBA_HEAD = dict(m=8, n=50280, k=2048, epilogue=None,
                      dtype=torch.bfloat16, out_dtype=torch.float32)
+# the MLP gates of a decode step, 8 requests a step: most of the epilogue
+# kernel's launches on the serve paths
+MM_DECODE_GATE = dict(m=8, n=10240, k=2560, epilogue="silu",
+                      dtype=torch.bfloat16, out_dtype=torch.bfloat16)
+MM_QWEN_DECODE_GATE = dict(m=8, n=2816, k=1024, epilogue="silu",
+                           dtype=torch.bfloat16, out_dtype=torch.bfloat16)
 
 # Tolerances.  fp32: the kernels multiply in full fp32 and differ from the
 # plain version only in the order of the sums (the reference's own kernel
@@ -118,6 +131,17 @@ def mm_tol(out_dtype: torch.dtype, k: int) -> dict:
     if out_dtype == torch.float32:
         return dict(rtol=2e-5, atol=atol)
     return dict(rtol=1e-2, atol=1e-2 + atol)
+
+
+# The bf16 body's state against ``ssd_scan_split_plain`` at the served
+# shapes: the largest error over the state's largest element.  Both make
+# the same products with the same roundings and differ in the order of fp32
+# sums and in the exponentials.  On an H100 the kernel read 2.3e-5
+# (mamba2's shape) and 3.1e-5 (zamba2's), the state's operand rounded once
+# to bf16 8.5e-4 and 1.7e-3; the limit is the geometric mean of the largest
+# of the first and the smallest of the second, 1.6e-4, rounded down to one
+# digit.
+SSD_SPLIT_STATE_LIMIT = 1e-4
 
 
 def ssd_tol(dtype: torch.dtype, log_a: torch.Tensor, chunk: int,
@@ -247,7 +271,8 @@ def check_flash(gen) -> list:
         ref = flash_attention_plain(q, k, v, causal=causal, window=window)
         res = compare(out, ref, **FLASH_TOL[dtype])
         res.update(case=tag, shape=[b, hq, hkv, s, d], causal=causal,
-                   window=window, dtype=str(dtype).split(".")[-1])
+                   window=window, dtype=str(dtype).split(".")[-1],
+                   body=flash_body(dtype, d))
         cases.append(res)
 
     for c in FLASH_CASES:
@@ -268,14 +293,16 @@ def check_flash(gen) -> list:
     run("zamba2 main path, D = 80", **FLASH_D80, dtype=torch.bfloat16,
         views=True)
 
-    def run_odd(tag, q, k, v, causal, dtype):
-        out = flash_attention(q, k, v, causal=causal)
+    def run_odd(tag, q, k, v, causal, dtype, window=None):
+        out = flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
-        res = compare(out, flash_attention_plain(q, k, v, causal=causal),
+        res = compare(out, flash_attention_plain(q, k, v, causal=causal,
+                                                 window=window),
                       **FLASH_TOL[dtype])
         res.update(case=tag, shape=[list(q.shape), list(k.shape)],
-                   causal=causal, window=None,
-                   dtype=str(dtype).split(".")[-1])
+                   causal=causal, window=window,
+                   dtype=str(dtype).split(".")[-1],
+                   body=flash_body(dtype, q.shape[-1]))
         cases.append(res)
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -287,6 +314,14 @@ def check_flash(gen) -> list:
         q, _, _ = flash_inputs(1, 2, 2, 200, 32, dtype, gen)
         _, k, v = flash_inputs(1, 2, 2, 70, 32, dtype, gen)
         run_odd("Sq > Skv, causal", q, k, v, True, dtype)
+        # query tiles wholly past Skv + window see no key: zeros
+        for d in (64, 80):
+            q, _, _ = flash_inputs(1, 2, 2, 512, d, dtype, gen)
+            _, k, v = flash_inputs(1, 2, 2, 64, d, dtype, gen)
+            run_odd(f"Sq > Skv, causal, window, D = {d}", q, k, v, True,
+                    dtype, window=64)
+            run_odd(f"Sq > Skv, window, D = {d}", q, k, v, False, dtype,
+                    window=32)
         # rows off the 16-byte grid: the wrapper copies before it launches
         wide = [t[..., 4:68] for t in flash_inputs(1, 2, 2, 130, 72, dtype,
                                                    gen)]
@@ -473,8 +508,9 @@ def check_mm(gen) -> list:
         torch.bfloat16)
     run("cast sinking bf16 -> fp32", 256, 256, 256, torch.bfloat16, "gelu",
         torch.float32)
-    run("decode-step gate, 8 rows", 8, 10240, 2560, torch.bfloat16, "silu",
-        model_like=True)
+    g = MM_DECODE_GATE
+    run("decode-step gate, 8 rows", g["m"], g["n"], g["k"], g["dtype"],
+        g["epilogue"], g["out_dtype"], model_like=True)
     h = MM_MAMBA_HEAD
     run("mamba2 head, vocab 50280", h["m"], h["n"], h["k"], h["dtype"],
         h["epilogue"], h["out_dtype"], model_like=True)
@@ -486,8 +522,9 @@ def check_mm(gen) -> list:
     g, h = MM_QWEN_GATE, MM_QWEN_HEAD
     run("qwen gate main path", g["m"], g["n"], g["k"], g["dtype"],
         g["epilogue"], g["out_dtype"], model_like=True)
-    run("qwen decode-step gate, 8 rows", 8, g["n"], g["k"], g["dtype"],
-        g["epilogue"], g["out_dtype"], model_like=True)
+    d = MM_QWEN_DECODE_GATE
+    run("qwen decode-step gate, 8 rows", d["m"], d["n"], d["k"], d["dtype"],
+        d["epilogue"], d["out_dtype"], model_like=True)
     run("qwen head main path, vocab 151936", h["m"], h["n"], h["k"],
         h["dtype"], h["epilogue"], h["out_dtype"], model_like=True)
     # unsupported calls raise, they do not fall back
@@ -536,15 +573,16 @@ def ssd_inputs(b, s, h, p, g, n, dtype, gen, model_like=False, init=False,
 
 
 def ssd_bound_ms(b, s, h, p, g, n, chunk, dtype, init=False) -> dict:
-    """flop: the lower-triangle pairs of each chunk (C B^T and P Xbar), C S^T
-    and the state update; bytes: xbar, y, B and C by group, log_a, the
-    states; each read or written once."""
+    """flop: the lower-triangle pairs of each chunk, C B^T once per group and
+    P Xbar once per head, then C S^T and the state update per head; bytes:
+    xbar, y, B and C by group, log_a, the states; each read or written
+    once."""
     esize = torch.empty((), dtype=dtype).element_size()
     flops = 0.0
     for r0 in range(0, s, chunk):
         ln = min(chunk, s - r0)
-        flops += ln * (ln + 1) * (n + p) + 4 * ln * p * n
-    flops *= b * h
+        flops += b * g * ln * (ln + 1) * n \
+            + b * h * (ln * (ln + 1) * p + 4 * ln * p * n)
     nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * esize \
         + 4 * b * s * h + 4 * b * h * p * n * (2 if init else 1)
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
@@ -580,9 +618,9 @@ def check_ssd(gen) -> list:
         run("initial state", 2, 300, 4, 64, 1, 128, 128, dtype, init=True)
         run("initial state, decays of the serve path", 1, 700, 4, 64, 1, 128,
             256, dtype, init=True, model_like=True)
-    m = SSD_MAIN
-    run("main path", m["b"], m["s"], m["h"], m["p"], m["g"], m["n"],
-        m["chunk"], torch.bfloat16, model_like=True, views=True)
+    for tag, m in (("main path", SSD_MAIN), ("zamba2 main path", SSD_ZAMBA)):
+        run(tag, m["b"], m["s"], m["h"], m["p"], m["g"], m["n"], m["chunk"],
+            torch.bfloat16, model_like=True, views=True)
     # unsupported calls raise, they do not fall back
     xbar, log_a, bm, cm, _ = ssd_inputs(1, 64, 2, 48, 1, 16, torch.float32,
                                         gen)
@@ -601,6 +639,88 @@ def check_ssd(gen) -> list:
     return cases
 
 
+def check_ssd_control(gen) -> list:
+    """The state path's rounding plan against its control:
+    ``ssd_scan_split_plain`` as the kernel splits the decayed Xbar (hi +
+    lo), then with it rounded once to bf16, each held to the state's
+    tolerance against the plain version.  The split must pass everywhere; at
+    a reference case, where the state's tolerance is the fp32 2e-4, the
+    single rounding must be caught.  At the served shapes, with the serve
+    path's decays, ``ssd_tol`` is too loose to catch it, so there the
+    kernel's state is also held against the split plain version, which makes
+    the same products with the same roundings: its largest error, over the
+    state's largest element, must stay within ``SSD_SPLIT_STATE_LIMIT`` and
+    the rounded-once control's must exceed it."""
+    cases, faults = [], []
+    for tag, m, served in (
+            ("main path", SSD_MAIN, True),
+            ("zamba2 main path", SSD_ZAMBA, True),
+            ("reference case", dict(b=1, s=256, h=2, p=64, g=1, n=128,
+                                    chunk=64), False)):
+        xbar, log_a, bm, cm, _ = ssd_inputs(m["b"], m["s"], m["h"], m["p"],
+                                            m["g"], m["n"], torch.bfloat16,
+                                            gen, model_like=served,
+                                            views=served)
+        y_ref, st_ref = ssd_scan_plain(xbar, log_a, bm, cm, chunk=m["chunk"])
+        tol = ssd_tol(torch.bfloat16, log_a, m["chunk"], y_ref,
+                      st_ref)["state"]
+        ref = st_ref.to(torch.float64)
+        del y_ref, st_ref
+        out = {"case": f"state operand: hi + lo against one bf16 rounding, "
+                       f"{tag}", "shape": [m[k] for k in "bshpgn"], **tol}
+        states = {}
+        for name, split in (("split", True), ("rounded_once", False)):
+            _, st = ssd_scan_split_plain(xbar, log_a, bm, cm,
+                                         chunk=m["chunk"], split_state=split)
+            err = (st.to(torch.float64) - ref).abs()
+            beyond = err > tol["atol"] + tol["rtol"] * ref.abs()
+            out[name] = {"caught": bool(beyond.any()),
+                         "n_beyond": int(beyond.sum()),
+                         "max_abs_err": float(err.max())}
+            states[name] = st.to(torch.float64)
+            del st, err, beyond
+        if out["split"]["caught"]:
+            faults.append(f"the split state path fails its tolerance, {tag}")
+        if not served and not out["rounded_once"]["caught"]:
+            faults.append("one bf16 rounding of the state path passes the "
+                          "fp32 tolerance")
+        if served:
+            _, st = ssd_scan(xbar, log_a, bm, cm, chunk=m["chunk"])
+            torch.cuda.synchronize()
+            split = states["split"]
+            top = float(split.abs().max())
+            vs = {"limit": SSD_SPLIT_STATE_LIMIT, "split_max_abs": top}
+            for name, s_out in (("kernel", st.to(torch.float64)),
+                                ("rounded_once", states["rounded_once"])):
+                vs[name] = float((s_out - split).abs().max()) / top
+            out["vs_split"] = vs
+            if not vs["kernel"] <= SSD_SPLIT_STATE_LIMIT:
+                faults.append(f"the kernel's state is {vs['kernel']} from "
+                              f"the split plain version, {tag}")
+            if not vs["rounded_once"] > SSD_SPLIT_STATE_LIMIT:
+                faults.append(f"one bf16 rounding of the state path passes "
+                              f"the split check, {tag}")
+            del st, split
+        del states, ref
+        cases.append(out)
+    if faults:
+        raise AssertionError(f"{'; '.join(faults)}: {cases}")
+    return cases
+
+
+def device_kernel_ms(fn) -> dict:
+    """Device milliseconds of each CUDA kernel one call of ``fn`` runs, by
+    torch.profiler (after a warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.device_time_total / 1e3
+            for e in prof.key_averages() if e.device_time_total > 0}
+
+
 def time_kernels(gen) -> dict:
     """Each kernel at its main-path shape: kernel, plain version, and one
     PyTorch library call (a yardstick; the port never calls it)."""
@@ -615,7 +735,9 @@ def time_kernels(gen) -> dict:
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
             20, 3),
         "shape": "q,k,v [8,16,2048,64] bf16 causal, transposed views",
+        "body": flash_body(torch.bfloat16, 64),
     }
+    flash["ratio_to_library"] = flash["ms"] / flash["library_ms"]
     q32, k32, v32 = q.float(), k.float(), v.float()
     flash["fp32_body_ms"] = time_ms(
         lambda: flash_attention(q32, k32, v32, causal=True), 3)
@@ -629,24 +751,28 @@ def time_kernels(gen) -> dict:
         "shape": f"x [{LINREG_M},{LINREG_N}] fp32",
     }
     del x
-    m = SSD_MAIN
-    xbar, log_a, bm, cm, _ = ssd_inputs(m["b"], m["s"], m["h"], m["p"],
-                                        m["g"], m["n"], torch.bfloat16, gen,
-                                        model_like=True, views=True)
-    ssd = {
-        "ms": time_ms(lambda: ssd_scan(xbar, log_a, bm, cm,
-                                       chunk=m["chunk"]), 10, 2),
-        "plain_ms": time_ms(lambda: ssd_scan_plain(xbar, log_a, bm, cm,
-                                                   chunk=m["chunk"]), 2),
-        "library_ms": None,
-        "library_note": "no single PyTorch call computes an SSD scan",
-        "shape": "xbar [8,2048,64,64] bf16, B/C [8,2048,1,128] views, "
-                 "chunk 256",
-    }
-    x32, b32, c32 = xbar.float(), bm.float(), cm.float()
-    ssd["fp32_body_ms"] = time_ms(
-        lambda: ssd_scan(x32, log_a, b32, c32, chunk=m["chunk"]), 3)
-    del xbar, log_a, bm, cm, x32, b32, c32
+    ssd = {}
+    for name, m in (("mamba2", SSD_MAIN), ("zamba2", SSD_ZAMBA)):
+        xbar, log_a, bm, cm, _ = ssd_inputs(m["b"], m["s"], m["h"], m["p"],
+                                            m["g"], m["n"], torch.bfloat16,
+                                            gen, model_like=True, views=True)
+        ssd[name] = {
+            "ms": time_ms(lambda: ssd_scan(xbar, log_a, bm, cm,
+                                           chunk=m["chunk"]), 10, 2),
+            "plain_ms": time_ms(lambda: ssd_scan_plain(
+                xbar, log_a, bm, cm, chunk=m["chunk"]), 2),
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes an SSD scan",
+            "shape": f"xbar [8,2048,{m['h']},64] bf16, B/C "
+                     f"[8,2048,1,{m['n']}] views, chunk 256",
+            "cuda_kernels_ms": device_kernel_ms(
+                lambda: ssd_scan(xbar, log_a, bm, cm, chunk=m["chunk"])),
+            **ssd_bound_ms(**m, dtype=torch.bfloat16),
+        }
+        x32, b32, c32 = xbar.float(), bm.float(), cm.float()
+        ssd[name]["fp32_body_ms"] = time_ms(
+            lambda: ssd_scan(x32, log_a, b32, c32, chunk=m["chunk"]), 3)
+        del xbar, log_a, bm, cm, x32, b32, c32
     m = FLASH_D80
     q, k, v = flash_inputs(m["b"], m["hq"], m["hkv"], m["s"], m["d"],
                            torch.bfloat16, gen, views=True)
@@ -659,7 +785,10 @@ def time_kernels(gen) -> dict:
             20, 3),
         "shape": "q,k,v [8,32,2048,80] bf16 causal, transposed views "
                  "(zamba2-2.7b)",
+        "body": flash_body(torch.bfloat16, 80),
     }
+    flash["d80"]["ratio_to_library"] = (flash["d80"]["ms"]
+                                        / flash["d80"]["library_ms"])
     del q, k, v
     mm = {}
     gate_lib = (lambda x, w: F.silu(x @ w),
@@ -669,7 +798,9 @@ def time_kernels(gen) -> dict:
     for name, c, (lib_fn, lib_note) in (
             ("gate", MM_GATE, gate_lib), ("head", MM_HEAD, head_lib),
             ("qwen_gate", MM_QWEN_GATE, gate_lib),
-            ("qwen_head", MM_QWEN_HEAD, head_lib)):
+            ("qwen_head", MM_QWEN_HEAD, head_lib),
+            ("decode_gate", MM_DECODE_GATE, gate_lib),
+            ("qwen_decode_gate", MM_QWEN_DECODE_GATE, gate_lib)):
         x, w, _ = mm_inputs(c["m"], c["n"], c["k"], c["dtype"], gen,
                             model_like=True)
         kw = dict(epilogue=c["epilogue"], out_dtype=c["out_dtype"])
@@ -914,6 +1045,36 @@ def phase_linreg() -> dict:
             "tsmm_launches": launches}
 
 
+def ptxas_summary(logs: dict) -> list:
+    """Registers, static shared memory and spills of each kernel, from
+    nvcc's ``-Xptxas -v`` output of each source (dynamic shared memory is
+    set at launch and not shown there)."""
+    rows = []
+    for source, log in logs.items():
+        for block in log.split("Compiling entry function")[1:]:
+            mangled = block.split("'")[1]
+            m = re.search(r"_cu_[0-9a-f]{8}(\d+)(\w+)", mangled)
+            name = m.group(2)[:int(m.group(1))] if m else mangled
+            args = re.findall(r"Li(\d+)E", m.group(2)) if m else []
+            used = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?",
+                             block)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", block)
+            rows.append({"source": source,
+                         "kernel": name + (f"<{','.join(args)}>"
+                                           if args else ""),
+                         "registers": int(used.group(1)) if used else None,
+                         "static_smem_bytes": int(used.group(2) or 0)
+                         if used else None,
+                         "spill_bytes": int(spill.group(1))
+                         + int(spill.group(2)) if spill else None})
+        # setmaxnreg ignored (C7508), wgmma serialized (C7512, C7514, ...)
+        rows.extend({"source": source, "warning": line.strip()}
+                    for line in log.splitlines()
+                    if "setmaxnreg" in line or re.search(r"C75\d\d", line))
+    return rows
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -935,6 +1096,8 @@ def main() -> None:
 
     emit({"phase": "build", "seconds": _build.build(verbose=args.ptxas),
           "dir": str(_build.build_dir()), "sources": list(_build.SOURCES)})
+    if args.ptxas:
+        emit({"phase": "ptxas", "kernels": ptxas_summary(_build.logs)})
 
     if args.stop_after == "build":
         return
@@ -942,9 +1105,11 @@ def main() -> None:
     flash_cases, tsmm_cases = check_flash(gen), check_tsmm(gen)
     ssd_cases, mm_cases = check_ssd(gen), check_mm(gen)
     control_cases = check_controls(gen)
+    ssd_control = check_ssd_control(gen)
     times = time_kernels(gen)
     emit({"phase": "kernels", "flash_attention": flash_cases,
           "tsmm_upper": tsmm_cases, "ssd_scan": ssd_cases,
+          "ssd_scan_control": ssd_control,
           "matmul_epilogue": mm_cases,
           "matmul_epilogue_controls": control_cases, "times": times})
     if args.stop_after == "kernels":
@@ -965,7 +1130,7 @@ def main() -> None:
         return sum(run["main_path_launches"][kernel]
                    for run in serve.values())
 
-    fm, sm, f80 = FLASH_MAIN, SSD_MAIN, FLASH_D80
+    fm, f80 = FLASH_MAIN, FLASH_D80
     times["flash_attention"]["d80"].update(
         max_abs_err=err_of(flash_cases, "zamba2 main path, D = 80"),
         **flash_bound_ms(f80["b"], f80["hq"], f80["hkv"], f80["s"], f80["d"],
@@ -974,8 +1139,13 @@ def main() -> None:
     for name, tag in (("gate", "zamba2 gate main path"),
                       ("head", "zamba2 head main path"),
                       ("qwen_gate", "qwen gate main path"),
-                      ("qwen_head", "qwen head main path, vocab 151936")):
+                      ("qwen_head", "qwen head main path, vocab 151936"),
+                      ("decode_gate", "decode-step gate, 8 rows"),
+                      ("qwen_decode_gate", "qwen decode-step gate, 8 rows")):
         mm_times[name]["max_abs_err"] = err_of(mm_cases, tag)
+    ssd_times = times["ssd_scan"]
+    ssd_times["zamba2"]["max_abs_err"] = err_of(ssd_cases,
+                                                "zamba2 main path")
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -997,15 +1167,15 @@ def main() -> None:
          "replaces": "src/repro/kernels/ssd_scan.py:102",
          "launches": path_launches("ssd_scan"),
          "max_abs_err": err_of(ssd_cases, "main path"),
-         **ssd_bound_ms(sm["b"], sm["s"], sm["h"], sm["p"], sm["g"], sm["n"],
-                        sm["chunk"], torch.bfloat16),
-         **times["ssd_scan"]},
+         **ssd_times["mamba2"], "zamba2": ssd_times["zamba2"]},
         {"name": "matmul_epilogue", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul_epilogue.cu",
          "replaces": "src/repro/kernels/matmul_epilogue.py:116",
          "launches": path_launches("matmul_epilogue"), **mm_times["gate"],
          "head": mm_times["head"], "qwen_gate": mm_times["qwen_gate"],
-         "qwen_head": mm_times["qwen_head"]},
+         "qwen_head": mm_times["qwen_head"],
+         "decode_gate": mm_times["decode_gate"],
+         "qwen_decode_gate": mm_times["qwen_decode_gate"]},
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

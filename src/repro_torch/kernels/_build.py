@@ -27,6 +27,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# nvcc's output of each source built with ``verbose``: ptxas' registers,
+# shared memory and spills of every kernel
+logs: Dict[str, str] = {}
 
 
 def build_dir() -> Path:
@@ -57,7 +60,8 @@ def _target(name: str) -> Path:
 
 def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> float:
     """Compile the named sources that have no library yet, all at once (one
-    ``nvcc`` process each).  Returns the seconds it took."""
+    ``nvcc`` process each).  Returns the seconds it took.  With ``verbose``
+    nvcc's output goes to :data:`logs` and to standard output."""
     t0 = time.perf_counter()
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
@@ -79,6 +83,7 @@ def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> float:
             failures.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
         if verbose and log:
+            logs[name] = log
             print(log)
         os.replace(tmp, target)
     if failures:

@@ -8,26 +8,22 @@
 //   fp32 running max / normaliser / accumulator, NEG_INF = -1e30,
 //   p = exp(s - m) * mask, l clamped at 1e-30, output in the input type.
 //
-// Design for this card: one thread block per (b, h, q-tile of 64 rows).  The
-// KV loop runs inside the block over exactly the tiles the band can touch,
-// where the TPU kernel used a sequential fourth grid axis and skipped blocks.
-// KV tiles hold 64 keys; a block owns 64 query rows (128 in the bf16 body for
-// D <= 64).  D is 32, 64, 80 (zamba2's heads: five 16-deep k-steps, the last
-// one through `ldmatrix.x2`) or 128.  Q, K, V tiles sit in shared memory with padded rows, so that
-// fragment loads hit distinct banks; the running state lives in registers.
-// The kernel reads q/k/v through (batch, head, row) strides with a unit
-// stride along D, and masks the ragged edge itself: Sq and Skv are arbitrary.
+// Design for this card: one thread block per (b, h, q-tile).  The KV loop
+// runs inside the block over exactly the tiles the band can touch, where the
+// TPU kernel used a sequential fourth grid axis and skipped blocks, and the
+// longest q-tiles start first.  The kernel reads q/k/v through (batch, head,
+// row) strides with a unit stride along D, and masks the ragged edge
+// itself: Sq and Skv are arbitrary.
 //
-// Two bodies:
-//   * bf16: tensor cores through `mma.sync.m16n8k16`, 4 warps with 16 or 32
-//     query rows each (every K/V fragment read from shared memory then feeds
-//     two instructions: with 16 rows a warp the shared-memory reads, not the
-//     tensor cores, set the pace).  K/V tiles are double-buffered with
-//     `cp.async`.  The S accumulator fragments are re-packed in registers as
-//     the A operand of P.V; K and V fragments come from `ldmatrix`.  A warp
-//     skips a tile that lies outside the band of its own rows and drops the
-//     mask arithmetic on a tile that lies wholly inside it: at D = 64 the
-//     softmax's ALU work, not the products, is most of a tile's instructions.
+// Three bodies, chosen by the wrapper from the type and D:
+//   * bf16, D = 64 and 80 (every served shape): wgmma + TMA, warp-specialised,
+//     128 query rows and KV tiles of 128 keys; see its section below.
+//   * bf16, D = 32 and 128: `mma.sync.m16n8k16`, 4 warps with 16 or 32
+//     query rows each and KV tiles of 64 keys, double-buffered with
+//     `cp.async` into padded shared-memory rows; the S fragments are re-packed
+//     in registers as the A operand of P.V, K and V fragments come from
+//     `ldmatrix`.  A warp skips a tile outside the band of its own rows and
+//     drops the mask arithmetic on a tile wholly inside it.
 //   * fp32: fp32 FMA on shared-memory tiles, 16x16 threads with a 4x4
 //     micro-tile of S each.  Full fp32 products, no TF32: the reference holds
 //     fp32 to rtol 2e-5.
@@ -38,6 +34,7 @@
 //
 // Plain C interface; the Python wrapper passes data_ptr()s and the stream.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,18 +60,27 @@ struct Params {
   int window;  // <= 0: none
 };
 
-// Tile range [kt_lo, kt_hi) of KV tiles that the band of q rows [q_lo, q_hi]
-// can touch: k_lo <= q_hi (causal), k_hi > q_lo - window (window).
+// Tile range [kt_lo, kt_hi) of KV tiles of `bk` keys that the band of q rows
+// [q_lo, q_hi] can touch: k_lo <= q_hi (causal), k_hi > q_lo - window
+// (window).  Empty (kt_lo == kt_hi) when the window starts past the last
+// key, as it does for rows beyond Skv + window when Sq > Skv.
 __device__ __forceinline__ void band_tiles(const Params& p, int q_lo, int q_hi,
-                                           int& kt_lo, int& kt_hi) {
-  const int nkt = (p.Skv + BK - 1) / BK;
+                                           int bk, int& kt_lo, int& kt_hi) {
+  const int nkt = (p.Skv + bk - 1) / bk;
   kt_lo = 0;
   kt_hi = nkt;
-  if (p.causal) kt_hi = min(nkt, q_hi / BK + 1);
+  if (p.causal) kt_hi = min(nkt, q_hi / bk + 1);
   if (p.window > 0) {
     const int first = q_lo - p.window + 1;  // lowest key any row may see
-    if (first > 0) kt_lo = first / BK;
+    if (first > 0) kt_lo = min(first / bk, kt_hi);
   }
+}
+
+// 2^x on the special-function unit; subnormal results flush to zero.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ bool in_band(const Params& p, int q_pos, int k_pos) {
@@ -109,14 +115,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(smem_ptr)));
-}
-
-// Two 8x8 bf16 matrices, from the addresses of lanes 0-15.
-__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2],
-                                            const void* smem_ptr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(smem_ptr)));
 }
 
 // The same with each matrix transposed on the way.
@@ -175,7 +173,14 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NT][4],
                                              float (&alpha)[2],
                                              const Params& p, float scale2,
                                              int q_pos0, int k_pos0) {
-  float mx[2] = {NEG_INF, NEG_INF};
+  // four independent max and sum chains a row: two warps a scheduler leave
+  // little else to hide their latency
+  constexpr int C = NT >= 2 ? 4 : 2;
+  float mx[2][C];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < C; ++c) mx[r][c] = NEG_INF;
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
@@ -185,35 +190,48 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NT][4],
                        ? s[nt][e] * scale2
                        : NEG_INF;
       }
-      mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+      float& m = mx[e >> 1][(nt * 2 + (e & 1)) % C];
+      m = fmaxf(m, s[nt][e]);
     }
   }
   float m_new[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    float m = mx[r][0];
+#pragma unroll
+    for (int c = 1; c < C; ++c) m = fmaxf(m, mx[r][c]);
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
     // unmasked scores are still raw: the max commutes with scale2 > 0
-    m_new[r] = fmaxf(m_run[r], MASKED ? mx[r] : mx[r] * scale2);
-    alpha[r] = exp2f(m_run[r] - m_new[r]);
+    m_new[r] = fmaxf(m_run[r], MASKED ? m : m * scale2);
+    alpha[r] = ex2(m_run[r] - m_new[r]);
     m_run[r] = m_new[r];
   }
-  float psum[2] = {0.f, 0.f};
+  float psum[2][C];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < C; ++c) psum[r][c] = 0.f;
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float pv;
       if (MASKED)  // a masked score is exactly NEG_INF: p = exp(s - m) * mask
-        pv = s[nt][e] == NEG_INF ? 0.f : exp2f(s[nt][e] - m_new[e >> 1]);
+        pv = s[nt][e] == NEG_INF ? 0.f : ex2(s[nt][e] - m_new[e >> 1]);
       else
-        pv = exp2f(fmaf(s[nt][e], scale2, -m_new[e >> 1]));
+        pv = ex2(fmaf(s[nt][e], scale2, -m_new[e >> 1]));
       s[nt][e] = pv;
-      psum[e >> 1] += pv;
+      psum[e >> 1][(nt * 2 + (e & 1)) % C] += pv;
     }
   }
 #pragma unroll
-  for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + psum[r];
+  for (int r = 0; r < 2; ++r) {
+    float sum = psum[r][0];
+#pragma unroll
+    for (int c = 1; c < C; ++c) sum += psum[r][c];
+    l_run[r] = l_run[r] * alpha[r] + sum;
+  }
 }
 
 // 4 warps; warp w owns the MT 16-row tiles [w * 16 * MT, (w + 1) * 16 * MT) of
@@ -222,6 +240,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NT][4],
 // with cp.async: tile kt + 1 is in flight while tile kt is multiplied.
 template <int D, int MT>
 __global__ void __launch_bounds__(128) flash_fwd_bf16_mma(const Params p) {
+  static_assert(D % 32 == 0, "k-steps are taken two at a time");
   constexpr int BQM = 64 * MT;
   constexpr int LD = D + 8;   // padded row: fragment loads are conflict-free
   constexpr int KS = D / 16;  // k-steps of Q.K^T
@@ -251,7 +270,7 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16_mma(const Params p) {
   const int q_lo = qt * BQM;
   const int q_hi = min(q_lo + BQM, p.Sq) - 1;
   int kt_lo, kt_hi;
-  band_tiles(p, q_lo, q_hi, kt_lo, kt_hi);
+  band_tiles(p, q_lo, q_hi, BK, kt_lo, kt_hi);
   // this warp's rows, for skipping tiles that lie outside its own band
   const int wq_lo = q_lo + warp * 16 * MT;
   const int wq_hi = wq_lo + 16 * MT - 1;
@@ -336,14 +355,6 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16_mma(const Params p) {
             mma_16816(sacc[mt][nt], qf[mt][ks + 1], kf[2], kf[3]);
           }
         }
-        if (KS % 2) {  // D = 80: five k-steps, the last one alone
-          uint32_t kf[2];
-          ldmatrix_x2(kf, tK + (nt * 8 + (lane & 7)) * LD + (KS - 1) * 16 +
-                              ((lane >> 3) & 1) * 8);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-            mma_16816(sacc[mt][nt], qf[mt][KS - 1], kf[0], kf[1]);
-        }
       }
 
       // Tiles wholly inside the band of this warp's rows skip the mask.
@@ -423,6 +434,506 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16_mma(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16 body for D = 64 and 80: wgmma + TMA, warp-specialised
+// ---------------------------------------------------------------------------
+//
+// 384 threads: warpgroups 0 and 1 consume, 64 query rows each (128 a
+// block); warpgroup 2 produces, one thread issuing TMA loads of K and V
+// tiles of 128 keys into a ring of four stages, with an mbarrier for "full"
+// (K and V apart, so Q.K^T starts before V has landed) and one for "empty"
+// per stage.  The producer gives its registers to the consumers
+// (`setmaxnreg`).  S = Q.K^T is one wgmma.m64n128k16 per 16-deep step,
+// both operands in shared memory; P (the fp32 S accumulator rounded to
+// bf16) stays in registers, where it has the layout of wgmma's register A
+// operand, and O += P.V takes V as an MN-major B operand (the transpose bit).
+// Rows of 128 bytes (D = 64) are loaded with a 128-byte swizzle.  D = 80 is
+// split along D: columns 0-63 with the 128-byte swizzle, columns 64-79 (32
+// bytes a row) with the 32-byte swizzle, each with its own tensor maps and
+// descriptors: the fifth k-step of Q.K^T and an n16 product of P.V read the
+// narrow part.  TMA fills rows past the end with zeros; keys >= Skv are
+// masked, rows >= Sq are not stored.
+//
+// What bounds it, measured on the H100 (PERF.md): the exponentials and the
+// other softmax work of two warps a scheduler, and at D = 80 the K/V bytes
+// that 128-row q-tiles read again from L2.  Against that:
+//   * the blocks are persistent, one an SM, and take q-tiles from a counter
+//     in bands of (batch, head) pairs, longest first, so that the next
+//     tile's Q and K/V load while the current one finishes and the K/V in
+//     flight stay in L2;
+//   * inside a warpgroup, tile i + 1's Q.K^T and softmax run while tile i's
+//     P.V is in flight; the two warpgroups take turns to issue (named
+//     barriers), so that one's softmax runs beside the other's products;
+//   * the loop has no branch around its products and each tile's S is a
+//     fresh array: otherwise ptxas serializes every wgmma (C7514).
+
+constexpr int WG_BQ = 128;  // query rows a block
+constexpr int WG_BK = 128;  // keys a KV tile
+constexpr int WG_STAGES = 4;
+constexpr int WG_THREADS = 384;
+constexpr int SW128 = 1, SW32 = 3;  // wgmma descriptor layout types
+
+struct TmaMaps {  // [0]: columns 0-63; [1]: columns 64-79 (D = 80 only)
+  CUtensorMap q[2], k[2], v[2];
+};
+
+// Shared-memory matrix descriptor of wgmma: start address, leading and
+// stride byte offsets (16-byte units), swizzle layout.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo, int layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// Returns once the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// A box of a 4-D tensor map (coordinates innermost first) into shared
+// memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Named barriers 1 and 2 (0 is __syncthreads') over both consumer
+// warpgroups, 256 threads.
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous products.
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B in shared memory (K-major).
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[16][4], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63}"
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64], A in registers, B in shared memory
+// (MN-major: the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 16] += A[64 x 16] B[16 x 16], A in registers, B in shared memory
+// (MN-major: the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[2][4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7}"
+      ", {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Work item j of a call.  The (batch, head) pairs are taken in bands of
+// `band`, about one wave of q-tiles, so that the K and V the blocks in
+// flight read stay in L2; within a band the longest causal q-tiles come
+// first.
+struct WorkItem {
+  int q_lo, h, b, kt_lo, kt_hi;
+};
+
+__device__ __forceinline__ WorkItem work_item(const Params& p, int j,
+                                              int band) {
+  const int nqt = (p.Sq + WG_BQ - 1) / WG_BQ;
+  const int first = j / (band * nqt) * band;  // first pair of j's band
+  const int pairs = min(band, p.Hq * p.B - first);
+  const int jj = j - first * nqt;
+  const int hb = first + jj % pairs;
+  WorkItem w;
+  w.q_lo = (nqt - 1 - jj / pairs) * WG_BQ;
+  w.h = hb % p.Hq;
+  w.b = hb / p.Hq;
+  band_tiles(p, w.q_lo, min(w.q_lo + WG_BQ, p.Sq) - 1, WG_BK, w.kt_lo,
+             w.kt_hi);
+  return w;
+}
+
+// Persistent: gridDim.x blocks (one an SM) take work items in order from
+// the counter `next_item` (zero at launch); the producer takes each and
+// hands it to the consumers with Q.  The ring's stages and phases run on
+// across items, so the producer loads the next item's Q and first K/V tiles
+// while the consumers finish the current one.
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_fwd_bf16_wgmma(const __grid_constant__ TmaMaps maps,
+                         const Params p, int* next_item) {
+  constexpr bool SPLIT = D == 80;
+  constexpr int DB = D - 64;                       // narrow part: 0 or 16
+  constexpr int QA = WG_BQ * 64 * 2, KVA = WG_BK * 64 * 2;  // bytes
+  constexpr int QB = WG_BQ * DB * 2, KVB = WG_BK * DB * 2;
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // tiles at 1024-byte boundaries, as the 128-byte swizzle wants
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t sQA = base;
+  const uint32_t sKA = sQA + QA;                   // [stage]
+  const uint32_t sVA = sKA + WG_STAGES * KVA;      // [stage]
+  const uint32_t sQB = sVA + WG_STAGES * KVA;
+  const uint32_t sKB = sQB + QB;
+  const uint32_t sVB = sKB + WG_STAGES * KVB;
+  const uint32_t bars = sVB + WG_STAGES * KVB;
+  const uint32_t q_full = bars, q_empty = bars + 8;
+  auto k_full = [&](int s) { return bars + 8 * (2 + s); };
+  auto v_full = [&](int s) { return bars + 8 * (2 + WG_STAGES + s); };
+  auto kv_empty = [&](int s) { return bars + 8 * (2 + 2 * WG_STAGES + s); };
+  // the item of the n-th round in slot n % 2, -1 when there is none
+  volatile int* s_item = reinterpret_cast<volatile int*>(
+      smem_raw + (bars + 8 * (2 + 3 * WG_STAGES) - smem_addr(smem_raw)));
+  const int nqt = (p.Sq + WG_BQ - 1) / WG_BQ;
+  const int n_items = nqt * p.Hq * p.B;
+  const int band = max(1, (int)gridDim.x / nqt);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 8);  // one arrival per consumer warp
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(kv_empty(s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      int it = 0;  // tiles loaded so far, over all items
+      for (int n = 0;; ++n) {
+        const int j = atomicAdd(next_item, 1);
+        if (n > 0) mbar_wait(q_empty, (n - 1) & 1);
+        s_item[n & 1] = j < n_items ? j : -1;
+        if (j >= n_items) {
+          mbar_arrive(q_full);  // no more work: the consumers stop
+          break;
+        }
+        const WorkItem w = work_item(p, j, band);
+        const int kvh = w.h / (p.Hq / p.Hkv);
+        mbar_expect_tx(q_full, QA + QB);
+        tma_load_4d(sQA, &maps.q[0], q_full, 0, w.q_lo, w.h, w.b);
+        if constexpr (SPLIT)
+          tma_load_4d(sQB, &maps.q[1], q_full, 0, w.q_lo, w.h, w.b);
+        for (int kt = w.kt_lo; kt < w.kt_hi; ++kt, ++it) {
+          const int s = it % WG_STAGES;
+          if (it >= WG_STAGES)
+            mbar_wait(kv_empty(s), (it / WG_STAGES - 1) & 1);
+          const int k_lo = kt * WG_BK;
+          mbar_expect_tx(k_full(s), KVA + KVB);
+          tma_load_4d(sKA + s * KVA, &maps.k[0], k_full(s), 0, k_lo, kvh,
+                      w.b);
+          if constexpr (SPLIT)
+            tma_load_4d(sKB + s * KVB, &maps.k[1], k_full(s), 0, k_lo, kvh,
+                        w.b);
+          mbar_expect_tx(v_full(s), KVA + KVB);
+          tma_load_4d(sVA + s * KVA, &maps.v[0], v_full(s), 0, k_lo, kvh,
+                      w.b);
+          if constexpr (SPLIT)
+            tma_load_4d(sVB + s * KVB, &maps.v[1], v_full(s), 0, k_lo, kvh,
+                        w.b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int t2 = (lane & 3) * 2;
+    const float scale2 = p.scale * LOG2E;  // softmax in base 2
+    const uint32_t qa = sQA + wg * 64 * 128, qb = sQB + wg * 64 * 32;
+    // The two warpgroups take turns to issue their products (barrier 1 + wg
+    // is this one's turn), so that one's softmax runs beside the other's
+    // products.  Warpgroup 0 goes first.
+    if (wg == 1) named_arrive(1);
+    float oa[8][4], ob[SPLIT ? 2 : 1][4];
+    float m_run[2], l_run[2];
+    uint32_t pf[8][4];
+
+    int it = 0;  // tiles consumed so far, over all items
+    for (int n = 0;; ++n) {
+      mbar_wait(q_full, n & 1);
+      const int j = s_item[n & 1];
+      if (j < 0) break;
+      const WorkItem w = work_item(p, j, band);
+      const int wq_lo = w.q_lo + wg * 64;  // this warpgroup's rows
+      const int wq_hi = wq_lo + 63;
+      const int row0 = wq_lo + warp * 16 + (lane >> 2);  // and row0 + 8
+      const int n_tiles = w.kt_hi - w.kt_lo;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        oa[i][0] = oa[i][1] = oa[i][2] = oa[i][3] = 0.f;
+#pragma unroll
+      for (int i = 0; i < (SPLIT ? 2 : 1); ++i)
+        ob[i][0] = ob[i][1] = ob[i][2] = ob[i][3] = 0.f;
+      m_run[0] = m_run[1] = NEG_INF;
+      l_run[0] = l_run[1] = 0.f;
+
+      // S = Q K^T of tile i of the item (issued, not waited for).  Each tile
+      // has an accumulator of its own, declared where it is issued: one
+      // array reused across tiles makes ptxas serialize every wgmma.
+      auto issue_s = [&](float (&sacc)[16][4], int i) {
+        const int s = (it + i) % WG_STAGES;
+        mbar_wait(k_full(s), ((it + i) / WG_STAGES) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          wgmma_ss_n128(sacc, wg_desc(qa + ks * 32, 16, 1024, SW128),
+                        wg_desc(sKA + s * KVA + ks * 32, 16, 1024, SW128),
+                        ks);
+        if constexpr (SPLIT)
+          wgmma_ss_n128(sacc, wg_desc(qb, 16, 256, SW32),
+                        wg_desc(sKB + s * KVB, 16, 256, SW32), 1);
+        wgmma_commit();
+      };
+      // the online softmax of tile i on its S; returns the rescale factors
+      auto softmax = [&](float (&sacc)[16][4], int i, float (&alpha)[2]) {
+        const int k_lo = (w.kt_lo + i) * WG_BK;
+        bool need_mask = k_lo + WG_BK > p.Skv || scale2 <= 0.f;
+        if (p.causal) need_mask = need_mask || (k_lo + WG_BK - 1 > wq_lo);
+        if (p.window > 0)
+          need_mask = need_mask || (k_lo <= wq_hi - p.window);
+        if (need_mask)
+          softmax_tile<true, 16>(sacc, m_run, l_run, alpha, p, scale2, row0,
+                                 k_lo + t2);
+        else
+          softmax_tile<false, 16>(sacc, m_run, l_run, alpha, p, scale2, 0,
+                                  0);
+      };
+      // P in wgmma's register A layout: key step kk is S columns
+      // 16kk .. 16kk + 15, the n-blocks 2kk and 2kk + 1
+      auto pack_p = [&](const float (&sacc)[16][4]) {
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          pf[kk][0] = pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]);
+          pf[kk][1] = pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]);
+          pf[kk][2] = pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]);
+          pf[kk][3] = pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3]);
+        }
+      };
+      // Q is free for the next item once the last tile's Q.K^T is done
+      auto release_q = [&]() {
+        if (lane == 0) mbar_arrive(q_empty);
+      };
+
+      // Every tile of the item's band is processed; one outside this
+      // warpgroup's rows is masked whole.  Tile i + 1's Q.K^T and softmax
+      // run while tile i's P.V is in flight.
+      if (n_tiles == 0) release_q();
+      if (n_tiles > 0) {
+        float alpha[2], sacc[16][4];
+        named_sync(1 + wg);
+        issue_s(sacc, 0);
+        named_arrive(2 - wg);
+        wgmma_wait<0>();
+        fence_acc(sacc);
+        if (n_tiles == 1) release_q();
+        softmax(sacc, 0, alpha);
+        pack_p(sacc);
+      }
+      // O += P V of tile i, P from pf (issued and committed)
+      auto issue_pv = [&](int i) {
+        const int s = (it + i) % WG_STAGES;
+        mbar_wait(v_full(s), ((it + i) / WG_STAGES) & 1);
+        fence_acc(oa);
+        if constexpr (SPLIT) fence_acc(ob);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          wgmma_rs_n64(oa, pf[kk],
+                       wg_desc(sVA + s * KVA + kk * 16 * 128, 16, 1024,
+                               SW128));
+          if constexpr (SPLIT)
+            wgmma_rs_n16(ob, pf[kk],
+                         wg_desc(sVB + s * KVB + kk * 16 * 32, 16, 256,
+                                 SW32));
+        }
+        wgmma_commit();
+      };
+      // after tile i's P.V: release its stage
+      auto finish_pv = [&](int i) {
+        wgmma_wait<0>();
+        fence_acc(oa);
+        if constexpr (SPLIT) fence_acc(ob);
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(pf[kk][e]));
+        if (lane == 0) mbar_arrive(kv_empty((it + i) % WG_STAGES));
+      };
+      // The loop body has no branch around its products: ptxas serializes
+      // every wgmma when it cannot match a wait to what it retires.
+      for (int i = 0; i + 1 < n_tiles; ++i) {
+        float alpha[2], sacc[16][4];  // S of tile i + 1
+        named_sync(1 + wg);
+        issue_s(sacc, i + 1);
+        issue_pv(i);
+        named_arrive(2 - wg);
+        wgmma_wait<1>();  // Q.K^T of tile i + 1 is done, P.V of tile i not
+        fence_acc(sacc);
+        if (i + 2 == n_tiles) release_q();
+        softmax(sacc, i + 1, alpha);
+        finish_pv(i);
+#pragma unroll
+        for (int d = 0; d < 8; ++d) {
+          oa[d][0] *= alpha[0];
+          oa[d][1] *= alpha[0];
+          oa[d][2] *= alpha[1];
+          oa[d][3] *= alpha[1];
+        }
+        if constexpr (SPLIT) {
+#pragma unroll
+          for (int d = 0; d < 2; ++d) {
+            ob[d][0] *= alpha[0];
+            ob[d][1] *= alpha[0];
+            ob[d][2] *= alpha[1];
+            ob[d][3] *= alpha[1];
+          }
+        }
+        pack_p(sacc);
+      }
+      if (n_tiles > 0) {  // the last tile's P.V
+        named_sync(1 + wg);
+        issue_pv(n_tiles - 1);
+        named_arrive(2 - wg);
+        finish_pv(n_tiles - 1);
+      }
+      it += n_tiles;
+
+      __nv_bfloat16* op = static_cast<__nv_bfloat16*>(p.o) + w.b * p.o_sb +
+                          w.h * p.o_sh;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float l = l_run[r];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        const float inv = 1.f / fmaxf(l, 1e-30f);
+        const int row = row0 + r * 8;
+        if (row < p.Sq) {
+          __nv_bfloat16* orow = op + row * p.o_ss + t2;
+#pragma unroll
+          for (int d = 0; d < 8; ++d)
+            *reinterpret_cast<__nv_bfloat162*>(orow + d * 8) =
+                __floats2bfloat162_rn(oa[d][2 * r] * inv,
+                                      oa[d][2 * r + 1] * inv);
+          if constexpr (SPLIT) {
+#pragma unroll
+            for (int d = 0; d < 2; ++d)
+              *reinterpret_cast<__nv_bfloat162*>(orow + 64 + d * 8) =
+                  __floats2bfloat162_rn(ob[d][2 * r] * inv,
+                                        ob[d][2 * r + 1] * inv);
+          }
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // fp32 FMA body
 // ---------------------------------------------------------------------------
 
@@ -461,7 +972,7 @@ __global__ void __launch_bounds__(256) flash_fwd_fma(const Params p) {
   const int q_lo = qt * BQ;
   const int q_hi = min(q_lo + BQ, p.Sq) - 1;
   int kt_lo, kt_hi;
-  band_tiles(p, q_lo, q_hi, kt_lo, kt_hi);
+  band_tiles(p, q_lo, q_hi, BK, kt_lo, kt_hi);
 
   load_tile_f32<D, LD>(sQ, qp, p.q_ss, q_lo, p.Sq);
 
@@ -590,35 +1101,132 @@ cudaError_t launch(Kernel kernel, const Params& p, int block_rows,
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, taken from the driver at run time so that the
+// library needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+constexpr int ERR_TENSOR_MAP = -2;
+
+// The 4-D map (D columns, S, H, B) of a bf16 q, k or v read through its
+// strides (elements), boxes of `cols` columns by `rows` rows.
+int tensor_map(CUtensorMap* map, const void* base, int cols, int S, int H,
+               int B, long long ss, long long sh, long long sb, int rows,
+               CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return ERR_TENSOR_MAP;
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)S, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP;
+}
+
 template <int D>
-cudaError_t dispatch_d(const Params& p, int dtype, cudaStream_t stream) {
-  const size_t fma_smem = sizeof(float) * (3 * 64 * (D + 4) + 64 * (BK + 4));
-  if (dtype == 0)
-    return launch(flash_fwd_fma<D>, p, BQ, 256, fma_smem, stream);
-  // two 16-row tiles per warp while the accumulators fit the register file
-  // (D = 80 with two would hold 184 accumulator and Q registers a thread)
-  constexpr int MT = D <= 64 ? 2 : 1;
-  const size_t mma_smem =
-      sizeof(__nv_bfloat16) * (64 * MT + 4 * BK) * (D + 8);
-  return launch(flash_fwd_bf16_mma<D, MT>, p, 64 * MT, 128, mma_smem, stream);
+int launch_wgmma(const Params& p, void* next_item, cudaStream_t stream) {
+  TmaMaps maps;
+  const __nv_bfloat16* src[3] = {static_cast<const __nv_bfloat16*>(p.q),
+                                 static_cast<const __nv_bfloat16*>(p.k),
+                                 static_cast<const __nv_bfloat16*>(p.v)};
+  CUtensorMap* dst[3] = {maps.q, maps.k, maps.v};
+  const int S[3] = {p.Sq, p.Skv, p.Skv}, H[3] = {p.Hq, p.Hkv, p.Hkv};
+  const long long ss[3] = {p.q_ss, p.k_ss, p.v_ss};
+  const long long sh[3] = {p.q_sh, p.k_sh, p.v_sh};
+  const long long sb[3] = {p.q_sb, p.k_sb, p.v_sb};
+  for (int t = 0; t < 3; ++t) {
+    int err = tensor_map(&dst[t][0], src[t], 64, S[t], H[t], p.B, ss[t],
+                         sh[t], sb[t], 128, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err == 0 && D > 64)
+      err = tensor_map(&dst[t][1], src[t] + 64, D - 64, S[t], H[t], p.B,
+                       ss[t], sh[t], sb[t], 128, CU_TENSOR_MAP_SWIZZLE_32B);
+    if (err != 0) return err;
+  }
+  const size_t smem = 1024 +
+                      2 * (WG_BQ + 2 * WG_STAGES * WG_BK) * D +
+                      8 * (2 + 3 * WG_STAGES) + 8;
+  static int sms = 0;  // one block an SM
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  auto kernel = flash_fwd_bf16_wgmma<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_items = (p.Sq + WG_BQ - 1) / WG_BQ * p.Hq * p.B;
+  kernel<<<n_items < sms ? n_items : sms, WG_THREADS, smem, stream>>>(
+      maps, p, static_cast<int*>(next_item));
+  return (int)cudaGetLastError();
+}
+
+// body: 0 = fp32 FMA, 1 = bf16 mma.sync, 2 = bf16 wgmma + TMA (D = 64, 80)
+template <int D>
+int dispatch_d(const Params& p, int body, void* next_item,
+               cudaStream_t stream) {
+  if (body == 0) {
+    const size_t smem = sizeof(float) * (3 * 64 * (D + 4) + 64 * (BK + 4));
+    return (int)launch(flash_fwd_fma<D>, p, BQ, 256, smem, stream);
+  }
+  if constexpr (D == 64 || D == 80) {
+    if (body == 2 && next_item != nullptr)
+      return launch_wgmma<D>(p, next_item, stream);
+    return -1;
+  } else {
+    if (body != 1) return -1;
+    // two 16-row tiles a warp while the accumulators fit the register file
+    constexpr int MT = D <= 64 ? 2 : 1;
+    const size_t smem = sizeof(__nv_bfloat16) * (64 * MT + 4 * BK) * (D + 8);
+    return (int)launch(flash_fwd_bf16_mma<D, MT>, p, 64 * MT, 128, smem,
+                       stream);
+  }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  window <= 0 means no window.  Strides are
-// in elements;
-// the stride along D is 1.  bf16 pointers and strides must keep 16-byte
-// alignment of every row.  Returns a cudaError_t, or -1 for an unsupported
-// argument; never synchronises.
+// body: 0 = the fp32 FMA body (float32 tensors), 1 = the bf16 mma.sync body
+// (D = 32, 128), 2 = the bf16 wgmma + TMA body (D = 64, 80); the wrapper
+// chooses it by type and D.  Body 2 takes its work items from `next_item`,
+// one int32 in device memory that is 0 at launch.  window <= 0 means no
+// window.  Strides are in elements; the stride along D is 1.  bf16 pointers
+// and strides must keep every row 16-byte aligned (TMA's rule too).  Returns a cudaError_t, -1
+// for an unsupported argument or -2 if a tensor map cannot be made; never
+// synchronises.
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int B, int Hq,
     int Hkv, int Sq, int Skv, int D, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
     long long o_sh, long long o_ss, float scale, int causal, int window,
-    int dtype, void* stream) {
+    int body, void* next_item, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Sq <= 0 || Skv <= 0) return -1;
-  if (Hq % Hkv != 0 || (dtype != 0 && dtype != 1)) return -1;
+  if (Hq % Hkv != 0 || body < 0 || body > 2) return -1;
   if (Hq > 65535 || B > 65535) return -1;
   Params p{q,    k,    v,    o,    B,    Hq,   Hkv,  Sq,   Skv,
            q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
@@ -626,13 +1234,13 @@ extern "C" int repro_flash_attention_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
-      return (int)dispatch_d<32>(p, dtype, s);
+      return dispatch_d<32>(p, body, next_item, s);
     case 64:
-      return (int)dispatch_d<64>(p, dtype, s);
+      return dispatch_d<64>(p, body, next_item, s);
     case 80:
-      return (int)dispatch_d<80>(p, dtype, s);
+      return dispatch_d<80>(p, body, next_item, s);
     case 128:
-      return (int)dispatch_d<128>(p, dtype, s);
+      return dispatch_d<128>(p, body, next_item, s);
     default:
       return -1;
   }
@@ -640,5 +1248,7 @@ extern "C" int repro_flash_attention_fwd(
 
 extern "C" const char* repro_flash_attention_error_string(int code) {
   if (code == -1) return "unsupported argument";
+  if (code == ERR_TENSOR_MAP)
+    return "cuTensorMapEncodeTiled is missing or refused a tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -12,19 +12,21 @@
 // The D residual is added by the caller, as in the reference.
 //
 // What bounds it on this card: at the serve path's shape (B=8, S=2048,
-// H=64, P=64, N=128, chunk 256, G=1) the scan does about 8.6e10 flop
-// (lower-triangle pairs only) against about 0.30 GB moved, so the roofline
-// bound (about 0.09 ms) is set by bytes.  This body multiplies in fp32 FMA on
-// the CUDA cores, not on the tensor cores, so in practice the FMA rate bounds
-// it: it is a first, simple kernel, and an `mma.sync` / `wgmma` bf16 body is
-// later work.
+// H=64, P=64, N=128, chunk 256, G=1) the scan does about 5.2e10 flop (lower-
+// triangle pairs only, C B^T once per group) against about 0.30 GB moved, so
+// the roofline bound (about 0.09 ms) is set by bytes.
 //
-// Design for this card, and how it differs from the TPU kernel:
+// Two bodies, chosen by the type of xbar, B and C:
+//   * bf16 (every served call): chunk-parallel on the tensor cores, four
+//     kernels a call; see "bf16 body" below.
+//   * fp32: the full-fp32 FMA body that follows, which the fp32 comparisons
+//     of the serve paths hold to fp32 precision.
+//
+// The fp32 body, and how it differs from the TPU kernel:
 //   * One block per (b, h), 256 threads, looping over the chunks inside the
 //     block.  The fp32 state lives in shared memory for the whole scan,
 //     transposed as St [N][P], where the TPU kernel carried it in VMEM
-//     scratch across a sequential third grid axis.  B*H = 512 blocks at the
-//     serve shape; each uses about 135 KB of shared memory, one block per SM.
+//     scratch across a sequential third grid axis.
 //   * A 256-row chunk of fp32 B and C does not fit an SM, so the chunk is cut
 //     into 64-row tiles: for each query tile of C, the off-diagonal term from
 //     the state, then the key tiles j <= i of B and Xbar, like causal
@@ -36,14 +38,13 @@
 //     every query tile of the chunk has read the old state.
 //   * The cumsum is a block-level prefix sum with warp shuffles in fp32, not
 //     the TPU's triangular-ones matmul: the order of the sums differs.
-//   * B and C are read by group index (g = h / (H / G)) through batch and
-//     row strides, so the groups are never repeated to heads in device
-//     memory, and the model's views of its projection need no copy.
-//   * Ragged S: rows >= S are read as xbar = log_a = B = C = 0 and never
-//     written, which leaves y and the state exactly as they are; the TPU
-//     kernel asserts S % chunk == 0.
-//   * bf16 inputs are widened to fp32 when a tile is loaded; every sum is an
-//     fp32 FMA, with no TF32 anywhere.
+//   * Every sum is an fp32 FMA, with no TF32 anywhere.
+// Both bodies read B and C by group index (g = h / (H / G)) through batch
+// and row strides, so the groups are never repeated to heads in device
+// memory, and the model's views of its projection need no copy.  Both take
+// a ragged S: rows >= S are read as xbar = log_a = B = C = 0 and never
+// written, which leaves y and the state exactly as they are; the TPU kernel
+// asserts S % chunk == 0.
 //
 // Plain C interface; the Python wrapper passes data_ptr()s and the stream.
 
@@ -69,15 +70,6 @@ struct Params {
   long long b_sb, b_ss;  // strides (elements) of B over batch and row
   long long c_sb, c_ss;  // strides (elements) of C over batch and row
 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 // V consecutive floats of shared memory, with the widest aligned loads.
 template <int V>
@@ -106,22 +98,24 @@ __device__ __forceinline__ void ld(float (&v)[V], const float* p) {
 
 // Rows [0, RT) x W of a matrix with row stride `stride` into shared memory
 // as fp32 with row stride LD; rows >= n_valid are written as zeros.
-template <typename T, int W, int LD>
-__device__ __forceinline__ void load_rows(float* dst, const T* src,
+template <int W, int LD>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           long long stride, int n_valid) {
   for (int idx = threadIdx.x; idx < RT * W; idx += THREADS) {
     const int r = idx / W, c = idx % W;
-    dst[r * LD + c] = r < n_valid ? to_f32(src[r * stride + c]) : 0.f;
+    dst[r * LD + c] = r < n_valid ? src[r * stride + c] : 0.f;
   }
 }
 
 // s_cum[i] = log_a[0] + ... + log_a[i] for i < len, reading log_a[i] as 0 for
-// i >= l (so the tail repeats the last real sum).  Ends with __syncthreads.
+// i >= l (so the tail repeats the last real sum), with NTH threads.  Ends
+// with __syncthreads.
+template <int NTH>
 __device__ void chunk_cumsum(float* s_cum, float* s_warp, const float* la,
                              long long stride, int l, int len) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float carry = 0.f;
-  for (int base = 0; base < len; base += THREADS) {
+  for (int base = 0; base < len; base += NTH) {
     const int i = base + threadIdx.x;
     float v = i < l ? la[i * stride] : 0.f;
 #pragma unroll
@@ -132,7 +126,7 @@ __device__ void chunk_cumsum(float* s_cum, float* s_warp, const float* la,
     if (lane == 31) s_warp[warp] = v;
     __syncthreads();
     if (warp == 0) {
-      constexpr int NW = THREADS / 32;
+      constexpr int NW = NTH / 32;
       float w = lane < NW ? s_warp[lane] : 0.f;
 #pragma unroll
       for (int off = 1; off < NW; off <<= 1) {
@@ -143,12 +137,12 @@ __device__ void chunk_cumsum(float* s_cum, float* s_warp, const float* la,
     }
     __syncthreads();
     if (i < len) s_cum[i] = carry + (warp > 0 ? s_warp[warp - 1] : 0.f) + v;
-    carry += s_warp[THREADS / 32 - 1];
+    carry += s_warp[NTH / 32 - 1];
     __syncthreads();  // s_warp is rewritten in the next round
   }
 }
 
-template <typename T, int P, int N>
+template <int P, int N>
 __global__ void __launch_bounds__(THREADS) ssd_scan_fwd(const Params p) {
   constexpr int LDP = P + 4;   // padded rows: float4 reads of 8 neighbouring
   constexpr int LDN = N + 4;   // rows fall in distinct banks
@@ -170,11 +164,11 @@ __global__ void __launch_bounds__(THREADS) ssd_scan_fwd(const Params p) {
 
   const long long x_ss = (long long)p.H * P;  // row stride of xbar and y
   const long long x_off = ((long long)b * p.S * p.H + h) * P;
-  const T* xp = static_cast<const T*>(p.xbar) + x_off;
-  T* yp = static_cast<T*>(p.y) + x_off;
+  const float* xp = static_cast<const float*>(p.xbar) + x_off;
+  float* yp = static_cast<float*>(p.y) + x_off;
   const float* la = p.log_a + (long long)b * p.S * p.H + h;
-  const T* bp = static_cast<const T*>(p.bm) + b * p.b_sb + g * N;
-  const T* cp = static_cast<const T*>(p.cm) + b * p.c_sb + g * N;
+  const float* bp = static_cast<const float*>(p.bm) + b * p.b_sb + g * N;
+  const float* cp = static_cast<const float*>(p.cm) + b * p.c_sb + g * N;
 
   const long long st_off = ((long long)b * p.H + h) * P * N;
   for (int idx = threadIdx.x; idx < P * N; idx += THREADS) {
@@ -187,7 +181,8 @@ __global__ void __launch_bounds__(THREADS) ssd_scan_fwd(const Params p) {
     const int r0 = c * p.chunk;
     const int l = min(p.chunk, p.S - r0);
     const int nt = (l + RT - 1) / RT;
-    chunk_cumsum(sCum, sWarp, la + (long long)r0 * p.H, p.H, l, nt * RT);
+    chunk_cumsum<THREADS>(sCum, sWarp, la + (long long)r0 * p.H, p.H, l,
+                          nt * RT);
     const float total = sCum[l - 1];
 
     float dS[RPT][CPT];  // this chunk's (exp(total - cum) Xbar)^T B, transposed
@@ -199,7 +194,7 @@ __global__ void __launch_bounds__(THREADS) ssd_scan_fwd(const Params p) {
     for (int qi = 0; qi < nt; ++qi) {
       const int q0 = qi * RT;
       __syncthreads();  // the previous tile's readers of sC / sB / sX / sP
-      load_rows<T, N, LDN>(sC, cp + (long long)(r0 + q0) * p.c_ss, p.c_ss,
+      load_rows<N, LDN>(sC, cp + (long long)(r0 + q0) * p.c_ss, p.c_ss,
                            l - q0);
       __syncthreads();
 
@@ -237,9 +232,9 @@ __global__ void __launch_bounds__(THREADS) ssd_scan_fwd(const Params p) {
       for (int kj = 0; kj <= qi; ++kj) {
         const int k0 = kj * RT;
         if (kj > 0) __syncthreads();  // readers of sB / sX / sP are done
-        load_rows<T, N, LDN>(sB, bp + (long long)(r0 + k0) * p.b_ss, p.b_ss,
+        load_rows<N, LDN>(sB, bp + (long long)(r0 + k0) * p.b_ss, p.b_ss,
                              l - k0);
-        load_rows<T, P, LDP>(sX, xp + (long long)(r0 + k0) * x_ss, x_ss,
+        load_rows<P, LDP>(sX, xp + (long long)(r0 + k0) * x_ss, x_ss,
                              l - k0);
         __syncthreads();
 
@@ -324,9 +319,9 @@ __global__ void __launch_bounds__(THREADS) ssd_scan_fwd(const Params p) {
       for (int ii = 0; ii < 4; ++ii) {
         const int row = q0 + ty * 4 + ii;
         if (row < l) {
-          T* out = yp + (long long)(r0 + row) * x_ss + tx * CPT;
+          float* out = yp + (long long)(r0 + row) * x_ss + tx * CPT;
 #pragma unroll
-          for (int cc = 0; cc < CPT; ++cc) store_as(out + cc, acc[ii][cc]);
+          for (int cc = 0; cc < CPT; ++cc) out[cc] = acc[ii][cc];
         }
       }
     }
@@ -349,46 +344,638 @@ __global__ void __launch_bounds__(THREADS) ssd_scan_fwd(const Params p) {
   }
 }
 
-template <typename T, int P, int N>
+template <int P, int N>
 int launch(const Params& p, cudaStream_t stream) {
   const int cum = (p.chunk + RT - 1) / RT * RT;
   const size_t smem =
       sizeof(float) * ((size_t)N * (P + 4) + 2 * RT * (N + 4) +
                        RT * (P + 4) + RT * (RT + 4) + 8 + cum);
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_fwd<T, P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_scan_fwd<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(p.H, p.B);
-  ssd_scan_fwd<T, P, N><<<grid, THREADS, smem, stream>>>(p);
+  ssd_scan_fwd<P, N><<<grid, THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int P>
+template <int P>
 int dispatch_n(const Params& p, int N, cudaStream_t stream) {
   switch (N) {
     case 16:
-      return launch<T, P, 16>(p, stream);
+      return launch<P, 16>(p, stream);
     case 32:
-      return launch<T, P, 32>(p, stream);
+      return launch<P, 32>(p, stream);
     case 64:
-      return launch<T, P, 64>(p, stream);
+      return launch<P, 64>(p, stream);
     case 128:
-      return launch<T, P, 128>(p, stream);
+      return launch<P, 128>(p, stream);
     default:
       return -1;
   }
 }
 
-template <typename T>
 int dispatch_p(const Params& p, int P, int N, cudaStream_t stream) {
   switch (P) {
     case 16:
-      return dispatch_n<T, 16>(p, N, stream);
+      return dispatch_n<16>(p, N, stream);
     case 32:
-      return dispatch_n<T, 32>(p, N, stream);
+      return dispatch_n<32>(p, N, stream);
     case 64:
-      return dispatch_n<T, 64>(p, N, stream);
+      return dispatch_n<64>(p, N, stream);
+    default:
+      return -1;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 body: tensor cores, chunk-parallel
+// ---------------------------------------------------------------------------
+//
+// Four kernels a call, in this order on the caller's stream:
+//   ssd_cb           C_c B_c^T once per (b, chunk, group), the 64 x 64 tiles
+//                    on or below the diagonal, into `cb` [B,nc,G,LT,LT] fp32
+//                    (LT: L rounded up to whole tiles);
+//   ssd_chunk_states per (b, chunk, head): the cumsum of log_a into `cum`
+//                    [B,H,nc,L], and the chunk's own state contribution
+//                    emit = (exp(total - cum) o Xbar)^T B into `st`
+//                    [B,nc,H,P,N] fp32;
+//   ssd_state_pass   one block per (b, head): over the chunks,
+//                    S_in[c] = S; S <- exp(total_c) S + emit[c].  S_in
+//                    overwrites emit in place as a bf16 hi and a bf16 lo
+//                    matrix; the last S is the final state;
+//   ssd_chunk_out    per (b, chunk, head, 64-row tile of the chunk):
+//                    Y = exp(cum) o (C S_in^T) + ((C B^T) o L) Xbar.
+// Every product runs on `mma.sync.m16n8k16` (bf16 in, fp32 accumulate).  An
+// fp32 operand (the decayed Xbar of emit, (C B^T) o L, S_in) is split as
+// hi = bf16(v), lo = bf16(v - hi) and multiplied twice into one accumulator,
+// so it keeps about 16 bits of mantissa: one bf16 rounding of the decayed
+// Xbar breaks the state's fp32 tolerance, and one of (C B^T) o L or S_in
+// breaks y's at the reference's decays.  Xbar, B and C are bf16 inputs and
+// enter the products exactly.
+
+constexpr int TT = 64;  // rows of a tile
+constexpr int TC_THREADS = 128;
+
+struct TcParams {
+  const __nv_bfloat16* xbar;
+  const float* log_a;
+  const __nv_bfloat16* bm;
+  const __nv_bfloat16* cm;
+  const float* init;  // may be null: zero initial state
+  __nv_bfloat16* y;
+  float* state_out;
+  float* cum;  // [B,H,nc,L]
+  float* cb;   // [B,nc,G,LT,LT]
+  float* st;   // [B,nc,H,P,N]
+  int B, S, H, G, L, nc;
+  int LT;  // row pitch of cb: L rounded up to whole tiles
+  long long b_sb, b_ss, c_sb, c_ss;
+};
+
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// Four 8x8 bf16 matrices; lane l gives the address of row l % 8 of matrix
+// l / 8 and receives elements (l % 4) * 2, +1 of row l / 4 of each.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* ptr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(ptr)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* ptr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(ptr)));
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* ptr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(ptr)));
+}
+
+// A fragment (16 x 16, m x k) of a matrix stored [m][k] with row pitch ld.
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4],
+                                       const __nv_bfloat16* base, int ld,
+                                       int lane) {
+  ldsm_x4(a, base + (lane & 15) * ld + (lane >> 4) * 8);
+}
+// A fragment (16 x 16, m x k) of a matrix stored [k][m] with row pitch ld.
+__device__ __forceinline__ void frag_a_km(uint32_t (&a)[4],
+                                          const __nv_bfloat16* base, int ld,
+                                          int lane) {
+  ldsm_x4_t(a, base + ((lane & 7) + ((lane >> 4) << 3)) * ld +
+                   ((lane >> 3) & 1) * 8);
+}
+// B fragments of two neighbouring n-tiles (16 x 16, k x n) of a matrix
+// stored [n][k]: b[0], b[1] for n-tile 0, b[2], b[3] for n-tile 1.
+__device__ __forceinline__ void frag_b2_nk(uint32_t (&b)[4],
+                                           const __nv_bfloat16* base, int ld,
+                                           int lane) {
+  ldsm_x4(b, base + ((lane & 7) + ((lane >> 4) << 3)) * ld +
+                 ((lane >> 3) & 1) * 8);
+}
+// The same for a matrix stored [k][n].
+__device__ __forceinline__ void frag_b2_kn(uint32_t (&b)[4],
+                                           const __nv_bfloat16* base, int ld,
+                                           int lane) {
+  ldsm_x4_t(b, base + (lane & 15) * ld + (lane >> 4) * 8);
+}
+// One n-tile (16 x 8, k x n) of a matrix stored [k][n].
+__device__ __forceinline__ void frag_b1_kn(uint32_t (&b)[2],
+                                           const __nv_bfloat16* base, int ld,
+                                           int lane) {
+  ldsm_x2_t(b, base + (lane & 15) * ld);
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// v = hi + lo with hi = bf16(v) and lo = bf16(v - hi), for two values.
+__device__ __forceinline__ void split2(float x, float y, __nv_bfloat162& hi,
+                                       __nv_bfloat162& lo) {
+  hi = __floats2bfloat162_rn(x, y);
+  const float2 h = __bfloat1622float2(hi);
+  lo = __floats2bfloat162_rn(x - h.x, y - h.y);
+}
+
+// Rows [row0, row0 + TT) x W of a bf16 matrix (row stride `stride`, rows
+// 16-byte aligned) into shared memory with row pitch LD; rows >= n_valid
+// are written as zeros.
+template <int W, int LD>
+__device__ __forceinline__ void load_bf16_rows(__nv_bfloat16* dst,
+                                               const __nv_bfloat16* src,
+                                               long long stride, int row0,
+                                               int n_valid) {
+  constexpr int CH = W / 8;
+  for (int idx = threadIdx.x; idx < TT * CH; idx += TC_THREADS) {
+    const int r = idx / CH, c = (idx % CH) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < n_valid)
+      v = *reinterpret_cast<const uint4*>(src + (row0 + r) * stride + c);
+    *reinterpret_cast<uint4*>(dst + r * LD + c) = v;
+  }
+}
+
+// The same (ROWS rows) with 16-byte `cp.async` copies (rows >= n_valid
+// become zeros); the caller commits and waits.
+template <int W, int LD, int ROWS = TT>
+__device__ __forceinline__ void load_bf16_rows_async(__nv_bfloat16* dst,
+                                                     const __nv_bfloat16* src,
+                                                     long long stride,
+                                                     int row0, int n_valid) {
+  constexpr int CH = W / 8;
+  for (int idx = threadIdx.x; idx < ROWS * CH; idx += TC_THREADS) {
+    const int r = idx / CH, c = (idx % CH) * 8;
+    const bool ok = row0 + r < n_valid;
+    const __nv_bfloat16* g = src + (ok ? row0 + r : 0) * stride + c;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_u32(dst + r * LD + c)),
+                 "l"(g), "r"(ok ? 16 : 0));
+  }
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// C B^T of one tile pair (qi, kj), kj <= qi, of one (b, chunk, group).
+// Warp w: rows 16w.. of the query tile, the 64 keys as 8 n-tiles.
+template <int N>
+__global__ void __launch_bounds__(TC_THREADS) ssd_cb(const TcParams p) {
+  constexpr int LD = N + 8;  // padded rows: ldmatrix is conflict-free
+  __shared__ __align__(16) __nv_bfloat16 sC[TT * LD];
+  __shared__ __align__(16) __nv_bfloat16 sB[TT * LD];
+  int t = blockIdx.x, qi = 0;
+  while (t > qi) {
+    t -= qi + 1;
+    ++qi;
+  }
+  const int kj = t, c = blockIdx.y;
+  const int b = blockIdx.z / p.G, g = blockIdx.z % p.G;
+  const int r0 = c * p.L, l = min(p.L, p.S - r0);
+  const int q0 = qi * TT, k0 = kj * TT;
+  if (q0 >= l) return;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const __nv_bfloat16* cp = p.cm + b * p.c_sb + (long long)r0 * p.c_ss + g * N;
+  const __nv_bfloat16* bp = p.bm + b * p.b_sb + (long long)r0 * p.b_ss + g * N;
+  load_bf16_rows<N, LD>(sC, cp, p.c_ss, q0, l);
+  load_bf16_rows<N, LD>(sB, bp, p.b_ss, k0, l);
+  __syncthreads();
+
+  float acc[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < N / 16; ++ks) {
+    uint32_t a[4];
+    frag_a(a, sC + warp * 16 * LD + ks * 16, LD, lane);
+#pragma unroll
+    for (int nt = 0; nt < 8; nt += 2) {
+      uint32_t bf[4];
+      frag_b2_nk(bf, sB + nt * 8 * LD + ks * 16, LD, lane);
+      mma_16816(acc[nt], a, bf[0], bf[1]);
+      mma_16816(acc[nt + 1], a, bf[2], bf[3]);
+    }
+  }
+  const int g8 = lane >> 2, t2 = (lane & 3) * 2;
+  float* out = p.cb + (((long long)b * p.nc + c) * p.G + g) * p.LT * p.LT;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = q0 + warp * 16 + g8 + r * 8;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      *reinterpret_cast<float2*>(out + (long long)i * p.LT + k0 + nt * 8 +
+                                 t2) =
+          make_float2(acc[nt][2 * r], acc[nt][2 * r + 1]);
+  }
+}
+
+// The cumsum of the chunk and its state contribution emit [P][N] for one
+// (b, chunk, head).  Warps split the [P][N] output: WM along P (one 16-row
+// tile each), WN along N.  Xbar and B tiles of 64 rows are double-buffered
+// with cp.async; the Xbar tile is then decayed and split in place (hi) and
+// into sXl (lo).
+template <int P, int N>
+__global__ void __launch_bounds__(TC_THREADS) ssd_chunk_states(
+    const TcParams p) {
+  constexpr int LDX = P + 8, LDB = N + 8;
+  constexpr int PM = P / 16, NN = N / 8;
+  constexpr int WM = PM < 4 ? PM : 4, WN = 4 / WM;
+  constexpr int NTW = (NN + WN - 1) / WN;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sCum = reinterpret_cast<float*>(smem_raw);  // [MAX_CHUNK]
+  float* sWarp = sCum + MAX_CHUNK;                    // [32]
+  __nv_bfloat16* sX = reinterpret_cast<__nv_bfloat16*>(sWarp + 32);
+  __nv_bfloat16* sXl = sX + 2 * TT * LDX;  // [2][l][p] Xbar, then hi; lo
+  __nv_bfloat16* sB = sXl + TT * LDX;      // [2][l][n]
+
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (p.H / p.G);
+  const int r0 = c * p.L, l = min(p.L, p.S - r0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long x_ss = (long long)p.H * P;
+  const __nv_bfloat16* xp = p.xbar + ((long long)b * p.S + r0) * x_ss + h * P;
+  const __nv_bfloat16* bp = p.bm + b * p.b_sb + (long long)r0 * p.b_ss + g * N;
+  load_bf16_rows_async<P, LDX>(sX, xp, x_ss, 0, l);
+  load_bf16_rows_async<N, LDB>(sB, bp, p.b_ss, 0, l);
+  cp_async_commit();
+
+  const float* la = p.log_a + ((long long)b * p.S + r0) * p.H + h;
+  chunk_cumsum<TC_THREADS>(sCum, sWarp, la, p.H, l, p.L);
+  float* cum_out = p.cum + (((long long)b * p.H + h) * p.nc + c) * p.L;
+  for (int i = threadIdx.x; i < p.L; i += TC_THREADS) cum_out[i] = sCum[i];
+  const float total = sCum[p.L - 1];
+  const int m0 = (warp % WM) * 16, nt0 = (warp / WM) * NTW;
+
+  float acc[NTW][4];
+#pragma unroll
+  for (int i = 0; i < NTW; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  const int nkt = (l + TT - 1) / TT;
+  for (int t = 0; t < nkt; ++t) {
+    const int k0 = t * TT;
+    __nv_bfloat16* tX = sX + (t & 1) * TT * LDX;
+    const __nv_bfloat16* tB = sB + (t & 1) * TT * LDB;
+    if (t + 1 < nkt) {  // the next tile into the other buffer
+      load_bf16_rows_async<P, LDX>(sX + ((t + 1) & 1) * TT * LDX, xp, x_ss,
+                                   k0 + TT, l);
+      load_bf16_rows_async<N, LDB>(sB + ((t + 1) & 1) * TT * LDB, bp,
+                                   p.b_ss, k0 + TT, l);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile t has landed
+    for (int idx = threadIdx.x; idx < TT * P / 8; idx += TC_THREADS) {
+      const int r = idx / (P / 8), pp = (idx % (P / 8)) * 8;
+      const float w = k0 + r < l ? expf(total - sCum[k0 + r]) : 0.f;
+      uint4* px = reinterpret_cast<uint4*>(tX + r * LDX + pp);
+      const uint4 raw = *px;
+      const uint32_t in[4] = {raw.x, raw.y, raw.z, raw.w};
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 v = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&in[e]));
+        __nv_bfloat162 h2, l2;
+        split2(v.x * w, v.y * w, h2, l2);
+        hi[e] = bf16x2_bits(h2);
+        lo[e] = bf16x2_bits(l2);
+      }
+      *px = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(sXl + r * LDX + pp) =
+          make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < TT / 16; ++ks) {
+      uint32_t ah[4], al[4];
+      frag_a_km(ah, tX + ks * 16 * LDX + m0, LDX, lane);
+      frag_a_km(al, sXl + ks * 16 * LDX + m0, LDX, lane);
+#pragma unroll
+      for (int i = 0; i < NTW; ++i) {
+        if (nt0 + i < NN) {  // warp-uniform
+          uint32_t bf[2];
+          frag_b1_kn(bf, tB + ks * 16 * LDB + (nt0 + i) * 8, LDB, lane);
+          mma_16816(acc[i], ah, bf[0], bf[1]);
+          mma_16816(acc[i], al, bf[0], bf[1]);
+        }
+      }
+    }
+    __syncthreads();  // readers of this buffer and of sXl are done
+  }
+
+  const int g8 = lane >> 2, t2 = (lane & 3) * 2;
+  float* out = p.st + (((long long)b * p.nc + c) * p.H + h) * P * N;
+#pragma unroll
+  for (int i = 0; i < NTW; ++i) {
+    if (nt0 + i >= NN) continue;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float2*>(out + (m0 + g8 + r * 8) * N + (nt0 + i) * 8 +
+                                 t2) =
+          make_float2(acc[i][2 * r], acc[i][2 * r + 1]);
+  }
+}
+
+// The state recurrence over the chunks for one (b, head), P N / 256
+// elements of [P][N] a thread.  S_in[c] is written over emit[c] as two bf16
+// matrices, hi then lo, once every thread has read emit[c]; the next
+// chunk's emit is loaded before that, so the loads stay in flight.
+template <int P, int N>
+__global__ void __launch_bounds__(256) ssd_state_pass(const TcParams p) {
+  constexpr int PN = P * N, EPT = PN / 256;
+  const int h = blockIdx.x % p.H, b = blockIdx.x / p.H;
+  const long long bh = (long long)b * p.H + h;
+  float s[EPT], next[EPT];
+#pragma unroll
+  for (int e = 0; e < EPT; ++e)
+    s[e] = p.init != nullptr ? p.init[bh * PN + threadIdx.x + e * 256] : 0.f;
+  const float* cum = p.cum + bh * p.nc * p.L;
+  float* slab = p.st + ((long long)b * p.nc * p.H + h) * PN;  // chunk 0
+  const long long c_stride = (long long)p.H * PN;
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) next[e] = slab[threadIdx.x + e * 256];
+  for (int c = 0; c < p.nc; ++c, slab += c_stride) {
+    float emit[EPT];
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      emit[e] = next[e];
+      if (c + 1 < p.nc) next[e] = slab[c_stride + threadIdx.x + e * 256];
+    }
+    const float decay = expf(cum[(long long)c * p.L + p.L - 1]);
+    __syncthreads();  // every thread has read emit[c]
+    __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(slab);
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      const __nv_bfloat16 hi = __float2bfloat16_rn(s[e]);
+      out[threadIdx.x + e * 256] = hi;
+      out[PN + threadIdx.x + e * 256] =
+          __float2bfloat16_rn(s[e] - __bfloat162float(hi));
+      s[e] = fmaf(s[e], decay, emit[e]);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < EPT; ++e)
+    p.state_out[bh * PN + threadIdx.x + e * 256] = s[e];
+}
+
+// y for one 64-row tile of one (b, chunk, head).  Warp w owns rows 16w..
+// of the tile and all P columns.  Key tiles of Xbar are double-buffered
+// with cp.async, and a warp loads its C B^T fragments of a key tile before
+// it waits for that tile.
+template <int P, int N>
+__global__ void __launch_bounds__(TC_THREADS) ssd_chunk_out(const TcParams p) {
+  constexpr int LDC = N + 8, LDX = P + 8;
+  constexpr int PT = P / 8;  // n-tiles of y
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sCum = reinterpret_cast<float*>(smem_raw);  // [MAX_CHUNK]
+  __nv_bfloat16* sC = reinterpret_cast<__nv_bfloat16*>(sCum + MAX_CHUNK);
+  __nv_bfloat16* sSh = sC + TT * LDC;  // S_in, hi and lo: [p][n]
+  __nv_bfloat16* sSl = sSh + P * LDC;
+  __nv_bfloat16* sX = sSl + P * LDC;   // [2][l][p] key tiles of Xbar
+
+  const int qi = gridDim.x - 1 - blockIdx.x;  // longest tiles first
+  const int c = blockIdx.y;
+  const int b = blockIdx.z / p.H, h = blockIdx.z % p.H;
+  const int g = h / (p.H / p.G);
+  const int r0 = c * p.L, l = min(p.L, p.S - r0);
+  const int q0 = qi * TT;
+  if (q0 >= l) return;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g8 = lane >> 2, t2 = (lane & 3) * 2;
+
+  const long long x_ss = (long long)p.H * P;
+  const __nv_bfloat16* xp = p.xbar + ((long long)b * p.S + r0) * x_ss + h * P;
+  const __nv_bfloat16* cp = p.cm + b * p.c_sb + (long long)r0 * p.c_ss + g * N;
+  const __nv_bfloat16* sin = reinterpret_cast<const __nv_bfloat16*>(
+      p.st + (((long long)b * p.nc + c) * p.H + h) * P * N);  // hi, lo
+  load_bf16_rows_async<N, LDC>(sC, cp, p.c_ss, q0, l);
+  load_bf16_rows_async<N, LDC, P>(sSh, sin, N, 0, P);
+  load_bf16_rows_async<N, LDC, P>(sSl, sin + P * N, N, 0, P);
+  load_bf16_rows_async<P, LDX>(sX, xp, x_ss, 0, l);
+  cp_async_commit();
+
+  const float* cum = p.cum + (((long long)b * p.H + h) * p.nc + c) * p.L;
+  for (int i = threadIdx.x; i < p.L; i += TC_THREADS) sCum[i] = cum[i];
+  cp_async_wait<0>();
+  __syncthreads();
+
+  float acc[PT][4];
+#pragma unroll
+  for (int i = 0; i < PT; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  // Y_off = C S_in^T, then scaled by exp(cum) of the row
+#pragma unroll
+  for (int ks = 0; ks < N / 16; ++ks) {
+    uint32_t a[4];
+    frag_a(a, sC + warp * 16 * LDC + ks * 16, LDC, lane);
+#pragma unroll
+    for (int nt = 0; nt < PT; nt += 2) {
+      uint32_t bh[4], bl[4];
+      frag_b2_nk(bh, sSh + nt * 8 * LDC + ks * 16, LDC, lane);
+      frag_b2_nk(bl, sSl + nt * 8 * LDC + ks * 16, LDC, lane);
+      mma_16816(acc[nt], a, bh[0], bh[1]);
+      mma_16816(acc[nt], a, bl[0], bl[1]);
+      mma_16816(acc[nt + 1], a, bh[2], bh[3]);
+      mma_16816(acc[nt + 1], a, bl[2], bl[3]);
+    }
+  }
+  int row[2];
+  float crow[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    row[r] = q0 + warp * 16 + g8 + r * 8;
+    crow[r] = sCum[min(row[r], p.L - 1)];
+    const float e = expf(crow[r]);
+#pragma unroll
+    for (int i = 0; i < PT; ++i) {
+      acc[i][2 * r] *= e;
+      acc[i][2 * r + 1] *= e;
+    }
+  }
+
+  // Y_diag = ((C B^T) o L) Xbar over the key tiles kj <= qi
+  const float* cbp =
+      p.cb + (((long long)b * p.nc + c) * p.G + g) * p.LT * p.LT;
+  for (int kj = 0; kj <= qi; ++kj) {
+    const int k0 = kj * TT;
+    const __nv_bfloat16* tX = sX + (kj & 1) * TT * LDX;
+    if (kj < qi) {  // the next key tile into the other buffer
+      load_bf16_rows_async<P, LDX>(sX + ((kj + 1) & 1) * TT * LDX, xp, x_ss,
+                                   k0 + TT, l);
+      cp_async_commit();
+    }
+    // on the diagonal tile, key steps past this warp's last row are empty
+    const int n_ks = kj == qi ? warp + 1 : TT / 16;
+    float2 cbv[TT / 16][2][2];  // [key step][half][row]
+#pragma unroll
+    for (int ks = 0; ks < TT / 16; ++ks)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = row[r], j = k0 + ks * 16 + half * 8 + t2;
+          cbv[ks][half][r] = make_float2(0.f, 0.f);
+          if (ks < n_ks && i < l && j <= i)
+            cbv[ks][half][r] = *reinterpret_cast<const float2*>(
+                cbp + (long long)i * p.LT + j);
+        }
+    if (kj < qi)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();  // key tile kj has landed
+#pragma unroll
+    for (int ks = 0; ks < TT / 16; ++ks) {
+      if (ks >= n_ks) break;  // warp-uniform
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int j = k0 + ks * 16 + half * 8 + t2;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = row[r];
+          float v0 = 0.f, v1 = 0.f;
+          if (i < l && j <= i) {
+            v0 = cbv[ks][half][r].x * expf(crow[r] - sCum[j]);
+            if (j + 1 <= i)
+              v1 = cbv[ks][half][r].y * expf(crow[r] - sCum[j + 1]);
+          }
+          __nv_bfloat162 hi, lo;
+          split2(v0, v1, hi, lo);
+          ah[half * 2 + r] = bf16x2_bits(hi);
+          al[half * 2 + r] = bf16x2_bits(lo);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < PT; nt += 2) {
+        uint32_t bf[4];
+        frag_b2_kn(bf, tX + ks * 16 * LDX + nt * 8, LDX, lane);
+        mma_16816(acc[nt], ah, bf[0], bf[1]);
+        mma_16816(acc[nt], al, bf[0], bf[1]);
+        mma_16816(acc[nt + 1], ah, bf[2], bf[3]);
+        mma_16816(acc[nt + 1], al, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // readers of this buffer are done before its refill
+  }
+
+  __nv_bfloat16* yp = p.y + ((long long)b * p.S + r0) * x_ss + h * P;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= l) continue;
+#pragma unroll
+    for (int i = 0; i < PT; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(yp + row[r] * x_ss + i * 8 + t2) =
+          __floats2bfloat162_rn(acc[i][2 * r], acc[i][2 * r + 1]);
+  }
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int P, int N>
+int launch_tc(const TcParams& p, cudaStream_t stream) {
+  const int T = (p.L + TT - 1) / TT;
+  ssd_cb<N><<<dim3(T * (T + 1) / 2, p.nc, p.B * p.G), TC_THREADS, 0,
+              stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const size_t smem_states =
+      sizeof(float) * (MAX_CHUNK + 32) +
+      sizeof(__nv_bfloat16) * TT * (3 * (P + 8) + 2 * (N + 8));
+  err = allow_smem(ssd_chunk_states<P, N>, smem_states);
+  if (err != cudaSuccess) return (int)err;
+  ssd_chunk_states<P, N><<<dim3(p.nc, p.H, p.B), TC_THREADS, smem_states,
+                           stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  ssd_state_pass<P, N><<<p.B * p.H, 256, 0, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const size_t smem_out =
+      sizeof(float) * MAX_CHUNK +
+      sizeof(__nv_bfloat16) * ((TT + 2 * P) * (N + 8) + 2 * TT * (P + 8));
+  err = allow_smem(ssd_chunk_out<P, N>, smem_out);
+  if (err != cudaSuccess) return (int)err;
+  ssd_chunk_out<P, N><<<dim3(T, p.nc, p.B * p.H), TC_THREADS, smem_out,
+                        stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int P>
+int dispatch_tc_n(const TcParams& p, int N, cudaStream_t stream) {
+  switch (N) {
+    case 16:
+      return launch_tc<P, 16>(p, stream);
+    case 32:
+      return launch_tc<P, 32>(p, stream);
+    case 64:
+      return launch_tc<P, 64>(p, stream);
+    case 128:
+      return launch_tc<P, 128>(p, stream);
+    default:
+      return -1;
+  }
+}
+
+int dispatch_tc(const TcParams& p, int P, int N, cudaStream_t stream) {
+  switch (P) {
+    case 16:
+      return dispatch_tc_n<16>(p, N, stream);
+    case 32:
+      return dispatch_tc_n<32>(p, N, stream);
+    case 64:
+      return dispatch_tc_n<64>(p, N, stream);
     default:
       return -1;
   }
@@ -400,24 +987,48 @@ int dispatch_p(const Params& p, int P, int N, cudaStream_t stream) {
 // final_state are float32).  xbar, y, log_a, init_state and final_state are
 // contiguous; B and C have unit stride along N and stride N between groups,
 // with the given batch and row strides (elements).  init_state may be null.
-// P in {16, 32, 64}, N in {16, 32, 64, 128}, 1 <= chunk <= 1024.  Returns a
-// cudaError_t, or -1 for an unsupported argument; never synchronises.
+// P in {16, 32, 64}, N in {16, 32, 64, 128}, 1 <= chunk <= 1024.
+// bf16 only: the rows of B and C are 16-byte aligned, and the caller gives
+// the scratch buffers, with L = min(chunk, S), nc = ceil(S / L) and LT = L
+// rounded up to a multiple of 64: cum [B,H,nc,L], cb [B,nc,G,LT,LT] and
+// st [B,nc,H,P,N], all fp32 (null for fp32 inputs).  Returns a cudaError_t,
+// or -1 for an unsupported argument; never synchronises.
 extern "C" int repro_ssd_scan_fwd(const void* xbar, const void* log_a,
                                   const void* bm, const void* cm,
                                   const void* init, void* y, void* state_out,
-                                  int B, int S, int H, int G, int P, int N,
-                                  int chunk, long long b_sb, long long b_ss,
+                                  void* cum, void* cb, void* st, int B, int S,
+                                  int H, int G, int P, int N, int chunk,
+                                  long long b_sb, long long b_ss,
                                   long long c_sb, long long c_ss, int dtype,
                                   void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0) return -1;
   if (chunk <= 0 || chunk > MAX_CHUNK || B > 65535) return -1;
-  Params p{xbar, static_cast<const float*>(log_a), bm, cm,
-           static_cast<const float*>(init), y, static_cast<float*>(state_out),
-           B, S, H, G, chunk, b_sb, b_ss, c_sb, c_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_p<float>(p, P, N, s);
-  if (dtype == 1) return dispatch_p<__nv_bfloat16>(p, P, N, s);
-  return -1;
+  if (dtype == 0) {
+    Params p{xbar, static_cast<const float*>(log_a), bm, cm,
+             static_cast<const float*>(init), y,
+             static_cast<float*>(state_out), B, S, H, G, chunk, b_sb, b_ss,
+             c_sb, c_ss};
+    return dispatch_p(p, P, N, s);
+  }
+  if (dtype != 1 || cum == nullptr || cb == nullptr || st == nullptr)
+    return -1;
+  const int L = chunk < S ? chunk : S;
+  const int nc = (S + L - 1) / L;
+  if (nc > 65535 || (long long)B * H > 65535) return -1;
+  TcParams p{static_cast<const __nv_bfloat16*>(xbar),
+             static_cast<const float*>(log_a),
+             static_cast<const __nv_bfloat16*>(bm),
+             static_cast<const __nv_bfloat16*>(cm),
+             static_cast<const float*>(init),
+             static_cast<__nv_bfloat16*>(y),
+             static_cast<float*>(state_out),
+             static_cast<float*>(cum),
+             static_cast<float*>(cb),
+             static_cast<float*>(st),
+             B, S, H, G, L, nc, (L + TT - 1) / TT * TT,
+             b_sb, b_ss, c_sb, c_ss};
+  return dispatch_tc(p, P, N, s);
 }
 
 extern "C" const char* repro_ssd_scan_error_string(int code) {

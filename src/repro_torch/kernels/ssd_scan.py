@@ -5,17 +5,20 @@ Replaces the TPU kernel ``ssd_scan_kernel`` / ``_ssd_kernel`` of
 ``src/repro/kernels/ssd_scan.py``: the chunked scan on pre-scaled inputs
 (``xbar = x * dt``, ``log_a = dt * A``), the fp32 ``[P, N]`` state carried
 across chunks and returned.  The CUDA source is ``csrc/ssd_scan.cu``; its
-header says how the design differs from the TPU kernel (one block per
-``(b, h)`` with the loop over chunks inside it and the state in shared
-memory; 64-row query and key tiles within a chunk, key tiles above the
-diagonal skipped; a warp-shuffle prefix sum instead of the triangular-ones
-matmul; B and C read by group index, never repeated to heads in device
-memory; ragged S masked in the kernel; fp32 FMA throughout).
+header says how the design differs from the TPU kernel.  Two bodies:
 
-What bounds it on this card: at the serve shape (B=8, S=2048, H=64, P=64,
-N=128, chunk 256) the scan moves about 0.30 GB for about 8.6e10 flop, so its
-roofline bound is set by bytes; this first body multiplies on the CUDA cores
-in fp32, and the FMA rate is what holds it back.
+* bf16 (the served path): chunk-parallel on the tensor cores, four CUDA
+  kernels a call (C B^T once per group, chunk states, state passing, chunk
+  outputs), each fp32 operand of a product split into a bf16 hi and lo part.
+  :func:`ssd_scan_split_plain` is the same order of work and the same
+  roundings in plain PyTorch; the tests hold it against the reference.
+* fp32: one block per ``(b, h)`` looping over the chunks with the state in
+  shared memory, full-fp32 FMA, no tensor cores.
+
+Both read B and C by group index, never repeated to heads in device memory,
+and mask ragged S in the kernel.  At the serve shape (B=8, S=2048, H=64,
+P=64, N=128, chunk 256) the scan moves about 0.30 GB, so its roofline bound
+is set by bytes.
 
 The wrapper decides by the tensor's device and by nothing else: a CUDA tensor
 launches the kernel or raises, a CPU tensor takes the plain version.
@@ -26,6 +29,7 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.models.mamba import ssd_scan_prescaled
@@ -46,20 +50,110 @@ def ssd_scan_plain(xbar: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
                               init_state=init_state)
 
 
+def _split(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``t = hi + lo`` as the bf16 body splits an fp32 operand: hi = bf16(t),
+    lo = bf16(t - hi), both returned in fp32."""
+    hi = t.to(torch.bfloat16).to(torch.float32)
+    return hi, (t - hi).to(torch.bfloat16).to(torch.float32)
+
+
+def ssd_scan_split_plain(xbar: torch.Tensor, log_a: torch.Tensor,
+                         B: torch.Tensor, C: torch.Tensor, *, chunk: int,
+                         init_state: Optional[torch.Tensor] = None,
+                         split_state: bool = True
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 body's decomposition in plain PyTorch, in its order and with
+    its roundings: chunk states ``(exp(total - cum) o Xbar)^T B`` with the
+    decayed Xbar split hi + lo; the state passed over the chunks in fp32; C
+    B^T once per group, then the decay mask per head, split hi + lo; chunk
+    outputs ``exp(cum) o (C S_in^T) + ((C B^T) o L) Xbar`` with S_in split
+    hi + lo.  Chunks of ``min(chunk, S)`` rows, the last one padded with
+    zero rows.  ``split_state=False`` drops the lo part of the decayed Xbar:
+    the rounding fault that the state's tolerance must catch.  Only the
+    tests and the checks of ``chip_smoke.py`` use it."""
+    b, s, h, p = xbar.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    ln = min(chunk, s)
+    nc = -(-s // ln)
+    pad = nc * ln - s
+
+    def chunks(t, *tail):
+        t = F.pad(t.to(torch.float32), (0, 0) * len(tail) + (0, pad))
+        return t.reshape(b, nc, ln, *tail)
+    xb, la = chunks(xbar, h, p), chunks(log_a, h)
+    Bc, Cc = chunks(B, g, n), chunks(C, g, n)
+    cum = torch.cumsum(la, dim=2)                              # [b,c,l,h]
+    total = cum[:, :, -1]                                      # [b,c,h]
+
+    # chunk states, the decayed Xbar split hi + lo
+    Bh = Bc.repeat_interleave(rep, dim=3)                      # [b,c,l,h,n]
+    parts = _split(torch.exp(total[:, :, None] - cum)[..., None] * xb)
+    emit = sum(torch.einsum("bclhp,bclhn->bchpn", part, Bh)
+               for part in parts[:2 if split_state else 1])
+
+    # state passing: the state entering each chunk, and the final state
+    state = (init_state.to(torch.float32) if init_state is not None
+             else xbar.new_zeros((b, h, p, n), dtype=torch.float32))
+    s_in = []
+    for c in range(nc):
+        s_in.append(state)
+        state = state * torch.exp(total[:, c])[..., None, None] + emit[:, c]
+    s_in = torch.stack(s_in, dim=1)                            # [b,c,h,p,n]
+
+    # chunk outputs: C B^T once per group, then the decay mask of each head
+    cb = torch.einsum("bcign,bcjgn->bcgij", Cc, Bc)
+    ct = cum.transpose(2, 3)                                   # [b,c,h,l]
+    ii = torch.arange(ln, device=xbar.device)
+    seg = (ct[..., :, None] - ct[..., None, :]).masked_fill(
+        ii[:, None] < ii[None, :], float("-inf"))
+    pm = cb.repeat_interleave(rep, dim=2) * torch.exp(seg)     # [b,c,h,l,l]
+    y = sum(torch.einsum("bchij,bcjhp->bcihp", part, xb)
+            for part in _split(pm))
+    Ch = Cc.repeat_interleave(rep, dim=3)                      # [b,c,l,h,n]
+    y_off = sum(torch.einsum("bclhn,bchpn->bclhp", Ch, part)
+                for part in _split(s_in))
+    y = y_off * torch.exp(cum)[..., None] + y
+    return y.reshape(b, nc * ln, h, p)[:, :s].to(xbar.dtype), state
+
+
 def _entry():
     lib = _build.load("ssd_scan")
     fn = lib.repro_ssd_scan_fwd
     if not fn.argtypes:
         ll, ci, vp = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-        fn.argtypes = [vp] * 7 + [ci] * 7 + [ll] * 4 + [ci, vp]
+        fn.argtypes = [vp] * 10 + [ci] * 7 + [ll] * 4 + [ci, vp]
         fn.restype = ci
     return lib, fn
 
 
-def _groups_dense(t: torch.Tensor) -> bool:
-    """Unit stride along N and stride N between groups: batch and row
-    strides may be anything (the model hands over views of its projection)."""
-    return t.stride(3) == 1 and t.stride(2) == t.shape[3]
+def reads_in_place(t: torch.Tensor) -> bool:
+    """Whether the kernel reads B or C ``[B,S,G,N]`` through its strides or
+    the wrapper makes it contiguous first.  Unit stride along N and stride N
+    between groups; batch and row strides may be anything (the model hands
+    over views of its projection), except that the bf16 body loads 16-byte
+    chunks: there the base and both strides must keep every row 16-byte
+    aligned."""
+    if t.stride(3) != 1 or t.stride(2) != t.shape[3]:
+        return False
+    if t.dtype != torch.bfloat16:
+        return True
+    per16 = 16 // t.element_size()
+    return (t.data_ptr() % 16 == 0 and t.stride(0) % per16 == 0
+            and t.stride(1) % per16 == 0)
+
+
+def scratch_shapes(b: int, s: int, h: int, g: int, p: int, n: int,
+                   chunk: int) -> dict:
+    """Shapes of the bf16 body's fp32 scratch buffers, with L = min(chunk,
+    S) rows a chunk: the chunk cumsums, C B^T by group (rows padded to whole
+    64-row tiles) and the per-chunk states (emit, then the state entering
+    each chunk)."""
+    ln = min(chunk, s)
+    nc = -(-s // ln)
+    lt = -(-ln // 64) * 64
+    return {"cum": (b, h, nc, ln), "cb": (b, nc, g, lt, lt),
+            "st": (b, nc, h, p, n)}
 
 
 def ssd_scan(xbar: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
@@ -75,6 +169,10 @@ def ssd_scan(xbar: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
     1 <= chunk <= 1024, any S >= 1.  B and C are read through their batch and
     row strides; a tensor the kernel cannot read in place is made contiguous
     first.  Anything else raises.  Forward only.
+
+    bf16 runs the tensor-core body: four CUDA kernels in one launch count,
+    with fp32 scratch from ``torch.empty`` (:func:`scratch_shapes`: 155 MB at
+    mamba2-1.3b's prefill, ``[8, 2048]`` tokens).  fp32 runs the FMA body.
     """
     if not xbar.is_cuda:
         return ssd_scan_plain(xbar, log_a, B, C, chunk=chunk,
@@ -105,19 +203,26 @@ def ssd_scan(xbar: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"ssd_scan: chunk {chunk} outside [1, {MAX_CHUNK}]")
     xbar, log_a = xbar.contiguous(), log_a.contiguous()
-    B, C = (t if _groups_dense(t) else t.contiguous() for t in (B, C))
+    B, C = (t if reads_in_place(t) else t.contiguous() for t in (B, C))
     if init_state is not None:
         init_state = init_state.contiguous()
     y = torch.empty_like(xbar, memory_format=torch.contiguous_format)
     state = torch.empty((b, h, p, n), dtype=torch.float32,
                         device=xbar.device)
+    scratch = [None] * 3
+    if xbar.dtype == torch.bfloat16:
+        scratch = [torch.empty(shape, dtype=torch.float32, device=xbar.device)
+                   for shape in scratch_shapes(b, s, h, g, p, n,
+                                               chunk).values()]
     lib, fn = _entry()
     with torch.cuda.device(xbar.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(xbar.data_ptr(), log_a.data_ptr(), B.data_ptr(),
                   C.data_ptr(),
                   init_state.data_ptr() if init_state is not None else None,
-                  y.data_ptr(), state.data_ptr(), b, s, h, g, p, n, chunk,
+                  y.data_ptr(), state.data_ptr(),
+                  *(t.data_ptr() if t is not None else None
+                    for t in scratch), b, s, h, g, p, n, chunk,
                   B.stride(0), B.stride(1), C.stride(0), C.stride(1),
                   _DTYPE_CODE[xbar.dtype], stream)
     _build.check(lib, code, "ssd_scan launch", "repro_ssd_scan_error_string")

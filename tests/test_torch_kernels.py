@@ -18,9 +18,14 @@ from repro.kernels import tsmm as ref_tsmm
 from repro.models.mamba import ssd_decode_step as ref_ssd_decode_step
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (flash_attention,
-                                                 flash_attention_plain)
+                                                 flash_attention_plain,
+                                                 flash_body)
+from repro_torch.kernels.flash_attention import \
+    reads_in_place as flash_reads_in_place
 from repro_torch.kernels.matmul_epilogue import (matmul_epilogue,
                                                  matmul_epilogue_plain)
+from repro_torch.kernels.ssd_scan import reads_in_place as ssd_reads_in_place
+from repro_torch.kernels.ssd_scan import scratch_shapes
 from repro_torch.kernels.tsmm import TILE, _splits, tsmm_upper, tsmm_upper_plain
 from repro_torch.models.layers import attention_dense
 from repro_torch.models.mamba import ssd_decode_step
@@ -164,6 +169,101 @@ def test_flash_attention_ragged_length(s, window):
     assert torch.equal(out, expect)
     assert torch.equal(out, flash_attention_plain(q, k[:, :2], v[:, :2],
                                                   causal=True, window=window))
+
+
+@pytest.mark.parametrize("d,causal,window", [(64, True, 64), (64, False, 32),
+                                               (80, True, 64)])
+def test_flash_attention_more_queries_than_keys_with_a_window(d, causal,
+                                                              window):
+    """Query rows at or past Skv + window see no key and come out zero, as
+    the reference's do."""
+    rng = np.random.default_rng(15)
+    q = randn(rng, (1, 2, 512, d))
+    k, v = randn(rng, (1, 2, 64, d)), randn(rng, (1, 2, 64, d))
+    expect = np.asarray(ref_ops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window, bq=128, bk=64))
+    out = ops.flash_attention(*(torch.from_numpy(t) for t in (q, k, v)),
+                              causal=causal, window=window)
+    np.testing.assert_allclose(to_np(out), expect, rtol=2e-5, atol=2e-5)
+    assert not to_np(out)[:, :, 64 + window:].any()
+
+
+# The body a CUDA call takes goes by type and head dim alone; window and GQA
+# do not change it.
+@pytest.mark.parametrize("dtype,d,body", [
+    (torch.float32, 32, "fma"), (torch.float32, 64, "fma"),
+    (torch.float32, 80, "fma"), (torch.float32, 128, "fma"),
+    (torch.bfloat16, 32, "mma_sync"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 128, "mma_sync")])
+def test_flash_body_goes_by_type_and_head_dim(dtype, d, body):
+    assert flash_body(dtype, d) == body
+
+
+def _strided(shape, strides, dtype, offset=0):
+    storage = torch.zeros(offset + 1 + sum((n - 1) * st for n, st in
+                                           zip(shape, strides)), dtype=dtype)
+    return torch.as_strided(storage, shape, strides, offset)
+
+
+# (shape, strides in elements, offset in elements, dtype, read in place?)
+# TMA and 16-byte cp.async both need a 16-byte-aligned base, unit stride
+# along D and every other stride a multiple of 16 bytes.
+READ_CASES = {
+    "contiguous [B,H,S,D]": ((2, 4, 8, 64), (2048, 512, 64, 1), 0,
+                             torch.bfloat16, True),
+    "transposed view of [B,S,H,D]": ((2, 4, 8, 64), (2048, 64, 256, 1), 0,
+                                     torch.bfloat16, True),
+    "zamba2's D = 80 view": ((2, 32, 8, 80), (20480, 80, 2560, 1), 0,
+                             torch.bfloat16, True),
+    "fp32 view": ((2, 4, 8, 64), (2048, 64, 256, 1), 0, torch.float32, True),
+    "base 8 bytes off": ((1, 2, 8, 64), (1152, 72, 144, 1), 4,
+                         torch.bfloat16, False),
+    "row stride of 100 elements": ((1, 2, 8, 64), (1600, 800, 100, 1), 0,
+                                   torch.bfloat16, False),
+    "row stride of 6 fp32": ((1, 2, 8, 4), (96, 48, 6, 1), 0,
+                             torch.float32, False),
+    "D not unit-strided": ((1, 2, 8, 64), (1024, 512, 1, 8), 0,
+                           torch.bfloat16, False),
+}
+
+
+@pytest.mark.parametrize("case", list(READ_CASES))
+def test_flash_reads_in_place_follows_the_tensor_map_rule(case):
+    shape, strides, offset, dtype, expect = READ_CASES[case]
+    t = _strided(shape, strides, dtype, offset)
+    assert t.stride() == strides
+    assert flash_reads_in_place(t) == expect
+    assert flash_reads_in_place(t.contiguous())
+
+
+@pytest.mark.parametrize("dtype,offset,expect", [
+    (torch.bfloat16, 4096, True),     # mamba2: B after H * P = 4096 columns
+    (torch.bfloat16, 4100, False),    # 8 bytes off: the bf16 body copies
+    (torch.float32, 4100, True),      # the fp32 body loads element-wise
+])
+def test_ssd_reads_b_and_c_in_place_where_rows_are_aligned(dtype, offset,
+                                                           expect):
+    width = offset + 2 * 128
+    proj = torch.zeros((2, 16, width), dtype=dtype)
+    bm = proj[..., offset:offset + 128].reshape(2, 16, 1, 128)
+    assert ssd_reads_in_place(bm) == expect
+
+
+def test_ssd_scratch_at_the_serve_shapes():
+    """The bf16 body's fp32 scratch: 155 MB at mamba2's prefill, 106 MB at
+    zamba2's; C B^T rows padded to whole 64-row tiles."""
+    def mb(shapes):
+        return sum(4 * np.prod(v) for v in shapes.values()) / 1e6
+    m = scratch_shapes(8, 2048, 64, 1, 64, 128, 256)
+    assert m == {"cum": (8, 64, 8, 256), "cb": (8, 8, 1, 256, 256),
+                 "st": (8, 8, 64, 64, 128)}
+    assert round(mb(m)) == 155
+    assert round(mb(scratch_shapes(8, 2048, 80, 1, 64, 64, 256))) == 106
+    assert scratch_shapes(2, 600, 4, 1, 64, 128, 256)["cb"] == \
+        (2, 3, 1, 256, 256)
+    assert scratch_shapes(1, 7, 2, 1, 16, 16, 256) == {
+        "cum": (1, 2, 1, 7), "cb": (1, 1, 1, 64, 64), "st": (1, 1, 2, 16, 16)}
 
 
 # ------------------------------------------------------------- ssd scan
