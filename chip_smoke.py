@@ -13,10 +13,10 @@ state path), with ``--ptxas`` a ``ptxas`` line (registers, shared memory
 and spills of every kernel), ``serve`` three times (qwen1.5-0.5b,
 mamba2-1.3b and zamba2-2.7b, at full width and depth in bf16 through
 ``ServeEngine``, static and continuous batching, with the launch count of
-every kernel held against the count the arch's path must give, and the bf16
-prefill logits with the kernels against without them and against the
-controls), ``linreg`` (the LinReg DS example at 262144 x 1024 through the
-tsmm kernel).
+every kernel, and of each body of the epilogue kernel, held against the
+count the arch's path must give, and the bf16 prefill logits with the
+kernels against without them and against the controls), ``linreg`` (the
+LinReg DS example at 262144 x 1024 through the tsmm kernel).
 Then one ``{"kernels": [...]}`` line with each kernel's time at its main-path
 shape beside its roofline bound, the plain version's time and a PyTorch
 library call's time (null where no single call computes the function), the
@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import re
 import subprocess
@@ -49,7 +50,7 @@ from repro_torch.kernels import _build, ops                      # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain, flash_body)
 from repro_torch.kernels.matmul_epilogue import (  # noqa: E402
-    LN_MAX_N, matmul_epilogue, matmul_epilogue_plain)
+    LN_MAX_N, matmul_body, matmul_epilogue, matmul_epilogue_plain)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_scan, ssd_scan_plain, ssd_scan_split_plain)
 from repro_torch.kernels.tsmm import tsmm_upper, tsmm_upper_plain  # noqa: E402
@@ -476,11 +477,20 @@ def check_controls(gen) -> list:
 def check_mm(gen) -> list:
     cases = []
 
-    def run(tag, m, n, k, dtype, epilogue=None, out_dtype=None, **kw):
+    def run(tag, m, n, k, dtype, epilogue=None, out_dtype=None, body=None,
+            **kw):
         x, w, bias = mm_inputs(m, n, k, dtype, gen, epilogue, **kw)
+        took = matmul_body(x, w, out_dtype, epilogue)
+        if body is not None and took != body:
+            raise AssertionError(f"matmul_epilogue {tag}: body {took}, "
+                                 f"expected {body}")
+        before = matmul_epilogue.body_launches[took]
         out = matmul_epilogue(x, w, bias, epilogue=epilogue,
                               out_dtype=out_dtype)
         torch.cuda.synchronize()
+        if matmul_epilogue.body_launches[took] != before + 1:
+            raise AssertionError(f"matmul_epilogue {tag}: body {took} not "
+                                 f"counted")
         ref = matmul_epilogue_plain(x, w, bias, epilogue=epilogue,
                                     out_dtype=out_dtype)
         if out.dtype != ref.dtype or not out.is_contiguous():
@@ -489,7 +499,7 @@ def check_mm(gen) -> list:
         res = compare(out, ref, **mm_tol(out.dtype, k))
         res.update(case=tag, shape=[m, n, k], epilogue=epilogue,
                    dtype=str(dtype).split(".")[-1],
-                   out_dtype=str(out.dtype).split(".")[-1])
+                   out_dtype=str(out.dtype).split(".")[-1], body=took)
         cases.append(res)
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -503,7 +513,8 @@ def check_mm(gen) -> list:
             run("ragged m, n and k, transposed w", 77, 131, 45, dtype, epi,
                 w_transposed=True)
         run("ragged, odd n (unaligned rows)", 1000, 1001, 520, dtype, "silu",
-            model_like=True)
+            model_like=True,
+            body="fma" if dtype == torch.float32 else "mma_sync")
     run("cast sinking fp32 -> bf16", 256, 256, 256, torch.float32, "silu",
         torch.bfloat16)
     run("cast sinking bf16 -> fp32", 256, 256, 256, torch.bfloat16, "gelu",
@@ -527,6 +538,38 @@ def check_mm(gen) -> list:
         d["epilogue"], d["out_dtype"], model_like=True)
     run("qwen head main path, vocab 151936", h["m"], h["n"], h["k"],
         h["dtype"], h["epilogue"], h["out_dtype"], model_like=True)
+    # the wgmma body's edges: one 128-row tile and a row, two and a row; w
+    # transposed (a K-major operand); ragged M, N and K; fp32 out (the
+    # 128 x 128 tile)
+    for m in (65, 129):
+        run(f"wgmma, ragged m = {m}", m, 2816, 1024, torch.bfloat16, "silu",
+            model_like=True, body="wgmma")
+    run("wgmma, aligned transposed w (K-major B)", 1024, 4096, 2048,
+        torch.bfloat16, "silu", model_like=True, w_transposed=True,
+        body="wgmma")
+    run("wgmma, ragged m, n and k, bias", 333, 200, 104, torch.bfloat16,
+        "bias", body="wgmma")
+    run("wgmma, ragged, fp32 out", 333, 200, 104, torch.bfloat16, "gelu",
+        torch.float32, body="wgmma")
+    run("wgmma, transposed w, ragged, fp32 out", 200, 136, 72,
+        torch.bfloat16, None, torch.float32, w_transposed=True,
+        body="wgmma")
+    # the small-M body: 1, 8 and 64 rows at qwen's gate width (slabs shared
+    # by blocks); ragged everywhere, x read element-wise; a transposed w
+    # (read element-wise)
+    for m in (1, 8, 64):
+        run(f"small_m, {m} rows", m, 2816, 1024, torch.bfloat16, "silu",
+            model_like=True, body="small_m")
+    run("small_m, ragged m, n and k, bias, fp32 out", 5, 1000, 777,
+        torch.bfloat16, "bias", torch.float32, body="small_m")
+    run("small_m, transposed w", 8, 200, 136, torch.bfloat16, "gelu",
+        w_transposed=True, body="small_m")
+    # 128-column slabs (at most 8 rows, more 64-column slabs than the card
+    # holds blocks): ragged n and k by TMA, and a transposed w by cp.async
+    run("small_m, wide slabs, ragged", 3, 45000, 200, torch.bfloat16, "gelu",
+        body="small_m")
+    run("small_m, wide slabs, transposed w", 8, 50280, 256, torch.bfloat16,
+        None, torch.float32, w_transposed=True, body="small_m")
     # unsupported calls raise, they do not fall back
     x, w, _ = mm_inputs(16, LN_MAX_N + 1, 32, torch.float32, gen)
     for bad in (lambda: matmul_epilogue(x, w, epilogue="layernorm"),
@@ -721,6 +764,33 @@ def device_kernel_ms(fn) -> dict:
             for e in prof.key_averages() if e.device_time_total > 0}
 
 
+def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device milliseconds a call of ``fn``: ``calls`` calls captured in one
+    CUDA graph, replayed ``reps`` times between CUDA events; no host time
+    between launches, the graph's gaps between kernels included.  The
+    allocator's cache is emptied 0.3 s before the capture (which empties
+    it too): for a while after the driver takes back gigabytes, an 8-row
+    head timed on an H100 read slower than the same call timed later."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    time.sleep(0.3)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_ms(graph.replay, reps, 1) / calls
+
+
+# w of an 8-row call is cold when the copies it rotates over exceed the
+# 50 MB L2 more than twice over
+COLD_BYTES = 120e6
+
+
 def time_kernels(gen) -> dict:
     """Each kernel at its main-path shape: kernel, plain version, and one
     PyTorch library call (a yardstick; the port never calls it)."""
@@ -799,25 +869,50 @@ def time_kernels(gen) -> dict:
             ("gate", MM_GATE, gate_lib), ("head", MM_HEAD, head_lib),
             ("qwen_gate", MM_QWEN_GATE, gate_lib),
             ("qwen_head", MM_QWEN_HEAD, head_lib),
+            ("mamba_head", MM_MAMBA_HEAD, head_lib),
             ("decode_gate", MM_DECODE_GATE, gate_lib),
             ("qwen_decode_gate", MM_QWEN_DECODE_GATE, gate_lib)):
         x, w, _ = mm_inputs(c["m"], c["n"], c["k"], c["dtype"], gen,
                             model_like=True)
         kw = dict(epilogue=c["epilogue"], out_dtype=c["out_dtype"])
-        mm[name] = {
-            "ms": time_ms(lambda: matmul_epilogue(x, w, **kw), 20, 3),
-            "plain_ms": time_ms(lambda: matmul_epilogue_plain(x, w, **kw), 3),
-            "library_ms": time_ms(lambda: lib_fn(x, w), 20, 3),
-            "library_note": lib_note,
-            "shape": f"x [{c['m']},{c['k']}] w [{c['k']},{c['n']}] "
-                     f"{str(c['dtype']).split('.')[-1]}, "
-                     f"{c['epilogue'] or 'no'} epilogue, "
-                     f"{str(c['out_dtype']).split('.')[-1]} out",
-            **mm_bound_ms(**c),
-        }
+        entry = {"body": matmul_body(x, w, c["out_dtype"], c["epilogue"]),
+                 "library_note": lib_note,
+                 "shape": f"x [{c['m']},{c['k']}] w [{c['k']},{c['n']}] "
+                          f"{str(c['dtype']).split('.')[-1]}, "
+                          f"{c['epilogue'] or 'no'} epilogue, "
+                          f"{str(c['out_dtype']).split('.')[-1]} out",
+                 **mm_bound_ms(**c)}
+        if c["m"] > 8:
+            entry.update(
+                ms=time_ms(lambda: matmul_epilogue(x, w, **kw), 20, 3),
+                plain_ms=time_ms(lambda: matmul_epilogue_plain(x, w, **kw),
+                                 3),
+                library_ms=time_ms(lambda: lib_fn(x, w), 20, 3),
+                timing="CUDA events over back-to-back calls")
+        else:
+            # a decode step's product: w cold, kernel and library alike
+            n_w = max(2, int(-(-COLD_BYTES // (w.numel() * w.element_size()))))
+            ring = itertools.cycle([w] + [w.clone() for _ in range(n_w - 1)])
+            entry.update(
+                ms=graph_ms(lambda: matmul_epilogue(x, next(ring), **kw)),
+                plain_ms=time_ms(
+                    lambda: matmul_epilogue_plain(x, next(ring), **kw), 3),
+                library_ms=graph_ms(lambda: lib_fn(x, next(ring))),
+                event_ms=time_ms(lambda: matmul_epilogue(x, next(ring), **kw),
+                                 20, 3),
+                library_event_ms=time_ms(lambda: lib_fn(x, next(ring)), 20,
+                                         3),
+                w_copies=n_w,
+                timing="device time of a CUDA graph of 20 calls (kernel "
+                       "and library alike), w rotated over w_copies copies "
+                       "(cold); event_ms: CUDA events over back-to-back "
+                       "calls, host included")
+            del ring
+        entry["ratio_to_library"] = entry["ms"] / entry["library_ms"]
         x32, w32 = x.float(), w.float()
-        mm[name]["fp32_body_ms"] = time_ms(
+        entry["fp32_body_ms"] = time_ms(
             lambda: matmul_epilogue(x32, w32, **kw), 3)
+        mm[name] = entry
         del x, w, x32, w32
     return {"flash_attention": flash, "tsmm_upper": tsmm, "ssd_scan": ssd,
             "matmul_epilogue": mm}
@@ -851,14 +946,33 @@ def expected_launches(cfg, rounds: int, steps: int) -> dict:
     scan once for each Mamba2 layer, the epilogue kernel once for each gated
     MLP and once for the head.  Per decode step: the MLP gates and the head
     (decode attention and the one-token SSM step are plain)."""
-    n_attn = {"dense": cfg.n_layers,
-              "hybrid": cfg.n_layers // cfg.hybrid.attn_every
-              if cfg.hybrid else 0}.get(cfg.family, 0)
+    n_attn = _n_attention(cfg)
     n_ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
     n_gate = n_attn if cfg.gated_mlp else 0
     return {"flash_attention": n_attn * rounds, "tsmm_upper": 0,
             "ssd_scan": n_ssd * rounds,
             "matmul_epilogue": (n_gate + 1) * (rounds + steps)}
+
+
+def _n_attention(cfg) -> int:
+    """Attention layers, or applications of a shared block, a forward."""
+    return {"dense": cfg.n_layers,
+            "hybrid": cfg.n_layers // cfg.hybrid.attn_every
+            if cfg.hybrid else 0}.get(cfg.family, 0)
+
+
+def expected_bodies(cfg, rounds: int, steps: int) -> dict:
+    """Launches of each body of the epilogue kernel on that path (bodies
+    with none left out).  bf16: a round's gates (M = requests x prompt
+    length > 64) take ``wgmma``; the heads (one row a request) and a decode
+    step's gates take ``small_m``.  fp32: every call takes ``fma``."""
+    n_gate = _n_attention(cfg) if cfg.gated_mlp else 0
+    if cfg.dtype == "float32":
+        bodies = {"fma": (n_gate + 1) * (rounds + steps)}
+    else:
+        bodies = {"wgmma": n_gate * rounds,
+                  "small_m": rounds + (n_gate + 1) * steps}
+    return {body: n for body, n in bodies.items() if n}
 
 
 def serve_run(engine: ServeEngine, reqs) -> dict:
@@ -873,19 +987,26 @@ def serve_run(engine: ServeEngine, reqs) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
-    rounds = engine.stats["admission_rounds"]
-    expected = expected_launches(engine.model.cfg, rounds,
-                                 engine.stats["decode_steps"])
+    bodies = {b: n for b, n in ops.matmul_body_launches().items() if n}
+    rounds, steps = (engine.stats["admission_rounds"],
+                     engine.stats["decode_steps"])
+    expected = expected_launches(engine.model.cfg, rounds, steps)
+    expected_b = expected_bodies(engine.model.cfg, rounds, steps)
     if not engine.use_kernel:
         expected = {name: 0 for name in expected}
+        expected_b = {}
     if any(len(c.tokens) != r.max_new_tokens for c, r in zip(outs, reqs)):
         raise AssertionError("a request did not complete with all its tokens")
     if launches != expected:
         raise AssertionError(f"launches {launches} in {rounds} admission "
                              f"rounds, expected {expected}")
+    if bodies != expected_b:
+        raise AssertionError(f"matmul_epilogue bodies {bodies} in {rounds} "
+                             f"admission rounds, expected {expected_b}")
     new_tokens = sum(len(c.tokens) for c in outs)
     return {"tokens": [c.tokens for c in outs], "wall_s": wall,
-            "launches": launches, "stats": dict(engine.stats),
+            "launches": launches, "matmul_epilogue_bodies": bodies,
+            "stats": dict(engine.stats),
             "prefill_s": max(c.prefill_time_s for c in outs),
             "decode_s": max(c.decode_time_s for c in outs),
             "new_tokens": new_tokens, "tokens_per_s": new_tokens / wall}
@@ -1003,6 +1124,7 @@ def phase_serve(arch: str, bf16_tol: float, fp32_layers: int) -> dict:
             "n_layers": cfg.n_layers, "n_params": n_params,
             "prompt_lens": [len(r.prompt) for r in reqs],
             "main_path_launches": main_launches,
+            "main_path_matmul_epilogue_bodies": run1["matmul_epilogue_bodies"],
             "static": _summary(run1), "static_again": _summary(run2),
             "continuous_slots4": _summary(run3),
             "bf16_prefill_logits_max_abs_diff": bf16_err,
@@ -1055,7 +1177,7 @@ def ptxas_summary(logs: dict) -> list:
             mangled = block.split("'")[1]
             m = re.search(r"_cu_[0-9a-f]{8}(\d+)(\w+)", mangled)
             name = m.group(2)[:int(m.group(1))] if m else mangled
-            args = re.findall(r"Li(\d+)E", m.group(2)) if m else []
+            args = re.findall(r"L[ib](\d+)E", m.group(2)) if m else []
             used = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?",
                              block)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
@@ -1140,6 +1262,7 @@ def main() -> None:
                       ("head", "zamba2 head main path"),
                       ("qwen_gate", "qwen gate main path"),
                       ("qwen_head", "qwen head main path, vocab 151936"),
+                      ("mamba_head", "mamba2 head, vocab 50280"),
                       ("decode_gate", "decode-step gate, 8 rows"),
                       ("qwen_decode_gate", "qwen decode-step gate, 8 rows")):
         mm_times[name]["max_abs_err"] = err_of(mm_cases, tag)
@@ -1171,9 +1294,15 @@ def main() -> None:
         {"name": "matmul_epilogue", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul_epilogue.cu",
          "replaces": "src/repro/kernels/matmul_epilogue.py:116",
-         "launches": path_launches("matmul_epilogue"), **mm_times["gate"],
+         "launches": path_launches("matmul_epilogue"),
+         "body_launches": {
+             body: sum(run["main_path_matmul_epilogue_bodies"].get(body, 0)
+                       for run in serve.values())
+             for body in ("wgmma", "small_m")},
+         **mm_times["gate"],
          "head": mm_times["head"], "qwen_gate": mm_times["qwen_gate"],
          "qwen_head": mm_times["qwen_head"],
+         "mamba_head": mm_times["mamba_head"],
          "decode_gate": mm_times["decode_gate"],
          "qwen_decode_gate": mm_times["qwen_decode_gate"]},
     ]

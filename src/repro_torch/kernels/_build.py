@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes one shared
 library, compiled with ``nvcc`` for ``sm_90a`` and loaded through ``ctypes``
-(seconds per file; no PyTorch headers).  Libraries go to ``build/repro_torch``
-at the root of the checkout (``REPRO_TORCH_BUILD_DIR`` overrides), named by a
-hash of the source, so an unchanged source is built once per directory.
+(seconds per file; no PyTorch headers).  Shared device helpers live in
+``csrc/*.cuh``.  Libraries go to ``build/repro_torch`` at the root of the
+checkout (``REPRO_TORCH_BUILD_DIR`` overrides), named by a hash of the source
+and the headers, so an unchanged source is built once per directory.
 
 Nothing here runs at import time: a machine without ``nvcc`` can import every
 module of the package.  A build that fails raises; there is no other path for
@@ -52,10 +53,31 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    """The library's path, named by a hash of the source, the headers it may
+    include (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     return build_dir() / f"lib{name}_{digest}.so"
+
+
+def _compile(jobs: Dict[str, List[str]]) -> Dict[str, str]:
+    """Run one ``nvcc`` for each job (a name and nvcc's arguments), all at
+    once.  Returns each job's output; raises with the output of those that
+    failed."""
+    procs = {name: subprocess.Popen([_nvcc(), *args], stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+             for name, args in jobs.items()}
+    out, failures = {}, []
+    for name, proc in procs.items():
+        out[name], _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for {name}:\n{out[name]}")
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return out
 
 
 def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> float:
@@ -65,30 +87,38 @@ def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> float:
     t0 = time.perf_counter()
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
-    procs: List = []
+    jobs, targets = {}, {}
     for name in names:
         target = _target(name)
         if target.exists():
             continue
         tmp = target.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        if verbose:
-            cmd.insert(1, "-Xptxas=-v")
-        procs.append((name, tmp, target, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    failures = []
-    for name, tmp, target, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"nvcc failed for {name}.cu:\n{log}")
-            continue
+        jobs[name] = [*(["-Xptxas=-v"] if verbose else []), *NVCC_FLAGS,
+                      "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        targets[name] = (tmp, target)
+    for name, log in _compile(jobs).items():
         if verbose and log:
             logs[name] = log
             print(log)
-        os.replace(tmp, target)
-    if failures:
-        raise RuntimeError("\n".join(failures))
+        os.replace(*targets[name])
     return time.perf_counter() - t0
+
+
+def build_variants(name: str, sources: Dict[str, str]) -> Dict[str, Path]:
+    """Compile variants of ``csrc/<name>.cu`` (each a variant's name and its
+    source text) into ``<build dir>/<name>_variants``, all at once, with
+    ``csrc`` on the include path.  Returns each variant's library.  For the
+    tools that time a kernel's variants."""
+    out = build_dir() / f"{name}_variants"
+    out.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for variant, text in sources.items():
+        (out / f"{variant}.cu").write_text(text)
+        jobs[variant] = [*NVCC_FLAGS, "-I", str(CSRC), "-o",
+                         str(out / f"lib{variant}.so"),
+                         str(out / f"{variant}.cu")]
+    _compile(jobs)
+    return {variant: out / f"lib{variant}.so" for variant in sources}
 
 
 def load(name: str) -> ctypes.CDLL:

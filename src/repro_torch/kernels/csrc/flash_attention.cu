@@ -39,6 +39,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tma.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
@@ -470,48 +472,10 @@ constexpr int WG_BQ = 128;  // query rows a block
 constexpr int WG_BK = 128;  // keys a KV tile
 constexpr int WG_STAGES = 4;
 constexpr int WG_THREADS = 384;
-constexpr int SW128 = 1, SW32 = 3;  // wgmma descriptor layout types
 
 struct TmaMaps {  // [0]: columns 0-63; [1]: columns 64-79 (D = 80 only)
   CUtensorMap q[2], k[2], v[2];
 };
-
-// Shared-memory matrix descriptor of wgmma: start address, leading and
-// stride byte offsets (16-byte units), swizzle layout.
-__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
-                                            uint32_t sbo, int layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// Returns once the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
 
 // A box of a 4-D tensor map (coordinates innermost first) into shared
 // memory, completing on `bar`.
@@ -527,16 +491,6 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 // Named barriers 1 and 2 (0 is __syncthreads') over both consumer
 // warpgroups, 256 threads.
 __device__ __forceinline__ void named_sync(int id) {
@@ -544,16 +498,6 @@ __device__ __forceinline__ void named_sync(int id) {
 }
 __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of an accumulator across
-// the asynchronous products.
-template <int R>
-__device__ __forceinline__ void fence_acc(float (&d)[R][4]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
 }
 
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B in shared memory (K-major).
@@ -1100,30 +1044,6 @@ cudaError_t launch(Kernel kernel, const Params& p, int block_rows,
   kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
-
-// cuTensorMapEncodeTiled, taken from the driver at run time so that the
-// library needs no -lcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-constexpr int ERR_TENSOR_MAP = -2;
 
 // The 4-D map (D columns, S, H, B) of a bf16 q, k or v read through its
 // strides (elements), boxes of `cols` columns by `rows` rows.

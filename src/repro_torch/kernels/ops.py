@@ -71,6 +71,14 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 
+def matmul_body_launches() -> Dict[str, int]:
+    """Launches of each body of the matmul-epilogue kernel since the last
+    reset (they sum to its count in :func:`launch_counts`)."""
+    return dict(_mme.matmul_epilogue.body_launches)
+
+
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS.values():
         fn.launches = 0
+    for body in _mme.matmul_epilogue.body_launches:
+        _mme.matmul_epilogue.body_launches[body] = 0

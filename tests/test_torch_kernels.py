@@ -22,8 +22,10 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_body)
 from repro_torch.kernels.flash_attention import \
     reads_in_place as flash_reads_in_place
-from repro_torch.kernels.matmul_epilogue import (matmul_epilogue,
-                                                 matmul_epilogue_plain)
+from repro_torch.kernels.matmul_epilogue import (matmul_body,
+                                                 matmul_epilogue,
+                                                 matmul_epilogue_plain,
+                                                 tma_describable)
 from repro_torch.kernels.ssd_scan import reads_in_place as ssd_reads_in_place
 from repro_torch.kernels.ssd_scan import scratch_shapes
 from repro_torch.kernels.tsmm import TILE, _splits, tsmm_upper, tsmm_upper_plain
@@ -457,3 +459,92 @@ def test_cpu_tensors_launch_nothing():
     ops.matmul_epilogue(torch.ones(4, 8), torch.ones(8, 3), epilogue="silu")
     assert ops.launch_counts() == {"flash_attention": 0, "tsmm_upper": 0,
                                    "ssd_scan": 0, "matmul_epilogue": 0}
+
+
+# ------------------------------------------------- matmul_epilogue bodies
+BF16, F32 = torch.bfloat16, torch.float32
+
+# The body a CUDA call takes: (m, k, n, type, out type, epilogue, w given as
+# the transposed view of an [n, k] tensor, body).  Meta tensors: shapes and
+# strides without storage, at a 16-byte-aligned base.
+BODY_CASES = {
+    "zamba2 prefill gate": (16384, 2560, 10240, BF16, BF16, "silu", False,
+                            "wgmma"),
+    "qwen prefill gate": (16384, 1024, 2816, BF16, BF16, "silu", False,
+                          "wgmma"),
+    "zamba2 decode gate": (8, 2560, 10240, BF16, BF16, "silu", False,
+                           "small_m"),
+    "qwen decode gate": (8, 1024, 2816, BF16, BF16, "silu", False,
+                         "small_m"),
+    "zamba2 head": (8, 2560, 32000, BF16, F32, None, False, "small_m"),
+    "mamba2 head": (8, 2048, 50280, BF16, F32, None, False, "small_m"),
+    "qwen head": (8, 1024, 151936, BF16, F32, None, False, "small_m"),
+    "a decode step of one request": (1, 2560, 10240, BF16, BF16, "silu",
+                                     False, "small_m"),
+    "64 rows": (64, 1024, 2816, BF16, BF16, "silu", False, "small_m"),
+    "65 rows": (65, 1024, 2816, BF16, BF16, "silu", False, "wgmma"),
+    "fp32 out, 129 rows": (129, 1024, 2816, BF16, F32, "gelu", False,
+                           "wgmma"),
+    "fp32 prefill gate": (16384, 1024, 2816, F32, F32, "silu", False, "fma"),
+    "fp32 head": (8, 1024, 151936, F32, F32, None, False, "fma"),
+    "layernorm, bf16": (256, 256, 256, BF16, BF16, "layernorm", False,
+                        "layernorm"),
+    "layernorm, fp32, 8 rows": (8, 256, 256, F32, F32, "layernorm", False,
+                                "layernorm"),
+    "aligned transposed w (K-major)": (1024, 2048, 4096, BF16, BF16, "silu",
+                                       True, "wgmma"),
+    "ragged, transposed w": (77, 45, 131, BF16, BF16, "bias", True,
+                             "mma_sync"),
+    "ragged, odd n": (1000, 520, 1001, BF16, BF16, "silu", False,
+                      "mma_sync"),
+    "transposed w, output rows off 16 bytes": (256, 1024, 1001, BF16, F32,
+                                               None, True, "mma_sync"),
+}
+
+
+@pytest.mark.parametrize("case", list(BODY_CASES))
+def test_matmul_body_goes_by_type_rows_epilogue_and_layout(case):
+    m, k, n, dtype, out_dtype, epilogue, transposed, body = BODY_CASES[case]
+    x = torch.empty((m, k), dtype=dtype, device="meta")
+    w = (torch.empty((n, k), dtype=dtype, device="meta").T if transposed
+         else torch.empty((k, n), dtype=dtype, device="meta"))
+    assert matmul_body(x, w, out_dtype, epilogue) == body
+
+
+# (shape, strides in elements, offset in elements, dtype, the unit-stride
+# axis asked for, describable?)  A TMA tensor map needs a 16-byte-aligned
+# base, unit stride along the inner axis, and the other stride a multiple
+# of 16 bytes no shorter than a row.
+TMA_CASES = {
+    "contiguous x": ((64, 128), (128, 1), 0, BF16, 1, True),
+    "a layer of a stacked weight": ((64, 128), (128, 1), 3 * 64 * 128, BF16,
+                                    1, True),
+    "transposed view of [n, k] (K-major w)": ((128, 64), (1, 128), 0, BF16,
+                                              0, True),
+    "the same view asked row-major": ((128, 64), (1, 128), 0, BF16, 1,
+                                      False),
+    "columns of a wider tensor": ((64, 64), (256, 1), 0, BF16, 1, True),
+    "base 8 bytes off": ((64, 64), (64, 1), 4, BF16, 1, False),
+    "rows of 90 bytes": ((77, 45), (45, 1), 0, BF16, 1, False),
+    "rows overlapping": ((64, 64), (32, 1), 0, BF16, 1, False),
+    "fp32 rows of 16 bytes": ((8, 4), (4, 1), 0, F32, 1, True),
+    "fp32 rows of 24 bytes": ((8, 6), (6, 1), 0, F32, 1, False),
+}
+
+
+@pytest.mark.parametrize("case", list(TMA_CASES))
+def test_matmul_tma_rule(case):
+    shape, strides, offset, dtype, axis, expect = TMA_CASES[case]
+    t = _strided(shape, strides, dtype, offset)
+    assert t.stride() == strides
+    assert tma_describable(t, axis) == expect
+
+
+def test_cpu_matmul_calls_leave_body_counts_at_zero():
+    ops.reset_launch_counts()
+    x, w = torch.ones(65, 32, dtype=BF16), torch.ones(32, 16, dtype=BF16)
+    for m in (8, 65):
+        ops.matmul_epilogue(x[:m], w, epilogue="silu")
+    ops.matmul_epilogue(torch.ones(8, 32), torch.ones(32, 16))
+    assert ops.launch_counts()["matmul_epilogue"] == 0
+    assert set(ops.matmul_body_launches().values()) == {0}

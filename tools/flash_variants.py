@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -72,23 +71,8 @@ def variant_source(src: str, name: str) -> str:
 
 def build(names) -> dict:
     src = (_build.CSRC / "flash_attention.cu").read_text()
-    out = _build.build_dir() / "flash_variants"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        (out / f"{name}.cu").write_text(variant_source(src, name))
-        procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-             str(out / f"lib{name}.so"), str(out / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    failed = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            failed[name] = log[-3000:]
-    if failed:
-        raise RuntimeError(f"nvcc failed: {failed}")
-    return {name: out / f"lib{name}.so" for name in names}
+    return _build.build_variants(
+        "flash_attention", {name: variant_source(src, name) for name in names})
 
 
 def main() -> None:
