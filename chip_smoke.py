@@ -7,16 +7,17 @@ for the roofline bounds).
 Phases, each printing one JSON line: ``device`` (name and power limit),
 ``build`` (compiles ``src/repro_torch/kernels/csrc/*.cu`` with nvcc),
 ``kernels`` (every hand-written kernel against its plain PyTorch version on
-the card, faulty controls of the epilogue kernel that the same check must
-catch, and the SSD scan's rounding plan against one bf16 rounding of its
-state path), with ``--ptxas`` a ``ptxas`` line (registers, shared memory
+the card, faulty controls of the epilogue kernel and of tsmm that the same
+check must catch, and the SSD scan's rounding plan against one bf16 rounding
+of its state path), with ``--ptxas`` a ``ptxas`` line (registers, shared memory
 and spills of every kernel), ``serve`` three times (qwen1.5-0.5b,
 mamba2-1.3b and zamba2-2.7b, at full width and depth in bf16 through
 ``ServeEngine``, static and continuous batching, with the launch count of
 every kernel, and of each body of the epilogue kernel, held against the
 count the arch's path must give, and the bf16 prefill logits with the
 kernels against without them and against the controls), ``linreg`` (the
-LinReg DS example at 262144 x 1024 through the tsmm kernel).
+LinReg DS example at 262144 x 1024 through the tsmm kernel, cold, then warm
+and split into its parts).
 Then one ``{"kernels": [...]}`` line with each kernel's time at its main-path
 shape beside its roofline bound, the plain version's time and a PyTorch
 library call's time (null where no single call computes the function), the
@@ -58,8 +59,10 @@ from repro_torch.models.model import build_model                 # noqa: E402
 from repro_torch.runtime.serve_engine import (EngineConfig, Request,  # noqa: E402
                                               ServeEngine)
 
-# Published dense peaks of one H100 SXM at its full power limit.
+# Published dense peaks of one H100 SXM at its full power limit (NVIDIA's
+# data sheet): bf16 and TF32 on the tensor cores, fp32 on the FMA units.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 
 SEED = 0
@@ -253,13 +256,22 @@ def flash_bound_ms(b, hq, hkv, s, d, causal, window, dtype) -> dict:
 
 
 def tsmm_bound_ms(m, n, dtype) -> dict:
+    """The kernel's bound: fp32 runs three tf32 products of each pair of
+    values on the tensor cores (3xTF32), bf16 one bf16 product.
+    ``fma_bound_ms`` is fp32's bound on the FMA units, which only the
+    tensor cores can pass."""
     esize = torch.empty((), dtype=dtype).element_size()
     flops = float(m) * n * (n + 1)          # 2 flop x n(n+1)/2 pairs x m
     nbytes = (m * n + n * n) * esize
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
-    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "flop": flops, "bytes": nbytes}
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = 3 * flops / PEAK_TF32 if dtype == torch.float32 \
+        else flops / PEAK_FLOPS[dtype]
+    out = {"bound_ms": 1e3 * max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "flop": flops, "bytes": nbytes}
+    if dtype == torch.float32:
+        out["fma_bound_ms"] = 1e3 * max(flops / PEAK_FLOPS[dtype], t_bytes)
+    return out
 
 
 def check_flash(gen) -> list:
@@ -340,30 +352,53 @@ def check_flash(gen) -> list:
     return cases
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to tf32 as ``cvt.rna.tf32.f32`` rounds it (nearest,
+    ties away from zero)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
 def check_tsmm(gen) -> list:
+    """Each case against the plain version and the float64 Gram matrix
+    with ``tsmm_tol``.  At every fp32 case a control, one tf32 product of
+    the rounded inputs (the kernel without its lo parts, as plain TF32 gives
+    it), must fail the same check."""
     cases = []
 
-    def run(tag, m, n, dtype, reg=0.0):
-        x = torch.randn((m, n), generator=gen, device="cuda",
-                        dtype=torch.float32).to(dtype)
+    def run(tag, m, n, dtype, reg=0.0, x=None):
+        if x is None:
+            x = torch.randn((m, n), generator=gen, device="cuda",
+                            dtype=torch.float32).to(dtype)
         out = tsmm_upper(x, reg=reg)
         torch.cuda.synchronize()
-        res = compare(out, tsmm_upper_plain(x, reg=reg), **tsmm_tol(dtype, m))
+        tol = tsmm_tol(dtype, m)
+        plain = tsmm_upper_plain(x, reg=reg)
+        res = compare(out, plain, **tol)
         # and against the float64 Gram matrix, which no fp32 sum touches
         x64 = x.to(torch.float64)
         g64 = x64.T @ x64 + reg * torch.eye(n, dtype=torch.float64,
                                             device="cuda")
         blk = torch.arange(n, device="cuda") // 128
         g64 = g64 * (blk[:, None] <= blk[None, :])
-        res["max_abs_err_vs_f64"] = compare(
-            out, g64, **tsmm_tol(dtype, m))["max_abs_err"]
+        res["max_abs_err_vs_f64"] = compare(out, g64, **tol)["max_abs_err"]
         del x64, g64
+        if dtype == torch.float32:
+            control = tsmm_upper_plain(tf32_round(x), reg=reg).double()
+            p64 = plain.double()
+            err = (control - p64).abs()
+            res["tf32_control_max_abs_err"] = float(err.max())
+            if not bool((err > tol["atol"] + tol["rtol"] * p64.abs()).any()):
+                raise AssertionError(f"tsmm {tag}: the one-product tf32 "
+                                     f"control passes the kernel's check")
+            del control, p64, err
         full = ops.tsmm(x, reg=reg)
         if not torch.equal(full, full.T):
             raise AssertionError("ops.tsmm is not symmetric")
-        res.update(case=tag, shape=[m, n], reg=reg,
+        res.update(case=tag, shape=[m, n], stride=list(x.stride()), reg=reg,
                    dtype=str(dtype).split(".")[-1])
         cases.append(res)
+        return x, out
 
     for m, n in TSMM_CASES:
         run("reference case fp32", m, n, torch.float32)
@@ -371,7 +406,32 @@ def check_tsmm(gen) -> list:
     run("ridge", 512, 256, torch.float32, reg=7.25)
     run("ragged m and n, split over m", 5000, 200, torch.float32, reg=0.5)
     run("ragged m and n, split over m", 5000, 200, torch.bfloat16, reg=0.5)
-    run("LinReg DS", LINREG_M, LINREG_N, torch.float32, reg=LINREG_LAM)
+    run("m below one slab", 20, 256, torch.float32)
+    run("m not a multiple of the slab", 3001, 384, torch.float32)
+    run("n = 1536, 78 upper tiles", 4096, 1536, torch.float32, reg=1.5)
+    run("n = 100, one partial tile", 2000, 100, torch.float32, reg=0.5)
+    wide = torch.randn((3001, 400), generator=gen, device="cuda")
+    run("row-strided view", 3001, 384, torch.float32, x=wide[:, 8:392])
+    run("misaligned view, copied", 3001, 384, torch.float32,
+        x=wide[:, 1:385])
+    run("bf16 with reg, m not a multiple of the slab", 3001, 384,
+        torch.bfloat16, reg=2.5)
+    del wide
+    x, out = run("LinReg DS", LINREG_M, LINREG_N, torch.float32,
+                 reg=LINREG_LAM)
+    if not torch.equal(tsmm_upper(x, reg=LINREG_LAM), out):
+        raise AssertionError("tsmm: two calls differ at the LinReg DS shape")
+    del x, out
+    # a NaN with every payload bit set (as CUDA's arithmetic makes it)
+    # reaches the same elements as in the plain version
+    x = torch.randn((512, 256), generator=gen, device="cuda")
+    x.view(torch.int32)[7, 100] = 0x7FFFFFFF
+    nan_out, nan_plain = tsmm_upper(x).isnan(), tsmm_upper_plain(x).isnan()
+    if not nan_plain.any() or not torch.equal(nan_out, nan_plain):
+        raise AssertionError("tsmm: a NaN in x does not reach the elements "
+                             "it reaches in the plain version")
+    cases.append({"case": "NaN in x", "shape": [512, 256],
+                  "nan_elements": int(nan_out.sum())})
     x = torch.randn((64, 30), generator=gen, device="cuda")
     try:
         tsmm_upper(x)
@@ -820,6 +880,7 @@ def time_kernels(gen) -> dict:
         "library_ms": time_ms(lambda: x.T @ x, 5),
         "shape": f"x [{LINREG_M},{LINREG_N}] fp32",
     }
+    tsmm["ratio_to_library"] = tsmm["ms"] / tsmm["library_ms"]
     del x
     ssd = {}
     for name, m in (("mamba2", SSD_MAIN), ("zamba2", SSD_ZAMBA)):
@@ -1153,6 +1214,10 @@ def _leaves(tree):
 
 
 def phase_linreg() -> dict:
+    """One cold solve through the entry point (its ``seconds`` include the
+    first solve's set-up on the card), then the median of five more
+    ``solve_linreg`` calls on the host clock and of each part by CUDA
+    events: the Gram matrix (tsmm), X^T y and the solve."""
     ops.reset_launch_counts()
     r = linreg_ds.execute_small(LINREG_M, LINREG_N, LINREG_LAM, seed=SEED)
     launches = ops.launch_counts()["tsmm_upper"]
@@ -1163,8 +1228,32 @@ def phase_linreg() -> dict:
     if beta.shape != (LINREG_N, 1) or not bool(torch.isfinite(beta).all()) \
             or r["max_abs_err_vs_f64"] > bound:
         raise AssertionError(f"LinReg DS: beta is off: {r}")
+    x, y, _ = linreg_ds.make_problem(LINREG_M, LINREG_N, SEED,
+                                     torch.device("cuda"))
+    warm, parts = [], {"tsmm": [], "xty": [], "solve": []}
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        linreg_ds.solve_linreg(x, y, LINREG_LAM)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        a = ops.tsmm(x, reg=LINREG_LAM)
+        ev[1].record()
+        b = x.T @ y
+        ev[2].record()
+        torch.linalg.solve(a, b)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i, name in enumerate(parts):
+            parts[name].append(ev[i].elapsed_time(ev[i + 1]))
+    del x, y, a, b
     return {"phase": "linreg", **r, "lam": LINREG_LAM, "bound": bound,
-            "tsmm_launches": launches}
+            "tsmm_launches": launches,
+            "warm_seconds": float(np.median(warm)),
+            "warm_part_ms": {k: float(np.median(v))
+                             for k, v in parts.items()}}
 
 
 def ptxas_summary(logs: dict) -> list:

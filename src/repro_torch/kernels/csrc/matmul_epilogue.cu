@@ -1092,26 +1092,6 @@ cudaError_t launch_mma_sync(const Params& p, cudaStream_t stream) {
                 T::SMEM, stream, p);
 }
 
-// The 2-D map of a matrix with `inner` contiguous elements a row and
-// `outer` rows `stride` bytes apart, boxes of box_inner x box_outer with the
-// 128-byte swizzle; what lies outside reads as zero and is never written.
-int tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type,
-                  const void* base, long long inner, long long outer,
-                  long long stride, int box_inner, int box_outer) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return ERR_TENSOR_MAP;
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)stride};
-  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides,
-                        box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP;
-}
-
 // Once a device (a decode step makes hundreds of these calls): as many
 // blocks an SM as shared memory allows, for more bytes in flight.
 template <int MT, int NT, bool TMA>

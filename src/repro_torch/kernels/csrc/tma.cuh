@@ -1,6 +1,7 @@
 // Hopper helpers shared by the wgmma + TMA bodies (flash_attention.cu,
-// matmul_epilogue.cu): mbarriers, wgmma descriptors and fences, and the
-// tensor-map encoder taken from the driver at run time.  sm_90a.
+// matmul_epilogue.cu, tsmm.cu): mbarriers, wgmma descriptors and fences, the
+// tensor-map encoder looked up at run time (no -lcuda), and a 2-D tensor map
+// with the 128-byte swizzle.  sm_90a.
 
 #pragma once
 
@@ -109,5 +110,26 @@ EncodeTiled encode_tiled() {
 }
 
 constexpr int ERR_TENSOR_MAP = -2;
+
+// The 2-D map of a matrix with `inner` contiguous elements a row and
+// `outer` rows `stride` bytes apart, boxes of box_inner x box_outer with the
+// 128-byte swizzle; what lies outside reads as zero and is never written.
+[[maybe_unused]]
+int tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type,
+                  const void* base, long long inner, long long outer,
+                  long long stride, int box_inner, int box_outer) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return ERR_TENSOR_MAP;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)stride};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides,
+                        box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP;
+}
 
 }  // namespace

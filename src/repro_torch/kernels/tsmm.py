@@ -7,9 +7,10 @@ Replaces the TPU kernel ``tsmm_upper`` / ``_tsmm_kernel`` of
 diagonal before the single write, lower-left tiles left zero.  The CUDA source
 is ``csrc/tsmm.cu``; its header says how the design differs from the TPU
 kernel (1-D grid over the upper tiles with the loop over ``m`` inside the
-block, 128 x 128 tiles, full-fp32 FMA, and a split of ``m`` with a fixed-order
-second pass because a tall and skinny X gives far fewer tiles than the card
-has SMs).
+block, 128 x 128 tiles, TMA and ``wgmma`` in tf32 with fp32 inputs split in
+two (3xTF32: ``PRODUCTS`` products a pair of values, one for bf16), and a
+split of ``m`` with a fixed-order second pass because a tall and skinny X
+gives far fewer tiles than the card has SMs).
 
 The half product is bound by operations: ``m n (n + 1)`` flop against
 ``m n`` elements read.
@@ -20,6 +21,7 @@ launches the kernel or raises, a CPU tensor takes the plain version.
 from __future__ import annotations
 
 import ctypes
+from fractions import Fraction
 
 import torch
 
@@ -27,11 +29,11 @@ from repro_torch.kernels import _build
 
 TILE = 128            # output tile edge of the kernel
 _MIN_ROWS_PER_SPLIT = 1024
-# Blocks the grid may have: four full waves of the 2 blocks that fit on each of
-# an H100's 132 SMs.  Never more than a whole number of waves: one block over
-# (288 blocks on 264 places) costs a whole extra wave.
-_TARGET_BLOCKS = 4 * 2 * 132
+_SMS = 132            # an H100's SMs; the kernel holds one block on each
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# tf32 products the kernel sums for each pair of values: fp32 is split as
+# hi + lo and takes lo.hi + hi.lo + hi.hi; bf16 is exact in tf32
+PRODUCTS = {torch.float32: 3, torch.bfloat16: 1}
 
 
 def tsmm_upper_plain(x: torch.Tensor, *, reg: float = 0.0,
@@ -51,10 +53,16 @@ def tsmm_upper_plain(x: torch.Tensor, *, reg: float = 0.0,
 
 
 def _splits(m: int, n: int) -> int:
+    """Slices of ``m`` (at least 1024 rows each): the count whose grid of
+    ``tiles x splits`` blocks, one an SM, takes the fewest waves for the rows
+    it covers, ``ceil(tiles * s / 132) / s``; the fewest slices on a tie.  A
+    count past 132 never does better: ``132 / gcd(tiles, 132)`` already
+    fills every wave."""
     nb = -(-n // TILE)
     tiles = nb * (nb + 1) // 2
-    by_rows = max(1, m // _MIN_ROWS_PER_SPLIT)
-    return max(1, min(by_rows, _TARGET_BLOCKS // tiles))
+    by_rows = min(_SMS, max(1, m // _MIN_ROWS_PER_SPLIT))
+    return min(range(1, by_rows + 1),
+               key=lambda s: (Fraction(-(-tiles * s // _SMS), s), s))
 
 
 def _entry():
@@ -63,7 +71,7 @@ def _entry():
     if not fn.argtypes:
         ci, vp = ctypes.c_int, ctypes.c_void_p
         fn.argtypes = [vp, vp, vp, ci, ci, ctypes.c_longlong, ctypes.c_float,
-                       ci, ci, vp]
+                       ci, ci, ci, vp]
         fn.restype = ci
     return lib, fn
 
@@ -73,8 +81,9 @@ def tsmm_upper(x: torch.Tensor, *, reg: float = 0.0) -> torch.Tensor:
     ``X^T X + reg * I``, zeros below them.
 
     CUDA tensors: float32 or bfloat16, ``n % 4 == 0``, any ``m``; ``x`` is
-    read through its row stride and made contiguous first if its rows are not
-    16-byte aligned with unit column stride.  Anything else raises.
+    read through its row stride where TMA can describe it (unit column
+    stride, rows 16-byte aligned), else from a copy with rows padded to 16
+    bytes.  Anything else raises.
     """
     if x.dim() != 2:
         raise ValueError(f"tsmm_upper: x must be [m, n], got {tuple(x.shape)}")
@@ -88,7 +97,9 @@ def tsmm_upper(x: torch.Tensor, *, reg: float = 0.0) -> torch.Tensor:
                          f"{tuple(x.shape)}")
     per16 = 16 // x.element_size()
     if x.stride(1) != 1 or x.stride(0) % per16 or x.data_ptr() % 16:
-        x = x.contiguous()
+        padded = torch.empty((m, -(-n // per16) * per16), dtype=x.dtype,
+                             device=x.device)
+        x = padded[:, :n].copy_(x)
     out = torch.zeros((n, n), dtype=x.dtype, device=x.device)
     splits = _splits(m, n)
     nb = -(-n // TILE)
@@ -102,7 +113,7 @@ def tsmm_upper(x: torch.Tensor, *, reg: float = 0.0) -> torch.Tensor:
         code = fn(x.data_ptr(), out.data_ptr(),
                   workspace.data_ptr() if workspace is not None else None,
                   m, n, x.stride(0), float(reg), splits,
-                  _DTYPE_CODE[x.dtype], stream)
+                  _DTYPE_CODE[x.dtype], PRODUCTS[x.dtype], stream)
     _build.check(lib, code, "tsmm_upper launch", "repro_tsmm_error_string")
     tsmm_upper.launches += 1
     return out

@@ -144,8 +144,10 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m, l, acc = carry
         kj = k[:, :, j * kv_chunk:(j + 1) * kv_chunk]
         vj = v[:, :, j * kv_chunk:(j + 1) * kv_chunk]
-        # operands in the working type, fp32 result
-        s = torch.einsum("bhgqd,bhkd->bhgqk", qc, kj).to(torch.float32) * scale
+        # operands in the working type, products and sums in fp32 (a bf16 x
+        # bf16 product is exact in fp32), as preferred_element_type gives
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qc.to(torch.float32),
+                         kj.to(torch.float32)) * scale
         if masked:
             q_pos = qi * q_chunk + torch.arange(q_chunk, device=q.device)
             k_pos = j * kv_chunk + torch.arange(kv_chunk, device=q.device)
@@ -159,7 +161,8 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             p = p * mask
         l_new = l * alpha + p.sum(dim=-1)
         acc_new = acc * alpha[..., None] + torch.einsum(
-            "bhgqk,bhkd->bhgqd", p.to(q.dtype), vj).to(torch.float32)
+            "bhgqk,bhkd->bhgqd", p.to(q.dtype).to(torch.float32),
+            vj.to(torch.float32))
         return m_new, l_new, acc_new
 
     def interior_range(qi, lo, kv_hi):

@@ -28,7 +28,8 @@ from repro_torch.kernels.matmul_epilogue import (matmul_body,
                                                  tma_describable)
 from repro_torch.kernels.ssd_scan import reads_in_place as ssd_reads_in_place
 from repro_torch.kernels.ssd_scan import scratch_shapes
-from repro_torch.kernels.tsmm import TILE, _splits, tsmm_upper, tsmm_upper_plain
+from repro_torch.kernels.tsmm import (PRODUCTS, TILE, _splits, tsmm_upper,
+                                      tsmm_upper_plain)
 from repro_torch.models.layers import attention_dense
 from repro_torch.models.mamba import ssd_decode_step
 
@@ -101,9 +102,98 @@ def test_tsmm_upper_tiles_match_the_reference_kernel():
 
 def test_tsmm_split_heuristic():
     assert _splits(512, 256) == 1                # short: one pass
-    assert _splits(262144, 1024) == 29           # 36 tiles x 29 <= 4 waves
-    assert _splits(262144, 128) == 256           # one tile: >= 1024 rows each
-    assert _splits(4096, 4096) == 2              # 528 tiles x 2 = 4 waves
+    assert _splits(262144, 1024) == 11           # 36 tiles x 11 = 3 waves
+    assert _splits(262144, 128) == 132           # one tile: one wave
+    assert _splits(4096, 4096) == 1              # 528 tiles = 4 waves
+    assert _splits(262144, 1536) == 22           # 78 tiles x 22 = 13 waves
+    assert _splits(5000, 200) == 4               # 3 tiles, 1024 rows each
+
+
+def test_tsmm_splits_fill_whole_waves():
+    """Of every count the rows allow, the one chosen needs the fewest waves
+    of 132 blocks per row it covers."""
+    for m, n in ((262144, 1024), (262144, 1536), (65536, 512), (20000, 100)):
+        nb = -(-n // TILE)
+        tiles = nb * (nb + 1) // 2
+        cost = [-(-tiles * s // 132) / s
+                for s in range(1, max(1, m // 1024) + 1)]
+        assert abs(cost[_splits(m, n) - 1] - min(cost)) < 1e-12
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> tf32 as ``cvt.rna.tf32.f32``: the low 13 bits of the
+    mantissa rounded off to nearest, ties away from zero, by integer
+    arithmetic on the bits (the sign sits apart, so adding half of the
+    dropped unit to the bits rounds the magnitude)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tsmm_tf32_model(x: torch.Tensor, products: int) -> torch.Tensor:
+    """The kernel's arithmetic: x = hi + lo in tf32, products of tf32 values
+    (exact in fp32) summed in fp32; three products lo.hi + hi.lo + hi.hi,
+    or hi.hi alone."""
+    x = x.to(torch.float32)
+    hi = tf32_rna(x)
+    g = hi.T @ hi
+    if products == 3:
+        lo = tf32_rna(x - hi)
+        g = (lo.T @ hi + hi.T @ lo) + g
+    return g
+
+
+def tsmm_tol(m: int) -> dict:
+    """chip_smoke.py's fp32 tolerance for the kernel: the reference's rtol
+    2e-5 / atol 2e-4, atol growing with m beyond 512."""
+    return dict(rtol=2e-5, atol=2e-4 * max(1.0, m / 512))
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    rng = np.random.default_rng(17)
+    v = (rng.normal(size=4096) * 10.0 ** rng.integers(-6, 7, 4096)) \
+        .astype(np.float32)
+    # ties: the 13 dropped bits exactly half a tf32 unit, both signs
+    tie = np.array([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 3 + 3 * 2.0 ** -10],
+                   np.float32)
+    v = np.concatenate([v, tie])
+    mant, exp = np.frexp(v.astype(np.float64))          # |mant| in [0.5, 1)
+    expect = np.sign(mant) * np.floor(np.abs(mant) * 2.0 ** 11 + 0.5) \
+        * 2.0 ** (exp - 11)
+    out = tf32_rna(torch.from_numpy(v)).numpy().astype(np.float64)
+    np.testing.assert_array_equal(out, expect)
+    assert out[-3] == 1 + 2.0 ** -10 and out[-2] == -(1 + 2.0 ** -10)
+
+
+@pytest.mark.parametrize("m,n", [(512, 256), (1024, 512), (768, 384),
+                                 (2048, 128), (16384, 256)])
+def test_tsmm_3xtf32_holds_the_kernel_tolerance(m, n):
+    """Three tf32 products hold tsmm_tol against the reference kernel
+    (interpret mode) and against the float64 Gram matrix; one product
+    (hi.hi alone, plain TF32) does not."""
+    x = randn(np.random.default_rng(18), (m, n))
+    ref = np.asarray(ref_tsmm.tsmm_upper(jnp.asarray(x), bm=256, bn=TILE),
+                     np.float64)
+    g64 = x.astype(np.float64).T @ x.astype(np.float64)
+    blk = np.arange(n) // TILE
+    upper = blk[:, None] <= blk[None, :]
+    three = tsmm_tf32_model(torch.from_numpy(x), 3).numpy()
+    one = tsmm_tf32_model(torch.from_numpy(x), 1).numpy()
+    for expect in (ref, g64):
+        np.testing.assert_allclose(three[upper], expect[upper], **tsmm_tol(m))
+        with pytest.raises(AssertionError):
+            np.testing.assert_allclose(one[upper], expect[upper],
+                                       **tsmm_tol(m))
+
+
+def test_tsmm_products_by_dtype():
+    """fp32 takes three products; bf16 one, since a bf16 value is a tf32
+    value and its lo part is zero."""
+    assert PRODUCTS == {torch.float32: 3, torch.bfloat16: 1}
+    x = torch.from_numpy(randn(np.random.default_rng(19), (256, 64)))
+    xb = x.to(torch.bfloat16).to(torch.float32)
+    assert torch.equal(tf32_rna(xb), xb)
+    assert torch.equal(tsmm_tf32_model(xb, 1), tsmm_tf32_model(xb, 3))
+    assert not torch.equal(tf32_rna(x), x)
 
 
 def test_tsmm_rejects_a_vector():

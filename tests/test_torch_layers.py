@@ -119,6 +119,43 @@ def test_attention_chunked_long_sequence(causal, window):
                                   window=window).numpy(), atol=2e-5)
 
 
+def _attention_f64(q, k, v, causal, window):
+    """Softmax attention in float64 (numpy), one KV head per query head."""
+    s = np.einsum("hqd,hkd->hqk", q, k) / np.sqrt(q.shape[-1])
+    qp, kp = np.arange(q.shape[1])[:, None], np.arange(k.shape[1])[None, :]
+    keep = (kp <= qp) if causal else np.ones_like(qp * kp, bool)
+    if window is not None:
+        keep &= qp - kp < window
+    s = np.where(keep, s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    return np.einsum("hqk,hkd->hqd", p / p.sum(-1, keepdims=True), v)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 700)])
+def test_attention_chunked_long_sequence_bf16(causal, window):
+    """bf16 at S = 2304 (chunked, ragged tail): scores and p @ v are summed
+    in fp32 from the bf16 operands, as the reference's
+    preferred_element_type=float32 sums them.  Rounding either product to
+    bf16 first multiplies the error against float64 about eightfold (0.121
+    against the reference's 0.016 at this case)."""
+    rng = np.random.default_rng(16)
+    s = 2304
+    tq, tk, tv = (torch.from_numpy(2 * randn(rng, (1, 2, s, 64)))
+                  .to(torch.bfloat16) for _ in range(3))
+    q, k, v = (t.to(torch.float32).numpy() for t in (tq, tk, tv))
+    out = TL.attention_chunked(tq, tk, tv, causal=causal, window=window)
+    assert out.dtype == torch.bfloat16
+    out = out.to(torch.float32).numpy()
+    expect = np.asarray(RL.attention_chunked(
+        *(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)),
+        causal=causal, window=window), np.float32)
+    exact = _attention_f64(*(a[0].astype(np.float64) for a in (q, k, v)),
+                           causal, window)[None]
+    err, ref_err = np.abs(out - exact).max(), np.abs(expect - exact).max()
+    assert err <= 1.1 * ref_err, (err, ref_err)
+    np.testing.assert_allclose(out, expect, rtol=0, atol=2e-2)
+
+
 def test_attention_chunked_short_is_dense():
     rng = np.random.default_rng(7)
     q, k, v = (torch.from_numpy(randn(rng, (1, 2, 64, 16))) for _ in range(3))
