@@ -17,7 +17,10 @@ every kernel, and of each body of the epilogue kernel, held against the
 count the arch's path must give, and the bf16 prefill logits with the
 kernels against without them and against the controls), ``linreg`` (the
 LinReg DS example at 262144 x 1024 through the tsmm kernel, cold, then warm
-and split into its parts).
+and split into its parts), ``estimate`` (the paper's §3.4 check on the card:
+the port's cost model, with the H100's datasheet constants, estimates four
+LinReg DS plans, which then run warm, and each serve path's prefill round
+and decode step, held against what the serve phase measured).
 Then one ``{"kernels": [...]}`` line with each kernel's time at its main-path
 shape beside its roofline bound, the plain version's time and a PyTorch
 library call's time (null where no single call computes the function), the
@@ -33,6 +36,7 @@ import argparse
 import dataclasses
 import itertools
 import json
+import math
 import re
 import subprocess
 import sys
@@ -45,6 +49,7 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.benchmarks import bench_accuracy                # noqa: E402
 from repro_torch.configs import get_config                       # noqa: E402
 from repro_torch.examples import linreg_ds                       # noqa: E402
 from repro_torch.kernels import _build, ops                      # noqa: E402
@@ -1125,6 +1130,7 @@ def phase_serve(arch: str, bf16_tol: float, fp32_layers: int) -> dict:
     n_params = sum(t.numel() for t in _leaves(params))
 
     static = ServeEngine(model, params, EngineConfig(max_len=4096))
+    max_len = static.max_len
     run1 = serve_run(static, reqs)
     main_launches = run1["launches"]                  # the main path's count
     run2 = serve_run(static, reqs)
@@ -1184,6 +1190,7 @@ def phase_serve(arch: str, bf16_tol: float, fp32_layers: int) -> dict:
     return {"phase": "serve", "arch": cfg.name, "dtype": cfg.dtype,
             "n_layers": cfg.n_layers, "n_params": n_params,
             "prompt_lens": [len(r.prompt) for r in reqs],
+            "max_len": max_len,
             "main_path_launches": main_launches,
             "main_path_matmul_epilogue_bodies": run1["matmul_epilogue_bodies"],
             "static": _summary(run1), "static_again": _summary(run2),
@@ -1254,6 +1261,73 @@ def phase_linreg() -> dict:
             "warm_seconds": float(np.median(warm)),
             "warm_part_ms": {k: float(np.median(v))
                              for k, v in parts.items()}}
+
+
+# ---------------------------------------------------------------------------
+# estimate
+# ---------------------------------------------------------------------------
+
+
+def _check_estimates(where: str, values) -> None:
+    bad = [v for v in values if not (math.isfinite(v) and v > 0)]
+    if bad:
+        raise AssertionError(f"{where}: estimates not finite and positive: "
+                             f"{bad}")
+
+
+def phase_estimate(serve: dict) -> dict:
+    """The paper's loop closed on the card: each LinReg DS plan generated,
+    costed for one H100 and executed warm (``bench_accuracy.linreg_rows``),
+    and each serve path's prefill round and decode step estimated
+    (``bench_accuracy.serve_estimates``) at the batch, longest prompt and
+    cache length that path served, beside what its second static run
+    measured: warm, as the LinReg rows are (the first run, which pays the
+    process's one-time set-up, is reported beside it).  A ratio outside the
+    paper's 2x is reported, not raised."""
+    t0 = time.perf_counter()
+    linreg = bench_accuracy.linreg_rows()
+    rows = linreg[:-1]
+    _check_estimates("linreg", [r["est_ms"] for r in rows])
+    fp32 = rows[0]
+    if (fp32["name"], fp32["m"], fp32["n"]) != ("h100-linreg", LINREG_M,
+                                                LINREG_N):
+        raise AssertionError(f"the first LinReg row is not the main path's "
+                             f"shape: {fp32}")
+    if (fp32["exec_type"], fp32["tsmm_op"]) != ("CP", "tsmm"):
+        raise AssertionError(f"h100-linreg planned {fp32['exec_type']}/"
+                             f"{fp32['tsmm_op']}, not CP/tsmm")
+    if fp32["tsmm_launches"] < 1:
+        raise AssertionError("the h100-linreg row did not launch tsmm")
+    if not fp32["max_abs_err_vs_f64"] <= 1e-4:     # phase_linreg's bound
+        raise AssertionError(f"h100-linreg: beta is off: {fp32}")
+    out = {}
+    for arch, run in serve.items():
+        shape = {"batch": len(run["prompt_lens"]),
+                 "prompt_len": max(run["prompt_lens"]),
+                 "max_len": run["max_len"]}
+        est = {**shape, **bench_accuracy.serve_estimates(get_config(arch),
+                                                         **shape)}
+        for key in ("prefill", "decode"):
+            warm, cold = (_measured_ms(run[r], key)
+                          for r in ("static_again", "static"))
+            plans = {k: v for k, v in est[key].items() if isinstance(v, dict)}
+            _check_estimates(f"{arch} {key}",
+                             [v["total_ms"] for v in plans.values()])
+            est[key]["measured_ms"] = warm
+            est[key]["measured_first_run_ms"] = cold
+            est[key]["ratio"] = {k: v["total_ms"] / warm
+                                 for k, v in plans.items()}
+        out[arch] = est
+    return {"phase": "estimate", "linreg": linreg, "serve": out,
+            "seconds": time.perf_counter() - t0}
+
+
+def _measured_ms(run: dict, key: str) -> float:
+    """Milliseconds of one static run's prefill round (``prefill``) or of
+    one of its decode steps (``decode``)."""
+    if key == "prefill":
+        return run["prefill_s"] * 1e3
+    return run["decode_s"] * 1e3 / run["stats"]["decode_steps"]
 
 
 def ptxas_summary(logs: dict) -> list:
@@ -1332,6 +1406,7 @@ def main() -> None:
         emit(serve[arch])
     linreg = phase_linreg()
     emit(linreg)
+    emit(phase_estimate(serve))
 
     def err_of(cases, tag):
         return next(c["max_abs_err"] for c in cases if c["case"] == tag)

@@ -7,4 +7,5 @@ a reader finds the counterpart of every function.  This package imports
 ``device="cpu"``.
 """
 
-__all__ = ["configs", "kernels", "models", "runtime", "launch", "convert"]
+__all__ = ["configs", "core", "kernels", "models", "runtime", "launch",
+           "convert", "benchmarks"]

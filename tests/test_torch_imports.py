@@ -22,8 +22,13 @@ MODULES = [
     "repro_torch.models.layers", "repro_torch.models.transformer",
     "repro_torch.models.model", "repro_torch.runtime.serve_engine",
     "repro_torch.launch.serve", "repro_torch.examples.linreg_ds",
+    "repro_torch.benchmarks.bench_accuracy",
     "chip_smoke",
-]
+] + [f"repro_torch.core.{m}" for m in (
+    "npvec", "calibration", "cluster", "symbols", "plan", "linalg_ops",
+    "hlo_cost", "costmodel", "explain", "linreg", "dominance", "planner",
+    "workload", "resource", "serving", "sweep", "parallel")] + [
+    "repro_torch.core"]
 
 
 @pytest.mark.parametrize("module", MODULES)
@@ -39,6 +44,60 @@ def test_import_leaves_no_jax_and_no_reference(module):
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", ["repro_torch.core",
+                                    "repro_torch.core.parallel"])
+def test_cost_model_loads_no_torch(module):
+    """The cost model is numpy and the standard library: ``parallel``'s spawn
+    workers import it, and must never load torch or initialise CUDA."""
+    code = (
+        "import sys, importlib\n"
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}]\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'repro'))\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_chip_tables_equal_the_reference_and_leave_out_the_h100():
+    from repro.core import cluster as ref_cluster
+    from repro.core import sweep as ref_sweep
+    from repro_torch.core import cluster, sweep
+    assert list(cluster.CHIPS) == list(ref_cluster.CHIPS)
+    assert list(sweep.CLUSTERS) == list(ref_sweep.CLUSTERS)
+    assert cluster.H100_SXM not in cluster.CHIPS.values()
+    assert all(cc.chip.name != "h100_sxm" for cc in sweep.CLUSTERS.values())
+    assert "h100_sxm" not in cluster.CHIPS
+
+
+def test_h100_preset_carries_the_datasheet_constants():
+    from repro_torch.core import ClusterConfig, H100_SXM, h100_single_config
+    from repro_torch.core.linreg import (Scenario, build_linreg_program,
+                                         tpu_budgets)
+    assert H100_SXM.peak_flops == {
+        "bfloat16": 989e12, "float16": 989e12, "int8": 1979e12,
+        "float8": 1979e12, "float32": 67e12, "float64": 67e12}
+    assert (H100_SXM.hbm_bytes, H100_SXM.hbm_bw) == (80e9, 3.35e12)
+    assert (H100_SXM.ici_bw_per_link, H100_SXM.ici_domain) == (450e9, 8)
+    assert H100_SXM.pcie_bw == 64e9
+    assert H100_SXM.vmem_bytes == 50 * 2 ** 20
+    assert H100_SXM.cost_per_chip_hour == 0.0
+    cc = h100_single_config()
+    assert (cc.chip, cc.mesh_shape, cc.mesh_axes) == (H100_SXM, (1,),
+                                                      ("data",))
+    # every other field keeps the reference default: nothing fitted
+    default = ClusterConfig()
+    assert all(getattr(cc, f.name) == getattr(default, f.name)
+               for f in dataclasses.fields(ClusterConfig)
+               if f.name not in ("chip", "mesh_shape", "mesh_axes"))
+    _, choice = build_linreg_program(
+        Scenario("h100-linreg", 262144, 1024, dtype="float32"), cc,
+        tpu_budgets(cc))
+    assert (choice.exec_type, choice.tsmm_op) == ("CP", "tsmm")
 
 
 def test_sources_name_neither_jax_nor_the_reference_package():
