@@ -6,21 +6,28 @@ for the roofline bounds).
 
 Phases, each printing one JSON line: ``device`` (name and power limit),
 ``build`` (compiles ``src/repro_torch/kernels/csrc/*.cu`` with nvcc),
-``kernels`` (every hand-written kernel against its plain PyTorch version on
-the card, faulty controls of the epilogue kernel and of tsmm that the same
-check must catch, and the SSD scan's rounding plan against one bf16 rounding
-of its state path), with ``--ptxas`` a ``ptxas`` line (registers, shared memory
-and spills of every kernel), ``serve`` three times (qwen1.5-0.5b,
-mamba2-1.3b and zamba2-2.7b, at full width and depth in bf16 through
-``ServeEngine``, static and continuous batching, with the launch count of
-every kernel, and of each body of the epilogue kernel, held against the
-count the arch's path must give, and the bf16 prefill logits with the
-kernels against without them and against the controls), ``linreg`` (the
+``kernels`` (every hand-written kernel, the two backward kernels included,
+against its plain PyTorch version on the card, faulty controls of the
+epilogue kernel and of tsmm that the same check must catch, and the SSD
+scan's rounding plan against one bf16 rounding of its state path), with
+``--ptxas`` a ``ptxas`` line (registers, shared memory and spills of every
+kernel), ``train`` twice (qwen1.5-0.5b and mamba2-1.3b at full width and
+depth in bf16 through ``make_train_step(use_kernel=True)``: five steps on a
+repeated batch, losses, step times, peak memory and every kernel's
+launches against the count the path must give, then the gradients of the
+kernel path against the plain path at two layers), ``serve`` three times
+(qwen1.5-0.5b, mamba2-1.3b and zamba2-2.7b, at full width and depth in
+bf16 through ``ServeEngine``, static and continuous batching, with the
+launch count of every kernel, and of each body of the epilogue kernel,
+held against the count the arch's path must give, and the bf16 prefill
+logits with the kernels against without them and against the controls),
+``linreg`` (the
 LinReg DS example at 262144 x 1024 through the tsmm kernel, cold, then warm
 and split into its parts), ``estimate`` (the paper's §3.4 check on the card:
 the port's cost model, with the H100's datasheet constants, estimates four
-LinReg DS plans, which then run warm, and each serve path's prefill round
-and decode step, held against what the serve phase measured).
+LinReg DS plans, which then run warm, each serve path's prefill round
+and decode step, held against what the serve phase measured, and each train
+path's step, held against what the train phase measured).
 Then one ``{"kernels": [...]}`` line with each kernel's time at its main-path
 shape beside its roofline bound, the plain version's time and a PyTorch
 library call's time (null where no single call computes the function), the
@@ -54,15 +61,21 @@ from repro_torch.configs import get_config                       # noqa: E402
 from repro_torch.examples import linreg_ds                       # noqa: E402
 from repro_torch.kernels import _build, ops                      # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_plain, flash_body)
+    flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+    flash_attention_fwd, flash_attention_plain, flash_body, flash_lse_plain)
 from repro_torch.kernels.matmul_epilogue import (  # noqa: E402
     LN_MAX_N, matmul_body, matmul_epilogue, matmul_epilogue_plain)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
-    ssd_scan, ssd_scan_plain, ssd_scan_split_plain)
+    ssd_scan, ssd_scan_bwd, ssd_scan_bwd_plain, ssd_scan_plain,
+    ssd_scan_split_plain)
 from repro_torch.kernels.tsmm import tsmm_upper, tsmm_upper_plain  # noqa: E402
+from repro_torch.core import ShardingPlan                        # noqa: E402
 from repro_torch.models.model import build_model                 # noqa: E402
+from repro_torch.optim import adamw                              # noqa: E402
 from repro_torch.runtime.serve_engine import (EngineConfig, Request,  # noqa: E402
                                               ServeEngine)
+from repro_torch.runtime.train_loop import (make_train_step,  # noqa: E402
+                                            value_and_grad)
 
 # Published dense peaks of one H100 SXM at its full power limit (NVIDIA's
 # data sheet): bf16 and TF32 on the tensor cores, fp32 on the FMA units.
@@ -119,6 +132,25 @@ MM_QWEN_DECODE_GATE = dict(m=8, n=2816, k=1024, epilogue="silu",
 # tests use the same numbers).  bf16: inputs and P carry 8 bits of mantissa.
 FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
              torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
+
+
+# The backward kernels against their plain versions, per output, as a
+# relative tolerance: atol is rtol x the output's largest magnitude (a
+# gradient is a long sum whose terms cancel, so an element near zero carries
+# the absolute error of the sum, not of itself).  fp32 outputs: both sides
+# multiply in full fp32 and differ in the order of sums of up to 2048 (flash)
+# or 256 x 128 (SSD) terms, and flash's dQ in the order of its atomic adds:
+# 1e-4.  bf16 outputs: both round one fp32 value, which may fall either side
+# of a rounding boundary: one bf16 step, 2^-7 relative, and a little: 1e-2.
+# The log-sum-exp that the forward writes: fp32 on both sides, atol 1e-4 on
+# values of order log(S) + max score.
+BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+LSE_TOL = dict(rtol=1e-5, atol=1e-4)
+
+
+def compare_rel(out: torch.Tensor, ref: torch.Tensor, rtol: float) -> dict:
+    """:func:`compare` with atol = rtol x max|ref|."""
+    return compare(out, ref, rtol, rtol * float(ref.abs().max()))
 
 
 def tsmm_tol(dtype: torch.dtype, m: int) -> dict:
@@ -355,6 +387,68 @@ def check_flash(gen) -> list:
         raise AssertionError("an unsupported flash_attention call did not "
                              "raise")
     return cases
+
+
+def check_flash_bwd(gen) -> list:
+    """The forward's log-sum-exp against :func:`flash_lse_plain`, and the
+    backward kernel against :func:`flash_attention_bwd_plain` on the same
+    q, k, v, o, lse and dO (o and lse from the forward kernel)."""
+    cases = []
+
+    def run(tag, q, k, v, causal, window, dtype):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                     with_lse=True)
+        do = torch.randn(o.shape, generator=gen, device="cuda").to(dtype)
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                  window=window)
+        torch.cuda.synchronize()
+        res = {"case": tag, "shape": [list(q.shape), list(k.shape)],
+               "causal": causal, "window": window,
+               "dtype": str(dtype).split(".")[-1],
+               "lse": compare(lse, flash_lse_plain(q, k, causal=causal,
+                                                   window=window),
+                              **LSE_TOL)}
+        ref = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                        window=window)
+        for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+            res[name] = compare_rel(a, r, BWD_RTOL[dtype])
+        res["max_abs_err"] = max(res[n]["max_abs_err"]
+                                 for n in ("dq", "dk", "dv"))
+        cases.append(res)
+        del o, lse, do, got, ref
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for tag, shape, causal, window, views in (
+                ("GQA", (2, 4, 2, 256, 64), True, None, False),
+                ("ragged S, window, strided views", (1, 4, 4, 333, 80), True,
+                 100, True),
+                ("not causal, D = 80", (1, 2, 2, 130, 80), False, None,
+                 False),
+                ("GQA 4, window, not causal", (1, 4, 1, 300, 64), False, 64,
+                 False)):
+            run(tag, *flash_inputs(*shape, dtype, gen, views), causal,
+                window, dtype)
+        q, _, _ = flash_inputs(2, 4, 2, 100, 64, dtype, gen)
+        _, k, v = flash_inputs(2, 4, 2, 300, 64, dtype, gen)
+        run("Sq < Skv, causal", q, k, v, True, None, dtype)
+        q, _, _ = flash_inputs(1, 2, 2, 200, 80, dtype, gen)
+        _, k, v = flash_inputs(1, 2, 2, 70, 80, dtype, gen)
+        run("Sq > Skv, causal, window", q, k, v, True, 32, dtype)
+    for tag, m in (("main path", FLASH_MAIN), ("D = 80", FLASH_D80)):
+        q, k, v = flash_inputs(m["b"], m["hq"], m["hkv"], m["s"], m["d"],
+                               torch.bfloat16, gen, views=True)
+        run(tag, q, k, v, True, None, torch.bfloat16)
+        del q, k, v
+        torch.cuda.empty_cache()
+    # the backward takes D = 64 and 80 only: a gradient at D = 32 raises
+    q, k, v = (t.requires_grad_() for t in flash_inputs(
+        1, 2, 2, 64, 32, torch.bfloat16, gen))
+    try:
+        flash_attention(q, k, v)
+    except ValueError:
+        return cases
+    raise AssertionError("flash_attention with a gradient at D = 32 did not "
+                         "raise")
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -747,6 +841,47 @@ def check_ssd(gen) -> list:
     return cases
 
 
+def check_ssd_bwd(gen) -> list:
+    """The backward kernel against :func:`ssd_scan_bwd_plain` on the same
+    inputs, random dy and d final_state."""
+    cases = []
+
+    def run(tag, b, s, h, p, g, n, chunk, dtype, **kw):
+        xbar, log_a, bm, cm, st = ssd_inputs(b, s, h, p, g, n, dtype, gen,
+                                             **kw)
+        dy = torch.randn(xbar.shape, generator=gen, device="cuda").to(dtype)
+        dfin = torch.randn((b, h, p, n), generator=gen, device="cuda")
+        got = ssd_scan_bwd(xbar, log_a, bm, cm, dy, dfin, chunk=chunk,
+                           init_state=st)
+        torch.cuda.synchronize()
+        ref = ssd_scan_bwd_plain(xbar, log_a, bm, cm, dy, dfin, chunk=chunk,
+                                 init_state=st)
+        res = {"case": tag, "shape": [b, s, h, p, g, n], "chunk": chunk,
+               "dtype": str(dtype).split(".")[-1]}
+        for name, a, r in zip(("dxbar", "dlog_a", "dB", "dC", "dinit"), got,
+                              ref):
+            if r is not None:
+                res[name] = compare_rel(a, r, BWD_RTOL[a.dtype])
+        res["max_abs_err"] = max(v["max_abs_err"] for v in res.values()
+                                 if isinstance(v, dict))
+        cases.append(res)
+        del xbar, log_a, bm, cm, st, dy, dfin, got, ref
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s, h, p, n, chunk in SSD_CASES:
+            run("reference case", b, s, h, p, 1, n, chunk, dtype)
+        run("ragged S", 2, 600, 4, 64, 1, 128, 256, dtype)
+        run("ragged S, B/C views", 1, 333, 4, 32, 1, 64, 64, dtype,
+            views=True)
+        run("groups G = 2", 2, 256, 8, 64, 2, 128, 64, dtype)
+        run("initial state", 2, 300, 4, 64, 1, 128, 128, dtype, init=True)
+    m = SSD_MAIN
+    run("main path", m["b"], m["s"], m["h"], m["p"], m["g"], m["n"],
+        m["chunk"], torch.bfloat16, model_like=True, views=True)
+    torch.cuda.empty_cache()
+    return cases
+
+
 def check_ssd_control(gen) -> list:
     """The state path's rounding plan against its control:
     ``ssd_scan_split_plain`` as the kernel splits the decayed Xbar (hi +
@@ -984,6 +1119,93 @@ def time_kernels(gen) -> dict:
             "matmul_epilogue": mm}
 
 
+def flash_bwd_bound_ms(b, hq, hkv, s, d, causal, window, dtype) -> dict:
+    """The backward's five products (S again, dP, dV, dK, dQ: 2 x D flop
+    each a visible pair) at the dense peak of the type; bytes: q, k, v, o,
+    dO and the lse read once, dq, dk, dv written once."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    flops = 10.0 * d * visible_pairs(s, s, causal, window) * b * hq
+    nbytes = (5 * b * hq * s * d + 2 * b * hkv * s * d) * esize \
+        + 4 * b * hq * s
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flop": flops, "bytes": nbytes}
+
+
+def ssd_bwd_bound_ms(b, s, h, p, g, n, chunk, dtype) -> dict:
+    """bytes: xbar, dy, B, C (by group) and log_a read once, dxbar, dB, dC
+    and dlog_a written once, the final state's gradient read; flop: the
+    lower-triangle pairs of each chunk for C B^T (once per group), dY
+    Xbar^T, M^T dY, Wd^T C and Wd B (per head), and five products of a
+    chunk's rows with a state (the two state passes, and the state terms
+    of dXbar, dB and dC), at the dense peak of the type."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    flops = 0.0
+    for r0 in range(0, s, chunk):
+        ln = min(chunk, s - r0)
+        pairs = ln * (ln + 1)
+        flops += b * g * pairs * n + b * h * (
+            pairs * (2 * p + 2 * n) + 10 * ln * p * n)
+    nbytes = (3 * b * s * h * p + 4 * b * s * g * n) * esize \
+        + 8 * b * s * h + 4 * b * h * p * n
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flop": flops, "bytes": nbytes}
+
+
+def time_bwd_kernels(gen) -> dict:
+    """The two backward kernels at their main-path shapes: kernel, plain
+    version and, for flash, SDPA's backward alone (a yardstick; the port
+    never calls it)."""
+    out = {}
+    for name, m in (("flash_attention_bwd", FLASH_MAIN),
+                    ("flash_attention_bwd_d80", FLASH_D80)):
+        q, k, v = flash_inputs(m["b"], m["hq"], m["hkv"], m["s"], m["d"],
+                               torch.bfloat16, gen, views=True)
+        o, lse = flash_attention_fwd(q, k, v, causal=True, with_lse=True)
+        do = torch.randn(o.shape, generator=gen, device="cuda").to(o.dtype)
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        out[name] = {
+            "ms": time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do),
+                          5, 1),
+            "plain_ms": time_ms(lambda: flash_attention_bwd_plain(
+                q, k, v, o, lse, do), 1),
+            "library_ms": time_ms(lambda: torch.autograd.grad(
+                sdpa, (qs, ks, vs), do, retain_graph=True), 10, 2),
+            "library_note": "F.scaled_dot_product_attention's backward "
+                            "alone (autograd.grad of its output), forward "
+                            "excluded",
+            "shape": f"q,k,v [{m['b']},{m['hq']},{m['s']},{m['d']}] bf16 "
+                     f"causal, transposed views",
+            **flash_bwd_bound_ms(**m, dtype=torch.bfloat16)}
+        del q, k, v, o, lse, do, qs, ks, vs, sdpa
+        torch.cuda.empty_cache()
+    m = SSD_MAIN
+    xbar, log_a, bm, cm, _ = ssd_inputs(m["b"], m["s"], m["h"], m["p"],
+                                        m["g"], m["n"], torch.bfloat16, gen,
+                                        model_like=True, views=True)
+    dy = torch.randn(xbar.shape, generator=gen, device="cuda").to(xbar.dtype)
+    args = (xbar, log_a, bm, cm, dy, None)
+    out["ssd_scan_bwd"] = {
+        "ms": time_ms(lambda: ssd_scan_bwd(*args, chunk=m["chunk"]), 3, 1),
+        "plain_ms": time_ms(lambda: ssd_scan_bwd_plain(
+            *args, chunk=m["chunk"]), 1),
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes an SSD scan or its "
+                        "gradient",
+        "shape": "xbar [8,2048,64,64] bf16, B/C [8,2048,1,128] views, "
+                 "chunk 256",
+        "cuda_kernels_ms": device_kernel_ms(
+            lambda: ssd_scan_bwd(*args, chunk=m["chunk"])),
+        **ssd_bwd_bound_ms(**m, dtype=torch.bfloat16)}
+    del xbar, log_a, bm, cm, dy, args
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # serve
 # ---------------------------------------------------------------------------
@@ -1015,8 +1237,8 @@ def expected_launches(cfg, rounds: int, steps: int) -> dict:
     n_attn = _n_attention(cfg)
     n_ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
     n_gate = n_attn if cfg.gated_mlp else 0
-    return {"flash_attention": n_attn * rounds, "tsmm_upper": 0,
-            "ssd_scan": n_ssd * rounds,
+    return {"flash_attention": n_attn * rounds, "flash_attention_bwd": 0,
+            "tsmm_upper": 0, "ssd_scan": n_ssd * rounds, "ssd_scan_bwd": 0,
             "matmul_epilogue": (n_gate + 1) * (rounds + steps)}
 
 
@@ -1207,12 +1429,190 @@ def phase_serve(arch: str, bf16_tol: float, fp32_layers: int) -> dict:
             "max_memory_allocated_bytes": peak_bytes}
 
 
-def _leaves(tree):
-    if isinstance(tree, (dict, list)):
-        for v in (tree.values() if isinstance(tree, dict) else tree):
-            yield from _leaves(v)
+def _named_leaves(tree, prefix=""):
+    """(dotted path, tensor) of each leaf of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{prefix}{k}.")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, f"{prefix}{i}.")
     else:
-        yield tree
+        yield prefix[:-1], tree
+
+
+def _leaves(tree):
+    return (leaf for _, leaf in _named_leaves(tree))
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+
+# Each train path: the arch, its remat policy (qwen keeps every activation;
+# mamba2 without remat would keep about 72 GB, so it recomputes each layer),
+# and the coarse bound on the bf16 gradients, kernel path against plain path
+# at 2 layers (each leaf's largest error over its largest magnitude; gross
+# faults only: the two paths round at other places, as the serve paths'
+# bf16 logits do).  Each bound is 1.5 x the largest reading of these sound
+# paths on an H100 (qwen 0.0113, mamba2 0.0114), rounded up to a multiple of
+# 0.05, as the serve paths' bounds are.  The fp32 gradients of the same
+# comparison are held to TRAIN_FP32_BOUND: both paths multiply in fp32 and
+# differ in the order of sums (the H100 read 1.5e-6 and 8.4e-5).
+TRAIN_PATHS = [("qwen1.5-0.5b", "none", 0.05), ("mamba2-1.3b", "full", 0.05)]
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 5
+TRAIN_FP32_BOUND = 1e-3
+PARITY_BATCH, PARITY_SEQ, PARITY_LAYERS = 2, 1024, 2
+
+
+def ce_chunks(batch: int, seq: int, ce_chunk: int = 2048) -> int:
+    """Chunks of the CE head a loss makes (``transformer._chunked_ce``'s
+    rule on the S - 1 predicted positions)."""
+    s = seq - 1
+    c = max(min(ce_chunk // max(batch, 1), s), 1)
+    return -(-s // c)
+
+
+def expected_train_launches(cfg, remat: str, batch: int, seq: int,
+                            steps: int) -> dict:
+    """Launches of each kernel that ``steps`` train steps of ``cfg``'s
+    kernel path must make.  A step: each attention layer's flash forward
+    and backward, each Mamba2 layer's SSD scan forward and backward, each
+    gated MLP's gate (forward, and again in its backward to recompute the
+    pre-activation) and each CE chunk's head through the epilogue kernel.
+    A forward that a checkpoint reruns in the backward launches again:
+    every layer's under remat ``full`` or ``selective``, and every CE
+    chunk's head (each chunk is checkpointed)."""
+    again = 2 if remat in ("full", "selective") else 1
+    n_attn = _n_attention(cfg)
+    n_ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    n_gate = n_attn if cfg.gated_mlp else 0
+    per_step = {"flash_attention": n_attn * again,
+                "flash_attention_bwd": n_attn, "tsmm_upper": 0,
+                "ssd_scan": n_ssd * again, "ssd_scan_bwd": n_ssd,
+                "matmul_epilogue": n_gate * (again + 1)
+                + 2 * ce_chunks(batch, seq)}
+    return {k: v * steps for k, v in per_step.items()}
+
+
+def random_batch(vocab: int, batch: int, seq: int) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    return {"tokens": torch.randint(0, vocab, (batch, seq), generator=gen,
+                                    device="cuda")}
+
+
+def grad_parity(cfg, remat: str, dtype: str) -> dict:
+    """The gradients of the kernel path against the plain path, at full
+    width and PARITY_LAYERS layers, on one batch: each leaf's largest error
+    over its largest magnitude."""
+    cfg_s = dataclasses.replace(cfg, n_layers=PARITY_LAYERS, dtype=dtype)
+    model = build_model(cfg_s)
+    params = model.init(SEED)
+    batch = random_batch(cfg.vocab_size, PARITY_BATCH, PARITY_SEQ)
+    out = {}
+    for use_kernel in (True, False):
+        loss, _, grads = value_and_grad(model, params, batch, remat=remat,
+                                        use_kernel=use_kernel)
+        out[use_kernel] = (float(loss), dict(_named_leaves(grads)))
+    rel = {}
+    for name, gk in out[True][1].items():
+        gp = out[False][1][name]
+        if gk is None or gp is None or not bool(torch.isfinite(gk).all()):
+            raise AssertionError(f"gradient parity: leaf {name} has no "
+                                 f"finite gradient")
+        top = float(gp.float().abs().max())
+        rel[name] = float((gk.float() - gp.float()).abs().max()) / max(top,
+                                                                     1e-30)
+    worst = max(rel, key=rel.get)
+    del params, out
+    torch.cuda.empty_cache()
+    return {"dtype": dtype, "layers": PARITY_LAYERS,
+            "batch": [PARITY_BATCH, PARITY_SEQ],
+            "max_rel_err": rel[worst], "worst_leaf": worst,
+            "rel_err_by_leaf": rel}
+
+
+def phase_train(arch: str, remat: str, bf16_bound: float) -> dict:
+    """``arch`` at full width and depth, bf16, random weights from the seed,
+    through ``make_train_step(use_kernel=True)`` with the reference's AdamW
+    defaults: TRAIN_STEPS steps on one repeated batch of random tokens
+    (one cold, then warm), each timed by CUDA events, with every kernel's
+    launches counted over them; then the gradient parity of the kernel path
+    against the plain one, in fp32 and in bf16."""
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    params = model.init(SEED)
+    plan = ShardingPlan(name="dp", remat=remat)
+    opt_cfg = adamw.AdamWConfig()
+    batch = random_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+
+    # every leaf gets a gradient, none all zero: a cut graph shows here
+    _, _, grads = value_and_grad(model, params, batch, remat=remat,
+                                 use_kernel=True)
+    dead = [name for name, g in _named_leaves(grads)
+            if g is None or not bool((g != 0).any())]
+    if dead:
+        raise AssertionError(f"{arch}: leaves without a gradient: {dead}")
+    n_leaves = sum(1 for _ in _leaves(grads))
+    del grads
+
+    step = make_train_step(model, opt_cfg, plan, use_kernel=True)
+    opt = adamw.init(opt_cfg, params)
+    ef = None                                # compress_scheme "none"
+    losses, norms, times = [], [], []
+    ops.reset_launch_counts()
+    for _ in range(TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, ef, metrics = step(params, opt, ef, batch)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    launches = ops.launch_counts()
+    bodies = {b: n for b, n in ops.matmul_body_launches().items() if n}
+    peak = torch.cuda.max_memory_allocated()
+    expected = expected_train_launches(cfg, remat, TRAIN_BATCH, TRAIN_SEQ,
+                                       TRAIN_STEPS)
+    if not all(math.isfinite(v) for v in losses + norms):
+        raise AssertionError(f"{arch}: non-finite loss or grad norm: "
+                             f"{losses}, {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch}: the loss did not fall on a repeated "
+                             f"batch: {losses}")
+    if launches != expected:
+        raise AssertionError(f"{arch}: launches {launches} in "
+                             f"{TRAIN_STEPS} train steps, expected "
+                             f"{expected}")
+    n_params = sum(t.numel() for t in _leaves(params))
+    del params, opt, batch, step
+    torch.cuda.empty_cache()
+
+    parity = {"fp32": grad_parity(cfg, remat, "float32"),
+              "bf16": grad_parity(cfg, remat, "bfloat16")}
+    if not parity["fp32"]["max_rel_err"] <= TRAIN_FP32_BOUND:
+        raise AssertionError(f"{arch}: fp32 gradients of the kernel path "
+                             f"off by {parity['fp32']['max_rel_err']}")
+    if not parity["bf16"]["max_rel_err"] <= bf16_bound:
+        raise AssertionError(f"{arch}: bf16 gradients of the kernel path "
+                             f"off by {parity['bf16']['max_rel_err']}")
+    for p in parity.values():
+        p["rel_err_by_leaf"] = {k: v for k, v in sorted(
+            p["rel_err_by_leaf"].items(), key=lambda kv: -kv[1])[:5]}
+    return {"phase": "train", "arch": arch, "dtype": cfg.dtype,
+            "n_layers": cfg.n_layers, "n_params": n_params,
+            "n_leaves": n_leaves, "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+            "remat": remat, "optimizer": dataclasses.asdict(opt_cfg),
+            "losses": losses, "grad_norms": norms, "step_ms": times,
+            "warm_median_step_ms": float(np.median(times[1:])),
+            "launches": launches, "expected_launches": expected,
+            "matmul_epilogue_bodies": bodies,
+            "max_memory_allocated_bytes": peak,
+            "gradient_parity": parity,
+            "fp32_bound": TRAIN_FP32_BOUND, "bf16_bound": bf16_bound}
 
 
 # ---------------------------------------------------------------------------
@@ -1275,14 +1675,16 @@ def _check_estimates(where: str, values) -> None:
                              f"{bad}")
 
 
-def phase_estimate(serve: dict) -> dict:
+def phase_estimate(serve: dict, train: dict) -> dict:
     """The paper's loop closed on the card: each LinReg DS plan generated,
     costed for one H100 and executed warm (``bench_accuracy.linreg_rows``),
     and each serve path's prefill round and decode step estimated
     (``bench_accuracy.serve_estimates``) at the batch, longest prompt and
     cache length that path served, beside what its second static run
     measured: warm, as the LinReg rows are (the first run, which pays the
-    process's one-time set-up, is reported beside it).  A ratio outside the
+    process's one-time set-up, is reported beside it); and each train path's
+    step (``bench_accuracy.train_estimates``) at the batch, sequence length
+    and plan it ran, beside its warm median step.  A ratio outside the
     paper's 2x is reported, not raised."""
     t0 = time.perf_counter()
     linreg = bench_accuracy.linreg_rows()
@@ -1318,8 +1720,18 @@ def phase_estimate(serve: dict) -> dict:
             est[key]["ratio"] = {k: v["total_ms"] / warm
                                  for k, v in plans.items()}
         out[arch] = est
+    train_rows = {}
+    for arch, run in train.items():
+        est = bench_accuracy.train_estimates(
+            get_config(arch), run["batch"], run["seq_len"],
+            ShardingPlan(name="dp", remat=run["remat"]))
+        _check_estimates(f"{arch} train", [est["total_ms"]])
+        est["measured_ms"] = run["warm_median_step_ms"]
+        est["measured_first_step_ms"] = run["step_ms"][0]
+        est["ratio"] = est["total_ms"] / est["measured_ms"]
+        train_rows[arch] = est
     return {"phase": "estimate", "linreg": linreg, "serve": out,
-            "seconds": time.perf_counter() - t0}
+            "train": train_rows, "seconds": time.perf_counter() - t0}
 
 
 def _measured_ms(run: dict, key: str) -> float:
@@ -1365,7 +1777,7 @@ def ptxas_summary(logs: dict) -> list:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--stop-after", choices=["build", "kernels"],
+    ap.add_argument("--stop-after", choices=["build", "kernels", "train"],
                     help="development aid: end early (exit 0, no result line)")
     ap.add_argument("--ptxas", action="store_true",
                     help="print each kernel's registers and shared memory")
@@ -1391,13 +1803,25 @@ def main() -> None:
     ssd_cases, mm_cases = check_ssd(gen), check_mm(gen)
     control_cases = check_controls(gen)
     ssd_control = check_ssd_control(gen)
+    flash_bwd_cases, ssd_bwd_cases = check_flash_bwd(gen), check_ssd_bwd(gen)
     times = time_kernels(gen)
+    bwd_times = time_bwd_kernels(gen)
     emit({"phase": "kernels", "flash_attention": flash_cases,
+          "flash_attention_bwd": flash_bwd_cases,
           "tsmm_upper": tsmm_cases, "ssd_scan": ssd_cases,
+          "ssd_scan_bwd": ssd_bwd_cases,
           "ssd_scan_control": ssd_control,
           "matmul_epilogue": mm_cases,
-          "matmul_epilogue_controls": control_cases, "times": times})
+          "matmul_epilogue_controls": control_cases, "times": times,
+          "bwd_times": bwd_times})
     if args.stop_after == "kernels":
+        return
+
+    train = {}
+    for arch, remat, bf16_bound in TRAIN_PATHS:
+        train[arch] = phase_train(arch, remat, bf16_bound)
+        emit(train[arch])
+    if args.stop_after == "train":
         return
 
     serve = {}
@@ -1406,15 +1830,17 @@ def main() -> None:
         emit(serve[arch])
     linreg = phase_linreg()
     emit(linreg)
-    emit(phase_estimate(serve))
+    emit(phase_estimate(serve, train))
 
     def err_of(cases, tag):
         return next(c["max_abs_err"] for c in cases if c["case"] == tag)
 
     def path_launches(kernel):
-        """The kernel's launches summed over every serve path's main run."""
-        return sum(run["main_path_launches"][kernel]
-                   for run in serve.values())
+        """The kernel's launches summed over every serve path's main run
+        and every train path's steps."""
+        return (sum(run["main_path_launches"][kernel]
+                    for run in serve.values())
+                + sum(run["launches"][kernel] for run in train.values()))
 
     fm, f80 = FLASH_MAIN, FLASH_D80
     times["flash_attention"]["d80"].update(
@@ -1469,6 +1895,20 @@ def main() -> None:
          "mamba_head": mm_times["mamba_head"],
          "decode_gate": mm_times["decode_gate"],
          "qwen_decode_gate": mm_times["qwen_decode_gate"]},
+        {"name": "flash_attention_bwd", "route": "cuda", "backward": True,
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:104",
+         "launches": path_launches("flash_attention_bwd"),
+         "max_abs_err": err_of(flash_bwd_cases, "main path"),
+         **bwd_times["flash_attention_bwd"],
+         "d80": {**bwd_times["flash_attention_bwd_d80"],
+                 "max_abs_err": err_of(flash_bwd_cases, "D = 80")}},
+        {"name": "ssd_scan_bwd", "route": "cuda", "backward": True,
+         "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:102",
+         "launches": path_launches("ssd_scan_bwd"),
+         "max_abs_err": err_of(ssd_bwd_cases, "main path"),
+         **bwd_times["ssd_scan_bwd"]},
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -6,8 +6,9 @@ programs are generated and costed for one H100 (:func:`h100_single_config`,
 datasheet constants, nothing fitted: R1), then the same plan is executed on
 the card and the compute-side estimate is held against the warm run
 (:func:`linreg_rows`).  :func:`serve_estimates` costs the serve engine's
-prefill round and decode step of an arch the same way; the measured side of
-those comparisons is ``chip_smoke.py``'s serve phase.
+prefill round and decode step of an arch the same way, and
+:func:`train_estimates` its train step; the measured side of those
+comparisons is ``chip_smoke.py``'s serve and train phases.
 
 The estimates are outputs of the cost model with the ``h100_sxm`` chip spec,
 never readings of the card.
@@ -201,3 +202,17 @@ def serve_estimates(cfg: ArchConfig, batch: int, prompt_len: int,
         out[key] = row
     return out
 
+
+
+def train_estimates(cfg: ArchConfig, batch: int, seq_len: int,
+                    plan: ShardingPlan) -> dict:
+    """Estimated time of one train step of ``batch`` sequences of
+    ``seq_len`` tokens on one H100, under ``plan`` (the plan the step ran:
+    its ``remat`` and ``microbatches``): ``build_step_program`` with the
+    port's own GPU train shape, then ``estimate``."""
+    cc = h100_single_config()
+    shape = ShapeConfig("h100_train", seq_len, batch, "train")
+    prog = build_step_program(cfg, shape, plan, cc)
+    return {"chip_spec": cc.chip.name, "seq_len": seq_len, "batch": batch,
+            "remat": plan.remat, "microbatches": plan.microbatches,
+            **_breakdown_ms(estimate(prog, cc))}

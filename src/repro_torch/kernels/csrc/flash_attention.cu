@@ -60,7 +60,16 @@ struct Params {
   float scale;
   int causal;
   int window;  // <= 0: none
+  float* lse;  // [B,Hq,Sq] fp32 row log-sum-exp, or null: not written
 };
+
+// The row's natural log-sum-exp of its scaled scores, from the running max
+// `m` (in the units `scale_to_e` turns into natural ones) and the row sum
+// `l` of exp(s - m); NEG_INF for a row that sees no key (l = 0: a row with
+// a visible key has l >= 1).  The backward recomputes P = exp(s - lse).
+__device__ __forceinline__ float row_lse(float m, float l, float scale_to_e) {
+  return l > 0.f ? m * scale_to_e + logf(l) : NEG_INF;
+}
 
 // Tile range [kt_lo, kt_hi) of KV tiles of `bk` keys that the band of q rows
 // [q_lo, q_hi] can touch: k_lo <= q_hi (causal), k_hi > q_lo - window
@@ -857,6 +866,9 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         l += __shfl_xor_sync(0xffffffffu, l, 2);
         const float inv = 1.f / fmaxf(l, 1e-30f);
         const int row = row0 + r * 8;
+        if (row < p.Sq && p.lse != nullptr && t2 == 0)
+          p.lse[((long long)w.b * p.Hq + w.h) * p.Sq + row] =
+              row_lse(m_run[r], l, 1.f / LOG2E);
         if (row < p.Sq) {
           __nv_bfloat16* orow = op + row * p.o_ss + t2;
 #pragma unroll
@@ -1030,6 +1042,9 @@ __global__ void __launch_bounds__(256) flash_fwd_fma(const Params p) {
 #pragma unroll
       for (int c = 0; c < CPT; ++c)
         op[row * p.o_ss + tx * CPT + c] = oacc[i][c] * inv;
+      if (p.lse != nullptr && tx == 0)
+        p.lse[((long long)b * p.Hq + h) * p.Sq + row] =
+            row_lse(m_run[i], l_run[i], 1.f);
     }
   }
 }
@@ -1133,7 +1148,9 @@ int dispatch_d(const Params& p, int body, void* next_item,
 // body: 0 = the fp32 FMA body (float32 tensors), 1 = the bf16 mma.sync body
 // (D = 32, 128), 2 = the bf16 wgmma + TMA body (D = 64, 80); the wrapper
 // chooses it by type and D.  Body 2 takes its work items from `next_item`,
-// one int32 in device memory that is 0 at launch.  window <= 0 means no
+// one int32 in device memory that is 0 at launch.  Bodies 0 and 2 also
+// write each row's log-sum-exp to `lse` ([B,Hq,Sq] fp32) unless it is null,
+// for the backward; body 1 refuses a non-null `lse`.  window <= 0 means no
 // window.  Strides are in elements; the stride along D is 1.  bf16 pointers
 // and strides must keep every row 16-byte aligned (TMA's rule too).  Returns a cudaError_t, -1
 // for an unsupported argument or -2 if a tensor map cannot be made; never
@@ -1144,13 +1161,14 @@ extern "C" int repro_flash_attention_fwd(
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
     long long o_sh, long long o_ss, float scale, int causal, int window,
-    int body, void* next_item, void* stream) {
+    int body, void* next_item, float* lse, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Sq <= 0 || Skv <= 0) return -1;
   if (Hq % Hkv != 0 || body < 0 || body > 2) return -1;
   if (Hq > 65535 || B > 65535) return -1;
+  if (lse != nullptr && body == 1) return -1;  // the mma.sync body has none
   Params p{q,    k,    v,    o,    B,    Hq,   Hkv,  Sq,   Skv,
            q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
-           o_sb, o_sh, o_ss, scale, causal, window};
+           o_sb, o_sh, o_ss, scale, causal, window, lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:

@@ -1,5 +1,6 @@
-"""Flash attention (forward): the hand-written Hopper kernel, its wrapper and
-its plain PyTorch version.
+"""Flash attention: the hand-written Hopper kernels (forward and backward),
+their wrappers, the autograd Function that joins them, and their plain
+PyTorch versions.
 
 Replaces the TPU kernel ``flash_attention`` / ``_flash_kernel`` of
 ``src/repro/kernels/flash_attention.py``: blockwise online-softmax attention
@@ -14,8 +15,18 @@ fp32.
 On this card causal attention is bound by operations, not bytes: at
 ``B=8, H=16, S=2048, D=64`` it is about 69 GFLOP against 134 MB moved.
 
-The wrapper decides by the tensor's device and by nothing else: a CUDA tensor
-launches the kernel or raises, a CPU tensor takes the plain version.
+The backward (``csrc/flash_attention_bwd.cu``) has no TPU kernel of its
+own: the reference differentiates its plain attention.  It recomputes P from
+the row log-sum-exp that the forward leaves behind (the ``wgmma`` and FMA
+bodies write it; D = 64 and 80 only) and forms dQ, dK and dV with dK and dV
+summed over each GQA group.  :class:`FlashAttentionFn` runs the forward
+kernel and saves q, k, v, o and the log-sum-exp; its backward runs the
+backward kernel.  On CPU tensors the same Function runs
+:func:`flash_attention_plain`, :func:`flash_lse_plain` and
+:func:`flash_attention_bwd_plain`.
+
+The wrappers decide by the tensor's device and by nothing else: a CUDA
+tensor launches the kernel or raises, a CPU tensor takes the plain version.
 """
 from __future__ import annotations
 
@@ -25,10 +36,13 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.models.layers import attention_dense
+from repro_torch.models.layers import NEG_INF, _band_mask, attention_dense
 
 SUPPORTED_HEAD_DIMS = (32, 64, 80, 128)
+# head dims the backward takes (and the forward writes the lse for)
+BACKWARD_HEAD_DIMS = (64, 80)
 _BODY_CODE = {"fma": 0, "mma_sync": 1, "wgmma": 2}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -39,13 +53,82 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return attention_dense(q, k, v, causal=causal, window=window, scale=scale)
 
 
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
+            window: Optional[int], scale: Optional[float]):
+    """fp32 scaled scores ``[B,Hkv,G,Sq,Skv]`` of q against k, the band mask
+    and the scale used."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, hkv, hq // hkv, sq, d).to(torch.float32)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.to(torch.float32)) * scale
+    mask = _band_mask(torch.arange(sq, device=q.device),
+                      torch.arange(skv, device=q.device), causal, window)
+    return s, mask, scale
+
+
+def flash_lse_plain(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """The row log-sum-exp ``[B,Hq,Sq]`` fp32 of the scaled scores on the
+    band, as the forward kernel writes it: ``NEG_INF`` for a row that sees
+    no key."""
+    b, hq, sq, _ = q.shape
+    s, mask, _ = _scores(q, k, causal, window, scale)
+    s = s.masked_fill(~mask, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    l = (torch.exp(s - m) * mask).sum(dim=-1)
+    lse = torch.where(l > 0, m[..., 0] + torch.log(l),
+                      torch.full_like(l, NEG_INF))
+    return lse.reshape(b, hq, sq)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor, *,
+                              causal: bool = True,
+                              window: Optional[int] = None,
+                              scale: Optional[float] = None):
+    """The backward kernel's formulas in plain PyTorch, in fp32: P =
+    exp(S - lse) on the band, dV = P^T dO, dP = dO V^T, dS = P o (dP -
+    rowsum(dO o O)), dQ = dS K * scale, dK = dS^T Q * scale, dK and dV
+    summed over each GQA group.  Returns (dq, dk, dv) in the types of q, k,
+    v."""
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    s, mask, scale = _scores(q, k, causal, window, scale)
+    f32 = lambda t: t.to(torch.float32).reshape(b, hkv, g, sq, -1)
+    p = torch.where(mask, torch.exp(s - f32(lse)), 0.0)
+    dog = f32(do)
+    delta = (dog * f32(o)).sum(dim=-1, keepdim=True)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dog)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, v.to(torch.float32))
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.to(torch.float32)) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, f32(q)) * scale
+    return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 def _entry():
     lib = _build.load("flash_attention")
     fn = lib.repro_flash_attention_fwd
     if not fn.argtypes:
         ll, ci, vp = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
         fn.argtypes = ([vp] * 4 + [ci] * 6 + [ll] * 12
-                       + [ctypes.c_float, ci, ci, ci, vp, vp])
+                       + [ctypes.c_float, ci, ci, ci, vp, vp, vp])
+        fn.restype = ci
+    return lib, fn
+
+
+def _bwd_entry():
+    lib = _build.load("flash_attention_bwd")
+    fn = lib.repro_flash_attention_bwd
+    if not fn.argtypes:
+        ll, ci, vp = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
+        fn.argtypes = ([vp] * 11 + [ci] * 6 + [ll] * 15
+                       + [ctypes.c_float, ci, ci, ci, vp])
         fn.restype = ci
     return lib, fn
 
@@ -71,33 +154,13 @@ def reads_in_place(t: torch.Tensor) -> bool:
                     for s in t.stride()[:-1]))
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """q: [B,Hq,Sq,D], k/v: [B,Hkv,Skv,D] -> [B,Hq,Sq,D] in ``q.dtype``.
-
-    Key ``j`` is visible to query ``i`` when ``j <= i`` (causal) and
-    ``j > i - window`` (window); both count from 0, there is no ``q_offset``.
-
-    CUDA tensors: q, k and v are read through their strides (the model hands
-    over ``transpose(1, 2)`` views of ``[B,S,H,D]`` projections); a tensor
-    that fails :func:`reads_in_place` is made contiguous first.  The body is
-    :func:`flash_body`'s: bf16 at D = 64 or 80 runs the ``wgmma`` + TMA body,
-    bf16 at D = 32 or 128 the ``mma.sync`` body, fp32 the FMA body.  The
-    output is allocated as ``[B,Sq,Hq,D]`` and returned as its
-    ``transpose(1, 2)`` view, so the caller's merge of heads is free.
-    ``Sq`` and ``Skv`` are arbitrary; ``D`` must be 32, 64, 80 or 128 and the
-    type float32 or bfloat16, anything else raises.  Forward only.
-    """
-    if not q.is_cuda:
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     scale=scale)
+def _check_fwd(q, k, v, window) -> None:
     b, hq, sq, d = q.shape
     _, hkv, skv, dv = v.shape
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k, v on different devices")
-    if q.dtype not in (torch.float32, torch.bfloat16) \
-            or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: float32 or bfloat16 q/k/v of one "
                         f"type, got {q.dtype}, {k.dtype}, {v.dtype}")
     if d not in SUPPORTED_HEAD_DIMS or dv != d or k.shape[-1] != d:
@@ -109,11 +172,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     if window is not None and window < 1:
         raise ValueError("flash_attention: window must be >= 1")
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None, with_lse: bool = False):
+    """One launch of the forward kernel on CUDA tensors: (o, the row
+    log-sum-exp ``[B,Hq,Sq]`` fp32 with ``with_lse``, else None).  The
+    arguments are :func:`flash_attention`'s; ``with_lse`` needs D = 64 or
+    80."""
+    _check_fwd(q, k, v, window)
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = v.shape
+    body = flash_body(q.dtype, d)
+    if with_lse and d not in BACKWARD_HEAD_DIMS:
+        raise ValueError(f"flash_attention: the backward takes head dims "
+                         f"{BACKWARD_HEAD_DIMS}, got {d}")
     q, k, v = (t if reads_in_place(t) else t.contiguous() for t in (q, k, v))
     scale = float(scale) if scale is not None else d ** -0.5
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     o = out.transpose(1, 2)
-    body = flash_body(q.dtype, d)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     # the wgmma body's blocks take their work items from this counter
     next_item = (torch.zeros(1, dtype=torch.int32, device=q.device)
                  if body == "wgmma" else None)
@@ -127,11 +207,125 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   int(window) if window is not None else 0,
                   _BODY_CODE[body],
                   next_item.data_ptr() if next_item is not None else None,
-                  stream)
+                  lse.data_ptr() if lse is not None else None, stream)
     _build.check(lib, code, "flash_attention launch",
                  "repro_flash_attention_error_string")
     flash_attention.launches += 1
-    return o
+    return o, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None):
+    """The backward kernel: (dq [B,Hq,Sq,D], dk, dv [B,Hkv,Skv,D]),
+    contiguous, in the input type.  q, k, v, o and do are read through their
+    strides (a tensor without unit stride along D is made contiguous first);
+    lse is the forward's ``[B,Hq,Sq]`` fp32.  CUDA tensors only: float32 or
+    bfloat16, D = 64 or 80; anything else raises."""
+    _check_fwd(q, k, v, window)
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = v.shape
+    if d not in BACKWARD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head dim {d} not in "
+                         f"{BACKWARD_HEAD_DIMS}")
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or do.dtype != q.dtype or lse.shape != (b, hq, sq) \
+            or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} "
+                         f"{o.dtype}, do {tuple(do.shape)} {do.dtype}, lse "
+                         f"{tuple(lse.shape)} {lse.dtype} for q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    if any(t.device != q.device for t in (o, lse, do)):
+        raise ValueError("flash_attention_bwd: tensors on different devices")
+    q, k, v, o, do = (t if t.stride(-1) == 1 else t.contiguous()
+                      for t in (q, k, v, o, do))
+    lse = lse.contiguous()
+    scale = float(scale) if scale is not None else d ** -0.5
+    dev = q.device
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
+    dq_acc = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=dev)
+    bf16 = q.dtype == torch.bfloat16
+    dq = torch.empty_like(dq_acc, dtype=q.dtype) if bf16 else dq_acc
+    dk = torch.empty((b, hkv, skv, d), dtype=q.dtype, device=dev)
+    dv = torch.empty_like(dk)
+    lib, fn = _bwd_entry()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                  dq_acc.data_ptr(), dq.data_ptr() if bf16 else None,
+                  dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, skv, d,
+                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                  *o.stride()[:3], *do.stride()[:3], scale, int(causal),
+                  int(window) if window is not None else 0,
+                  _DTYPE_CODE[q.dtype], stream)
+    _build.check(lib, code, "flash_attention_bwd launch",
+                 "repro_flash_attention_bwd_error_string")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with its backward.  CUDA tensors: the forward kernel
+    (with the row log-sum-exp when a gradient is wanted), then the backward
+    kernel.  CPU tensors: the plain versions of both.  The forward saves q,
+    k, v, o and the log-sum-exp when ``want`` (grad mode on and an input
+    that requires a gradient); nothing but q, k and v gets a gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, want):
+        if q.is_cuda:
+            o, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                         window=window, scale=scale,
+                                         with_lse=want)
+        else:
+            o = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                      scale=scale)
+            lse = (flash_lse_plain(q, k, causal=causal, window=window,
+                                   scale=scale) if want else None)
+        if want:
+            ctx.save_for_backward(q, k, v, o, lse)
+            ctx.args = dict(causal=causal, window=window, scale=scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd if q.is_cuda else flash_attention_bwd_plain
+        dq, dk, dv = bwd(q, k, v, o, lse, do, **ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q: [B,Hq,Sq,D], k/v: [B,Hkv,Skv,D] -> [B,Hq,Sq,D] in ``q.dtype``,
+    through :class:`FlashAttentionFn` (differentiable on both devices).
+
+    Key ``j`` is visible to query ``i`` when ``j <= i`` (causal) and
+    ``j > i - window`` (window); both count from 0, there is no ``q_offset``.
+
+    CUDA tensors: q, k and v are read through their strides (the model hands
+    over ``transpose(1, 2)`` views of ``[B,S,H,D]`` projections); a tensor
+    that fails :func:`reads_in_place` is made contiguous first.  The body is
+    :func:`flash_body`'s: bf16 at D = 64 or 80 runs the ``wgmma`` + TMA body,
+    bf16 at D = 32 or 128 the ``mma.sync`` body, fp32 the FMA body.  The
+    output is allocated as ``[B,Sq,Hq,D]`` and returned as its
+    ``transpose(1, 2)`` view, so the caller's merge of heads is free.
+    ``Sq`` and ``Skv`` are arbitrary; ``D`` must be 32, 64, 80 or 128 (64 or
+    80 when a gradient is wanted) and the type float32 or bfloat16, anything
+    else raises.  Counts forward launches; the backward kernel counts its
+    own (:func:`flash_attention_bwd`).
+    """
+    # the Function's forward runs with grad mode off, so the wrapper decides
+    # whether a backward can follow (and the lse is wanted)
+    want = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
+    return FlashAttentionFn.apply(q, k, v, causal, window, scale, want)
 
 
 flash_attention.launches = 0

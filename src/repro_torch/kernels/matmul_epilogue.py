@@ -27,6 +27,15 @@ runs, and every body replaces the same TPU kernel:
 * ``"mma_sync"`` (bf16, M > 64, not describable by TMA), ``"layernorm"``
   (whole rows in shared memory, N <= 3072), ``"fma"`` (fp32, full-fp32 FMA).
 
+The gradient (:class:`MatmulEpilogueFn`) has no kernel of its own: the
+reference computes the gate and the head as einsums outside any Pallas
+kernel, and their gradients are plain products.  For silu and gelu the
+backward recomputes ``z = x @ w`` with the forward kernel and an fp32 out
+(the plain version on the CPU), forms ``dz = g o act'(z)`` and then
+``dx = dz w^T``, ``dw = x^T dz`` and ``dbias = sum dz`` with ``torch.matmul``
+in the operands' type; the layernorm epilogue, on no training path, raises
+under grad.
+
 The wrapper decides by the tensor's device and by nothing else: a CUDA tensor
 launches the kernel or raises, a CPU tensor takes the plain version.
 """
@@ -200,25 +209,8 @@ def _check_args(x, w, bias, epilogue) -> None:
         raise ValueError(f"matmul_epilogue: bias [n], got {tuple(bias.shape)}")
 
 
-def matmul_epilogue(x: torch.Tensor, w: torch.Tensor,
-                    bias: Optional[torch.Tensor] = None, *,
-                    epilogue: Optional[str] = None,
-                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """x: [m, k], w: [k, n], bias: [n] (iff ``epilogue == "bias"``) ->
-    ``epilogue(x @ w)`` as a contiguous [m, n] tensor in ``out_dtype``
-    (default ``x.dtype``).
-
-    CUDA tensors: x and w float32 or bfloat16 of one type, bias float32 or
-    bfloat16, ``out_dtype`` float32 or bfloat16; any m, n and k; x and w are
-    read in place through their strides (a transposed w too), never copied.
-    The body is :func:`matmul_body`'s.  The layernorm epilogue normalises
-    whole rows of at most ``LN_MAX_N = 3072`` columns.  Anything else
-    raises.  Forward only.
-    """
-    _check_args(x, w, bias, epilogue)
-    if not x.is_cuda:
-        return matmul_epilogue_plain(x, w, bias, epilogue=epilogue,
-                                     out_dtype=out_dtype)
+def _launch(x, w, bias, epilogue, out_dtype) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors."""
     out_dtype = out_dtype or x.dtype
     m, k = x.shape
     n = w.shape[1]
@@ -264,6 +256,78 @@ def matmul_epilogue(x: torch.Tensor, w: torch.Tensor,
     matmul_epilogue.launches += 1
     matmul_epilogue.body_launches[body] += 1
     return out
+
+
+_SQRT_2_OVER_PI = 0.7978845608028654
+
+
+def _act_grad(z: torch.Tensor, epilogue: Optional[str]) -> torch.Tensor:
+    """d epilogue(z) / dz of the elementwise epilogues, in fp32."""
+    if epilogue == "silu":
+        sig = torch.sigmoid(z)
+        return sig * (1 + z * (1 - sig))
+    # gelu, tanh form: 0.5 z (1 + tanh(u)), u = sqrt(2/pi) (z + 0.044715 z^3)
+    t = torch.tanh(_SQRT_2_OVER_PI * (z + 0.044715 * z ** 3))
+    return 0.5 * (1 + t) + 0.5 * z * (1 - t * t) * _SQRT_2_OVER_PI * (
+        1 + 3 * 0.044715 * z * z)
+
+
+class MatmulEpilogueFn(torch.autograd.Function):
+    """``epilogue(x @ w + bias)`` with its gradient: the forward is the
+    kernel (CUDA) or the plain version (CPU); the backward recomputes z the
+    same way, then takes plain products (see the module's docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, epilogue, out_dtype):
+        out = (_launch(x, w, bias, epilogue, out_dtype) if x.is_cuda
+               else matmul_epilogue_plain(x, w, bias, epilogue=epilogue,
+                                          out_dtype=out_dtype))
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(x, w, bias)
+            ctx.epilogue = epilogue
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, bias = ctx.saved_tensors
+        dz = g.to(torch.float32)
+        if ctx.epilogue in ("silu", "gelu"):
+            # z = x @ w again, by the forward's own route with an fp32 out
+            # (these epilogues take no bias)
+            z = (_launch(x, w, None, None, torch.float32) if x.is_cuda
+                 else matmul_epilogue_plain(x, w, out_dtype=torch.float32))
+            dz = dz * _act_grad(z, ctx.epilogue)
+            del z
+        dzx = dz.to(x.dtype)
+        dx = torch.matmul(dzx, w.T) if ctx.needs_input_grad[0] else None
+        dw = torch.matmul(x.T, dzx) if ctx.needs_input_grad[1] else None
+        dbias = (dz.sum(0).to(bias.dtype) if bias is not None
+                 and ctx.needs_input_grad[2] else None)
+        return dx, dw, dbias, None, None
+
+
+def matmul_epilogue(x: torch.Tensor, w: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None, *,
+                    epilogue: Optional[str] = None,
+                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x: [m, k], w: [k, n], bias: [n] (iff ``epilogue == "bias"``) ->
+    ``epilogue(x @ w)`` as a contiguous [m, n] tensor in ``out_dtype``
+    (default ``x.dtype``), through :class:`MatmulEpilogueFn`.
+
+    CUDA tensors: x and w float32 or bfloat16 of one type, bias float32 or
+    bfloat16, ``out_dtype`` float32 or bfloat16; any m, n and k; x and w are
+    read in place through their strides (a transposed w too), never copied.
+    The body is :func:`matmul_body`'s.  The layernorm epilogue normalises
+    whole rows of at most ``LN_MAX_N = 3072`` columns and has no gradient.
+    Anything else raises.  Counts every launch of the kernel, the backward's
+    recompute of z for silu and gelu included.
+    """
+    _check_args(x, w, bias, epilogue)
+    if epilogue == "layernorm" and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, bias)):
+        raise NotImplementedError("matmul_epilogue: the layernorm epilogue "
+                                  "has no gradient")
+    return MatmulEpilogueFn.apply(x, w, bias, epilogue, out_dtype)
 
 
 matmul_epilogue.launches = 0

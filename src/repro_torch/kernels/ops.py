@@ -3,7 +3,11 @@
 
 Each wrapper dispatches on the device of the tensor it is given: a CUDA
 tensor launches the kernel (or raises), a CPU tensor takes the kernel's plain
-PyTorch version.  Each kernel's wrapper counts its launches.
+PyTorch version.  Each kernel's wrapper counts its launches; the backward
+kernels of flash attention and of the SSD scan count theirs apart
+(``flash_attention_bwd``, ``ssd_scan_bwd``).  Flash attention, the SSD scan
+and the matmul epilogue are differentiable through their autograd
+Functions.
 """
 from __future__ import annotations
 
@@ -17,8 +21,10 @@ from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import tsmm as _tsmm
 
 _WRAPPERS = {"flash_attention": _fa.flash_attention,
+             "flash_attention_bwd": _fa.flash_attention_bwd,
              "tsmm_upper": _tsmm.tsmm_upper,
              "ssd_scan": _ssd.ssd_scan,
+             "ssd_scan_bwd": _ssd.ssd_scan_bwd,
              "matmul_epilogue": _mme.matmul_epilogue}
 
 

@@ -1,5 +1,6 @@
-"""Mamba2 SSD chunked scan: the hand-written Hopper kernel, its wrapper and
-its plain PyTorch version.
+"""Mamba2 SSD chunked scan: the hand-written Hopper kernels (forward and
+backward), their wrappers, the autograd Function that joins them, and their
+plain PyTorch versions.
 
 Replaces the TPU kernel ``ssd_scan_kernel`` / ``_ssd_kernel`` of
 ``src/repro/kernels/ssd_scan.py``: the chunked scan on pre-scaled inputs
@@ -20,8 +21,16 @@ and mask ragged S in the kernel.  At the serve shape (B=8, S=2048, H=64,
 P=64, N=128, chunk 256) the scan moves about 0.30 GB, so its roofline bound
 is set by bytes.
 
-The wrapper decides by the tensor's device and by nothing else: a CUDA tensor
-launches the kernel or raises, a CPU tensor takes the plain version.
+The backward (``csrc/ssd_scan_bwd.cu``) has no TPU kernel of its own: the
+reference differentiates its plain ``ssd_chunked``.  It recomputes the chunk
+states, runs the state gradient through the chunks in reverse and forms
+every intra-chunk term from the same decay masks, with dB and dC summed over
+the heads of each group; fp32 FMA for both types.
+:class:`SsdScanFn` runs the forward kernel and the backward kernel; on CPU
+tensors it runs :func:`ssd_scan_plain` and :func:`ssd_scan_bwd_plain`.
+
+The wrappers decide by the tensor's device and by nothing else: a CUDA
+tensor launches the kernel or raises, a CPU tensor takes the plain version.
 """
 from __future__ import annotations
 
@@ -117,6 +126,92 @@ def ssd_scan_split_plain(xbar: torch.Tensor, log_a: torch.Tensor,
     return y.reshape(b, nc * ln, h, p)[:, :s].to(xbar.dtype), state
 
 
+def ssd_scan_bwd_plain(xbar: torch.Tensor, log_a: torch.Tensor,
+                       B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor,
+                       dfinal: Optional[torch.Tensor], *, chunk: int,
+                       init_state: Optional[torch.Tensor] = None):
+    """The backward kernel's formulas in plain PyTorch, in fp32, for any S.
+
+    Per chunk (cum the cumsum of log_a in it, total its last value, S_in the
+    state entering it, dS_out the gradient of the state leaving it, Lmask =
+    exp(cum_t - cum_s) for s <= t): M = (C B^T) o Lmask, W = dY Xbar^T, Wd =
+    W o Lmask; dXbar = M^T dY + exp(total - cum) (B dS_out^T); dB = Wd^T C +
+    exp(total - cum) (Xbar dS_out); dC = Wd B + exp(cum) (dY S_in); dcum =
+    rowsum(M o W) - colsum(M o W) + C . (exp(cum) dY S_in) - Xbar .
+    (exp(total - cum) dS_out B), with dtotal = exp(total) sum(dS_out o S_in)
+    + sum of the last term on the last row; dlog_a the reverse cumsum of
+    dcum; dS_in = exp(total) dS_out + (exp(cum) dY)^T C through the chunks
+    in reverse.  Returns (dxbar in ``xbar.dtype``, dlog_a fp32, dB and dC in
+    ``B.dtype`` summed over each group's heads, d init_state fp32 or None).
+    """
+    b, s, h, p = xbar.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    ln = min(chunk, s)
+    nc = -(-s // ln)
+    pad = nc * ln - s
+
+    def chunks(t, *tail):
+        t = F.pad(t.to(torch.float32), (0, 0) * len(tail) + (0, pad))
+        return t.reshape(b, nc, ln, *tail)
+    xb, la, dyc = chunks(xbar, h, p), chunks(log_a, h), chunks(dy, h, p)
+    Bh = chunks(B, g, n).repeat_interleave(rep, dim=3)        # [b,c,l,h,n]
+    Ch = chunks(C, g, n).repeat_interleave(rep, dim=3)
+    cum = torch.cumsum(la, dim=2)                              # [b,c,l,h]
+    total = cum[:, :, -1]                                      # [b,c,h]
+    w_end = torch.exp(total[:, :, None] - cum)[..., None]      # [b,c,l,h,1]
+    w_cum = torch.exp(cum)[..., None]
+
+    # the state entering each chunk, and the gradient of the one leaving it
+    emit = torch.einsum("bclhn,bclhp->bchpn", Bh, xb * w_end)
+    demit = torch.einsum("bclhp,bclhn->bchpn", dyc * w_cum, Ch)
+    state = (init_state.to(torch.float32) if init_state is not None
+             else xbar.new_zeros((b, h, p, n), dtype=torch.float32))
+    s_in = []
+    for c in range(nc):
+        s_in.append(state)
+        state = state * torch.exp(total[:, c])[..., None, None] + emit[:, c]
+    ds = (dfinal.to(torch.float32) if dfinal is not None
+          else torch.zeros_like(state))
+    ds_out = [None] * nc
+    for c in reversed(range(nc)):
+        ds_out[c] = ds
+        ds = ds * torch.exp(total[:, c])[..., None, None] + demit[:, c]
+    s_in, ds_out = torch.stack(s_in, dim=1), torch.stack(ds_out, dim=1)
+
+    # intra-chunk terms
+    ct = cum.transpose(2, 3)                                   # [b,c,h,l]
+    ii = torch.arange(ln, device=xbar.device)
+    seg = (ct[..., :, None] - ct[..., None, :]).masked_fill(
+        ii[:, None] < ii[None, :], float("-inf"))
+    lmask = torch.exp(seg)                                     # [b,c,h,t,s]
+    m = torch.einsum("bcthn,bcshn->bchts", Ch, Bh) * lmask
+    w = torch.einsum("bcthp,bcshp->bchts", dyc, xb)
+    wd = w * lmask
+    mw = m * w
+    # state terms
+    dx_off = w_end * torch.einsum("bcshn,bchpn->bcshp", Bh, ds_out)
+    dc_off = w_cum * torch.einsum("bcthp,bchpn->bcthn", dyc, s_in)
+    e = (xb * dx_off).sum(-1)                                  # [b,c,l,h]
+    dxbar = torch.einsum("bchts,bcthp->bcshp", m, dyc) + dx_off
+    dBh = torch.einsum("bchts,bcthn->bcshn", wd, Ch) \
+        + w_end * torch.einsum("bcshp,bchpn->bcshn", xb, ds_out)
+    dCh = torch.einsum("bchts,bcshn->bcthn", wd, Bh) + dc_off
+    dcum = (mw.sum(-1) - mw.sum(-2)).transpose(2, 3) \
+        + (Ch * dc_off).sum(-1) - e
+    dtotal = torch.exp(total) * (ds_out * s_in).sum((-1, -2)) + e.sum(2)
+    dcum[:, :, -1] += dtotal
+    dla = torch.flip(torch.cumsum(torch.flip(dcum, (2,)), dim=2), (2,))
+
+    def unchunk(t, dtype):
+        return t.reshape(b, nc * ln, *t.shape[3:])[:, :s].to(dtype)
+    dB = dBh.reshape(b, nc, ln, g, rep, n).sum(4)
+    dC = dCh.reshape(b, nc, ln, g, rep, n).sum(4)
+    return (unchunk(dxbar, xbar.dtype), unchunk(dla, torch.float32),
+            unchunk(dB, B.dtype), unchunk(dC, C.dtype),
+            ds if init_state is not None else None)
+
+
 def _entry():
     lib = _build.load("ssd_scan")
     fn = lib.repro_ssd_scan_fwd
@@ -156,27 +251,7 @@ def scratch_shapes(b: int, s: int, h: int, g: int, p: int, n: int,
             "st": (b, nc, h, p, n)}
 
 
-def ssd_scan(xbar: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
-             C: torch.Tensor, *, chunk: int,
-             init_state: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """xbar [B,S,H,P], log_a [B,S,H] fp32, B/C [B,S,G,N], init_state
-    [B,H,P,N] fp32 or None -> (y [B,S,H,P] in ``xbar.dtype``, final_state
-    [B,H,P,N] fp32).
-
-    CUDA tensors: xbar, B and C float32 or bfloat16 of one type; P in
-    (16, 32, 64), N in (16, 32, 64, 128), H a multiple of G,
-    1 <= chunk <= 1024, any S >= 1.  B and C are read through their batch and
-    row strides; a tensor the kernel cannot read in place is made contiguous
-    first.  Anything else raises.  Forward only.
-
-    bf16 runs the tensor-core body: four CUDA kernels in one launch count,
-    with fp32 scratch from ``torch.empty`` (:func:`scratch_shapes`: 155 MB at
-    mamba2-1.3b's prefill, ``[8, 2048]`` tokens).  fp32 runs the FMA body.
-    """
-    if not xbar.is_cuda:
-        return ssd_scan_plain(xbar, log_a, B, C, chunk=chunk,
-                              init_state=init_state)
+def _check(xbar, log_a, B, C, chunk, init_state) -> None:
     b, s, h, p = xbar.shape
     g, n = B.shape[2], B.shape[3]
     tensors = [log_a, B, C] + ([init_state] if init_state is not None else [])
@@ -202,6 +277,13 @@ def ssd_scan(xbar: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
                          f"{SUPPORTED_STATE_SIZES}")
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"ssd_scan: chunk {chunk} outside [1, {MAX_CHUNK}]")
+
+
+def _launch_fwd(xbar, log_a, B, C, chunk, init_state):
+    """One launch of the forward kernel: (y, final_state)."""
+    _check(xbar, log_a, B, C, chunk, init_state)
+    b, s, h, p = xbar.shape
+    g, n = B.shape[2], B.shape[3]
     xbar, log_a = xbar.contiguous(), log_a.contiguous()
     B, C = (t if reads_in_place(t) else t.contiguous() for t in (B, C))
     if init_state is not None:
@@ -228,6 +310,124 @@ def ssd_scan(xbar: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
     _build.check(lib, code, "ssd_scan launch", "repro_ssd_scan_error_string")
     ssd_scan.launches += 1
     return y, state
+
+
+def _bwd_entry():
+    lib = _build.load("ssd_scan_bwd")
+    fn = lib.repro_ssd_scan_bwd
+    if not fn.argtypes:
+        ci, vp = ctypes.c_int, ctypes.c_void_p
+        fn.argtypes = [vp] * 16 + [ci] * 8 + [vp]
+        fn.restype = ci
+    return lib, fn
+
+
+def ssd_scan_bwd(xbar: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
+                 C: torch.Tensor, dy: torch.Tensor,
+                 dfinal: Optional[torch.Tensor], *, chunk: int,
+                 init_state: Optional[torch.Tensor] = None):
+    """The backward kernel: (dxbar, dlog_a fp32, dB, dC summed over each
+    group's heads, d init_state fp32 or None), as
+    :func:`ssd_scan_bwd_plain`.  CUDA tensors of the forward's types and
+    shapes (dy in ``xbar.dtype``, dfinal fp32 or None); every input is made
+    contiguous first.  fp32 scratch: the chunk states and their gradients,
+    ``2 x [B,H,nc,P,N]`` (268 MB at mamba2-1.3b's ``[8, 2048]`` tokens), and
+    for bf16 dB and dC summed in fp32 before the cast."""
+    _check(xbar, log_a, B, C, chunk, init_state)
+    b, s, h, p = xbar.shape
+    g, n = B.shape[2], B.shape[3]
+    if dy.shape != xbar.shape or dy.dtype != xbar.dtype or dy.device != \
+            xbar.device or (dfinal is not None and (
+                dfinal.shape != (b, h, p, n) or dfinal.dtype != torch.float32
+                or dfinal.device != xbar.device)):
+        raise ValueError("ssd_scan_bwd: dy must match xbar, dfinal the "
+                         "fp32 state")
+    xbar, log_a, B, C, dy = (t.contiguous() for t in (xbar, log_a, B, C, dy))
+    dfinal = dfinal.contiguous() if dfinal is not None else None
+    init = init_state.contiguous() if init_state is not None else None
+    dev = xbar.device
+    ln = min(chunk, s)
+    nc = -(-s // ln)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dxbar = torch.empty_like(xbar)
+    dla = torch.empty((b, s, h), **f32)
+    db_acc = torch.zeros((b, s, g, n), **f32)
+    dc_acc = torch.zeros((b, s, g, n), **f32)
+    bf16 = xbar.dtype == torch.bfloat16
+    db = torch.empty_like(B) if bf16 else db_acc
+    dc = torch.empty_like(C) if bf16 else dc_acc
+    dinit = torch.empty((b, h, p, n), **f32) if init is not None else None
+    s_in = torch.empty((b, h, nc, p, n), **f32)
+    ds_out = torch.empty_like(s_in)
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    lib, fn = _bwd_entry()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(ptr(xbar), ptr(log_a), ptr(B), ptr(C), ptr(dy), ptr(dfinal),
+                  ptr(init), ptr(dxbar), ptr(dla), ptr(db_acc), ptr(dc_acc),
+                  ptr(db) if bf16 else None, ptr(dc) if bf16 else None,
+                  ptr(dinit), ptr(s_in), ptr(ds_out), b, s, h, g, p, n,
+                  chunk, _DTYPE_CODE[xbar.dtype], stream)
+    _build.check(lib, code, "ssd_scan_bwd launch",
+                 "repro_ssd_scan_bwd_error_string")
+    ssd_scan_bwd.launches += 1
+    return dxbar, dla, db, dc, dinit
+
+
+ssd_scan_bwd.launches = 0
+
+
+class SsdScanFn(torch.autograd.Function):
+    """The SSD scan with its backward.  CUDA tensors: the forward kernel,
+    then the backward kernel (which recomputes the chunk states).  CPU
+    tensors: the plain versions of both.  Saves the inputs only, and only
+    when ``want`` (grad mode on and an input that requires a gradient)."""
+
+    @staticmethod
+    def forward(ctx, xbar, log_a, B, C, init_state, chunk, want):
+        if xbar.is_cuda:
+            y, state = _launch_fwd(xbar, log_a, B, C, chunk, init_state)
+        else:
+            y, state = ssd_scan_plain(xbar, log_a, B, C, chunk=chunk,
+                                      init_state=init_state)
+        if want:
+            ctx.save_for_backward(xbar, log_a, B, C, init_state)
+            ctx.chunk = chunk
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        xbar, log_a, B, C, init_state = ctx.saved_tensors
+        bwd = ssd_scan_bwd if xbar.is_cuda else ssd_scan_bwd_plain
+        dx, dla, db, dc, dinit = bwd(xbar, log_a, B, C, dy, dfinal,
+                                     chunk=ctx.chunk, init_state=init_state)
+        return dx, dla, db, dc, dinit, None, None
+
+
+def ssd_scan(xbar: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
+             C: torch.Tensor, *, chunk: int,
+             init_state: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """xbar [B,S,H,P], log_a [B,S,H] fp32, B/C [B,S,G,N], init_state
+    [B,H,P,N] fp32 or None -> (y [B,S,H,P] in ``xbar.dtype``, final_state
+    [B,H,P,N] fp32), through :class:`SsdScanFn` (differentiable on both
+    devices).
+
+    CUDA tensors: xbar, B and C float32 or bfloat16 of one type; P in
+    (16, 32, 64), N in (16, 32, 64, 128), H a multiple of G,
+    1 <= chunk <= 1024, any S >= 1.  B and C are read through their batch and
+    row strides; a tensor the kernel cannot read in place is made contiguous
+    first.  Anything else raises.  Counts forward launches; the backward
+    kernel counts its own (:func:`ssd_scan_bwd`).
+
+    bf16 runs the tensor-core body: four CUDA kernels in one launch count,
+    with fp32 scratch from ``torch.empty`` (:func:`scratch_shapes`: 155 MB at
+    mamba2-1.3b's prefill, ``[8, 2048]`` tokens).  fp32 runs the FMA body.
+    """
+    want = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad
+        for t in (xbar, log_a, B, C, init_state))
+    return SsdScanFn.apply(xbar, log_a, B, C, init_state, chunk, want)
 
 
 ssd_scan.launches = 0

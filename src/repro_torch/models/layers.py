@@ -7,6 +7,7 @@ Plain functions on tensors.  Layouts are the reference's: weights
     positions, so a long prefill never materializes an S x S score tensor —
     the plain-PyTorch analogue of the flash kernel in
     :mod:`repro_torch.kernels`, and what the kernel path is held against;
+    under grad mode it runs under a checkpoint, as in the reference;
   * sliding-window layers visit a bounded band of KV chunks;
   * the gated MLP's ``act(x @ w_gate)`` goes through the matmul-epilogue
     kernel under ``use_kernel``.
@@ -15,11 +16,13 @@ Plain functions on tensors.  Layouts are the reference's: weights
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
 
@@ -218,8 +221,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if sq == 1 or (sq <= 2048 and skv <= 2048):
         return attention_dense(q, k, v, causal=causal, window=window,
                                q_offset=q_offset, scale=scale)
-    return attention_chunked(q, k, v, causal=causal, window=window,
-                             scale=scale)
+    chunked = functools.partial(attention_chunked, causal=causal,
+                                window=window, scale=scale)
+    if torch.is_grad_enabled():
+        # recompute in the backward, as the reference's jax.checkpoint does:
+        # without it the backward keeps every KV chunk's softmax residuals
+        return checkpoint(chunked, q, k, v, use_reentrant=False)
+    return chunked(q, k, v)
 
 
 # ---------------------------------------------------------------------------

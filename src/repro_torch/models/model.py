@@ -1,4 +1,5 @@
-"""Model facade: ``build_model(cfg)`` -> init / forward / prefill / decode.
+"""Model facade: ``build_model(cfg)`` -> init / loss / forward / prefill /
+decode.
 
 The single entry point the launcher, the serve engine, tests and examples
 use; arch-specific wiring lives in transformer.py.  A model is bound to one
@@ -41,8 +42,16 @@ class Model:
             gen = torch.Generator(device=self.device).manual_seed(int(seed))
         return T.init_params(self.cfg, gen)
 
-    def forward(self, params, tokens, *, use_kernel: bool = False):
-        return T.forward(self.cfg, params, tokens, use_kernel=use_kernel)
+    # ------------------------------------------------------------ training
+    def loss(self, params, batch, *, remat: str = "none",
+             use_kernel: bool = False):
+        return T.loss_fn(self.cfg, params, batch, remat=remat,
+                         use_kernel=use_kernel)
+
+    def forward(self, params, tokens, *, remat: str = "none",
+                use_kernel: bool = False):
+        return T.forward(self.cfg, params, tokens, remat=remat,
+                         use_kernel=use_kernel)
 
     # ------------------------------------------------------------ serving
     def init_cache(self, batch: int, max_len: int) -> T.Cache:

@@ -11,6 +11,10 @@ alternating, ``zamba2-2.7b``).  Every other family raises
 Params are nested dicts of tensors; leaves of the layer stack carry a leading
 layer axis, as in the reference, and the stack runs as a python loop over it.
 
+Training: :func:`loss_fn` is the reference's next-token CE with the
+time-chunked head of :func:`_chunked_ce`, each chunk under a checkpoint; the
+layer stack takes the reference's ``remat`` policies (:func:`_remat_wrap`).
+
 The decode cache is ``{"pos": int, "self": {"k", "v": [L,B,Hkv,cap,hd],
 "kpos": [L,cap]}}`` for the dense family and ``{"pos": int, "mamba":
 {"conv": [L,B,W-1,C], "state": [L,B,H,P,N] fp32}}`` for the ssm family; the
@@ -22,10 +26,14 @@ and return a dict that holds the same tensors.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -256,6 +264,41 @@ def mamba_layer_apply(cfg: ArchConfig, p: Params, x: torch.Tensor,
     return x + out, cache, 0.0
 
 
+_SAVED_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Selective remat: keep the outputs of the weight products, recompute
+    everything else."""
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(fn: Callable, remat: str) -> Callable:
+    """The reference's ``_remat_wrap`` with ``torch.utils.checkpoint``
+    (non-reentrant).  ``"full"`` keeps only the wrapped function's inputs
+    and reruns it in the backward.  ``"selective"`` is the counterpart of
+    ``dots_with_no_batch_dims_saveable``: it keeps the outputs of
+    ``aten.mm`` / ``aten.addmm`` (a ``[B,S,d] @ [d,f]`` weight product
+    lowers to one ``mm``) and recomputes the rest.  What does not map one to
+    one: XLA decides per dot by its dimension numbers, here the saved ops are
+    named; batched products (``bmm``, the attention einsums) are recomputed
+    in both; the kernels' autograd Functions rerun their forward in the
+    recompute (their launches are not ``mm``), and a product inside a kernel
+    (the matmul-epilogue gate and head) is recomputed where XLA would keep
+    the reference's einsum."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if remat == "selective":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_products))
+    raise ValueError(f"unknown remat policy {remat!r}")
+
+
 def _layer(tree: Any, i: int) -> Any:
     """Layer ``i`` of a stacked tree: views, no copies."""
     if isinstance(tree, dict):
@@ -264,18 +307,25 @@ def _layer(tree: Any, i: int) -> Any:
 
 
 def scan_stack(stacked: Params, x: torch.Tensor, body_fn: Callable,
-               cache: Optional[Dict] = None):
+               cache: Optional[Dict] = None, remat: str = "none"):
     """Run a homogeneous layer stack: a python loop over the leading layer
     axis.  body_fn(p, h, c) -> (h, c, aux).  Layer caches are views of the
-    stacked cache, which the blocks write in place."""
+    stacked cache, which the blocks write in place.  Without a cache each
+    layer's body runs under ``remat`` (:func:`_remat_wrap`), as the
+    reference's scan body does."""
     leaf = stacked
     while isinstance(leaf, dict):
         leaf = next(iter(leaf.values()))
     n_layers = leaf.shape[0]
     aux_total = 0.0
+    if cache is None:
+        body = _remat_wrap(lambda p, h: body_fn(p, h, None), remat)
+        for i in range(n_layers):
+            x, _, aux = body(_layer(stacked, i), x)
+            aux_total = aux_total + aux
+        return x, None, aux_total
     for i in range(n_layers):
-        c = _layer(cache, i) if cache is not None else None
-        x, _, aux = body_fn(_layer(stacked, i), x, c)
+        x, _, aux = body_fn(_layer(stacked, i), x, _layer(cache, i))
         aux_total = aux_total + aux
     return x, cache, aux_total
 
@@ -320,45 +370,52 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 def _stack_runner(cfg: ArchConfig, params: Params, x: torch.Tensor,
                   positions: torch.Tensor, cache: Optional[Cache],
-                  use_kernel: bool, pos: Optional[int] = None):
-    """Run the layer stack. Returns (x, new_cache, aux)."""
+                  use_kernel: bool, pos: Optional[int] = None,
+                  remat: str = "none"):
+    """Run the layer stack. Returns (x, new_cache, aux).  ``remat`` applies
+    without a cache (training), as in the reference."""
     require_ported(cfg)
     if cfg.family == "ssm":
         def mamba_body(p, h, c):
             return mamba_layer_apply(cfg, p, h, c, use_kernel)
         x, c2, aux = scan_stack(params["blocks"], x, mamba_body,
-                                cache["mamba"] if cache else None)
+                                cache["mamba"] if cache else None, remat)
         return x, ({"mamba": c2} if cache is not None else None), aux
     if cfg.family == "hybrid":
         return _hybrid_stack(cfg, params, x, positions, cache, use_kernel,
-                             pos)
+                             pos, remat)
 
     def body(p, h, c):
         return block_apply(cfg, p, h, positions=positions, window=None,
                            kv_cache=c, pos=pos, use_kernel=use_kernel)
     x, c2, aux = scan_stack(params["blocks"], x, body,
-                            cache["self"] if cache else None)
+                            cache["self"] if cache else None, remat)
     return x, ({"self": c2} if cache is not None else None), aux
 
 
 def _hybrid_stack(cfg: ArchConfig, params: Params, x: torch.Tensor,
                   positions: torch.Tensor, cache: Optional[Cache],
-                  use_kernel: bool, pos: Optional[int]):
+                  use_kernel: bool, pos: Optional[int], remat: str = "none"):
     """The hybrid stack: for each segment, ``attn_every`` Mamba2 layers and
     then shared block ``seg % n_shared`` with its own attention cache
-    ``cache["attn"][seg]``.  Caches are written in place."""
+    ``cache["attn"][seg]``.  Caches are written in place.  Without a cache
+    each Mamba2 layer and each application of a shared block runs under
+    ``remat``, as in the reference."""
     every = cfg.hybrid.attn_every
     shared = params["shared_attn"]
+    if cache is not None:
+        remat = "none"
+    mamba = _remat_wrap(lambda p, h, c: mamba_layer_apply(cfg, p, h, c,
+                                                          use_kernel), remat)
+    block = _remat_wrap(lambda p, h, c: block_apply(
+        cfg, p, h, positions=positions, window=None, kv_cache=c, pos=pos,
+        use_kernel=use_kernel), remat)
     for seg in range(cfg.n_layers // every):
         for i in range(seg * every, (seg + 1) * every):
             c = _layer(cache["mamba"], i) if cache is not None else None
-            x, _, _ = mamba_layer_apply(cfg, _layer(params["blocks"], i), x,
-                                        c, use_kernel)
+            x, _, _ = mamba(_layer(params["blocks"], i), x, c)
         a_cache = _layer(cache["attn"], seg) if cache is not None else None
-        x, _, _ = block_apply(cfg, shared[seg % len(shared)], x,
-                              positions=positions, window=None,
-                              kv_cache=a_cache, pos=pos,
-                              use_kernel=use_kernel)
+        x, _, _ = block(shared[seg % len(shared)], x, a_cache)
     new_cache = ({"mamba": cache["mamba"], "attn": cache["attn"]}
                  if cache is not None else None)
     return x, new_cache, 0.0
@@ -385,20 +442,76 @@ def _positions(b: int, s: int, device: torch.device) -> torch.Tensor:
 
 
 def forward_hidden(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
-                   use_kernel: bool = False):
+                   remat: str = "none", use_kernel: bool = False):
     """Trunk only: returns (pre-head hidden [B,S,d], aux_loss)."""
     b, s = tokens.shape
     x = params["embed"][tokens]
     x, _, aux = _stack_runner(cfg, params, x, _positions(b, s, x.device),
-                              None, use_kernel)
+                              None, use_kernel, remat=remat)
     return x, aux
 
 
 def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
-            use_kernel: bool = False):
+            remat: str = "none", use_kernel: bool = False):
     """Full-sequence forward.  Returns (logits [B,S,V] fp32, aux_loss)."""
-    x, aux = forward_hidden(cfg, params, tokens, use_kernel=use_kernel)
+    x, aux = forward_hidden(cfg, params, tokens, remat=remat,
+                            use_kernel=use_kernel)
     return _head(cfg, params, x, use_kernel), aux
+
+
+def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
+            *, remat: str = "none", use_kernel: bool = False,
+            aux_weight: float = 0.01, ce_chunk: int = 2048):
+    """Next-token CE (+ ``aux_weight`` x the MoE aux loss, zero for the
+    ported families).  batch: ``{"tokens": [B,S] int}``.  Returns (loss,
+    ``{"ce", "aux"}``), each a 0-d fp32 tensor.
+
+    The CE head is chunked and rematerialised (:func:`_chunked_ce`), so the
+    ``[T, vocab]`` fp32 logits never exist whole.  The reference's MTP and
+    frontend branches need archs the port does not run yet: a frontend
+    batch raises ``NotImplementedError``."""
+    require_ported(cfg)
+    if batch.get("frontend") is not None or cfg.mtp_depth:
+        raise NotImplementedError("loss_fn: frontend inputs and MTP are not "
+                                  "ported yet")
+    tokens = batch["tokens"]
+    hidden, aux = forward_hidden(cfg, params, tokens, remat=remat,
+                                 use_kernel=use_kernel)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=hidden.device)
+    ce = _chunked_ce(cfg, params, hidden[:, :tokens.shape[1] - 1],
+                     tokens[:, 1:], ce_chunk, use_kernel)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
+
+
+def _chunked_ce(cfg: ArchConfig, params: Params, h: torch.Tensor,
+                targets: torch.Tensor, chunk: int,
+                use_kernel: bool = False) -> torch.Tensor:
+    """Mean next-token CE with a rematerialised, time-chunked head.
+
+    The reference's chunk rule: ``c = max(min(chunk // b, s), 1)`` time
+    steps a chunk with the batch kept leading, the time axis padded to a
+    multiple of ``c`` with target -1 (no loss), each chunk's head and CE
+    under a checkpoint (the chunk's ``[b, c, vocab]`` fp32 logits are made
+    again in the backward and never kept), the sum divided by ``b * s``.
+    """
+    b, s, _ = h.shape
+    c = max(min(chunk // max(b, 1), s), 1)
+    pad = (-s) % c
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad), value=-1)
+
+    def chunk_loss(hc, tc):
+        logits = _head(cfg, params, hc, use_kernel)         # [b, c, V] fp32
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, tc.clamp_min(0)[..., None])[..., 0]
+        return torch.where(tc >= 0, logz - ll, 0.0).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, s + pad, c):
+        total = total + checkpoint(chunk_loss, h[:, i:i + c],
+                                   targets[:, i:i + c], use_reentrant=False)
+    return total / (b * s)
 
 
 def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,

@@ -1,1 +1,2 @@
-"""Runtimes of the port: ``serve_engine`` (batched serving)."""
+"""Runtimes of the port: ``serve_engine`` (batched serving) and
+``train_loop`` (the train step)."""

@@ -23,6 +23,8 @@ MODULES = [
     "repro_torch.models.model", "repro_torch.runtime.serve_engine",
     "repro_torch.launch.serve", "repro_torch.examples.linreg_ds",
     "repro_torch.benchmarks.bench_accuracy",
+    "repro_torch.optim", "repro_torch.optim.adamw",
+    "repro_torch.optim.compress", "repro_torch.runtime.train_loop",
     "chip_smoke",
 ] + [f"repro_torch.core.{m}" for m in (
     "npvec", "calibration", "cluster", "symbols", "plan", "linalg_ops",
@@ -111,10 +113,21 @@ def test_sources_name_neither_jax_nor_the_reference_package():
 
 
 def test_csrc_sources_have_a_plain_c_interface():
-    for name in ("flash_attention", "tsmm", "ssd_scan", "matmul_epilogue"):
+    for name in ("flash_attention", "flash_attention_bwd", "tsmm",
+                 "ssd_scan", "ssd_scan_bwd", "matmul_epilogue"):
         text = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
         assert 'extern "C"' in text and "torch/extension.h" not in text
         assert "cudaGetLastError" in text
+
+
+def test_build_lists_every_source():
+    """``chip_smoke.py`` builds ``_build.SOURCES``: every ``csrc/*.cu``,
+    the backward kernels included, and nothing is built at import."""
+    from repro_torch.kernels import _build
+    on_disk = sorted(p.stem for p in (PORT / "kernels" / "csrc").glob("*.cu"))
+    assert sorted(_build.SOURCES) == on_disk
+    assert {"flash_attention_bwd", "ssd_scan_bwd"} <= set(_build.SOURCES)
+    assert not _build._libs
 
 
 def _needs_no_gpu():

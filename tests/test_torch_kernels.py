@@ -539,16 +539,23 @@ def test_matmul_epilogue_rejects_what_the_reference_rejects():
 
 
 def test_cpu_tensors_launch_nothing():
+    """Nor does their backward: the backward kernels' counts stay 0 too."""
     ops.reset_launch_counts()
     x = torch.ones(64, 32)
     ops.tsmm(x)
-    ops.flash_attention(*(torch.ones(1, 1, 8, 32) for _ in range(3)))
-    ops.ssd_scan(torch.ones(1, 8, 2, 16), torch.ones(1, 8, 2),
-                 torch.zeros(2), torch.ones(1, 8, 1, 16),
-                 torch.ones(1, 8, 1, 16), torch.ones(2), chunk=4)
-    ops.matmul_epilogue(torch.ones(4, 8), torch.ones(8, 3), epilogue="silu")
-    assert ops.launch_counts() == {"flash_attention": 0, "tsmm_upper": 0,
-                                   "ssd_scan": 0, "matmul_epilogue": 0}
+    qkv = [torch.ones(1, 1, 8, 64, requires_grad=True) for _ in range(3)]
+    ops.flash_attention(*qkv).sum().backward()
+    y, _ = ops.ssd_scan(torch.ones(1, 8, 2, 16, requires_grad=True),
+                        torch.ones(1, 8, 2), torch.zeros(2),
+                        torch.ones(1, 8, 1, 16), torch.ones(1, 8, 1, 16),
+                        torch.ones(2), chunk=4)
+    y.sum().backward()
+    ops.matmul_epilogue(torch.ones(4, 8, requires_grad=True), torch.ones(8, 3),
+                        epilogue="silu").sum().backward()
+    assert ops.launch_counts() == {"flash_attention": 0,
+                                   "flash_attention_bwd": 0, "tsmm_upper": 0,
+                                   "ssd_scan": 0, "ssd_scan_bwd": 0,
+                                   "matmul_epilogue": 0}
 
 
 # ------------------------------------------------- matmul_epilogue bodies
