@@ -9,7 +9,8 @@ Phases, each printing one JSON line: ``device`` (name and power limit),
 ``kernels`` (every hand-written kernel, the two backward kernels included,
 against its plain PyTorch version on the card, faulty controls of the
 epilogue kernel and of tsmm that the same check must catch, and the SSD
-scan's rounding plan against one bf16 rounding of its state path), with
+scan's rounding plans, forward and backward, against one bf16 rounding of
+their state paths), with
 ``--ptxas`` a ``ptxas`` line (registers, shared memory and spills of every
 kernel), ``train`` twice (qwen1.5-0.5b and mamba2-1.3b at full width and
 depth in bf16 through ``make_train_step(use_kernel=True)``: five steps on a
@@ -62,12 +63,13 @@ from repro_torch.examples import linreg_ds                       # noqa: E402
 from repro_torch.kernels import _build, ops                      # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
-    flash_attention_fwd, flash_attention_plain, flash_body, flash_lse_plain)
+    flash_attention_fwd, flash_attention_plain, flash_body, flash_bwd_body,
+    flash_lse_plain)
 from repro_torch.kernels.matmul_epilogue import (  # noqa: E402
     LN_MAX_N, matmul_body, matmul_epilogue, matmul_epilogue_plain)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
-    ssd_scan, ssd_scan_bwd, ssd_scan_bwd_plain, ssd_scan_plain,
-    ssd_scan_split_plain)
+    ssd_bwd_body, ssd_scan, ssd_scan_bwd, ssd_scan_bwd_plain,
+    ssd_scan_bwd_split_plain, ssd_scan_plain, ssd_scan_split_plain)
 from repro_torch.kernels.tsmm import tsmm_upper, tsmm_upper_plain  # noqa: E402
 from repro_torch.core import ShardingPlan                        # noqa: E402
 from repro_torch.models.model import build_model                 # noqa: E402
@@ -405,6 +407,7 @@ def check_flash_bwd(gen) -> list:
         res = {"case": tag, "shape": [list(q.shape), list(k.shape)],
                "causal": causal, "window": window,
                "dtype": str(dtype).split(".")[-1],
+               "body": flash_bwd_body(dtype, q.shape[-1]),
                "lse": compare(lse, flash_lse_plain(q, k, causal=causal,
                                                    window=window),
                               **LSE_TOL)}
@@ -857,7 +860,8 @@ def check_ssd_bwd(gen) -> list:
         ref = ssd_scan_bwd_plain(xbar, log_a, bm, cm, dy, dfin, chunk=chunk,
                                  init_state=st)
         res = {"case": tag, "shape": [b, s, h, p, g, n], "chunk": chunk,
-               "dtype": str(dtype).split(".")[-1]}
+               "dtype": str(dtype).split(".")[-1],
+               "body": ssd_bwd_body(dtype)}
         for name, a, r in zip(("dxbar", "dlog_a", "dB", "dC", "dinit"), got,
                               ref):
             if r is not None:
@@ -875,6 +879,8 @@ def check_ssd_bwd(gen) -> list:
             views=True)
         run("groups G = 2", 2, 256, 8, 64, 2, 128, 64, dtype)
         run("initial state", 2, 300, 4, 64, 1, 128, 128, dtype, init=True)
+        # the tensor-core body runs chunks of at most 256 rows
+        run("chunk 512, ragged S", 1, 600, 2, 32, 1, 64, 512, dtype)
     m = SSD_MAIN
     run("main path", m["b"], m["s"], m["h"], m["p"], m["g"], m["n"],
         m["chunk"], torch.bfloat16, model_like=True, views=True)
@@ -946,6 +952,101 @@ def check_ssd_control(gen) -> list:
             del st, split
         del states, ref
         cases.append(out)
+    if faults:
+        raise AssertionError(f"{'; '.join(faults)}: {cases}")
+    return cases
+
+
+# The bf16 backward body's dlog_a against ``ssd_scan_bwd_split_plain`` at
+# mamba2's served shape: the largest error over dlog_a's largest magnitude.
+# Both make the same products with the same roundings and differ in the
+# order of fp32 sums and in the exponentials (a block scan's cumsum and
+# torch.cumsum's differ in order: at the serve path's |cum| of about 2000 the
+# decays differ by about eps * |cum|, so the kernel scans in torch.cumsum's
+# order).  On an H100 the kernel read 4.8e-7 to 6.2e-7 (3.2e-5 with a block
+# scan), the fp32 operands rounded once to bf16 4.2e-4 to 7.3e-4; the limit
+# is the geometric mean of the largest of the first and the smallest of the
+# second, 1.6e-5, rounded down to one digit, as for ``SSD_SPLIT_STATE_LIMIT``.
+SSD_BWD_SPLIT_LIMIT = 1e-5
+SSD_BWD_CASES = [("reference case", (1, 256, 2, 64, 1, 128, 64), {}),
+                 ("sweep 1", (2, 128, 4, 16, 1, 32, 32), {}),
+                 ("sweep 3", (2, 64, 8, 32, 1, 16, 16), {}),
+                 ("ragged S", (2, 600, 4, 64, 1, 128, 256), {}),
+                 ("groups G = 2", (2, 256, 8, 64, 2, 128, 64), {}),
+                 ("initial state", (2, 300, 4, 64, 1, 128, 128),
+                  dict(init=True))]
+
+
+def check_ssd_bwd_control(gen) -> list:
+    """The SSD backward's rounding plan against its control, on the card:
+    ``ssd_scan_bwd_split_plain`` as the tensor-core body splits every fp32
+    operand (hi + lo), then with each rounded once to bf16, both held to
+    ``BWD_RTOL`` against :func:`ssd_scan_bwd_plain`.  The split must pass at
+    every case; at the reference case the single rounding must be caught
+    (dlog_a, fp32, 1e-4).  At mamba2's served shape, where ``BWD_RTOL`` is
+    the check of the kernel, the kernel's dlog_a is also held against the
+    split plan's (``SSD_BWD_SPLIT_LIMIT``), and the rounded-once plan's must
+    miss that limit."""
+    cases, faults = [], []
+    m = SSD_MAIN
+    served = ("main path", (m["b"], m["s"], m["h"], m["p"], m["g"], m["n"],
+                            m["chunk"]), dict(model_like=True, views=True))
+    names = ("dxbar", "dlog_a", "dB", "dC", "dinit")
+    for tag, (b, s, h, p, g, n, chunk), kw in SSD_BWD_CASES + [served]:
+        xbar, log_a, bm, cm, st = ssd_inputs(b, s, h, p, g, n, torch.bfloat16,
+                                             gen, **kw)
+        dy = torch.randn(xbar.shape, generator=gen, device="cuda").to(
+            xbar.dtype)
+        dfin = torch.randn((b, h, p, n), generator=gen, device="cuda")
+        args = (xbar, log_a, bm, cm, dy, dfin)
+        ref = ssd_scan_bwd_plain(*args, chunk=chunk, init_state=st)
+        out = {"case": f"rounding plan: hi + lo against one bf16 rounding, "
+                       f"{tag}", "shape": [b, s, h, p, g, n], "chunk": chunk}
+        plans = {}
+        for name, split in (("split", True), ("rounded_once", False)):
+            got = ssd_scan_bwd_split_plain(*args, chunk=chunk, init_state=st,
+                                           split=split)
+            caught = []
+            for o_name, a, r in zip(names, got, ref):
+                if r is None:
+                    continue
+                try:
+                    compare_rel(a, r, BWD_RTOL[a.dtype])
+                except AssertionError:
+                    caught.append(o_name)
+            out[name] = {"caught": caught,
+                         "dlog_a_rel_err": float((got[1] - ref[1]).abs().max()
+                                                 / ref[1].abs().max())}
+            plans[name] = got[1]
+            del got
+        if out["split"]["caught"]:
+            faults.append(f"the split plan fails {out['split']['caught']}, "
+                          f"{tag}")
+        if tag == "reference case" and \
+                "dlog_a" not in out["rounded_once"]["caught"]:
+            faults.append("one bf16 rounding of the backward's fp32 operands "
+                          "passes dlog_a's tolerance")
+        if tag == "main path":
+            got = ssd_scan_bwd(*args, chunk=chunk, init_state=st)
+            torch.cuda.synchronize()
+            split = plans["split"].to(torch.float64)
+            top = float(split.abs().max())
+            vs = {"limit": SSD_BWD_SPLIT_LIMIT, "split_max_abs": top}
+            for name, d in (("kernel", got[1]),
+                            ("rounded_once", plans["rounded_once"])):
+                vs[name] = float((d.to(torch.float64) - split).abs().max()) \
+                    / top
+            out["dlog_a_vs_split"] = vs
+            if not vs["kernel"] <= SSD_BWD_SPLIT_LIMIT:
+                faults.append(f"the kernel's dlog_a is {vs['kernel']} from "
+                              f"the split plan, {tag}")
+            if not vs["rounded_once"] > SSD_BWD_SPLIT_LIMIT:
+                faults.append(f"one bf16 rounding passes the split check of "
+                              f"dlog_a, {tag}")
+            del got, split
+        cases.append(out)
+        del xbar, log_a, bm, cm, st, dy, dfin, args, ref, plans
+        torch.cuda.empty_cache()
     if faults:
         raise AssertionError(f"{'; '.join(faults)}: {cases}")
     return cases
@@ -1170,7 +1271,7 @@ def time_bwd_kernels(gen) -> dict:
         sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
         out[name] = {
             "ms": time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do),
-                          5, 1),
+                          20, 3),
             "plain_ms": time_ms(lambda: flash_attention_bwd_plain(
                 q, k, v, o, lse, do), 1),
             "library_ms": time_ms(lambda: torch.autograd.grad(
@@ -1180,7 +1281,12 @@ def time_bwd_kernels(gen) -> dict:
                             "excluded",
             "shape": f"q,k,v [{m['b']},{m['hq']},{m['s']},{m['d']}] bf16 "
                      f"causal, transposed views",
+            "body": flash_bwd_body(torch.bfloat16, m["d"]),
+            "cuda_kernels_ms": device_kernel_ms(
+                lambda: flash_attention_bwd(q, k, v, o, lse, do)),
             **flash_bwd_bound_ms(**m, dtype=torch.bfloat16)}
+        out[name]["ratio_to_library"] = (out[name]["ms"]
+                                         / out[name]["library_ms"])
         del q, k, v, o, lse, do, qs, ks, vs, sdpa
         torch.cuda.empty_cache()
     m = SSD_MAIN
@@ -1190,7 +1296,7 @@ def time_bwd_kernels(gen) -> dict:
     dy = torch.randn(xbar.shape, generator=gen, device="cuda").to(xbar.dtype)
     args = (xbar, log_a, bm, cm, dy, None)
     out["ssd_scan_bwd"] = {
-        "ms": time_ms(lambda: ssd_scan_bwd(*args, chunk=m["chunk"]), 3, 1),
+        "ms": time_ms(lambda: ssd_scan_bwd(*args, chunk=m["chunk"]), 10, 2),
         "plain_ms": time_ms(lambda: ssd_scan_bwd_plain(
             *args, chunk=m["chunk"]), 1),
         "library_ms": None,
@@ -1198,6 +1304,7 @@ def time_bwd_kernels(gen) -> dict:
                         "gradient",
         "shape": "xbar [8,2048,64,64] bf16, B/C [8,2048,1,128] views, "
                  "chunk 256",
+        "body": ssd_bwd_body(torch.bfloat16),
         "cuda_kernels_ms": device_kernel_ms(
             lambda: ssd_scan_bwd(*args, chunk=m["chunk"])),
         **ssd_bwd_bound_ms(**m, dtype=torch.bfloat16)}
@@ -1804,6 +1911,7 @@ def main() -> None:
     control_cases = check_controls(gen)
     ssd_control = check_ssd_control(gen)
     flash_bwd_cases, ssd_bwd_cases = check_flash_bwd(gen), check_ssd_bwd(gen)
+    ssd_bwd_control = check_ssd_bwd_control(gen)
     times = time_kernels(gen)
     bwd_times = time_bwd_kernels(gen)
     emit({"phase": "kernels", "flash_attention": flash_cases,
@@ -1811,6 +1919,7 @@ def main() -> None:
           "tsmm_upper": tsmm_cases, "ssd_scan": ssd_cases,
           "ssd_scan_bwd": ssd_bwd_cases,
           "ssd_scan_control": ssd_control,
+          "ssd_scan_bwd_control": ssd_bwd_control,
           "matmul_epilogue": mm_cases,
           "matmul_epilogue_controls": control_cases, "times": times,
           "bwd_times": bwd_times})

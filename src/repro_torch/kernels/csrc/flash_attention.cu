@@ -87,13 +87,6 @@ __device__ __forceinline__ void band_tiles(const Params& p, int q_lo, int q_hi,
   }
 }
 
-// 2^x on the special-function unit; subnormal results flush to zero.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 __device__ __forceinline__ bool in_band(const Params& p, int q_pos, int k_pos) {
   bool ok = k_pos < p.Skv;
   if (p.causal) ok = ok && (k_pos <= q_pos);
@@ -135,11 +128,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(smem_ptr)));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);  // .x = lo (low half)
-  return *reinterpret_cast<uint32_t*>(&t);
 }
 
 // Starts the asynchronous copy of rows [row0, row0 + ROWS) x D of a bf16
@@ -486,20 +474,6 @@ struct TmaMaps {  // [0]: columns 0-63; [1]: columns 64-79 (D = 80 only)
   CUtensorMap q[2], k[2], v[2];
 };
 
-// A box of a 4-D tensor map (coordinates innermost first) into shared
-// memory, completing on `bar`.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
 // Named barriers 1 and 2 (0 is __syncthreads') over both consumer
 // warpgroups, 256 threads.
 __device__ __forceinline__ void named_sync(int id) {
@@ -540,46 +514,6 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[16][4], uint64_t da,
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
       : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D[64 x 64] += A[64 x 16] B[16 x 64], A in registers, B in shared memory
-// (MN-major: the transpose bit).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}"
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D[64 x 16] += A[64 x 16] B[16 x 16], A in registers, B in shared memory
-// (MN-major: the transpose bit).
-__device__ __forceinline__ void wgmma_rs_n16(float (&d)[2][4],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7}"
-      ", {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // Work item j of a call.  The (batch, head) pairs are taken in bands of
@@ -1060,27 +994,6 @@ cudaError_t launch(Kernel kernel, const Params& p, int block_rows,
   return cudaGetLastError();
 }
 
-// The 4-D map (D columns, S, H, B) of a bf16 q, k or v read through its
-// strides (elements), boxes of `cols` columns by `rows` rows.
-int tensor_map(CUtensorMap* map, const void* base, int cols, int S, int H,
-               int B, long long ss, long long sh, long long sb, int rows,
-               CUtensorMapSwizzle swizzle) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return ERR_TENSOR_MAP;
-  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)S, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(base), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP;
-}
-
 template <int D>
 int launch_wgmma(const Params& p, void* next_item, cudaStream_t stream) {
   TmaMaps maps;
@@ -1093,10 +1006,10 @@ int launch_wgmma(const Params& p, void* next_item, cudaStream_t stream) {
   const long long sh[3] = {p.q_sh, p.k_sh, p.v_sh};
   const long long sb[3] = {p.q_sb, p.k_sb, p.v_sb};
   for (int t = 0; t < 3; ++t) {
-    int err = tensor_map(&dst[t][0], src[t], 64, S[t], H[t], p.B, ss[t],
+    int err = tensor_map_4d(&dst[t][0], src[t], 64, S[t], H[t], p.B, ss[t],
                          sh[t], sb[t], 128, CU_TENSOR_MAP_SWIZZLE_128B);
     if (err == 0 && D > 64)
-      err = tensor_map(&dst[t][1], src[t] + 64, D - 64, S[t], H[t], p.B,
+      err = tensor_map_4d(&dst[t][1], src[t] + 64, D - 64, S[t], H[t], p.B,
                        ss[t], sh[t], sb[t], 128, CU_TENSOR_MAP_SWIZZLE_32B);
     if (err != 0) return err;
   }

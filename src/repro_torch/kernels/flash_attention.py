@@ -19,11 +19,14 @@ The backward (``csrc/flash_attention_bwd.cu``) has no TPU kernel of its
 own: the reference differentiates its plain attention.  It recomputes P from
 the row log-sum-exp that the forward leaves behind (the ``wgmma`` and FMA
 bodies write it; D = 64 and 80 only) and forms dQ, dK and dV with dK and dV
-summed over each GQA group.  :class:`FlashAttentionFn` runs the forward
-kernel and saves q, k, v, o and the log-sum-exp; its backward runs the
-backward kernel.  On CPU tensors the same Function runs
-:func:`flash_attention_plain`, :func:`flash_lse_plain` and
-:func:`flash_attention_bwd_plain`.
+summed over each GQA group.  Two bodies, chosen by :func:`flash_bwd_body`:
+``wgmma`` + TMA for bf16, with P and dS rounded once to bf16 for the
+products that take them (:func:`flash_attention_bwd_tc_plain` is the same
+rounding in plain PyTorch), and full-fp32 FMA for fp32.
+:class:`FlashAttentionFn` runs the forward kernel and saves q, k, v, o and
+the log-sum-exp; its backward runs the backward kernel.  On CPU tensors the
+same Function runs :func:`flash_attention_plain`, :func:`flash_lse_plain`
+and :func:`flash_attention_bwd_plain`.
 
 The wrappers decide by the tensor's device and by nothing else: a CUDA
 tensor launches the kernel or raises, a CPU tensor takes the plain version.
@@ -111,6 +114,40 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
             dv.to(v.dtype))
 
 
+def _bf16_round(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def flash_attention_bwd_tc_plain(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, o: torch.Tensor,
+                                 lse: torch.Tensor, do: torch.Tensor, *,
+                                 causal: bool = True,
+                                 window: Optional[int] = None,
+                                 scale: Optional[float] = None):
+    """The ``wgmma`` body's decomposition in plain PyTorch, in its order and
+    with its roundings: S and dP in fp32 from the inputs, P = exp(S - lse)
+    on the band and dS = P o (dP - delta) in fp32, then P and dS rounded
+    once to bf16 for the products dV = P^T dO, dK = dS^T Q * scale and dQ =
+    dS K * scale, which sum in fp32.  Returns (dq, dk, dv) in the types of
+    q, k, v.  Only the tests and the checks of ``chip_smoke.py`` use it."""
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    s, mask, scale = _scores(q, k, causal, window, scale)
+    f32 = lambda t: t.to(torch.float32).reshape(b, hkv, g, sq, -1)
+    p = torch.where(mask, torch.exp(s - f32(lse)), 0.0)
+    dog = f32(do)
+    delta = (dog * f32(o)).sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, v.to(torch.float32))
+    ds = _bf16_round(p * (dp - delta))
+    p = _bf16_round(p)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dog)
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.to(torch.float32)) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, f32(q)) * scale
+    return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 def _entry():
     lib = _build.load("flash_attention")
     fn = lib.repro_flash_attention_fwd
@@ -141,6 +178,16 @@ def flash_body(dtype: torch.dtype, d: int) -> str:
     if dtype == torch.float32:
         return "fma"
     return "wgmma" if d in (64, 80) else "mma_sync"
+
+
+def flash_bwd_body(dtype: torch.dtype, d: int) -> str:
+    """The backward body a CUDA call runs, by type and head dim alone:
+    ``"wgmma"`` (wgmma + TMA) for bf16 at D = 64 and 80, ``"fma"`` for fp32.
+    Other head dims have no backward and raise."""
+    if d not in BACKWARD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head dim {d} not in "
+                         f"{BACKWARD_HEAD_DIMS}")
+    return "fma" if dtype == torch.float32 else "wgmma"
 
 
 def reads_in_place(t: torch.Tensor) -> bool:
@@ -220,15 +267,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: Optional[float] = None):
     """The backward kernel: (dq [B,Hq,Sq,D], dk, dv [B,Hkv,Skv,D]),
     contiguous, in the input type.  q, k, v, o and do are read through their
-    strides (a tensor without unit stride along D is made contiguous first);
-    lse is the forward's ``[B,Hq,Sq]`` fp32.  CUDA tensors only: float32 or
-    bfloat16, D = 64 or 80; anything else raises."""
+    strides (the ``wgmma`` body's TMA needs what :func:`reads_in_place`
+    checks, the FMA body a unit stride along D; a tensor without it is made
+    contiguous first); lse is the forward's ``[B,Hq,Sq]`` fp32.  CUDA tensors
+    only: float32 or bfloat16, D = 64 or 80, the body
+    :func:`flash_bwd_body`'s; anything else raises."""
     _check_fwd(q, k, v, window)
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = v.shape
-    if d not in BACKWARD_HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd: head dim {d} not in "
-                         f"{BACKWARD_HEAD_DIMS}")
+    body = flash_bwd_body(q.dtype, d)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
             or do.dtype != q.dtype or lse.shape != (b, hq, sq) \
             or lse.dtype != torch.float32:
@@ -238,15 +285,20 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(q.shape)} {q.dtype}")
     if any(t.device != q.device for t in (o, lse, do)):
         raise ValueError("flash_attention_bwd: tensors on different devices")
-    q, k, v, o, do = (t if t.stride(-1) == 1 else t.contiguous()
+    readable = reads_in_place if body == "wgmma" else (
+        lambda t: t.stride(-1) == 1)
+    q, k, v, o, do = (t if readable(t) else t.contiguous()
                       for t in (q, k, v, o, do))
     lse = lse.contiguous()
     scale = float(scale) if scale is not None else d ** -0.5
     dev = q.device
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
-    dq_acc = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=dev)
-    bf16 = q.dtype == torch.bfloat16
-    dq = torch.empty_like(dq_acc, dtype=q.dtype) if bf16 else dq_acc
+    bf16 = body == "wgmma"
+    # the wgmma body sums dQ in 64-row tiles, each in its register order
+    dq_acc = torch.zeros((b, hq, -(-sq // 64), 64 * d) if bf16
+                         else (b, hq, sq, d), dtype=torch.float32, device=dev)
+    dq = (torch.empty((b, hq, sq, d), dtype=q.dtype, device=dev) if bf16
+          else dq_acc)
     dk = torch.empty((b, hkv, skv, d), dtype=q.dtype, device=dev)
     dv = torch.empty_like(dk)
     lib, fn = _bwd_entry()
@@ -259,7 +311,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                   *o.stride()[:3], *do.stride()[:3], scale, int(causal),
                   int(window) if window is not None else 0,
-                  _DTYPE_CODE[q.dtype], stream)
+                  _BODY_CODE[body], stream)
     _build.check(lib, code, "flash_attention_bwd launch",
                  "repro_flash_attention_bwd_error_string")
     flash_attention_bwd.launches += 1

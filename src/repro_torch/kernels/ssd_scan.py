@@ -25,7 +25,11 @@ The backward (``csrc/ssd_scan_bwd.cu``) has no TPU kernel of its own: the
 reference differentiates its plain ``ssd_chunked``.  It recomputes the chunk
 states, runs the state gradient through the chunks in reverse and forms
 every intra-chunk term from the same decay masks, with dB and dC summed over
-the heads of each group; fp32 FMA for both types.
+the heads of each group.  Two bodies, chosen by :func:`ssd_bwd_body`: bf16
+on the tensor cores, chunk-parallel, five CUDA kernels a call, every fp32
+operand of a product split hi + lo (:func:`ssd_scan_bwd_split_plain` is the
+same order of work and the same roundings in plain PyTorch), on chunks of at
+most :data:`TC_BWD_CHUNK` rows; fp32 FMA, two CUDA kernels a call.
 :class:`SsdScanFn` runs the forward kernel and the backward kernel; on CPU
 tensors it runs :func:`ssd_scan_plain` and :func:`ssd_scan_bwd_plain`.
 
@@ -46,7 +50,12 @@ from repro_torch.models.mamba import ssd_scan_prescaled
 SUPPORTED_HEAD_DIMS = (16, 32, 64)
 SUPPORTED_STATE_SIZES = (16, 32, 64, 128)
 MAX_CHUNK = 1024
+# rows a chunk of the backward's tensor-core body, at most: the gradient does
+# not depend on the chunk, and four 64-row tiles keep a tile's work in
+# shared memory
+TC_BWD_CHUNK = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_BWD_BODY_CODE = {"fma": 0, "tc": 1}
 
 
 def ssd_scan_plain(xbar: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
@@ -212,6 +221,105 @@ def ssd_scan_bwd_plain(xbar: torch.Tensor, log_a: torch.Tensor,
             ds if init_state is not None else None)
 
 
+def ssd_scan_bwd_split_plain(xbar: torch.Tensor, log_a: torch.Tensor,
+                             B: torch.Tensor, C: torch.Tensor,
+                             dy: torch.Tensor, dfinal: Optional[torch.Tensor],
+                             *, chunk: int,
+                             init_state: Optional[torch.Tensor] = None,
+                             split: bool = True):
+    """The backward's tensor-core body in plain PyTorch, in its order and
+    with its roundings, on its chunks of ``min(chunk, TC_BWD_CHUNK, S)``
+    rows: emit and demit from the decayed Xbar and dY split hi + lo; S_in
+    and dS_out passed over the chunks in fp32, then split hi + lo for every
+    product that takes them (and for dtotal's exp(total) sum(dS_out o
+    S_in), with dS_out in fp32); M = (C B^T) o Lmask, W = dY Xbar^T and Wd
+    = W o Lmask in fp32; dXbar = split(M)^T dY + exp(total - cum) o (B
+    dS_out^T); Wd summed over each group's heads, then split, for dB = Wd^T
+    C and dC = Wd B (the kernel sums Wd over a slice of the group's heads at
+    a time; the sum's rounding is fp32's either way); the state terms of dB,
+    dC and dcum.  ``split=False`` rounds each of those fp32 operands once to
+    bf16 instead: the control that dlog_a's tolerance must catch.  Returns
+    what :func:`ssd_scan_bwd_plain` returns.  Only the tests and the checks
+    of ``chip_smoke.py`` use it."""
+    b, s, h, p = xbar.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    ln = min(chunk, TC_BWD_CHUNK, s)
+    nc = -(-s // ln)
+    pad = nc * ln - s
+    parts = _split if split else (
+        lambda t: (t.to(torch.bfloat16).to(torch.float32),))
+    both = lambda t: sum(parts(t))  # the operand as the products see it
+
+    def chunks(t, *tail):
+        t = F.pad(t.to(torch.float32), (0, 0) * len(tail) + (0, pad))
+        return t.reshape(b, nc, ln, *tail)
+    xb, la, dyc = chunks(xbar, h, p), chunks(log_a, h), chunks(dy, h, p)
+    Bc, Cc = chunks(B, g, n), chunks(C, g, n)
+    Bh = Bc.repeat_interleave(rep, dim=3)                      # [b,c,l,h,n]
+    Ch = Cc.repeat_interleave(rep, dim=3)
+    cum = torch.cumsum(la, dim=2)                              # [b,c,l,h]
+    total = cum[:, :, -1]                                      # [b,c,h]
+    w_end = torch.exp(total[:, :, None] - cum)[..., None]      # [b,c,l,h,1]
+    w_cum = torch.exp(cum)[..., None]
+
+    # emit and demit, the decayed Xbar and dY split
+    emit = sum(torch.einsum("bclhp,bclhn->bchpn", part, Bh)
+               for part in parts(w_end * xb))
+    demit = sum(torch.einsum("bclhp,bclhn->bchpn", part, Ch)
+                for part in parts(w_cum * dyc))
+    # the state passes, in fp32
+    state = (init_state.to(torch.float32) if init_state is not None
+             else xbar.new_zeros((b, h, p, n), dtype=torch.float32))
+    s_in = []
+    for c in range(nc):
+        s_in.append(state)
+        state = state * torch.exp(total[:, c])[..., None, None] + emit[:, c]
+    ds = (dfinal.to(torch.float32) if dfinal is not None
+          else torch.zeros_like(state))
+    ds_out = [None] * nc
+    for c in reversed(range(nc)):
+        ds_out[c] = ds
+        ds = ds * torch.exp(total[:, c])[..., None, None] + demit[:, c]
+    s_in, ds_out = torch.stack(s_in, dim=1), torch.stack(ds_out, dim=1)
+    s_in_k, ds_out_k = both(s_in), both(ds_out)
+
+    # intra-chunk terms
+    ct = cum.transpose(2, 3)                                   # [b,c,h,l]
+    ii = torch.arange(ln, device=xbar.device)
+    seg = (ct[..., :, None] - ct[..., None, :]).masked_fill(
+        ii[:, None] < ii[None, :], float("-inf"))
+    lmask = torch.exp(seg)                                     # [b,c,h,t,s]
+    cb = torch.einsum("bcign,bcjgn->bcgij", Cc, Bc)
+    m = cb.repeat_interleave(rep, dim=2) * lmask
+    w = torch.einsum("bcthp,bcshp->bchts", dyc, xb)
+    mw = m * w
+    wd = (w * lmask).reshape(b, nc, g, rep, ln, ln).sum(3)     # [b,c,g,t,s]
+    # state terms
+    dx_off = w_end * torch.einsum("bcshn,bchpn->bcshp", Bh, ds_out_k)
+    db_off = w_end * torch.einsum("bcshp,bchpn->bcshn", xb, ds_out_k)
+    dc_off = w_cum * torch.einsum("bcthp,bchpn->bcthn", dyc, s_in_k)
+    e = (xb * dx_off).sum(-1)                                  # [b,c,l,h]
+    dxbar = sum(torch.einsum("bchts,bcthp->bcshp", part, dyc)
+                for part in parts(m)) + dx_off
+    wd_k = both(wd)
+    dB = torch.einsum("bcgts,bctgn->bcsgn", wd_k, Cc) \
+        + db_off.reshape(b, nc, ln, g, rep, n).sum(4)
+    dC = torch.einsum("bcgts,bcsgn->bctgn", wd_k, Bc) \
+        + dc_off.reshape(b, nc, ln, g, rep, n).sum(4)
+    dcum = (mw.sum(-1) - mw.sum(-2)).transpose(2, 3) \
+        + (Ch * dc_off).sum(-1) - e
+    dtotal = torch.exp(total) * (ds_out * s_in_k).sum((-1, -2)) + e.sum(2)
+    dcum[:, :, -1] += dtotal
+    dla = torch.flip(torch.cumsum(torch.flip(dcum, (2,)), dim=2), (2,))
+
+    def unchunk(t, dtype):
+        return t.reshape(b, nc * ln, *t.shape[3:])[:, :s].to(dtype)
+    return (unchunk(dxbar, xbar.dtype), unchunk(dla, torch.float32),
+            unchunk(dB, B.dtype), unchunk(dC, C.dtype),
+            ds if init_state is not None else None)
+
+
 def _entry():
     lib = _build.load("ssd_scan")
     fn = lib.repro_ssd_scan_fwd
@@ -317,9 +425,16 @@ def _bwd_entry():
     fn = lib.repro_ssd_scan_bwd
     if not fn.argtypes:
         ci, vp = ctypes.c_int, ctypes.c_void_p
-        fn.argtypes = [vp] * 16 + [ci] * 8 + [vp]
+        fn.argtypes = [vp] * 20 + [ci] * 8 + [vp]
         fn.restype = ci
     return lib, fn
+
+
+def ssd_bwd_body(dtype: torch.dtype) -> str:
+    """The backward body a CUDA call runs, by type alone: ``"tc"`` (tensor
+    cores, every fp32 operand split hi + lo) for bf16, ``"fma"`` for
+    fp32."""
+    return "fma" if dtype == torch.float32 else "tc"
 
 
 def ssd_scan_bwd(xbar: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
@@ -330,9 +445,14 @@ def ssd_scan_bwd(xbar: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
     group's heads, d init_state fp32 or None), as
     :func:`ssd_scan_bwd_plain`.  CUDA tensors of the forward's types and
     shapes (dy in ``xbar.dtype``, dfinal fp32 or None); every input is made
-    contiguous first.  fp32 scratch: the chunk states and their gradients,
-    ``2 x [B,H,nc,P,N]`` (268 MB at mamba2-1.3b's ``[8, 2048]`` tokens), and
-    for bf16 dB and dC summed in fp32 before the cast."""
+    contiguous first.  The body is :func:`ssd_bwd_body`'s; the tensor-core
+    body runs on chunks of ``min(chunk, TC_BWD_CHUNK)`` rows, a choice made
+    here alone: the kernel takes the rows a chunk, which size its scratch,
+    and refuses more than its shared memory holds.  fp32 scratch:
+    the chunk states and their gradients, ``2 x [B,H,nc,P,N]`` (268 MB at
+    mamba2-1.3b's ``[8, 2048]`` tokens), and for bf16 dB and dC summed in
+    fp32 before the cast, the chunk cumsums and dcum ``[B,H,nc,L]``, C B^T
+    ``[B,nc,G,LT,LT]`` and dtotal ``[B,H,nc]`` (25 MB more there)."""
     _check(xbar, log_a, B, C, chunk, init_state)
     b, s, h, p = xbar.shape
     g, n = B.shape[2], B.shape[3]
@@ -346,8 +466,10 @@ def ssd_scan_bwd(xbar: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
     dfinal = dfinal.contiguous() if dfinal is not None else None
     init = init_state.contiguous() if init_state is not None else None
     dev = xbar.device
-    ln = min(chunk, s)
+    body = ssd_bwd_body(xbar.dtype)
+    ln = min(chunk, s) if body == "fma" else min(chunk, TC_BWD_CHUNK, s)
     nc = -(-s // ln)
+    lt = -(-ln // 64) * 64
     f32 = dict(dtype=torch.float32, device=dev)
     dxbar = torch.empty_like(xbar)
     dla = torch.empty((b, s, h), **f32)
@@ -359,6 +481,10 @@ def ssd_scan_bwd(xbar: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
     dinit = torch.empty((b, h, p, n), **f32) if init is not None else None
     s_in = torch.empty((b, h, nc, p, n), **f32)
     ds_out = torch.empty_like(s_in)
+    tc = [None] * 4
+    if body == "tc":  # cum, C B^T, dcum, dtotal
+        tc = [torch.empty(shape, **f32) for shape in (
+            (b, h, nc, ln), (b, nc, g, lt, lt), (b, h, nc, ln), (b, h, nc))]
     ptr = lambda t: t.data_ptr() if t is not None else None
     lib, fn = _bwd_entry()
     with torch.cuda.device(dev):
@@ -366,8 +492,8 @@ def ssd_scan_bwd(xbar: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
         code = fn(ptr(xbar), ptr(log_a), ptr(B), ptr(C), ptr(dy), ptr(dfinal),
                   ptr(init), ptr(dxbar), ptr(dla), ptr(db_acc), ptr(dc_acc),
                   ptr(db) if bf16 else None, ptr(dc) if bf16 else None,
-                  ptr(dinit), ptr(s_in), ptr(ds_out), b, s, h, g, p, n,
-                  chunk, _DTYPE_CODE[xbar.dtype], stream)
+                  ptr(dinit), ptr(s_in), ptr(ds_out), *map(ptr, tc),
+                  b, s, h, g, p, n, ln, _BWD_BODY_CODE[body], stream)
     _build.check(lib, code, "ssd_scan_bwd launch",
                  "repro_ssd_scan_bwd_error_string")
     ssd_scan_bwd.launches += 1

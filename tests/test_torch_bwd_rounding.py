@@ -1,0 +1,155 @@
+"""The rounding plans of the two backward kernels' bf16 bodies, on the CPU.
+
+``flash_attention_bwd_tc_plain`` is the flash backward's ``wgmma`` body in
+plain PyTorch (P and dS rounded once to bf16 for the products that take
+them); ``ssd_scan_bwd_split_plain`` is the SSD backward's tensor-core body
+(each fp32 operand of a product split into a bf16 hi and lo part, on chunks
+of at most 256 rows).  Each is held against the port's fp32 plain backward
+on the same bf16 inputs with the tolerance ``chip_smoke.py`` holds the
+kernels to on the card (``BWD_RTOL`` per output, relative to the output's
+largest magnitude), so that a rounding plan that cannot pass shows before
+the CUDA body runs.  The SSD plan's control, each fp32 operand rounded once
+to bf16, must fail dlog_a's fp32 tolerance at the reference's kernel case.
+The plain backwards themselves are held against the reference in
+``tests/test_torch_train.py``.
+"""
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import (
+    flash_attention_bwd_plain, flash_attention_bwd_tc_plain,
+    flash_attention_plain, flash_bwd_body, flash_lse_plain)
+from repro_torch.kernels.ssd_scan import (TC_BWD_CHUNK, ssd_bwd_body,
+                                          ssd_scan_bwd_plain,
+                                          ssd_scan_bwd_split_plain)
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import BWD_RTOL, compare_rel  # noqa: E402
+
+BF16 = torch.bfloat16
+
+
+def bf16(rng, *shape):
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(BF16)
+
+
+# (b, hq, hkv, sq, skv, d, causal, window): chip_smoke.py's check_flash_bwd
+# cases, cut in length
+FLASH_CASES = {
+    "GQA": (2, 4, 2, 128, 128, 64, True, None),
+    "ragged S, window, D = 80": (1, 4, 4, 150, 150, 80, True, 40),
+    "not causal, D = 80": (1, 2, 2, 70, 70, 80, False, None),
+    "GQA 4, window, not causal": (1, 4, 1, 100, 100, 64, False, 32),
+    "Sq < Skv, causal": (2, 4, 2, 50, 120, 64, True, None),
+    "Sq > Skv, causal, window": (1, 2, 2, 100, 40, 80, True, 16),
+}
+
+
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_tc_plan_within_the_kernel_tolerance(case):
+    b, hq, hkv, sq, skv, d, causal, window = FLASH_CASES[case]
+    rng = np.random.default_rng(11)
+    q, k, v = bf16(rng, b, hq, sq, d), bf16(rng, b, hkv, skv, d), \
+        bf16(rng, b, hkv, skv, d)
+    kw = dict(causal=causal, window=window)
+    o = flash_attention_plain(q, k, v, **kw)
+    lse = flash_lse_plain(q, k, **kw)
+    do = bf16(rng, b, hq, sq, d)
+    got = flash_attention_bwd_tc_plain(q, k, v, o, lse, do, **kw)
+    ref = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for a, r in zip(got, ref):
+        assert a.dtype == BF16 and a.shape == r.shape
+        compare_rel(a, r, BWD_RTOL[BF16])
+    # the plan does round: P and dS in bf16 move dV and dK off the fp32 sums
+    assert any(not torch.equal(a, r) for a, r in zip(got, ref))
+
+
+def ssd_inputs(seed, b, s, h, p, g, n, init=False, serve=False):
+    """bf16 xbar, B, C and dy, fp32 log_a, d final_state and init_state,
+    dt and A_log drawn as the reference's kernel tests draw them or, with
+    ``serve``, as the serve path makes them."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    if serve:
+        dt = np.log1p(np.exp(rng.normal(size=(b, s, h)))).astype(np.float32)
+        a_log = np.log(np.linspace(1.0, 16.0, h)).astype(np.float32)
+    else:
+        dt = rng.uniform(0.01, 0.2, (b, s, h)).astype(np.float32)
+        a_log = rng.uniform(-1, 1, (h,)).astype(np.float32)
+    log_a = torch.from_numpy(dt * -np.exp(a_log))
+    xbar = torch.from_numpy(x * dt[..., None]).to(BF16)
+    f32 = lambda *shape: torch.from_numpy(
+        rng.normal(size=shape).astype(np.float32))
+    bm, cm = bf16(rng, b, s, g, n), bf16(rng, b, s, g, n)
+    dy, dfin = bf16(rng, b, s, h, p), f32(b, h, p, n)
+    return (xbar, log_a, bm, cm, dy, dfin), (f32(b, h, p, n) if init
+                                             else None)
+
+
+# (b, s, h, p, g, n, chunk, init, serve): chip_smoke.py's check_ssd_bwd
+# cases, the serve path's decays, and a chunk above the body's 256
+SSD_CASES = {
+    "reference case": (1, 256, 2, 64, 1, 128, 64, False, False),
+    "sweep 1": (2, 128, 4, 16, 1, 32, 32, False, False),
+    "sweep 3": (2, 64, 8, 32, 1, 16, 16, False, False),
+    "ragged S": (2, 600, 4, 64, 1, 128, 256, False, False),
+    "groups G = 2": (2, 256, 8, 64, 2, 128, 64, False, False),
+    "initial state": (2, 300, 4, 64, 1, 128, 128, True, False),
+    "serve decays, initial state": (1, 512, 8, 64, 1, 128, 256, True, True),
+    "chunk 512, ragged S": (1, 600, 2, 32, 1, 64, 512, False, False),
+}
+SSD_OUTPUTS = ("dxbar", "dlog_a", "dB", "dC", "dinit")
+
+
+@pytest.mark.parametrize("case", list(SSD_CASES))
+def test_ssd_split_plan_within_the_kernel_tolerance(case):
+    b, s, h, p, g, n, chunk, init, serve = SSD_CASES[case]
+    args, st0 = ssd_inputs(5, b, s, h, p, g, n, init, serve)
+    got = ssd_scan_bwd_split_plain(*args, chunk=chunk, init_state=st0)
+    ref = ssd_scan_bwd_plain(*args, chunk=chunk, init_state=st0)
+    for name, a, r in zip(SSD_OUTPUTS, got, ref):
+        if r is None:
+            assert a is None, name
+            continue
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        compare_rel(a, r, BWD_RTOL[a.dtype])
+
+
+def test_ssd_rounded_once_control_fails_dlog_a():
+    """Each fp32 operand rounded once to bf16 (no lo part): dlog_a leaves
+    its fp32 tolerance at the reference's kernel case, so the check that the
+    split passes has the power to fail."""
+    args, _ = ssd_inputs(5, 1, 256, 2, 64, 1, 128)
+    ref = ssd_scan_bwd_plain(*args, chunk=64)
+    split = ssd_scan_bwd_split_plain(*args, chunk=64)
+    once = ssd_scan_bwd_split_plain(*args, chunk=64, split=False)
+    compare_rel(split[1], ref[1], BWD_RTOL[torch.float32])
+    with pytest.raises(AssertionError):
+        compare_rel(once[1], ref[1], BWD_RTOL[torch.float32])
+    # the bf16 outputs' tolerance does not tell the two apart
+    for a, r in zip(once[:4:2], ref[:4:2]):
+        compare_rel(a, r, BWD_RTOL[BF16])
+
+
+@pytest.mark.parametrize("dtype,d,body", [
+    (BF16, 64, "wgmma"), (BF16, 80, "wgmma"),
+    (torch.float32, 64, "fma"), (torch.float32, 80, "fma")])
+def test_flash_bwd_body(dtype, d, body):
+    assert flash_bwd_body(dtype, d) == body
+
+
+@pytest.mark.parametrize("d", [32, 128])
+def test_flash_bwd_body_refuses_other_head_dims(d):
+    with pytest.raises(ValueError):
+        flash_bwd_body(BF16, d)
+
+
+@pytest.mark.parametrize("dtype,body", [(BF16, "tc"),
+                                        (torch.float32, "fma")])
+def test_ssd_bwd_body(dtype, body):
+    assert ssd_bwd_body(dtype) == body
+    assert TC_BWD_CHUNK == 256

@@ -16,6 +16,19 @@ barriers, no products, no softmax), ``no_softmax`` (the products, no
 softmax), ``ex2_as_fma`` (``ex2.approx`` replaced by an FMA), ``stages5``
 (a ring of five stages instead of four).  Prints the card's name and power
 limit, then one JSON line per shape.
+
+With ``--bwd`` the variants are of the backward's ``wgmma`` body
+(``csrc/flash_attention_bwd.cu``), timed as ``flash_attention_bwd`` calls
+on o and lse from the forward kernel, beside SDPA's backward alone:
+
+    python3 tools/flash_variants.py --bwd [variant ...]
+
+``base``, ``no_dq_atomics`` (dQ computed and summed, not reduce-added to
+the fp32 buffer), ``no_dq`` (neither the dQ product nor its sum nor its atomics),
+``no_p`` (P and dS without the exponential and the mask), ``ex2_as_fma``,
+``stages2`` (a ring of two Q / dO stages instead of four), ``keys_outer``
+(the blocks in the order of their key tiles over all heads, longest first,
+instead of head by head).
 """
 from __future__ import annotations
 
@@ -38,7 +51,9 @@ SOFTMAX = ("auto softmax = [&](float (&sacc)[16][4], int i, "
            "float (&alpha)[2]) {")
 PV = ("wgmma_rs_n64(oa, pf[kk],", "wgmma_rs_n16(ob, pf[kk],")
 QK = ("wgmma_ss_n128(sacc, wg_desc(qa", "wgmma_ss_n128(sacc, wg_desc(qb")
-EX2 = 'asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));'
+# ex2 is defined in csrc/tma.cuh: the variant redefines its calls here
+EX2 = '#include "tma.cuh"'
+VARIANTS = ("base", "loads_only", "no_softmax", "ex2_as_fma", "stages5")
 
 
 def _replace(src: str, old: str, new: str) -> str:
@@ -62,24 +77,93 @@ def variant_source(src: str, name: str) -> str:
             s = _replace(s, old, "if (i < 0) " + old)
         return s
     if name == "ex2_as_fma":
-        return _replace(src, EX2, "y = fmaf(x, 0.001f, 1.f);")
+        return _replace(src, EX2,
+                        EX2 + "\n#define ex2(x) fmaf((x), 0.001f, 1.f)")
     if name == "stages5":
         return _replace(src, "constexpr int WG_STAGES = 4;",
                         "constexpr int WG_STAGES = 5;")
     raise ValueError(f"unknown variant {name!r}")
 
 
-def build(names) -> dict:
-    src = (_build.CSRC / "flash_attention.cu").read_text()
+BWD_ATOMICS = "if ((threadIdx.x & 127) == 0) {\n        float* dst = p.dq"
+BWD_DQ = ("wgmma_ss_n64<1, 1>(dq,", "wgmma_ss_n16<1, 1>(dqb,")
+BWD_EXCHANGE = ("    const int buf = it & 1;\n",
+                "if (n_tiles > 1 - wg) pair_sync(")
+BWD_MASK = "if (need_mask) {"
+BWD_ORDER = ("const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;",
+             "const dim3 grid((p.Skv + BW_BK - 1) / BW_BK, p.Hkv, p.B);")
+BWD_P = "const float pv = ex2(fmaf(st[j][e], scale2, -l2[c]));"
+BWD_VARIANTS = ("base", "no_dq_atomics", "no_dq", "no_p", "ex2_as_fma",
+                "stages2", "keys_outer")
+
+
+def bwd_variant_source(src: str, name: str) -> str:
+    """The backward source of variant ``name``."""
+    if name == "base":
+        return src
+    if name == "no_dq_atomics":
+        return _replace(src, BWD_ATOMICS, BWD_ATOMICS.replace(
+            "== 0)", "== 0 && p.Sq < 0)"))
+    if name == "no_dq":  # no product, no exchange, no atomics
+        s = src
+        for old in BWD_DQ:
+            s = _replace(s, old, "if (kk < 0) " + old)
+        s = _replace(s, BWD_EXCHANGE[0],
+                     BWD_EXCHANGE[0] + "    if (p.Sq > 0) continue;\n")
+        return _replace(s, BWD_EXCHANGE[1], "if (p.Sq < 0) pair_sync(")
+    if name == "no_p":  # P = S, dS = S o (dP - delta): no ex2, no mask
+        s = _replace(src, BWD_MASK, "if (need_mask && p.Sq < 0) {")
+        return _replace(s, BWD_P, "const float pv = st[j][e];")
+    if name == "ex2_as_fma":
+        return variant_source(src, name)
+    if name == "stages2":
+        return _replace(src, "constexpr int BW_STAGES = 4;",
+                        "constexpr int BW_STAGES = 2;")
+    if name == "keys_outer":  # the key tiles of every head first, then the next
+        s = _replace(src, BWD_ORDER[0], "const int kvh = blockIdx.x, "
+                     "b = blockIdx.y, kt = blockIdx.z;")
+        return _replace(s, BWD_ORDER[1], "const dim3 grid(p.Hkv, p.B, "
+                        "(p.Skv + BW_BK - 1) / BW_BK);")
+    raise ValueError(f"unknown variant {name!r}")
+
+
+def build(names, source="flash_attention", make=variant_source) -> dict:
+    src = (_build.CSRC / f"{source}.cu").read_text()
     return _build.build_variants(
-        "flash_attention", {name: variant_source(src, name) for name in names})
+        source, {name: make(src, name) for name in names})
+
+
+def main_bwd(names) -> None:
+    libs = build(names, "flash_attention_bwd", bwd_variant_source)
+    print(cs.device_line(), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    for shape, m in (("d64", cs.FLASH_MAIN), ("d80", cs.FLASH_D80)):
+        q, k, v = cs.flash_inputs(m["b"], m["hq"], m["hkv"], m["s"], m["d"],
+                                  torch.bfloat16, gen, views=True)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=True, with_lse=True)
+        do = torch.randn(o.shape, generator=gen, device="cuda").to(o.dtype)
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        res = {"shape": shape, "sdpa_bwd_ms": cs.time_ms(
+            lambda: torch.autograd.grad(sdpa, (qs, ks, vs), do,
+                                        retain_graph=True), 20, 3)}
+        for name, path in libs.items():
+            _build._libs["flash_attention_bwd"] = ctypes.CDLL(str(path))
+            res[name] = cs.time_ms(
+                lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), 20, 3)
+        _build._libs.pop("flash_attention_bwd", None)
+        print(json.dumps(res), flush=True)
+        del q, k, v, o, lse, do, qs, ks, vs, sdpa
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("flash_variants: needs an NVIDIA GPU")
-    names = sys.argv[1:] or ["base", "loads_only", "no_softmax",
-                             "ex2_as_fma", "stages5"]
+    args = sys.argv[1:]
+    if args[:1] == ["--bwd"]:
+        main_bwd(args[1:] or BWD_VARIANTS)
+        return
+    names = args or VARIANTS
     libs = build(names)
     print(cs.device_line(), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)

@@ -71,6 +71,10 @@ WIDE = "constexpr int SM_WIDE_NT = 2;"
 WIDE_WHEN = "if (M <= 8 && (N + 63) / 64 >= resident && SM_WIDE_NT > 1) {"
 CP_ASYNC = "cp.async.cg.shared.global [%0], [%1], 16, %2;"
 SM_MMA = "          mma_16816(acc[t][mt], a, b[mt][0], b[mt][1]);"
+VARIANTS = ("base", "loads_only", "no_loads", "no_epilogue", "bn128",
+            "no_fence_acc")
+SMALL_M_VARIANTS = ("base", "sm_narrow", "sm_wide", "sm_budget37k",
+                    "sm_budget75k", "sm_budget113k", "sm_no_tma", "sm_no_mma")
 
 
 def _replace(src: str, old: str, new: str) -> str:
@@ -178,10 +182,7 @@ def main() -> None:
     args = sys.argv[1:]
     sass, small_m = "--sass" in args, "--small-m" in args
     names = [a for a in args if not a.startswith("--")] or (
-        ["base", "sm_narrow", "sm_wide", "sm_budget37k", "sm_budget75k",
-         "sm_budget113k", "sm_no_tma", "sm_no_mma"]
-        if small_m else ["base", "loads_only", "no_loads", "no_epilogue",
-                         "bn128", "no_fence_acc"])
+        SMALL_M_VARIANTS if small_m else VARIANTS)
     libs = build(names)
     print(cs.device_line(), flush=True)
     if sass and "base" in libs:

@@ -69,6 +69,9 @@ LO_STORE = "    if (P == 3) *reinterpret_cast<uint4*>(lo + off) = l;"
 HI_LO = """        wgmma_tf32(d, ah[PAR][ks],
                    wg_desc(bh + SPLIT / 2 + 32 * ks, 16, 1024, SW128), 1);"""
 HI = "  hi = (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;"
+VARIANTS = ("base", "promote1", "promote4", "promote_never", "one_product",
+            "cvt_hi", "sb2", "stages3+sb4", "no_lo_store", "two_products",
+            "no_split", "no_a", "no_products")
 
 
 
@@ -152,10 +155,7 @@ def main() -> None:
         i = args.index("--src")
         src_path = Path(args.pop(i + 1))
         args.pop(i)
-    names = [a for a in args if not a.startswith("--")] or [
-        "base", "promote1", "promote4", "promote_never", "one_product",
-        "cvt_hi", "sb2", "stages3+sb4", "no_lo_store", "two_products",
-        "no_split", "no_a", "no_products"]
+    names = [a for a in args if not a.startswith("--")] or VARIANTS
     if "--ptxas" in args:
         _build.build(["tsmm"], verbose=True)
     src = src_path.read_text()
