@@ -12,11 +12,12 @@ epilogue kernel and of tsmm that the same check must catch, and the SSD
 scan's rounding plans, forward and backward, against one bf16 rounding of
 their state paths), with
 ``--ptxas`` a ``ptxas`` line (registers, shared memory and spills of every
-kernel), ``train`` twice (qwen1.5-0.5b and mamba2-1.3b at full width and
-depth in bf16 through ``make_train_step(use_kernel=True)``: five steps on a
-repeated batch, losses, step times, peak memory and every kernel's
-launches against the count the path must give, then the gradients of the
-kernel path against the plain path at two layers), ``serve`` three times
+kernel), ``train`` three times (qwen1.5-0.5b, mamba2-1.3b and zamba2-2.7b
+at full width and depth in bf16 through ``make_train_step(use_kernel=True)``:
+five steps on a repeated batch, losses, step times, peak memory and every
+kernel's launches against the count the path must give, then the gradients
+of the kernel path against the plain path at two layers, or for zamba2 at
+one application of each shared block), ``serve`` three times
 (qwen1.5-0.5b, mamba2-1.3b and zamba2-2.7b, at full width and depth in
 bf16 through ``ServeEngine``, static and continuous batching, with the
 launch count of every kernel, and of each body of the epilogue kernel,
@@ -28,7 +29,12 @@ and split into its parts), ``estimate`` (the paper's §3.4 check on the card:
 the port's cost model, with the H100's datasheet constants, estimates four
 LinReg DS plans, which then run warm, each serve path's prefill round
 and decode step, held against what the serve phase measured, and each train
-path's step, held against what the train phase measured).
+path's step, held against what the train phase measured; each also under
+the calibrated profile of the next phase), ``calibrate`` (the reference's
+calibration harvest on the card: matmul, stream, LinReg and full-width
+arch cells costed through ``graph_cost``, a fitted H100 profile, each
+cell's drift and the gate's PASS or FAIL; the fusion rows with the fusing
+kernels' times; each train path's step costed component by component).
 Then one ``{"kernels": [...]}`` line with each kernel's time at its main-path
 shape beside its roofline bound, the plain version's time and a PyTorch
 library call's time (null where no single call computes the function), the
@@ -45,20 +51,29 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
-import torch.nn.functional as F
+# zamba2's train step runs within a few GB of the card's 80: AdamW's fp32
+# temporaries of the stacked Mamba2 w_in (5.4 GiB each) found no room in the
+# 15.5 GB the caching allocator held reserved but unallocated.  Expandable
+# segments let it reuse that memory.  Set before torch touches the card.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.benchmarks import bench_accuracy                # noqa: E402
+from repro_torch.benchmarks import (bench_accuracy,  # noqa: E402
+                                    bench_calibrate, bench_fusion)
 from repro_torch.configs import get_config                       # noqa: E402
+from repro_torch.configs.base import ShapeConfig                 # noqa: E402
 from repro_torch.examples import linreg_ds                       # noqa: E402
 from repro_torch.kernels import _build, ops                      # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -71,7 +86,9 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_bwd_body, ssd_scan, ssd_scan_bwd, ssd_scan_bwd_plain,
     ssd_scan_bwd_split_plain, ssd_scan_plain, ssd_scan_split_plain)
 from repro_torch.kernels.tsmm import tsmm_upper, tsmm_upper_plain  # noqa: E402
-from repro_torch.core import ShardingPlan                        # noqa: E402
+from repro_torch.core import ShardingPlan, h100_single_config    # noqa: E402
+from repro_torch.launch.component_cost import (  # noqa: E402
+    aggregate, component_costs)
 from repro_torch.models.model import build_model                 # noqa: E402
 from repro_torch.optim import adamw                              # noqa: E402
 from repro_torch.runtime.serve_engine import (EngineConfig, Request,  # noqa: E402
@@ -881,9 +898,9 @@ def check_ssd_bwd(gen) -> list:
         run("initial state", 2, 300, 4, 64, 1, 128, 128, dtype, init=True)
         # the tensor-core body runs chunks of at most 256 rows
         run("chunk 512, ragged S", 1, 600, 2, 32, 1, 64, 512, dtype)
-    m = SSD_MAIN
-    run("main path", m["b"], m["s"], m["h"], m["p"], m["g"], m["n"],
-        m["chunk"], torch.bfloat16, model_like=True, views=True)
+    for tag, m in (("main path", SSD_MAIN), ("zamba2 main path", SSD_ZAMBA)):
+        run(tag, m["b"], m["s"], m["h"], m["p"], m["g"], m["n"], m["chunk"],
+            torch.bfloat16, model_like=True, views=True)
     torch.cuda.empty_cache()
     return cases
 
@@ -1289,27 +1306,31 @@ def time_bwd_kernels(gen) -> dict:
                                          / out[name]["library_ms"])
         del q, k, v, o, lse, do, qs, ks, vs, sdpa
         torch.cuda.empty_cache()
-    m = SSD_MAIN
-    xbar, log_a, bm, cm, _ = ssd_inputs(m["b"], m["s"], m["h"], m["p"],
-                                        m["g"], m["n"], torch.bfloat16, gen,
-                                        model_like=True, views=True)
-    dy = torch.randn(xbar.shape, generator=gen, device="cuda").to(xbar.dtype)
-    args = (xbar, log_a, bm, cm, dy, None)
-    out["ssd_scan_bwd"] = {
-        "ms": time_ms(lambda: ssd_scan_bwd(*args, chunk=m["chunk"]), 10, 2),
-        "plain_ms": time_ms(lambda: ssd_scan_bwd_plain(
-            *args, chunk=m["chunk"]), 1),
-        "library_ms": None,
-        "library_note": "no single PyTorch call computes an SSD scan or its "
-                        "gradient",
-        "shape": "xbar [8,2048,64,64] bf16, B/C [8,2048,1,128] views, "
-                 "chunk 256",
-        "body": ssd_bwd_body(torch.bfloat16),
-        "cuda_kernels_ms": device_kernel_ms(
-            lambda: ssd_scan_bwd(*args, chunk=m["chunk"])),
-        **ssd_bwd_bound_ms(**m, dtype=torch.bfloat16)}
-    del xbar, log_a, bm, cm, dy, args
-    torch.cuda.empty_cache()
+    for name, m in (("ssd_scan_bwd", SSD_MAIN),
+                    ("ssd_scan_bwd_zamba2", SSD_ZAMBA)):
+        xbar, log_a, bm, cm, _ = ssd_inputs(m["b"], m["s"], m["h"], m["p"],
+                                            m["g"], m["n"], torch.bfloat16,
+                                            gen, model_like=True, views=True)
+        dy = torch.randn(xbar.shape, generator=gen,
+                         device="cuda").to(xbar.dtype)
+        args = (xbar, log_a, bm, cm, dy, None)
+        out[name] = {
+            "ms": time_ms(lambda: ssd_scan_bwd(*args, chunk=m["chunk"]),
+                          10, 2),
+            "plain_ms": time_ms(lambda: ssd_scan_bwd_plain(
+                *args, chunk=m["chunk"]), 1),
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes an SSD scan or "
+                            "its gradient",
+            "shape": f"xbar [{m['b']},{m['s']},{m['h']},{m['p']}] bf16, B/C "
+                     f"[{m['b']},{m['s']},{m['g']},{m['n']}] views, chunk "
+                     f"{m['chunk']}",
+            "body": ssd_bwd_body(torch.bfloat16),
+            "cuda_kernels_ms": device_kernel_ms(
+                lambda: ssd_scan_bwd(*args, chunk=m["chunk"])),
+            **ssd_bwd_bound_ms(**m, dtype=torch.bfloat16)}
+        del xbar, log_a, bm, cm, dy, args
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1557,19 +1578,41 @@ def _leaves(tree):
 # ---------------------------------------------------------------------------
 
 # Each train path: the arch, its remat policy (qwen keeps every activation;
-# mamba2 without remat would keep about 72 GB, so it recomputes each layer),
-# and the coarse bound on the bf16 gradients, kernel path against plain path
-# at 2 layers (each leaf's largest error over its largest magnitude; gross
-# faults only: the two paths round at other places, as the serve paths'
-# bf16 logits do).  Each bound is 1.5 x the largest reading of these sound
-# paths on an H100 (qwen 0.0113, mamba2 0.0114), rounded up to a multiple of
-# 0.05, as the serve paths' bounds are.  The fp32 gradients of the same
-# comparison are held to TRAIN_FP32_BOUND: both paths multiply in fp32 and
-# differ in the order of sums (the H100 read 1.5e-6 and 8.4e-5).
-TRAIN_PATHS = [("qwen1.5-0.5b", "none", 0.05), ("mamba2-1.3b", "full", 0.05)]
+# mamba2 without remat would keep about 72 GB, so it recomputes each layer,
+# and so does zamba2, each Mamba2 layer and each application of a shared
+# block), and the coarse bound on the bf16 gradients, kernel path against
+# plain path at the depth of parity_config (each leaf's largest error over
+# its largest magnitude; gross faults only: the two paths round at other
+# places, as the serve paths' bf16 logits do).  Each bound is 1.5 x the
+# largest reading of the sound qwen and mamba2 paths on an H100 (0.0113,
+# 0.0114), rounded up to a multiple of 0.05, as the serve paths' bounds
+# are; zamba2 takes the same bound (it read 0.0197 there).  The fp32
+# gradients of the same comparison are held to TRAIN_FP32_BOUND: both paths
+# multiply in fp32 and differ in the order of sums (the H100 read 1.5e-6,
+# 8.4e-5 and 1.2e-4).
+TRAIN_PATHS = [("qwen1.5-0.5b", "none", 0.05), ("mamba2-1.3b", "full", 0.05),
+               ("zamba2-2.7b", "full", 0.05)]
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 5
 TRAIN_FP32_BOUND = 1e-3
-PARITY_BATCH, PARITY_SEQ, PARITY_LAYERS = 2, 1024, 2
+PARITY_BATCH, PARITY_SEQ = 2, 1024
+
+
+def parity_config(cfg, dtype: str):
+    """The gradient-parity model: ``cfg`` at full width, in ``dtype``, cut
+    to 2 layers.  The hybrid keeps as many Mamba2 layers as it has shared
+    blocks, each followed by one (``attn_every`` 1), so that each shared
+    block, and the flash backward at its head dim, is applied once at the
+    depth the bf16 bound was set at.  At zamba2's own ``attn_every`` (6)
+    that takes 12 layers, where bf16 rounding alone parts the two paths by
+    more (an H100 read 0.054-0.058 for zamba2 and 0.046 for mamba2 at 12
+    layers, each path as near the fp32 gradients as the other:
+    ``tools/train_parity.py``)."""
+    if cfg.family != "hybrid":
+        return dataclasses.replace(cfg, n_layers=2, dtype=dtype)
+    n = cfg.hybrid.n_shared_attn_blocks
+    return dataclasses.replace(
+        cfg, n_layers=n, dtype=dtype,
+        hybrid=dataclasses.replace(cfg.hybrid, attn_every=1))
 
 
 def ce_chunks(batch: int, seq: int, ce_chunk: int = 2048) -> int:
@@ -1610,9 +1653,9 @@ def random_batch(vocab: int, batch: int, seq: int) -> dict:
 
 def grad_parity(cfg, remat: str, dtype: str) -> dict:
     """The gradients of the kernel path against the plain path, at full
-    width and PARITY_LAYERS layers, on one batch: each leaf's largest error
-    over its largest magnitude."""
-    cfg_s = dataclasses.replace(cfg, n_layers=PARITY_LAYERS, dtype=dtype)
+    width and the depth of :func:`parity_config`, on one batch: each leaf's
+    largest error over its largest magnitude."""
+    cfg_s = parity_config(cfg, dtype)
     model = build_model(cfg_s)
     params = model.init(SEED)
     batch = random_batch(cfg.vocab_size, PARITY_BATCH, PARITY_SEQ)
@@ -1633,7 +1676,8 @@ def grad_parity(cfg, remat: str, dtype: str) -> dict:
     worst = max(rel, key=rel.get)
     del params, out
     torch.cuda.empty_cache()
-    return {"dtype": dtype, "layers": PARITY_LAYERS,
+    return {"dtype": dtype, "layers": cfg_s.n_layers,
+            "attn_every": cfg_s.hybrid.attn_every if cfg_s.hybrid else None,
             "batch": [PARITY_BATCH, PARITY_SEQ],
             "max_rel_err": rel[worst], "worst_leaf": worst,
             "rel_err_by_leaf": rel}
@@ -1705,7 +1749,8 @@ def phase_train(arch: str, remat: str, bf16_bound: float) -> dict:
                              f"off by {parity['fp32']['max_rel_err']}")
     if not parity["bf16"]["max_rel_err"] <= bf16_bound:
         raise AssertionError(f"{arch}: bf16 gradients of the kernel path "
-                             f"off by {parity['bf16']['max_rel_err']}")
+                             f"off by {parity['bf16']['max_rel_err']} at "
+                             f"{parity['bf16']['worst_leaf']}")
     for p in parity.values():
         p["rel_err_by_leaf"] = {k: v for k, v in sorted(
             p["rel_err_by_leaf"].items(), key=lambda kv: -kv[1])[:5]}
@@ -1841,6 +1886,92 @@ def phase_estimate(serve: dict, train: dict) -> dict:
             "train": train_rows, "seconds": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# calibrate
+# ---------------------------------------------------------------------------
+
+CALIBRATED = ("est_cal / measured: the same estimate under the H100 "
+              "calibration profile fitted by the calibrate phase from the "
+              "plain-program cells (bench_calibrate)")
+
+
+def phase_calibrate(estimate: dict, train: dict):
+    """The estimate-against-reality loop closed by a fit: the reference's
+    calibration harvest, fit and drift gate on the card
+    (``bench_calibrate.calibrate``, its LinReg cells the estimate phase's
+    rows, not run again), the fusion rows (``bench_fusion.run``: the traced
+    plan's fused-vs-split bytes, and the fusing kernels' times), and each
+    train path's step costed component by component at the train phase's
+    shape (``component_cost``): the generated plan of the plain program,
+    not of the kernel path.  The gate is reported PASS or FAIL; a broken
+    measurement path raises.  Returns the phase's line and the calibrated
+    config, for :func:`add_calibrated`."""
+    t0 = time.perf_counter()
+    result = bench_calibrate.calibrate(linreg=estimate["linreg"])
+    fusion = bench_fusion.run()
+    cc = h100_single_config()
+    components = {}
+    for arch, run in train.items():
+        t = time.perf_counter()
+        comps = component_costs(
+            get_config(arch), ShapeConfig("h100_train", run["seq_len"],
+                                          run["batch"], "train"),
+            ShardingPlan(name="dp", remat=run["remat"]))
+        agg = aggregate(comps, cc)
+        components[arch] = {
+            "program": "plain", "chip_spec": cc.chip.name,
+            "batch": run["batch"], "seq_len": run["seq_len"],
+            "remat": run["remat"], "trace_seconds": time.perf_counter() - t,
+            **{k: agg[k] for k in ("compute_s", "memory_s", "dominant",
+                                   "roofline_bound_s", "flops_per_device",
+                                   "bytes_per_device")},
+            "components": [{k: c[k] for k in ("name", "count",
+                                              "flops_per_device",
+                                              "bytes_per_device")}
+                           for c in agg["components"]],
+            "measured_kernel_path_step_ms": run["warm_median_step_ms"]}
+    fit = result["fit"]
+    return {"phase": "calibrate", "rows": bench_calibrate.rows(result),
+            "factors": fit.factors, "residual": fit.residual,
+            "samples": result["samples"], "arch_cells": result["arch_cells"],
+            "drift": result["drift"],
+            "median_uncal": result["median_uncal"],
+            "median_cal": result["median_cal"],
+            "in_band": result["in_band"], "verdict": result["verdict"],
+            "fusion": fusion, "component_cost": components,
+            "calibrate_seconds": result["seconds"],
+            "seconds": time.perf_counter() - t0}, result["cc_cal"]
+
+
+def add_calibrated(estimate: dict, drift: dict, cc_cal) -> None:
+    """Each est / measured of the estimate phase gains its est_cal /
+    measured (``ratio_cal``) under the fitted profile: the LinReg rows from
+    the calibrate phase's ``drift`` (the same cells), the serve and train
+    rows estimated again with the calibrated config ``cc_cal``."""
+    estimate["calibration"] = CALIBRATED
+    for row in estimate["linreg"]:
+        if "name" in row:
+            row["ratio_cal"] = drift[row["name"]]["ratio_cal"]
+    for arch, est in estimate["serve"].items():
+        cal = bench_accuracy.serve_estimates(
+            get_config(arch), est["batch"], est["prompt_len"],
+            est["max_len"], cc=cc_cal)
+        for key in ("prefill", "decode"):
+            plans = {k: v for k, v in cal[key].items() if isinstance(v, dict)}
+            _check_estimates(f"{arch} {key} calibrated",
+                             [v["total_ms"] for v in plans.values()])
+            est[key]["ratio_cal"] = {k: v["total_ms"]
+                                     / est[key]["measured_ms"]
+                                     for k, v in plans.items()}
+    for arch, est in estimate["train"].items():
+        cal = bench_accuracy.train_estimates(
+            get_config(arch), est["batch"], est["seq_len"],
+            ShardingPlan(name="dp", remat=est["remat"]), cc=cc_cal)
+        _check_estimates(f"{arch} train calibrated", [cal["total_ms"]])
+        est["total_ms_cal"] = cal["total_ms"]
+        est["ratio_cal"] = cal["total_ms"] / est["measured_ms"]
+
+
 def _measured_ms(run: dict, key: str) -> float:
     """Milliseconds of one static run's prefill round (``prefill``) or of
     one of its decode steps (``decode``)."""
@@ -1939,7 +2070,11 @@ def main() -> None:
         emit(serve[arch])
     linreg = phase_linreg()
     emit(linreg)
-    emit(phase_estimate(serve, train))
+    estimate = phase_estimate(serve, train)
+    calib, cc_cal = phase_calibrate(estimate, train)
+    add_calibrated(estimate, calib["drift"], cc_cal)
+    emit(estimate)
+    emit(calib)
 
     def err_of(cases, tag):
         return next(c["max_abs_err"] for c in cases if c["case"] == tag)
@@ -2011,13 +2146,19 @@ def main() -> None:
          "max_abs_err": err_of(flash_bwd_cases, "main path"),
          **bwd_times["flash_attention_bwd"],
          "d80": {**bwd_times["flash_attention_bwd_d80"],
-                 "max_abs_err": err_of(flash_bwd_cases, "D = 80")}},
+                 "max_abs_err": err_of(flash_bwd_cases, "D = 80"),
+                 "launches": train["zamba2-2.7b"]["launches"][
+                     "flash_attention_bwd"]}},
         {"name": "ssd_scan_bwd", "route": "cuda", "backward": True,
          "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:102",
          "launches": path_launches("ssd_scan_bwd"),
          "max_abs_err": err_of(ssd_bwd_cases, "main path"),
-         **bwd_times["ssd_scan_bwd"]},
+         **bwd_times["ssd_scan_bwd"],
+         "zamba2": {**bwd_times["ssd_scan_bwd_zamba2"],
+                    "max_abs_err": err_of(ssd_bwd_cases, "zamba2 main path"),
+                    "launches": train["zamba2-2.7b"]["launches"][
+                        "ssd_scan_bwd"]}},
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

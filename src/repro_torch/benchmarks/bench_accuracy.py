@@ -22,9 +22,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
-from repro_torch.core import (Compute, CreateVar, Program, ShardingPlan,
-                              TensorStat, build_step_program, choose_plan,
-                              estimate, h100_single_config)
+from repro_torch.core import (ClusterConfig, Compute, CreateVar, Program,
+                              ShardingPlan, TensorStat, build_step_program,
+                              choose_plan, estimate, h100_single_config)
 from repro_torch.core.linreg import Scenario, build_linreg_program, tpu_budgets
 from repro_torch.examples import linreg_ds
 from repro_torch.kernels import ops
@@ -102,6 +102,15 @@ def _estimated_parts_ms(costed) -> Dict[str, float]:
     return out
 
 
+def linreg_program(sc: Scenario, cc: ClusterConfig):
+    """(program, plan choice) of ``sc``'s LinReg DS plan for ``cc``, as it
+    runs here: a float64 row's Gram matrix as the whole product."""
+    prog, choice = build_linreg_program(sc, cc, tpu_budgets(cc))
+    if sc.dtype == "float64":
+        prog = gram_as_full_product(prog, sc)
+    return prog, choice
+
+
 def linreg_row(sc: Scenario, device: torch.device) -> dict:
     """Generate and cost the LinReg DS plan of ``sc`` for one H100, then
     execute it warm on resident inputs made from :data:`SEED`.  The
@@ -115,11 +124,10 @@ def linreg_row(sc: Scenario, device: torch.device) -> dict:
         raise ValueError(f"{sc.name}: dtype {sc.dtype} has no LinReg path "
                          f"here (one of {sorted(_PATHS)})")
     cc = h100_single_config()
-    prog, choice = build_linreg_program(sc, cc, tpu_budgets(cc))
+    prog, choice = linreg_program(sc, cc)
     x, y, _ = linreg_ds.make_problem(sc.m, sc.n, SEED, device)
     checked = {}
     if sc.dtype == "float64":
-        prog = gram_as_full_product(prog, sc)
         x, y = x.double(), y.double()
         solve = linreg_ds.solve_linreg_f64
         eye = LINREG_LAM * torch.eye(sc.n, dtype=x.dtype, device=device)
@@ -176,13 +184,15 @@ def _breakdown_ms(costed) -> Dict[str, float]:
 
 
 def serve_estimates(cfg: ArchConfig, batch: int, prompt_len: int,
-                    max_len: int) -> dict:
+                    max_len: int, cc: Optional[ClusterConfig] = None) -> dict:
     """Estimated seconds of the serve engine's static prefill round (every
     prompt left-padded to the longest, ``prompt_len``) and of one decode
     step (attending over all ``max_len`` cache slots), for ``batch``
-    requests on one H100: under the plain data-parallel plan with fusion
-    off, none and full, and under ``choose_plan``'s winner."""
-    cc = h100_single_config()
+    requests on one H100 (``cc``, by default :func:`h100_single_config`;
+    ``chip_smoke.py`` passes it again with a fitted calibration profile):
+    under the plain data-parallel plan with fusion off, none and full, and
+    under ``choose_plan``'s winner."""
+    cc = cc or h100_single_config()
     shapes = {"prefill": ShapeConfig("prefill_gpu", prompt_len, batch,
                                      "prefill"),
               "decode": ShapeConfig("decode_gpu", max_len, batch, "decode")}
@@ -205,12 +215,14 @@ def serve_estimates(cfg: ArchConfig, batch: int, prompt_len: int,
 
 
 def train_estimates(cfg: ArchConfig, batch: int, seq_len: int,
-                    plan: ShardingPlan) -> dict:
+                    plan: ShardingPlan,
+                    cc: Optional[ClusterConfig] = None) -> dict:
     """Estimated time of one train step of ``batch`` sequences of
-    ``seq_len`` tokens on one H100, under ``plan`` (the plan the step ran:
-    its ``remat`` and ``microbatches``): ``build_step_program`` with the
-    port's own GPU train shape, then ``estimate``."""
-    cc = h100_single_config()
+    ``seq_len`` tokens on one H100 (``cc`` as in :func:`serve_estimates`),
+    under ``plan`` (the plan the step ran: its ``remat`` and
+    ``microbatches``): ``build_step_program`` with the port's own GPU train
+    shape, then ``estimate``."""
+    cc = cc or h100_single_config()
     shape = ShapeConfig("h100_train", seq_len, batch, "train")
     prog = build_step_program(cfg, shape, plan, cc)
     return {"chip_spec": cc.chip.name, "seq_len": seq_len, "batch": batch,

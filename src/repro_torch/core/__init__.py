@@ -12,7 +12,9 @@ map and ``docs/COST_MODEL.md`` for the formulas):
   * cost estimator     — :func:`repro_torch.core.costmodel.estimate` (``C(P, cc)``),
                          emitting :class:`~repro_torch.core.costmodel.ProgramTotals`
                          work totals alongside the costed tree
-  * compiled-plan cost — :mod:`repro_torch.core.hlo_cost` (its data classes)
+  * compiled-plan cost — :mod:`repro_torch.core.hlo_cost` (its data classes);
+                         :func:`repro_torch.core.graph_cost.lower_and_cost`
+                         traces a function and costs the ops it dispatches
   * EXPLAIN            — :func:`repro_torch.core.explain.explain`
   * plan optimizer     — :func:`repro_torch.core.planner.choose_plan` (staged beam
                          over sharding plans, memoized via
@@ -54,6 +56,7 @@ from repro_torch.core.costmodel import (CacheStats, CostBreakdown, CostEstimator
                                         CostedProgram, PlanCostCache, ProgramTotals,
                                         estimate)
 from repro_torch.core.explain import explain
+from repro_torch.core.graph_cost import lower_and_cost
 from repro_torch.core.hlo_cost import (CompiledCost, CollectiveStat,
                                        parse_collectives)
 from repro_torch.core.plan import (Block, Call, Collective, Compute, CpVar,
@@ -97,7 +100,7 @@ __all__ = [
     "torus_3d_config", "dtype_bytes",
     "CacheStats", "CostBreakdown", "CostEstimator", "CostedProgram",
     "PlanCostCache", "ProgramTotals", "estimate", "explain",
-    "CompiledCost", "CollectiveStat",
+    "CompiledCost", "CollectiveStat", "lower_and_cost",
     "parse_collectives", "Block", "Call", "Collective", "Compute", "CpVar",
     "CreateVar", "DataGen", "ForBlock", "FunctionBlock", "GenericBlock",
     "IfBlock", "Instruction", "IO", "JitCall", "P2P", "ParForBlock",

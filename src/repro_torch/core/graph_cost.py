@@ -1,0 +1,274 @@
+"""Costing the *generated* plan in PyTorch: the counterpart of the
+reference's ``hlo_cost.from_compiled`` / ``lower_and_cost``.
+
+The reference lowers and compiles a jitted function with XLA and reads its
+FLOPs, bytes and memory back out of the compiled module.  PyTorch runs a
+program eagerly, one aten op after another, so the plan it generates is the
+sequence of ops its dispatcher sees.  :func:`lower_and_cost` traces ``fn``
+once on fake copies of its arguments (``FakeTensorMode``: shapes, strides
+and types, no data, no memory) under a dispatch mode that counts each op,
+and returns the reference's own :class:`CompiledCost`:
+
+  * ``flops_per_device``: ``torch.utils.flop_counter``'s formulas for the
+    matmul family (``mm``, ``addmm``, ``bmm``, ``baddbmm``, convolutions,
+    the fused attentions), plus one FLOP per output element of every other
+    arithmetic op: per output element of an op tagged pointwise (a copy is
+    not arithmetic), per input element of one tagged reduction, per value a
+    scatter adds.  That is
+    XLA's ``HloCostAnalysis`` convention for elementwise work, so the two
+    packages' counts are comparable; they are not equal where the two
+    decompose an op their own ways (XLA keeps transcendentals apart, and
+    ``jnp.take`` selects over every gathered element), so a whole layer
+    agrees within a band and a product exactly.
+  * ``bytes_per_device``: for every op that is not a view or a metadata op,
+    the bytes of each distinct input tensor plus the bytes of its outputs.
+    Eager runs every op unfused, so this is the traffic of the plan that
+    actually runs.  It is larger than the reference's bytes by design:
+    XLA fuses elementwise chains into one kernel that reads its inputs and
+    writes its output once (``a * 1.0001 + 1`` is two ops here, one fused
+    op there).
+  * ``argument_bytes`` / ``output_bytes``: the bytes of the tensors passed
+    in that some op reads (jax drops an argument the program never uses)
+    and of those returned.  A tensor read counts the elements it spans: a
+    broadcast dimension (stride 0) is read once.
+  * ``temp_bytes`` / ``peak_memory_bytes``: a live-set count of the storages
+    the trace allocates (each freed when its last fake tensor dies, by
+    ``weakref.finalize``): the largest live sum beyond the returned
+    outputs, and the arguments plus the largest live sum.
+  * ``collectives``: ``[]``.  The port has no multi-device path yet.
+  * ``unknown_dtypes``: a type missing from the byte table counts 4 bytes
+    and is listed, as in ``hlo_cost._shape_bytes``, so a calibration fit
+    rejects the record as polluted.
+
+Autograd's backward ops run through the same dispatch mode, so a ``fn``
+that calls ``.backward()`` or ``torch.autograd.grad`` is costed with its
+backward, and a checkpoint's recompute is counted where it reruns.  Eager
+dispatch sees every iteration of a Python loop (a chunk loop, a layer
+stack), so nothing needs unrolling for costing, unlike the reference's
+``lax.scan`` bodies (``models/costing_mode.py``).
+
+What is traced is the program the fake tensors take: on CPU tensors the
+kernel wrappers take their plain versions, so the plain program, not the
+kernel path, is costed and calibrated.  The reference does the same, since
+HLO cannot see inside a Pallas call.
+
+This module imports no torch at its top level (``repro_torch.core`` must
+load none): :func:`lower_and_cost` imports it, as the reference's imports
+jax.
+"""
+from __future__ import annotations
+
+import weakref
+from typing import Any, Callable, Dict, Sequence, Tuple
+
+from repro_torch.core.hlo_cost import CompiledCost
+
+# Bytes of an element by torch type name (``str(dtype)`` without "torch."),
+# the counterpart of ``hlo_cost._HLO_DTYPE_BYTES``.
+DTYPE_BYTES = {
+    "bool": 1, "uint8": 1, "int8": 1,
+    "int16": 2, "uint16": 2, "float16": 2, "bfloat16": 2,
+    "int32": 4, "uint32": 4, "float32": 4,
+    "int64": 8, "uint64": 8, "float64": 8, "complex64": 8,
+    "complex128": 16,
+    "float8_e4m3fn": 1, "float8_e4m3fnuz": 1, "float8_e5m2": 1,
+    "float8_e5m2fnuz": 1, "float8_e8m0fnu": 1,
+}
+
+# Ops that allocate without writing: their outputs move no bytes.
+_ALLOCATE_ONLY = frozenset(("empty", "empty_strided", "empty_like",
+                            "new_empty", "new_empty_strided"))
+# Ops that only move data (torch tags ``clone`` pointwise): no FLOPs, as
+# XLA counts none for a copy.
+_MOVE_ONLY = frozenset(("clone", "copy", "copy_", "_to_copy",
+                        "lift_fresh_copy"))
+
+
+def mesh_devices(mesh) -> int:
+    """Devices of ``mesh``: 1 for ``None``, ``mesh.size()`` for a
+    ``DeviceMesh``, else its length (a sequence of devices)."""
+    if mesh is None:
+        return 1
+    if callable(getattr(mesh, "size", None)):
+        return int(mesh.size())
+    return len(mesh)
+
+
+def require_one_device(mesh) -> None:
+    n = mesh_devices(mesh)
+    if n != 1:
+        raise NotImplementedError(
+            f"costing on {n} devices needs the port's shardings "
+            f"(launch/shardings.py, ROADMAP item 14); only one device is "
+            f"supported")
+
+
+def lower_and_cost(name: str, fn: Callable, args: Sequence[Any], mesh=None,
+                   *, dispatch_count: int = 1) -> Tuple[Callable,
+                                                        CompiledCost]:
+    """Trace ``fn(*args)`` once on fake CPU copies of ``args`` and cost the
+    ops it dispatches (see the module's docstring for what each field
+    counts).  ``args`` is a sequence of pytrees (dicts, lists, tuples) whose
+    tensor leaves may be real, on any device, or fake; each becomes a fake
+    CPU tensor of its shape, strides, type and ``requires_grad``, one per
+    distinct tensor.  Nothing is allocated and no kernel is launched.
+    Returns ``fn`` itself, the callable to time, beside the cost.  ``mesh``
+    is ``None`` or one device; more raise ``NotImplementedError``."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils import _pytree as pytree
+
+    require_one_device(mesh)
+    counter = _counter_mode(torch)()
+    with FakeTensorMode():
+        memo: Dict[int, Any] = {}
+
+        def to_fake(t):
+            if not isinstance(t, torch.Tensor):
+                return t
+            if id(t) not in memo:
+                f = torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                        device="cpu")
+                memo[id(t)] = f.requires_grad_(t.requires_grad)
+            return memo[id(t)]
+
+        fake_args = pytree.tree_map(to_fake, list(args))
+        arg_leaves = [t for t in pytree.tree_leaves(fake_args)
+                      if isinstance(t, torch.Tensor)]
+        counter.exclude(arg_leaves)
+        with counter:
+            out = fn(*fake_args)
+        out_leaves = [t for t in pytree.tree_leaves(out)
+                      if isinstance(t, torch.Tensor)]
+        argument_bytes = sum(counter.nbytes(t) for t in arg_leaves
+                             if t.untyped_storage()._cdata in counter.read)
+        output_bytes = sum(counter.nbytes(t) for t in out_leaves)
+    return fn, CompiledCost(
+        name=name, flops_per_device=float(counter.flops),
+        bytes_per_device=float(counter.bytes), collectives=[],
+        num_devices=1, argument_bytes=float(argument_bytes),
+        output_bytes=float(output_bytes),
+        temp_bytes=float(max(counter.peak - output_bytes, 0)),
+        peak_memory_bytes=float(argument_bytes + counter.peak),
+        dispatch_count=dispatch_count,
+        unknown_dtypes=sorted(counter.unknown))
+
+
+def _elementwise_flops(func, args, kwargs, ins, outs) -> int:
+    """FLOPs of an op outside the matmul family: one per output element of
+    a pointwise op, per input element of a reduction, per value a scatter
+    adds into its target (``index_put`` with ``accumulate``, ``index_add``,
+    ``scatter_add``: XLA counts a scatter's update computation); none for a
+    copy or anything else."""
+    import torch
+    name = func._overloadpacket.__name__
+    if name in _MOVE_ONLY:
+        return 0
+    if torch.Tag.reduction in func.tags:
+        return max(t.numel() for t in ins.values())
+    if torch.Tag.pointwise in func.tags:
+        return sum(t.numel() for t in outs)
+    if name in ("index_put", "index_put_", "_index_put_impl_"):
+        accumulate = args[3] if len(args) > 3 else kwargs.get("accumulate")
+        return args[2].numel() if accumulate else 0
+    if name in ("index_add", "index_add_", "scatter_add", "scatter_add_"):
+        return args[3].numel()
+    return 0
+
+
+def _counter_mode(torch):
+    """The dispatch mode class that counts (built here: torch is imported
+    only when a trace runs)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils import _pytree as pytree
+    from torch.utils.flop_counter import flop_registry
+
+    class Counter(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.flops = 0
+            self.bytes = 0
+            self.unknown = set()
+            self.live = 0
+            self.peak = 0
+            self._refs: Dict[int, int] = {}
+            self._size: Dict[int, int] = {}
+            self._excluded = set()
+            self.read = set()               # storages some op read
+            self._seen = set()              # ids of the tensors tracked
+
+        def nbytes(self, t, read: bool = False) -> int:
+            """Bytes of ``t``; of a tensor read, only the elements it
+            spans (a broadcast dimension, stride 0, is read once)."""
+            name = str(t.dtype).split(".")[-1]
+            size = DTYPE_BYTES.get(name)
+            if size is None:
+                size = 4
+                self.unknown.add(name)
+            n = t.numel()
+            if read and n:
+                n = 1
+                for dim, stride in zip(t.shape, t.stride()):
+                    n *= dim if stride else 1
+            return n * size
+
+        def exclude(self, tensors) -> None:
+            """Storages of the arguments: not part of the live set."""
+            self._excluded.update(t.untyped_storage()._cdata
+                                  for t in tensors)
+
+        def _release(self, tid: int, key) -> None:
+            self._seen.discard(tid)
+            if key is None:
+                return
+            self._refs[key] -= 1
+            if not self._refs[key]:
+                del self._refs[key]
+                self.live -= self._size.pop(key)
+
+        def _track(self, t) -> None:
+            """Count ``t``'s storage live until its last tensor dies."""
+            if id(t) in self._seen:
+                return
+            self._seen.add(id(t))
+            storage = t.untyped_storage()
+            key = storage._cdata
+            if key in self._excluded:
+                key = None
+            elif key not in self._refs:
+                self._refs[key] = 0
+                self._size[key] = storage.nbytes()
+                self.live += self._size[key]
+                self.peak = max(self.peak, self.live)
+            if key is not None:
+                self._refs[key] += 1
+            weakref.finalize(t, self._release, id(t), key)
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            outs = [t for t in pytree.tree_leaves(out)
+                    if isinstance(t, torch.Tensor)]
+            for t in outs:
+                self._track(t)
+            if func.is_view or not outs and func.name().startswith(
+                    "aten::sym_"):
+                return out
+            packet = func._overloadpacket
+            ins = {id(t): t for t in pytree.tree_leaves((args, kwargs))
+                   if isinstance(t, torch.Tensor)}
+            if packet in flop_registry:
+                self.flops += flop_registry[packet](*args, **kwargs,
+                                                    out_val=out)
+            else:
+                self.flops += _elementwise_flops(func, args, kwargs, ins,
+                                                 outs)
+            self.bytes += sum(self.nbytes(t, read=True)
+                              for t in ins.values())
+            self.read.update(t.untyped_storage()._cdata
+                             for t in ins.values())
+            if packet.__name__ not in _ALLOCATE_ONLY:
+                self.bytes += sum(self.nbytes(t) for t in outs)
+            return out
+
+    return Counter

@@ -1,0 +1,218 @@
+"""Component-level costing of the generated plan: the counterpart of the
+reference's ``launch/component_cost.py``, for one device.
+
+The paper's methodology: cost each *instruction* of the runtime program and
+aggregate over the program structure (Eq 1).  Here the instructions are the
+per-layer components of the eager program, each traced once through
+:func:`repro_torch.core.graph_cost.lower_and_cost` on fake tensors at the
+step's widths and multiplied by its count:
+
+    step_cost = sum_i  count_i * CompiledCost(component_i)
+
+The reference costs components because XLA visits a scanned layer body
+once; eager dispatch sees every layer, but a whole step at full width takes
+seconds to trace, and a component a fraction of a second.
+
+Components per architecture family (the reference's names and counts):
+  * dense   : ``decoder_layer`` x n_layers
+  * ssm     : ``mamba_layer``   x n_layers
+  * hybrid  : ``mamba_layer`` x n_layers + ``shared_attn`` x its applications
+  plus a tail: ``ce_head``, ``embed`` and ``optimizer`` for train,
+  ``lm_head`` for serve.  Layer counts are multiplied by the microbatches.
+  Decode components carry their layer's cache slice, so the cache traffic is
+  costed.  A train component runs its forward under the plan's remat policy
+  (``transformer._remat_wrap``), then its backward with a ones cotangent.
+
+Where the port differs: prefill's ``lm_head`` heads the last position only,
+as both packages' ``prefill`` does (the reference's component heads every
+position).  MoE, MLA, encoder-decoder and window-pattern archs raise, as
+the port's models do; more than one device raises (the reference's
+``grad_reduce`` component and its shardings wait for ``launch/shardings``,
+ROADMAP item 14).  What is traced is the plain program (the kernel wrappers
+see CPU tensors), as ``graph_cost`` says.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List
+
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.core.cluster import ClusterConfig
+from repro_torch.core.graph_cost import lower_and_cost, require_one_device
+from repro_torch.core.hlo_cost import CompiledCost
+from repro_torch.core.planner import ShardingPlan
+from repro_torch.models import transformer as T
+from repro_torch.models.model import build_model
+from repro_torch.optim import adamw
+from repro_torch.optim.adamw import tree_leaves, tree_map
+
+
+@dataclasses.dataclass
+class Component:
+    name: str
+    count: int
+    cost: CompiledCost
+
+
+def _train_wrap(fwd: Callable, remat: str) -> Callable:
+    """``fwd(p, x)`` under ``remat``, then its backward with a ones
+    cotangent: returns (y.sum(), the gradients of p's leaves and of x)."""
+    inner = T._remat_wrap(fwd, remat)
+
+    def wrapped(p, x):
+        p = tree_map(lambda t: t.detach().requires_grad_(), p)
+        x = x.detach().requires_grad_()
+        with torch.enable_grad():
+            y = inner(p, x)
+            grads = torch.autograd.grad(y, tree_leaves(p) + [x],
+                                        torch.ones_like(y), allow_unused=True)
+        return y.detach().sum(), grads
+    return wrapped
+
+
+def _grads_of(fn: Callable, wrt: Callable) -> Callable:
+    """``fn(*args)`` (a scalar) and its gradients with respect to the
+    leaves ``wrt(args)`` picks (made to require a gradient first)."""
+    def wrapped(*args):
+        args = tree_map(lambda t: t.detach(), list(args))
+        leaves = wrt(args)
+        for t in leaves:
+            t.requires_grad_()
+        with torch.enable_grad():
+            y = fn(*args)
+            grads = torch.autograd.grad(y, leaves, allow_unused=True)
+        return y.detach(), grads
+    return wrapped
+
+
+def component_costs(arch: ArchConfig, shape: ShapeConfig, plan: ShardingPlan,
+                    mesh=None) -> List[Component]:
+    """The step of ``arch`` at ``shape`` under ``plan``, component by
+    component (see the module's docstring), on one device."""
+    require_one_device(mesh)
+    cfg = arch
+    model = build_model(cfg, device="cpu")      # raises for unported families
+    mode = shape.mode
+    dtype = T.torch_dtype(cfg.dtype)
+    micro = max(plan.microbatches, 1) if mode == "train" else 1
+    batch = max(shape.global_batch // micro, 1)
+    q_len = 1 if mode == "decode" else shape.seq_len
+    kv_len = shape.seq_len
+    d = cfg.d_model
+
+    with FakeTensorMode():
+        params = model.init(0)
+        cache = model.init_cache(batch, kv_len) if mode == "decode" else None
+        x = torch.empty((batch, q_len, d), dtype=dtype)
+    comps: List[Component] = []
+
+    def cost(name: str, count: int, fn: Callable, args) -> None:
+        comps.append(Component(name, count, lower_and_cost(name, fn,
+                                                           args)[1]))
+
+    def attn_fwd(p, x):
+        pos = T._positions(x.shape[0], x.shape[1], x.device)
+        return T.block_apply(cfg, p, x, positions=pos, window=None)[0]
+
+    def attn_decode(p, x, c):
+        pos = torch.full((x.shape[0], 1), kv_len - 1, dtype=torch.int32)
+        out, c2, _ = T.block_apply(cfg, p, x, positions=pos, window=None,
+                                   kv_cache=c, pos=kv_len - 1)
+        return out, c2
+
+    def mamba_fwd(p, x):
+        return T.mamba_layer_apply(cfg, p, x, None)[0]
+
+    def mamba_decode(p, x, c):
+        return T.mamba_layer_apply(cfg, p, x, c)[:2]
+
+    def add_layer(name: str, count: int, p, fwd, decode, c=None) -> None:
+        if mode == "decode":
+            cost(name, count * micro, decode, (p, x, c))
+        else:
+            fn = _train_wrap(fwd, plan.remat) if mode == "train" else fwd
+            cost(name, count * micro, fn, (p, x))
+
+    layer0 = T._layer(params["blocks"], 0)
+    if cfg.family == "dense":
+        add_layer("decoder_layer", cfg.n_layers, layer0, attn_fwd,
+                  attn_decode, cache and T._layer(cache["self"], 0))
+    else:
+        add_layer("mamba_layer", cfg.n_layers, layer0, mamba_fwd,
+                  mamba_decode, cache and T._layer(cache["mamba"], 0))
+        if cfg.family == "hybrid":
+            add_layer("shared_attn", cfg.n_layers // cfg.hybrid.attn_every,
+                      params["shared_attn"][0], attn_fwd, attn_decode,
+                      cache and T._layer(cache["attn"], 0))
+
+    # ------------------------------------------------------------- tail
+    embed_p = {k: params[k] for k in ("embed", "final_norm", "lm_head")
+               if k in params}
+    if mode == "train":
+        # the CE head unchunked over the microbatch: the FLOPs and logits
+        # traffic of the chunked head, its weight gradient formed once
+        ce_tokens = batch * max(q_len - 1, 1)
+        with FakeTensorMode():
+            hc = torch.empty((ce_tokens, d), dtype=dtype)
+            tc = torch.empty((ce_tokens,), dtype=torch.int64)
+            tokens = torch.empty((batch, q_len), dtype=torch.int64)
+            opt_state = adamw.init(adamw.AdamWConfig(), params)
+
+        def ce(ep, hc, tc):
+            logits = T._head(cfg, ep, hc[None])[0]
+            logz = torch.logsumexp(logits, dim=-1)
+            ll = torch.gather(logits, -1, tc[:, None])[:, 0]
+            return (logz - ll).sum()
+
+        cost("ce_head", micro,
+             _grads_of(ce, lambda a: tree_leaves(a[0]) + [a[1]]),
+             (embed_p, hc, tc))
+        cost("embed", micro,
+             _grads_of(lambda ep, t: ep["embed"][t].sum(),
+                       lambda a: [a[0]["embed"]]),
+             (embed_p, tokens))
+        ocfg = adamw.AdamWConfig()
+        cost("optimizer", 1,
+             lambda p, o, g: adamw.apply(ocfg, o, g, p)[:2],
+             (params, opt_state, params))
+    else:
+        last = mode == "prefill"
+        cost("lm_head", 1,
+             lambda ep, h: T._head(cfg, ep, h[:, -1:] if last else h),
+             (embed_p, x))
+    return comps
+
+
+def aggregate(comps: List[Component], cc: ClusterConfig) -> Dict[str, Any]:
+    """Eq (1): weighted sum of component costs -> step roofline terms."""
+    flops = bytes_ = coll_bytes = 0.0
+    coll_time = 0.0
+    per = []
+    for c in comps:
+        r = c.cost.roofline(cc)
+        flops += c.count * c.cost.flops_per_device
+        bytes_ += c.count * c.cost.bytes_per_device
+        coll_bytes += c.count * c.cost.collective_bytes
+        coll_time += c.count * r["collective_s"]
+        per.append({"name": c.name, "count": c.count,
+                    "flops_per_device": c.cost.flops_per_device,
+                    "bytes_per_device": c.cost.bytes_per_device,
+                    "collective_bytes": c.cost.collective_bytes,
+                    "collectives": c.cost.collective_bytes_by_kind()})
+    compute_s = flops / cc.chip.peak("bfloat16")
+    memory_s = bytes_ / cc.chip.hbm_bw
+    terms = {"compute_s": compute_s, "memory_s": memory_s,
+             "collective_s": coll_time}
+    dominant = max(terms, key=terms.get)
+    return {
+        **terms,
+        "dominant": dominant,
+        "roofline_bound_s": max(terms.values()),
+        "flops_per_device": flops,
+        "bytes_per_device": bytes_,
+        "collective_bytes_per_device": coll_bytes,
+        "components": per,
+    }

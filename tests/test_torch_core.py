@@ -272,27 +272,31 @@ def test_compiled_cost_records_equal_the_reference(cluster):
 
 
 def test_exports_equal_the_reference_but_the_lowering():
-    """The same public names, less the two that lower a jitted step and
-    plus the port's one H100 chip and preset."""
-    assert set(port.__all__) == (set(ref.__all__)
-                                 - {"from_compiled", "lower_and_cost"}
+    """The same public names, less ``from_compiled`` (it reads a jax
+    executable) and plus the port's one H100 chip and preset;
+    ``lower_and_cost`` is the port's own, from ``graph_cost``, not from the
+    copy of ``hlo_cost``."""
+    assert set(port.__all__) == (set(ref.__all__) - {"from_compiled"}
                                  | {"H100_SXM", "h100_single_config"})
-    from repro_torch.core import hlo_cost
+    from repro_torch.core import graph_cost, hlo_cost
     assert not hasattr(hlo_cost, "from_compiled")
     assert not hasattr(hlo_cost, "lower_and_cost")
+    assert port.lower_and_cost is graph_cost.lower_and_cost
 
 
 # What the port's copy may hold that the reference's module does not, or
 # the other way round, by top-level name (``module:name`` for an imported
 # name): the H100 chip and preset, and not the two functions that lower a
-# jitted step.  Nothing else may differ but docstrings and line breaks.
+# jitted step (the port's ``lower_and_cost`` comes from ``graph_cost``).
+# Nothing else may differ but docstrings and line breaks.
 MIRROR_DIFFERS = {
     "cluster": {"H100_SXM", "h100_single_config"},
     "hlo_cost": {"from_compiled", "lower_and_cost"},
     "__init__": {"repro_torch.core.cluster:H100_SXM",
                  "repro_torch.core.cluster:h100_single_config",
                  "repro_torch.core.hlo_cost:from_compiled",
-                 "repro_torch.core.hlo_cost:lower_and_cost", "__all__"},
+                 "repro_torch.core.hlo_cost:lower_and_cost",
+                 "repro_torch.core.graph_cost:lower_and_cost", "__all__"},
 }
 
 

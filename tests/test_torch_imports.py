@@ -23,13 +23,17 @@ MODULES = [
     "repro_torch.models.model", "repro_torch.runtime.serve_engine",
     "repro_torch.launch.serve", "repro_torch.examples.linreg_ds",
     "repro_torch.benchmarks.bench_accuracy",
+    "repro_torch.benchmarks.bench_calibrate",
+    "repro_torch.benchmarks.bench_fusion",
+    "repro_torch.launch.component_cost",
     "repro_torch.optim", "repro_torch.optim.adamw",
     "repro_torch.optim.compress", "repro_torch.runtime.train_loop",
     "chip_smoke",
 ] + [f"repro_torch.core.{m}" for m in (
     "npvec", "calibration", "cluster", "symbols", "plan", "linalg_ops",
     "hlo_cost", "costmodel", "explain", "linreg", "dominance", "planner",
-    "workload", "resource", "serving", "sweep", "parallel")] + [
+    "workload", "resource", "serving", "sweep", "parallel",
+    "graph_cost")] + [
     "repro_torch.core"]
 
 
@@ -49,7 +53,8 @@ def test_import_leaves_no_jax_and_no_reference(module):
 
 
 @pytest.mark.parametrize("module", ["repro_torch.core",
-                                    "repro_torch.core.parallel"])
+                                    "repro_torch.core.parallel",
+                                    "repro_torch.core.graph_cost"])
 def test_cost_model_loads_no_torch(module):
     """The cost model is numpy and the standard library: ``parallel``'s spawn
     workers import it, and must never load torch or initialise CUDA."""

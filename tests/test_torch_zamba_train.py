@@ -1,0 +1,93 @@
+"""``chip_smoke.expected_train_launches``, the count the train phase holds
+the card's launches to, against the calls the port's kernel path makes on
+the CPU.  On CPU tensors every kernel wrapper takes its plain version (and
+counts nothing), so each plain version that stands in for a launch is
+counted here instead: the forward and backward of flash attention and of
+the SSD scan, and the matmul epilogue's forward and its backward's
+recompute of z.  zamba2 is the train path this count was not yet held to
+(its shared blocks applied ``n_layers // attn_every`` times, each under
+remat ``full``); qwen and mamba2 are held to it beside it."""
+import dataclasses
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+from chip_smoke import expected_train_launches, parity_config  # noqa: E402
+from repro_torch.configs import get_config                     # noqa: E402
+from repro_torch.core import ShardingPlan                      # noqa: E402
+from repro_torch.kernels import flash_attention as fa          # noqa: E402
+from repro_torch.kernels import matmul_epilogue as mme         # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd                # noqa: E402
+from repro_torch.models.model import build_model               # noqa: E402
+from repro_torch.optim import adamw                            # noqa: E402
+from repro_torch.runtime.train_loop import make_train_step     # noqa: E402
+
+BATCH, SEQ, STEPS = 2, 64, 2
+# (module, plain version standing in for a launch, the kernel it counts as)
+STAND_INS = [(fa, "flash_attention_plain", "flash_attention"),
+             (fa, "flash_attention_bwd_plain", "flash_attention_bwd"),
+             (ssd, "ssd_scan_plain", "ssd_scan"),
+             (ssd, "ssd_scan_bwd_plain", "ssd_scan_bwd"),
+             (mme, "matmul_epilogue_plain", "matmul_epilogue")]
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "mamba2-1.3b",
+                                  "qwen1.5-0.5b"])
+def test_expected_train_launches_match_the_kernel_path(arch, remat,
+                                                       monkeypatch):
+    cfg = get_config(arch).reduced()
+    calls = dict.fromkeys(("flash_attention", "flash_attention_bwd",
+                           "tsmm_upper", "ssd_scan", "ssd_scan_bwd",
+                           "matmul_epilogue"), 0)
+
+    def counted(fn, kernel):
+        def wrapper(*args, **kwargs):
+            calls[kernel] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    for module, name, kernel in STAND_INS:
+        monkeypatch.setattr(module, name, counted(getattr(module, name),
+                                                  kernel))
+    model = build_model(cfg, device="cpu")
+    params = model.init(0)
+    opt_cfg = adamw.AdamWConfig()
+    step = make_train_step(model, opt_cfg, ShardingPlan(remat=remat),
+                           use_kernel=True)
+    opt = adamw.init(opt_cfg, params)
+    gen = torch.Generator().manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (BATCH, SEQ),
+                                     generator=gen)}
+    for _ in range(STEPS):
+        params, opt, _, metrics = step(params, opt, None, batch)
+        assert torch.isfinite(metrics["loss"])
+    assert calls == expected_train_launches(cfg, remat, BATCH, SEQ, STEPS)
+    if cfg.family == "hybrid":
+        assert calls["flash_attention_bwd"] == (
+            STEPS * cfg.n_layers // cfg.hybrid.attn_every) > 0
+
+
+def test_parity_config_applies_every_shared_block_once():
+    """The gradient parity of the train phase cuts depth; zamba2's cut
+    applies each of its two shared blocks once (so the flash backward at
+    D = 80 is held there), after one Mamba2 layer each; the others keep 2
+    layers.  Width and every other field stay."""
+    zamba = get_config("zamba2-2.7b")
+    cut = parity_config(zamba, "bfloat16")
+    assert (cut.n_layers, cut.hybrid.attn_every, cut.dtype) == (
+        2, 1, "bfloat16")
+    assert cut.n_layers // cut.hybrid.attn_every == (
+        zamba.hybrid.n_shared_attn_blocks)
+    assert dataclasses.replace(cut, n_layers=zamba.n_layers,
+                               dtype=zamba.dtype,
+                               hybrid=zamba.hybrid) == zamba
+    for arch in ("qwen1.5-0.5b", "mamba2-1.3b"):
+        cfg = get_config(arch)
+        assert parity_config(cfg, "float32") == dataclasses.replace(
+            cfg, n_layers=2, dtype="float32")

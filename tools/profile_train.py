@@ -5,7 +5,8 @@ depth, bf16, random weights, the reference's AdamW defaults) with
 torch.profiler and prints device time by kernel, the device's busy share
 and the peak memory.
 
-    python3 tools/profile_train.py [--arch qwen1.5-0.5b|mamba2-1.3b]
+    python3 tools/profile_train.py \
+        [--arch qwen1.5-0.5b|mamba2-1.3b|zamba2-2.7b]
 
 The batch, sequence length and remat policy are those of ``chip_smoke.py``'s
 train phase (``TRAIN_BATCH``, ``TRAIN_SEQ``, ``TRAIN_PATHS``).
@@ -18,14 +19,14 @@ import subprocess
 import sys
 from pathlib import Path
 
-import torch
-
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+# first: it sets the allocator's configuration before torch is imported
 from chip_smoke import TRAIN_BATCH, TRAIN_PATHS, TRAIN_SEQ  # noqa: E402
+import torch                                                 # noqa: E402
 from profile_serve import window                            # noqa: E402
 from repro_torch.configs import get_config                  # noqa: E402
 from repro_torch.core import ShardingPlan                    # noqa: E402
