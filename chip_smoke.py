@@ -10,19 +10,22 @@ Phases, each printing one JSON line: ``device`` (name and power limit),
 against its plain PyTorch version on the card, faulty controls of the
 epilogue kernel and of tsmm that the same check must catch, and the SSD
 scan's rounding plans, forward and backward, against one bf16 rounding of
-their state paths), with
+their state paths; the bf16 backward calls again, bit for bit), with
 ``--ptxas`` a ``ptxas`` line (registers, shared memory and spills of every
-kernel), ``train`` three times (qwen1.5-0.5b, mamba2-1.3b and zamba2-2.7b
-at full width and depth in bf16 through ``make_train_step(use_kernel=True)``:
-five steps on a repeated batch, losses, step times, peak memory and every
-kernel's launches against the count the path must give, then the gradients
-of the kernel path against the plain path at two layers, or for zamba2 at
-one application of each shared block), ``serve`` three times
-(qwen1.5-0.5b, mamba2-1.3b and zamba2-2.7b, at full width and depth in
-bf16 through ``ServeEngine``, static and continuous batching, with the
-launch count of every kernel, and of each body of the epilogue kernel,
-held against the count the arch's path must give, and the bf16 prefill
-logits with the kernels against without them and against the controls),
+kernel), ``train`` six times (qwen1.5-0.5b, mamba2-1.3b, zamba2-2.7b and
+qwen1.5-4b at full width and depth, stablelm-12b and qwen1.5-110b at the
+depth ``DEPTH_CUTS`` states, in bf16 through ``make_train_step(use_kernel=
+True, donate=True)``: one step's gradients twice, which must be
+bit-identical in bf16, then five steps on a repeated batch, losses, step
+times, peak memory and every kernel's launches against the count the path
+must give, then the gradients of the kernel path against the plain path at
+two layers, or for zamba2 at one application of each shared block),
+``serve`` six times (the same archs, qwen1.5-110b at its ``DEPTH_CUTS``
+depth, in bf16 through ``ServeEngine``, static and continuous batching,
+with the launch count of every kernel, and of each body of the epilogue
+kernel, held against the count the arch's path must give, and the bf16
+prefill logits with the kernels against without them and against the
+controls),
 ``linreg`` (the
 LinReg DS example at 262144 x 1024 through the tsmm kernel, cold, then warm
 and split into its parts), ``estimate`` (the paper's §3.4 check on the card:
@@ -77,9 +80,9 @@ from repro_torch.configs.base import ShapeConfig                 # noqa: E402
 from repro_torch.examples import linreg_ds                       # noqa: E402
 from repro_torch.kernels import _build, ops                      # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
-    flash_attention_fwd, flash_attention_plain, flash_body, flash_bwd_body,
-    flash_lse_plain)
+    BACKWARD_HEAD_DIMS, flash_attention, flash_attention_bwd,
+    flash_attention_bwd_plain, flash_attention_fwd, flash_attention_plain,
+    flash_body, flash_bwd_body, flash_lse_plain)
 from repro_torch.kernels.matmul_epilogue import (  # noqa: E402
     LN_MAX_N, matmul_body, matmul_epilogue, matmul_epilogue_plain)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
@@ -108,14 +111,24 @@ FLASH_MAIN = dict(b=8, hq=16, hkv=16, s=2048, d=64, causal=True, window=None)
 FLASH_D80 = dict(b=8, hq=32, hkv=32, s=2048, d=80, causal=True, window=None)
 LINREG_M, LINREG_N, LINREG_LAM = 262144, 1024, 1e-3
 
-# (b, hq, hkv, s, d, causal, window): the reference's kernel test cases
+# (b, hq, hkv, s, d, causal, window): the reference's kernel test cases,
+# then the head dims and GQA ratios of the dense archs (qwen1.5-4b: D = 128
+# MHA; qwen1.5-110b: D = 128, GQA 8; stablelm-12b: D = 160, GQA 4), causal
+# and windowed, ragged S among them
 FLASH_CASES = [
     (2, 4, 2, 256, 64, True, None),
     (1, 4, 4, 256, 32, False, None),
     (2, 8, 2, 512, 64, True, 128),
     (1, 2, 1, 512, 128, True, None),
     (1, 4, 1, 256, 64, False, 64),
+    (2, 4, 4, 384, 128, True, None),
+    (1, 8, 1, 300, 128, True, 100),
+    (1, 8, 2, 333, 160, True, None),
+    (2, 8, 2, 256, 160, False, 64),
+    (1, 4, 1, 200, 160, True, 32),
 ]
+# The dense archs of this port at the train phase's B 8 x S 2048, bf16
+WIDE_ARCHS = ("qwen1.5-4b", "qwen1.5-110b", "stablelm-12b")
 TSMM_CASES = [(512, 256), (1024, 512), (768, 384), (2048, 128)]
 # (b, s, h, p, n, chunk): the reference's kernel test cases
 SSD_CASES = [(2, 128, 4, 16, 32, 32), (1, 256, 2, 64, 128, 64),
@@ -281,6 +294,39 @@ def compare(out: torch.Tensor, ref: torch.Tensor, rtol: float,
 # ---------------------------------------------------------------------------
 
 
+def arch_flash(arch: str) -> dict:
+    """``arch``'s attention at B 8 x S 2048: heads, kv heads, head dim."""
+    cfg = get_config(arch)
+    return dict(b=8, hq=cfg.n_heads, hkv=cfg.n_kv_heads, s=2048,
+                d=cfg.head_dim_, causal=True, window=None)
+
+
+def arch_gate(arch: str) -> dict:
+    """``arch``'s MLP gate silu(x @ w) over a prefill round of 8 x 2048
+    tokens, bf16 out."""
+    cfg = get_config(arch)
+    return dict(m=8 * 2048, n=cfg.d_ff, k=cfg.d_model, epilogue="silu",
+                dtype=torch.bfloat16, out_dtype=torch.bfloat16)
+
+
+def arch_head(arch: str) -> dict:
+    """``arch``'s head at one token of each of 8 requests, fp32 logits."""
+    cfg = get_config(arch)
+    return dict(m=8, n=cfg.vocab_size, k=cfg.d_model, epilogue=None,
+                dtype=torch.bfloat16, out_dtype=torch.float32)
+
+
+def by_batch(fn, *args, **kw):
+    """``fn`` on each batch row of ``args`` alone, the outputs (a tensor or
+    a tuple) concatenated: a plain version at a main-path shape whose fp32
+    scores for the whole batch would not fit beside the rest."""
+    outs = [fn(*(a[i:i + 1] for a in args), **kw)
+            for i in range(args[0].shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
 def flash_inputs(b, hq, hkv, s, d, dtype, gen, views=False):
     """Seeded q, k, v [B,H,S,D]; with ``views`` they are ``transpose(1, 2)``
     views of [B,S,H,D] tensors, as the model hands them to the kernel."""
@@ -337,7 +383,8 @@ def check_flash(gen) -> list:
         q, k, v = flash_inputs(b, hq, hkv, s, d, dtype, gen, views)
         out = flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
-        ref = flash_attention_plain(q, k, v, causal=causal, window=window)
+        ref = by_batch(flash_attention_plain, q, k, v, causal=causal,
+                       window=window)
         res = compare(out, ref, **FLASH_TOL[dtype])
         res.update(case=tag, shape=[b, hq, hkv, s, d], causal=causal,
                    window=window, dtype=str(dtype).split(".")[-1],
@@ -361,6 +408,10 @@ def check_flash(gen) -> list:
         run("D = 80, not causal", 1, 2, 2, 130, 80, False, None, dtype)
     run("zamba2 main path, D = 80", **FLASH_D80, dtype=torch.bfloat16,
         views=True)
+    for arch in WIDE_ARCHS:
+        run(f"{arch} main path", **arch_flash(arch), dtype=torch.bfloat16,
+            views=True)
+        torch.cuda.empty_cache()
 
     def run_odd(tag, q, k, v, causal, dtype, window=None):
         out = flash_attention(q, k, v, causal=causal, window=window)
@@ -408,6 +459,18 @@ def check_flash(gen) -> list:
     return cases
 
 
+def repeats(first, again, dtype) -> bool:
+    """Whether ``again()`` gives outputs bit-identical to ``first`` (None
+    entries skipped); raises if not for bf16, whose bodies sum in a fixed
+    order (the fp32 FMA bodies add with atomics: reported)."""
+    same = all(a is None or torch.equal(a, b)
+               for a, b in zip(first, again()))
+    if dtype == torch.bfloat16 and not same:
+        raise AssertionError("a bf16 backward call did not repeat bit for "
+                             "bit")
+    return same
+
+
 def check_flash_bwd(gen) -> list:
     """The forward's log-sum-exp against :func:`flash_lse_plain`, and the
     backward kernel against :func:`flash_attention_bwd_plain` on the same
@@ -425,13 +488,15 @@ def check_flash_bwd(gen) -> list:
                "causal": causal, "window": window,
                "dtype": str(dtype).split(".")[-1],
                "body": flash_bwd_body(dtype, q.shape[-1]),
-               "lse": compare(lse, flash_lse_plain(q, k, causal=causal,
-                                                   window=window),
+               "lse": compare(lse, by_batch(flash_lse_plain, q, k,
+                                            causal=causal, window=window),
                               **LSE_TOL)}
-        ref = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
-                                        window=window)
+        ref = by_batch(flash_attention_bwd_plain, q, k, v, o, lse, do,
+                       causal=causal, window=window)
         for name, a, r in zip(("dq", "dk", "dv"), got, ref):
             res[name] = compare_rel(a, r, BWD_RTOL[dtype])
+        res["rerun_bit_identical"] = repeats(got, lambda: flash_attention_bwd(
+            q, k, v, o, lse, do, causal=causal, window=window), dtype)
         res["max_abs_err"] = max(res[n]["max_abs_err"]
                                  for n in ("dq", "dk", "dv"))
         cases.append(res)
@@ -454,13 +519,19 @@ def check_flash_bwd(gen) -> list:
         q, _, _ = flash_inputs(1, 2, 2, 200, 80, dtype, gen)
         _, k, v = flash_inputs(1, 2, 2, 70, 80, dtype, gen)
         run("Sq > Skv, causal, window", q, k, v, True, 32, dtype)
-    for tag, m in (("main path", FLASH_MAIN), ("D = 80", FLASH_D80)):
+        for b, hq, hkv, s, d, causal, window in FLASH_CASES:
+            if d in BACKWARD_HEAD_DIMS:
+                run("reference case", *flash_inputs(b, hq, hkv, s, d, dtype,
+                                                    gen), causal, window,
+                    dtype)
+    for tag, m in (("main path", FLASH_MAIN), ("D = 80", FLASH_D80),
+                   *((f"{a} main path", arch_flash(a)) for a in WIDE_ARCHS)):
         q, k, v = flash_inputs(m["b"], m["hq"], m["hkv"], m["s"], m["d"],
                                torch.bfloat16, gen, views=True)
         run(tag, q, k, v, True, None, torch.bfloat16)
         del q, k, v
         torch.cuda.empty_cache()
-    # the backward takes D = 64 and 80 only: a gradient at D = 32 raises
+    # the backward takes BACKWARD_HEAD_DIMS only: a gradient at D = 32 raises
     q, k, v = (t.requires_grad_() for t in flash_inputs(
         1, 2, 2, 64, 32, torch.bfloat16, gen))
     try:
@@ -717,6 +788,11 @@ def check_mm(gen) -> list:
         d["epilogue"], d["out_dtype"], model_like=True)
     run("qwen head main path, vocab 151936", h["m"], h["n"], h["k"],
         h["dtype"], h["epilogue"], h["out_dtype"], model_like=True)
+    for arch in WIDE_ARCHS:
+        for kind, c in (("gate", arch_gate(arch)), ("head", arch_head(arch))):
+            run(f"{arch} {kind} main path", c["m"], c["n"], c["k"],
+                c["dtype"], c["epilogue"], c["out_dtype"], model_like=True)
+            torch.cuda.empty_cache()
     # the wgmma body's edges: one 128-row tile and a row, two and a row; w
     # transposed (a K-major operand); ragged M, N and K; fp32 out (the
     # 128 x 128 tile)
@@ -885,6 +961,8 @@ def check_ssd_bwd(gen) -> list:
                 res[name] = compare_rel(a, r, BWD_RTOL[a.dtype])
         res["max_abs_err"] = max(v["max_abs_err"] for v in res.values()
                                  if isinstance(v, dict))
+        res["rerun_bit_identical"] = repeats(got, lambda: ssd_scan_bwd(
+            xbar, log_a, bm, cm, dy, dfin, chunk=chunk, init_state=st), dtype)
         cases.append(res)
         del xbar, log_a, bm, cm, st, dy, dfin, got, ref
 
@@ -1179,6 +1257,30 @@ def time_kernels(gen) -> dict:
     flash["d80"]["ratio_to_library"] = (flash["d80"]["ms"]
                                         / flash["d80"]["library_ms"])
     del q, k, v
+    for arch in WIDE_ARCHS:
+        m = arch_flash(arch)
+        q, k, v = flash_inputs(m["b"], m["hq"], m["hkv"], m["s"], m["d"],
+                               torch.bfloat16, gen, views=True)
+        gqa = m["hq"] != m["hkv"]
+        flash[arch] = {
+            "ms": time_ms(lambda: flash_attention(q, k, v, causal=True), 10,
+                          2),
+            "plain_ms": time_ms(lambda: by_batch(
+                flash_attention_plain, q, k, v, causal=True), 1),
+            "plain_note": "the plain version one batch row at a time",
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=gqa), 10, 2),
+            "library_note": "F.scaled_dot_product_attention"
+                            + (", enable_gqa" if gqa else ""),
+            "shape": f"q [8,{m['hq']},2048,{m['d']}], k,v "
+                     f"[8,{m['hkv']},2048,{m['d']}] bf16 causal, "
+                     f"transposed views ({arch})",
+            "body": flash_body(torch.bfloat16, m["d"]),
+            **flash_bound_ms(**m, dtype=torch.bfloat16)}
+        flash[arch]["ratio_to_library"] = (flash[arch]["ms"]
+                                           / flash[arch]["library_ms"])
+        del q, k, v
+        torch.cuda.empty_cache()
     mm = {}
     gate_lib = (lambda x, w: F.silu(x @ w),
                 "two calls: x @ w (bf16 out), then F.silu")
@@ -1190,7 +1292,9 @@ def time_kernels(gen) -> dict:
             ("qwen_head", MM_QWEN_HEAD, head_lib),
             ("mamba_head", MM_MAMBA_HEAD, head_lib),
             ("decode_gate", MM_DECODE_GATE, gate_lib),
-            ("qwen_decode_gate", MM_QWEN_DECODE_GATE, gate_lib)):
+            ("qwen_decode_gate", MM_QWEN_DECODE_GATE, gate_lib),
+            *((f"{a} gate", arch_gate(a), gate_lib) for a in WIDE_ARCHS),
+            *((f"{a} head", arch_head(a), head_lib) for a in WIDE_ARCHS)):
         x, w, _ = mm_inputs(c["m"], c["n"], c["k"], c["dtype"], gen,
                             model_like=True)
         kw = dict(epilogue=c["epilogue"], out_dtype=c["out_dtype"])
@@ -1233,6 +1337,7 @@ def time_kernels(gen) -> dict:
             lambda: matmul_epilogue(x32, w32, **kw), 3)
         mm[name] = entry
         del x, w, x32, w32
+        torch.cuda.empty_cache()
     return {"flash_attention": flash, "tsmm_upper": tsmm, "ssd_scan": ssd,
             "matmul_epilogue": mm}
 
@@ -1279,25 +1384,31 @@ def time_bwd_kernels(gen) -> dict:
     never calls it)."""
     out = {}
     for name, m in (("flash_attention_bwd", FLASH_MAIN),
-                    ("flash_attention_bwd_d80", FLASH_D80)):
+                    ("flash_attention_bwd_d80", FLASH_D80),
+                    *((f"flash_attention_bwd {a}", arch_flash(a))
+                      for a in WIDE_ARCHS)):
         q, k, v = flash_inputs(m["b"], m["hq"], m["hkv"], m["s"], m["d"],
                                torch.bfloat16, gen, views=True)
         o, lse = flash_attention_fwd(q, k, v, causal=True, with_lse=True)
         do = torch.randn(o.shape, generator=gen, device="cuda").to(o.dtype)
         qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
-        sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        gqa = m["hq"] != m["hkv"]
+        sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                              enable_gqa=gqa)
         out[name] = {
             "ms": time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do),
                           20, 3),
-            "plain_ms": time_ms(lambda: flash_attention_bwd_plain(
-                q, k, v, o, lse, do), 1),
+            "plain_ms": time_ms(lambda: by_batch(
+                flash_attention_bwd_plain, q, k, v, o, lse, do), 1),
+            "plain_note": "the plain version one batch row at a time",
             "library_ms": time_ms(lambda: torch.autograd.grad(
                 sdpa, (qs, ks, vs), do, retain_graph=True), 10, 2),
             "library_note": "F.scaled_dot_product_attention's backward "
                             "alone (autograd.grad of its output), forward "
-                            "excluded",
-            "shape": f"q,k,v [{m['b']},{m['hq']},{m['s']},{m['d']}] bf16 "
-                     f"causal, transposed views",
+                            "excluded" + (", enable_gqa" if gqa else ""),
+            "shape": f"q [{m['b']},{m['hq']},{m['s']},{m['d']}], k,v "
+                     f"[{m['b']},{m['hkv']},{m['s']},{m['d']}] bf16 causal, "
+                     f"transposed views",
             "body": flash_bwd_body(torch.bfloat16, m["d"]),
             "cuda_kernels_ms": device_kernel_ms(
                 lambda: flash_attention_bwd(q, k, v, o, lse, do)),
@@ -1455,24 +1566,65 @@ def control_logits(model, params, toks, fault) -> torch.Tensor:
 # reference's kernel wrapper does, in fp32 on the plain one; zamba2, both;
 # and the epilogue kernel's head writes fp32 logits where the plain head
 # rounds them to bf16 first.  Each bound is 1.5 x the largest reading of
-# these sound paths on an H100 (qwen 0.104, mamba2 0.305, zamba2 0.254),
+# these sound paths on an H100 (qwen 0.104, mamba2 0.305, zamba2 0.254;
+# qwen1.5-4b 0.110, stablelm-12b 0.120, qwen1.5-110b at 10 layers 0.062),
 # rounded up to a multiple of 0.05.  No such bound tells a subtle rounding
 # fault from the sound paths' own rounding: the CONTROLS move the readings by
 # less than 0.05, so ``check_controls`` holds them at the kernel's level.  Last,
 # the depth of the fp32 comparison of greedy streams with and without the
-# kernels: 4 layers, and for zamba2 12, the least depth with two applications
-# of shared blocks (attn_every 6).
+# kernels: 4 layers, for zamba2 12, the least depth with two applications
+# of shared blocks (attn_every 6), and for qwen1.5-110b 2 (its fp32 weights
+# are 5.4 GB a layer and 10 GB the embedding and head).
 SERVE_PATHS = [("qwen1.5-0.5b", 0.2, 4), ("mamba2-1.3b", 0.5, 4),
-               ("zamba2-2.7b", 0.4, 12)]
+               ("zamba2-2.7b", 0.4, 12), ("qwen1.5-4b", 0.2, 4),
+               ("stablelm-12b", 0.2, 4), ("qwen1.5-110b", 0.1, 2)]
+
+# Depth cuts of the paths that do not fit one H100's 80 GB at full depth
+# (bf16, B 8 x S 2048), each with its reason; every other path runs at full
+# width and depth.  Width, heads and every other field stay.  Each phase's
+# line prints its cut.
+DEPTH_CUTS = {
+    ("qwen1.5-110b", "serve"): (
+        10, "2.72 GB of bf16 weights a layer; beside them the serve phase "
+            "holds the plain path's prefill (the logits it compares with), "
+            "whose fp32 scores at 64 heads x 2048 x 2048 take 8.6 GB a "
+            "tensor"),
+    ("stablelm-12b", "train"): (
+        12, "weights, gradients and the fp32 AdamW moments take 12 bytes a "
+            "parameter (3.3 GB a layer, 12.3 GB the embedding and head), "
+            "and AdamW's fp32 temporaries of the stacked MLP leaves (about "
+            "17 GB at 12 layers) and the saved activations come on top"),
+    ("qwen1.5-110b", "train"): (
+        1, "16.3 GB of weights, gradients and fp32 moments a layer, 29.9 GB "
+           "the embedding and head, and AdamW's fp32 temporaries of the "
+           "embedding or the head (1.25B parameters: about 25 GB)"),
+}
+
+
+def path_config(arch: str, phase: str):
+    """``arch``'s config as the ``phase`` ("serve" or "train") runs it: at
+    full depth, or cut to :data:`DEPTH_CUTS`'s layers."""
+    cfg = get_config(arch)
+    cut = DEPTH_CUTS.get((arch, phase))
+    return cfg if cut is None else dataclasses.replace(cfg, n_layers=cut[0])
+
+
+def depth_cut(arch: str, phase: str):
+    """The cut of that path, as its phase line prints it, or None."""
+    cut = DEPTH_CUTS.get((arch, phase))
+    if cut is None:
+        return None
+    return {"n_layers": cut[0], "n_layers_full": get_config(arch).n_layers,
+            "reason": cut[1]}
 
 
 def phase_serve(arch: str, bf16_tol: float, fp32_layers: int) -> dict:
-    """``arch`` at full width and depth (bf16, random weights from the seed)
-    through ServeEngine, static twice and continuous with 4 slots, with the
-    launches of every kernel; then its prefill logits and, at
-    ``fp32_layers`` layers in fp32, its greedy streams with the kernels
-    against without them."""
-    cfg = get_config(arch)
+    """``arch`` at full width and depth, or its :data:`DEPTH_CUTS` (bf16,
+    random weights from the seed) through ServeEngine, static twice and
+    continuous with 4 slots, with the launches of every kernel; then its
+    prefill logits and, at ``fp32_layers`` layers in fp32, its greedy
+    streams with the kernels against without them."""
+    cfg = path_config(arch, "serve")
     reqs = make_requests(cfg.vocab_size)
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg)
@@ -1538,7 +1690,8 @@ def phase_serve(arch: str, bf16_tol: float, fp32_layers: int) -> dict:
     del params_s
     torch.cuda.empty_cache()
     return {"phase": "serve", "arch": cfg.name, "dtype": cfg.dtype,
-            "n_layers": cfg.n_layers, "n_params": n_params,
+            "n_layers": cfg.n_layers, "depth_cut": depth_cut(arch, "serve"),
+            "n_params": n_params,
             "prompt_lens": [len(r.prompt) for r in reqs],
             "max_len": max_len,
             "main_path_launches": main_launches,
@@ -1591,7 +1744,8 @@ def _leaves(tree):
 # multiply in fp32 and differ in the order of sums (the H100 read 1.5e-6,
 # 8.4e-5 and 1.2e-4).
 TRAIN_PATHS = [("qwen1.5-0.5b", "none", 0.05), ("mamba2-1.3b", "full", 0.05),
-               ("zamba2-2.7b", "full", 0.05)]
+               ("zamba2-2.7b", "full", 0.05), ("qwen1.5-4b", "full", 0.05),
+               ("stablelm-12b", "full", 0.05), ("qwen1.5-110b", "full", 0.05)]
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 5
 TRAIN_FP32_BOUND = 1e-3
 PARITY_BATCH, PARITY_SEQ = 2, 1024
@@ -1599,7 +1753,7 @@ PARITY_BATCH, PARITY_SEQ = 2, 1024
 
 def parity_config(cfg, dtype: str):
     """The gradient-parity model: ``cfg`` at full width, in ``dtype``, cut
-    to 2 layers.  The hybrid keeps as many Mamba2 layers as it has shared
+    to 2 layers (or fewer, if ``cfg`` has fewer).  The hybrid keeps as many Mamba2 layers as it has shared
     blocks, each followed by one (``attn_every`` 1), so that each shared
     block, and the flash backward at its head dim, is applied once at the
     depth the bf16 bound was set at.  At zamba2's own ``attn_every`` (6)
@@ -1608,7 +1762,8 @@ def parity_config(cfg, dtype: str):
     layers, each path as near the fp32 gradients as the other:
     ``tools/train_parity.py``)."""
     if cfg.family != "hybrid":
-        return dataclasses.replace(cfg, n_layers=2, dtype=dtype)
+        return dataclasses.replace(cfg, n_layers=min(2, cfg.n_layers),
+                                   dtype=dtype)
     n = cfg.hybrid.n_shared_attn_blocks
     return dataclasses.replace(
         cfg, n_layers=n, dtype=dtype,
@@ -1683,14 +1838,58 @@ def grad_parity(cfg, remat: str, dtype: str) -> dict:
             "rel_err_by_leaf": rel}
 
 
+def grads_bit_identical(model, params, batch, remat: str) -> dict:
+    """One step's loss and gradients of the kernel path, twice from the same
+    weights and batch: whether the loss and every gradient leaf are
+    bit-identical (``torch.equal``), and where they are not, how far apart
+    (each leaf's largest difference over its largest magnitude)."""
+    runs = [value_and_grad(model, params, batch, remat=remat,
+                           use_kernel=True) for _ in range(2)]
+    (loss1, _, g1), (loss2, _, g2) = runs
+    leaves2 = dict(_named_leaves(g2))
+    differ = {}
+    for name, a in _named_leaves(g1):
+        b = leaves2[name]
+        if not torch.equal(a, b):
+            differ[name] = float((a.float() - b.float()).abs().max()) / max(
+                float(a.float().abs().max()), 1e-30)
+    del runs, g1, g2, leaves2
+    torch.cuda.empty_cache()
+    worst = max(differ, key=differ.get) if differ else None
+    return {"bit_identical": torch.equal(loss1, loss2) and not differ,
+            "losses": [float(loss1), float(loss2)],
+            "leaves_differing": len(differ),
+            "max_rel_diff": differ[worst] if worst else 0.0,
+            "worst_leaf": worst}
+
+
+def determinism(cfg, remat: str, model, params, batch) -> dict:
+    """:func:`grads_bit_identical` at full width (the train path's own model,
+    bf16) and at :func:`parity_config`'s cut in fp32, where the FMA
+    backward bodies still sum dQ (flash) and dcum, dB and dC (SSD) with
+    atomics."""
+    out = {"bf16": grads_bit_identical(model, params, batch, remat)}
+    cfg_s = parity_config(cfg, "float32")
+    model_s = build_model(cfg_s)
+    params_s = model_s.init(SEED)
+    out["fp32"] = grads_bit_identical(
+        model_s, params_s, random_batch(cfg.vocab_size, PARITY_BATCH,
+                                        PARITY_SEQ), remat)
+    out["fp32"]["layers"] = cfg_s.n_layers
+    del params_s
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_train(arch: str, remat: str, bf16_bound: float) -> dict:
-    """``arch`` at full width and depth, bf16, random weights from the seed,
-    through ``make_train_step(use_kernel=True)`` with the reference's AdamW
-    defaults: TRAIN_STEPS steps on one repeated batch of random tokens
-    (one cold, then warm), each timed by CUDA events, with every kernel's
+    """``arch`` at full width and depth, or its :data:`DEPTH_CUTS`, bf16,
+    random weights from the seed, through ``make_train_step(use_kernel=
+    True)`` with the reference's AdamW defaults: first :func:`determinism`,
+    then TRAIN_STEPS steps on one repeated batch of random tokens (one
+    cold, then warm), each timed by CUDA events, with every kernel's
     launches counted over them; then the gradient parity of the kernel path
     against the plain one, in fp32 and in bf16."""
-    cfg = get_config(arch)
+    cfg = path_config(arch, "train")
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg)
     params = model.init(SEED)
@@ -1707,8 +1906,13 @@ def phase_train(arch: str, remat: str, bf16_bound: float) -> dict:
         raise AssertionError(f"{arch}: leaves without a gradient: {dead}")
     n_leaves = sum(1 for _ in _leaves(grads))
     del grads
+    torch.cuda.empty_cache()
+    repro = determinism(cfg, remat, model, params, batch)
 
-    step = make_train_step(model, opt_cfg, plan, use_kernel=True)
+    # the weights and moments donated to the step, as the reference's
+    # trainer donates them: one copy of each, updated in place
+    step = make_train_step(model, opt_cfg, plan, use_kernel=True,
+                           donate=True)
     opt = adamw.init(opt_cfg, params)
     ef = None                                # compress_scheme "none"
     losses, norms, times = [], [], []
@@ -1755,7 +1959,8 @@ def phase_train(arch: str, remat: str, bf16_bound: float) -> dict:
         p["rel_err_by_leaf"] = {k: v for k, v in sorted(
             p["rel_err_by_leaf"].items(), key=lambda kv: -kv[1])[:5]}
     return {"phase": "train", "arch": arch, "dtype": cfg.dtype,
-            "n_layers": cfg.n_layers, "n_params": n_params,
+            "n_layers": cfg.n_layers, "depth_cut": depth_cut(arch, "train"),
+            "n_params": n_params,
             "n_leaves": n_leaves, "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
             "remat": remat, "optimizer": dataclasses.asdict(opt_cfg),
             "losses": losses, "grad_norms": norms, "step_ms": times,
@@ -1764,7 +1969,8 @@ def phase_train(arch: str, remat: str, bf16_bound: float) -> dict:
             "matmul_epilogue_bodies": bodies,
             "max_memory_allocated_bytes": peak,
             "gradient_parity": parity,
-            "fp32_bound": TRAIN_FP32_BOUND, "bf16_bound": bf16_bound}
+            "fp32_bound": TRAIN_FP32_BOUND, "bf16_bound": bf16_bound,
+            "determinism": repro}
 
 
 # ---------------------------------------------------------------------------
@@ -1859,8 +2065,8 @@ def phase_estimate(serve: dict, train: dict) -> dict:
         shape = {"batch": len(run["prompt_lens"]),
                  "prompt_len": max(run["prompt_lens"]),
                  "max_len": run["max_len"]}
-        est = {**shape, **bench_accuracy.serve_estimates(get_config(arch),
-                                                         **shape)}
+        est = {**shape, **bench_accuracy.serve_estimates(
+            path_config(arch, "serve"), **shape)}
         for key in ("prefill", "decode"):
             warm, cold = (_measured_ms(run[r], key)
                           for r in ("static_again", "static"))
@@ -1875,7 +2081,7 @@ def phase_estimate(serve: dict, train: dict) -> dict:
     train_rows = {}
     for arch, run in train.items():
         est = bench_accuracy.train_estimates(
-            get_config(arch), run["batch"], run["seq_len"],
+            path_config(arch, "train"), run["batch"], run["seq_len"],
             ShardingPlan(name="dp", remat=run["remat"]))
         _check_estimates(f"{arch} train", [est["total_ms"]])
         est["measured_ms"] = run["warm_median_step_ms"]
@@ -1914,8 +2120,8 @@ def phase_calibrate(estimate: dict, train: dict):
     for arch, run in train.items():
         t = time.perf_counter()
         comps = component_costs(
-            get_config(arch), ShapeConfig("h100_train", run["seq_len"],
-                                          run["batch"], "train"),
+            path_config(arch, "train"),
+            ShapeConfig("h100_train", run["seq_len"], run["batch"], "train"),
             ShardingPlan(name="dp", remat=run["remat"]))
         agg = aggregate(comps, cc)
         components[arch] = {
@@ -1934,6 +2140,7 @@ def phase_calibrate(estimate: dict, train: dict):
     return {"phase": "calibrate", "rows": bench_calibrate.rows(result),
             "factors": fit.factors, "residual": fit.residual,
             "samples": result["samples"], "arch_cells": result["arch_cells"],
+            "fit_features": result["features"],
             "drift": result["drift"],
             "median_uncal": result["median_uncal"],
             "median_cal": result["median_cal"],
@@ -1954,7 +2161,7 @@ def add_calibrated(estimate: dict, drift: dict, cc_cal) -> None:
             row["ratio_cal"] = drift[row["name"]]["ratio_cal"]
     for arch, est in estimate["serve"].items():
         cal = bench_accuracy.serve_estimates(
-            get_config(arch), est["batch"], est["prompt_len"],
+            path_config(arch, "serve"), est["batch"], est["prompt_len"],
             est["max_len"], cc=cc_cal)
         for key in ("prefill", "decode"):
             plans = {k: v for k, v in cal[key].items() if isinstance(v, dict)}
@@ -1965,7 +2172,7 @@ def add_calibrated(estimate: dict, drift: dict, cc_cal) -> None:
                                      for k, v in plans.items()}
     for arch, est in estimate["train"].items():
         cal = bench_accuracy.train_estimates(
-            get_config(arch), est["batch"], est["seq_len"],
+            path_config(arch, "train"), est["batch"], est["seq_len"],
             ShardingPlan(name="dp", remat=est["remat"]), cc=cc_cal)
         _check_estimates(f"{arch} train calibrated", [cal["total_ms"]])
         est["total_ms_cal"] = cal["total_ms"]
@@ -2020,6 +2227,7 @@ def main() -> None:
     ap.add_argument("--ptxas", action="store_true",
                     help="print each kernel's registers and shared memory")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs an NVIDIA GPU")
@@ -2061,6 +2269,12 @@ def main() -> None:
     for arch, remat, bf16_bound in TRAIN_PATHS:
         train[arch] = phase_train(arch, remat, bf16_bound)
         emit(train[arch])
+    # the bf16 backward bodies sum in a fixed order: a step repeats bit for bit
+    varying = {arch: run["determinism"]["bf16"] for arch, run in train.items()
+               if not run["determinism"]["bf16"]["bit_identical"]}
+    if varying:
+        raise AssertionError(f"bf16 train steps are not bit-identical on a "
+                             f"rerun: {varying}")
     if args.stop_after == "train":
         return
 
@@ -2103,6 +2317,30 @@ def main() -> None:
     ssd_times = times["ssd_scan"]
     ssd_times["zamba2"]["max_abs_err"] = err_of(ssd_cases,
                                                 "zamba2 main path")
+
+    def arch_launches(arch, kernel):
+        """The kernel's launches on ``arch``'s serve and train paths."""
+        return (serve[arch]["main_path_launches"][kernel]
+                + train[arch]["launches"][kernel])
+
+    times["flash_attention"]["d80"]["launches"] = arch_launches(
+        "zamba2-2.7b", "flash_attention")
+    ssd_times["zamba2"]["launches"] = arch_launches("zamba2-2.7b",
+                                                    "ssd_scan")
+    for arch in WIDE_ARCHS:
+        times["flash_attention"][arch].update(
+            max_abs_err=err_of(flash_cases, f"{arch} main path"),
+            launches=arch_launches(arch, "flash_attention"))
+        bwd_times[f"flash_attention_bwd {arch}"].update(
+            max_abs_err=err_of(flash_bwd_cases, f"{arch} main path"),
+            launches=train[arch]["launches"]["flash_attention_bwd"])
+        for kind in ("gate", "head"):
+            mm_times[f"{arch} {kind}"]["max_abs_err"] = err_of(
+                mm_cases, f"{arch} {kind} main path")
+        mm_times[f"{arch} gate"].update(
+            launches=arch_launches(arch, "matmul_epilogue"),
+            launches_note="every launch on the arch's serve and train "
+                          "paths, its gates and heads together")
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2138,7 +2376,9 @@ def main() -> None:
          "qwen_head": mm_times["qwen_head"],
          "mamba_head": mm_times["mamba_head"],
          "decode_gate": mm_times["decode_gate"],
-         "qwen_decode_gate": mm_times["qwen_decode_gate"]},
+         "qwen_decode_gate": mm_times["qwen_decode_gate"],
+         **{f"{a} {kind}": mm_times[f"{a} {kind}"] for a in WIDE_ARCHS
+            for kind in ("gate", "head")}},
         {"name": "flash_attention_bwd", "route": "cuda", "backward": True,
          "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
          "replaces": "src/repro/kernels/flash_attention.py:104",
@@ -2148,7 +2388,8 @@ def main() -> None:
          "d80": {**bwd_times["flash_attention_bwd_d80"],
                  "max_abs_err": err_of(flash_bwd_cases, "D = 80"),
                  "launches": train["zamba2-2.7b"]["launches"][
-                     "flash_attention_bwd"]}},
+                     "flash_attention_bwd"]},
+         **{a: bwd_times[f"flash_attention_bwd {a}"] for a in WIDE_ARCHS}},
         {"name": "ssd_scan_bwd", "route": "cuda", "backward": True,
          "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:102",
@@ -2160,6 +2401,7 @@ def main() -> None:
                     "launches": train["zamba2-2.7b"]["launches"][
                         "ssd_scan_bwd"]}},
     ]
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -6,14 +6,19 @@ microbenchmarks, one in each of the three shape classes of
 ``core.calibration`` (breakpoints 1e8 and 1e10 FLOPs); the streaming op
 ``a * 1.0001 + 1`` for the HBM fraction; the LinReg DS rows of
 :mod:`repro_torch.benchmarks.bench_accuracy` (measured once, by the caller
-or here); and the two smoke architectures' ``model.loss`` forward, costed
-through :func:`repro_torch.core.graph_cost.lower_and_cost` at full width
-and depth.  Then least-squares a
+or here); and the arch cells' ``model.loss`` forward (``ARCH_CELLS``: the
+two smoke architectures, and on the card qwen1.5-4b at two batch x
+length), costed through :func:`repro_torch.core.graph_cost.lower_and_cost`
+at full width and depth; the fit's feature matrix and its condition number
+(``calib.features`` rows).  Then least-squares a
 :class:`repro_torch.core.calibration.CalibrationProfile` and re-estimates
 every validation cell under ``cc.with_calibration(profile)``.
 
 Rows (the reference's):
   * ``calib.fit``            - fitted terms / residual / sample counts
+  * ``calib.features``       - the fit's term keys and condition numbers
+                               (the port's), then one row of features per
+                               accepted sample
   * ``calib.profile``        - the fitted factors themselves
   * ``calib.drift.<cell>``   - est/measured ratio, uncalibrated vs
                                calibrated, per validation cell
@@ -66,9 +71,14 @@ from repro_torch.models.model import build_model, require_device
 RATIO_BAND = (0.25, 4.0)
 
 # Square-matmul sides, one in each shape class (2n^3 FLOPs): on the card
-# 6.6e7 / 7.2e9 / 1.1e12, sizes whose bf16 products time steadily there; on
-# the CPU the reference's fp32 sides (3.4e7 / 9.1e8 / 1.3e10).
-MATMUL_SIDES = {"cuda": (320, 1536, 8192), "cpu": (256, 768, 1856)}
+# 6.6e7 / 9.2e9 / 1.1e12.  The small class (at most 1e8 FLOPs, 0.1 us at the
+# bf16 peak) never times above the fixed 35 us of ``dispatch_latency`` with
+# the host on an H100, and the fitter rejects it; the medium side is the
+# largest multiple of 128 in its class (1664), whose bf16 product cleared
+# that latency there (37.8 us; 1536 read 33.1, and 1700, off the 128 grid,
+# 89.2: tools/calib_cells.py).  On the CPU the reference's fp32 sides
+# (3.4e7 / 9.1e8 / 1.3e10).
+MATMUL_SIDES = {"cuda": (320, 1664, 8192), "cpu": (256, 768, 1856)}
 MATMUL_SIDES_QUICK = (256, 768)
 STREAM_ELEMENTS = 48 * 2 ** 20          # fp32: 192 MB in, 192 MB out
 
@@ -76,7 +86,47 @@ STREAM_ELEMENTS = 48 * 2 ** 20          # fp32: 192 MB in, 192 MB out
 # width and depth, bf16, B 8 x S 2048 (the train phase's batch).
 SMOKE_ARCHS = ("qwen1.5-0.5b", "mamba2-1.3b")
 ARCH_BATCH = {"cuda": (8, 2048), "cpu": (2, 64)}
+# The arch cells (arch, batch, length), each the plain program's
+# ``model.loss`` forward as the reference harvests it.  On the CPU the
+# reference's two.  On the card those two at full width and 8 x 2048 share
+# nearly one mix of work (matmul over HBM seconds 0.042 and 0.046): the
+# fit's columns were nearly collinear (condition number 51 with each column
+# scaled to unit length), lstsq drove the bf16 term negative and the gate
+# failed.  qwen1.5-4b, whose wider layers raise the matmul share, at 8 x
+# 2048 (0.107) and 64 x 256 (0.201, fewer S^2 bytes of the plain path's
+# attention) brings that number to 4.1 (tools/calib_cells.py on an H100).
+ARCH_CELLS = {
+    "cuda": tuple((a, *ARCH_BATCH["cuda"]) for a in SMOKE_ARCHS)
+    + (("qwen1.5-4b", *ARCH_BATCH["cuda"]), ("qwen1.5-4b", 64, 256)),
+    "cpu": tuple((a, *ARCH_BATCH["cpu"]) for a in SMOKE_ARCHS)}
 SEED = 0
+
+
+def cell_name(arch_id: str, batch: int, seq: int, device_type: str) -> str:
+    """An arch cell's name: the arch id at the device's own batch x length
+    (the reference's cells), else ``arch@BxS``."""
+    if (batch, seq) == ARCH_BATCH[device_type]:
+        return arch_id
+    return f"{arch_id}@{batch}x{seq}"
+
+
+def feature_matrix(samples: Sequence[CalibrationSample]):
+    """The matrix ``fit_profile`` least-squares: its term keys, the labels of
+    the samples it accepts, one row of features each, and the matrix's
+    condition number, raw and with every column scaled to unit length (the
+    second is blind to the terms' units and reads how nearly collinear the
+    columns are)."""
+    rows = [s for s in samples if not s.polluted and s.features
+            and s.measured_seconds - s.fixed_seconds > 0]
+    keys = sorted({k for s in rows for k, v in s.features.items() if v > 0})
+    x = np.array([[s.features.get(k, 0.0) for k in keys] for s in rows],
+                 dtype=float).reshape(len(rows), len(keys))
+    norms = np.linalg.norm(x, axis=0)
+    cond = float(np.linalg.cond(x)) if x.size else float("nan")
+    cond_scaled = (float(np.linalg.cond(x / np.where(norms > 0, norms, 1.0)))
+                   if x.size else float("nan"))
+    return {"keys": keys, "labels": [s.label for s in rows],
+            "matrix": x.tolist(), "cond": cond, "cond_scaled": cond_scaled}
 
 
 def _sync(dev: torch.device) -> None:
@@ -168,14 +218,14 @@ def _linreg_cell(row: dict, cc) -> CalibrationSample:
         label=f"linreg:{sc.name}")
 
 
-def _arch_cell(arch_id: str, cc, reps: int, dev: torch.device):
-    """One smoke arch's ``model.loss`` forward under ``no_grad`` on the
-    plain path, traced and costed, then timed on the same inputs; the real
-    run's peak memory beside the trace's."""
+def _arch_cell(arch_id: str, cc, reps: int, dev: torch.device,
+               batch: int, seq: int):
+    """One arch's ``model.loss`` forward under ``no_grad`` on the plain path
+    at ``batch`` x ``seq``, traced and costed, then timed on the same
+    inputs; the real run's peak memory beside the trace's."""
     cfg = get_config(arch_id)
     if dev.type != "cuda":
         cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
-    batch, seq = ARCH_BATCH[dev.type]
     model = build_model(cfg, device=dev)
     params = model.init(SEED)
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -188,8 +238,9 @@ def _arch_cell(arch_id: str, cc, reps: int, dev: torch.device):
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    sample, cost, info = _graph_sample(f"arch:{arch_id}", loss,
-                                       (params, tokens), cc, reps, dev)
+    sample, cost, info = _graph_sample(
+        f"arch:{cell_name(arch_id, batch, seq, dev.type)}", loss,
+        (params, tokens), cc, reps, dev)
     info.update(batch=[batch, seq], dtype=cfg.dtype,
                 n_layers=cfg.n_layers, d_model=cfg.d_model,
                 peak_memory_bytes_trace=cost.peak_memory_bytes,
@@ -271,22 +322,15 @@ def calibrate(device="cuda", quick: bool = False,
         samples.append(s)
         cells[row["name"]] = (lambda c, sc=_scenario(row):
                               _linreg_estimate(sc, c), s.measured_seconds)
-    for arch_id in SMOKE_ARCHS:
-        s, cost, info = _arch_cell(arch_id, cc, reps, dev)
+    for arch_id, batch, seq in ARCH_CELLS[dev.type]:
+        name = cell_name(arch_id, batch, seq, dev.type)
+        s, cost, info = _arch_cell(arch_id, cc, reps, dev, batch, seq)
         _check_sample(s, cell=True)
         samples.append(s)
-        cells[arch_id] = (lambda c, cost=cost: _arch_estimate(cost, c),
-                          s.measured_seconds)
-        arch_info[arch_id] = {"flops": cost.flops_per_device,
-                              "bytes": cost.bytes_per_device, **info}
-
-    fit = fit_profile(samples, chip_name=cc.chip.name)
-    cc_cal = cc.with_calibration(fit.profile)
-    drift = {}
-    for name, (est_fn, measured) in cells.items():
-        drift[name] = {"measured_s": measured,
-                       "ratio_uncal": est_fn(cc) / measured,
-                       "ratio_cal": est_fn(cc_cal) / measured}
+        cells[name] = (lambda c, cost=cost: _arch_estimate(cost, c),
+                       s.measured_seconds)
+        arch_info[name] = {"flops": cost.flops_per_device,
+                           "bytes": cost.bytes_per_device, **info}
     return {
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
@@ -296,19 +340,42 @@ def calibrate(device="cuda", quick: bool = False,
                      "fixed_s": s.fixed_seconds, "polluted": s.polluted}
                     for s in samples],
         "arch_cells": arch_info,
-        "fit": fit, "cc_cal": cc_cal, "drift": drift,
-        **gate([d["ratio_uncal"] for d in drift.values()],
-               [d["ratio_cal"] for d in drift.values()]),
+        **fit_and_gate(samples, cells, cc),
         "seconds": time.perf_counter() - t_start}
+
+
+def fit_and_gate(samples: Sequence[CalibrationSample],
+                 cells: Dict[str, Tuple[Callable, float]], cc) -> dict:
+    """The fit over ``samples`` and each validation cell's drift under it:
+    ``cells`` maps a cell's name to (its estimate under a config, its
+    measured seconds).  Returns the fit, the calibrated config, the drift,
+    the gate and the fit's feature matrix (:func:`feature_matrix`)."""
+    fit = fit_profile(samples, chip_name=cc.chip.name)
+    cc_cal = cc.with_calibration(fit.profile)
+    drift = {}
+    for name, (est_fn, measured) in cells.items():
+        drift[name] = {"measured_s": measured,
+                       "ratio_uncal": est_fn(cc) / measured,
+                       "ratio_cal": est_fn(cc_cal) / measured}
+    return {"fit": fit, "cc_cal": cc_cal, "drift": drift,
+            "features": feature_matrix(samples),
+            **gate([d["ratio_uncal"] for d in drift.values()],
+                   [d["ratio_cal"] for d in drift.values()])}
 
 
 def rows(result: dict) -> List[str]:
     """The reference's rows of one :func:`calibrate` result."""
     fit = result["fit"]
+    feats = result["features"]
     out = [f"calib.fit,0,terms={len(fit.factors)};"
            f"residual={fit.residual:.3f};samples={fit.n_samples};"
            f"rejected={fit.n_rejected}",
-           f"calib.profile,0,{fit.profile.describe()}"]
+           f"calib.features,0,keys={'/'.join(feats['keys'])};"
+           f"cond={feats['cond']:.4g};cond_scaled={feats['cond_scaled']:.4g}"]
+    for label, row in zip(feats["labels"], feats["matrix"]):
+        out.append(f"calib.features.{label},0," + ";".join(
+            f"{k}={v:.4g}" for k, v in zip(feats["keys"], row) if v > 0))
+    out.append(f"calib.profile,0,{fit.profile.describe()}")
     for name, d in result["drift"].items():
         out.append(f"calib.drift.{name},0,ratio_uncal={d['ratio_uncal']:.3f};"
                    f"ratio_cal={d['ratio_cal']:.3f}")

@@ -20,6 +20,9 @@ _MODULES = {
     "qwen1.5-0.5b": "repro_torch.configs.qwen15_0p5b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1p3b",
     "zamba2-2.7b": "repro_torch.configs.zamba2_2p7b",
+    "qwen1.5-4b": "repro_torch.configs.qwen15_4b",
+    "stablelm-12b": "repro_torch.configs.stablelm_12b",
+    "qwen1.5-110b": "repro_torch.configs.qwen15_110b",
 }
 
 PORTED_ARCH_IDS: List[str] = list(_MODULES)

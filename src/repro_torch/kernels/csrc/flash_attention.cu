@@ -15,15 +15,11 @@
 // row) strides with a unit stride along D, and masks the ragged edge
 // itself: Sq and Skv are arbitrary.
 //
-// Three bodies, chosen by the wrapper from the type and D:
-//   * bf16, D = 64 and 80 (every served shape): wgmma + TMA, warp-specialised,
-//     128 query rows and KV tiles of 128 keys; see its section below.
-//   * bf16, D = 32 and 128: `mma.sync.m16n8k16`, 4 warps with 16 or 32
-//     query rows each and KV tiles of 64 keys, double-buffered with
-//     `cp.async` into padded shared-memory rows; the S fragments are re-packed
-//     in registers as the A operand of P.V, K and V fragments come from
-//     `ldmatrix`.  A warp skips a tile outside the band of its own rows and
-//     drops the mask arithmetic on a tile wholly inside it.
+// Two bodies, chosen by the wrapper from the type:
+//   * bf16, every head dim (32, 64, 80, 128, 160): wgmma + TMA,
+//     warp-specialised, 128 query rows and KV tiles of 128 keys, the operands
+//     split along D into 64-column parts and one narrow part; see its
+//     section below.
 //   * fp32: fp32 FMA on shared-memory tiles, 16x16 threads with a 4x4
 //     micro-tile of S each.  Full fp32 products, no TF32: the reference holds
 //     fp32 to rtol 2e-5.
@@ -94,69 +90,8 @@ __device__ __forceinline__ bool in_band(const Params& p, int q_pos, int k_pos) {
   return ok;
 }
 
-// ---------------------------------------------------------------------------
-// bf16 body: mma.sync m16n8k16
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t smem_addr(const void* smem_ptr) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(smem_ptr));
-}
-
-// Four 8x8 bf16 matrices; lane l gives the address of row l % 8 of matrix
-// l / 8 and receives elements (l % 4) * 2, +1 of row l / 4 of each matrix.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* smem_ptr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(smem_ptr)));
-}
-
-// The same with each matrix transposed on the way.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* smem_ptr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(smem_ptr)));
-}
-
-// Starts the asynchronous copy of rows [row0, row0 + ROWS) x D of a bf16
-// matrix with row stride `stride` into shared memory with row stride LD;
-// rows beyond `n_rows` are filled with zeros.  The caller commits and waits.
-template <int D, int LD, int ROWS>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* src,
-                                                long long stride, int row0,
-                                                int n_rows) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < ROWS * CH; idx += blockDim.x) {
-    const int r = idx / CH, c = idx % CH;
-    const int row = row0 + r;
-    const bool ok = row < n_rows;
-    const __nv_bfloat16* g = src + (ok ? row : 0) * stride + c * 8;
-    const int bytes = ok ? 16 : 0;  // 0: nothing is read, 16 zeros are written
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_addr(dst + r * LD + c * 8)),
-                 "l"(g), "r"(bytes));
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // One online-softmax step on a warp's 16 x (8 * NT) score fragment: rows g and
@@ -233,224 +168,29 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NT][4],
   }
 }
 
-// 4 warps; warp w owns the MT 16-row tiles [w * 16 * MT, (w + 1) * 16 * MT) of
-// the block's 64 * MT query rows, so that a K or V fragment read from shared
-// memory feeds MT tensor-core instructions.  K/V tiles are double-buffered
-// with cp.async: tile kt + 1 is in flight while tile kt is multiplied.
-template <int D, int MT>
-__global__ void __launch_bounds__(128) flash_fwd_bf16_mma(const Params p) {
-  static_assert(D % 32 == 0, "k-steps are taken two at a time");
-  constexpr int BQM = 64 * MT;
-  constexpr int LD = D + 8;   // padded row: fragment loads are conflict-free
-  constexpr int KS = D / 16;  // k-steps of Q.K^T
-  constexpr int NT = BK / 8;  // n-tiles of S
-  constexpr int DT = D / 8;   // n-tiles of O
-  constexpr float LOG2E = 1.4426950408889634f;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + BQM * LD;      // [2][BK][LD]
-  __nv_bfloat16* sV = sK + 2 * BK * LD;   // [2][BK][LD]
-
-  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (p.Hq / p.Hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-
-  const __nv_bfloat16* qp =
-      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kp =
-      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* vp =
-      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  __nv_bfloat16* op =
-      static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
-
-  const int q_lo = qt * BQM;
-  const int q_hi = min(q_lo + BQM, p.Sq) - 1;
-  int kt_lo, kt_hi;
-  band_tiles(p, q_lo, q_hi, BK, kt_lo, kt_hi);
-  // this warp's rows, for skipping tiles that lie outside its own band
-  const int wq_lo = q_lo + warp * 16 * MT;
-  const int wq_hi = wq_lo + 16 * MT - 1;
-
-  float oacc[MT][DT][4];
-  float m_run[MT][2], l_run[MT][2];  // rows g and g + 8 of each m-tile;
-#pragma unroll                       // l: this thread's share of the row sum
-  for (int mt = 0; mt < MT; ++mt) {
-    m_run[mt][0] = m_run[mt][1] = NEG_INF;
-    l_run[mt][0] = l_run[mt][1] = 0.f;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-      oacc[mt][dt][0] = oacc[mt][dt][1] = oacc[mt][dt][2] = oacc[mt][dt][3] =
-          0.f;
-  }
-
-  load_tile_async<D, LD, BQM>(sQ, qp, p.q_ss, q_lo, p.Sq);
-  if (kt_lo < kt_hi) {
-    load_tile_async<D, LD, BK>(sK, kp, p.k_ss, kt_lo * BK, p.Skv);
-    load_tile_async<D, LD, BK>(sV, vp, p.v_ss, kt_lo * BK, p.Skv);
-  }
-  cp_async_commit();
-
-  uint32_t qf[MT][KS][4];
-  const float scale2 = p.scale * LOG2E;  // softmax in base 2: exp2(s2 - m2)
-
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k_lo = kt * BK;
-    const int stage = (kt - kt_lo) & 1;
-    if (kt + 1 < kt_hi) {
-      load_tile_async<D, LD, BK>(sK + (stage ^ 1) * BK * LD, kp, p.k_ss,
-                                 k_lo + BK, p.Skv);
-      load_tile_async<D, LD, BK>(sV + (stage ^ 1) * BK * LD, vp, p.v_ss,
-                                 k_lo + BK, p.Skv);
-      cp_async_commit();
-      cp_async_wait<1>();  // tile kt (and Q) have landed
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    if (kt == kt_lo) {
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const __nv_bfloat16* base =
-            sQ + (warp * 16 * MT + mt * 16 + g) * LD + tig * 2;
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          qf[mt][ks][0] = *reinterpret_cast<const uint32_t*>(base + ks * 16);
-          qf[mt][ks][1] =
-              *reinterpret_cast<const uint32_t*>(base + 8 * LD + ks * 16);
-          qf[mt][ks][2] =
-              *reinterpret_cast<const uint32_t*>(base + ks * 16 + 8);
-          qf[mt][ks][3] =
-              *reinterpret_cast<const uint32_t*>(base + 8 * LD + ks * 16 + 8);
-        }
-      }
-    }
-
-    bool live = wq_lo < p.Sq;
-    if (p.causal) live = live && (k_lo <= wq_hi);
-    if (p.window > 0) live = live && (k_lo + BK - 1 > wq_lo - p.window);
-    if (live) {  // warp-uniform
-      const __nv_bfloat16* tK = sK + stage * BK * LD;
-      const __nv_bfloat16* tV = sV + stage * BK * LD;
-
-      float sacc[MT][NT][4];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-          sacc[mt][nt][0] = sacc[mt][nt][1] = sacc[mt][nt][2] =
-              sacc[mt][nt][3] = 0.f;
-#pragma unroll
-        for (int ks = 0; ks + 1 < KS; ks += 2) {
-          uint32_t kf[4];  // b0, b1 of k-step ks, then of k-step ks + 1
-          ldmatrix_x4(kf, tK + (nt * 8 + (lane & 7)) * LD + ks * 16 +
-                              (lane >> 3) * 8);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            mma_16816(sacc[mt][nt], qf[mt][ks], kf[0], kf[1]);
-            mma_16816(sacc[mt][nt], qf[mt][ks + 1], kf[2], kf[3]);
-          }
-        }
-      }
-
-      // Tiles wholly inside the band of this warp's rows skip the mask.
-      bool need_mask = k_lo + BK > p.Skv || scale2 <= 0.f;
-      if (p.causal) need_mask = need_mask || (k_lo + BK - 1 > wq_lo);
-      if (p.window > 0) need_mask = need_mask || (k_lo <= wq_hi - p.window);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        float alpha[2];
-        if (need_mask)
-          softmax_tile<true, NT>(sacc[mt], m_run[mt], l_run[mt], alpha, p,
-                                 scale2, wq_lo + mt * 16 + g,
-                                 k_lo + tig * 2);
-        else
-          softmax_tile<false, NT>(sacc[mt], m_run[mt], l_run[mt], alpha, p,
-                                  scale2, 0, 0);
-#pragma unroll
-        for (int dt = 0; dt < DT; ++dt) {
-          oacc[mt][dt][0] *= alpha[0];
-          oacc[mt][dt][1] *= alpha[0];
-          oacc[mt][dt][2] *= alpha[1];
-          oacc[mt][dt][3] *= alpha[1];
-        }
-      }
-
-      // O += P.V : the S fragments of two neighbouring n-tiles are the A
-      // fragment of one 16-key step.
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t pf[MT][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          pf[mt][0] = pack_bf16(sacc[mt][2 * kk][0], sacc[mt][2 * kk][1]);
-          pf[mt][1] = pack_bf16(sacc[mt][2 * kk][2], sacc[mt][2 * kk][3]);
-          pf[mt][2] =
-              pack_bf16(sacc[mt][2 * kk + 1][0], sacc[mt][2 * kk + 1][1]);
-          pf[mt][3] =
-              pack_bf16(sacc[mt][2 * kk + 1][2], sacc[mt][2 * kk + 1][3]);
-        }
-#pragma unroll
-        for (int dt = 0; dt < DT; dt += 2) {
-          uint32_t vf[4];  // b0, b1 of n-tile dt, then of n-tile dt + 1
-          ldmatrix_x4_trans(vf, tV + (kk * 16 + (lane & 15)) * LD + dt * 8 +
-                                    (lane >> 4) * 8);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            mma_16816(oacc[mt][dt], pf[mt], vf[0], vf[1]);
-            mma_16816(oacc[mt][dt + 1], pf[mt], vf[2], vf[3]);
-          }
-        }
-      }
-    }
-    __syncthreads();  // everyone is done with this stage before it is refilled
-  }
-  cp_async_wait<0>();  // (no KV tile at all: the Q copy is still in flight)
-
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float l = l_run[mt][r];
-      l += __shfl_xor_sync(0xffffffffu, l, 1);
-      l += __shfl_xor_sync(0xffffffffu, l, 2);
-      const float inv = 1.f / fmaxf(l, 1e-30f);
-      const int row = wq_lo + mt * 16 + g + r * 8;
-      if (row < p.Sq) {
-        __nv_bfloat16* orow = op + row * p.o_ss + tig * 2;
-#pragma unroll
-        for (int dt = 0; dt < DT; ++dt) {
-          *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8) =
-              __floats2bfloat162_rn(oacc[mt][dt][2 * r] * inv,
-                                    oacc[mt][dt][2 * r + 1] * inv);
-        }
-      }
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// bf16 body for D = 64 and 80: wgmma + TMA, warp-specialised
+// bf16 body: wgmma + TMA, warp-specialised, every head dim
 // ---------------------------------------------------------------------------
 //
 // 384 threads: warpgroups 0 and 1 consume, 64 query rows each (128 a
 // block); warpgroup 2 produces, one thread issuing TMA loads of K and V
-// tiles of 128 keys into a ring of four stages, with an mbarrier for "full"
-// (K and V apart, so Q.K^T starts before V has landed) and one for "empty"
-// per stage.  The producer gives its registers to the consumers
-// (`setmaxnreg`).  S = Q.K^T is one wgmma.m64n128k16 per 16-deep step,
-// both operands in shared memory; P (the fp32 S accumulator rounded to
-// bf16) stays in registers, where it has the layout of wgmma's register A
-// operand, and O += P.V takes V as an MN-major B operand (the transpose bit).
-// Rows of 128 bytes (D = 64) are loaded with a 128-byte swizzle.  D = 80 is
-// split along D: columns 0-63 with the 128-byte swizzle, columns 64-79 (32
-// bytes a row) with the 32-byte swizzle, each with its own tensor maps and
-// descriptors: the fifth k-step of Q.K^T and an n16 product of P.V read the
-// narrow part.  TMA fills rows past the end with zeros; keys >= Skv are
-// masked, rows >= Sq are not stored.
+// tiles of 128 keys into a ring of stages (`fwd_stages`: four up to D = 80,
+// three at 128, two at 160, as many as 227 KB of shared memory hold), with
+// an mbarrier for "full" (K and V apart, so Q.K^T starts before V has
+// landed) and one for "empty" per stage.  The producer gives its registers
+// to the consumers (`setmaxnreg`).  S = Q.K^T is one wgmma.m64n128k16 per
+// 16-deep step, both operands in shared memory; P (the fp32 S accumulator
+// rounded to bf16) stays in registers, where it has the layout of wgmma's
+// register A operand, and O += P.V takes V as an MN-major B operand (the
+// transpose bit).  Every operand is split along D (`ColSplit`): parts of 64
+// columns with the 128-byte swizzle (D = 64 one, 128 two, 160 two) and one
+// narrow part of 16 columns with the 32-byte swizzle (D = 80) or of 32 with
+// the 64-byte swizzle (D = 32, 160), each with its own descriptors: a part
+// of 64 columns is four k-steps of Q.K^T and an n64 product of P.V, the
+// narrow part one or two k-steps and an n16 or n32 product.  O is 64 x D
+// fp32 a warpgroup (D / 2 registers a thread).  TMA fills rows past the end
+// with zeros; keys >= Skv are masked, rows >= Sq are not stored.  Every D
+// writes the row log-sum-exp when asked.
 //
 // What bounds it, measured on the H100 (PERF.md): the exponentials and the
 // other softmax work of two warps a scheduler, and at D = 80 the K/V bytes
@@ -467,10 +207,20 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16_mma(const Params p) {
 
 constexpr int WG_BQ = 128;  // query rows a block
 constexpr int WG_BK = 128;  // keys a KV tile
-constexpr int WG_STAGES = 4;
 constexpr int WG_THREADS = 384;
 
-struct TmaMaps {  // [0]: columns 0-63; [1]: columns 64-79 (D = 80 only)
+// stages of the K/V ring: as many as fit beside Q in 227 KB
+__host__ __device__ constexpr int fwd_stages(int d) {
+  return d <= 80 ? 4 : d <= 128 ? 3 : 2;
+}
+
+template <int D>
+constexpr int fwd_smem_bytes() {
+  return 1024 + 2 * (WG_BQ + 2 * fwd_stages(D) * WG_BK) * D +
+         8 * (2 + 3 * fwd_stages(D)) + 8;
+}
+
+struct TmaMaps {  // [0]: the 64-column parts; [1]: the narrow part
   CUtensorMap q[2], k[2], v[2];
 };
 
@@ -549,28 +299,26 @@ template <int D>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     flash_fwd_bf16_wgmma(const __grid_constant__ TmaMaps maps,
                          const Params p, int* next_item) {
-  constexpr bool SPLIT = D == 80;
-  constexpr int DB = D - 64;                       // narrow part: 0 or 16
-  constexpr int QA = WG_BQ * 64 * 2, KVA = WG_BK * 64 * 2;  // bytes
-  constexpr int QB = WG_BQ * DB * 2, KVB = WG_BK * DB * 2;
+  using CS = ColSplit<D>;
+  constexpr int NF = CS::NF, DB = CS::DB;
+  constexpr int STAGES = fwd_stages(D);
+  constexpr int QT = WG_BQ * D * 2, KT = WG_BK * D * 2;  // tile bytes
+  constexpr int QN = CS::narrow_at(WG_BQ), KN = CS::narrow_at(WG_BK);
   constexpr float LOG2E = 1.4426950408889634f;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // tiles at 1024-byte boundaries, as the 128-byte swizzle wants
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
-  const uint32_t sQA = base;
-  const uint32_t sKA = sQA + QA;                   // [stage]
-  const uint32_t sVA = sKA + WG_STAGES * KVA;      // [stage]
-  const uint32_t sQB = sVA + WG_STAGES * KVA;
-  const uint32_t sKB = sQB + QB;
-  const uint32_t sVB = sKB + WG_STAGES * KVB;
-  const uint32_t bars = sVB + WG_STAGES * KVB;
+  const uint32_t sQ = base;
+  const uint32_t sK = sQ + QT;                // [stage]
+  const uint32_t sV = sK + STAGES * KT;       // [stage]
+  const uint32_t bars = sV + STAGES * KT;
   const uint32_t q_full = bars, q_empty = bars + 8;
   auto k_full = [&](int s) { return bars + 8 * (2 + s); };
-  auto v_full = [&](int s) { return bars + 8 * (2 + WG_STAGES + s); };
-  auto kv_empty = [&](int s) { return bars + 8 * (2 + 2 * WG_STAGES + s); };
+  auto v_full = [&](int s) { return bars + 8 * (2 + STAGES + s); };
+  auto kv_empty = [&](int s) { return bars + 8 * (2 + 2 * STAGES + s); };
   // the item of the n-th round in slot n % 2, -1 when there is none
   volatile int* s_item = reinterpret_cast<volatile int*>(
-      smem_raw + (bars + 8 * (2 + 3 * WG_STAGES) - smem_addr(smem_raw)));
+      smem_raw + (bars + 8 * (2 + 3 * STAGES) - smem_addr(smem_raw)));
   const int nqt = (p.Sq + WG_BQ - 1) / WG_BQ;
   const int n_items = nqt * p.Hq * p.B;
   const int band = max(1, (int)gridDim.x / nqt);
@@ -578,7 +326,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     mbar_init(q_empty, 8);  // one arrival per consumer warp
-    for (int s = 0; s < WG_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(k_full(s), 1);
       mbar_init(v_full(s), 1);
       mbar_init(kv_empty(s), 8);
@@ -589,9 +337,16 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
-    // producer: one thread issues every load
+    // producer: one thread issues every load; a tile's parts side by side
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 256) {
+      auto load = [&](uint32_t dst, const CUtensorMap* m, uint32_t bar,
+                      int rows, int row, int h, int b) {
+        for (int f = 0; f < NF; ++f)
+          tma_load_4d(dst + f * rows * 128, &m[0], bar, 64 * f, row, h, b);
+        if constexpr (DB > 0)
+          tma_load_4d(dst + CS::narrow_at(rows), &m[1], bar, 0, row, h, b);
+      };
       int it = 0;  // tiles loaded so far, over all items
       for (int n = 0;; ++n) {
         const int j = atomicAdd(next_item, 1);
@@ -603,27 +358,16 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         }
         const WorkItem w = work_item(p, j, band);
         const int kvh = w.h / (p.Hq / p.Hkv);
-        mbar_expect_tx(q_full, QA + QB);
-        tma_load_4d(sQA, &maps.q[0], q_full, 0, w.q_lo, w.h, w.b);
-        if constexpr (SPLIT)
-          tma_load_4d(sQB, &maps.q[1], q_full, 0, w.q_lo, w.h, w.b);
+        mbar_expect_tx(q_full, QT);
+        load(sQ, maps.q, q_full, WG_BQ, w.q_lo, w.h, w.b);
         for (int kt = w.kt_lo; kt < w.kt_hi; ++kt, ++it) {
-          const int s = it % WG_STAGES;
-          if (it >= WG_STAGES)
-            mbar_wait(kv_empty(s), (it / WG_STAGES - 1) & 1);
+          const int s = it % STAGES;
+          if (it >= STAGES) mbar_wait(kv_empty(s), (it / STAGES - 1) & 1);
           const int k_lo = kt * WG_BK;
-          mbar_expect_tx(k_full(s), KVA + KVB);
-          tma_load_4d(sKA + s * KVA, &maps.k[0], k_full(s), 0, k_lo, kvh,
-                      w.b);
-          if constexpr (SPLIT)
-            tma_load_4d(sKB + s * KVB, &maps.k[1], k_full(s), 0, k_lo, kvh,
-                        w.b);
-          mbar_expect_tx(v_full(s), KVA + KVB);
-          tma_load_4d(sVA + s * KVA, &maps.v[0], v_full(s), 0, k_lo, kvh,
-                      w.b);
-          if constexpr (SPLIT)
-            tma_load_4d(sVB + s * KVB, &maps.v[1], v_full(s), 0, k_lo, kvh,
-                        w.b);
+          mbar_expect_tx(k_full(s), KT);
+          load(sK + s * KT, maps.k, k_full(s), WG_BK, k_lo, kvh, w.b);
+          mbar_expect_tx(v_full(s), KT);
+          load(sV + s * KT, maps.v, v_full(s), WG_BK, k_lo, kvh, w.b);
         }
       }
     }
@@ -632,14 +376,22 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
     const int t2 = (lane & 3) * 2;
     const float scale2 = p.scale * LOG2E;  // softmax in base 2
-    const uint32_t qa = sQA + wg * 64 * 128, qb = sQB + wg * 64 * 32;
+    // this warpgroup's 64 rows of Q: part f, and the narrow part
+    const uint32_t qa = sQ + wg * 64 * 128;
+    const uint32_t qb = sQ + QN + wg * 64 * CS::RB;
     // The two warpgroups take turns to issue their products (barrier 1 + wg
     // is this one's turn), so that one's softmax runs beside the other's
     // products.  Warpgroup 0 goes first.
     if (wg == 1) named_arrive(1);
-    float oa[8][4], ob[SPLIT ? 2 : 1][4];
+    float oa[NF > 0 ? NF : 1][8][4], ob[DB > 0 ? DB / 8 : 1][4];
     float m_run[2], l_run[2];
     uint32_t pf[8][4];
+    // every O accumulator, for the fences around the products
+    auto fence_o = [&]() {
+#pragma unroll
+      for (int f = 0; f < NF; ++f) fence_acc(oa[f]);
+      if constexpr (DB > 0) fence_acc(ob);
+    };
 
     int it = 0;  // tiles consumed so far, over all items
     for (int n = 0;; ++n) {
@@ -652,10 +404,12 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       const int row0 = wq_lo + warp * 16 + (lane >> 2);  // and row0 + 8
       const int n_tiles = w.kt_hi - w.kt_lo;
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        oa[i][0] = oa[i][1] = oa[i][2] = oa[i][3] = 0.f;
+      for (int f = 0; f < NF; ++f)
 #pragma unroll
-      for (int i = 0; i < (SPLIT ? 2 : 1); ++i)
+        for (int i = 0; i < 8; ++i)
+          oa[f][i][0] = oa[f][i][1] = oa[f][i][2] = oa[f][i][3] = 0.f;
+#pragma unroll
+      for (int i = 0; i < (DB > 0 ? DB / 8 : 1); ++i)
         ob[i][0] = ob[i][1] = ob[i][2] = ob[i][3] = 0.f;
       m_run[0] = m_run[1] = NEG_INF;
       l_run[0] = l_run[1] = 0.f;
@@ -664,17 +418,26 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       // has an accumulator of its own, declared where it is issued: one
       // array reused across tiles makes ptxas serialize every wgmma.
       auto issue_s = [&](float (&sacc)[16][4], int i) {
-        const int s = (it + i) % WG_STAGES;
-        mbar_wait(k_full(s), ((it + i) / WG_STAGES) & 1);
+        const int s = (it + i) % STAGES;
+        const uint32_t k = sK + s * KT;
+        mbar_wait(k_full(s), ((it + i) / STAGES) & 1);
         wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < 4; ++ks)
-          wgmma_ss_n128(sacc, wg_desc(qa + ks * 32, 16, 1024, SW128),
-                        wg_desc(sKA + s * KVA + ks * 32, 16, 1024, SW128),
-                        ks);
-        if constexpr (SPLIT)
-          wgmma_ss_n128(sacc, wg_desc(qb, 16, 256, SW32),
-                        wg_desc(sKB + s * KVB, 16, 256, SW32), 1);
+        for (int f = 0; f < NF; ++f)
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            wgmma_ss_n128(
+                sacc, wg_desc(qa + f * WG_BQ * 128 + ks * 32, 16, 1024, SW128),
+                wg_desc(k + f * WG_BK * 128 + ks * 32, 16, 1024, SW128),
+                f + ks);
+        if constexpr (DB > 0) {
+#pragma unroll
+          for (int ks = 0; ks < DB / 16; ++ks)
+            wgmma_ss_n128(sacc,
+                          wg_desc(qb + ks * 32, 16, CS::SBO, CS::LAYOUT),
+                          wg_desc(k + KN + ks * 32, 16, CS::SBO, CS::LAYOUT),
+                          NF + ks);
+        }
         wgmma_commit();
       };
       // the online softmax of tile i on its S; returns the rescale factors
@@ -724,33 +487,34 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       }
       // O += P V of tile i, P from pf (issued and committed)
       auto issue_pv = [&](int i) {
-        const int s = (it + i) % WG_STAGES;
-        mbar_wait(v_full(s), ((it + i) / WG_STAGES) & 1);
-        fence_acc(oa);
-        if constexpr (SPLIT) fence_acc(ob);
+        const int s = (it + i) % STAGES;
+        const uint32_t v = sV + s * KT;
+        mbar_wait(v_full(s), ((it + i) / STAGES) & 1);
+        fence_o();
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 8; ++kk) {
-          wgmma_rs_n64(oa, pf[kk],
-                       wg_desc(sVA + s * KVA + kk * 16 * 128, 16, 1024,
-                               SW128));
-          if constexpr (SPLIT)
-            wgmma_rs_n16(ob, pf[kk],
-                         wg_desc(sVB + s * KVB + kk * 16 * 32, 16, 256,
-                                 SW32));
+#pragma unroll
+          for (int f = 0; f < NF; ++f)
+            wgmma_rs_n64(oa[f], pf[kk],
+                         wg_desc(v + f * WG_BK * 128 + kk * 16 * 128, 16,
+                                 1024, SW128));
+          if constexpr (DB > 0)
+            wgmma_rs_narrow<DB>(ob, pf[kk],
+                                wg_desc(v + KN + kk * 16 * CS::RB, 16,
+                                        CS::SBO, CS::LAYOUT));
         }
         wgmma_commit();
       };
       // after tile i's P.V: release its stage
       auto finish_pv = [&](int i) {
         wgmma_wait<0>();
-        fence_acc(oa);
-        if constexpr (SPLIT) fence_acc(ob);
+        fence_o();
 #pragma unroll
         for (int kk = 0; kk < 8; ++kk)
 #pragma unroll
           for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(pf[kk][e]));
-        if (lane == 0) mbar_arrive(kv_empty((it + i) % WG_STAGES));
+        if (lane == 0) mbar_arrive(kv_empty((it + i) % STAGES));
       };
       // The loop body has no branch around its products: ptxas serializes
       // every wgmma when it cannot match a wait to what it retires.
@@ -766,15 +530,17 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         softmax(sacc, i + 1, alpha);
         finish_pv(i);
 #pragma unroll
-        for (int d = 0; d < 8; ++d) {
-          oa[d][0] *= alpha[0];
-          oa[d][1] *= alpha[0];
-          oa[d][2] *= alpha[1];
-          oa[d][3] *= alpha[1];
-        }
-        if constexpr (SPLIT) {
+        for (int f = 0; f < NF; ++f)
 #pragma unroll
-          for (int d = 0; d < 2; ++d) {
+          for (int d = 0; d < 8; ++d) {
+            oa[f][d][0] *= alpha[0];
+            oa[f][d][1] *= alpha[0];
+            oa[f][d][2] *= alpha[1];
+            oa[f][d][3] *= alpha[1];
+          }
+        if constexpr (DB > 0) {
+#pragma unroll
+          for (int d = 0; d < DB / 8; ++d) {
             ob[d][0] *= alpha[0];
             ob[d][1] *= alpha[0];
             ob[d][2] *= alpha[1];
@@ -806,14 +572,16 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         if (row < p.Sq) {
           __nv_bfloat16* orow = op + row * p.o_ss + t2;
 #pragma unroll
-          for (int d = 0; d < 8; ++d)
-            *reinterpret_cast<__nv_bfloat162*>(orow + d * 8) =
-                __floats2bfloat162_rn(oa[d][2 * r] * inv,
-                                      oa[d][2 * r + 1] * inv);
-          if constexpr (SPLIT) {
+          for (int f = 0; f < NF; ++f)
 #pragma unroll
-            for (int d = 0; d < 2; ++d)
-              *reinterpret_cast<__nv_bfloat162*>(orow + 64 + d * 8) =
+            for (int d = 0; d < 8; ++d)
+              *reinterpret_cast<__nv_bfloat162*>(orow + 64 * f + d * 8) =
+                  __floats2bfloat162_rn(oa[f][d][2 * r] * inv,
+                                        oa[f][d][2 * r + 1] * inv);
+          if constexpr (DB > 0) {
+#pragma unroll
+            for (int d = 0; d < DB / 8; ++d)
+              *reinterpret_cast<__nv_bfloat162*>(orow + 64 * NF + d * 8) =
                   __floats2bfloat162_rn(ob[d][2 * r] * inv,
                                         ob[d][2 * r + 1] * inv);
           }
@@ -996,6 +764,7 @@ cudaError_t launch(Kernel kernel, const Params& p, int block_rows,
 
 template <int D>
 int launch_wgmma(const Params& p, void* next_item, cudaStream_t stream) {
+  using CS = ColSplit<D>;
   TmaMaps maps;
   const __nv_bfloat16* src[3] = {static_cast<const __nv_bfloat16*>(p.q),
                                  static_cast<const __nv_bfloat16*>(p.k),
@@ -1006,16 +775,19 @@ int launch_wgmma(const Params& p, void* next_item, cudaStream_t stream) {
   const long long sh[3] = {p.q_sh, p.k_sh, p.v_sh};
   const long long sb[3] = {p.q_sb, p.k_sb, p.v_sb};
   for (int t = 0; t < 3; ++t) {
-    int err = tensor_map_4d(&dst[t][0], src[t], 64, S[t], H[t], p.B, ss[t],
-                         sh[t], sb[t], 128, CU_TENSOR_MAP_SWIZZLE_128B);
-    if (err == 0 && D > 64)
-      err = tensor_map_4d(&dst[t][1], src[t] + 64, D - 64, S[t], H[t], p.B,
-                       ss[t], sh[t], sb[t], 128, CU_TENSOR_MAP_SWIZZLE_32B);
+    int err = 0;
+    if (CS::NF > 0)
+      err = tensor_map_4d(&dst[t][0], src[t], 64 * CS::NF, 64, S[t], H[t],
+                          p.B, ss[t], sh[t], sb[t], 128,
+                          CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err == 0 && CS::DB > 0)
+      err = tensor_map_4d(&dst[t][1], src[t] + 64 * CS::NF, CS::DB, CS::DB,
+                          S[t], H[t], p.B, ss[t], sh[t], sb[t], 128,
+                          CS::TMA_SWIZZLE);
     if (err != 0) return err;
   }
-  const size_t smem = 1024 +
-                      2 * (WG_BQ + 2 * WG_STAGES * WG_BK) * D +
-                      8 * (2 + 3 * WG_STAGES) + 8;
+  constexpr int smem = fwd_smem_bytes<D>();
+  static_assert(smem <= 232448, "shared memory of one block");
   static int sms = 0;  // one block an SM
   if (sms == 0) {
     int dev = 0;
@@ -1026,7 +798,7 @@ int launch_wgmma(const Params& p, void* next_item, cudaStream_t stream) {
   }
   auto kernel = flash_fwd_bf16_wgmma<D>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int n_items = (p.Sq + WG_BQ - 1) / WG_BQ * p.Hq * p.B;
   kernel<<<n_items < sms ? n_items : sms, WG_THREADS, smem, stream>>>(
@@ -1034,7 +806,7 @@ int launch_wgmma(const Params& p, void* next_item, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// body: 0 = fp32 FMA, 1 = bf16 mma.sync, 2 = bf16 wgmma + TMA (D = 64, 80)
+// body: 0 = fp32 FMA, 2 = bf16 wgmma + TMA
 template <int D>
 int dispatch_d(const Params& p, int body, void* next_item,
                cudaStream_t stream) {
@@ -1042,29 +814,19 @@ int dispatch_d(const Params& p, int body, void* next_item,
     const size_t smem = sizeof(float) * (3 * 64 * (D + 4) + 64 * (BK + 4));
     return (int)launch(flash_fwd_fma<D>, p, BQ, 256, smem, stream);
   }
-  if constexpr (D == 64 || D == 80) {
-    if (body == 2 && next_item != nullptr)
-      return launch_wgmma<D>(p, next_item, stream);
-    return -1;
-  } else {
-    if (body != 1) return -1;
-    // two 16-row tiles a warp while the accumulators fit the register file
-    constexpr int MT = D <= 64 ? 2 : 1;
-    const size_t smem = sizeof(__nv_bfloat16) * (64 * MT + 4 * BK) * (D + 8);
-    return (int)launch(flash_fwd_bf16_mma<D, MT>, p, 64 * MT, 128, smem,
-                       stream);
-  }
+  if (body == 2 && next_item != nullptr)
+    return launch_wgmma<D>(p, next_item, stream);
+  return -1;
 }
 
 }  // namespace
 
-// body: 0 = the fp32 FMA body (float32 tensors), 1 = the bf16 mma.sync body
-// (D = 32, 128), 2 = the bf16 wgmma + TMA body (D = 64, 80); the wrapper
-// chooses it by type and D.  Body 2 takes its work items from `next_item`,
-// one int32 in device memory that is 0 at launch.  Bodies 0 and 2 also
-// write each row's log-sum-exp to `lse` ([B,Hq,Sq] fp32) unless it is null,
-// for the backward; body 1 refuses a non-null `lse`.  window <= 0 means no
-// window.  Strides are in elements; the stride along D is 1.  bf16 pointers
+// body: 0 = the fp32 FMA body (float32 tensors), 2 = the bf16 wgmma + TMA
+// body (bfloat16 tensors); the wrapper chooses it by type.  D = 32, 64, 80,
+// 128 or 160.  Body 2 takes its work items from `next_item`, one int32 in
+// device memory that is 0 at launch.  Both write each row's log-sum-exp to
+// `lse` ([B,Hq,Sq] fp32) unless it is null, for the backward.  window <= 0
+// means no window.  Strides are in elements; the stride along D is 1.  bf16 pointers
 // and strides must keep every row 16-byte aligned (TMA's rule too).  Returns a cudaError_t, -1
 // for an unsupported argument or -2 if a tensor map cannot be made; never
 // synchronises.
@@ -1076,9 +838,8 @@ extern "C" int repro_flash_attention_fwd(
     long long o_sh, long long o_ss, float scale, int causal, int window,
     int body, void* next_item, float* lse, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Sq <= 0 || Skv <= 0) return -1;
-  if (Hq % Hkv != 0 || body < 0 || body > 2) return -1;
+  if (Hq % Hkv != 0 || (body != 0 && body != 2)) return -1;
   if (Hq > 65535 || B > 65535) return -1;
-  if (lse != nullptr && body == 1) return -1;  // the mma.sync body has none
   Params p{q,    k,    v,    o,    B,    Hq,   Hkv,  Sq,   Skv,
            q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
            o_sb, o_sh, o_ss, scale, causal, window, lse};
@@ -1092,6 +853,8 @@ extern "C" int repro_flash_attention_fwd(
       return dispatch_d<80>(p, body, next_item, s);
     case 128:
       return dispatch_d<128>(p, body, next_item, s);
+    case 160:
+      return dispatch_d<160>(p, body, next_item, s);
     default:
       return -1;
   }

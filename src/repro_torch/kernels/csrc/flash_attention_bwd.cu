@@ -16,15 +16,19 @@
 // causal), against a few hundred MB of traffic: operations, at the tensor
 // cores' bf16 rate.
 //
-// Two bodies, chosen by the wrapper from the type (`flash_bwd_body`); both
-// start with `delta` (one warp a row, rowsum(dO o O) in fp32, O and dO read
-// through their strides) and sum dQ over the key tiles in an fp32 buffer in
-// device memory, which a bf16 call casts once at the end (`cast`).
-//   * bf16, D = 64 and 80: wgmma + TMA, warp-specialised; see its section
-//     below.  P and dS are rounded once to bf16 for the products that take
-//     them, as the forward rounds P.
-//   * fp32: FMA from shared memory, every product in full fp32; see its
-//     section below.
+// Two bodies, chosen by the wrapper from the type (`flash_bwd_body`), at
+// D = 64, 80, 128 and 160; both start with `delta` (one warp a row,
+// rowsum(dO o O) in fp32, O and dO read through their strides) and sum dQ
+// over the key tiles in an fp32 buffer in device memory, which a bf16 call
+// casts once at the end (`cast`).
+//   * bf16: wgmma + TMA, warp-specialised, in two layouts (`flash_bwd_wgmma`
+//     for D = 64 and 80, `flash_bwd_wide` for 128 and 160); see their
+//     section below.  P and dS are rounded once to bf16 for the products
+//     that take them, as the forward rounds P, and dQ is summed in a fixed
+//     order: a call repeats bit for bit.
+//   * fp32: FMA from shared memory, every product in full fp32, dQ added
+//     with atomics in whatever order the blocks come; see its section
+//     below.
 //
 // Plain C interface; the Python wrapper passes data_ptr()s and the stream.
 
@@ -37,7 +41,6 @@
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
 constexpr int BT = 64;        // rows of a query tile, keys of a key tile
 constexpr int THREADS = 256;  // 16 x 16 threads, each with 4 rows
 constexpr int LP = BT + 1;    // padded row of P and dS in shared memory
@@ -288,21 +291,21 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_main(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 body for D = 64 and 80: wgmma + TMA, warp-specialised
+// bf16 bodies: wgmma + TMA, warp-specialised
 // ---------------------------------------------------------------------------
 //
-// One block of 384 threads per (b, kv head, tile of 128 keys), the blocks
-// of a head next to each other, so that the dQ and the Q and dO tiles that
-// the blocks in flight share stay in L2, and within a head the tiles of keys
-// that see the most query tiles first (causal: the first keys).
-// Warpgroups 0 and 1 consume, 64 keys each; warpgroup 2 produces: one thread
-// brings K and V of the tile in once by TMA, then streams the Q and dO tiles
-// (64 rows each) of every query head of the group and every query tile of
-// the band through a ring of four stages, with an mbarrier for "full" and one
-// for "empty" per stage.  Tiles outside the band are never loaded.  The
-// scores are computed transposed, keys along the rows, so that dK and dV
-// stay in registers along the keys for the whole block (FlashAttention-2/3's
-// order), and no atomics are needed for them:
+// Two bodies share the plan below: `flash_bwd_wgmma` for D = 64 and 80 and
+// `flash_bwd_wide` for D = 128 and 160.  One block of 384 threads per (b, kv
+// head, tile of keys), the blocks of a head next to each other, so that the
+// dQ and the Q and dO tiles that the blocks in flight share stay in L2.
+// Warpgroups 0 and 1 consume; warpgroup 2 produces: one thread brings K and
+// V of the tile in once by TMA, then streams the Q and dO tiles (64 rows
+// each) of every query head of the group and every query tile of the band
+// through a ring of stages, with an mbarrier for "full" and one for "empty"
+// per stage.  Tiles outside the band are never loaded.  The scores are
+// computed transposed, keys along the rows, so that dK and dV stay in
+// registers along the keys for the whole block (FlashAttention-2/3's order),
+// and no atomics are needed for them:
 //   S^T  = K Q^T,  dP^T = V dO^T          wgmma, both operands in shared memory
 //   P^T  = exp(S^T scale - lse), dS^T = P^T o (dP^T - delta)   in fp32
 //                                          registers; the mask only on tiles
@@ -310,43 +313,72 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_main(const Params p) {
 //   dV  += P^T dO,  dK += dS^T Q           wgmma, A = P^T / dS^T from registers
 //                                          (rounded once to bf16), B = dO / Q
 //                                          in shared memory, MN-major
-//   dQ   = dS K (this warpgroup's keys)    wgmma, A = dS^T written to shared
+//   dQ   = dS K                            wgmma, A = dS^T written to shared
 //                                          memory in bf16 with the 128-byte
 //                                          swizzle and read MN-major, B = K
-// The two warpgroups' dQ of a tile are summed in shared memory, and one of
-// them, in turns, adds the sum into the fp32 buffer with one bulk reduce-add
-// (`cp.reduce.async.bulk`), the buffer laid out in the warpgroup's register
-// order so that the shared-memory side has no bank conflicts; `cast` puts the
-// rows back in order.  Measured on an H100 (tools/flash_variants.py --bwd):
-// with each warpgroup adding its own share with 8-byte atomics the atomics
-// took 0.46 of 1.57 ms at D = 64 and 1.13 of 3.26 ms at D = 80, and 0.22 of
-// 1.24 and 0.53 of 2.74 with the sum added by 16-byte atomics, the blocks in
-// the order
-// of their key tiles over all heads: the dQ being summed (67 and 168 MB) did
-// not fit L2.  Head by head, the reduce-add takes 0.01 and 0.03 ms of 0.93 and
-// 2.04.  D = 80 splits every operand along D as the forward does: columns 0-63
-// with the 128-byte swizzle, columns 64-79 with the 32-byte swizzle, each with
-// its own tensor maps and descriptors.  The dS^T tiles are double-buffered, so
-// that the next tile's writes never meet a dQ product still reading.  Each
-// tile's accumulators S^T, dP^T and dQ are fresh arrays and no branch reads an
-// accumulator between a commit and its wait: otherwise ptxas serializes every
-// wgmma (C7514).
+// Every operand is split along D as the forward splits it (`ColSplit`).
+//
+// dQ is summed over the key tiles in a fixed order, so that a step repeats
+// bit for bit: each 64-row dQ tile is added into an fp32 buffer in device
+// memory with one bulk reduce-add (`cp.reduce.async.bulk`) a block, the
+// buffer laid out in the warpgroups' register order so that the shared-memory
+// side has no bank conflicts (`cast` puts the rows back in order), and the
+// blocks that add to one tile take turns in the order of their key tiles,
+// the last keys first: a counter per dQ tile in device memory (zero at
+// launch) says how many have added, and a block waits for its turn before it
+// adds.  The waiting and adding is a writer thread's of the producer
+// warpgroup (`dq_write`): the consumers stage a tile's dQ in shared memory
+// and go on, and wait only for the writer to have read the buffer before
+// they stage into it again.  The blocks run in that order too
+// (blockIdx.x 0 is the last key tile), so a block waits only on blocks that
+// were launched before it, and under a causal mask a key tile reaches a
+// query tile after the later key tiles, which start nearer the diagonal,
+// have passed it.  Head by head, the summed dQ of the blocks in flight stays
+// in L2: measured on an H100 with unordered adds, 0.01 and 0.03 ms of 0.93
+// and 2.04 ms at D = 64 and 80 (tools/flash_variants.py --bwd); other
+// orders took 0.22-1.13 ms.
+//
+// D = 64 and 80 (`flash_bwd_wgmma`): 128 keys a block, 64 per consumer
+// warpgroup, each holding dK and dV of its keys (64 + 64 registers at D =
+// 64); the two warpgroups' dQ of a tile are summed in shared memory, in
+// one of two buffers by the tile's parity, for the writer to add.  The dS^T
+// tiles are double-buffered, so that the next tile's writes never meet a dQ
+// product still reading.
+//
+// D = 128 and 160 (`flash_bwd_wide`): dK and dV of 128 keys would take 128
+// or 160 registers a thread beside S^T and dP^T (64), past what a thread has.
+// So a block takes 64 keys, and the consumer warpgroups split D instead:
+// both compute S^T, dP^T, P^T and dS^T of all 64 keys (the two score
+// products twice, 7 products of D x 64 x 64 a tile instead of 5), and
+// warpgroup 0 then owns columns 0-63 of dK, dV and dQ, warpgroup 1 the rest
+// (64-127, and 128-159 at D = 160): 64 or 96 columns, 64 or 96 registers of
+// dK and dV.  Each stages its own columns of dQ, for a writer and with a
+// counter of its own.
+//
+// Each tile's accumulators S^T, dP^T and dQ are fresh arrays and no branch
+// reads an accumulator between a commit and its wait: otherwise ptxas
+// serializes every wgmma (C7514).
 
-constexpr int BW_BK = 128;  // keys a block, 64 per consumer warpgroup
 constexpr int BW_BQ = 64;   // query rows a tile
-constexpr int BW_STAGES = 4;
 constexpr int BW_THREADS = 384;
-constexpr int BW_SMEM_FIXED = 1024 + 8 * (1 + 2 * BW_STAGES);
 
-struct BwdMaps {  // [0]: columns 0-63; [1]: columns 64-79 (D = 80 only)
+struct BwdMaps {  // [0]: the 64-column parts; [1]: the narrow part
   CUtensorMap q[2], k[2], v[2], dout[2];
 };
 
+// keys a block, stages of the Q / dO ring and shared memory of each body
 template <int D>
-constexpr int bw_smem_bytes() {
-  return BW_SMEM_FIXED + 2 * BW_BK * D * 2 + 2 * BW_STAGES * BW_BQ * D * 2 +
-         4 * 64 * BW_BQ * 2 + 2 * BW_BQ * D * 4;
-}
+struct BwdPlan {
+  static constexpr bool WIDE = D > 80;
+  static constexpr int BK = WIDE ? 64 : 128;
+  static constexpr int STAGES = D <= 80 ? 4 : D <= 128 ? 3 : 2;
+  static constexpr int KT = BK * D * 2, QT = BW_BQ * D * 2;  // tile bytes
+  static constexpr int DS = 64 * BW_BQ * 2;  // one dS^T tile
+  static constexpr int SMEM = 1024 + 2 * KT + 2 * STAGES * QT + 4 * DS +
+                              (WIDE ? 1 : 2) * BW_BQ * D * 4 +
+                              8 * (1 + 2 * STAGES + 4);
+  static_assert(SMEM <= 232448, "shared memory of one block");
+};
 
 __device__ __forceinline__ void wg_sync(int id) {  // one warpgroup, 128 threads
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
@@ -359,50 +391,334 @@ __device__ __forceinline__ void pair_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
 }
 
+// The key tile a block takes: the last first (see the plan above).
+__device__ __forceinline__ int block_key_tile() {
+  return gridDim.x - 1 - blockIdx.x;
+}
+
+// The query tiles [qt_lo, qt_hi] whose rows can see a key of key tile kt
+// (`bk` keys a tile), and the last key tile that adds to query tile qt:
+// every key tile from the first that sees qt to this one adds to it.
+struct Band {
+  int qt_lo, qt_hi, nkt, ratio;  // ratio: key tile / query tile rows
+  __device__ Band(const Params& p, int kt, int bk) {
+    const int k_lo = kt * bk, k_hi = min(k_lo + bk, p.Skv) - 1;
+    nkt = (p.Skv + bk - 1) / bk;
+    ratio = bk / BW_BQ;
+    qt_lo = p.causal ? k_lo / BW_BQ : 0;
+    qt_hi = (p.Sq + BW_BQ - 1) / BW_BQ - 1;
+    if (p.window > 0) qt_hi = min(qt_hi, (k_hi + p.window - 1) / BW_BQ);
+  }
+  __device__ int last_key_tile(const Params& p, int qt) const {
+    return p.causal ? min(nkt - 1, qt / ratio) : nkt - 1;
+  }
+};
+
+// The dQ writer: one thread of the producer warpgroup adds the staged dQ
+// tiles of the block into the fp32 buffer in device memory, in order, each
+// in its turn.  For tile it of the block (buffer it % NBUF of the staging
+// ring at `stage`, `bytes` of fp32, for query head h and query tile qt): it
+// waits until the consumers have staged it (`full`), until the counter of
+// the tile (zero at launch) reads the number of blocks before this one in
+// the fixed order, adds it with one bulk reduce-add, frees the buffer once
+// read (`empty`), and counts its add once written.  The consumers never wait
+// for another block: only this thread does, while they go on to the next
+// tile.
+template <int NBUF>
+__device__ __forceinline__ void dq_write(const Params& p, int* counters,
+                                         int slot, int dst_offset, int bytes,
+                                         uint32_t stage, int stage_bytes,
+                                         uint32_t full, uint32_t empty,
+                                         int kt, int kvh, int b,
+                                         const Band& band, int n_qt,
+                                         int n_tiles, int tile_floats) {
+  const int group = p.Hq / p.Hkv;
+  const int nqt = (p.Sq + BW_BQ - 1) / BW_BQ;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int buf = it % NBUF, use = it / NBUF;
+    const int h = kvh * group + it / n_qt;
+    const int qt = band.qt_lo + it % n_qt;
+    const long long tile = ((long long)b * p.Hq + h) * nqt + qt;
+    int* counter = counters + 2 * tile + slot;
+    const int turn = band.last_key_tile(p, qt) - kt;
+    mbar_wait(full + 8 * buf, use & 1);
+    if (turn > 0) {
+      int seen = 0;
+      do {
+        asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+                     : "=r"(seen)
+                     : "l"(counter)
+                     : "memory");
+      } while (seen < turn);
+    }
+    asm volatile("fence.proxy.async.global;\n" ::: "memory");
+    asm volatile(
+        "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 "
+        "[%0], [%1], %2;\n" ::"l"(p.dq + tile * tile_floats + dst_offset),
+        "r"(stage + buf * stage_bytes), "r"(bytes)
+        : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    mbar_arrive(empty + 8 * buf);  // the buffer is read
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");  // written
+    asm volatile("fence.proxy.async.global;\n" ::: "memory");
+    asm volatile("red.release.gpu.global.add.s32 [%0], 1;\n" ::"l"(counter)
+                 : "memory");
+  }
+}
+
+// The producer of both bodies: K and V of the block's key tile once, then
+// the Q and dO tiles of every query head of the group and every query tile
+// of the band through the ring, each tile's parts side by side.
+template <int D>
+__device__ __forceinline__ void bwd_produce(const BwdMaps& maps,
+                                            const Params& p, uint32_t sK,
+                                            uint32_t sV, uint32_t sQ,
+                                            uint32_t sO, uint32_t kv_full,
+                                            uint32_t bars_full,
+                                            uint32_t bars_empty, int k_lo,
+                                            int kvh, int b, int qt_lo,
+                                            int n_qt, int n_tiles) {
+  using CS = ColSplit<D>;
+  using PL = BwdPlan<D>;
+  auto load = [&](uint32_t dst, const CUtensorMap* m, uint32_t bar, int rows,
+                  int row, int h) {
+    for (int f = 0; f < CS::NF; ++f)
+      tma_load_4d(dst + f * rows * 128, &m[0], bar, 64 * f, row, h, b);
+    if constexpr (CS::DB > 0)
+      tma_load_4d(dst + CS::narrow_at(rows), &m[1], bar, 0, row, h, b);
+  };
+  const int group = p.Hq / p.Hkv;
+  mbar_expect_tx(kv_full, 2 * PL::KT);
+  load(sK, maps.k, kv_full, PL::BK, k_lo, kvh);
+  load(sV, maps.v, kv_full, PL::BK, k_lo, kvh);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % PL::STAGES;
+    const int h = kvh * group + it / n_qt;
+    const int q_lo = (qt_lo + it % n_qt) * BW_BQ;
+    if (it >= PL::STAGES)
+      mbar_wait(bars_empty + 8 * s, (it / PL::STAGES - 1) & 1);
+    mbar_expect_tx(bars_full + 8 * s, 2 * PL::QT);
+    load(sQ + s * PL::QT, maps.q, bars_full + 8 * s, BW_BQ, q_lo, h);
+    load(sO + s * PL::QT, maps.dout, bars_full + 8 * s, BW_BQ, q_lo, h);
+  }
+}
+
+// lse (base 2) and delta of this thread's query columns of a tile, in the
+// column order of a 64-wide accumulator; columns past Sq read 0 and are
+// masked.
+__device__ __forceinline__ void load_rows_stats(const Params& p,
+                                                long long row_base, int q_lo,
+                                                int t2, float (&l2)[16],
+                                                float (&dl)[16]) {
+  constexpr float LOG2E = 1.4426950408889634f;
+#pragma unroll
+  for (int c = 0; c < 16; ++c) {
+    const int q = q_lo + (c >> 1) * 8 + t2 + (c & 1);
+    l2[c] = q < p.Sq ? __ldg(p.lse + row_base + q) * LOG2E : 0.f;
+    dl[c] = q < p.Sq ? __ldg(p.delta + row_base + q) : 0.f;
+  }
+}
+
+// P^T and dS^T in place of S^T and dP^T for keys key0 (+ 8) of this thread
+// and the tile's query columns.
+__device__ __forceinline__ void scores_to_grads(const Params& p,
+                                                float (&st)[8][4],
+                                                float (&dp)[8][4],
+                                                const float (&l2)[16],
+                                                const float (&dl)[16],
+                                                bool need_mask, int key0,
+                                                int q_lo, int t2,
+                                                float scale2) {
+  if (need_mask) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = key0 + (e >> 1) * 8;
+        const int q = q_lo + j * 8 + t2 + (e & 1);
+        bool ok = q < p.Sq && key < p.Skv;
+        if (p.causal) ok = ok && key <= q;
+        if (p.window > 0) ok = ok && key > q - p.window;
+        const int c = 2 * j + (e & 1);
+        const float pv = ok ? ex2(fmaf(st[j][e], scale2, -l2[c])) : 0.f;
+        st[j][e] = pv;
+        dp[j][e] = pv * (dp[j][e] - dl[c]);
+      }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 2 * j + (e & 1);
+        const float pv = ex2(fmaf(st[j][e], scale2, -l2[c]));
+        st[j][e] = pv;
+        dp[j][e] = pv * (dp[j][e] - dl[c]);
+      }
+  }
+}
+
+// P^T and dS^T in wgmma's register A layout (key step kk: query columns
+// 16kk .. 16kk + 15), and dS^T in bf16 into the buffer `sds`: row r (key) at
+// r * 128 bytes, 16-byte chunk j at (j ^ (r & 7)) * 16.
+__device__ __forceinline__ void pack_grads(const float (&st)[8][4],
+                                           const float (&dp)[8][4],
+                                           uint32_t (&pf)[4][4],
+                                           uint32_t (&df)[4][4], uint32_t sds,
+                                           int warp, int g8, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    pf[kk][0] = pack_bf16(st[2 * kk][0], st[2 * kk][1]);
+    pf[kk][1] = pack_bf16(st[2 * kk][2], st[2 * kk][3]);
+    pf[kk][2] = pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]);
+    pf[kk][3] = pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3]);
+    df[kk][0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
+    df[kk][1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
+    df[kk][2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+    df[kk][3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = warp * 16 + g8 + r * 8, j = 2 * kk + half;
+        const uint32_t addr =
+            sds + row * 128 + ((j ^ (row & 7)) << 4) + (lane & 3) * 4;
+        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr),
+                     "r"(df[kk][half * 2 + r])
+                     : "memory");
+      }
+  // the generic-proxy writes become visible to wgmma's reads
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// S^T = K Q^T and dP^T = V dO^T over all of D for 64 keys at k (keys of
+// `krows` rows a tile, this warpgroup's 64 at row offset kofs) and the
+// tile's Q and dO at q, o; committed and waited for.
+template <int D>
+__device__ __forceinline__ void score_products(float (&st)[8][4],
+                                               float (&dp)[8][4], uint32_t k,
+                                               uint32_t v, uint32_t q,
+                                               uint32_t o, int krows,
+                                               int kofs) {
+  using CS = ColSplit<D>;
+  wgmma_fence();
+#pragma unroll
+  for (int f = 0; f < CS::NF; ++f)
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss_n64<0, 0>(
+          st, wg_desc(k + f * krows * 128 + kofs * 128 + ks * 32, 16, 1024,
+                      SW128),
+          wg_desc(q + f * BW_BQ * 128 + ks * 32, 16, 1024, SW128), f + ks);
+  if constexpr (CS::DB > 0) {
+#pragma unroll
+    for (int ks = 0; ks < CS::DB / 16; ++ks)
+      wgmma_ss_n64<0, 0>(
+          st,
+          wg_desc(k + CS::narrow_at(krows) + kofs * CS::RB + ks * 32, 16,
+                  CS::SBO, CS::LAYOUT),
+          wg_desc(q + CS::narrow_at(BW_BQ) + ks * 32, 16, CS::SBO,
+                  CS::LAYOUT),
+          CS::NF + ks);
+  }
+#pragma unroll
+  for (int f = 0; f < CS::NF; ++f)
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss_n64<0, 0>(
+          dp, wg_desc(v + f * krows * 128 + kofs * 128 + ks * 32, 16, 1024,
+                      SW128),
+          wg_desc(o + f * BW_BQ * 128 + ks * 32, 16, 1024, SW128), f + ks);
+  if constexpr (CS::DB > 0) {
+#pragma unroll
+    for (int ks = 0; ks < CS::DB / 16; ++ks)
+      wgmma_ss_n64<0, 0>(
+          dp,
+          wg_desc(v + CS::narrow_at(krows) + kofs * CS::RB + ks * 32, 16,
+                  CS::SBO, CS::LAYOUT),
+          wg_desc(o + CS::narrow_at(BW_BQ) + ks * 32, 16, CS::SBO,
+                  CS::LAYOUT),
+          CS::NF + ks);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(st);
+  fence_acc(dp);
+}
+
+// dK (scaled) and dV of keys key0 (+ 8) in bf16, columns col0 + 8 j + t2 of
+// an accumulator of NJ n-blocks.
+template <int NJ>
+__device__ __forceinline__ void store_dkv(const Params& p,
+                                          const float (&dk)[NJ][4],
+                                          const float (&dv)[NJ][4],
+                                          __nv_bfloat16* dkp,
+                                          __nv_bfloat16* dvp, int D, int key0,
+                                          int col0, int t2) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + r * 8;
+    if (key >= p.Skv) continue;
+    const long long off = (long long)key * D + col0 + t2;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dkp + off + j * 8) =
+          __floats2bfloat162_rn(dk[j][2 * r] * p.scale,
+                                dk[j][2 * r + 1] * p.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvp + off + j * 8) =
+          __floats2bfloat162_rn(dv[j][2 * r], dv[j][2 * r + 1]);
+    }
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(BW_THREADS, 1)
-    flash_bwd_wgmma(const __grid_constant__ BwdMaps maps, const Params p) {
-  constexpr bool SPLIT = D == 80;
-  constexpr int DB = D - 64;  // narrow part: 0 or 16 columns
-  constexpr int KA = BW_BK * 64 * 2, KB = BW_BK * DB * 2;  // bytes
-  constexpr int QA = BW_BQ * 64 * 2, QB = BW_BQ * DB * 2;
-  constexpr int DS = 64 * BW_BQ * 2;  // one warpgroup's dS^T tile
+    flash_bwd_wgmma(const __grid_constant__ BwdMaps maps, const Params p,
+                    int* counters) {
+  using CS = ColSplit<D>;
+  using PL = BwdPlan<D>;
+  constexpr bool SPLIT = CS::DB > 0;
+  constexpr int DB = CS::DB;  // narrow part: 0 or 16 columns
+  constexpr int STAGES = PL::STAGES, BK = PL::BK, KT = PL::KT, QT = PL::QT;
+  constexpr int DS = PL::DS;
   constexpr float LOG2E = 1.4426950408889634f;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // tiles at 1024-byte boundaries, as the 128-byte swizzle wants
   const uint32_t smem_base =
       static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t base = (smem_base + 1023) & ~1023u;
-  const uint32_t sKA = base, sVA = sKA + KA;
-  const uint32_t sQA = sVA + KA;                 // [stage]
-  const uint32_t sOA = sQA + BW_STAGES * QA;     // [stage] dO
-  const uint32_t sDS = sOA + BW_STAGES * QA;     // [warpgroup][buffer]
-  const uint32_t sKB = sDS + 4 * DS, sVB = sKB + KB;
-  const uint32_t sQB = sVB + KB;                 // [stage]
-  const uint32_t sOB = sQB + BW_STAGES * QB;     // [stage]
-  const uint32_t sDQ = sOB + BW_STAGES * QB;     // [buffer] dQ, fp32
+  const uint32_t sK = base, sV = sK + KT;
+  const uint32_t sQ = sV + KT;                   // [stage]
+  const uint32_t sO = sQ + STAGES * QT;          // [stage] dO
+  const uint32_t sDS = sO + STAGES * QT;         // [warpgroup][buffer]
+  const uint32_t sDQ = sDS + 4 * DS;             // [buffer] dQ, fp32
   const uint32_t bars = sDQ + 2 * BW_BQ * D * 4;
   const uint32_t kv_full = bars;
-  auto full = [&](int s) { return bars + 8 * (1 + s); };
-  auto empty = [&](int s) { return bars + 8 * (1 + BW_STAGES + s); };
+  const uint32_t bars_full = bars + 8, bars_empty = bars + 8 * (1 + STAGES);
+  // the dQ staging buffers: staged [buf], read by the writer [buf]
+  const uint32_t dq_full = bars + 8 * (1 + 2 * STAGES);
+  const uint32_t dq_empty = dq_full + 16;
 
-  const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int kt = block_key_tile(), kvh = blockIdx.y, b = blockIdx.z;
   const int group = p.Hq / p.Hkv;
-  const int k_lo = kt * BW_BK;
-  const int k_hi = min(k_lo + BW_BK, p.Skv) - 1;
-  // the query tiles whose rows can see a key of this tile
-  const int nqt = (p.Sq + BW_BQ - 1) / BW_BQ;
-  const int qt_lo = p.causal ? k_lo / BW_BQ : 0;
-  int qt_hi = nqt - 1;
-  if (p.window > 0) qt_hi = min(qt_hi, (k_hi + p.window - 1) / BW_BQ);
-  const int n_qt = max(0, qt_hi - qt_lo + 1);
+  const int k_lo = kt * BK;
+  const Band band(p, kt, BK);
+  const int qt_lo = band.qt_lo;
+  const int n_qt = max(0, band.qt_hi - qt_lo + 1);
   const int n_tiles = group * n_qt;  // over the group's heads
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
-    for (int s = 0; s < BW_STAGES; ++s) {
-      mbar_init(full(s), 1);
-      mbar_init(empty(s), 8);  // one arrival per consumer warp
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars_full + 8 * s, 1);
+      mbar_init(bars_empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(dq_full + 8 * i, 1);
+      mbar_init(dq_empty + 8 * i, 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -410,30 +726,15 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
 
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
-    // producer: one thread issues every load
+    // producer: one thread issues every load, another writes dQ
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
-    if (threadIdx.x == 256) {
-      mbar_expect_tx(kv_full, 2 * (KA + KB));
-      tma_load_4d(sKA, &maps.k[0], kv_full, 0, k_lo, kvh, b);
-      tma_load_4d(sVA, &maps.v[0], kv_full, 0, k_lo, kvh, b);
-      if constexpr (SPLIT) {
-        tma_load_4d(sKB, &maps.k[1], kv_full, 0, k_lo, kvh, b);
-        tma_load_4d(sVB, &maps.v[1], kv_full, 0, k_lo, kvh, b);
-      }
-      for (int it = 0; it < n_tiles; ++it) {
-        const int s = it % BW_STAGES;
-        const int h = kvh * group + it / n_qt;
-        const int q_lo = (qt_lo + it % n_qt) * BW_BQ;
-        if (it >= BW_STAGES) mbar_wait(empty(s), (it / BW_STAGES - 1) & 1);
-        mbar_expect_tx(full(s), 2 * (QA + QB));
-        tma_load_4d(sQA + s * QA, &maps.q[0], full(s), 0, q_lo, h, b);
-        tma_load_4d(sOA + s * QA, &maps.dout[0], full(s), 0, q_lo, h, b);
-        if constexpr (SPLIT) {
-          tma_load_4d(sQB + s * QB, &maps.q[1], full(s), 0, q_lo, h, b);
-          tma_load_4d(sOB + s * QB, &maps.dout[1], full(s), 0, q_lo, h, b);
-        }
-      }
-    }
+    if (threadIdx.x == 256)
+      bwd_produce<D>(maps, p, sK, sV, sQ, sO, kv_full, bars_full, bars_empty,
+                     k_lo, kvh, b, qt_lo, n_qt, n_tiles);
+    if (threadIdx.x == 288)
+      dq_write<2>(p, counters, 0, 0, D / 2 * 128 * 4, sDQ, D / 2 * 128 * 4,
+                  dq_full, dq_empty, kt, kvh, b, band, n_qt, n_tiles,
+                  BW_BQ * D);
     return;
   }
 
@@ -443,134 +744,61 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
   const float scale2 = p.scale * LOG2E;  // P in base 2
   const int kw_lo = k_lo + wg * 64;      // this warpgroup's keys
   const int key0 = kw_lo + warp * 16 + g8;  // this thread's rows: key0, +8
-  const uint32_t ka = sKA + wg * 64 * 128, va = sVA + wg * 64 * 128;
-  const uint32_t kb = sKB + wg * 64 * 32, vb = sVB + wg * 64 * 32;
+  const uint32_t ka = sK + wg * 64 * 128;
+  const uint32_t kb = sK + CS::narrow_at(BK) + wg * 64 * CS::RB;
 
-  float dk[8][4], dv[8][4], dkb[SPLIT ? 2 : 1][4], dvb[SPLIT ? 2 : 1][4];
+  float dk[8][4], dv[8][4], dkb[SPLIT ? DB / 8 : 1][4],
+      dvb[SPLIT ? DB / 8 : 1][4];
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
 #pragma unroll
-  for (int j = 0; j < (SPLIT ? 2 : 1); ++j)
+  for (int j = 0; j < (SPLIT ? DB / 8 : 1); ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dkb[j][e] = dvb[j][e] = 0.f;
 
   mbar_wait(kv_full, 0);
   for (int it = 0; it < n_tiles; ++it) {
-    const int s = it % BW_STAGES;
+    const int s = it % STAGES;
     const int h = kvh * group + it / n_qt;
-    const int q_lo = (qt_lo + it % n_qt) * BW_BQ;
+    const int qt = qt_lo + it % n_qt;
+    const int q_lo = qt * BW_BQ;
     const long long row_base = ((long long)b * p.Hq + h) * p.Sq;
-    // lse (base 2) and delta of this thread's query columns; columns past
-    // Sq read 0 and are masked
     float l2[16], dl[16];
-#pragma unroll
-    for (int c = 0; c < 16; ++c) {
-      const int q = q_lo + (c >> 1) * 8 + t2 + (c & 1);
-      l2[c] = q < p.Sq ? __ldg(p.lse + row_base + q) * LOG2E : 0.f;
-      dl[c] = q < p.Sq ? __ldg(p.delta + row_base + q) : 0.f;
-    }
-    const uint32_t sq = sQA + s * QA, so = sOA + s * QA;
-    const uint32_t sqb = sQB + s * QB, sob = sOB + s * QB;
-    mbar_wait(full(s), (it / BW_STAGES) & 1);
+    load_rows_stats(p, row_base, q_lo, t2, l2, dl);
+    const uint32_t sq = sQ + s * QT, so = sO + s * QT;
+    const uint32_t sqb = sq + CS::narrow_at(BW_BQ);
+    const uint32_t sob = so + CS::narrow_at(BW_BQ);
+    mbar_wait(bars_full + 8 * s, (it / STAGES) & 1);
 
-    // S^T = K Q^T and dP^T = V dO^T
     float st[8][4], dp[8][4];
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      wgmma_ss_n64<0, 0>(st, wg_desc(ka + ks * 32, 16, 1024, SW128),
-                         wg_desc(sq + ks * 32, 16, 1024, SW128), ks);
-    if constexpr (SPLIT)
-      wgmma_ss_n64<0, 0>(st, wg_desc(kb, 16, 256, SW32),
-                         wg_desc(sqb, 16, 256, SW32), 1);
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      wgmma_ss_n64<0, 0>(dp, wg_desc(va + ks * 32, 16, 1024, SW128),
-                         wg_desc(so + ks * 32, 16, 1024, SW128), ks);
-    if constexpr (SPLIT)
-      wgmma_ss_n64<0, 0>(dp, wg_desc(vb, 16, 256, SW32),
-                         wg_desc(sob, 16, 256, SW32), 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_acc(st);
-    fence_acc(dp);
+    score_products<D>(st, dp, sK, sV, sq, so, BK, wg * 64);
 
-    // P^T and dS^T in place of S^T and dP^T
     bool need_mask = kw_lo + 64 > p.Skv || q_lo + BW_BQ > p.Sq;
     if (p.causal) need_mask = need_mask || (kw_lo + 63 > q_lo);
     if (p.window > 0)
       need_mask = need_mask || (kw_lo <= q_lo + BW_BQ - 1 - p.window);
-    if (need_mask) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = key0 + (e >> 1) * 8;
-          const int q = q_lo + j * 8 + t2 + (e & 1);
-          bool ok = q < p.Sq && key < p.Skv;
-          if (p.causal) ok = ok && key <= q;
-          if (p.window > 0) ok = ok && key > q - p.window;
-          const int c = 2 * j + (e & 1);
-          const float pv = ok ? ex2(fmaf(st[j][e], scale2, -l2[c])) : 0.f;
-          st[j][e] = pv;
-          dp[j][e] = pv * (dp[j][e] - dl[c]);
-        }
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = 2 * j + (e & 1);
-          const float pv = ex2(fmaf(st[j][e], scale2, -l2[c]));
-          st[j][e] = pv;
-          dp[j][e] = pv * (dp[j][e] - dl[c]);
-        }
-    }
-    // P^T and dS^T in wgmma's register A layout (key step kk: query columns
-    // 16kk .. 16kk + 15), and dS^T in bf16 into this warpgroup's buffer:
-    // row r (key) at r * 128 bytes, 16-byte chunk j at (j ^ (r & 7)) * 16
+    scores_to_grads(p, st, dp, l2, dl, need_mask, key0, q_lo, t2, scale2);
     uint32_t pf[4][4], df[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      pf[kk][0] = pack_bf16(st[2 * kk][0], st[2 * kk][1]);
-      pf[kk][1] = pack_bf16(st[2 * kk][2], st[2 * kk][3]);
-      pf[kk][2] = pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]);
-      pf[kk][3] = pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3]);
-      df[kk][0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
-      df[kk][1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
-      df[kk][2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-      df[kk][3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
-    }
     const uint32_t sds = sDS + (wg * 2 + (it & 1)) * DS;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int half = 0; half < 2; ++half)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int row = warp * 16 + g8 + r * 8, j = 2 * kk + half;
-          const uint32_t addr =
-              sds + row * 128 + ((j ^ (row & 7)) << 4) + (lane & 3) * 4;
-          asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr),
-                       "r"(df[kk][half * 2 + r])
-                       : "memory");
-        }
-    // the generic-proxy writes become visible to wgmma's reads
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    pack_grads(st, dp, pf, df, sds, warp, g8, lane);
     wg_sync(1 + wg);
 
     // dV += P^T dO, dK += dS^T Q, dQ = dS K
-    float dq[8][4], dqb[SPLIT ? 2 : 1][4];
+    float dq[8][4], dqb[SPLIT ? DB / 8 : 1][4];
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       wgmma_rs_n64(dv, pf[kk], wg_desc(so + kk * 2048, 16, 1024, SW128));
       wgmma_rs_n64(dk, df[kk], wg_desc(sq + kk * 2048, 16, 1024, SW128));
       if constexpr (SPLIT) {
-        wgmma_rs_n16(dvb, pf[kk], wg_desc(sob + kk * 512, 16, 256, SW32));
-        wgmma_rs_n16(dkb, df[kk], wg_desc(sqb + kk * 512, 16, 256, SW32));
+        wgmma_rs_narrow<DB>(dvb, pf[kk],
+                            wg_desc(sob + kk * 16 * CS::RB, 16, CS::SBO,
+                                    CS::LAYOUT));
+        wgmma_rs_narrow<DB>(dkb, df[kk],
+                            wg_desc(sqb + kk * 16 * CS::RB, 16, CS::SBO,
+                                    CS::LAYOUT));
       }
     }
 #pragma unroll
@@ -578,8 +806,11 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
       wgmma_ss_n64<1, 1>(dq, wg_desc(sds + kk * 2048, 16, 1024, SW128),
                          wg_desc(ka + kk * 2048, 16, 1024, SW128), kk);
       if constexpr (SPLIT)
-        wgmma_ss_n16<1, 1>(dqb, wg_desc(sds + kk * 2048, 16, 1024, SW128),
-                           wg_desc(kb + kk * 512, 16, 256, SW32), kk);
+        wgmma_ss_narrow<DB, 1, 1>(dqb,
+                                  wg_desc(sds + kk * 2048, 16, 1024, SW128),
+                                  wg_desc(kb + kk * 16 * CS::RB, 16, CS::SBO,
+                                          CS::LAYOUT),
+                                  kk);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -596,27 +827,27 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         asm volatile("" : "+r"(pf[kk][e]), "+r"(df[kk][e]));
-    if (lane == 0) mbar_arrive(empty(s));  // Q and dO of this stage are read
+    if (lane == 0) mbar_arrive(bars_empty + 8 * s);  // Q and dO are read
 
     // The two warpgroups' dQ summed in shared memory, in this thread's order
     // ([register][thread], so neither side has bank conflicts): warpgroup
-    // it % 2 adds its own share to the other's, and one of its threads adds
-    // the tile into the fp32 buffer, laid out in the same order, with one
-    // bulk reduce-add.  Barriers 3 + buf: buffer buf full; 5 + buf: read,
-    // free again.
-    constexpr int NQ = (8 + (SPLIT ? 2 : 0)) * 4;  // dQ registers a thread
+    // it % 2 adds its own share to the other's, and the dQ writer adds the
+    // tile into the fp32 buffer, laid out in the same order, in its turn.
+    // Barriers 3 + buf: the other's share of buffer buf is in; dq_full /
+    // dq_empty: the tile is staged / the writer has read it.
+    constexpr int NQ = D / 2;  // dQ registers a thread
     const int buf = it & 1;
     const uint32_t xq_addr = sDQ + buf * NQ * 128 * 4;
     float4* xq = reinterpret_cast<float4*>(smem_raw + (xq_addr - smem_base)) +
                  (threadIdx.x & 127);
     if (wg != buf) {
-      if (it >= 2) pair_sync(5 + buf);
+      if (it >= 2) mbar_wait(dq_empty + 8 * buf, ((it >> 1) - 1) & 1);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         xq[j * 128] = make_float4(dq[j][0], dq[j][1], dq[j][2], dq[j][3]);
       if constexpr (SPLIT) {
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
+        for (int j = 0; j < DB / 8; ++j)
           xq[(8 + j) * 128] =
               make_float4(dqb[j][0], dqb[j][1], dqb[j][2], dqb[j][3]);
       }
@@ -632,62 +863,239 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
       for (int j = 0; j < 8; ++j) add(xq + j * 128, dq[j]);
       if constexpr (SPLIT) {
 #pragma unroll
-        for (int j = 0; j < 2; ++j) add(xq + (8 + j) * 128, dqb[j]);
+        for (int j = 0; j < DB / 8; ++j) add(xq + (8 + j) * 128, dqb[j]);
       }
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       wg_sync(1 + wg);
-      if ((threadIdx.x & 127) == 0) {
-        float* dst = p.dq + ((long long)b * p.Hq + h) * nqt * (BW_BQ * D) +
-                     (long long)(q_lo / BW_BQ) * (BW_BQ * D);
-        asm volatile(
-            "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 "
-            "[%0], [%1], %2;\n" ::"l"(dst),
-            "r"(xq_addr), "r"(NQ * 128 * 4)
-            : "memory");
-        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-      }
-      wg_sync(1 + wg);  // the reduce-add has read the buffer
-      pair_arrive(5 + buf);
+      if ((threadIdx.x & 127) == 0) mbar_arrive(dq_full + 8 * buf);
     }
   }
-  // the last tile of the parity this warpgroup hands over left its buffer's
-  // "free" barrier one arrival ahead: take it
-  if (n_tiles > 1 - wg) pair_sync(5 + (1 - wg));
 
-  // dK (scaled) and dV of this thread's keys, in bf16
   __nv_bfloat16* dkp = static_cast<__nv_bfloat16*>(p.dk) +
                        ((long long)b * p.Hkv + kvh) * p.Skv * D;
   __nv_bfloat16* dvp = static_cast<__nv_bfloat16*>(p.dv) +
                        ((long long)b * p.Hkv + kvh) * p.Skv * D;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = key0 + r * 8;
-    if (key >= p.Skv) continue;
-    const long long off = (long long)key * D + t2;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dkp + off + j * 8) =
-          __floats2bfloat162_rn(dk[j][2 * r] * p.scale,
-                                dk[j][2 * r + 1] * p.scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvp + off + j * 8) =
-          __floats2bfloat162_rn(dv[j][2 * r], dv[j][2 * r + 1]);
-    }
-    if constexpr (SPLIT) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        *reinterpret_cast<__nv_bfloat162*>(dkp + off + 64 + j * 8) =
-            __floats2bfloat162_rn(dkb[j][2 * r] * p.scale,
-                                  dkb[j][2 * r + 1] * p.scale);
-        *reinterpret_cast<__nv_bfloat162*>(dvp + off + 64 + j * 8) =
-            __floats2bfloat162_rn(dvb[j][2 * r], dvb[j][2 * r + 1]);
-      }
-    }
-  }
+  store_dkv<8>(p, dk, dv, dkp, dvp, D, key0, 0, t2);
+  if constexpr (SPLIT) store_dkv<DB / 8>(p, dkb, dvb, dkp, dvp, D, key0, 64, t2);
 }
 
-// dQ [B,Hq,Sq,D] in bf16 from the wgmma body's fp32 buffer [B,Hq,nqt,64 D],
-// each 64-row tile in the register order of the warpgroup that adds it:
+// Consumer warpgroup W of `flash_bwd_wide`: all 64 keys' scores, then its
+// own columns of dK, dV and dQ: W = 0 part 0 (columns 0-63), W = 1 part 1
+// (64-127) and the narrow part (128-159) if there is one.
+template <int D, int W>
+__device__ __forceinline__ void wide_consume(const Params& p,
+                                             unsigned char* smem_raw,
+                                             uint32_t smem_base, uint32_t sK,
+                                             uint32_t sV, uint32_t sQ,
+                                             uint32_t sO, uint32_t sDS,
+                                             uint32_t sDQ, uint32_t bars_full,
+                                             uint32_t bars_empty,
+                                             uint32_t dq_full,
+                                             uint32_t dq_empty, int kt,
+                                             int kvh, int b,
+                                             const Band& band, int n_qt,
+                                             int n_tiles) {
+  using CS = ColSplit<D>;
+  using PL = BwdPlan<D>;
+  constexpr bool NARROW = W == 1 && CS::DB > 0;
+  constexpr int NB = NARROW ? CS::DB / 8 : 1;  // narrow n-blocks
+  constexpr int STAGES = PL::STAGES, QT = PL::QT, DS = PL::DS;
+  constexpr float LOG2E = 1.4426950408889634f;
+  const int group = p.Hq / p.Hkv;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g8 = lane >> 2, t2 = (lane & 3) * 2;
+  const float scale2 = p.scale * LOG2E;  // P in base 2
+  const int k_lo = kt * PL::BK;
+  const int key0 = k_lo + warp * 16 + g8;  // this thread's rows: key0, +8
+  const uint32_t kf = sK + W * PL::BK * 128;  // K of this part
+  const uint32_t kn = sK + CS::narrow_at(PL::BK);
+
+  float dk[8][4], dv[8][4], dkn[NB][4], dvn[NB][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dkn[j][e] = dvn[j][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % STAGES;
+    const int h = kvh * group + it / n_qt;
+    const int qt = band.qt_lo + it % n_qt;
+    const int q_lo = qt * BW_BQ;
+    const long long row_base = ((long long)b * p.Hq + h) * p.Sq;
+    float l2[16], dl[16];
+    load_rows_stats(p, row_base, q_lo, t2, l2, dl);
+    const uint32_t sq = sQ + s * QT, so = sO + s * QT;
+    const uint32_t sqf = sq + W * BW_BQ * 128, sof = so + W * BW_BQ * 128;
+    const uint32_t sqn = sq + CS::narrow_at(BW_BQ);
+    const uint32_t son = so + CS::narrow_at(BW_BQ);
+    mbar_wait(bars_full + 8 * s, (it / STAGES) & 1);
+
+    float st[8][4], dp[8][4];
+    score_products<D>(st, dp, sK, sV, sq, so, PL::BK, 0);
+
+    bool need_mask = k_lo + 64 > p.Skv || q_lo + BW_BQ > p.Sq;
+    if (p.causal) need_mask = need_mask || (k_lo + 63 > q_lo);
+    if (p.window > 0)
+      need_mask = need_mask || (k_lo <= q_lo + BW_BQ - 1 - p.window);
+    scores_to_grads(p, st, dp, l2, dl, need_mask, key0, q_lo, t2, scale2);
+    uint32_t pf[4][4], df[4][4];
+    const uint32_t sds = sDS + (W * 2 + (it & 1)) * DS;
+    pack_grads(st, dp, pf, df, sds, warp, g8, lane);
+    wg_sync(1 + W);
+
+    // dV += P^T dO, dK += dS^T Q, dQ = dS K, this warpgroup's columns
+    float dq[8][4], dqn[NB][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs_n64(dv, pf[kk], wg_desc(sof + kk * 2048, 16, 1024, SW128));
+      wgmma_rs_n64(dk, df[kk], wg_desc(sqf + kk * 2048, 16, 1024, SW128));
+      if constexpr (NARROW) {
+        wgmma_rs_narrow<CS::DB>(dvn, pf[kk],
+                                wg_desc(son + kk * 16 * CS::RB, 16, CS::SBO,
+                                        CS::LAYOUT));
+        wgmma_rs_narrow<CS::DB>(dkn, df[kk],
+                                wg_desc(sqn + kk * 16 * CS::RB, 16, CS::SBO,
+                                        CS::LAYOUT));
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_ss_n64<1, 1>(dq, wg_desc(sds + kk * 2048, 16, 1024, SW128),
+                         wg_desc(kf + kk * 2048, 16, 1024, SW128), kk);
+      if constexpr (NARROW)
+        wgmma_ss_narrow<CS::DB, 1, 1>(
+            dqn, wg_desc(sds + kk * 2048, 16, 1024, SW128),
+            wg_desc(kn + kk * 16 * CS::RB, 16, CS::SBO, CS::LAYOUT), kk);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dv);
+    fence_acc(dk);
+    fence_acc(dq);
+    if constexpr (NARROW) {
+      fence_acc(dvn);
+      fence_acc(dkn);
+      fence_acc(dqn);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        asm volatile("" : "+r"(pf[kk][e]), "+r"(df[kk][e]));
+    if (lane == 0) mbar_arrive(bars_empty + 8 * s);  // Q and dO are read
+
+    // this warpgroup's columns of dQ (scaled) into its buffer in register
+    // order, once the writer has read the previous tile's; the writer adds
+    // them into the tile's fp32 sum at register block 8 W, in turn
+    const uint32_t xq_addr = sDQ + W * 8 * 128 * 16;
+    float4* xq = reinterpret_cast<float4*>(smem_raw + (xq_addr - smem_base)) +
+                 (threadIdx.x & 127);
+    if (it >= 1) mbar_wait(dq_empty, (it - 1) & 1);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      xq[j * 128] = make_float4(dq[j][0] * p.scale, dq[j][1] * p.scale,
+                                dq[j][2] * p.scale, dq[j][3] * p.scale);
+    if constexpr (NARROW) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        xq[(8 + j) * 128] =
+            make_float4(dqn[j][0] * p.scale, dqn[j][1] * p.scale,
+                        dqn[j][2] * p.scale, dqn[j][3] * p.scale);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    wg_sync(1 + W);
+    if ((threadIdx.x & 127) == 0) mbar_arrive(dq_full);
+  }
+
+  __nv_bfloat16* dkp = static_cast<__nv_bfloat16*>(p.dk) +
+                       ((long long)b * p.Hkv + kvh) * p.Skv * D;
+  __nv_bfloat16* dvp = static_cast<__nv_bfloat16*>(p.dv) +
+                       ((long long)b * p.Hkv + kvh) * p.Skv * D;
+  store_dkv<8>(p, dk, dv, dkp, dvp, D, key0, 64 * W, t2);
+  if constexpr (NARROW)
+    store_dkv<NB>(p, dkn, dvn, dkp, dvp, D, key0, 64 * CS::NF, t2);
+}
+
+template <int D>
+__global__ void __launch_bounds__(BW_THREADS, 1)
+    flash_bwd_wide(const __grid_constant__ BwdMaps maps, const Params p,
+                   int* counters) {
+  using CS = ColSplit<D>;
+  using PL = BwdPlan<D>;
+  static_assert(CS::NF == 2, "two 64-column parts, one a warpgroup");
+  constexpr int STAGES = PL::STAGES, KT = PL::KT, QT = PL::QT, DS = PL::DS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t smem_base =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (smem_base + 1023) & ~1023u;
+  const uint32_t sK = base, sV = sK + KT;
+  const uint32_t sQ = sV + KT;                   // [stage]
+  const uint32_t sO = sQ + STAGES * QT;          // [stage] dO
+  const uint32_t sDS = sO + STAGES * QT;         // [warpgroup][buffer]
+  const uint32_t sDQ = sDS + 4 * DS;             // [warpgroup] dQ, fp32
+  const uint32_t bars = sDQ + BW_BQ * D * 4;
+  const uint32_t kv_full = bars;
+  const uint32_t bars_full = bars + 8, bars_empty = bars + 8 * (1 + STAGES);
+  // each warpgroup's dQ buffer: staged [W], read by its writer [W]
+  const uint32_t dq_full = bars + 8 * (1 + 2 * STAGES);
+  const uint32_t dq_empty = dq_full + 16;
+
+  const int kt = block_key_tile(), kvh = blockIdx.y, b = blockIdx.z;
+  const Band band(p, kt, PL::BK);
+  const int n_qt = max(0, band.qt_hi - band.qt_lo + 1);
+  const int n_tiles = (p.Hq / p.Hkv) * n_qt;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars_full + 8 * s, 1);
+      mbar_init(bars_empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(dq_full + 8 * i, 1);
+      mbar_init(dq_empty + 8 * i, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer: one thread issues every load, one writer a warpgroup's dQ
+    // (columns 0-63 at register block 0, the rest at block 8)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256)
+      bwd_produce<D>(maps, p, sK, sV, sQ, sO, kv_full, bars_full, bars_empty,
+                     kt * PL::BK, kvh, b, band.qt_lo, n_qt, n_tiles);
+    if (threadIdx.x == 288 || threadIdx.x == 320) {
+      const int w = (threadIdx.x - 288) / 32;
+      const int bytes = (w == 0 ? 64 : D - 64) * 64 * 4;
+      dq_write<1>(p, counters, w, w * 8 * 128 * 4, bytes,
+                  sDQ + w * 8 * 128 * 16, 0, dq_full + 8 * w,
+                  dq_empty + 8 * w, kt, kvh, b, band, n_qt, n_tiles,
+                  BW_BQ * D);
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  mbar_wait(kv_full, 0);
+  if (wg == 0)
+    wide_consume<D, 0>(p, smem_raw, smem_base, sK, sV, sQ, sO, sDS, sDQ,
+                       bars_full, bars_empty, dq_full, dq_empty, kt, kvh, b,
+                       band, n_qt, n_tiles);
+  else
+    wide_consume<D, 1>(p, smem_raw, smem_base, sK, sV, sQ, sO, sDS, sDQ,
+                       bars_full, bars_empty, dq_full + 8, dq_empty + 8, kt,
+                       kvh, b, band, n_qt, n_tiles);
+}
+
+// dQ [B,Hq,Sq,D] in bf16 from the bf16 bodies' fp32 buffer [B,Hq,nqt,64 D],
+// each 64-row tile in the register order of the warpgroups that add it:
 // element (r, d) of a tile is register 4 (d / 8) + 2 ((r % 16) / 8) + d % 2
 // of thread 32 (r / 16) + 4 (r % 8) + (d % 8) / 2, at float offset
 // 4 (128 register / 4 + thread) + register % 4.  One thread a pair of
@@ -736,37 +1144,45 @@ int launch_fma(const Params& p, cudaStream_t stream) {
 }
 
 template <int D>
-int launch_wgmma(const Params& p, void* dq_out, cudaStream_t stream) {
+int launch_wgmma(const Params& p, void* dq_out, int* counters,
+                 cudaStream_t stream) {
+  using CS = ColSplit<D>;
+  using PL = BwdPlan<D>;
   BwdMaps maps;
   const void* src[4] = {p.q, p.k, p.v, p.dout};
   CUtensorMap* dst[4] = {maps.q, maps.k, maps.v, maps.dout};
   const int S[4] = {p.Sq, p.Skv, p.Skv, p.Sq};
   const int H[4] = {p.Hq, p.Hkv, p.Hkv, p.Hq};
-  const int rows[4] = {BW_BQ, BW_BK, BW_BK, BW_BQ};
+  const int rows[4] = {BW_BQ, PL::BK, PL::BK, BW_BQ};
   const long long ss[4] = {p.q_ss, p.k_ss, p.v_ss, p.do_ss};
   const long long sh[4] = {p.q_sh, p.k_sh, p.v_sh, p.do_sh};
   const long long sb[4] = {p.q_sb, p.k_sb, p.v_sb, p.do_sb};
   for (int t = 0; t < 4; ++t) {
-    int err = tensor_map_4d(&dst[t][0], src[t], 64, S[t], H[t], p.B, ss[t],
-                            sh[t], sb[t], rows[t],
+    int err = tensor_map_4d(&dst[t][0], src[t], 64 * CS::NF, 64, S[t], H[t],
+                            p.B, ss[t], sh[t], sb[t], rows[t],
                             CU_TENSOR_MAP_SWIZZLE_128B);
-    if (err == 0 && D > 64)
+    if (err == 0 && CS::DB > 0)
       err = tensor_map_4d(&dst[t][1],
-                          static_cast<const __nv_bfloat16*>(src[t]) + 64,
-                          D - 64, S[t], H[t], p.B, ss[t], sh[t], sb[t],
-                          rows[t], CU_TENSOR_MAP_SWIZZLE_32B);
+                          static_cast<const __nv_bfloat16*>(src[t]) +
+                              64 * CS::NF,
+                          CS::DB, CS::DB, S[t], H[t], p.B, ss[t], sh[t],
+                          sb[t], rows[t], CS::TMA_SWIZZLE);
     if (err != 0) return err;
   }
   cudaError_t err = launch_delta<__nv_bfloat16, D>(p, stream);
   if (err != cudaSuccess) return (int)err;
-  constexpr int smem = bw_smem_bytes<D>();
-  auto kernel = flash_bwd_wgmma<D>;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.Skv + BW_BK - 1) / BW_BK, p.Hkv, p.B);
-  kernel<<<grid, BW_THREADS, smem, stream>>>(maps, p);
-  err = cudaGetLastError();
+  const dim3 grid((p.Skv + PL::BK - 1) / PL::BK, p.Hkv, p.B);
+  auto run = [&](auto kernel) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PL::SMEM);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, BW_THREADS, PL::SMEM, stream>>>(maps, p, counters);
+    return cudaGetLastError();
+  };
+  if constexpr (PL::WIDE)
+    err = run(flash_bwd_wide<D>);
+  else
+    err = run(flash_bwd_wgmma<D>);
   if (err != cudaSuccess) return (int)err;
   const long long n_pairs = (long long)p.B * p.Hq * p.Sq * (D / 2);
   cast_dq_bf16<D><<<(unsigned)((n_pairs + 255) / 256), 256, 0, stream>>>(
@@ -774,42 +1190,59 @@ int launch_wgmma(const Params& p, void* dq_out, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int dispatch_d(const Params& p, int body, void* dq_out, int* counters,
+               cudaStream_t stream) {
+  return body == 0 ? launch_fma<D>(p, stream)
+                   : launch_wgmma<D>(p, dq_out, counters, stream);
+}
+
 }  // namespace
 
-// body: 0 = the fp32 FMA body (float32 tensors), 2 = the bf16 wgmma + TMA body
-// (bfloat16 tensors); the wrapper chooses it by type.  D = 64 or 80.  lse
-// [B,Hq,Sq] fp32 from the forward; delta [B,Hq,Sq] fp32 scratch; dq_acc fp32,
-// zero at launch: for an fp32 call [B,Hq,Sq,D], its dQ; for a bf16 call
-// [B,Hq,ceil(Sq / 64),64 D], a scratch in the body's register order that is
-// cast into dq_out [B,Hq,Sq,D] bf16 (dq_out is null for fp32).  dk, dv
-// [B,Hkv,Skv,D] contiguous.  q, k, v, o and dout are read through (batch, head,
-// row) strides in elements with a unit stride along D; for bf16 every row of q,
-// k, v and dout is 16-byte aligned (TMA's rule).  window <= 0 means no
-// window.  Returns a cudaError_t, -1 for an unsupported argument or -2 if a
-// tensor map cannot be made; never synchronises.
+// body: 0 = the fp32 FMA body (float32 tensors), 2 = the bf16 wgmma + TMA
+// bodies (bfloat16 tensors); the wrapper chooses it by type.  D = 64, 80, 128
+// or 160.  lse [B,Hq,Sq] fp32 from the forward; delta [B,Hq,Sq] fp32 scratch;
+// dq_acc fp32, zero at launch: for an fp32 call [B,Hq,Sq,D], its dQ; for a
+// bf16 call [B,Hq,ceil(Sq / 64),64 D], a scratch in the body's register order
+// that is cast into dq_out [B,Hq,Sq,D] bf16 (dq_out is null for fp32);
+// counters [B,Hq,ceil(Sq / 64),2] int32, zero at launch, the turns of the
+// bf16 bodies' ordered dQ sums (null for fp32).  dk, dv [B,Hkv,Skv,D]
+// contiguous.  q, k, v, o and dout are read through (batch, head, row)
+// strides in elements with a unit stride along D; for bf16 every row of q, k,
+// v and dout is 16-byte aligned (TMA's rule).  window <= 0 means no window.
+// Returns a cudaError_t, -1 for an unsupported argument or -2 if a tensor map
+// cannot be made; never synchronises.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, float* dq_acc,
-    void* dq_out, void* dk, void* dv, int B, int Hq, int Hkv, int Sq, int Skv,
-    int D, long long q_sb, long long q_sh, long long q_ss, long long k_sb,
-    long long k_sh, long long k_ss, long long v_sb, long long v_sh,
-    long long v_ss, long long o_sb, long long o_sh, long long o_ss,
-    long long do_sb, long long do_sh, long long do_ss, float scale,
-    int causal, int window, int body, void* stream) {
+    void* dq_out, int* counters, void* dk, void* dv, int B, int Hq, int Hkv,
+    int Sq, int Skv, int D, long long q_sb, long long q_sh, long long q_ss,
+    long long k_sb, long long k_sh, long long k_ss, long long v_sb,
+    long long v_sh, long long v_ss, long long o_sb, long long o_sh,
+    long long o_ss, long long do_sb, long long do_sh, long long do_ss,
+    float scale, int causal, int window, int body, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Sq <= 0 || Skv <= 0) return -1;
   if (Hq % Hkv != 0 || Hq > 65535 || B > 65535) return -1;
-  if ((body == 2) != (dq_out != nullptr) || (body != 0 && body != 2))
+  if ((body == 2) != (dq_out != nullptr) ||
+      (body == 2) != (counters != nullptr) || (body != 0 && body != 2))
     return -1;
-  if (D != 64 && D != 80) return -1;
   Params p{q,    k,    v,     o,     dout,  lse,   delta, dq_acc, dk,
            dv,   B,    Hq,    Hkv,   Sq,    Skv,   q_sb,  q_sh,   q_ss,
            k_sb, k_sh, k_ss,  v_sb,  v_sh,  v_ss,  o_sb,  o_sh,   o_ss,
            do_sb, do_sh, do_ss, scale, causal, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (body == 0)
-    return D == 64 ? launch_fma<64>(p, s) : launch_fma<80>(p, s);
-  return D == 64 ? launch_wgmma<64>(p, dq_out, s)
-                 : launch_wgmma<80>(p, dq_out, s);
+  switch (D) {
+    case 64:
+      return dispatch_d<64>(p, body, dq_out, counters, s);
+    case 80:
+      return dispatch_d<80>(p, body, dq_out, counters, s);
+    case 128:
+      return dispatch_d<128>(p, body, dq_out, counters, s);
+    case 160:
+      return dispatch_d<160>(p, body, dq_out, counters, s);
+    default:
+      return -1;
+  }
 }
 
 extern "C" const char* repro_flash_attention_bwd_error_string(int code) {

@@ -513,9 +513,15 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk(const Params p) {
   }
 }
 
-__global__ void cast_bf16(const float* src, __nv_bfloat16* dst, long long n) {
+// dst = the sum of `slices` fp32 arrays of n elements, n apart, in order,
+// cast to bf16.
+__global__ void sum_cast_bf16(const float* src, int slices,
+                              __nv_bfloat16* dst, long long n) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i < n) dst[i] = __float2bfloat16(src[i]);
+  if (i >= n) return;
+  float acc = src[i];
+  for (int z = 1; z < slices; ++z) acc += src[z * n + i];
+  dst[i] = __float2bfloat16(acc);
 }
 
 template <int P, int N>
@@ -599,11 +605,16 @@ int dispatch_p(const Params& p, int P, int N, cudaStream_t s) {
 //                        (B_r dS_out^T); the state terms of dB_r, dC_r and
 //                        dcum.  Wd is summed over the slice's heads in shared
 //                        memory, so dB_r = Wd^T C and dC_r = Wd B run once a
-//                        slice; dB and dC get one fp32 atomic per element per
-//                        slice;
+//                        slice; each slice writes its own dB and dC, and the
+//                        tile's part of dtotal;
 //   ssd_bwd_finish       per (b, chunk, head), sequential: dlog_a = the
-//                        reverse cumsum of dcum, dtotal added on the chunk's
-//                        last row.
+//                        reverse cumsum of dcum, dtotal (the state part, then
+//                        the tiles' parts in order) added on the chunk's last
+//                        row;
+//   sum_cast_bf16        dB and dC: the slices summed in order, cast.
+// Every sum runs in a fixed order, so a call repeats bit for bit: no block
+// adds into memory another block adds into, and the warps of a block that
+// share a row of dcum keep a part each, summed in warp order.
 // Every product runs on `mma.sync.m16n8k16` (bf16 in, fp32 accumulate).  An
 // fp32 operand (the decayed Xbar and dY, S_in, dS_out, M, the summed Wd) is
 // split hi + lo and multiplied twice into one accumulator, as the forward
@@ -633,9 +644,11 @@ struct BwdTc {
   float* s_in;                // [B,H,nc,P,N]: emit, then S_in (bf16 hi, lo)
   float* ds_out;              // [B,H,nc,P,N]: demit, then dS_out
   float* dcum;                // [B,H,nc,L]
-  float* dtot;                // [B,H,nc]
+  float* dtot;                // [B,H,nc,1 + LT / 64]: the state part, then
+                              // each 64-row tile's
   int B, S, H, G, L, nc, LT;
-  int hs;                     // heads a slice of ssd_bwd_tile
+  int hs;                     // heads a slice of ssd_bwd_tile; db and dc
+                              // hold one [B,S,G,N] a slice
 };
 
 // Per (b, chunk, head): the cumsum, emit and demit.
@@ -740,7 +753,7 @@ __global__ void __launch_bounds__(256) ssd_bwd_pass(const BwdTc p) {
     if (threadIdx.x == 0) {
       float sum = 0.f;
       for (int w = 0; w < 8; ++w) sum += sRed[w];
-      p.dtot[bh * p.nc + c] = decay * sum;
+      p.dtot[(bh * p.nc + c) * (1 + p.LT / TT)] = decay * sum;
     }
 #pragma unroll
     for (int e = 0; e < EPT; ++e) {
@@ -839,7 +852,7 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 template <int P, int N>
 constexpr int tile_smem_bytes(int T) {
-  return 4 * (T * TT * (TT + 4) + TC_CHUNK + TT) +
+  return 4 * (T * TT * (TT + 4) + TC_CHUNK + 2 * TT + 8) +
          2 * (2 * TT * (N + 8) +
               ((T + 1) * TT * (P + 8) > TT * (N + 8) ? (T + 1) * TT * (P + 8)
                                                      : TT * (N + 8)) +
@@ -861,8 +874,10 @@ __global__ void __launch_bounds__(TL_THREADS, 1) ssd_bwd_tile(const BwdTc p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sWd = reinterpret_cast<float*>(smem_raw);  // [T][TT][LDW]
   float* sCum = sWd + T * TT * LDW;                 // [TC_CHUNK]
-  float* sDcum = sCum + TC_CHUNK;                   // [TT]
-  __nv_bfloat16* sBr = reinterpret_cast<__nv_bfloat16*>(sDcum + TT);
+  // dcum of the tile's rows, one part for each half wn of the warps
+  float* sDcum = sCum + TC_CHUNK;                   // [2][TT]
+  float* sEsum = sDcum + 2 * TT;                    // [8]: dtotal by warp
+  __nv_bfloat16* sBr = reinterpret_cast<__nv_bfloat16*>(sEsum + 8);
   __nv_bfloat16* sCr = sBr + TT * LDN;
   // Xbar tile j <= r at slot j, dY tile i >= r at slot i + 1; at the end, one
   // tile of B or C
@@ -926,7 +941,9 @@ __global__ void __launch_bounds__(TL_THREADS, 1) ssd_bwd_tile(const BwdTc p) {
     cp_async_commit();
     for (int i = threadIdx.x; i < p.L; i += TL_THREADS)
       sCum[i] = p.cum[bhc * p.L + i];
-    if (threadIdx.x < TT) sDcum[threadIdx.x] = 0.f;
+    if (threadIdx.x < 2 * TT) sDcum[threadIdx.x] = 0.f;
+    // one lane of a warp owns each row of its half's part: no atomics
+    float* dcum_w = sDcum + wn * TT + wm * 16 + g8;
     cp_async_wait<0>();
     __syncthreads();
     const float total = sCum[p.L - 1];
@@ -971,7 +988,7 @@ __global__ void __launch_bounds__(TL_THREADS, 1) ssd_bwd_tile(const BwdTc p) {
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
         const float v = quad_sum(rows[q]);
-        if ((lane & 3) == 0) atomicAdd(&sDcum[wm * 16 + g8 + q * 8], v);
+        if ((lane & 3) == 0) dcum_w[q * 8] += v;
       }
     }
 
@@ -1009,7 +1026,7 @@ __global__ void __launch_bounds__(TL_THREADS, 1) ssd_bwd_tile(const BwdTc p) {
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
         const float v = quad_sum(cols[q]);
-        if ((lane & 3) == 0) atomicAdd(&sDcum[wm * 16 + g8 + q * 8], -v);
+        if ((lane & 3) == 0) dcum_w[q * 8] -= v;
       }
       uint32_t a[2][2][4];
       frag_a_acc(a, w);
@@ -1058,7 +1075,7 @@ __global__ void __launch_bounds__(TL_THREADS, 1) ssd_bwd_tile(const BwdTc p) {
       for (int q = 0; q < 2; ++q) {
         const float v = quad_sum(ex[q]);
         if ((lane & 3) == 0) {
-          atomicAdd(&sDcum[wm * 16 + g8 + q * 8], -v);
+          dcum_w[q * 8] -= v;
           e_sum += v;
         }
       }
@@ -1114,14 +1131,19 @@ __global__ void __launch_bounds__(TL_THREADS, 1) ssd_bwd_tile(const BwdTc p) {
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
         const float v = quad_sum(cd[q]);
-        if ((lane & 3) == 0) atomicAdd(&sDcum[wm * 16 + g8 + q * 8], v);
+        if ((lane & 3) == 0) dcum_w[q * 8] += v;
       }
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       e_sum += __shfl_xor_sync(0xffffffffu, e_sum, off);
-    if (lane == 0) atomicAdd(p.dtot + bhc, e_sum);
+    if (lane == 0) sEsum[warp] = e_sum;
     __syncthreads();  // the head's products are done; sDcum is complete
+    if (threadIdx.x == 0) {  // this tile's part of dtotal, in warp order
+      float e = 0.f;
+      for (int w = 0; w < 8; ++w) e += sEsum[w];
+      p.dtot[bhc * (1 + T) + 1 + r] = e;
+    }
 
     // dXbar of the tile: the two halves of the depth summed
     float* sEx = reinterpret_cast<float*>(sXY);  // [TT][P + 4]
@@ -1135,7 +1157,8 @@ __global__ void __launch_bounds__(TL_THREADS, 1) ssd_bwd_tile(const BwdTc p) {
               make_float2(dx[nt][2 * q], dx[nt][2 * q + 1]);
     }
     if (threadIdx.x < TT && r * TT + threadIdx.x < p.L)
-      p.dcum[bhc * p.L + r * TT + threadIdx.x] = sDcum[threadIdx.x];
+      p.dcum[bhc * p.L + r * TT + threadIdx.x] =
+          sDcum[threadIdx.x] + sDcum[TT + threadIdx.x];
     __syncthreads();
     if (wn == 0) {
 #pragma unroll
@@ -1193,26 +1216,31 @@ __global__ void __launch_bounds__(TL_THREADS, 1) ssd_bwd_tile(const BwdTc p) {
     __syncthreads();  // the tile's readers are done before the next load
   }
 
+  // this slice's dB and dC of the tile's rows, summed over the slices by
+  // sum_cast_bf16
+  const long long slice = (long long)blockIdx.z * p.B * p.S * p.G * N;
 #pragma unroll
   for (int q = 0; q < 2; ++q) {
     const int row = r * TT + wm * 16 + g8 + q * 8;
     if (row >= l) continue;
-    float* db = p.db + bo + row * b_ss;
-    float* dc = p.dc + bo + row * b_ss;
+    float* db = p.db + slice + bo + row * b_ss;
+    float* dc = p.dc + slice + bo + row * b_ss;
 #pragma unroll
     for (int nt = 0; nt < NTN; ++nt) {
       const int col = wn * (N / 2) + nt * 8 + t2;
-      atomicAdd(reinterpret_cast<float2*>(db + col),
-                make_float2(dbr[nt][2 * q], dbr[nt][2 * q + 1]));
-      atomicAdd(reinterpret_cast<float2*>(dc + col),
-                make_float2(dcr[nt][2 * q], dcr[nt][2 * q + 1]));
+      *reinterpret_cast<float2*>(db + col) =
+          make_float2(dbr[nt][2 * q], dbr[nt][2 * q + 1]);
+      *reinterpret_cast<float2*>(dc + col) =
+          make_float2(dcr[nt][2 * q], dcr[nt][2 * q + 1]);
     }
   }
 }
 
 // One thread per (b, head, chunk): dlog_a = the reverse cumsum of dcum over
 // the chunk's rows, dtotal added on its last row, in the order of a
-// sequential scan (as the cumsum, torch.cumsum's).
+// sequential scan (as the cumsum, torch.cumsum's); dtotal is the state part
+// and then each 64-row tile's part that ssd_bwd_tile wrote (rows past l have
+// none).
 __global__ void __launch_bounds__(128) ssd_bwd_finish(const BwdTc p) {
   const long long idx = blockIdx.x * 128LL + threadIdx.x;  // heads fastest
   if (idx >= (long long)p.B * p.H * p.nc) return;
@@ -1222,7 +1250,10 @@ __global__ void __launch_bounds__(128) ssd_bwd_finish(const BwdTc p) {
   const int r0 = c * p.L, l = min(p.L, p.S - r0);
   const float* dcum = p.dcum + bhc * p.L;
   float* out = p.dlog_a + ((long long)b * p.S + r0) * p.H + h;
-  float acc = p.dtot[bhc];  // rows past l add zeros
+  const int T = p.LT / TT;
+  const float* dtot = p.dtot + bhc * (1 + T);
+  float acc = dtot[0];
+  for (int r = 0; r < T && r * TT < l; ++r) acc += dtot[1 + r];
   for (int i = l - 1; i >= 0; --i) {
     acc += dcum[i];
     out[(long long)i * p.H] = acc;
@@ -1307,24 +1338,27 @@ int dispatch_tc(const BwdTc& p, int P, int N, cudaStream_t s) {
 // body: 0 = the fp32 FMA body (float32 tensors), 1 = the bf16 tensor-core
 // body (bfloat16 tensors); the wrapper chooses it by type.  Every tensor
 // contiguous; xbar, B, C, dy, dxbar and db_out / dc_out in the body's type,
-// the rest fp32.  db_acc, dc_acc [B,S,G,N] fp32, zero at launch: dB and dC of
-// an fp32 call, for a bf16 call a scratch cast into db_out / dc_out (null for
-// fp32).  dfinal, init and dinit may be null (zero; not written).  Chunks of
-// L rows, nc = ceil(S / L), L chosen by the wrapper (which sizes the scratch
-// from it): at most S, MAX_CHUNK and, for the tensor-core body, TC_CHUNK,
-// else -1.  s_in, ds_out [B,H,nc,P,N] fp32 scratch;
-// the tensor-core body also takes cum and dcum [B,H,nc,L], cb
-// [B,nc,G,LT,LT] (LT: L rounded up to a multiple of 64) and dtot [B,H,nc],
-// fp32 scratch (null for the FMA body).  P in (16, 32, 64), N in (16, 32,
-// 64, 128).  Returns a cudaError_t, or -1 for an unsupported argument; never
-// synchronises.
+// the rest fp32.  db_acc, dc_acc fp32: for an fp32 call [B,S,G,N], zero at
+// launch, its dB and dC (summed with atomics); for a bf16 call
+// [ceil(H / G / hs),B,S,G,N], one [B,S,G,N] for each slice of hs heads of a
+// group, summed in order and cast into db_out / dc_out (null for fp32).
+// dfinal, init and dinit may be null (zero; not written).  Chunks of L rows,
+// nc = ceil(S / L), L chosen by the wrapper (which sizes the scratch from
+// it): at most S, MAX_CHUNK and, for the tensor-core body, TC_CHUNK, else -1.
+// s_in, ds_out [B,H,nc,P,N] fp32 scratch; the tensor-core body also takes
+// cum and dcum [B,H,nc,L], cb [B,nc,G,LT,LT] (LT: L rounded up to a multiple
+// of 64) and dtot [B,H,nc,1 + LT / 64], fp32 scratch (null for the FMA
+// body), and hs, the heads a slice of its tile kernel takes (1 <= hs <=
+// H / G; the wrapper chooses it so that the tiles and slices make about two
+// blocks an SM).  P in (16, 32, 64), N in (16, 32, 64, 128).  Returns a
+// cudaError_t, or -1 for an unsupported argument; never synchronises.
 extern "C" int repro_ssd_scan_bwd(
     const void* xbar, const float* log_a, const void* bm, const void* cm,
     const void* dy, const float* dfinal, const float* init, void* dxbar,
     float* dlog_a, float* db_acc, float* dc_acc, void* db_out, void* dc_out,
     float* dinit, float* s_in, float* ds_out, float* cum, float* cb,
     float* dcum, float* dtot, int B, int S, int H, int G, int P, int N,
-    int L, int body, void* stream) {
+    int L, int hs, int body, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0) return -1;
   if (L <= 0 || L > S || L > MAX_CHUNK || B > 65535 || H > 65535) return -1;
   if (body < 0 || body > 1 || (body == 1) != (db_out != nullptr) ||
@@ -1338,26 +1372,13 @@ extern "C" int repro_ssd_scan_bwd(
              L,      nc};
     return dispatch_p(p, P, N, s);
   }
+  const int rep = H / G;
   if (cum == nullptr || cb == nullptr || dcum == nullptr || dtot == nullptr ||
-      L > TC_CHUNK)
+      L > TC_CHUNK || hs < 1 || hs > rep)
     return -1;
   const int nc = (S + L - 1) / L;
   const int LT = (L + TT - 1) / TT * TT;
   if (nc > 65535 || (long long)B * nc * G > 65535) return -1;
-  // heads a slice of ssd_bwd_tile: enough slices for about two blocks an SM
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int rep = H / G;
-  const long long tiles = (long long)B * nc * G * (LT / TT);
-  long long slices = (2LL * sms + tiles - 1) / tiles;
-  slices = slices < 1 ? 1 : (slices > rep ? rep : slices);
-  const int hs = (int)((rep + slices - 1) / slices);
   const BwdTc p{static_cast<const __nv_bfloat16*>(xbar),
                 log_a,
                 static_cast<const __nv_bfloat16*>(bm),
@@ -1381,10 +1402,11 @@ extern "C" int repro_ssd_scan_bwd(
   if (err != 0) return err;
   const long long n = (long long)B * S * G * N;
   const unsigned blocks = (unsigned)((n + 255) / 256);
-  cast_bf16<<<blocks, 256, 0, s>>>(db_acc, static_cast<__nv_bfloat16*>(db_out),
-                                   n);
-  cast_bf16<<<blocks, 256, 0, s>>>(dc_acc, static_cast<__nv_bfloat16*>(dc_out),
-                                   n);
+  const int slices = (rep + hs - 1) / hs;
+  sum_cast_bf16<<<blocks, 256, 0, s>>>(
+      db_acc, slices, static_cast<__nv_bfloat16*>(db_out), n);
+  sum_cast_bf16<<<blocks, 256, 0, s>>>(
+      dc_acc, slices, static_cast<__nv_bfloat16*>(dc_out), n);
   return (int)cudaGetLastError();
 }
 

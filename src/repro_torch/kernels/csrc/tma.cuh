@@ -14,7 +14,7 @@
 
 namespace {
 
-constexpr int SW128 = 1, SW32 = 3;  // wgmma descriptor layout types
+constexpr int SW128 = 1, SW64 = 2, SW32 = 3;  // wgmma descriptor layouts
 
 // Shared-memory matrix descriptor of wgmma: start address, leading and
 // stride byte offsets (16-byte units), swizzle layout.  K-major with a
@@ -154,6 +154,22 @@ __device__ __forceinline__ void wgmma_ss_n16(float (&d)[2][4], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32], both in shared memory, as above.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[4][4], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+      ", %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
 // D[64 x 64] += A[64 x 16] B[16 x 64], A in registers (the layout of a
 // 64-row accumulator packed to bf16 pairs), B in shared memory (MN-major: the
 // transpose bit).
@@ -193,6 +209,68 @@ __device__ __forceinline__ void wgmma_rs_n16(float (&d)[2][4],
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 32] += A[64 x 16] B[16 x 32], A in registers, B in shared memory
+// (MN-major: the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[4][4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The column split of a head dim D for the 128-byte swizzle: NF parts of 64
+// columns (128 bytes a row, the 128-byte swizzle) and one narrow part of DB
+// = D % 64 columns (0, 16 or 32: 32 or 64 bytes a row, the swizzle of that
+// width).  A tile of R rows lays its parts out one after another, part p at
+// p R 128 bytes, the narrow part last: R D 2 bytes in all.
+template <int D>
+struct ColSplit {
+  static_assert(D % 16 == 0 && (D % 64 == 0 || D % 64 == 16 || D % 64 == 32),
+                "head dims of 64-column parts and one of 0, 16 or 32");
+  static constexpr int NF = D / 64;
+  static constexpr int DB = D % 64;
+  static constexpr int RB = DB * 2;                   // bytes a narrow row
+  static constexpr int SBO = 8 * RB;                  // its 8-row groups
+  static constexpr int LAYOUT = DB == 32 ? SW64 : SW32;
+  static constexpr CUtensorMapSwizzle TMA_SWIZZLE =
+      DB == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  // bytes of a tile of `rows` rows before its narrow part
+  __host__ __device__ static constexpr int narrow_at(int rows) {
+    return NF * rows * 128;
+  }
+};
+
+// acc (+)= A B for the narrow part's DB = 16 or 32 columns of B: A in
+// registers, B MN-major in shared memory.
+template <int DB>
+__device__ __forceinline__ void wgmma_rs_narrow(float (&d)[DB / 8][4],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  if constexpr (DB == 16)
+    wgmma_rs_n16(d, a, db);
+  else
+    wgmma_rs_n32(d, a, db);
+}
+
+// The same with A in shared memory too (transpose bits TA, TB).
+template <int DB, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_narrow(float (&d)[DB / 8][4],
+                                                uint64_t da, uint64_t db,
+                                                int accumulate) {
+  if constexpr (DB == 16)
+    wgmma_ss_n16<TA, TB>(d, da, db, accumulate);
+  else
+    wgmma_ss_n32<TA, TB>(d, da, db, accumulate);
 }
 
 // cuTensorMapEncodeTiled, taken from the driver at run time so that the
@@ -242,18 +320,18 @@ int tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type,
 
 // The 4-D map (cols columns, S, H, B) of a bf16 attention operand read
 // through its strides (elements; unit stride along the columns), boxes of
-// `cols` columns by `rows` rows of one head.
+// `box_cols` columns by `rows` rows of one head.
 [[maybe_unused]]
-int tensor_map_4d(CUtensorMap* map, const void* base, int cols, int S, int H,
-                  int B, long long ss, long long sh, long long sb, int rows,
-                  CUtensorMapSwizzle swizzle) {
+int tensor_map_4d(CUtensorMap* map, const void* base, int cols, int box_cols,
+                  int S, int H, int B, long long ss, long long sh,
+                  long long sb, int rows, CUtensorMapSwizzle swizzle) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return ERR_TENSOR_MAP;
   const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)S, (cuuint64_t)H,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
                                  (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, (cuuint32_t)rows, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                         const_cast<void*>(base), dims, strides, box, unit,

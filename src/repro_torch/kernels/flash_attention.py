@@ -7,22 +7,23 @@ Replaces the TPU kernel ``flash_attention`` / ``_flash_kernel`` of
 with GQA by index, causal and sliding-window bands, fp32 running state.  The
 CUDA source is ``csrc/flash_attention.cu``; its header says how the design
 differs from the TPU kernel (KV loop inside the block over the band's tiles,
-longest query tiles first, ragged edges masked in the kernel).  Three bodies,
-chosen by :func:`flash_body`: ``wgmma`` + TMA for bf16 at D = 64 and 80 (the
-served shapes), ``mma.sync`` for bf16 at D = 32 and 128, full-fp32 FMA for
-fp32.
+longest query tiles first, ragged edges masked in the kernel).  Two bodies,
+chosen by :func:`flash_body`: ``wgmma`` + TMA for bf16 at every head dim,
+full-fp32 FMA for fp32.
 
 On this card causal attention is bound by operations, not bytes: at
 ``B=8, H=16, S=2048, D=64`` it is about 69 GFLOP against 134 MB moved.
 
 The backward (``csrc/flash_attention_bwd.cu``) has no TPU kernel of its
 own: the reference differentiates its plain attention.  It recomputes P from
-the row log-sum-exp that the forward leaves behind (the ``wgmma`` and FMA
-bodies write it; D = 64 and 80 only) and forms dQ, dK and dV with dK and dV
+the row log-sum-exp that the forward leaves behind and forms dQ, dK and dV
+(D = 64, 80, 128 and 160) with dK and dV
 summed over each GQA group.  Two bodies, chosen by :func:`flash_bwd_body`:
 ``wgmma`` + TMA for bf16, with P and dS rounded once to bf16 for the
 products that take them (:func:`flash_attention_bwd_tc_plain` is the same
-rounding in plain PyTorch), and full-fp32 FMA for fp32.
+rounding in plain PyTorch) and dQ summed over the key tiles in a fixed order
+(:func:`dq_fixed_order_plain` is that order in plain PyTorch), and
+full-fp32 FMA for fp32.
 :class:`FlashAttentionFn` runs the forward kernel and saves q, k, v, o and
 the log-sum-exp; its backward runs the backward kernel.  On CPU tensors the
 same Function runs :func:`flash_attention_plain`, :func:`flash_lse_plain`
@@ -41,10 +42,11 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.models.layers import NEG_INF, _band_mask, attention_dense
 
-SUPPORTED_HEAD_DIMS = (32, 64, 80, 128)
-# head dims the backward takes (and the forward writes the lse for)
-BACKWARD_HEAD_DIMS = (64, 80)
-_BODY_CODE = {"fma": 0, "mma_sync": 1, "wgmma": 2}
+SUPPORTED_HEAD_DIMS = (32, 64, 80, 128, 160)
+# head dims the backward takes (a forward that saves the lse for it refuses
+# the others)
+BACKWARD_HEAD_DIMS = (64, 80, 128, 160)
+_BODY_CODE = {"fma": 0, "wgmma": 2}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -118,6 +120,30 @@ def _bf16_round(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(torch.float32)
 
 
+def bwd_block_keys(d: int) -> int:
+    """Keys a block of the bf16 backward body takes at head dim ``d``: 128
+    at D = 64 and 80, 64 at D = 128 and 160 (where the block's two
+    warpgroups split D instead of the keys)."""
+    return 128 if d <= 80 else 64
+
+
+def dq_fixed_order_plain(ds: torch.Tensor, k: torch.Tensor, scale: float,
+                         block_keys: int) -> torch.Tensor:
+    """dQ = dS K * scale in fp32, summed over the key tiles of
+    ``block_keys`` keys in the bf16 backward body's fixed order: each
+    tile's dQ apart, then added into a zero accumulator, the last tile
+    first.  ds ``[B,Hkv,G,Sq,Skv]``, k ``[B,Hkv,Skv,D]``; returns
+    ``[B,Hkv,G,Sq,D]`` fp32."""
+    skv = k.shape[2]
+    acc = torch.zeros(ds.shape[:-1] + (k.shape[-1],), dtype=torch.float32,
+                      device=ds.device)
+    for lo in reversed(range(0, skv, block_keys)):
+        hi = min(lo + block_keys, skv)
+        acc = acc + torch.einsum("bhgqk,bhkd->bhgqd", ds[..., lo:hi],
+                                 k[:, :, lo:hi].to(torch.float32)) * scale
+    return acc
+
+
 def flash_attention_bwd_tc_plain(q: torch.Tensor, k: torch.Tensor,
                                  v: torch.Tensor, o: torch.Tensor,
                                  lse: torch.Tensor, do: torch.Tensor, *,
@@ -128,8 +154,10 @@ def flash_attention_bwd_tc_plain(q: torch.Tensor, k: torch.Tensor,
     with its roundings: S and dP in fp32 from the inputs, P = exp(S - lse)
     on the band and dS = P o (dP - delta) in fp32, then P and dS rounded
     once to bf16 for the products dV = P^T dO, dK = dS^T Q * scale and dQ =
-    dS K * scale, which sum in fp32.  Returns (dq, dk, dv) in the types of
-    q, k, v.  Only the tests and the checks of ``chip_smoke.py`` use it."""
+    dS K * scale, which sum in fp32, dQ over the key tiles in the body's
+    fixed order (:func:`dq_fixed_order_plain`).  Returns (dq, dk, dv) in the
+    types of q, k, v.  Only the tests and the checks of ``chip_smoke.py``
+    use it."""
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
     g = hq // hkv
@@ -142,7 +170,7 @@ def flash_attention_bwd_tc_plain(q: torch.Tensor, k: torch.Tensor,
     ds = _bf16_round(p * (dp - delta))
     p = _bf16_round(p)
     dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dog)
-    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.to(torch.float32)) * scale
+    dq = dq_fixed_order_plain(ds, k, scale, bwd_block_keys(d))
     dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, f32(q)) * scale
     return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
@@ -164,26 +192,22 @@ def _bwd_entry():
     fn = lib.repro_flash_attention_bwd
     if not fn.argtypes:
         ll, ci, vp = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-        fn.argtypes = ([vp] * 11 + [ci] * 6 + [ll] * 15
+        fn.argtypes = ([vp] * 12 + [ci] * 6 + [ll] * 15
                        + [ctypes.c_float, ci, ci, ci, vp])
         fn.restype = ci
     return lib, fn
 
 
 def flash_body(dtype: torch.dtype, d: int) -> str:
-    """The body a CUDA call runs, by type and head dim alone: ``"wgmma"``
-    (wgmma + TMA) for bf16 at D = 64 and 80, ``"mma_sync"`` for bf16 at
-    D = 32 and 128, ``"fma"`` for fp32.  Each body takes every window and
-    every GQA ratio."""
-    if dtype == torch.float32:
-        return "fma"
-    return "wgmma" if d in (64, 80) else "mma_sync"
+    """The body a CUDA call runs, by type alone: ``"wgmma"`` (wgmma + TMA)
+    for bf16, ``"fma"`` for fp32, at every head dim, window and GQA ratio."""
+    return "fma" if dtype == torch.float32 else "wgmma"
 
 
 def flash_bwd_body(dtype: torch.dtype, d: int) -> str:
     """The backward body a CUDA call runs, by type and head dim alone:
-    ``"wgmma"`` (wgmma + TMA) for bf16 at D = 64 and 80, ``"fma"`` for fp32.
-    Other head dims have no backward and raise."""
+    ``"wgmma"`` (wgmma + TMA) for bf16, ``"fma"`` for fp32, at D = 64, 80,
+    128 and 160.  Other head dims have no backward and raise."""
     if d not in BACKWARD_HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd: head dim {d} not in "
                          f"{BACKWARD_HEAD_DIMS}")
@@ -226,8 +250,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: Optional[float] = None, with_lse: bool = False):
     """One launch of the forward kernel on CUDA tensors: (o, the row
     log-sum-exp ``[B,Hq,Sq]`` fp32 with ``with_lse``, else None).  The
-    arguments are :func:`flash_attention`'s; ``with_lse`` needs D = 64 or
-    80."""
+    arguments are :func:`flash_attention`'s; ``with_lse`` needs a head dim
+    of ``BACKWARD_HEAD_DIMS``."""
     _check_fwd(q, k, v, window)
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = v.shape
@@ -270,8 +294,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides (the ``wgmma`` body's TMA needs what :func:`reads_in_place`
     checks, the FMA body a unit stride along D; a tensor without it is made
     contiguous first); lse is the forward's ``[B,Hq,Sq]`` fp32.  CUDA tensors
-    only: float32 or bfloat16, D = 64 or 80, the body
-    :func:`flash_bwd_body`'s; anything else raises."""
+    only: float32 or bfloat16, a head dim of ``BACKWARD_HEAD_DIMS``, the body
+    :func:`flash_bwd_body`'s; anything else raises.  The bf16 body sums dQ
+    over the key tiles in a fixed order, so a call repeats bit for bit; the
+    fp32 body adds dQ with atomics."""
     _check_fwd(q, k, v, window)
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = v.shape
@@ -294,9 +320,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = q.device
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
     bf16 = body == "wgmma"
-    # the wgmma body sums dQ in 64-row tiles, each in its register order
+    # the wgmma body sums dQ in 64-row tiles, each in its register order,
+    # the key tiles taking turns by a counter a tile and warpgroup
     dq_acc = torch.zeros((b, hq, -(-sq // 64), 64 * d) if bf16
                          else (b, hq, sq, d), dtype=torch.float32, device=dev)
+    turns = (torch.zeros((b, hq, -(-sq // 64), 2), dtype=torch.int32,
+                         device=dev) if bf16 else None)
     dq = (torch.empty((b, hq, sq, d), dtype=q.dtype, device=dev) if bf16
           else dq_acc)
     dk = torch.empty((b, hkv, skv, d), dtype=q.dtype, device=dev)
@@ -307,6 +336,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                   do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                   dq_acc.data_ptr(), dq.data_ptr() if bf16 else None,
+                  turns.data_ptr() if bf16 else None,
                   dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, skv, d,
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                   *o.stride()[:3], *do.stride()[:3], scale, int(causal),
@@ -364,13 +394,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     CUDA tensors: q, k and v are read through their strides (the model hands
     over ``transpose(1, 2)`` views of ``[B,S,H,D]`` projections); a tensor
     that fails :func:`reads_in_place` is made contiguous first.  The body is
-    :func:`flash_body`'s: bf16 at D = 64 or 80 runs the ``wgmma`` + TMA body,
-    bf16 at D = 32 or 128 the ``mma.sync`` body, fp32 the FMA body.  The
-    output is allocated as ``[B,Sq,Hq,D]`` and returned as its
+    :func:`flash_body`'s: bf16 runs the ``wgmma`` + TMA body, fp32 the FMA
+    body.  The output is allocated as ``[B,Sq,Hq,D]`` and returned as its
     ``transpose(1, 2)`` view, so the caller's merge of heads is free.
-    ``Sq`` and ``Skv`` are arbitrary; ``D`` must be 32, 64, 80 or 128 (64 or
-    80 when a gradient is wanted) and the type float32 or bfloat16, anything
-    else raises.  Counts forward launches; the backward kernel counts its
+    ``Sq`` and ``Skv`` are arbitrary; ``D`` must be 32, 64, 80, 128 or 160
+    (not 32 when a gradient is wanted) and the type float32 or bfloat16,
+    anything else raises.  Counts forward launches; the backward kernel counts its
     own (:func:`flash_attention_bwd`).
     """
     # the Function's forward runs with grad mode off, so the wrapper decides

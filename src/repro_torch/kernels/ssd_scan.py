@@ -425,7 +425,7 @@ def _bwd_entry():
     fn = lib.repro_ssd_scan_bwd
     if not fn.argtypes:
         ci, vp = ctypes.c_int, ctypes.c_void_p
-        fn.argtypes = [vp] * 20 + [ci] * 8 + [vp]
+        fn.argtypes = [vp] * 20 + [ci] * 9 + [vp]
         fn.restype = ci
     return lib, fn
 
@@ -435,6 +435,16 @@ def ssd_bwd_body(dtype: torch.dtype) -> str:
     cores, every fp32 operand split hi + lo) for bf16, ``"fma"`` for
     fp32."""
     return "fma" if dtype == torch.float32 else "tc"
+
+
+def tile_heads(b: int, nc: int, g: int, lt: int, rep: int, sms: int) -> int:
+    """Heads of a group that one block of the tensor-core backward's tile
+    kernel takes (a slice): as few as make about two blocks an SM of the
+    ``b * nc * g * lt / 64`` tiles and the slices, at least 1, at most the
+    group's ``rep`` heads."""
+    tiles = b * nc * g * (lt // 64)
+    slices = min(max(-(-2 * sms // tiles), 1), rep)
+    return -(-rep // slices)
 
 
 def ssd_scan_bwd(xbar: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
@@ -450,9 +460,12 @@ def ssd_scan_bwd(xbar: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
     here alone: the kernel takes the rows a chunk, which size its scratch,
     and refuses more than its shared memory holds.  fp32 scratch:
     the chunk states and their gradients, ``2 x [B,H,nc,P,N]`` (268 MB at
-    mamba2-1.3b's ``[8, 2048]`` tokens), and for bf16 dB and dC summed in
-    fp32 before the cast, the chunk cumsums and dcum ``[B,H,nc,L]``, C B^T
-    ``[B,nc,G,LT,LT]`` and dtotal ``[B,H,nc]`` (25 MB more there)."""
+    mamba2-1.3b's ``[8, 2048]`` tokens), and for bf16 dB and dC of each
+    slice of heads (:func:`tile_heads`) summed in fp32 in order before the
+    cast, the chunk cumsums and dcum ``[B,H,nc,L]``, C B^T
+    ``[B,nc,G,LT,LT]`` and dtotal ``[B,H,nc,1 + LT / 64]`` (about 59 MB
+    more there).  The bf16 body sums in a fixed order, so a call repeats bit
+    for bit; the fp32 body adds dB, dC and dcum with atomics."""
     _check(xbar, log_a, B, C, chunk, init_state)
     b, s, h, p = xbar.shape
     g, n = B.shape[2], B.shape[3]
@@ -473,9 +486,18 @@ def ssd_scan_bwd(xbar: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
     f32 = dict(dtype=torch.float32, device=dev)
     dxbar = torch.empty_like(xbar)
     dla = torch.empty((b, s, h), **f32)
-    db_acc = torch.zeros((b, s, g, n), **f32)
-    dc_acc = torch.zeros((b, s, g, n), **f32)
     bf16 = xbar.dtype == torch.bfloat16
+    hs = 1
+    if body == "tc":  # each slice of hs heads writes its own dB and dC
+        hs = tile_heads(b, nc, g, lt, h // g,
+                        torch.cuda.get_device_properties(
+                            dev).multi_processor_count)
+        slices = -(-(h // g) // hs)
+        db_acc = torch.empty((slices, b, s, g, n), **f32)
+        dc_acc = torch.empty_like(db_acc)
+    else:
+        db_acc = torch.zeros((b, s, g, n), **f32)
+        dc_acc = torch.zeros((b, s, g, n), **f32)
     db = torch.empty_like(B) if bf16 else db_acc
     dc = torch.empty_like(C) if bf16 else dc_acc
     dinit = torch.empty((b, h, p, n), **f32) if init is not None else None
@@ -484,7 +506,8 @@ def ssd_scan_bwd(xbar: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
     tc = [None] * 4
     if body == "tc":  # cum, C B^T, dcum, dtotal
         tc = [torch.empty(shape, **f32) for shape in (
-            (b, h, nc, ln), (b, nc, g, lt, lt), (b, h, nc, ln), (b, h, nc))]
+            (b, h, nc, ln), (b, nc, g, lt, lt), (b, h, nc, ln),
+            (b, h, nc, 1 + lt // 64))]
     ptr = lambda t: t.data_ptr() if t is not None else None
     lib, fn = _bwd_entry()
     with torch.cuda.device(dev):
@@ -493,7 +516,7 @@ def ssd_scan_bwd(xbar: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
                   ptr(init), ptr(dxbar), ptr(dla), ptr(db_acc), ptr(dc_acc),
                   ptr(db) if bf16 else None, ptr(dc) if bf16 else None,
                   ptr(dinit), ptr(s_in), ptr(ds_out), *map(ptr, tc),
-                  b, s, h, g, p, n, ln, _BWD_BODY_CODE[body], stream)
+                  b, s, h, g, p, n, ln, hs, _BWD_BODY_CODE[body], stream)
     _build.check(lib, code, "ssd_scan_bwd launch",
                  "repro_ssd_scan_bwd_error_string")
     ssd_scan_bwd.launches += 1

@@ -85,10 +85,15 @@ def global_norm(tree: Any) -> torch.Tensor:
                           for leaf in tree_leaves(tree)))
 
 
-def apply(cfg: AdamWConfig, state: AdamWState, grads: Any, params: Any
-          ) -> Tuple[Any, AdamWState, Dict[str, Any]]:
+def apply(cfg: AdamWConfig, state: AdamWState, grads: Any, params: Any,
+          *, donate: bool = False) -> Tuple[Any, AdamWState, Dict[str, Any]]:
     """Returns (new_params, new_state, metrics): ``grad_norm`` (a 0-d fp32
-    tensor, before clipping) and ``lr`` (a float)."""
+    tensor, before clipping) and ``lr`` (a float).  With ``donate`` the new
+    values are written into the given leaves of ``params``, ``state.m`` and
+    ``state.v`` (the same numbers), and those trees come back: the
+    reference's trainer donates both to its jitted step (``TrainerConfig.
+    donate``), so that the old and new parameters and moments are never
+    held at once."""
     gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state.step + 1
@@ -104,7 +109,12 @@ def apply(cfg: AdamWConfig, state: AdamWState, grads: Any, params: Any
         upd32 = (m32 / b1c) / (torch.sqrt(v32 / b2c) + cfg.eps)
         p32 = p.to(torch.float32)
         p32 = p32 - lr * (upd32 + cfg.weight_decay * p32)
-        return p32.to(p.dtype), m32.to(mdt), v32.to(mdt)
+        new = p32.to(p.dtype), m32.to(mdt), v32.to(mdt)
+        if not donate:
+            return new
+        for old, value in zip((p, m, v), new):
+            old.copy_(value)
+        return p, m, v
 
     out = tree_map(upd, params, grads, state.m, state.v)
     new_p, new_m, new_v = (tree_pick(out, i) for i in range(3))

@@ -40,10 +40,15 @@ def value_and_grad(model: Model, params: Any, batch: Dict[str, torch.Tensor],
 
 def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
                     plan: ShardingPlan, *, compress_scheme: str = "none",
-                    use_kernel: bool = False) -> Callable:
+                    use_kernel: bool = False,
+                    donate: bool = False) -> Callable:
     """Returns ``train_step(params, opt_state, ef_state, batch) -> (params,
     opt_state, ef_state, metrics)``, a function of its arguments: new trees
-    come back, the given ones are not written.
+    come back, the given ones are not written.  With ``donate`` the given
+    params and opt_state are updated in place and come back as the new ones
+    (the same numbers; the reference's trainer donates them to its jitted
+    step): the step then never holds two copies of the weights and the fp32
+    moments.
 
     With ``plan.microbatches`` > 1 the batch is split along its first axis
     and the gradients are summed in fp32, each divided by the count, as the
@@ -83,7 +88,8 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
         grads, ef_state = compress.compress_grads(grads, ef_state,
                                                   compress_scheme)
         new_params, new_opt, opt_metrics = adamw.apply(opt_cfg, opt_state,
-                                                       grads, params)
+                                                       grads, params,
+                                                       donate=donate)
         return new_params, new_opt, ef_state, {"loss": loss, **opt_metrics,
                                                **metrics}
 

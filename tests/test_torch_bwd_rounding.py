@@ -21,8 +21,9 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import (
-    flash_attention_bwd_plain, flash_attention_bwd_tc_plain,
-    flash_attention_plain, flash_bwd_body, flash_lse_plain)
+    _scores, bwd_block_keys, dq_fixed_order_plain, flash_attention_bwd_plain,
+    flash_attention_bwd_tc_plain, flash_attention_plain, flash_bwd_body,
+    flash_lse_plain)
 from repro_torch.kernels.ssd_scan import (TC_BWD_CHUNK, ssd_bwd_body,
                                           ssd_scan_bwd_plain,
                                           ssd_scan_bwd_split_plain)
@@ -46,6 +47,10 @@ FLASH_CASES = {
     "GQA 4, window, not causal": (1, 4, 1, 100, 100, 64, False, 32),
     "Sq < Skv, causal": (2, 4, 2, 50, 120, 64, True, None),
     "Sq > Skv, causal, window": (1, 2, 2, 100, 40, 80, True, 16),
+    "D = 128, GQA 8": (1, 8, 1, 200, 200, 128, True, None),
+    "D = 128, not causal": (1, 4, 4, 90, 90, 128, False, None),
+    "D = 160, GQA 4, window": (1, 8, 2, 150, 150, 160, True, 48),
+    "D = 160, ragged, Sq < Skv": (1, 4, 1, 70, 130, 160, True, None),
 }
 
 
@@ -137,12 +142,14 @@ def test_ssd_rounded_once_control_fails_dlog_a():
 
 @pytest.mark.parametrize("dtype,d,body", [
     (BF16, 64, "wgmma"), (BF16, 80, "wgmma"),
-    (torch.float32, 64, "fma"), (torch.float32, 80, "fma")])
+    (torch.float32, 64, "fma"), (torch.float32, 80, "fma"),
+    (BF16, 128, "wgmma"), (BF16, 160, "wgmma"),
+    (torch.float32, 128, "fma"), (torch.float32, 160, "fma")])
 def test_flash_bwd_body(dtype, d, body):
     assert flash_bwd_body(dtype, d) == body
 
 
-@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("d", [32, 256])
 def test_flash_bwd_body_refuses_other_head_dims(d):
     with pytest.raises(ValueError):
         flash_bwd_body(BF16, d)
@@ -153,3 +160,34 @@ def test_flash_bwd_body_refuses_other_head_dims(d):
 def test_ssd_bwd_body(dtype, body):
     assert ssd_bwd_body(dtype) == body
     assert TC_BWD_CHUNK == 256
+
+
+@pytest.mark.parametrize("d", [64, 80, 128, 160])
+def test_fixed_order_dq_repeats_and_matches_fp32(d):
+    """The bf16 bodies' dQ plan: each key tile's dQ apart, added into a zero
+    fp32 accumulator in a fixed order, the last key tile first.  Two runs
+    give the same bits, the sum stays within the kernel tolerance of the
+    fp32 plain backward's one product, and it is the tile-by-tile sum the
+    docstring names (128 keys a tile up to D = 80, 64 beyond)."""
+    rng = np.random.default_rng(d)
+    b, hq, hkv, sq, skv = 1, 4, 2, 200, 330
+    q, k, v = bf16(rng, b, hq, sq, d), bf16(rng, b, hkv, skv, d), \
+        bf16(rng, b, hkv, skv, d)
+    do = bf16(rng, b, hq, sq, d)
+    o = flash_attention_plain(q, k, v, causal=False)
+    lse = flash_lse_plain(q, k, causal=False)
+    runs = [flash_attention_bwd_tc_plain(q, k, v, o, lse, do, causal=False)
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    ref = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False)
+    compare_rel(runs[0][0], ref[0], BWD_RTOL[BF16])
+    s, mask, scale = _scores(q, k, False, None, None)
+    ds = torch.where(mask, s, 0.0)
+    tiles = bwd_block_keys(d)
+    assert tiles == (128 if d <= 80 else 64)
+    want = torch.zeros(ds.shape[:-1] + (d,))
+    for lo in sorted(range(0, skv, tiles), reverse=True):
+        want = want + torch.einsum(
+            "bhgqk,bhkd->bhgqd", ds[..., lo:lo + tiles],
+            k[:, :, lo:lo + tiles].float()) * scale
+    assert torch.equal(dq_fixed_order_plain(ds, k, scale, tiles), want)

@@ -35,8 +35,21 @@ def parse(row: str):
 
 
 def test_calibrate_rows_have_the_reference_names_and_fields():
-    mine = [parse(r) for r in bench_calibrate.run(quick=True, device="cpu")]
+    """The reference's rows, names and fields; beside them the port's
+    ``calib.features`` rows: the fit's term keys and its condition numbers,
+    then one row of features for each sample the fit accepts."""
+    rows = [parse(r) for r in bench_calibrate.run(quick=True, device="cpu")]
     ref = [parse(r) for r in ref_calibrate.run(quick=True)]
+    feats = [(n, f) for n, f in rows if n.startswith("calib.features")]
+    mine = [(n, f) for n, f in rows if not n.startswith("calib.features")]
+    assert feats[0][0] == "calib.features"
+    assert set(feats[0][1]) == {"keys", "cond", "cond_scaled"}
+    assert float(feats[0][1]["cond"]) >= float(feats[0][1]["cond_scaled"]) \
+        >= 1.0
+    keys = set(feats[0][1]["keys"].split("/"))
+    assert len(feats) - 1 == int(rows[0][1]["samples"])
+    for _, f in feats[1:]:
+        assert set(f) <= keys and all(float(v) > 0 for v in f.values())
     # the LinReg cell: the reference's "cpu-S" is the port's "f64-S", both
     # 20000 x 256 in float64
     assert [n.replace("f64-S", "cpu-S") for n, _ in mine] == [n for n, _ in

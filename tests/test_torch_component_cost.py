@@ -1,7 +1,8 @@
 """``repro_torch.launch.component_cost`` against the reference's
 ``launch/component_cost.py`` on a one-device CPU mesh: ``.reduced()`` fp32
-qwen1.5-0.5b, mamba2-1.3b and zamba2-2.7b at B 2 x S 64, in prefill, decode
-and train (train under remat ``none`` and ``full``).
+qwen1.5-0.5b, mamba2-1.3b, zamba2-2.7b, qwen1.5-4b, stablelm-12b and
+qwen1.5-110b at B 2 x S 64, in prefill, decode and train (train under remat
+``none`` and ``full``).
 
 Names and counts are the reference's.  FLOPs agree within
 :data:`FLOP_BAND` of the reference's, not exactly: the port counts one
@@ -31,7 +32,10 @@ from repro_torch.core import graph_cost
 from repro_torch.launch.component_cost import aggregate, component_costs
 from repro_torch.models.model import build_model
 
-ARCHS = ("qwen1.5-0.5b", "mamba2-1.3b", "zamba2-2.7b")
+# the dense archs qwen1.5-4b, stablelm-12b and qwen1.5-110b take the dense
+# family's components as they are: no change was needed for them
+ARCHS = ("qwen1.5-0.5b", "mamba2-1.3b", "zamba2-2.7b", "qwen1.5-4b",
+         "stablelm-12b", "qwen1.5-110b")
 BATCH, SEQ = 2, 64
 FLOP_BAND = (0.75, 1.25)
 

@@ -199,7 +199,8 @@ def test_chip_smoke_fails_without_cuda():
 def test_only_ported_archs_are_registered():
     from repro_torch import configs
     assert configs.PORTED_ARCH_IDS == ["qwen1.5-0.5b", "mamba2-1.3b",
-                                       "zamba2-2.7b"]
+                                       "zamba2-2.7b", "qwen1.5-4b",
+                                       "stablelm-12b", "qwen1.5-110b"]
     cfg = configs.get_config("qwen1.5-0.5b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff,
             cfg.vocab_size, cfg.qkv_bias) == (24, 1024, 16, 2816, 151936, True)
@@ -211,14 +212,20 @@ def test_only_ported_archs_are_registered():
     assert (cfg.family, cfg.n_layers, cfg.d_model, cfg.head_dim_,
             cfg.hybrid.attn_every, cfg.hybrid.n_shared_attn_blocks) == (
                 "hybrid", 54, 2560, 80, 6, 2)
+    for arch, dims in (("qwen1.5-4b", (40, 2560, 20, 20, 128, 6912)),
+                       ("stablelm-12b", (40, 5120, 32, 8, 160, 13824)),
+                       ("qwen1.5-110b", (80, 8192, 64, 8, 128, 49152))):
+        cfg = configs.get_config(arch)
+        assert cfg.family == "dense"
+        assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                cfg.head_dim_, cfg.d_ff) == dims
     with pytest.raises(KeyError):
         configs.get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("arch_id", [
     "whisper-small", "pixtral-12b", "phi3.5-moe-42b-a6.6b",
-    "deepseek-v3-671b", "stablelm-12b", "qwen1.5-4b", "qwen1.5-110b",
-    "gemma3-12b"])
+    "deepseek-v3-671b", "gemma3-12b"])
 def test_unported_arch_raises_not_implemented(arch_id):
     from repro_torch import configs
     assert arch_id in configs.ARCH_IDS
@@ -227,7 +234,8 @@ def test_unported_arch_raises_not_implemented(arch_id):
 
 
 @pytest.mark.parametrize("arch_id", ["qwen1.5-0.5b", "mamba2-1.3b",
-                                     "zamba2-2.7b"])
+                                     "zamba2-2.7b", "qwen1.5-4b",
+                                     "stablelm-12b", "qwen1.5-110b"])
 def test_config_copy_equals_the_reference(arch_id):
     """The port keeps its own copy of the config schema; it must not drift."""
     from repro.configs import ARCH_IDS, get_config as ref_get

@@ -281,13 +281,15 @@ def test_flash_attention_more_queries_than_keys_with_a_window(d, causal,
     assert not to_np(out)[:, :, 64 + window:].any()
 
 
-# The body a CUDA call takes goes by type and head dim alone; window and GQA
-# do not change it.
+# The body a CUDA call takes goes by type alone, at every head dim; window
+# and GQA do not change it.
 @pytest.mark.parametrize("dtype,d,body", [
     (torch.float32, 32, "fma"), (torch.float32, 64, "fma"),
     (torch.float32, 80, "fma"), (torch.float32, 128, "fma"),
-    (torch.bfloat16, 32, "mma_sync"), (torch.bfloat16, 64, "wgmma"),
-    (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 128, "mma_sync")])
+    (torch.float32, 160, "fma"),
+    (torch.bfloat16, 32, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 160, "wgmma")])
 def test_flash_body_goes_by_type_and_head_dim(dtype, d, body):
     assert flash_body(dtype, d) == body
 

@@ -712,3 +712,36 @@ def test_chunked_attention_recomputes_in_the_backward():
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
     inputs = 3 * q.numel() * q.element_size()
     assert saved_ckpt <= inputs < saved_bare / 4, (saved_ckpt, saved_bare)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_donated_step_matches_the_functional_step(dtype):
+    """``make_train_step(donate=True)`` updates the given weights and
+    moments in place, as the reference's trainer donates them: three steps
+    give the functional step's numbers bit for bit, and every leaf of the
+    returned params and moments is the given one (same storage)."""
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(),
+                              dtype=dtype)
+    model = build_model(cfg, device="cpu")
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, total_steps=10)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 16),
+                                     generator=torch.Generator()
+                                     .manual_seed(3))}
+    runs = {}
+    for donate in (False, True):
+        params = model.init(0)
+        opt = adamw.init(opt_cfg, params)
+        step = make_train_step(model, opt_cfg, ShardingPlan(remat="full"),
+                               donate=donate)
+        given = [t.data_ptr() for t in tree_leaves([params, opt.m, opt.v])]
+        losses = []
+        for _ in range(3):
+            params, opt, _, m = step(params, opt, None, batch)
+            losses.append(float(m["loss"]))
+        kept = [t.data_ptr() for t in tree_leaves([params, opt.m, opt.v])]
+        assert (kept == given) == donate
+        runs[donate] = (losses, tree_leaves([params, opt.m, opt.v]),
+                        opt.step)
+    assert runs[True][0] == runs[False][0] and runs[True][2] == 3
+    assert all(torch.equal(a, b) for a, b in zip(runs[True][1],
+                                                 runs[False][1]))

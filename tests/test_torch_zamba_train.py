@@ -1,12 +1,16 @@
-"""``chip_smoke.expected_train_launches``, the count the train phase holds
-the card's launches to, against the calls the port's kernel path makes on
-the CPU.  On CPU tensors every kernel wrapper takes its plain version (and
+"""``chip_smoke.expected_train_launches`` and ``expected_launches``, the
+counts the train and serve phases hold the card's launches to, against the
+calls the port's kernel path makes on the CPU.  On CPU tensors every kernel wrapper takes its plain version (and
 counts nothing), so each plain version that stands in for a launch is
 counted here instead: the forward and backward of flash attention and of
 the SSD scan, and the matmul epilogue's forward and its backward's
 recompute of z.  zamba2 is the train path this count was not yet held to
 (its shared blocks applied ``n_layers // attn_every`` times, each under
-remat ``full``); qwen and mamba2 are held to it beside it."""
+remat ``full``); qwen and mamba2 are held to it beside it, and so are the
+dense archs qwen1.5-4b, stablelm-12b and qwen1.5-110b at the depth each
+path runs on the card (``chip_smoke.path_config``; reduced in width here),
+with GQA kept (4 heads over 2 kv heads).  The serve count is held over a
+``generate`` of static and of continuous batching."""
 import dataclasses
 import sys
 from pathlib import Path
@@ -17,7 +21,10 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import expected_train_launches, parity_config  # noqa: E402
+from chip_smoke import (expected_launches,  # noqa: E402
+                        expected_train_launches, parity_config, path_config)
+from repro_torch.runtime.serve_engine import (EngineConfig,  # noqa: E402
+                                              Request, ServeEngine)
 from repro_torch.configs import get_config                     # noqa: E402
 from repro_torch.core import ShardingPlan                      # noqa: E402
 from repro_torch.kernels import flash_attention as fa          # noqa: E402
@@ -36,12 +43,22 @@ STAND_INS = [(fa, "flash_attention_plain", "flash_attention"),
              (mme, "matmul_epilogue_plain", "matmul_epilogue")]
 
 
-@pytest.mark.parametrize("remat", ["none", "full"])
-@pytest.mark.parametrize("arch", ["zamba2-2.7b", "mamba2-1.3b",
-                                  "qwen1.5-0.5b"])
-def test_expected_train_launches_match_the_kernel_path(arch, remat,
-                                                       monkeypatch):
-    cfg = get_config(arch).reduced()
+DENSE = ("qwen1.5-4b", "stablelm-12b", "qwen1.5-110b")
+
+
+def small(arch: str, phase: str):
+    """The config ``phase`` runs on the card for ``arch``, reduced in
+    width; the dense archs keep GQA (``.reduced()`` drops it)."""
+    cfg = path_config(arch, phase)
+    red = cfg.reduced()
+    if arch in DENSE:
+        red = dataclasses.replace(red, n_heads=4, n_kv_heads=2)
+    assert red.n_layers == min(cfg.n_layers, red.n_layers)
+    return red
+
+
+def count_stand_ins(monkeypatch) -> dict:
+    """Each plain version that stands in for a launch, counted."""
     calls = dict.fromkeys(("flash_attention", "flash_attention_bwd",
                            "tsmm_upper", "ssd_scan", "ssd_scan_bwd",
                            "matmul_epilogue"), 0)
@@ -55,6 +72,16 @@ def test_expected_train_launches_match_the_kernel_path(arch, remat,
     for module, name, kernel in STAND_INS:
         monkeypatch.setattr(module, name, counted(getattr(module, name),
                                                   kernel))
+    return calls
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "mamba2-1.3b",
+                                  "qwen1.5-0.5b", *DENSE])
+def test_expected_train_launches_match_the_kernel_path(arch, remat,
+                                                       monkeypatch):
+    cfg = small(arch, "train")
+    calls = count_stand_ins(monkeypatch)
     model = build_model(cfg, device="cpu")
     params = model.init(0)
     opt_cfg = adamw.AdamWConfig()
@@ -91,3 +118,30 @@ def test_parity_config_applies_every_shared_block_once():
         cfg = get_config(arch)
         assert parity_config(cfg, "float32") == dataclasses.replace(
             cfg, n_layers=2, dtype="float32")
+
+
+@pytest.mark.parametrize("batching", ["static", "continuous"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", *DENSE])
+def test_expected_launches_match_the_serve_path(arch, batching,
+                                                monkeypatch):
+    """A ``generate`` of 5 requests of the serve phase's kind on the
+    kernel path: every admission round's flash and epilogue launches and
+    every decode step's epilogue launches, as ``expected_launches`` counts
+    them from the engine's rounds and steps."""
+    cfg = small(arch, "serve")
+    model = build_model(cfg, device="cpu")
+    params = model.init(0)
+    engine = ServeEngine(model, params, EngineConfig(
+        max_len=48, batching=batching, slots=2), use_kernel=True)
+    rng = torch.Generator().manual_seed(1)
+    reqs = [Request(prompt=torch.randint(1, cfg.vocab_size, (n,),
+                                         generator=rng).tolist(),
+                    max_new_tokens=4) for n in (9, 16, 5, 12, 7)]
+    calls = count_stand_ins(monkeypatch)
+    outs = engine.generate(reqs)
+    assert all(len(o.tokens) == 4 for o in outs)
+    rounds, steps = (engine.stats["admission_rounds"],
+                     engine.stats["decode_steps"])
+    assert rounds >= (2 if batching == "continuous" else 1)
+    assert calls == expected_launches(cfg, rounds, steps)
+    assert calls["flash_attention"] == cfg.n_layers * rounds > 0

@@ -24,10 +24,11 @@ on o and lse from the forward kernel, beside SDPA's backward alone:
     python3 tools/flash_variants.py --bwd [variant ...]
 
 ``base``, ``no_dq_atomics`` (dQ computed and summed, not reduce-added to
-the fp32 buffer), ``no_dq`` (neither the dQ product nor its sum nor its atomics),
+the fp32 buffer, and no block waits for its turn), ``no_dq`` (neither the dQ
+product nor its sum nor its reduce-add),
 ``no_p`` (P and dS without the exponential and the mask), ``ex2_as_fma``,
 ``stages2`` (a ring of two Q / dO stages instead of four), ``keys_outer``
-(the blocks in the order of their key tiles over all heads, longest first,
+(the blocks in the order of their key tiles over all heads, the last first,
 instead of head by head).
 """
 from __future__ import annotations
@@ -49,8 +50,9 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 
 SOFTMAX = ("auto softmax = [&](float (&sacc)[16][4], int i, "
            "float (&alpha)[2]) {")
-PV = ("wgmma_rs_n64(oa, pf[kk],", "wgmma_rs_n16(ob, pf[kk],")
-QK = ("wgmma_ss_n128(sacc, wg_desc(qa", "wgmma_ss_n128(sacc, wg_desc(qb")
+PV = ("wgmma_rs_n64(oa[f], pf[kk],", "wgmma_rs_narrow<DB>(ob, pf[kk],")
+QK = ("wgmma_ss_n128(\n                sacc, wg_desc(qa",
+      "wgmma_ss_n128(sacc,\n                          wg_desc(qb")
 # ex2 is defined in csrc/tma.cuh: the variant redefines its calls here
 EX2 = '#include "tma.cuh"'
 VARIANTS = ("base", "loads_only", "no_softmax", "ex2_as_fma", "stages5")
@@ -80,18 +82,19 @@ def variant_source(src: str, name: str) -> str:
         return _replace(src, EX2,
                         EX2 + "\n#define ex2(x) fmaf((x), 0.001f, 1.f)")
     if name == "stages5":
-        return _replace(src, "constexpr int WG_STAGES = 4;",
-                        "constexpr int WG_STAGES = 5;")
+        return _replace(src, "return d <= 80 ? 4 :", "return d <= 80 ? 5 :")
     raise ValueError(f"unknown variant {name!r}")
 
 
-BWD_ATOMICS = "if ((threadIdx.x & 127) == 0) {\n        float* dst = p.dq"
-BWD_DQ = ("wgmma_ss_n64<1, 1>(dq,", "wgmma_ss_n16<1, 1>(dqb,")
+BWD_ATOMICS = ("    if (turn > 0) {\n      int seen = 0;",
+               "    asm volatile(\n        \"cp.reduce.async.bulk")
+BWD_DQ = ("wgmma_ss_n64<1, 1>(dq,", "wgmma_ss_narrow<DB, 1, 1>(dqb,")
 BWD_EXCHANGE = ("    const int buf = it & 1;\n",
-                "if (n_tiles > 1 - wg) pair_sync(")
+                "if (threadIdx.x == 288)\n      dq_write<2>")
 BWD_MASK = "if (need_mask) {"
-BWD_ORDER = ("const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;",
-             "const dim3 grid((p.Skv + BW_BK - 1) / BW_BK, p.Hkv, p.B);")
+BWD_ORDER = ("const int kt = block_key_tile(), kvh = blockIdx.y, "
+             "b = blockIdx.z;",
+             "const dim3 grid((p.Skv + PL::BK - 1) / PL::BK, p.Hkv, p.B);")
 BWD_P = "const float pv = ex2(fmaf(st[j][e], scale2, -l2[c]));"
 BWD_VARIANTS = ("base", "no_dq_atomics", "no_dq", "no_p", "ex2_as_fma",
                 "stages2", "keys_outer")
@@ -101,29 +104,31 @@ def bwd_variant_source(src: str, name: str) -> str:
     """The backward source of variant ``name``."""
     if name == "base":
         return src
-    if name == "no_dq_atomics":
-        return _replace(src, BWD_ATOMICS, BWD_ATOMICS.replace(
-            "== 0)", "== 0 && p.Sq < 0)"))
-    if name == "no_dq":  # no product, no exchange, no atomics
+    if name == "no_dq_atomics":  # no turn waited for, nothing added
+        s = _replace(src, BWD_ATOMICS[0], BWD_ATOMICS[0].replace(
+            "turn > 0", "turn > 0 && p.Sq < 0"))
+        return _replace(s, BWD_ATOMICS[1], "    if (p.Sq < 0) " +
+                        BWD_ATOMICS[1].lstrip())
+    if name == "no_dq":  # no product, no exchange, no writer
         s = src
         for old in BWD_DQ:
             s = _replace(s, old, "if (kk < 0) " + old)
         s = _replace(s, BWD_EXCHANGE[0],
                      BWD_EXCHANGE[0] + "    if (p.Sq > 0) continue;\n")
-        return _replace(s, BWD_EXCHANGE[1], "if (p.Sq < 0) pair_sync(")
+        return _replace(s, BWD_EXCHANGE[1], BWD_EXCHANGE[1].replace(
+            "288)", "288 && p.Sq < 0)"))
     if name == "no_p":  # P = S, dS = S o (dP - delta): no ex2, no mask
         s = _replace(src, BWD_MASK, "if (need_mask && p.Sq < 0) {")
         return _replace(s, BWD_P, "const float pv = st[j][e];")
     if name == "ex2_as_fma":
         return variant_source(src, name)
     if name == "stages2":
-        return _replace(src, "constexpr int BW_STAGES = 4;",
-                        "constexpr int BW_STAGES = 2;")
+        return _replace(src, "STAGES = D <= 80 ? 4 :", "STAGES = D <= 80 ? 2 :")
     if name == "keys_outer":  # the key tiles of every head first, then the next
         s = _replace(src, BWD_ORDER[0], "const int kvh = blockIdx.x, "
-                     "b = blockIdx.y, kt = blockIdx.z;")
+                     "b = blockIdx.y, kt = gridDim.z - 1 - blockIdx.z;")
         return _replace(s, BWD_ORDER[1], "const dim3 grid(p.Hkv, p.B, "
-                        "(p.Skv + BW_BK - 1) / BW_BK);")
+                        "(p.Skv + PL::BK - 1) / PL::BK);")
     raise ValueError(f"unknown variant {name!r}")
 
 

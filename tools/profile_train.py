@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where the train step's time goes on the GPU: profiles one warm step of
-``make_train_step(use_kernel=True)`` for a ported arch (full width and
-depth, bf16, random weights, the reference's AdamW defaults) with
+``make_train_step(use_kernel=True)`` for a ported arch (full width, the
+depth of ``chip_smoke.py``'s train phase, bf16, random weights, the
+reference's AdamW defaults) with
 torch.profiler and prints device time by kernel, the device's busy share
 and the peak memory.
 
     python3 tools/profile_train.py \
-        [--arch qwen1.5-0.5b|mamba2-1.3b|zamba2-2.7b]
+        [--arch qwen1.5-0.5b|mamba2-1.3b|zamba2-2.7b|qwen1.5-4b|...]
 
 The batch, sequence length and remat policy are those of ``chip_smoke.py``'s
 train phase (``TRAIN_BATCH``, ``TRAIN_SEQ``, ``TRAIN_PATHS``).
@@ -25,10 +26,10 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 # first: it sets the allocator's configuration before torch is imported
-from chip_smoke import TRAIN_BATCH, TRAIN_PATHS, TRAIN_SEQ  # noqa: E402
+from chip_smoke import (TRAIN_BATCH, TRAIN_PATHS, TRAIN_SEQ,  # noqa: E402
+                        path_config)
 import torch                                                 # noqa: E402
 from profile_serve import window                            # noqa: E402
-from repro_torch.configs import get_config                  # noqa: E402
 from repro_torch.core import ShardingPlan                    # noqa: E402
 from repro_torch.models.model import build_model            # noqa: E402
 from repro_torch.optim import adamw                         # noqa: E402
@@ -44,13 +45,13 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    cfg = get_config(args.arch)
+    cfg = path_config(args.arch, "train")
     remat = REMAT[args.arch]
     model = build_model(cfg)
     params = model.init(0)
     opt_cfg = adamw.AdamWConfig()
     step = make_train_step(model, opt_cfg, ShardingPlan(remat=remat),
-                           use_kernel=True)
+                           use_kernel=True, donate=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     batch = {"tokens": torch.randint(0, cfg.vocab_size,
                                      (TRAIN_BATCH, TRAIN_SEQ), generator=gen,
