@@ -10,22 +10,25 @@ Phases, each printing one JSON line: ``device`` (name and power limit),
 against its plain PyTorch version on the card, faulty controls of the
 epilogue kernel and of tsmm that the same check must catch, and the SSD
 scan's rounding plans, forward and backward, against one bf16 rounding of
-their state paths; the bf16 backward calls again, bit for bit), with
+their state paths; every backward call again, bit for bit), with
 ``--ptxas`` a ``ptxas`` line (registers, shared memory and spills of every
-kernel), ``train`` six times (qwen1.5-0.5b, mamba2-1.3b, zamba2-2.7b and
-qwen1.5-4b at full width and depth, stablelm-12b and qwen1.5-110b at the
-depth ``DEPTH_CUTS`` states, in bf16 through ``make_train_step(use_kernel=
-True, donate=True)``: one step's gradients twice, which must be
-bit-identical in bf16, then five steps on a repeated batch, losses, step
-times, peak memory and every kernel's launches against the count the path
-must give, then the gradients of the kernel path against the plain path at
-two layers, or for zamba2 at one application of each shared block),
-``serve`` six times (the same archs, qwen1.5-110b at its ``DEPTH_CUTS``
-depth, in bf16 through ``ServeEngine``, static and continuous batching,
-with the launch count of every kernel, and of each body of the epilogue
-kernel, held against the count the arch's path must give, and the bf16
-prefill logits with the kernels against without them and against the
-controls),
+kernel), ``train`` eight times (qwen1.5-0.5b, mamba2-1.3b, zamba2-2.7b,
+qwen1.5-4b and whisper-small at full width and depth, stablelm-12b,
+qwen1.5-110b and pixtral-12b at the depth ``DEPTH_CUTS`` states, in bf16
+through ``make_train_step(use_kernel=True, donate=True)``, pixtral with its
+1024 patch embeddings and whisper with its 1500 frame embeddings: one
+step's gradients twice, which must be bit-identical, in bf16 at the path's
+width and depth and in fp32 at the parity cut, then five steps on a
+repeated batch, losses, step times, peak memory and every kernel's
+launches against the count the path must give, then the gradients of the
+kernel path against the plain path at two layers, or for zamba2 at one
+application of each shared block), ``serve`` eight times (the same archs,
+qwen1.5-110b at its ``DEPTH_CUTS`` depth, in bf16 through ``ServeEngine``,
+static and continuous batching, with a frontend the continuous run's
+second admission raising as the reference's does, with the launch count
+of every kernel, and of each body of the epilogue kernel, held against the
+count the arch's path must give, and the bf16 prefill logits with the
+kernels against without them and against the controls),
 ``linreg`` (the
 LinReg DS example at 262144 x 1024 through the tsmm kernel, cold, then warm
 and split into its parts), ``estimate`` (the paper's §3.4 check on the card:
@@ -79,6 +82,7 @@ from repro_torch.configs import get_config                       # noqa: E402
 from repro_torch.configs.base import ShapeConfig                 # noqa: E402
 from repro_torch.examples import linreg_ds                       # noqa: E402
 from repro_torch.kernels import _build, ops                      # noqa: E402
+from repro_torch.kernels import flash_attention as flash_mod     # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     BACKWARD_HEAD_DIMS, flash_attention, flash_attention_bwd,
     flash_attention_bwd_plain, flash_attention_fwd, flash_attention_plain,
@@ -129,6 +133,12 @@ FLASH_CASES = [
 ]
 # The dense archs of this port at the train phase's B 8 x S 2048, bf16
 WIDE_ARCHS = ("qwen1.5-4b", "qwen1.5-110b", "stablelm-12b")
+# The archs with a frontend: pixtral-12b prepends 1024 patch embeddings to
+# its 2048 tokens; whisper-small's encoder reads 1500 frame embeddings, and
+# its decoder is served and trained at its published context of 448 tokens
+# (arXiv:2212.04356)
+FRONTEND_ARCHS = ("pixtral-12b", "whisper-small")
+WHISPER_CTX = 448
 TSMM_CASES = [(512, 256), (1024, 512), (768, 384), (2048, 128)]
 # (b, s, h, p, n, chunk): the reference's kernel test cases
 SSD_CASES = [(2, 128, 4, 16, 32, 32), (1, 256, 2, 64, 128, 64),
@@ -294,18 +304,34 @@ def compare(out: torch.Tensor, ref: torch.Tensor, rtol: float,
 # ---------------------------------------------------------------------------
 
 
-def arch_flash(arch: str) -> dict:
-    """``arch``'s attention at B 8 x S 2048: heads, kv heads, head dim."""
+def arch_flash(arch: str, s: int = 2048, causal: bool = True) -> dict:
+    """``arch``'s attention at B 8 x ``s`` positions: heads, kv heads, head
+    dim."""
     cfg = get_config(arch)
-    return dict(b=8, hq=cfg.n_heads, hkv=cfg.n_kv_heads, s=2048,
-                d=cfg.head_dim_, causal=True, window=None)
+    return dict(b=8, hq=cfg.n_heads, hkv=cfg.n_kv_heads, s=s,
+                d=cfg.head_dim_, causal=causal, window=None)
 
 
-def arch_gate(arch: str) -> dict:
-    """``arch``'s MLP gate silu(x @ w) over a prefill round of 8 x 2048
-    tokens, bf16 out."""
+def path_flash() -> list:
+    """(tag, shape) of every wide main-path flash shape: the dense archs'
+    at 2048; pixtral's layers over 1024 patches + 2048 tokens, causal;
+    whisper's encoder over its 1500 frames, not causal (ragged against every
+    tile); whisper's decoder over its 448-token context, causal."""
+    pix, whi = get_config("pixtral-12b"), get_config("whisper-small")
+    return [*((a, arch_flash(a)) for a in WIDE_ARCHS),
+            ("pixtral-12b", arch_flash("pixtral-12b",
+                                       2048 + pix.frontend_seq)),
+            ("whisper-small encoder", arch_flash(
+                "whisper-small", whi.enc_dec.encoder_seq, causal=False)),
+            ("whisper-small decoder", arch_flash("whisper-small",
+                                                 WHISPER_CTX))]
+
+
+def arch_gate(arch: str, m: int = 8 * 2048) -> dict:
+    """``arch``'s MLP gate silu(x @ w) over ``m`` rows (a prefill round of
+    8 x 2048 tokens by default), bf16 out."""
     cfg = get_config(arch)
-    return dict(m=8 * 2048, n=cfg.d_ff, k=cfg.d_model, epilogue="silu",
+    return dict(m=m, n=cfg.d_ff, k=cfg.d_model, epilogue="silu",
                 dtype=torch.bfloat16, out_dtype=torch.bfloat16)
 
 
@@ -314,6 +340,21 @@ def arch_head(arch: str) -> dict:
     cfg = get_config(arch)
     return dict(m=8, n=cfg.vocab_size, k=cfg.d_model, epilogue=None,
                 dtype=torch.bfloat16, out_dtype=torch.float32)
+
+
+def path_mm() -> list:
+    """(tag, shape) of the wide archs' epilogue products: each dense arch's
+    prefill gate and head, pixtral's prefill gate over 8 x (1024 + 2048)
+    rows, decode gate and head, and whisper's head (its MLP is not gated:
+    no epilogue)."""
+    pix = get_config("pixtral-12b")
+    return [*((f"{a} {kind}", fn(a)) for a in WIDE_ARCHS
+              for kind, fn in (("gate", arch_gate), ("head", arch_head))),
+            ("pixtral-12b gate",
+             arch_gate("pixtral-12b", 8 * (2048 + pix.frontend_seq))),
+            ("pixtral-12b decode gate", arch_gate("pixtral-12b", 8)),
+            ("pixtral-12b head", arch_head("pixtral-12b")),
+            ("whisper-small head", arch_head("whisper-small"))]
 
 
 def by_batch(fn, *args, **kw):
@@ -408,9 +449,8 @@ def check_flash(gen) -> list:
         run("D = 80, not causal", 1, 2, 2, 130, 80, False, None, dtype)
     run("zamba2 main path, D = 80", **FLASH_D80, dtype=torch.bfloat16,
         views=True)
-    for arch in WIDE_ARCHS:
-        run(f"{arch} main path", **arch_flash(arch), dtype=torch.bfloat16,
-            views=True)
+    for arch, m in path_flash():
+        run(f"{arch} main path", **m, dtype=torch.bfloat16, views=True)
         torch.cuda.empty_cache()
 
     def run_odd(tag, q, k, v, causal, dtype, window=None):
@@ -461,20 +501,32 @@ def check_flash(gen) -> list:
 
 def repeats(first, again, dtype) -> bool:
     """Whether ``again()`` gives outputs bit-identical to ``first`` (None
-    entries skipped); raises if not for bf16, whose bodies sum in a fixed
-    order (the fp32 FMA bodies add with atomics: reported)."""
+    entries skipped); raises if not: every body sums in a fixed order."""
     same = all(a is None or torch.equal(a, b)
                for a, b in zip(first, again()))
-    if dtype == torch.bfloat16 and not same:
-        raise AssertionError("a bf16 backward call did not repeat bit for "
-                             "bit")
+    if not same:
+        raise AssertionError(f"a {str(dtype).split('.')[-1]} backward call "
+                             f"did not repeat bit for bit")
     return same
+
+
+def in_runs_of_one_tile(fn):
+    """``fn()`` with the fp32 backward body's dQ scratch held to one key
+    tile's slice, so that it takes its key tiles one run each."""
+    bytes_ = flash_mod.FMA_DQ_SCRATCH_BYTES
+    flash_mod.FMA_DQ_SCRATCH_BYTES = 0
+    try:
+        return fn()
+    finally:
+        flash_mod.FMA_DQ_SCRATCH_BYTES = bytes_
 
 
 def check_flash_bwd(gen) -> list:
     """The forward's log-sum-exp against :func:`flash_lse_plain`, and the
     backward kernel against :func:`flash_attention_bwd_plain` on the same
-    q, k, v, o, lse and dO (o and lse from the forward kernel)."""
+    q, k, v, o, lse and dO (o and lse from the forward kernel); a call again
+    must repeat bit for bit, in fp32 also when the body takes its key tiles
+    in runs of one (:func:`in_runs_of_one_tile`)."""
     cases = []
 
     def run(tag, q, k, v, causal, window, dtype):
@@ -495,8 +547,12 @@ def check_flash_bwd(gen) -> list:
                        causal=causal, window=window)
         for name, a, r in zip(("dq", "dk", "dv"), got, ref):
             res[name] = compare_rel(a, r, BWD_RTOL[dtype])
-        res["rerun_bit_identical"] = repeats(got, lambda: flash_attention_bwd(
-            q, k, v, o, lse, do, causal=causal, window=window), dtype)
+        again = lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                            causal=causal, window=window)
+        res["rerun_bit_identical"] = repeats(got, again, dtype)
+        if dtype == torch.float32:
+            res["runs_of_one_tile_bit_identical"] = repeats(
+                got, lambda: in_runs_of_one_tile(again), dtype)
         res["max_abs_err"] = max(res[n]["max_abs_err"]
                                  for n in ("dq", "dk", "dv"))
         cases.append(res)
@@ -525,10 +581,10 @@ def check_flash_bwd(gen) -> list:
                                                     gen), causal, window,
                     dtype)
     for tag, m in (("main path", FLASH_MAIN), ("D = 80", FLASH_D80),
-                   *((f"{a} main path", arch_flash(a)) for a in WIDE_ARCHS)):
+                   *((f"{a} main path", m) for a, m in path_flash())):
         q, k, v = flash_inputs(m["b"], m["hq"], m["hkv"], m["s"], m["d"],
                                torch.bfloat16, gen, views=True)
-        run(tag, q, k, v, True, None, torch.bfloat16)
+        run(tag, q, k, v, m["causal"], None, torch.bfloat16)
         del q, k, v
         torch.cuda.empty_cache()
     # the backward takes BACKWARD_HEAD_DIMS only: a gradient at D = 32 raises
@@ -788,11 +844,10 @@ def check_mm(gen) -> list:
         d["epilogue"], d["out_dtype"], model_like=True)
     run("qwen head main path, vocab 151936", h["m"], h["n"], h["k"],
         h["dtype"], h["epilogue"], h["out_dtype"], model_like=True)
-    for arch in WIDE_ARCHS:
-        for kind, c in (("gate", arch_gate(arch)), ("head", arch_head(arch))):
-            run(f"{arch} {kind} main path", c["m"], c["n"], c["k"],
-                c["dtype"], c["epilogue"], c["out_dtype"], model_like=True)
-            torch.cuda.empty_cache()
+    for tag, c in path_mm():
+        run(f"{tag} main path", c["m"], c["n"], c["k"], c["dtype"],
+            c["epilogue"], c["out_dtype"], model_like=True)
+        torch.cuda.empty_cache()
     # the wgmma body's edges: one 128-row tile and a row, two and a row; w
     # transposed (a K-major operand); ragged M, N and K; fp32 out (the
     # 128 x 128 tile)
@@ -1257,23 +1312,23 @@ def time_kernels(gen) -> dict:
     flash["d80"]["ratio_to_library"] = (flash["d80"]["ms"]
                                         / flash["d80"]["library_ms"])
     del q, k, v
-    for arch in WIDE_ARCHS:
-        m = arch_flash(arch)
+    for arch, m in path_flash():
         q, k, v = flash_inputs(m["b"], m["hq"], m["hkv"], m["s"], m["d"],
                                torch.bfloat16, gen, views=True)
-        gqa = m["hq"] != m["hkv"]
+        gqa, causal = m["hq"] != m["hkv"], m["causal"]
         flash[arch] = {
-            "ms": time_ms(lambda: flash_attention(q, k, v, causal=True), 10,
-                          2),
+            "ms": time_ms(lambda: flash_attention(q, k, v, causal=causal),
+                          10, 2),
             "plain_ms": time_ms(lambda: by_batch(
-                flash_attention_plain, q, k, v, causal=True), 1),
+                flash_attention_plain, q, k, v, causal=causal), 1),
             "plain_note": "the plain version one batch row at a time",
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=gqa), 10, 2),
+                q, k, v, is_causal=causal, enable_gqa=gqa), 10, 2),
             "library_note": "F.scaled_dot_product_attention"
                             + (", enable_gqa" if gqa else ""),
-            "shape": f"q [8,{m['hq']},2048,{m['d']}], k,v "
-                     f"[8,{m['hkv']},2048,{m['d']}] bf16 causal, "
+            "shape": f"q [8,{m['hq']},{m['s']},{m['d']}], k,v "
+                     f"[8,{m['hkv']},{m['s']},{m['d']}] bf16 "
+                     f"{'causal' if causal else 'not causal'}, "
                      f"transposed views ({arch})",
             "body": flash_body(torch.bfloat16, m["d"]),
             **flash_bound_ms(**m, dtype=torch.bfloat16)}
@@ -1293,8 +1348,8 @@ def time_kernels(gen) -> dict:
             ("mamba_head", MM_MAMBA_HEAD, head_lib),
             ("decode_gate", MM_DECODE_GATE, gate_lib),
             ("qwen_decode_gate", MM_QWEN_DECODE_GATE, gate_lib),
-            *((f"{a} gate", arch_gate(a), gate_lib) for a in WIDE_ARCHS),
-            *((f"{a} head", arch_head(a), head_lib) for a in WIDE_ARCHS)):
+            *((tag, c, head_lib if c["epilogue"] is None else gate_lib)
+              for tag, c in path_mm())):
         x, w, _ = mm_inputs(c["m"], c["n"], c["k"], c["dtype"], gen,
                             model_like=True)
         kw = dict(epilogue=c["epilogue"], out_dtype=c["out_dtype"])
@@ -1385,21 +1440,23 @@ def time_bwd_kernels(gen) -> dict:
     out = {}
     for name, m in (("flash_attention_bwd", FLASH_MAIN),
                     ("flash_attention_bwd_d80", FLASH_D80),
-                    *((f"flash_attention_bwd {a}", arch_flash(a))
-                      for a in WIDE_ARCHS)):
+                    *((f"flash_attention_bwd {a}", m)
+                      for a, m in path_flash())):
         q, k, v = flash_inputs(m["b"], m["hq"], m["hkv"], m["s"], m["d"],
                                torch.bfloat16, gen, views=True)
-        o, lse = flash_attention_fwd(q, k, v, causal=True, with_lse=True)
+        causal = m["causal"]
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, with_lse=True)
         do = torch.randn(o.shape, generator=gen, device="cuda").to(o.dtype)
         qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
         gqa = m["hq"] != m["hkv"]
-        sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+        sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
                                               enable_gqa=gqa)
         out[name] = {
-            "ms": time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do),
-                          20, 3),
+            "ms": time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                      causal=causal), 20, 3),
             "plain_ms": time_ms(lambda: by_batch(
-                flash_attention_bwd_plain, q, k, v, o, lse, do), 1),
+                flash_attention_bwd_plain, q, k, v, o, lse, do,
+                causal=causal), 1),
             "plain_note": "the plain version one batch row at a time",
             "library_ms": time_ms(lambda: torch.autograd.grad(
                 sdpa, (qs, ks, vs), do, retain_graph=True), 10, 2),
@@ -1407,14 +1464,23 @@ def time_bwd_kernels(gen) -> dict:
                             "alone (autograd.grad of its output), forward "
                             "excluded" + (", enable_gqa" if gqa else ""),
             "shape": f"q [{m['b']},{m['hq']},{m['s']},{m['d']}], k,v "
-                     f"[{m['b']},{m['hkv']},{m['s']},{m['d']}] bf16 causal, "
-                     f"transposed views",
+                     f"[{m['b']},{m['hkv']},{m['s']},{m['d']}] bf16 "
+                     f"{'causal' if causal else 'not causal'}, transposed "
+                     f"views",
             "body": flash_bwd_body(torch.bfloat16, m["d"]),
             "cuda_kernels_ms": device_kernel_ms(
-                lambda: flash_attention_bwd(q, k, v, o, lse, do)),
+                lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                            causal=causal)),
             **flash_bwd_bound_ms(**m, dtype=torch.bfloat16)}
         out[name]["ratio_to_library"] = (out[name]["ms"]
                                          / out[name]["library_ms"])
+        if m is FLASH_MAIN:     # the FMA body, which the fp32 steps run
+            q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
+            o32, lse32 = flash_attention_fwd(q32, k32, v32, causal=True,
+                                             with_lse=True)
+            out[name]["fp32_body_ms"] = time_ms(lambda: flash_attention_bwd(
+                q32, k32, v32, o32, lse32, do32), 3)
+            del q32, k32, v32, do32, o32, lse32
         del q, k, v, o, lse, do, qs, ks, vs, sdpa
         torch.cuda.empty_cache()
     for name, m in (("ssd_scan_bwd", SSD_MAIN),
@@ -1440,6 +1506,12 @@ def time_bwd_kernels(gen) -> dict:
             "cuda_kernels_ms": device_kernel_ms(
                 lambda: ssd_scan_bwd(*args, chunk=m["chunk"])),
             **ssd_bwd_bound_ms(**m, dtype=torch.bfloat16)}
+        if m is SSD_MAIN:       # the FMA body, which the fp32 steps run
+            args32 = tuple(t.float() if t is not None else None
+                           for t in args)
+            out[name]["fp32_body_ms"] = time_ms(lambda: ssd_scan_bwd(
+                *args32, chunk=m["chunk"]), 3)
+            del args32
         del xbar, log_a, bm, cm, dy, args
         torch.cuda.empty_cache()
     return out
@@ -1450,10 +1522,13 @@ def time_bwd_kernels(gen) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def make_requests(vocab: int, n: int = 8, max_new: int = 32) -> list:
+def make_requests(vocab: int, n: int = 8, max_new: int = 32,
+                  lo: int = 256, hi: int = 2048) -> list:
+    """``n`` requests of random tokens from the seed, prompts of ``lo`` to
+    ``hi`` tokens (the first ``hi``, the last ``lo``)."""
     rng = np.random.default_rng(SEED)
-    lengths = rng.integers(256, 2049, size=n)
-    lengths[0], lengths[-1] = 2048, 256
+    lengths = rng.integers(lo, hi + 1, size=n)
+    lengths[0], lengths[-1] = hi, lo
     return [Request(prompt=[int(t) for t in rng.integers(1, vocab, size=ln)],
                     max_new_tokens=max_new) for ln in lengths]
 
@@ -1469,10 +1544,12 @@ def padded_batch(reqs, device) -> torch.Tensor:
 def expected_launches(cfg, rounds: int, steps: int) -> dict:
     """Launches of each kernel that ``rounds`` admission rounds and ``steps``
     decode steps of ``cfg``'s kernel path must make.  Per round: flash once
-    for each attention layer (or application of a shared block), the SSD
-    scan once for each Mamba2 layer, the epilogue kernel once for each gated
-    MLP and once for the head.  Per decode step: the MLP gates and the head
-    (decode attention and the one-token SSM step are plain)."""
+    for each self-attention layer (or application of a shared block; an
+    encoder-decoder's encoder layers and decoder layers both), the SSD scan
+    once for each Mamba2 layer, the epilogue kernel once for each gated MLP
+    and once for the head.  Per decode step: the MLP gates and the head
+    (decode attention, cross-attention and the one-token SSM step are
+    plain)."""
     n_attn = _n_attention(cfg)
     n_ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
     n_gate = n_attn if cfg.gated_mlp else 0
@@ -1481,9 +1558,26 @@ def expected_launches(cfg, rounds: int, steps: int) -> dict:
             "matmul_epilogue": (n_gate + 1) * (rounds + steps)}
 
 
+def expected_flash_masks(cfg, expected: dict) -> dict:
+    """The flash forward and backward launches of ``expected`` (a path's
+    counts) split by mask, as ``ops.flash_mask_launches`` counts them: an
+    encoder-decoder's encoder layers are not causal, every other
+    self-attention is."""
+    enc = cfg.enc_dec.n_encoder_layers if cfg.enc_dec is not None else 0
+    out = {}
+    for name in ("flash_attention", "flash_attention_bwd"):
+        n = expected[name]
+        not_causal = n * enc // _n_attention(cfg) if n else 0
+        out[name] = {"causal": n - not_causal, "not_causal": not_causal}
+    return out
+
+
 def _n_attention(cfg) -> int:
-    """Attention layers, or applications of a shared block, a forward."""
-    return {"dense": cfg.n_layers,
+    """Self-attention layers (an encoder-decoder's encoder and decoder
+    layers), or applications of a shared block, a forward."""
+    if cfg.enc_dec is not None:
+        return cfg.n_layers + cfg.enc_dec.n_encoder_layers
+    return {"dense": cfg.n_layers, "vlm": cfg.n_layers,
             "hybrid": cfg.n_layers // cfg.hybrid.attn_every
             if cfg.hybrid else 0}.get(cfg.family, 0)
 
@@ -1502,18 +1596,20 @@ def expected_bodies(cfg, rounds: int, steps: int) -> dict:
     return {body: n for body, n in bodies.items() if n}
 
 
-def serve_run(engine: ServeEngine, reqs) -> dict:
-    """One ``generate`` with every kernel's count set to 0 just before it and
-    read just after; each count must be the one the path must give (all 0
+def serve_run(engine: ServeEngine, reqs, frontend=None) -> dict:
+    """One ``generate`` (with ``frontend``, the requests' patch or frame
+    embeddings) with every kernel's count set to 0 just before it and read
+    just after; each count must be the one the path must give (all 0
     without ``use_kernel``)."""
     ops.reset_launch_counts()
     for key in engine.stats:
         engine.stats[key] = 0
     t0 = time.perf_counter()
-    outs = engine.generate(reqs)
+    outs = engine.generate(reqs, frontend)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
+    masks = ops.flash_mask_launches()
     bodies = {b: n for b, n in ops.matmul_body_launches().items() if n}
     rounds, steps = (engine.stats["admission_rounds"],
                      engine.stats["decode_steps"])
@@ -1522,6 +1618,7 @@ def serve_run(engine: ServeEngine, reqs) -> dict:
     if not engine.use_kernel:
         expected = {name: 0 for name in expected}
         expected_b = {}
+    expected_m = expected_flash_masks(engine.model.cfg, expected)
     if any(len(c.tokens) != r.max_new_tokens for c, r in zip(outs, reqs)):
         raise AssertionError("a request did not complete with all its tokens")
     if launches != expected:
@@ -1530,9 +1627,13 @@ def serve_run(engine: ServeEngine, reqs) -> dict:
     if bodies != expected_b:
         raise AssertionError(f"matmul_epilogue bodies {bodies} in {rounds} "
                              f"admission rounds, expected {expected_b}")
+    if masks != expected_m:
+        raise AssertionError(f"flash launches by mask {masks} in {rounds} "
+                             f"admission rounds, expected {expected_m}")
     new_tokens = sum(len(c.tokens) for c in outs)
     return {"tokens": [c.tokens for c in outs], "wall_s": wall,
-            "launches": launches, "matmul_epilogue_bodies": bodies,
+            "launches": launches, "flash_mask_launches": masks,
+            "matmul_epilogue_bodies": bodies,
             "stats": dict(engine.stats),
             "prefill_s": max(c.prefill_time_s for c in outs),
             "decode_s": max(c.decode_time_s for c in outs),
@@ -1543,14 +1644,16 @@ def _summary(run: dict) -> dict:
     return {k: v for k, v in run.items() if k != "tokens"}
 
 
-def control_logits(model, params, toks, fault) -> torch.Tensor:
+def control_logits(model, params, toks, fault, max_len: int,
+                   frontend=None) -> torch.Tensor:
     """Prefill logits of the kernel path with ``ops.matmul_epilogue`` (the
     MLP gates and the head) replaced by ``fault`` for this one call."""
     real = ops.matmul_epilogue
     ops.matmul_epilogue = fault
     try:
         with torch.no_grad():
-            logits, _ = model.prefill(params, toks, model.init_cache(8, 4096),
+            logits, _ = model.prefill(params, toks,
+                                      model.init_cache(8, max_len), frontend,
                                       use_kernel=True)
         torch.cuda.synchronize()
     finally:
@@ -1567,17 +1670,26 @@ def control_logits(model, params, toks, fault) -> torch.Tensor:
 # and the epilogue kernel's head writes fp32 logits where the plain head
 # rounds them to bf16 first.  Each bound is 1.5 x the largest reading of
 # these sound paths on an H100 (qwen 0.104, mamba2 0.305, zamba2 0.254;
-# qwen1.5-4b 0.110, stablelm-12b 0.120, qwen1.5-110b at 10 layers 0.062),
-# rounded up to a multiple of 0.05.  No such bound tells a subtle rounding
-# fault from the sound paths' own rounding: the CONTROLS move the readings by
-# less than 0.05, so ``check_controls`` holds them at the kernel's level.  Last,
+# qwen1.5-4b 0.110, stablelm-12b 0.120, qwen1.5-110b at 10 layers 0.062;
+# pixtral-12b 0.125, whisper-small 0.054), rounded up to a multiple of 0.05.
+# No such bound tells a subtle rounding fault from the sound paths' own
+# rounding: the CONTROLS move the readings by less than 0.05, so
+# ``check_controls`` holds them at the kernel's level.  Last,
 # the depth of the fp32 comparison of greedy streams with and without the
 # kernels: 4 layers, for zamba2 12, the least depth with two applications
 # of shared blocks (attn_every 6), and for qwen1.5-110b 2 (its fp32 weights
 # are 5.4 GB a layer and 10 GB the embedding and head).
 SERVE_PATHS = [("qwen1.5-0.5b", 0.2, 4), ("mamba2-1.3b", 0.5, 4),
                ("zamba2-2.7b", 0.4, 12), ("qwen1.5-4b", 0.2, 4),
-               ("stablelm-12b", 0.2, 4), ("qwen1.5-110b", 0.1, 2)]
+               ("stablelm-12b", 0.2, 4), ("qwen1.5-110b", 0.1, 2),
+               ("pixtral-12b", 0.2, 4), ("whisper-small", 0.1, 12)]
+# Prompt lengths and cache length of each serve path: 256-2048 tokens in a
+# 4096-slot cache (pixtral's 1024 patches, prepended, fit beside them);
+# whisper's decoder at its published context of 448 tokens, prompts of
+# 32-416 and 32 new tokens (its 1500 frames live in the cross cache)
+SERVE_SHAPE = dict(lo=256, hi=2048, max_len=4096)
+SERVE_SHAPES = {"whisper-small": dict(lo=32, hi=WHISPER_CTX - 32,
+                                      max_len=WHISPER_CTX)}
 
 # Depth cuts of the paths that do not fit one H100's 80 GB at full depth
 # (bf16, B 8 x S 2048), each with its reason; every other path runs at full
@@ -1598,6 +1710,13 @@ DEPTH_CUTS = {
         1, "16.3 GB of weights, gradients and fp32 moments a layer, 29.9 GB "
            "the embedding and head, and AdamW's fp32 temporaries of the "
            "embedding or the head (1.25B parameters: about 25 GB)"),
+    ("pixtral-12b", "train"): (
+        12, "weights, gradients and the fp32 AdamW moments take 12 bytes a "
+            "parameter (3.27 GB a layer, 16.1 GB the embedding and head), "
+            "AdamW's fp32 temporaries of the stacked MLP leaves and the "
+            "activations saved over 1024 patches + 2048 tokens come on top: "
+            "12 layers peak at 80.2 GB (74.7 GiB of the card's 79.2), 13 "
+            "run out of memory in AdamW's update (H100 80GB HBM3, 700 W)"),
 }
 
 
@@ -1618,39 +1737,85 @@ def depth_cut(arch: str, phase: str):
             "reason": cut[1]}
 
 
+def frontend_embeddings(cfg, batch: int, dtype=None):
+    """Random patch or frame embeddings ``[batch, F, d]`` from the seed on
+    the card, in ``dtype`` (default the model's), or None for an arch
+    without a frontend."""
+    if cfg.frontend == "none" or not cfg.frontend_seq:
+        return None
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    return torch.randn((batch, cfg.frontend_seq, cfg.d_model), generator=gen,
+                       device="cuda").to(dtype or getattr(torch, cfg.dtype))
+
+
+def single_admission(model, params, reqs, frontend, max_len: int) -> dict:
+    """Continuous batching with 4 slots and a frontend, as the reference
+    allows it: the first admission round takes the embeddings of the first
+    4 requests; a later round must raise the reference's
+    ``NotImplementedError`` (frontend features are single-admission only).
+    The requests' lengths are staggered (8 to 32 new tokens) so that a lane
+    frees while the others still decode, which makes the second round."""
+    engine = ServeEngine(model, params, EngineConfig(
+        max_len=max_len, batching="continuous", slots=4))
+    for i, r in enumerate(reqs):
+        engine.submit(dataclasses.replace(r, max_new_tokens=8 + 8 * (i % 4)))
+    try:
+        for _ in range(sum(r.max_new_tokens for r in reqs)):
+            engine.step(frontend[:4])
+    except NotImplementedError as err:
+        if engine.stats["admission_rounds"] != 1:
+            raise AssertionError(f"the raise came after "
+                                 f"{engine.stats['admission_rounds']} "
+                                 f"admission rounds, not 1") from err
+        return {"slots": 4, "raised": f"NotImplementedError: {err}",
+                "admission_rounds": 1,
+                "decode_steps": engine.stats["decode_steps"]}
+    raise AssertionError("continuous batching with a frontend made a second "
+                         "admission round without raising")
+
+
 def phase_serve(arch: str, bf16_tol: float, fp32_layers: int) -> dict:
     """``arch`` at full width and depth, or its :data:`DEPTH_CUTS` (bf16,
     random weights from the seed) through ServeEngine, static twice and
-    continuous with 4 slots, with the launches of every kernel; then its
-    prefill logits and, at ``fp32_layers`` layers in fp32, its greedy
-    streams with the kernels against without them."""
+    continuous with 4 slots (with a frontend: the second admission must
+    raise), with the launches of every kernel; then its prefill logits and,
+    at ``fp32_layers`` layers in fp32, its greedy streams with the kernels
+    against without them.  A frontend arch gets random embeddings from the
+    seed in the model's type (bf16, so that the bf16 bodies run; fp32 for
+    the fp32 model)."""
     cfg = path_config(arch, "serve")
-    reqs = make_requests(cfg.vocab_size)
+    shape = SERVE_SHAPES.get(arch, SERVE_SHAPE)
+    reqs = make_requests(cfg.vocab_size, lo=shape["lo"], hi=shape["hi"])
+    max_len = shape["max_len"]
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg)
     params = model.init(SEED)
     n_params = sum(t.numel() for t in _leaves(params))
+    fe = frontend_embeddings(cfg, len(reqs))
 
-    static = ServeEngine(model, params, EngineConfig(max_len=4096))
-    max_len = static.max_len
-    run1 = serve_run(static, reqs)
+    static = ServeEngine(model, params, EngineConfig(max_len=max_len))
+    run1 = serve_run(static, reqs, fe)
     main_launches = run1["launches"]                  # the main path's count
-    run2 = serve_run(static, reqs)
+    run2 = serve_run(static, reqs, fe)
     if run1["tokens"] != run2["tokens"]:
         raise AssertionError("two generate runs gave different tokens")
-    cont = ServeEngine(model, params, EngineConfig(
-        max_len=4096, batching="continuous", slots=4))
-    run3 = serve_run(cont, reqs)
-    if run3["stats"]["admission_rounds"] < 2:
-        raise AssertionError("continuous batching made no refill round")
+    if fe is None:
+        continuous = _summary(serve_run(ServeEngine(
+            model, params, EngineConfig(max_len=max_len,
+                                        batching="continuous", slots=4)),
+            reqs))
+        if continuous["stats"]["admission_rounds"] < 2:
+            raise AssertionError("continuous batching made no refill round")
+    else:
+        continuous = single_admission(model, params, reqs, fe, max_len)
 
     # prefill logits with the kernels against without, bf16, full depth
     toks = padded_batch(reqs, model.device)
     with torch.no_grad():
-        lg_k, _ = model.prefill(params, toks, model.init_cache(8, 4096),
-                                use_kernel=True)
-        lg_p, _ = model.prefill(params, toks, model.init_cache(8, 4096),
-                                use_kernel=False)
+        lg_k, _ = model.prefill(params, toks, model.init_cache(8, max_len),
+                                fe, use_kernel=True)
+        lg_p, _ = model.prefill(params, toks, model.init_cache(8, max_len),
+                                fe, use_kernel=False)
     torch.cuda.synchronize()
     if lg_k.shape != (8, cfg.vocab_size) or not bool(
             torch.isfinite(lg_k).all()):
@@ -1660,44 +1825,57 @@ def phase_serve(arch: str, bf16_tol: float, fp32_layers: int) -> dict:
         raise AssertionError(f"bf16 prefill logits differ by {bf16_err}")
     logit_std = float(lg_p.std())
     peak_bytes = torch.cuda.max_memory_allocated()
-    controls = {name: float((control_logits(model, params, toks, fault)
-                             - lg_p).abs().max())
+    controls = {name: float((control_logits(model, params, toks, fault,
+                                            max_len, fe) - lg_p).abs().max())
                 for name, fault in CONTROLS.items()}
-    del params, static, cont, lg_k, lg_p
+    del params, static, lg_k, lg_p
     torch.cuda.empty_cache()
 
     # fp32, fewer layers, full width: greedy streams with and without kernels
     cfg_s = dataclasses.replace(cfg, n_layers=fp32_layers, dtype="float32")
     model_s = build_model(cfg_s)
     params_s = model_s.init(SEED)
+    fe32 = fe.float() if fe is not None else None
     with_k = serve_run(ServeEngine(model_s, params_s,
-                                   EngineConfig(max_len=4096),
-                                   use_kernel=True), reqs)
+                                   EngineConfig(max_len=max_len),
+                                   use_kernel=True), reqs, fe32)
     without = serve_run(ServeEngine(model_s, params_s,
-                                    EngineConfig(max_len=4096),
-                                    use_kernel=False), reqs)
+                                    EngineConfig(max_len=max_len),
+                                    use_kernel=False), reqs, fe32)
     if with_k["tokens"] != without["tokens"]:
         raise AssertionError("fp32 greedy streams with and without the "
                              "kernels differ")
     with torch.no_grad():
-        lsk, _ = model_s.prefill(params_s, toks, model_s.init_cache(8, 4096),
+        lsk, _ = model_s.prefill(params_s, toks,
+                                 model_s.init_cache(8, max_len), fe32,
                                  use_kernel=True)
-        lsp, _ = model_s.prefill(params_s, toks, model_s.init_cache(8, 4096),
+        lsp, _ = model_s.prefill(params_s, toks,
+                                 model_s.init_cache(8, max_len), fe32,
                                  use_kernel=False)
     fp32_err = float((lsk - lsp).abs().max())
     if fp32_err > 1e-3:       # fp32 sums in another order, a few layers
         raise AssertionError(f"fp32 prefill logits differ by {fp32_err}")
     del params_s
     torch.cuda.empty_cache()
+    prefill_positions = max(len(r.prompt) for r in reqs)
+    if fe is not None and cfg.enc_dec is None:
+        prefill_positions += fe.shape[1]           # the prepended patches
     return {"phase": "serve", "arch": cfg.name, "dtype": cfg.dtype,
             "n_layers": cfg.n_layers, "depth_cut": depth_cut(arch, "serve"),
             "n_params": n_params,
+            "frontend": None if fe is None else {
+                "shape": list(fe.shape),
+                "dtype": str(fe.dtype).split(".")[-1],
+                "note": "random embeddings from the seed in the model's "
+                        "type, so that the bf16 bodies run"},
             "prompt_lens": [len(r.prompt) for r in reqs],
+            "prefill_positions": prefill_positions,
             "max_len": max_len,
             "main_path_launches": main_launches,
+            "main_path_flash_mask_launches": run1["flash_mask_launches"],
             "main_path_matmul_epilogue_bodies": run1["matmul_epilogue_bodies"],
             "static": _summary(run1), "static_again": _summary(run2),
-            "continuous_slots4": _summary(run3),
+            "continuous_slots4": continuous,
             "bf16_prefill_logits_max_abs_diff": bf16_err,
             "bf16_prefill_logits_tol": bf16_tol,
             "bf16_prefill_logits_std": logit_std,
@@ -1745,15 +1923,25 @@ def _leaves(tree):
 # 8.4e-5 and 1.2e-4).
 TRAIN_PATHS = [("qwen1.5-0.5b", "none", 0.05), ("mamba2-1.3b", "full", 0.05),
                ("zamba2-2.7b", "full", 0.05), ("qwen1.5-4b", "full", 0.05),
-               ("stablelm-12b", "full", 0.05), ("qwen1.5-110b", "full", 0.05)]
+               ("stablelm-12b", "full", 0.05), ("qwen1.5-110b", "full", 0.05),
+               ("pixtral-12b", "full", 0.05), ("whisper-small", "none", 0.05)]
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 5
+# tokens a row where an arch's own context is shorter than TRAIN_SEQ
+TRAIN_SEQS = {"whisper-small": WHISPER_CTX}
+# Leaves whose gradient is zero in exact arithmetic: the cross-attention's
+# key bias shifts every score of a query row alike, which its softmax
+# ignores, so both paths hold rounding only.  Such a leaf is not required
+# to have a nonzero gradient, and its parity error is taken over the
+# tree's largest gradient instead of its own.
+ZERO_GRAD_LEAVES = ("cross.b_k",)
 TRAIN_FP32_BOUND = 1e-3
 PARITY_BATCH, PARITY_SEQ = 2, 1024
 
 
 def parity_config(cfg, dtype: str):
     """The gradient-parity model: ``cfg`` at full width, in ``dtype``, cut
-    to 2 layers (or fewer, if ``cfg`` has fewer).  The hybrid keeps as many Mamba2 layers as it has shared
+    to 2 layers (or fewer, if ``cfg`` has fewer; an encoder-decoder's
+    encoder too).  The hybrid keeps as many Mamba2 layers as it has shared
     blocks, each followed by one (``attn_every`` 1), so that each shared
     block, and the flash backward at its head dim, is applied once at the
     depth the bf16 bound was set at.  At zamba2's own ``attn_every`` (6)
@@ -1761,6 +1949,12 @@ def parity_config(cfg, dtype: str):
     more (an H100 read 0.054-0.058 for zamba2 and 0.046 for mamba2 at 12
     layers, each path as near the fp32 gradients as the other:
     ``tools/train_parity.py``)."""
+    if cfg.enc_dec is not None:
+        return dataclasses.replace(
+            cfg, n_layers=min(2, cfg.n_layers), dtype=dtype,
+            enc_dec=dataclasses.replace(
+                cfg.enc_dec,
+                n_encoder_layers=min(2, cfg.enc_dec.n_encoder_layers)))
     if cfg.family != "hybrid":
         return dataclasses.replace(cfg, n_layers=min(2, cfg.n_layers),
                                    dtype=dtype)
@@ -1800,32 +1994,46 @@ def expected_train_launches(cfg, remat: str, batch: int, seq: int,
     return {k: v * steps for k, v in per_step.items()}
 
 
-def random_batch(vocab: int, batch: int, seq: int) -> dict:
+def random_batch(vocab: int, batch: int, seq: int, cfg=None) -> dict:
+    """Random tokens from the seed on the card, and for an arch ``cfg``
+    with a frontend its embeddings (:func:`frontend_embeddings`)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    return {"tokens": torch.randint(0, vocab, (batch, seq), generator=gen,
-                                    device="cuda")}
+    out = {"tokens": torch.randint(0, vocab, (batch, seq), generator=gen,
+                                   device="cuda")}
+    fe = frontend_embeddings(cfg, batch) if cfg is not None else None
+    if fe is not None:
+        out["frontend"] = fe
+    return out
+
+
+def zero_grad_leaf(name: str) -> bool:
+    return name.endswith(ZERO_GRAD_LEAVES)
 
 
 def grad_parity(cfg, remat: str, dtype: str) -> dict:
     """The gradients of the kernel path against the plain path, at full
     width and the depth of :func:`parity_config`, on one batch: each leaf's
-    largest error over its largest magnitude."""
+    largest error over its largest magnitude (a :data:`ZERO_GRAD_LEAVES`
+    leaf's over the tree's largest gradient)."""
     cfg_s = parity_config(cfg, dtype)
     model = build_model(cfg_s)
     params = model.init(SEED)
-    batch = random_batch(cfg.vocab_size, PARITY_BATCH, PARITY_SEQ)
+    batch = random_batch(cfg.vocab_size, PARITY_BATCH, PARITY_SEQ, cfg_s)
     out = {}
     for use_kernel in (True, False):
         loss, _, grads = value_and_grad(model, params, batch, remat=remat,
                                         use_kernel=use_kernel)
         out[use_kernel] = (float(loss), dict(_named_leaves(grads)))
     rel = {}
+    tree_top = max(float(g.float().abs().max())
+                   for g in out[False][1].values() if g is not None)
     for name, gk in out[True][1].items():
         gp = out[False][1][name]
         if gk is None or gp is None or not bool(torch.isfinite(gk).all()):
             raise AssertionError(f"gradient parity: leaf {name} has no "
                                  f"finite gradient")
-        top = float(gp.float().abs().max())
+        top = tree_top if zero_grad_leaf(name) else float(
+            gp.float().abs().max())
         rel[name] = float((gk.float() - gp.float()).abs().max()) / max(top,
                                                                      1e-30)
     worst = max(rel, key=rel.get)
@@ -1866,15 +2074,14 @@ def grads_bit_identical(model, params, batch, remat: str) -> dict:
 def determinism(cfg, remat: str, model, params, batch) -> dict:
     """:func:`grads_bit_identical` at full width (the train path's own model,
     bf16) and at :func:`parity_config`'s cut in fp32, where the FMA
-    backward bodies still sum dQ (flash) and dcum, dB and dC (SSD) with
-    atomics."""
+    backward bodies run (each sums in a fixed order, as the bf16 ones do)."""
     out = {"bf16": grads_bit_identical(model, params, batch, remat)}
     cfg_s = parity_config(cfg, "float32")
     model_s = build_model(cfg_s)
     params_s = model_s.init(SEED)
     out["fp32"] = grads_bit_identical(
         model_s, params_s, random_batch(cfg.vocab_size, PARITY_BATCH,
-                                        PARITY_SEQ), remat)
+                                        PARITY_SEQ, cfg_s), remat)
     out["fp32"]["layers"] = cfg_s.n_layers
     del params_s
     torch.cuda.empty_cache()
@@ -1890,18 +2097,26 @@ def phase_train(arch: str, remat: str, bf16_bound: float) -> dict:
     launches counted over them; then the gradient parity of the kernel path
     against the plain one, in fp32 and in bf16."""
     cfg = path_config(arch, "train")
+    seq = TRAIN_SEQS.get(arch, TRAIN_SEQ)
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg)
     params = model.init(SEED)
     plan = ShardingPlan(name="dp", remat=remat)
     opt_cfg = adamw.AdamWConfig()
-    batch = random_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    batch = random_batch(cfg.vocab_size, TRAIN_BATCH, seq, cfg)
+    fe = batch.get("frontend")
+    # the positions the trunk runs: a vision stub's patches come first
+    positions = seq + (fe.shape[1] if fe is not None
+                       and cfg.enc_dec is None else 0)
+    fe = None if fe is None else list(fe.shape)
 
-    # every leaf gets a gradient, none all zero: a cut graph shows here
+    # every leaf gets a gradient, none all zero (but the leaves whose
+    # gradient is zero in exact arithmetic): a cut graph shows here
     _, _, grads = value_and_grad(model, params, batch, remat=remat,
                                  use_kernel=True)
     dead = [name for name, g in _named_leaves(grads)
-            if g is None or not bool((g != 0).any())]
+            if g is None or not (zero_grad_leaf(name)
+                                 or bool((g != 0).any()))]
     if dead:
         raise AssertionError(f"{arch}: leaves without a gradient: {dead}")
     n_leaves = sum(1 for _ in _leaves(grads))
@@ -1928,10 +2143,12 @@ def phase_train(arch: str, remat: str, bf16_bound: float) -> dict:
         losses.append(float(metrics["loss"]))
         norms.append(float(metrics["grad_norm"]))
     launches = ops.launch_counts()
+    masks = ops.flash_mask_launches()
     bodies = {b: n for b, n in ops.matmul_body_launches().items() if n}
     peak = torch.cuda.max_memory_allocated()
-    expected = expected_train_launches(cfg, remat, TRAIN_BATCH, TRAIN_SEQ,
+    expected = expected_train_launches(cfg, remat, TRAIN_BATCH, seq,
                                        TRAIN_STEPS)
+    expected_m = expected_flash_masks(cfg, expected)
     if not all(math.isfinite(v) for v in losses + norms):
         raise AssertionError(f"{arch}: non-finite loss or grad norm: "
                              f"{losses}, {norms}")
@@ -1942,6 +2159,10 @@ def phase_train(arch: str, remat: str, bf16_bound: float) -> dict:
         raise AssertionError(f"{arch}: launches {launches} in "
                              f"{TRAIN_STEPS} train steps, expected "
                              f"{expected}")
+    if masks != expected_m:
+        raise AssertionError(f"{arch}: flash launches by mask {masks} in "
+                             f"{TRAIN_STEPS} train steps, expected "
+                             f"{expected_m}")
     n_params = sum(t.numel() for t in _leaves(params))
     del params, opt, batch, step
     torch.cuda.empty_cache()
@@ -1961,11 +2182,13 @@ def phase_train(arch: str, remat: str, bf16_bound: float) -> dict:
     return {"phase": "train", "arch": arch, "dtype": cfg.dtype,
             "n_layers": cfg.n_layers, "depth_cut": depth_cut(arch, "train"),
             "n_params": n_params,
-            "n_leaves": n_leaves, "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+            "n_leaves": n_leaves, "batch": TRAIN_BATCH, "seq_len": seq,
+            "frontend": fe, "positions": positions,
             "remat": remat, "optimizer": dataclasses.asdict(opt_cfg),
             "losses": losses, "grad_norms": norms, "step_ms": times,
             "warm_median_step_ms": float(np.median(times[1:])),
             "launches": launches, "expected_launches": expected,
+            "flash_mask_launches": masks,
             "matmul_epilogue_bodies": bodies,
             "max_memory_allocated_bytes": peak,
             "gradient_parity": parity,
@@ -2037,12 +2260,13 @@ def phase_estimate(serve: dict, train: dict) -> dict:
     """The paper's loop closed on the card: each LinReg DS plan generated,
     costed for one H100 and executed warm (``bench_accuracy.linreg_rows``),
     and each serve path's prefill round and decode step estimated
-    (``bench_accuracy.serve_estimates``) at the batch, longest prompt and
-    cache length that path served, beside what its second static run
-    measured: warm, as the LinReg rows are (the first run, which pays the
-    process's one-time set-up, is reported beside it); and each train path's
-    step (``bench_accuracy.train_estimates``) at the batch, sequence length
-    and plan it ran, beside its warm median step.  A ratio outside the
+    (``bench_accuracy.serve_estimates``) at the batch, longest prefill (a
+    vision stub's patches counted) and cache length that path served,
+    beside what its second static run measured: warm, as the LinReg rows
+    are (the first run, which pays the process's one-time set-up, is
+    reported beside it); and each train path's step
+    (``bench_accuracy.train_estimates``) at the batch, positions and plan it
+    ran, beside its warm median step.  A ratio outside the
     paper's 2x is reported, not raised."""
     t0 = time.perf_counter()
     linreg = bench_accuracy.linreg_rows()
@@ -2063,7 +2287,7 @@ def phase_estimate(serve: dict, train: dict) -> dict:
     out = {}
     for arch, run in serve.items():
         shape = {"batch": len(run["prompt_lens"]),
-                 "prompt_len": max(run["prompt_lens"]),
+                 "prompt_len": run["prefill_positions"],
                  "max_len": run["max_len"]}
         est = {**shape, **bench_accuracy.serve_estimates(
             path_config(arch, "serve"), **shape)}
@@ -2081,7 +2305,7 @@ def phase_estimate(serve: dict, train: dict) -> dict:
     train_rows = {}
     for arch, run in train.items():
         est = bench_accuracy.train_estimates(
-            path_config(arch, "train"), run["batch"], run["seq_len"],
+            path_config(arch, "train"), run["batch"], run["positions"],
             ShardingPlan(name="dp", remat=run["remat"]))
         _check_estimates(f"{arch} train", [est["total_ms"]])
         est["measured_ms"] = run["warm_median_step_ms"]
@@ -2121,12 +2345,13 @@ def phase_calibrate(estimate: dict, train: dict):
         t = time.perf_counter()
         comps = component_costs(
             path_config(arch, "train"),
-            ShapeConfig("h100_train", run["seq_len"], run["batch"], "train"),
+            ShapeConfig("h100_train", run["positions"], run["batch"],
+                        "train"),
             ShardingPlan(name="dp", remat=run["remat"]))
         agg = aggregate(comps, cc)
         components[arch] = {
             "program": "plain", "chip_spec": cc.chip.name,
-            "batch": run["batch"], "seq_len": run["seq_len"],
+            "batch": run["batch"], "seq_len": run["positions"],
             "remat": run["remat"], "trace_seconds": time.perf_counter() - t,
             **{k: agg[k] for k in ("compute_s", "memory_s", "dominant",
                                    "roofline_bound_s", "flops_per_device",
@@ -2269,11 +2494,12 @@ def main() -> None:
     for arch, remat, bf16_bound in TRAIN_PATHS:
         train[arch] = phase_train(arch, remat, bf16_bound)
         emit(train[arch])
-    # the bf16 backward bodies sum in a fixed order: a step repeats bit for bit
-    varying = {arch: run["determinism"]["bf16"] for arch, run in train.items()
-               if not run["determinism"]["bf16"]["bit_identical"]}
+    # every backward body sums in a fixed order: a step repeats bit for bit
+    varying = {f"{arch} {dtype}": run["determinism"][dtype]
+               for arch, run in train.items() for dtype in ("bf16", "fp32")
+               if not run["determinism"][dtype]["bit_identical"]}
     if varying:
-        raise AssertionError(f"bf16 train steps are not bit-identical on a "
+        raise AssertionError(f"train steps are not bit-identical on a "
                              f"rerun: {varying}")
     if args.stop_after == "train":
         return
@@ -2327,20 +2553,33 @@ def main() -> None:
         "zamba2-2.7b", "flash_attention")
     ssd_times["zamba2"]["launches"] = arch_launches("zamba2-2.7b",
                                                     "ssd_scan")
-    for arch in WIDE_ARCHS:
-        times["flash_attention"][arch].update(
-            max_abs_err=err_of(flash_cases, f"{arch} main path"),
-            launches=arch_launches(arch, "flash_attention"))
-        bwd_times[f"flash_attention_bwd {arch}"].update(
-            max_abs_err=err_of(flash_bwd_cases, f"{arch} main path"),
-            launches=train[arch]["launches"]["flash_attention_bwd"])
-        for kind in ("gate", "head"):
-            mm_times[f"{arch} {kind}"]["max_abs_err"] = err_of(
-                mm_cases, f"{arch} {kind} main path")
-        mm_times[f"{arch} gate"].update(
-            launches=arch_launches(arch, "matmul_epilogue"),
-            launches_note="every launch on the arch's serve and train "
-                          "paths, its gates and heads together")
+    def shape_launches(tag, kernel, phase=None):
+        """The launches of ``kernel`` at the flash shape ``tag`` on its
+        arch's serve and train paths (``phase`` "train": the train path's
+        alone), as counted by mask: whisper's encoder is the one shape that
+        is not causal."""
+        arch, _, part = tag.partition(" ")
+        key = "not_causal" if part == "encoder" else "causal"
+        n = train[arch]["flash_mask_launches"][kernel][key]
+        if phase != "train":
+            n += serve[arch]["main_path_flash_mask_launches"][kernel][key]
+        return n
+
+    for tag, _ in path_flash():
+        times["flash_attention"][tag].update(
+            max_abs_err=err_of(flash_cases, f"{tag} main path"),
+            launches=shape_launches(tag, "flash_attention"))
+        bwd_times[f"flash_attention_bwd {tag}"].update(
+            max_abs_err=err_of(flash_bwd_cases, f"{tag} main path"),
+            launches=shape_launches(tag, "flash_attention_bwd", "train"))
+    for tag, _ in path_mm():
+        mm_times[tag]["max_abs_err"] = err_of(mm_cases, f"{tag} main path")
+    for arch in (*WIDE_ARCHS, *FRONTEND_ARCHS):
+        mm_times[f"{arch} {'gate' if arch != 'whisper-small' else 'head'}"
+                 ].update(launches=arch_launches(arch, "matmul_epilogue"),
+                          launches_note="every launch on the arch's serve "
+                                        "and train paths, its gates and "
+                                        "heads together")
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2377,8 +2616,7 @@ def main() -> None:
          "mamba_head": mm_times["mamba_head"],
          "decode_gate": mm_times["decode_gate"],
          "qwen_decode_gate": mm_times["qwen_decode_gate"],
-         **{f"{a} {kind}": mm_times[f"{a} {kind}"] for a in WIDE_ARCHS
-            for kind in ("gate", "head")}},
+         **{tag: mm_times[tag] for tag, _ in path_mm()}},
         {"name": "flash_attention_bwd", "route": "cuda", "backward": True,
          "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
          "replaces": "src/repro/kernels/flash_attention.py:104",
@@ -2389,7 +2627,8 @@ def main() -> None:
                  "max_abs_err": err_of(flash_bwd_cases, "D = 80"),
                  "launches": train["zamba2-2.7b"]["launches"][
                      "flash_attention_bwd"]},
-         **{a: bwd_times[f"flash_attention_bwd {a}"] for a in WIDE_ARCHS}},
+         **{tag: bwd_times[f"flash_attention_bwd {tag}"]
+            for tag, _ in path_flash()}},
         {"name": "ssd_scan_bwd", "route": "cuda", "backward": True,
          "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:102",

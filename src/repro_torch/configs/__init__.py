@@ -23,6 +23,8 @@ _MODULES = {
     "qwen1.5-4b": "repro_torch.configs.qwen15_4b",
     "stablelm-12b": "repro_torch.configs.stablelm_12b",
     "qwen1.5-110b": "repro_torch.configs.qwen15_110b",
+    "pixtral-12b": "repro_torch.configs.pixtral_12b",
+    "whisper-small": "repro_torch.configs.whisper_small",
 }
 
 PORTED_ARCH_IDS: List[str] = list(_MODULES)

@@ -16,10 +16,11 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.transformer import torch_dtype
 
-# leaves the reference keeps in fp32 whatever cfg.dtype says: norm scales,
-# the Mamba2 block's A_log / D / dt_bias / norm_scale, the SSM cache's state
-_FP32_LEAVES = ("ln1", "ln2", "ln", "final_norm", "A_log", "D", "dt_bias",
-                "norm_scale", "state")
+# leaves the reference keeps in fp32 whatever cfg.dtype says: norm scales
+# (the encoder-decoder's ln_cross and enc_norm among them), the Mamba2
+# block's A_log / D / dt_bias / norm_scale, the SSM cache's state
+_FP32_LEAVES = ("ln1", "ln2", "ln", "ln_cross", "final_norm", "enc_norm",
+                "A_log", "D", "dt_bias", "norm_scale", "state")
 
 
 def _convert(tree: Any, name: str, device, dtype: torch.dtype) -> Any:
@@ -38,10 +39,11 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
                       dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """The reference's param tree (nested dicts of float32 numpy arrays, the
     layer stack with its leading layer axis) as the port's tree on ``device``:
-    same keys and shapes, lists (the hybrid's ``shared_attn``, one block
-    dict each) kept as lists, the leaves the reference keeps in fp32 (norm
-    scales, ``A_log``, ``D``, ``dt_bias``) in fp32, everything else in
-    ``dtype`` (default ``cfg.dtype``)."""
+    same keys and shapes (the encoder-decoder's ``enc_blocks``, ``enc_norm``
+    and the decoder's ``cross`` among them), lists (the hybrid's
+    ``shared_attn``, one block dict each) kept as lists, the leaves the
+    reference keeps in fp32 (norm scales, ``A_log``, ``D``, ``dt_bias``) in
+    fp32, everything else in ``dtype`` (default ``cfg.dtype``)."""
     return _convert(tree, "", torch.device(device),
                     dtype or torch_dtype(cfg.dtype))
 
@@ -50,8 +52,9 @@ def cache_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
                      device: Union[str, torch.device] = "cuda",
                      dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """The reference's decode cache as the port's: ``pos`` becomes a host
-    integer, ``k``/``v`` and the SSM's ``conv`` take ``dtype`` (default
-    ``cfg.dtype``), the SSM's ``state`` stays fp32, ``kpos`` stays int32."""
+    integer, ``k``/``v``, the encoder-decoder's ``cross_k``/``cross_v`` and
+    the SSM's ``conv`` take ``dtype`` (default ``cfg.dtype``), the SSM's
+    ``state`` stays fp32, ``kpos`` stays int32."""
     out = _convert({k: v for k, v in tree.items() if k != "pos"}, "",
                    torch.device(device), dtype or torch_dtype(cfg.dtype))
     out["pos"] = int(np.asarray(tree["pos"]))

@@ -19,16 +19,16 @@
 // Two bodies, chosen by the wrapper from the type (`flash_bwd_body`), at
 // D = 64, 80, 128 and 160; both start with `delta` (one warp a row,
 // rowsum(dO o O) in fp32, O and dO read through their strides) and sum dQ
-// over the key tiles in an fp32 buffer in device memory, which a bf16 call
-// casts once at the end (`cast`).
+// over the key tiles in fp32 in device memory, in a fixed order, the last
+// key tile first: a call repeats bit for bit.
 //   * bf16: wgmma + TMA, warp-specialised, in two layouts (`flash_bwd_wgmma`
 //     for D = 64 and 80, `flash_bwd_wide` for 128 and 160); see their
 //     section below.  P and dS are rounded once to bf16 for the products
-//     that take them, as the forward rounds P, and dQ is summed in a fixed
-//     order: a call repeats bit for bit.
-//   * fp32: FMA from shared memory, every product in full fp32, dQ added
-//     with atomics in whatever order the blocks come; see its section
-//     below.
+//     that take them, as the forward rounds P; dQ is reduce-added into one
+//     buffer, the key tiles taking turns, and cast once at the end.
+//   * fp32: FMA from shared memory, every product in full fp32; each key
+//     tile writes its own dQ partials and `sum_dq_tiles` adds them in order,
+//     a run of key tiles at a time; see its section below.
 //
 // Plain C interface; the Python wrapper passes data_ptr()s and the stream.
 
@@ -53,7 +53,7 @@ struct Params {
   const void* dout;
   const float* lse;  // [B,Hq,Sq]
   float* delta;      // [B,Hq,Sq]
-  float* dq;         // [B,Hq,Sq,D] fp32, zero at launch
+  float* dq;         // fp32 scratch: the bodies' dQ partials (see the entry)
   void* dk;          // [B,Hkv,Skv,D] contiguous, in the input type
   void* dv;
   int B, Hq, Hkv, Sq, Skv;
@@ -65,6 +65,7 @@ struct Params {
   float scale;
   int causal;
   int window;  // <= 0: none
+  int kt0;     // fp32 body: the first key tile of the launch's run of tiles
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -122,13 +123,27 @@ __global__ void __launch_bounds__(256) flash_bwd_delta(const Params p) {
 // and, for each, the 64-row query tiles of the band (tiles outside the causal
 // / window band are skipped, as the forward skips them; ragged Sq and Skv are
 // masked), recomputes S and P from lse, and accumulates dK and dV in
-// registers over all of them.  dQ of each (query tile, key tile) pair is
-// added into the fp32 buffer with atomics (another block owns the other key
-// tiles of the same rows).  Every product is fp32 FMA on fp32 copies of the
+// registers over all of them.  dQ of each (query tile, key tile) pair goes
+// into the key tile's own slice of an fp32 scratch [G, B, Hq, Sq, D]
+// (another block owns the other key tiles of the same rows).  The key tiles
+// run in runs of G, the last run first: after each run `sum_dq_tiles` adds
+// the slices of the pairs the band visits into dQ, the last key tile first,
+// as the bf16 bodies order their sums: no atomics, a call repeats bit for
+// bit, and G (the wrapper's choice) only bounds the scratch.  Every product is fp32 FMA on fp32 copies of the
 // operands in shared memory.  Each thread owns a 4 x (64 / 16) tile of S and
 // dP and a 4 x (D / 16) tile of dK, dV and dQ; rows of K, V, Q and dO are
 // padded to an odd length, so reads along a column are free of bank
 // conflicts.
+
+// the query tiles [x, y] whose rows can see a key of key tile kt (empty
+// when x > y); the main kernel visits them, `sum_dq_tiles` sums them
+__device__ __forceinline__ int2 fma_query_tiles(const Params& p, int kt) {
+  const int k_lo = kt * BT, k_hi = min(k_lo + BT, p.Skv) - 1;
+  int lo = 0, hi = (p.Sq + BT - 1) / BT - 1;
+  if (p.causal) lo = k_lo / BT;
+  if (p.window > 0) hi = min(hi, (k_hi + p.window - 1) / BT);
+  return make_int2(lo, hi);
+}
 
 template <int D>
 __global__ void __launch_bounds__(THREADS) flash_bwd_main(const Params p) {
@@ -144,11 +159,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_main(const Params p) {
   float* sL = sS + BT * LP;    // lse of the tile's rows
   float* sD = sL + BT;         // delta of the tile's rows
 
-  const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int kt = p.kt0 + blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int group = p.Hq / p.Hkv;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int k_lo = kt * BT;
-  const int k_hi = min(k_lo + BT, p.Skv) - 1;
 
   load_rows<D, LD>(sK, static_cast<const float*>(p.k) + b * p.k_sb +
                               kvh * p.k_sh, p.k_ss, k_lo, p.Skv);
@@ -156,10 +170,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_main(const Params p) {
                               kvh * p.v_sh, p.v_ss, k_lo, p.Skv);
 
   // the query tiles whose rows can see a key of this tile
-  const int nqt = (p.Sq + BT - 1) / BT;
-  int qt_lo = 0, qt_hi = nqt - 1;
-  if (p.causal) qt_lo = k_lo / BT;
-  if (p.window > 0) qt_hi = min(qt_hi, (k_hi + p.window - 1) / BT);
+  const int2 qts = fma_query_tiles(p, kt);
+  const int qt_lo = qts.x, qt_hi = qts.y;
+  // this key tile's slice of the dQ partials
+  float* dq_part = p.dq + (long long)blockIdx.x * p.B * p.Hq * p.Sq * D;
 
   // thread (ty, tx): S / dP rows ty * 4 + i, key columns tx + 16 j; dK / dV
   // key rows ty * 4 + i, D columns tx + 16 c; dQ rows ty * 4 + i, the same
@@ -264,10 +278,9 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_main(const Params p) {
       for (int i = 0; i < 4; ++i) {
         const int row = q_lo + ty * 4 + i;
         if (row < p.Sq) {
-          float* dst = p.dq + (row_base + row) * D;
+          float* dst = dq_part + (row_base + row) * D;
 #pragma unroll
-          for (int c = 0; c < DC; ++c)
-            atomicAdd(dst + tx + 16 * c, dq[i][c] * p.scale);
+          for (int c = 0; c < DC; ++c) dst[tx + 16 * c] = dq[i][c] * p.scale;
         }
       }
     }
@@ -288,6 +301,25 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_main(const Params p) {
       }
     }
   }
+}
+
+// dq[i] += the partials of element i (over B Hq Sq D) of key tiles [kt0,
+// kt1) in fp32, the last key tile first, over the tiles whose pair with the
+// row's query tile the main kernel visited (the others hold no partial); the
+// run that holds the last key tile starts from 0 instead of dq[i].  Over the
+// runs, last first, that is one sum in key-tile order, whatever the runs.
+template <int D>
+__global__ void sum_dq_tiles(const Params p, float* dq, long long n, int kt1,
+                             int first) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int qt = (int)((i / D) % p.Sq) / BT;
+  float acc = first ? 0.f : dq[i];
+  for (int kt = kt1 - 1; kt >= p.kt0; --kt) {
+    const int2 qts = fma_query_tiles(p, kt);
+    if (qt >= qts.x && qt <= qts.y) acc += p.dq[(kt - p.kt0) * n + i];
+  }
+  dq[i] = acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -1127,8 +1159,9 @@ cudaError_t launch_delta(const Params& p, cudaStream_t stream) {
 }
 
 
+// the key tiles in runs of `run` (the scratch's slices), the last run first
 template <int D>
-int launch_fma(const Params& p, cudaStream_t stream) {
+int launch_fma(const Params& p, float* dq_out, int run, cudaStream_t stream) {
   cudaError_t err = launch_delta<float, D>(p, stream);
   if (err != cudaSuccess) return (int)err;
   const size_t smem =
@@ -1138,9 +1171,21 @@ int launch_fma(const Params& p, cudaStream_t stream) {
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.Skv + BT - 1) / BT, p.Hkv, p.B);
-  kernel<<<grid, THREADS, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+  const int n_kt = (p.Skv + BT - 1) / BT;
+  const long long n = (long long)p.B * p.Hq * p.Sq * D;
+  for (int kt0 = (n_kt - 1) / run * run; kt0 >= 0; kt0 -= run) {
+    Params pr = p;
+    pr.kt0 = kt0;
+    const int kt1 = min(kt0 + run, n_kt);
+    kernel<<<dim3(kt1 - kt0, p.Hkv, p.B), THREADS, smem, stream>>>(pr);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    sum_dq_tiles<D><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+        pr, dq_out, n, kt1, kt1 == n_kt);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 template <int D>
@@ -1192,9 +1237,10 @@ int launch_wgmma(const Params& p, void* dq_out, int* counters,
 
 template <int D>
 int dispatch_d(const Params& p, int body, void* dq_out, int* counters,
-               cudaStream_t stream) {
-  return body == 0 ? launch_fma<D>(p, stream)
-                   : launch_wgmma<D>(p, dq_out, counters, stream);
+               int fma_run, cudaStream_t stream) {
+  return body == 0
+             ? launch_fma<D>(p, static_cast<float*>(dq_out), fma_run, stream)
+             : launch_wgmma<D>(p, dq_out, counters, stream);
 }
 
 }  // namespace
@@ -1202,11 +1248,14 @@ int dispatch_d(const Params& p, int body, void* dq_out, int* counters,
 // body: 0 = the fp32 FMA body (float32 tensors), 2 = the bf16 wgmma + TMA
 // bodies (bfloat16 tensors); the wrapper chooses it by type.  D = 64, 80, 128
 // or 160.  lse [B,Hq,Sq] fp32 from the forward; delta [B,Hq,Sq] fp32 scratch;
-// dq_acc fp32, zero at launch: for an fp32 call [B,Hq,Sq,D], its dQ; for a
-// bf16 call [B,Hq,ceil(Sq / 64),64 D], a scratch in the body's register order
-// that is cast into dq_out [B,Hq,Sq,D] bf16 (dq_out is null for fp32);
-// counters [B,Hq,ceil(Sq / 64),2] int32, zero at launch, the turns of the
-// bf16 bodies' ordered dQ sums (null for fp32).  dk, dv [B,Hkv,Skv,D]
+// dq_acc fp32 scratch: for an fp32 call [fma_run,B,Hq,Sq,D], the dQ partials
+// of a run of fma_run key tiles (1 <= fma_run; not zeroed: only the pairs the
+// band visits are written and read), summed in order into dq_out [B,Hq,Sq,D]
+// fp32 after each run, the last run first; for a bf16 call
+// [B,Hq,ceil(Sq / 64),64 D], zero at launch, a scratch in the body's
+// register order that is cast into dq_out [B,Hq,Sq,D] bf16; counters
+// [B,Hq,ceil(Sq / 64),2] int32, zero at launch, the turns of the bf16
+// bodies' ordered dQ sums (null for fp32).  dk, dv [B,Hkv,Skv,D]
 // contiguous.  q, k, v, o and dout are read through (batch, head, row)
 // strides in elements with a unit stride along D; for bf16 every row of q, k,
 // v and dout is 16-byte aligned (TMA's rule).  window <= 0 means no window.
@@ -1220,26 +1269,28 @@ extern "C" int repro_flash_attention_bwd(
     long long k_sb, long long k_sh, long long k_ss, long long v_sb,
     long long v_sh, long long v_ss, long long o_sb, long long o_sh,
     long long o_ss, long long do_sb, long long do_sh, long long do_ss,
-    float scale, int causal, int window, int body, void* stream) {
+    float scale, int causal, int window, int body, int fma_run,
+    void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Sq <= 0 || Skv <= 0) return -1;
+  if (body == 0 && fma_run < 1) return -1;
   if (Hq % Hkv != 0 || Hq > 65535 || B > 65535) return -1;
-  if ((body == 2) != (dq_out != nullptr) ||
-      (body == 2) != (counters != nullptr) || (body != 0 && body != 2))
+  if (dq_out == nullptr || (body == 2) != (counters != nullptr) ||
+      (body != 0 && body != 2))
     return -1;
   Params p{q,    k,    v,     o,     dout,  lse,   delta, dq_acc, dk,
            dv,   B,    Hq,    Hkv,   Sq,    Skv,   q_sb,  q_sh,   q_ss,
            k_sb, k_sh, k_ss,  v_sb,  v_sh,  v_ss,  o_sb,  o_sh,   o_ss,
-           do_sb, do_sh, do_ss, scale, causal, window};
+           do_sb, do_sh, do_ss, scale, causal, window, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return dispatch_d<64>(p, body, dq_out, counters, s);
+      return dispatch_d<64>(p, body, dq_out, counters, fma_run, s);
     case 80:
-      return dispatch_d<80>(p, body, dq_out, counters, s);
+      return dispatch_d<80>(p, body, dq_out, counters, fma_run, s);
     case 128:
-      return dispatch_d<128>(p, body, dq_out, counters, s);
+      return dispatch_d<128>(p, body, dq_out, counters, fma_run, s);
     case 160:
-      return dispatch_d<160>(p, body, dq_out, counters, s);
+      return dispatch_d<160>(p, body, dq_out, counters, fma_run, s);
     default:
       return -1;
   }

@@ -30,8 +30,9 @@
 // Two bodies, chosen by the wrapper from the type (`ssd_bwd_body`):
 //   * bf16: chunk-parallel on the tensor cores, five kernels a call, every
 //     fp32 operand of a product split hi + lo; see its section below.
-//   * fp32: every product an fp32 FMA, two kernels a call; see its section
+//   * fp32: every product an fp32 FMA, four kernels a call; see its section
 //     below.
+// Both sum in a fixed order, so a call repeats bit for bit.
 //
 // Plain C interface; the Python wrapper passes data_ptr()s and the stream.
 
@@ -58,8 +59,8 @@ struct Params {
   const float* init;    // [B,H,P,N] or null (zero)
   void* dxbar;          // [B,S,H,P]
   float* dlog_a;        // [B,S,H]
-  float* db;            // [B,S,G,N] fp32, zero at launch
-  float* dc;            // [B,S,G,N] fp32, zero at launch
+  float* db;            // [H/G,B,S,G,N] fp32: one [B,S,G,N] a head of a group
+  float* dc;            // the same, zero at launch
   float* dinit;         // [B,H,P,N] or null
   float* s_in;          // [B,H,nc,P,N] scratch
   float* ds_out;        // [B,H,nc,P,N] scratch
@@ -115,11 +116,17 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, int X,
 //     4 rows), the chunk cut into 64-row tiles as the fp32 forward cuts it:
 //     for each key tile j, the state terms, then the query tiles i >= j
 //     (pairs above the diagonal are never visited).  dXbar of a key tile is
-//     summed in registers and written once; dB and dC go into the fp32
-//     outputs [B,S,G,N] with atomics (the heads of a group, and the tiles
-//     of a chunk, add into the same rows); dcum is summed in shared memory
-//     with shared-memory atomics.  Rows past L or S are zeros and never
-//     written.
+//     summed in registers and written once.  dB and dC go into the head's
+//     own slice of fp32 scratch [H/G,B,S,G,N]: dB of a key row once, dC of
+//     a query row added by the one thread that owns it, the key tiles in
+//     order, then the state term.  Each row of dcum is owned by one thread
+//     (the one with tx 0 whose four rows hold it), which adds its terms in
+//     program order; the column sums of M o W, spread over the 16 row
+//     groups, reach it through shared memory and are added in row-group
+//     order; dtotal is summed per warp, then over the warps in order.  Rows
+//     past L or S are zeros and never written.
+//   * `sum_slices_f32`: dB and dC, the heads' slices summed in head order
+//     into [B,S,G,N]: no block adds into memory another block adds into.
 
 // One block per (b, h): S_in of every chunk (forward), then dS_out of every
 // chunk and d init_state (reverse).
@@ -237,15 +244,20 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk(const Params p) {
   float* sYi = sXj + RT * LP;                       // [RT][LP]  dY
   float* sM = sYi + RT * LP;                        // [RT][LM]  M[t][s]
   float* sW = sM + RT * LM;                         // [RT][LM]  Wd[t][s]
-  float* cum = sW + RT * LM;                        // [L]
+  float* sCol = sW + RT * LM;                       // [16][RT] column sums
+  float* cum = sCol + 16 * RT;                      // [L]
   float* dcum = cum + p.L;                          // [L]
-  float* sTot = dcum + p.L;                         // dtotal
+  float* sTot = dcum + p.L;                         // [THREADS / 32] dtotal
 
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int g = h / (p.H / p.G);
   const int c0 = c * p.L;
   const long long bh = (long long)b * p.H + h;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  // this head's slices of dB and dC
+  const long long slice = (long long)p.B * p.S * p.G * N;
+  float* db_h = p.db + (h % (p.H / p.G)) * slice;
+  float* dc_h = p.dc + (h % (p.H / p.G)) * slice;
   const int nb = (p.L + RT - 1) / RT;
   const float* xbar = static_cast<const float*>(p.xbar);
   const float* dy = static_cast<const float*>(p.dy);
@@ -253,7 +265,6 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk(const Params p) {
   const float* cm = static_cast<const float*>(p.cm);
 
   for (int r = threadIdx.x; r < p.L; r += THREADS) dcum[r] = 0.f;
-  if (threadIdx.x == 0) *sTot = 0.f;
   chunk_cumsum(p, b, h, c0, cum);
   const float total = cum[p.L - 1];
   const float* ds_out = p.ds_out + (bh * p.nc + c) * P * N;
@@ -313,7 +324,7 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk(const Params p) {
       for (int q = 0; q < NC; ++q) db[i][q] *= w;
       e = row_sum16(e);
       if (tx == 0 && ls < p.L) {
-        atomicAdd(&dcum[ls], -e);
+        dcum[ls] -= e;
         dtot += e;
       }
     }
@@ -374,14 +385,24 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk(const Params p) {
           sW[(ty * 4 + ii) * LM + tx + 16 * jj] = wd;
         }
         rowpart = row_sum16(rowpart);
-        if (tx == 0 && lt < p.L) atomicAdd(&dcum[lt], rowpart);
+        if (tx == 0 && lt < p.L) dcum[lt] += rowpart;
       }
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int ls = s0 + tx + 16 * jj;
-        if (ls < p.L) atomicAdd(&dcum[ls], -colpart[jj]);
-      }
+      for (int jj = 0; jj < 4; ++jj) sCol[ty * RT + tx + 16 * jj] = colpart[jj];
       __syncthreads();
+      // the column sums, over the row groups in order, by the owners of the
+      // key rows
+      if (tx == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = ty * 4 + i;
+          if (s0 + r < p.L) {
+            float col = 0.f;
+            for (int y = 0; y < 16; ++y) col += sCol[y * RT + r];
+            dcum[s0 + r] -= col;
+          }
+        }
+      }
       // dx_j += M^T dY_i, db_j += Wd^T C_i (rows s = ty * 4 + i); dC_i = Wd B_j
       // (rows t = ty * 4 + i), added into the group's buffer
       float dci[4][NC];
@@ -420,9 +441,9 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk(const Params p) {
       for (int ii = 0; ii < 4; ++ii) {
         const int lt = t0 + ty * 4 + ii, pos = c0 + lt;
         if (lt < p.L && pos < p.S) {
-          float* dst = p.dc + (((long long)b * p.S + pos) * p.G + g) * N;
+          float* dst = dc_h + (((long long)b * p.S + pos) * p.G + g) * N;
 #pragma unroll
-          for (int q = 0; q < NC; ++q) atomicAdd(dst + tx + 16 * q, dci[ii][q]);
+          for (int q = 0; q < NC; ++q) dst[tx + 16 * q] += dci[ii][q];
         }
       }
     }
@@ -435,9 +456,9 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk(const Params p) {
                  (((long long)b * p.S + pos) * p.H + h) * P;
 #pragma unroll
         for (int q = 0; q < PC; ++q) dst[tx + 16 * q] = dx[i][q];
-        float* dbd = p.db + (((long long)b * p.S + pos) * p.G + g) * N;
+        float* dbd = db_h + (((long long)b * p.S + pos) * p.G + g) * N;
 #pragma unroll
-        for (int q = 0; q < NC; ++q) atomicAdd(dbd + tx + 16 * q, db[i][q]);
+        for (int q = 0; q < NC; ++q) dbd[tx + 16 * q] = db[i][q];
       }
     }
   }
@@ -485,11 +506,11 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk(const Params p) {
         o = fmaf(dco[ii][q], sCi[(ty * 4 + ii) * LN + tx + 16 * q], o);
       }
       o = row_sum16(o);
-      if (tx == 0 && lt < p.L) atomicAdd(&dcum[lt], o);
+      if (tx == 0 && lt < p.L) dcum[lt] += o;
       if (lt < p.L && pos < p.S) {
-        float* dst = p.dc + (((long long)b * p.S + pos) * p.G + g) * N;
+        float* dst = dc_h + (((long long)b * p.S + pos) * p.G + g) * N;
 #pragma unroll
-        for (int q = 0; q < NC; ++q) atomicAdd(dst + tx + 16 * q, dco[ii][q]);
+        for (int q = 0; q < NC; ++q) dst[tx + 16 * q] += dco[ii][q];
       }
     }
   }
@@ -497,10 +518,11 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk(const Params p) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     dtot += __shfl_xor_sync(0xffffffffu, dtot, off);
-  if ((threadIdx.x & 31) == 0) atomicAdd(sTot, dtot);
+  if ((threadIdx.x & 31) == 0) sTot[threadIdx.x >> 5] = dtot;
   __syncthreads();
   if (threadIdx.x == 0) {
-    float acc = *sTot;
+    float acc = 0.f;
+    for (int w = 0; w < THREADS / 32; ++w) acc += sTot[w];
     for (int r = p.L - 1; r >= 0; --r) {
       acc += dcum[r];
       dcum[r] = acc;
@@ -511,6 +533,17 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_chunk(const Params p) {
     const int pos = c0 + r;
     if (pos < p.S) p.dlog_a[((long long)b * p.S + pos) * p.H + h] = dcum[r];
   }
+}
+
+// dst = the sum of `slices` fp32 arrays of n elements, n apart, in order
+// (the fp32 body's dB and dC).
+__global__ void sum_slices_f32(const float* src, int slices, float* dst,
+                               long long n) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float acc = src[i];
+  for (int z = 1; z < slices; ++z) acc += src[z * n + i];
+  dst[i] = acc;
 }
 
 // dst = the sum of `slices` fp32 arrays of n elements, n apart, in order,
@@ -539,7 +572,7 @@ int launch(const Params& p, cudaStream_t stream) {
   auto kernel = ssd_bwd_chunk<P, N>;
   const size_t smem =
       sizeof(float) * ((P + 2 * RT) * (N + 1) + 2 * RT * (P + 1) +
-                       2 * RT * LM + 2 * p.L + 1);
+                       2 * RT * LM + 16 * RT + 2 * p.L + THREADS / 32);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -1338,10 +1371,10 @@ int dispatch_tc(const BwdTc& p, int P, int N, cudaStream_t s) {
 // body: 0 = the fp32 FMA body (float32 tensors), 1 = the bf16 tensor-core
 // body (bfloat16 tensors); the wrapper chooses it by type.  Every tensor
 // contiguous; xbar, B, C, dy, dxbar and db_out / dc_out in the body's type,
-// the rest fp32.  db_acc, dc_acc fp32: for an fp32 call [B,S,G,N], zero at
-// launch, its dB and dC (summed with atomics); for a bf16 call
-// [ceil(H / G / hs),B,S,G,N], one [B,S,G,N] for each slice of hs heads of a
-// group, summed in order and cast into db_out / dc_out (null for fp32).
+// the rest fp32.  db_acc, dc_acc fp32 [ceil(H / G / hs),B,S,G,N], one
+// [B,S,G,N] for each slice of hs heads of a group (the fp32 body takes hs =
+// 1 and dc_acc zero at launch), summed in order into db_out / dc_out
+// [B,S,G,N] (cast for bf16).
 // dfinal, init and dinit may be null (zero; not written).  Chunks of L rows,
 // nc = ceil(S / L), L chosen by the wrapper (which sizes the scratch from
 // it): at most S, MAX_CHUNK and, for the tensor-core body, TC_CHUNK, else -1.
@@ -1361,8 +1394,8 @@ extern "C" int repro_ssd_scan_bwd(
     int L, int hs, int body, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0) return -1;
   if (L <= 0 || L > S || L > MAX_CHUNK || B > 65535 || H > 65535) return -1;
-  if (body < 0 || body > 1 || (body == 1) != (db_out != nullptr) ||
-      (db_out == nullptr) != (dc_out == nullptr))
+  if (body < 0 || body > 1 || db_out == nullptr || dc_out == nullptr ||
+      (body == 0 && hs != 1))
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (body == 0) {
@@ -1370,7 +1403,15 @@ extern "C" int repro_ssd_scan_bwd(
     Params p{xbar,   log_a, bm,     cm,   dy, dfinal, init, dxbar, dlog_a,
              db_acc, dc_acc, dinit, s_in, ds_out, B,  S,    H,    G,
              L,      nc};
-    return dispatch_p(p, P, N, s);
+    int err = dispatch_p(p, P, N, s);
+    if (err != 0) return err;
+    const long long n = (long long)B * S * G * N;
+    const unsigned blocks = (unsigned)((n + 255) / 256);
+    sum_slices_f32<<<blocks, 256, 0, s>>>(db_acc, H / G,
+                                          static_cast<float*>(db_out), n);
+    sum_slices_f32<<<blocks, 256, 0, s>>>(dc_acc, H / G,
+                                          static_cast<float*>(dc_out), n);
+    return (int)cudaGetLastError();
   }
   const int rep = H / G;
   if (cum == nullptr || cb == nullptr || dcum == nullptr || dtot == nullptr ||

@@ -23,7 +23,8 @@ summed over each GQA group.  Two bodies, chosen by :func:`flash_bwd_body`:
 products that take them (:func:`flash_attention_bwd_tc_plain` is the same
 rounding in plain PyTorch) and dQ summed over the key tiles in a fixed order
 (:func:`dq_fixed_order_plain` is that order in plain PyTorch), and
-full-fp32 FMA for fp32.
+full-fp32 FMA for fp32, which sums dQ over 64-key tiles in the same order
+(:func:`flash_attention_bwd_fma_plain`): either body repeats bit for bit.
 :class:`FlashAttentionFn` runs the forward kernel and saves q, k, v, o and
 the log-sum-exp; its backward runs the backward kernel.  On CPU tensors the
 same Function runs :func:`flash_attention_plain`, :func:`flash_lse_plain`
@@ -120,6 +121,25 @@ def _bf16_round(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(torch.float32)
 
 
+# keys a block of the fp32 backward body takes: its dQ partials come in
+# tiles of this many keys
+FMA_BLOCK_KEYS = 64
+# the most bytes of dQ partials the fp32 backward body holds at once (or one
+# [B,Hq,Sq,D] fp32 slice, where that is larger): the key tiles run in runs
+# that fit
+FMA_DQ_SCRATCH_BYTES = 2 ** 31
+
+
+def fma_dq_run(b: int, hq: int, sq: int, skv: int, d: int) -> int:
+    """Key tiles in one run of the fp32 backward body: as many as fit in
+    :data:`FMA_DQ_SCRATCH_BYTES` of fp32 dQ partials, at least 1, at most
+    all of them.  Its scratch, one ``[B,Hq,Sq,D]`` fp32 slice a tile of the
+    run, thus grows at most linearly with Sq.  The run changes no bit of
+    dQ: the sum is in key-tile order across runs."""
+    n_tiles = -(-skv // FMA_BLOCK_KEYS)
+    return max(1, min(n_tiles, FMA_DQ_SCRATCH_BYTES // (b * hq * sq * d * 4)))
+
+
 def bwd_block_keys(d: int) -> int:
     """Keys a block of the bf16 backward body takes at head dim ``d``: 128
     at D = 64 and 80, 64 at D = 128 and 160 (where the block's two
@@ -142,6 +162,34 @@ def dq_fixed_order_plain(ds: torch.Tensor, k: torch.Tensor, scale: float,
         acc = acc + torch.einsum("bhgqk,bhkd->bhgqd", ds[..., lo:hi],
                                  k[:, :, lo:hi].to(torch.float32)) * scale
     return acc
+
+
+def flash_attention_bwd_fma_plain(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, o: torch.Tensor,
+                                  lse: torch.Tensor, do: torch.Tensor, *,
+                                  causal: bool = True,
+                                  window: Optional[int] = None,
+                                  scale: Optional[float] = None):
+    """The fp32 FMA body's order in plain PyTorch: every product in fp32 as
+    :func:`flash_attention_bwd_plain`, and dQ summed over tiles of
+    ``FMA_BLOCK_KEYS`` keys in the fixed order of
+    :func:`dq_fixed_order_plain`, each tile's dQ apart, the last tile first.
+    Returns (dq, dk, dv) in the types of q, k, v.  Only the tests use it."""
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    s, mask, scale = _scores(q, k, causal, window, scale)
+    f32 = lambda t: t.to(torch.float32).reshape(b, hkv, g, sq, -1)
+    p = torch.where(mask, torch.exp(s - f32(lse)), 0.0)
+    dog = f32(do)
+    delta = (dog * f32(o)).sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, v.to(torch.float32))
+    ds = p * (dp - delta)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dog)
+    dq = dq_fixed_order_plain(ds, k, scale, FMA_BLOCK_KEYS)
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, f32(q)) * scale
+    return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def flash_attention_bwd_tc_plain(q: torch.Tensor, k: torch.Tensor,
@@ -193,9 +241,14 @@ def _bwd_entry():
     if not fn.argtypes:
         ll, ci, vp = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
         fn.argtypes = ([vp] * 12 + [ci] * 6 + [ll] * 15
-                       + [ctypes.c_float, ci, ci, ci, vp])
+                       + [ctypes.c_float, ci, ci, ci, ci, vp])
         fn.restype = ci
     return lib, fn
+
+
+def _mask_key(causal: bool) -> str:
+    """The key of a launch in the wrappers' ``mask_launches``."""
+    return "causal" if causal else "not_causal"
 
 
 def flash_body(dtype: torch.dtype, d: int) -> str:
@@ -282,6 +335,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(lib, code, "flash_attention launch",
                  "repro_flash_attention_error_string")
     flash_attention.launches += 1
+    flash_attention.mask_launches[_mask_key(causal)] += 1
     return o, lse
 
 
@@ -295,9 +349,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     checks, the FMA body a unit stride along D; a tensor without it is made
     contiguous first); lse is the forward's ``[B,Hq,Sq]`` fp32.  CUDA tensors
     only: float32 or bfloat16, a head dim of ``BACKWARD_HEAD_DIMS``, the body
-    :func:`flash_bwd_body`'s; anything else raises.  The bf16 body sums dQ
-    over the key tiles in a fixed order, so a call repeats bit for bit; the
-    fp32 body adds dQ with atomics."""
+    :func:`flash_bwd_body`'s; anything else raises.  Both bodies sum dQ
+    over the key tiles in a fixed order, the last tile first, so a call
+    repeats bit for bit.  fp32 scratch: the bf16 body's dQ buffer
+    ``[B,Hq,ceil(Sq / 64),64 D]``; the fp32 body's dQ partials, one
+    ``[B,Hq,Sq,D]`` for each tile of 64 keys of a run of
+    :func:`fma_dq_run` tiles, at most 2 GiB or one such slice (a run holds
+    all the tiles at the parity cuts: 1.07 GB at qwen1.5-110b's, B 2 x S
+    1024, 64 heads of 128; 2.1 GB at pixtral-12b's, 1024 patches + 1024
+    tokens, 32 heads of 128)."""
     _check_fwd(q, k, v, window)
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = v.shape
@@ -321,13 +381,20 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
     bf16 = body == "wgmma"
     # the wgmma body sums dQ in 64-row tiles, each in its register order,
-    # the key tiles taking turns by a counter a tile and warpgroup
-    dq_acc = torch.zeros((b, hq, -(-sq // 64), 64 * d) if bf16
-                         else (b, hq, sq, d), dtype=torch.float32, device=dev)
-    turns = (torch.zeros((b, hq, -(-sq // 64), 2), dtype=torch.int32,
-                         device=dev) if bf16 else None)
-    dq = (torch.empty((b, hq, sq, d), dtype=q.dtype, device=dev) if bf16
-          else dq_acc)
+    # the key tiles taking turns by a counter a tile and warpgroup; the FMA
+    # body writes each key tile's partials apart, summed in order afterwards
+    if bf16:
+        run = 0
+        dq_acc = torch.zeros((b, hq, -(-sq // 64), 64 * d),
+                             dtype=torch.float32, device=dev)
+        turns = torch.zeros((b, hq, -(-sq // 64), 2), dtype=torch.int32,
+                            device=dev)
+    else:
+        run = fma_dq_run(b, hq, sq, skv, d)
+        dq_acc = torch.empty((run, b, hq, sq, d), dtype=torch.float32,
+                             device=dev)
+        turns = None
+    dq = torch.empty((b, hq, sq, d), dtype=q.dtype, device=dev)
     dk = torch.empty((b, hkv, skv, d), dtype=q.dtype, device=dev)
     dv = torch.empty_like(dk)
     lib, fn = _bwd_entry()
@@ -335,20 +402,22 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                   do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                  dq_acc.data_ptr(), dq.data_ptr() if bf16 else None,
+                  dq_acc.data_ptr(), dq.data_ptr(),
                   turns.data_ptr() if bf16 else None,
                   dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, skv, d,
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                   *o.stride()[:3], *do.stride()[:3], scale, int(causal),
                   int(window) if window is not None else 0,
-                  _BODY_CODE[body], stream)
+                  _BODY_CODE[body], run, stream)
     _build.check(lib, code, "flash_attention_bwd launch",
                  "repro_flash_attention_bwd_error_string")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.mask_launches[_mask_key(causal)] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.mask_launches = {"causal": 0, "not_causal": 0}
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -399,8 +468,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``transpose(1, 2)`` view, so the caller's merge of heads is free.
     ``Sq`` and ``Skv`` are arbitrary; ``D`` must be 32, 64, 80, 128 or 160
     (not 32 when a gradient is wanted) and the type float32 or bfloat16,
-    anything else raises.  Counts forward launches; the backward kernel counts its
-    own (:func:`flash_attention_bwd`).
+    anything else raises.  Counts forward launches, in all and by mask
+    (``mask_launches``: causal or not); the backward kernel counts its own
+    (:func:`flash_attention_bwd`).
     """
     # the Function's forward runs with grad mode off, so the wrapper decides
     # whether a backward can follow (and the lse is wanted)
@@ -410,3 +480,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.mask_launches = {"causal": 0, "not_causal": 0}

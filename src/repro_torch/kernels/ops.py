@@ -83,8 +83,18 @@ def matmul_body_launches() -> Dict[str, int]:
     return dict(_mme.matmul_epilogue.body_launches)
 
 
+def flash_mask_launches() -> Dict[str, Dict[str, int]]:
+    """Launches of the flash forward and backward kernels since the last
+    reset, by mask: ``causal`` (a causal band, with or without a window) or
+    ``not_causal`` (they sum to their counts in :func:`launch_counts`)."""
+    return {name: dict(_WRAPPERS[name].mask_launches)
+            for name in ("flash_attention", "flash_attention_bwd")}
+
+
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS.values():
         fn.launches = 0
+        for key in getattr(fn, "mask_launches", {}):
+            fn.mask_launches[key] = 0
     for body in _mme.matmul_epilogue.body_launches:
         _mme.matmul_epilogue.body_launches[body] = 0

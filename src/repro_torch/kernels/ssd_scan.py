@@ -460,12 +460,13 @@ def ssd_scan_bwd(xbar: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
     here alone: the kernel takes the rows a chunk, which size its scratch,
     and refuses more than its shared memory holds.  fp32 scratch:
     the chunk states and their gradients, ``2 x [B,H,nc,P,N]`` (268 MB at
-    mamba2-1.3b's ``[8, 2048]`` tokens), and for bf16 dB and dC of each
-    slice of heads (:func:`tile_heads`) summed in fp32 in order before the
-    cast, the chunk cumsums and dcum ``[B,H,nc,L]``, C B^T
-    ``[B,nc,G,LT,LT]`` and dtotal ``[B,H,nc,1 + LT / 64]`` (about 59 MB
-    more there).  The bf16 body sums in a fixed order, so a call repeats bit
-    for bit; the fp32 body adds dB, dC and dcum with atomics."""
+    mamba2-1.3b's ``[8, 2048]`` tokens), dB and dC of each slice of heads
+    summed in fp32 in order (bf16: :func:`tile_heads`'s slices, before the
+    cast; fp32: one head a slice, ``2 x [H/G,B,S,G,N]``, 67 MB each at
+    mamba2-1.3b's gradient-parity cut, B 2 x S 1024), and for bf16 the
+    chunk cumsums and dcum ``[B,H,nc,L]``, C B^T ``[B,nc,G,LT,LT]`` and
+    dtotal ``[B,H,nc,1 + LT / 64]`` (about 59 MB more there).  Both bodies
+    sum in a fixed order, so a call repeats bit for bit."""
     _check(xbar, log_a, B, C, chunk, init_state)
     b, s, h, p = xbar.shape
     g, n = B.shape[2], B.shape[3]
@@ -486,20 +487,15 @@ def ssd_scan_bwd(xbar: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
     f32 = dict(dtype=torch.float32, device=dev)
     dxbar = torch.empty_like(xbar)
     dla = torch.empty((b, s, h), **f32)
-    bf16 = xbar.dtype == torch.bfloat16
     hs = 1
     if body == "tc":  # each slice of hs heads writes its own dB and dC
         hs = tile_heads(b, nc, g, lt, h // g,
                         torch.cuda.get_device_properties(
                             dev).multi_processor_count)
-        slices = -(-(h // g) // hs)
-        db_acc = torch.empty((slices, b, s, g, n), **f32)
-        dc_acc = torch.empty_like(db_acc)
-    else:
-        db_acc = torch.zeros((b, s, g, n), **f32)
-        dc_acc = torch.zeros((b, s, g, n), **f32)
-    db = torch.empty_like(B) if bf16 else db_acc
-    dc = torch.empty_like(C) if bf16 else dc_acc
+    # the FMA body adds each query tile's dC into its head's slice
+    db_acc = torch.empty((-(-(h // g) // hs), b, s, g, n), **f32)
+    dc_acc = (torch.empty_like if body == "tc" else torch.zeros_like)(db_acc)
+    db, dc = torch.empty_like(B), torch.empty_like(C)
     dinit = torch.empty((b, h, p, n), **f32) if init is not None else None
     s_in = torch.empty((b, h, nc, p, n), **f32)
     ds_out = torch.empty_like(s_in)
@@ -514,7 +510,7 @@ def ssd_scan_bwd(xbar: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(ptr(xbar), ptr(log_a), ptr(B), ptr(C), ptr(dy), ptr(dfinal),
                   ptr(init), ptr(dxbar), ptr(dla), ptr(db_acc), ptr(dc_acc),
-                  ptr(db) if bf16 else None, ptr(dc) if bf16 else None,
+                  ptr(db), ptr(dc),
                   ptr(dinit), ptr(s_in), ptr(ds_out), *map(ptr, tc),
                   b, s, h, g, p, n, ln, hs, _BWD_BODY_CODE[body], stream)
     _build.check(lib, code, "ssd_scan_bwd launch",

@@ -14,9 +14,15 @@ once; eager dispatch sees every layer, but a whole step at full width takes
 seconds to trace, and a component a fraction of a second.
 
 Components per architecture family (the reference's names and counts):
-  * dense   : ``decoder_layer`` x n_layers
+  * dense, vlm : ``decoder_layer`` x n_layers (vlm: over ``shape.seq_len``
+    positions, the prepended patches not counted, as in the reference)
   * ssm     : ``mamba_layer``   x n_layers
   * hybrid  : ``mamba_layer`` x n_layers + ``shared_attn`` x its applications
+  * enc-dec : ``encoder_layer`` x n_encoder_layers (prefill and train only:
+    decode reads the cached cross K/V) over the ``encoder_seq`` frames, and
+    ``decoder_layer`` x n_layers, with the cross K/V of the encoder's
+    output computed inside it at prefill and train, read from the cache
+    (``ck``, ``cv``) beside the self-attention cache's slice at decode
   plus a tail: ``ce_head``, ``embed`` and ``optimizer`` for train,
   ``lm_head`` for serve.  Layer counts are multiplied by the microbatches.
   Decode components carry their layer's cache slice, so the cache traffic is
@@ -25,8 +31,8 @@ Components per architecture family (the reference's names and counts):
 
 Where the port differs: prefill's ``lm_head`` heads the last position only,
 as both packages' ``prefill`` does (the reference's component heads every
-position).  MoE, MLA, encoder-decoder and window-pattern archs raise, as
-the port's models do; more than one device raises (the reference's
+position).  MoE, MLA and window-pattern archs raise, as the port's models
+do; more than one device raises (the reference's
 ``grad_reduce`` component and its shardings wait for ``launch/shardings``,
 ROADMAP item 14).  What is traced is the plain program (the kernel wrappers
 see CPU tensors), as ``graph_cost`` says.
@@ -137,7 +143,10 @@ def component_costs(arch: ArchConfig, shape: ShapeConfig, plan: ShardingPlan,
             cost(name, count * micro, fn, (p, x))
 
     layer0 = T._layer(params["blocks"], 0)
-    if cfg.family == "dense":
+    if cfg.enc_dec is not None:
+        _enc_dec_layers(cfg, params, cache, x, mode, plan, micro, kv_len,
+                        cost)
+    elif cfg.family in ("dense", "vlm"):
         add_layer("decoder_layer", cfg.n_layers, layer0, attn_fwd,
                   attn_decode, cache and T._layer(cache["self"], 0))
     else:
@@ -184,6 +193,54 @@ def component_costs(arch: ArchConfig, shape: ShapeConfig, plan: ShardingPlan,
              lambda ep, h: T._head(cfg, ep, h[:, -1:] if last else h),
              (embed_p, x))
     return comps
+
+
+def _enc_dec_layers(cfg: ArchConfig, params, cache, x: torch.Tensor,
+                    mode: str, plan: ShardingPlan, micro: int, kv_len: int,
+                    cost: Callable) -> None:
+    """The encoder-decoder's layer components (the reference's branch):
+    ``encoder_layer`` at prefill and train over the ``encoder_seq`` frames,
+    non-causal; ``decoder_layer`` with its cross K/V computed from the
+    encoder's output inside it (train: its backward without remat, the
+    gradients of the weights and of x, as the reference's), or at decode
+    read from the cache beside the self cache's slice."""
+    batch, d = x.shape[0], cfg.d_model
+    enc_len = cfg.enc_dec.encoder_seq
+    with FakeTensorMode():
+        enc_x = torch.empty((batch, enc_len, d), dtype=x.dtype)
+    enc0 = T._layer(params["enc_blocks"], 0)
+    dec0 = T._layer(params["blocks"], 0)
+
+    def enc_fwd(p, h):
+        pos = T._positions(h.shape[0], h.shape[1], h.device)
+        return T.block_apply(cfg, p, h, positions=pos, window=None,
+                             causal=False)[0]
+    if mode != "decode":
+        fn = _train_wrap(enc_fwd, plan.remat) if mode == "train" else enc_fwd
+        cost("encoder_layer", cfg.enc_dec.n_encoder_layers * micro, fn,
+             (enc0, enc_x))
+    if mode == "decode":
+        def dec_decode(p, h, c, ck, cv):
+            pos = torch.full((h.shape[0], 1), kv_len - 1, dtype=torch.int32)
+            out, c2, _ = T.block_apply(cfg, p, h, positions=pos, window=None,
+                                       kv_cache=c, cross_state=(ck, cv),
+                                       pos=kv_len - 1)
+            return out, c2
+        ck = T._layer(cache["cross_k"], 0)
+        cost("decoder_layer", cfg.n_layers * micro, dec_decode,
+             (dec0, x, T._layer(cache["self"], 0), ck, ck))
+        return
+
+    def dec_fwd(p, h, e):
+        pos = T._positions(h.shape[0], h.shape[1], h.device)
+        ck, cv = T.cross_kv(cfg, p["cross"], e)
+        return T.block_apply(cfg, p, h, positions=pos, window=None,
+                             cross_state=(ck, cv))[0]
+    fn = dec_fwd
+    if mode == "train":
+        fn = _grads_of(lambda p, h, e: dec_fwd(p, h, e).sum(),
+                       lambda a: tree_leaves(a[0]) + [a[1]])
+    cost("decoder_layer", cfg.n_layers * micro, fn, (dec0, x, enc_x))
 
 
 def aggregate(comps: List[Component], cc: ClusterConfig) -> Dict[str, Any]:

@@ -1,7 +1,9 @@
 """Serving driver: ``python -m repro_torch.launch.serve --arch <id>``.
 
 Batched prefill+decode with the ServeEngine, on the GPU unless
-``--device cpu`` is given (there is no silent fall back to the CPU).
+``--device cpu`` is given (there is no silent fall back to the CPU).  An
+arch with a frontend (pixtral-12b's patches, whisper-small's frames) gets
+random embeddings from the seed, as the reference's serve script makes them.
 """
 from __future__ import annotations
 
@@ -9,6 +11,7 @@ import argparse
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models.model import build_model
@@ -47,7 +50,12 @@ def main(argv=None) -> None:
                                          size=args.prompt_len)],
                     max_new_tokens=args.max_new)
             for _ in range(args.batch)]
-    outs = engine.generate(reqs)
+    frontend = None
+    fs = model.frontend_shape(args.batch)
+    if fs is not None:
+        frontend = torch.from_numpy(
+            rng.standard_normal(fs).astype(np.float32)).to(model.device)
+    outs = engine.generate(reqs, frontend)
     for i, c in enumerate(outs):
         print(f"req{i}: prompt[:8]={c.prompt[:8]} -> tokens={c.tokens}")
     print(f"prefill {outs[0].prefill_time_s*1e3:.1f}ms, "

@@ -1,5 +1,6 @@
 """Model facade: ``build_model(cfg)`` -> init / loss / forward / prefill /
-decode.
+decode, and ``frontend_shape`` for the archs that take precomputed patch or
+frame embeddings.
 
 The single entry point the launcher, the serve engine, tests and examples
 use; arch-specific wiring lives in transformer.py.  A model is bound to one
@@ -9,7 +10,7 @@ when that device is absent.
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -48,24 +49,34 @@ class Model:
         return T.loss_fn(self.cfg, params, batch, remat=remat,
                          use_kernel=use_kernel)
 
-    def forward(self, params, tokens, *, remat: str = "none",
+    def forward(self, params, tokens, frontend=None, *, remat: str = "none",
                 use_kernel: bool = False):
-        return T.forward(self.cfg, params, tokens, remat=remat,
+        return T.forward(self.cfg, params, tokens, frontend, remat=remat,
                          use_kernel=use_kernel)
 
     # ------------------------------------------------------------ serving
     def init_cache(self, batch: int, max_len: int) -> T.Cache:
         return T.init_cache(self.cfg, batch, max_len, self.device)
 
-    def prefill(self, params, tokens, cache, *, use_kernel: bool = False):
+    def prefill(self, params, tokens, cache, frontend=None, *,
+                use_kernel: bool = False):
         """Writes ``cache`` in place and returns it beside the logits."""
-        return T.prefill(self.cfg, params, tokens, cache,
+        return T.prefill(self.cfg, params, tokens, cache, frontend,
                          use_kernel=use_kernel)
 
     def decode_step(self, params, token, cache, *, use_kernel: bool = False):
         """Writes ``cache`` in place and returns it beside the logits."""
         return T.decode_step(self.cfg, params, token, cache,
                              use_kernel=use_kernel)
+
+    # ------------------------------------------------------------- helpers
+    def frontend_shape(self, batch: int) -> Optional[Tuple[int, ...]]:
+        """The precomputed patch or frame embeddings a batch takes
+        ``[B,F,d]``, or None for an arch without a frontend."""
+        cfg = self.cfg
+        if cfg.frontend == "none" or not cfg.frontend_seq:
+            return None
+        return (batch, cfg.frontend_seq, cfg.d_model)
 
 
 def build_model(cfg: ArchConfig,

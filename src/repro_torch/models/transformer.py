@@ -3,10 +3,14 @@
 
 Ported so far: the dense family (one homogeneous stack of GQA blocks, e.g.
 ``qwen1.5-0.5b``), the ssm family (one homogeneous stack of Mamba2 blocks,
-``mamba2-1.3b``) and the hybrid family (a Mamba2 stack with a shared
+``mamba2-1.3b``), the hybrid family (a Mamba2 stack with a shared
 attention+MLP block after every ``attn_every`` layers, the shared blocks
-alternating, ``zamba2-2.7b``).  Every other family raises
-``NotImplementedError``.
+alternating, ``zamba2-2.7b``), the vlm family (the dense stack over
+precomputed patch embeddings prepended to the tokens, ``pixtral-12b``) and
+the encoder-decoder audio family (a non-causal encoder over precomputed
+frame embeddings, then a decoder of causal self-attention, cross-attention
+over the encoder's output and an MLP, ``whisper-small``).  Every other
+family raises ``NotImplementedError``.
 
 Params are nested dicts of tensors; leaves of the layer stack carry a leading
 layer axis, as in the reference, and the stack runs as a python loop over it.
@@ -19,7 +23,10 @@ The decode cache is ``{"pos": int, "self": {"k", "v": [L,B,Hkv,cap,hd],
 "kpos": [L,cap]}}`` for the dense family and ``{"pos": int, "mamba":
 {"conv": [L,B,W-1,C], "state": [L,B,H,P,N] fp32}}`` for the ssm family; the
 hybrid family has ``mamba`` and ``attn``, the latter stacked over the
-``L // attn_every`` applications of a shared block, not over layers.
+``L // attn_every`` applications of a shared block, not over layers; the
+encoder-decoder has ``self`` and the cross-attention K/V ``cross_k``,
+``cross_v`` ``[L,B,Hkv,F,hd]``, which ``prefill`` replaces with the ones it
+computes from the encoder's output (F frames, in the encoder's type).
 ``pos`` is a host integer, so that a decode step never waits for a device
 scalar.  ``prefill`` and ``decode_step`` **write the cache tensors in place**
 and return a dict that holds the same tensors.
@@ -52,15 +59,22 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def require_ported(cfg: ArchConfig) -> None:
     """Raise unless ``cfg`` is of a family the port runs: the plain dense
-    decoder, the attention-free ssm stack, or the hybrid of the two."""
-    plain = (cfg.moe is None and cfg.mla is None and cfg.enc_dec is None
-             and cfg.window_pattern is None and cfg.frontend == "none")
-    if not plain or cfg.family not in ("dense", "ssm", "hybrid") or (
-            cfg.family in ("ssm", "hybrid") and cfg.ssm is None) or (
-            cfg.family == "hybrid" and cfg.hybrid is None):
+    decoder, the attention-free ssm stack, the hybrid of the two, the dense
+    decoder behind a vision stub (vlm), or the encoder-decoder (audio)."""
+    plain = (cfg.moe is None and cfg.mla is None
+             and cfg.window_pattern is None)
+    ok = {"dense": cfg.enc_dec is None and cfg.frontend == "none",
+          "ssm": cfg.enc_dec is None and cfg.frontend == "none"
+          and cfg.ssm is not None,
+          "hybrid": cfg.enc_dec is None and cfg.frontend == "none"
+          and cfg.ssm is not None and cfg.hybrid is not None,
+          "vlm": cfg.enc_dec is None and cfg.frontend == "vision_stub",
+          "audio": cfg.enc_dec is not None}.get(cfg.family, False)
+    if not (plain and ok):
         raise NotImplementedError(
             f"arch '{cfg.name}' (family {cfg.family}): not ported yet; the "
-            f"port runs the dense, ssm and hybrid families only")
+            f"port runs the dense, ssm, hybrid, vlm (vision stub) and "
+            f"encoder-decoder families only")
     if cfg.family == "hybrid" and cfg.n_layers % cfg.hybrid.attn_every:
         raise ValueError(f"hybrid arch '{cfg.name}': n_layers "
                          f"{cfg.n_layers} is not a multiple of attn_every "
@@ -112,14 +126,20 @@ def mlp_init(gen: torch.Generator, cfg: ArchConfig, d_ff: int,
 
 
 def block_init(gen: torch.Generator, cfg: ArchConfig, *, dtype: torch.dtype,
-               lead: Tuple[int, ...] = ()) -> Params:
+               lead: Tuple[int, ...] = (), cross: bool = False) -> Params:
+    """A pre-norm block; ``cross`` adds the decoder's cross-attention and its
+    norm (``ln_cross``, ``cross``)."""
     d = cfg.d_model
     zeros = lambda: torch.zeros(lead + (d,), dtype=torch.float32,
                                 device=gen.device)
-    return {"ln1": zeros(), "ln2": zeros(),
-            "attn": attn_init(gen, cfg, dtype, lead),
-            "mlp": mlp_init(gen, cfg, cfg.d_ff if cfg.d_ff else 4 * d, dtype,
-                            lead)}
+    p = {"ln1": zeros(), "ln2": zeros(),
+         "attn": attn_init(gen, cfg, dtype, lead),
+         "mlp": mlp_init(gen, cfg, cfg.d_ff if cfg.d_ff else 4 * d, dtype,
+                         lead)}
+    if cross:
+        p["ln_cross"] = zeros()
+        p["cross"] = attn_init(gen, cfg, dtype, lead)
+    return p
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
@@ -147,6 +167,13 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
             params["shared_attn"] = [
                 block_init(gen, cfg, dtype=dtype)
                 for _ in range(cfg.hybrid.n_shared_attn_blocks)]
+    elif cfg.enc_dec is not None:
+        params["enc_blocks"] = block_init(
+            gen, cfg, dtype=dtype, lead=(cfg.enc_dec.n_encoder_layers,))
+        params["enc_norm"] = torch.zeros((d,), dtype=torch.float32,
+                                         device=gen.device)
+        params["blocks"] = block_init(gen, cfg, dtype=dtype, lead=lead,
+                                      cross=True)
     else:
         params["blocks"] = block_init(gen, cfg, dtype=dtype, lead=lead)
     return params
@@ -164,9 +191,12 @@ def gqa_attention(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
                   pos: Optional[int] = None,
                   use_kernel: bool = False,
                   ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Standard GQA self-attention.  x: [B,S,d].
+    """Standard GQA attention.  x: [B,S,d].
 
     kv_cache: {"k","v": [B,Hkv,cap,hd], "kpos": [cap]}, written in place.
+    The reference's ``kv_source`` form is not kept: the decoder's
+    cross-attention goes through :func:`cross_attention` over
+    :func:`cross_kv`, as the reference's blocks do.
     ``pos`` is the decode position as a host integer (the whole batch shares
     it); it is needed when ``S == 1`` and a cache is given.
     """
@@ -233,17 +263,48 @@ def _masked_dense_attention(q, k, v, mask) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def cross_attention(cfg: ArchConfig, p: Params, x: torch.Tensor,
+                    k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Cross-attention with precomputed K/V [B,Hkv,F,hd]: dense, not causal,
+    never the kernel (as in the reference)."""
+    b, s, _ = x.shape
+    nh, hd = cfg.n_heads, cfg.head_dim_
+    q = L.dense(x, p["w_q"], p.get("b_q")).reshape(b, s, nh, hd).transpose(1, 2)
+    o = L.attention_dense(q, k, v, causal=False)
+    return L.dense(o.transpose(1, 2).reshape(b, s, nh * hd), p["w_o"])
+
+
+def cross_kv(cfg: ArchConfig, p: Params, src: torch.Tensor):
+    """The cross-attention K and V [B,Hkv,F,hd] of the encoder's output, in
+    its type (``dense`` casts the weights to it)."""
+    b, sk, _ = src.shape
+    nkv, hd = cfg.n_kv_heads, cfg.head_dim_
+    k = L.dense(src, p["w_k"], p.get("b_k")).reshape(b, sk, nkv,
+                                                     hd).transpose(1, 2)
+    v = L.dense(src, p["w_v"], p.get("b_v")).reshape(b, sk, nkv,
+                                                     hd).transpose(1, 2)
+    return k, v
+
+
 def block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
                 positions: torch.Tensor, window: Optional[int],
                 causal: bool = True, kv_cache: Optional[Dict] = None,
+                cross_state: Optional[Tuple] = None,
                 pos: Optional[int] = None, use_kernel: bool = False):
-    """One transformer block. Returns (x, cache, aux_loss)."""
+    """One transformer block; ``cross_state`` (K, V) adds the decoder's
+    cross-attention after the self-attention. Returns (x, cache,
+    aux_loss)."""
     h_in = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     attn_out, new_cache = gqa_attention(cfg, p["attn"], h_in,
                                         positions=positions, window=window,
                                         causal=causal, kv_cache=kv_cache,
                                         pos=pos, use_kernel=use_kernel)
     x = x + attn_out
+    if cross_state is not None:
+        ck, cv = cross_state
+        x = x + cross_attention(cfg, p["cross"],
+                                L.rms_norm(x, p["ln_cross"], cfg.norm_eps),
+                                ck, cv)
     h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     out = L.ffn(h2, p["mlp"], cfg.gated_mlp,
                 act="silu" if cfg.gated_mlp else "gelu",
@@ -348,7 +409,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                 "kpos": torch.full((n, max_len), -1, dtype=torch.int32,
                                    device=device)}
 
-    if cfg.family == "dense":
+    if cfg.enc_dec is not None:
+        cross = (cfg.n_layers, batch, cfg.n_kv_heads, cfg.enc_dec.encoder_seq,
+                 cfg.head_dim_)
+        return {"pos": 0, "self": kvc(cfg.n_layers),
+                "cross_k": torch.zeros(cross, dtype=dtype, device=device),
+                "cross_v": torch.zeros(cross, dtype=dtype, device=device)}
+    if cfg.family in ("dense", "vlm"):
         return {"pos": 0, "self": kvc(cfg.n_layers)}
     s = cfg.ssm
     conv_ch = s.d_inner(cfg.d_model) + 2 * s.n_groups * s.state_size
@@ -373,8 +440,12 @@ def _stack_runner(cfg: ArchConfig, params: Params, x: torch.Tensor,
                   use_kernel: bool, pos: Optional[int] = None,
                   remat: str = "none"):
     """Run the layer stack. Returns (x, new_cache, aux).  ``remat`` applies
-    without a cache (training), as in the reference."""
+    without a cache (training), as in the reference.  The encoder-decoder's
+    stack runs in its callers."""
     require_ported(cfg)
+    if cfg.enc_dec is not None:
+        raise RuntimeError("enc_dec is handled in forward_hidden / prefill / "
+                           "decode_step directly")
     if cfg.family == "ssm":
         def mamba_body(p, h, c):
             return mamba_layer_apply(cfg, p, h, c, use_kernel)
@@ -441,20 +512,63 @@ def _positions(b: int, s: int, device: torch.device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
 
-def forward_hidden(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
-                   remat: str = "none", use_kernel: bool = False):
-    """Trunk only: returns (pre-head hidden [B,S,d], aux_loss)."""
-    b, s = tokens.shape
+def run_encoder(cfg: ArchConfig, params: Params, frontend: torch.Tensor,
+                remat: str = "none", use_kernel: bool = False) -> torch.Tensor:
+    """Whisper's encoder over precomputed frame embeddings [B,F,d]: a
+    non-causal stack (the flash kernel under ``use_kernel``), then the
+    encoder's norm.  It runs in the frames' type: ``dense`` casts the
+    weights to the activation's, as the reference's does."""
+    b, f, _ = frontend.shape
+    positions = _positions(b, f, frontend.device)
+
+    def body(p, h, c):
+        return block_apply(cfg, p, h, positions=positions, window=None,
+                           causal=False, use_kernel=use_kernel)
+    x, _, _ = scan_stack(params["enc_blocks"], frontend, body, None, remat)
+    return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _embed(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
+           frontend: Optional[torch.Tensor], remat: str, use_kernel: bool):
+    """Token embeddings, the patch embeddings (cast to the model's type)
+    prepended for a vision stub, and the encoder's output for an
+    encoder-decoder (else None)."""
     x = params["embed"][tokens]
-    x, _, aux = _stack_runner(cfg, params, x, _positions(b, s, x.device),
-                              None, use_kernel, remat=remat)
+    if cfg.enc_dec is not None:
+        if frontend is None:
+            raise ValueError("enc-dec arch needs frontend embeddings")
+        return x, run_encoder(cfg, params, frontend, remat, use_kernel)
+    if cfg.frontend != "none" and frontend is not None:
+        x = torch.cat([frontend.to(x.dtype), x], dim=1)
+    return x, None
+
+
+def forward_hidden(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
+                   frontend: Optional[torch.Tensor] = None, *,
+                   remat: str = "none", use_kernel: bool = False):
+    """Trunk only: returns (pre-head hidden [B,S_total,d], aux_loss);
+    ``S_total`` counts the prepended patches of a vision stub."""
+    b = tokens.shape[0]
+    x, enc_out = _embed(cfg, params, tokens, frontend, remat, use_kernel)
+    positions = _positions(b, x.shape[1], x.device)
+    if enc_out is not None:
+        def body(p, h, c):
+            ck, cv = cross_kv(cfg, p["cross"], enc_out)
+            return block_apply(cfg, p, h, positions=positions, window=None,
+                               cross_state=(ck, cv), use_kernel=use_kernel)
+        x, _, aux = scan_stack(params["blocks"], x, body, None, remat)
+        return x, aux
+    x, _, aux = _stack_runner(cfg, params, x, positions, None, use_kernel,
+                              remat=remat)
     return x, aux
 
 
-def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
+def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
+            frontend: Optional[torch.Tensor] = None, *,
             remat: str = "none", use_kernel: bool = False):
-    """Full-sequence forward.  Returns (logits [B,S,V] fp32, aux_loss)."""
-    x, aux = forward_hidden(cfg, params, tokens, remat=remat,
+    """Full-sequence forward.  Returns (logits [B,S_total,V] fp32,
+    aux_loss)."""
+    x, aux = forward_hidden(cfg, params, tokens, frontend, remat=remat,
                             use_kernel=use_kernel)
     return _head(cfg, params, x, use_kernel), aux
 
@@ -463,22 +577,28 @@ def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
             *, remat: str = "none", use_kernel: bool = False,
             aux_weight: float = 0.01, ce_chunk: int = 2048):
     """Next-token CE (+ ``aux_weight`` x the MoE aux loss, zero for the
-    ported families).  batch: ``{"tokens": [B,S] int}``.  Returns (loss,
-    ``{"ce", "aux"}``), each a 0-d fp32 tensor.
+    ported families).  batch: ``{"tokens": [B,S] int}``, plus ``"frontend"``
+    [B,F,d] for a vision stub (the patches prepended, the CE over the
+    tokens' positions only) or an encoder-decoder (the encoder's frames).
+    Returns (loss, ``{"ce", "aux"}``), each a 0-d fp32 tensor.
 
     The CE head is chunked and rematerialised (:func:`_chunked_ce`), so the
-    ``[T, vocab]`` fp32 logits never exist whole.  The reference's MTP and
-    frontend branches need archs the port does not run yet: a frontend
-    batch raises ``NotImplementedError``."""
+    ``[T, vocab]`` fp32 logits never exist whole.  The reference's MTP
+    branch needs archs the port does not run yet: it raises
+    ``NotImplementedError``."""
     require_ported(cfg)
-    if batch.get("frontend") is not None or cfg.mtp_depth:
-        raise NotImplementedError("loss_fn: frontend inputs and MTP are not "
-                                  "ported yet")
+    if cfg.mtp_depth:
+        raise NotImplementedError("loss_fn: MTP is not ported yet")
     tokens = batch["tokens"]
-    hidden, aux = forward_hidden(cfg, params, tokens, remat=remat,
+    frontend = batch.get("frontend")
+    hidden, aux = forward_hidden(cfg, params, tokens, frontend, remat=remat,
                                  use_kernel=use_kernel)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=hidden.device)
-    ce = _chunked_ce(cfg, params, hidden[:, :tokens.shape[1] - 1],
+    offset = 0
+    if cfg.frontend != "none" and cfg.enc_dec is None and frontend is not None:
+        offset = frontend.shape[1]
+    ce = _chunked_ce(cfg, params,
+                     hidden[:, offset:offset + tokens.shape[1] - 1],
                      tokens[:, 1:], ce_chunk, use_kernel)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
@@ -515,16 +635,35 @@ def _chunked_ce(cfg: ArchConfig, params: Params, h: torch.Tensor,
 
 
 def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
-            cache: Cache, *, use_kernel: bool = False
-            ) -> Tuple[torch.Tensor, Cache]:
+            cache: Cache, frontend: Optional[torch.Tensor] = None, *,
+            use_kernel: bool = False) -> Tuple[torch.Tensor, Cache]:
     """Fill the decode cache (in place) from a prompt; returns (last-token
-    logits [B,V], cache).  Only the last position goes through the head."""
-    b, s = tokens.shape
-    x = params["embed"][tokens]
-    x, c2, _ = _stack_runner(cfg, params, x, _positions(b, s, x.device),
-                             cache, use_kernel)
-    new_cache: Cache = {"pos": s}
-    new_cache.update(c2)
+    logits [B,V], cache).  Only the last position goes through the head.
+    A vision stub's patches come first, so the cache's ``pos`` is patches +
+    prompt; an encoder-decoder computes the cross K/V once, from the
+    encoder's output, and stores them in ``cross_k`` / ``cross_v``."""
+    b = tokens.shape[0]
+    x, enc_out = _embed(cfg, params, tokens, frontend, "none", use_kernel)
+    stot = x.shape[1]
+    positions = _positions(b, stot, x.device)
+    new_cache: Cache = {"pos": stot}
+    if enc_out is not None:
+        cks, cvs = [], []
+
+        def body(p, h, c):
+            ck, cv = cross_kv(cfg, p["cross"], enc_out)
+            cks.append(ck)
+            cvs.append(cv)
+            return block_apply(cfg, p, h, positions=positions, window=None,
+                               kv_cache=c, cross_state=(ck, cv),
+                               use_kernel=use_kernel)
+        x, self_c, _ = scan_stack(params["blocks"], x, body, cache["self"])
+        new_cache.update(self=self_c, cross_k=torch.stack(cks),
+                         cross_v=torch.stack(cvs))
+    else:
+        x, c2, _ = _stack_runner(cfg, params, x, positions, cache,
+                                 use_kernel)
+        new_cache.update(c2)
     logits = _head(cfg, params, x[:, -1:], use_kernel)
     return logits[:, 0], new_cache
 
@@ -538,9 +677,21 @@ def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
     pos = int(cache["pos"])
     x = params["embed"][token[:, None]]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    x, c2, _ = _stack_runner(cfg, params, x, positions, cache, use_kernel,
-                             pos=pos)
     new_cache: Cache = {"pos": pos + 1}
-    new_cache.update(c2)
+    if cfg.enc_dec is not None:
+        def body(p, h, c):
+            return block_apply(cfg, p, h, positions=positions, window=None,
+                               kv_cache=c["self"], pos=pos,
+                               cross_state=(c["k"], c["v"]),
+                               use_kernel=use_kernel)
+        x, _, _ = scan_stack(params["blocks"], x, body,
+                             {"self": cache["self"], "k": cache["cross_k"],
+                              "v": cache["cross_v"]})
+        new_cache.update(self=cache["self"], cross_k=cache["cross_k"],
+                         cross_v=cache["cross_v"])
+    else:
+        x, c2, _ = _stack_runner(cfg, params, x, positions, cache,
+                                 use_kernel, pos=pos)
+        new_cache.update(c2)
     logits = _head(cfg, params, x, use_kernel)
     return logits[:, 0], new_cache

@@ -15,11 +15,20 @@ Admission re-prefills the full token history of every surviving slot
 alongside the newcomers (prefill/decode equivalence makes the greedy
 continuation exact).  Histories are left-padded with token 0 to the longest
 one and there is no padding mask, exactly as in the reference: the token
-streams of the two engines are compared.
+streams of the two engines are compared.  A vision stub's patches are
+prepended before the padding, so the padding sits between them and the
+text, as in the reference.
+
+Frontend features (patch or frame embeddings ``[B,F,d]``, one row a
+request in admission order) are single-admission only, as in the
+reference: they go to the first admission round's prefill, and a later
+round that is given them raises ``NotImplementedError``.
 
 On a CUDA model the prefill takes the hand-written kernels
-(``use_kernel=True``: flash attention for the dense family, the SSD scan for
-the ssm family); on a CPU model it takes the plain path.  Seconds are
+(``use_kernel=True``: flash attention for the self-attention layers, an
+encoder's among them, the SSD scan for the Mamba2 layers, the
+matmul-epilogue kernel for the gated MLPs and the head); on a CPU model it
+takes the plain path.  Seconds are
 read after the device has finished (``torch.cuda.synchronize``), so
 ``prefill_time_s`` and ``decode_time_s`` are execution times, not launch
 times.
@@ -159,7 +168,7 @@ class ServeEngine:
         return self.config.slots
 
     @torch.no_grad()
-    def _admit(self) -> None:
+    def _admit(self, frontend: Optional[torch.Tensor] = None) -> None:
         """Admission round: compact finished slots out of the pool, admit
         queued requests into the freed lanes, and prefill the new batch's
         full histories (survivors continue exactly — prefill/decode
@@ -183,7 +192,7 @@ class ServeEngine:
         tokens = torch.from_numpy(prompts).to(self.device)
         t0 = self._clock()
         logits, self._cache = self.model.prefill(
-            self.params, tokens, cache, use_kernel=self.use_kernel)
+            self.params, tokens, cache, frontend, use_kernel=self.use_kernel)
         dt = self._clock() - t0
         tok = self._sample(logits)
         new_rids = {s.rid for s in admitted}
@@ -208,16 +217,19 @@ class ServeEngine:
 
     # -- the continuous-batching core ------------------------------------
     @torch.no_grad()
-    def step(self, frontend: None = None) -> List[Completion]:
+    def step(self, frontend: Optional[torch.Tensor] = None
+             ) -> List[Completion]:
         """Advance the pool one schedule tick: admit if lanes free up,
         commit each live slot's pending token, decode one token for the
         still-running slots.  Returns the requests that finished."""
-        if frontend is not None:
-            raise NotImplementedError("frontend features: not ported yet")
         if self._queue and (self._cache is None
                             or any(s.done for s in self._active)
                             or len(self._active) < self._slot_budget()):
-            self._admit()
+            if frontend is not None and self._active:
+                raise NotImplementedError(
+                    "frontend features are single-admission only: submit "
+                    "all requests before the first step")
+            self._admit(frontend)
         finished: List[Completion] = []
         if not self._active:
             return finished
@@ -249,7 +261,8 @@ class ServeEngine:
                 s.decode_s += dt
         return finished
 
-    def run(self, frontend: None = None) -> List[Completion]:
+    def run(self, frontend: Optional[torch.Tensor] = None
+            ) -> List[Completion]:
         """Drain the queue and pool to completion (submission order)."""
         done: List[Completion] = []
         first = True
@@ -260,7 +273,8 @@ class ServeEngine:
 
     # -- batch convenience (the original surface) ------------------------
     def generate(self, requests: Sequence[Request],
-                 frontend: None = None) -> List[Completion]:
+                 frontend: Optional[torch.Tensor] = None
+                 ) -> List[Completion]:
         """Serve one batch of requests to completion.
 
         A fresh start: live state and the sampling stream reset to the

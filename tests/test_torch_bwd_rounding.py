@@ -21,9 +21,10 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import (
-    _scores, bwd_block_keys, dq_fixed_order_plain, flash_attention_bwd_plain,
-    flash_attention_bwd_tc_plain, flash_attention_plain, flash_bwd_body,
-    flash_lse_plain)
+    FMA_BLOCK_KEYS, FMA_DQ_SCRATCH_BYTES, _scores, bwd_block_keys,
+    dq_fixed_order_plain, flash_attention_bwd_fma_plain,
+    flash_attention_bwd_plain, flash_attention_bwd_tc_plain,
+    flash_attention_plain, flash_bwd_body, flash_lse_plain, fma_dq_run)
 from repro_torch.kernels.ssd_scan import (TC_BWD_CHUNK, ssd_bwd_body,
                                           ssd_scan_bwd_plain,
                                           ssd_scan_bwd_split_plain)
@@ -191,3 +192,58 @@ def test_fixed_order_dq_repeats_and_matches_fp32(d):
             "bhgqk,bhkd->bhgqd", ds[..., lo:lo + tiles],
             k[:, :, lo:lo + tiles].float()) * scale
     assert torch.equal(dq_fixed_order_plain(ds, k, scale, tiles), want)
+
+
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_fp32_fixed_order_dq_repeats_and_matches_fp32(case):
+    """The fp32 FMA body's dQ plan: every product in fp32, each 64-key
+    tile's dQ apart, summed in the bf16 bodies' order, the last tile first.
+    Two runs give the same bits; each output stays within the fp32 kernel
+    tolerance of the plain backward's single products, dK and dV equal to
+    them; and dQ is the tile-by-tile sum of ``dq_fixed_order_plain``."""
+    b, hq, hkv, sq, skv, d, causal, window = FLASH_CASES[case]
+    rng = np.random.default_rng(23)
+    f32 = lambda *shape: torch.from_numpy(
+        rng.normal(size=shape).astype(np.float32))
+    q, k, v = f32(b, hq, sq, d), f32(b, hkv, skv, d), f32(b, hkv, skv, d)
+    kw = dict(causal=causal, window=window)
+    o = flash_attention_plain(q, k, v, **kw)
+    lse = flash_lse_plain(q, k, **kw)
+    do = f32(b, hq, sq, d)
+    runs = [flash_attention_bwd_fma_plain(q, k, v, o, lse, do, **kw)
+            for _ in range(2)]
+    assert all(torch.equal(a, c) for a, c in zip(*runs))
+    ref = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for a, r in zip(runs[0], ref):
+        assert a.dtype == torch.float32 and a.shape == r.shape
+        compare_rel(a, r, BWD_RTOL[torch.float32])
+    assert all(torch.equal(a, r) for a, r in zip(runs[0][1:], ref[1:]))
+    assert FMA_BLOCK_KEYS == 64
+    s, mask, scale = _scores(q, k, causal, window, None)
+    p = torch.where(mask, torch.exp(s - lse.reshape(s.shape[:-1] + (1,))),
+                    0.0)
+    dog = do.reshape(b, hkv, hq // hkv, sq, d)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, v)
+    ds = p * (dp - (dog * o.reshape(dog.shape)).sum(-1, keepdim=True))
+    want = dq_fixed_order_plain(ds, k, scale, 64).reshape(b, hq, sq, d)
+    assert torch.equal(runs[0][0], want)
+
+
+@pytest.mark.parametrize("b, hq, sq, skv, d, want", [
+    (2, 64, 1024, 1024, 128, 16),      # qwen1.5-110b's parity cut: one run
+    (2, 32, 2048, 2048, 128, 32),      # pixtral-12b's parity cut: one run
+    (8, 16, 2048, 2048, 64, 32),       # the kernels phase's fp32 shape
+    (8, 32, 8192, 8192, 128, 2),       # 1.07 GB a slice: runs of 2 tiles
+    (8, 64, 16384, 16384, 128, 1),     # a slice above the bound: one tile
+    (1, 1, 5, 130, 64, 3),             # ragged Skv: all 3 tiles
+])
+def test_fma_dq_scratch_is_bounded(b, hq, sq, skv, d, want):
+    """The fp32 backward body's dQ scratch (:func:`fma_dq_run` slices of
+    ``[B,Hq,Sq,D]`` fp32) stays within 2 GiB or one slice, so it grows
+    linearly with Sq, and takes all the key tiles in one run where they
+    fit."""
+    slice_bytes = b * hq * sq * d * 4
+    run = fma_dq_run(b, hq, sq, skv, d)
+    assert run == want
+    assert 1 <= run <= -(-skv // FMA_BLOCK_KEYS)
+    assert run * slice_bytes <= max(FMA_DQ_SCRATCH_BYTES, slice_bytes)

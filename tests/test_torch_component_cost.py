@@ -1,8 +1,11 @@
 """``repro_torch.launch.component_cost`` against the reference's
 ``launch/component_cost.py`` on a one-device CPU mesh: ``.reduced()`` fp32
-qwen1.5-0.5b, mamba2-1.3b, zamba2-2.7b, qwen1.5-4b, stablelm-12b and
-qwen1.5-110b at B 2 x S 64, in prefill, decode and train (train under remat
-``none`` and ``full``).
+qwen1.5-0.5b, mamba2-1.3b, zamba2-2.7b, qwen1.5-4b, stablelm-12b,
+qwen1.5-110b, pixtral-12b (vlm: the dense components over ``seq_len``
+positions, the patches not counted, as in the reference) and whisper-small
+(encoder-decoder: ``encoder_layer`` at prefill and train, ``decoder_layer``
+with its cross K/V) at B 2 x S 64, in prefill, decode and train (train under
+remat ``none`` and ``full``).
 
 Names and counts are the reference's.  FLOPs agree within
 :data:`FLOP_BAND` of the reference's, not exactly: the port counts one
@@ -35,7 +38,7 @@ from repro_torch.models.model import build_model
 # the dense archs qwen1.5-4b, stablelm-12b and qwen1.5-110b take the dense
 # family's components as they are: no change was needed for them
 ARCHS = ("qwen1.5-0.5b", "mamba2-1.3b", "zamba2-2.7b", "qwen1.5-4b",
-         "stablelm-12b", "qwen1.5-110b")
+         "stablelm-12b", "qwen1.5-110b", "pixtral-12b", "whisper-small")
 BATCH, SEQ = 2, 64
 FLOP_BAND = (0.75, 1.25)
 
@@ -95,18 +98,23 @@ def test_components_match_the_reference(arch, mode, remat):
 def test_prefill_components_sum_to_the_whole_program(arch, monkeypatch):
     """Counted as matmul-family FLOPs only (the elementwise rule switched
     off), the prefill components times their counts equal one trace of the
-    port's whole ``prefill``: no layer or head is left out or doubled."""
+    port's whole ``prefill``: no layer or head is left out or doubled.
+    whisper's prefill runs the encoder over ``encoder_seq`` frames; pixtral's
+    runs without patches, which its components do not count."""
     monkeypatch.setattr(graph_cost, "_elementwise_flops",
                         lambda *args: 0)
     comps = port_components(arch, "prefill", "none")
-    model = build_model(reduced_fp32(get_config, arch), device="cpu")
+    cfg = reduced_fp32(get_config, arch)
+    model = build_model(cfg, device="cpu")
     with FakeTensorMode():
         params = model.init(0)
         cache = model.init_cache(BATCH, SEQ)
         tokens = torch.empty((BATCH, SEQ), dtype=torch.int64)
+        frames = (torch.empty((BATCH, cfg.enc_dec.encoder_seq, cfg.d_model))
+                  if cfg.enc_dec else None)
     _, whole = graph_cost.lower_and_cost(
-        "prefill", lambda p, t, c: model.prefill(p, t, c),
-        (params, tokens, cache))
+        "prefill", lambda p, t, c, f: model.prefill(p, t, c, f),
+        (params, tokens, cache, frames))
     assert whole.flops_per_device == sum(c.count * c.cost.flops_per_device
                                          for c in comps) > 0
 

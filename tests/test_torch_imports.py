@@ -200,7 +200,8 @@ def test_only_ported_archs_are_registered():
     from repro_torch import configs
     assert configs.PORTED_ARCH_IDS == ["qwen1.5-0.5b", "mamba2-1.3b",
                                        "zamba2-2.7b", "qwen1.5-4b",
-                                       "stablelm-12b", "qwen1.5-110b"]
+                                       "stablelm-12b", "qwen1.5-110b",
+                                       "pixtral-12b", "whisper-small"]
     cfg = configs.get_config("qwen1.5-0.5b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff,
             cfg.vocab_size, cfg.qkv_bias) == (24, 1024, 16, 2816, 151936, True)
@@ -219,13 +220,24 @@ def test_only_ported_archs_are_registered():
         assert cfg.family == "dense"
         assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                 cfg.head_dim_, cfg.d_ff) == dims
+    cfg = configs.get_config("pixtral-12b")
+    assert (cfg.family, cfg.n_layers, cfg.d_model, cfg.n_heads,
+            cfg.n_kv_heads, cfg.head_dim_, cfg.d_ff, cfg.vocab_size,
+            cfg.frontend, cfg.frontend_seq) == (
+                "vlm", 40, 5120, 32, 8, 128, 14336, 131072, "vision_stub",
+                1024)
+    cfg = configs.get_config("whisper-small")
+    assert (cfg.family, cfg.n_layers, cfg.enc_dec.n_encoder_layers,
+            cfg.d_model, cfg.n_heads, cfg.head_dim_, cfg.d_ff,
+            cfg.vocab_size, cfg.gated_mlp, cfg.qkv_bias,
+            cfg.enc_dec.encoder_seq) == (
+                "audio", 12, 12, 768, 12, 64, 3072, 51865, False, True, 1500)
     with pytest.raises(KeyError):
         configs.get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("arch_id", [
-    "whisper-small", "pixtral-12b", "phi3.5-moe-42b-a6.6b",
-    "deepseek-v3-671b", "gemma3-12b"])
+    "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b", "gemma3-12b"])
 def test_unported_arch_raises_not_implemented(arch_id):
     from repro_torch import configs
     assert arch_id in configs.ARCH_IDS
@@ -235,7 +247,8 @@ def test_unported_arch_raises_not_implemented(arch_id):
 
 @pytest.mark.parametrize("arch_id", ["qwen1.5-0.5b", "mamba2-1.3b",
                                      "zamba2-2.7b", "qwen1.5-4b",
-                                     "stablelm-12b", "qwen1.5-110b"])
+                                     "stablelm-12b", "qwen1.5-110b",
+                                     "pixtral-12b", "whisper-small"])
 def test_config_copy_equals_the_reference(arch_id):
     """The port keeps its own copy of the config schema; it must not drift."""
     from repro.configs import ARCH_IDS, get_config as ref_get

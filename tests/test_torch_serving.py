@@ -182,11 +182,28 @@ def test_sampling_at_temperature_is_seeded(setup):
 
 
 def test_frontend_is_not_ported(setup):
+    """Frontend features are single-admission only, as in the reference: a
+    later admission round given them raises ``NotImplementedError`` (an
+    arch without a frontend ignores them at the first, as the reference's
+    model does; the frontend archs are
+    tests/test_torch_frontend_archs.py's).  The name dates from before the
+    frontend was ported and is kept so that the test keeps its history."""
     _, _, model, params = setup
-    engine = ServeEngine(model, params, max_len=64)
-    with pytest.raises(NotImplementedError):
-        engine.generate([Request(prompt=[1, 2], max_new_tokens=2)],
-                        frontend=torch.zeros(1, 2, 64))
+    reqs = [Request(prompt=[1, 2], max_new_tokens=2),
+            Request(prompt=[3, 4, 5], max_new_tokens=4),
+            Request(prompt=[6], max_new_tokens=2)]
+    static = ServeEngine(model, params, max_len=64)
+    assert [c.tokens for c in static.generate(
+        reqs, frontend=torch.zeros(3, 2, 64))] == \
+        [c.tokens for c in static.generate(reqs)]
+    engine = ServeEngine(model, params, EngineConfig(
+        max_len=64, batching="continuous", slots=2))
+    for r in reqs:
+        engine.submit(r)
+    with pytest.raises(NotImplementedError, match="single-admission"):
+        for _ in range(10):
+            engine.step(torch.zeros(2, 2, 64))
+    assert engine.stats["admission_rounds"] == 1
 
 
 # ------------------------------------------------------------- mamba2

@@ -9,8 +9,12 @@ recompute of z.  zamba2 is the train path this count was not yet held to
 remat ``full``); qwen and mamba2 are held to it beside it, and so are the
 dense archs qwen1.5-4b, stablelm-12b and qwen1.5-110b at the depth each
 path runs on the card (``chip_smoke.path_config``; reduced in width here),
-with GQA kept (4 heads over 2 kv heads).  The serve count is held over a
-``generate`` of static and of continuous batching."""
+with GQA kept (4 heads over 2 kv heads), and so are the frontend archs
+pixtral-12b (patches prepended) and whisper-small (a non-causal encoder
+and a decoder with cross-attention, which takes no kernel), each with its
+frontend embeddings.  The serve count is held over a ``generate`` of static
+and of continuous batching (static only with a frontend, which is
+single-admission)."""
 import dataclasses
 import sys
 from pathlib import Path
@@ -44,6 +48,7 @@ STAND_INS = [(fa, "flash_attention_plain", "flash_attention"),
 
 
 DENSE = ("qwen1.5-4b", "stablelm-12b", "qwen1.5-110b")
+FRONTEND = ("pixtral-12b", "whisper-small")
 
 
 def small(arch: str, phase: str):
@@ -51,7 +56,7 @@ def small(arch: str, phase: str):
     width; the dense archs keep GQA (``.reduced()`` drops it)."""
     cfg = path_config(arch, phase)
     red = cfg.reduced()
-    if arch in DENSE:
+    if arch in DENSE + FRONTEND:
         red = dataclasses.replace(red, n_heads=4, n_kv_heads=2)
     assert red.n_layers == min(cfg.n_layers, red.n_layers)
     return red
@@ -75,9 +80,17 @@ def count_stand_ins(monkeypatch) -> dict:
     return calls
 
 
+def frontend(model, batch: int):
+    """Random embeddings for an arch with a frontend, else None."""
+    shape = model.frontend_shape(batch)
+    if shape is None:
+        return None
+    return torch.randn(shape, generator=torch.Generator().manual_seed(2))
+
+
 @pytest.mark.parametrize("remat", ["none", "full"])
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "mamba2-1.3b",
-                                  "qwen1.5-0.5b", *DENSE])
+                                  "qwen1.5-0.5b", *DENSE, *FRONTEND])
 def test_expected_train_launches_match_the_kernel_path(arch, remat,
                                                        monkeypatch):
     cfg = small(arch, "train")
@@ -91,6 +104,9 @@ def test_expected_train_launches_match_the_kernel_path(arch, remat,
     gen = torch.Generator().manual_seed(0)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (BATCH, SEQ),
                                      generator=gen)}
+    fe = frontend(model, BATCH)
+    if fe is not None:
+        batch["frontend"] = fe
     for _ in range(STEPS):
         params, opt, _, metrics = step(params, opt, None, batch)
         assert torch.isfinite(metrics["loss"])
@@ -121,27 +137,32 @@ def test_parity_config_applies_every_shared_block_once():
 
 
 @pytest.mark.parametrize("batching", ["static", "continuous"])
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", *DENSE])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", *DENSE, *FRONTEND])
 def test_expected_launches_match_the_serve_path(arch, batching,
                                                 monkeypatch):
     """A ``generate`` of 5 requests of the serve phase's kind on the
     kernel path: every admission round's flash and epilogue launches and
     every decode step's epilogue launches, as ``expected_launches`` counts
-    them from the engine's rounds and steps."""
+    them from the engine's rounds and steps.  With a frontend, which is
+    single-admission, continuous batching runs with a slot a request (one
+    round)."""
     cfg = small(arch, "serve")
     model = build_model(cfg, device="cpu")
     params = model.init(0)
+    fe = frontend(model, 5)
     engine = ServeEngine(model, params, EngineConfig(
-        max_len=48, batching=batching, slots=2), use_kernel=True)
+        max_len=48, batching=batching, slots=2 if fe is None else 5),
+        use_kernel=True)
     rng = torch.Generator().manual_seed(1)
     reqs = [Request(prompt=torch.randint(1, cfg.vocab_size, (n,),
                                          generator=rng).tolist(),
                     max_new_tokens=4) for n in (9, 16, 5, 12, 7)]
     calls = count_stand_ins(monkeypatch)
-    outs = engine.generate(reqs)
+    outs = engine.generate(reqs, fe)
     assert all(len(o.tokens) == 4 for o in outs)
     rounds, steps = (engine.stats["admission_rounds"],
                      engine.stats["decode_steps"])
-    assert rounds >= (2 if batching == "continuous" else 1)
+    assert rounds >= (2 if batching == "continuous" and fe is None else 1)
     assert calls == expected_launches(cfg, rounds, steps)
-    assert calls["flash_attention"] == cfg.n_layers * rounds > 0
+    enc = cfg.enc_dec.n_encoder_layers if cfg.enc_dec else 0
+    assert calls["flash_attention"] == (cfg.n_layers + enc) * rounds > 0
