@@ -12,21 +12,24 @@ epilogue kernel and of tsmm that the same check must catch, and the SSD
 scan's rounding plans, forward and backward, against one bf16 rounding of
 their state paths; every backward call again, bit for bit), with
 ``--ptxas`` a ``ptxas`` line (registers, shared memory and spills of every
-kernel), ``train`` eight times (qwen1.5-0.5b, mamba2-1.3b, zamba2-2.7b,
+kernel), ``train`` nine times (qwen1.5-0.5b, mamba2-1.3b, zamba2-2.7b,
 qwen1.5-4b and whisper-small at full width and depth, stablelm-12b,
-qwen1.5-110b and pixtral-12b at the depth ``DEPTH_CUTS`` states, in bf16
-through ``make_train_step(use_kernel=True, donate=True)``, pixtral with its
+qwen1.5-110b, pixtral-12b and gemma3-12b at the depth ``DEPTH_CUTS``
+states, in bf16 through ``make_train_step(use_kernel=True,
+donate=True)``, pixtral with its
 1024 patch embeddings and whisper with its 1500 frame embeddings: one
 step's gradients twice, which must be bit-identical, in bf16 at the path's
 width and depth and in fp32 at the parity cut, then five steps on a
 repeated batch, losses, step times, peak memory and every kernel's
 launches against the count the path must give, then the gradients of the
 kernel path against the plain path at two layers, or for zamba2 at one
-application of each shared block), ``serve`` eight times (the same archs,
-qwen1.5-110b at its ``DEPTH_CUTS`` depth, in bf16 through ``ServeEngine``,
-static and continuous batching, with a frontend the continuous run's
-second admission raising as the reference's does, with the launch count
-of every kernel, and of each body of the epilogue kernel, held against the
+application of each shared block, for gemma3-12b at one local and one
+global layer over 2048 positions), ``serve`` nine times (the same archs,
+gemma3-12b at full depth, qwen1.5-110b at its ``DEPTH_CUTS`` depth, in
+bf16 through ``ServeEngine``, static and continuous batching, with a
+frontend the continuous run's second admission raising as the
+reference's does, with the launch count of every kernel, of each body of
+the epilogue kernel and of flash by mask and by window, held against the
 count the arch's path must give, and the bf16 prefill logits with the
 kernels against without them and against the controls),
 ``linreg`` (the
@@ -96,6 +99,7 @@ from repro_torch.kernels.tsmm import tsmm_upper, tsmm_upper_plain  # noqa: E402
 from repro_torch.core import ShardingPlan, h100_single_config    # noqa: E402
 from repro_torch.launch.component_cost import (  # noqa: E402
     aggregate, component_costs)
+from repro_torch.models.layers import _band_mask                 # noqa: E402
 from repro_torch.models.model import build_model                 # noqa: E402
 from repro_torch.optim import adamw                              # noqa: E402
 from repro_torch.runtime.serve_engine import (EngineConfig, Request,  # noqa: E402
@@ -117,8 +121,8 @@ LINREG_M, LINREG_N, LINREG_LAM = 262144, 1024, 1e-3
 
 # (b, hq, hkv, s, d, causal, window): the reference's kernel test cases,
 # then the head dims and GQA ratios of the dense archs (qwen1.5-4b: D = 128
-# MHA; qwen1.5-110b: D = 128, GQA 8; stablelm-12b: D = 160, GQA 4), causal
-# and windowed, ragged S among them
+# MHA; qwen1.5-110b: D = 128, GQA 8; stablelm-12b: D = 160, GQA 4;
+# gemma3-12b: D = 256, GQA 2), causal and windowed, ragged S among them
 FLASH_CASES = [
     (2, 4, 2, 256, 64, True, None),
     (1, 4, 4, 256, 32, False, None),
@@ -130,6 +134,8 @@ FLASH_CASES = [
     (1, 8, 2, 333, 160, True, None),
     (2, 8, 2, 256, 160, False, 64),
     (1, 4, 1, 200, 160, True, 32),
+    (2, 4, 2, 256, 256, True, None),
+    (1, 4, 2, 300, 256, False, 64),
 ]
 # The dense archs of this port at the train phase's B 8 x S 2048, bf16
 WIDE_ARCHS = ("qwen1.5-4b", "qwen1.5-110b", "stablelm-12b")
@@ -314,11 +320,17 @@ def arch_flash(arch: str, s: int = 2048, causal: bool = True) -> dict:
 
 def path_flash() -> list:
     """(tag, shape) of every wide main-path flash shape: the dense archs'
-    at 2048; pixtral's layers over 1024 patches + 2048 tokens, causal;
-    whisper's encoder over its 1500 frames, not causal (ragged against every
-    tile); whisper's decoder over its 448-token context, causal."""
+    at 2048; gemma3-12b's global layers (causal) and local layers (causal,
+    window 1024) at 2048; pixtral's layers over 1024 patches + 2048 tokens,
+    causal; whisper's encoder over its 1500 frames, not causal (ragged
+    against every tile); whisper's decoder over its 448-token context,
+    causal."""
     pix, whi = get_config("pixtral-12b"), get_config("whisper-small")
+    gemma = arch_flash("gemma3-12b")
     return [*((a, arch_flash(a)) for a in WIDE_ARCHS),
+            ("gemma3-12b global", gemma),
+            ("gemma3-12b local",
+             {**gemma, "window": get_config("gemma3-12b").local_window}),
             ("pixtral-12b", arch_flash("pixtral-12b",
                                        2048 + pix.frontend_seq)),
             ("whisper-small encoder", arch_flash(
@@ -344,17 +356,41 @@ def arch_head(arch: str) -> dict:
 
 def path_mm() -> list:
     """(tag, shape) of the wide archs' epilogue products: each dense arch's
-    prefill gate and head, pixtral's prefill gate over 8 x (1024 + 2048)
-    rows, decode gate and head, and whisper's head (its MLP is not gated:
-    no epilogue)."""
+    prefill gate and head, gemma3-12b's prefill gate, decode gate and head
+    (vocab 262144), pixtral's prefill gate over 8 x (1024 + 2048) rows,
+    decode gate and head, and whisper's head (its MLP is not gated: no
+    epilogue)."""
     pix = get_config("pixtral-12b")
     return [*((f"{a} {kind}", fn(a)) for a in WIDE_ARCHS
               for kind, fn in (("gate", arch_gate), ("head", arch_head))),
+            ("gemma3-12b gate", arch_gate("gemma3-12b")),
+            ("gemma3-12b decode gate", arch_gate("gemma3-12b", 8)),
+            ("gemma3-12b head", arch_head("gemma3-12b")),
             ("pixtral-12b gate",
              arch_gate("pixtral-12b", 8 * (2048 + pix.frontend_seq))),
             ("pixtral-12b decode gate", arch_gate("pixtral-12b", 8)),
             ("pixtral-12b head", arch_head("pixtral-12b")),
             ("whisper-small head", arch_head("whisper-small"))]
+
+
+def sdpa_call(q, k, v, causal: bool, window, gqa: bool):
+    """(fn, note): one ``F.scaled_dot_product_attention`` call that computes
+    the kernel's function on q, k, v, a yardstick the port never calls:
+    ``is_causal`` without a window; with one, an explicit band mask [Sq,
+    Skv] bool, with which PyTorch may pick another backend
+    (``library_kernels_ms`` names the kernels it ran)."""
+    kw = {"enable_gqa": True} if gqa else {}
+    note = "F.scaled_dot_product_attention" + (", enable_gqa" if gqa else "")
+    if window is None:
+        return (lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, **kw)), note
+    mask = _band_mask(torch.arange(q.shape[2], device=q.device),
+                      torch.arange(k.shape[2], device=q.device), causal,
+                      window)
+    return (lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                   **kw),
+            note + f", attn_mask: the band of window {window} as a bool "
+                   f"[{q.shape[2]},{k.shape[2]}] mask")
 
 
 def by_batch(fn, *args, **kw):
@@ -447,6 +483,8 @@ def check_flash(gen) -> list:
         run("D = 80, ragged S, window, strided views", 1, 4, 4, 333, 80,
             True, 100, dtype, views=True)
         run("D = 80, not causal", 1, 2, 2, 130, 80, False, None, dtype)
+        run("D = 256, ragged S, window, strided views", 1, 4, 2, 333, 256,
+            True, 100, dtype, views=True)
     run("zamba2 main path, D = 80", **FLASH_D80, dtype=torch.bfloat16,
         views=True)
     for arch, m in path_flash():
@@ -475,7 +513,7 @@ def check_flash(gen) -> list:
         _, k, v = flash_inputs(1, 2, 2, 70, 32, dtype, gen)
         run_odd("Sq > Skv, causal", q, k, v, True, dtype)
         # query tiles wholly past Skv + window see no key: zeros
-        for d in (64, 80):
+        for d in (64, 80, 256):
             q, _, _ = flash_inputs(1, 2, 2, 512, d, dtype, gen)
             _, k, v = flash_inputs(1, 2, 2, 64, d, dtype, gen)
             run_odd(f"Sq > Skv, causal, window, D = {d}", q, k, v, True,
@@ -566,7 +604,9 @@ def check_flash_bwd(gen) -> list:
                 ("not causal, D = 80", (1, 2, 2, 130, 80), False, None,
                  False),
                 ("GQA 4, window, not causal", (1, 4, 1, 300, 64), False, 64,
-                 False)):
+                 False),
+                ("D = 256, ragged S, window, strided views",
+                 (1, 4, 2, 333, 256), True, 100, True)):
             run(tag, *flash_inputs(*shape, dtype, gen, views), causal,
                 window, dtype)
         q, _, _ = flash_inputs(2, 4, 2, 100, 64, dtype, gen)
@@ -575,6 +615,9 @@ def check_flash_bwd(gen) -> list:
         q, _, _ = flash_inputs(1, 2, 2, 200, 80, dtype, gen)
         _, k, v = flash_inputs(1, 2, 2, 70, 80, dtype, gen)
         run("Sq > Skv, causal, window", q, k, v, True, 32, dtype)
+        q, _, _ = flash_inputs(1, 4, 2, 200, 256, dtype, gen)
+        _, k, v = flash_inputs(1, 4, 2, 70, 256, dtype, gen)
+        run("Sq > Skv, causal, window, D = 256", q, k, v, True, 32, dtype)
         for b, hq, hkv, s, d, causal, window in FLASH_CASES:
             if d in BACKWARD_HEAD_DIMS:
                 run("reference case", *flash_inputs(b, hq, hkv, s, d, dtype,
@@ -584,7 +627,7 @@ def check_flash_bwd(gen) -> list:
                    *((f"{a} main path", m) for a, m in path_flash())):
         q, k, v = flash_inputs(m["b"], m["hq"], m["hkv"], m["s"], m["d"],
                                torch.bfloat16, gen, views=True)
-        run(tag, q, k, v, m["causal"], None, torch.bfloat16)
+        run(tag, q, k, v, m["causal"], m["window"], torch.bfloat16)
         del q, k, v
         torch.cuda.empty_cache()
     # the backward takes BACKWARD_HEAD_DIMS only: a gradient at D = 32 raises
@@ -1315,20 +1358,22 @@ def time_kernels(gen) -> dict:
     for arch, m in path_flash():
         q, k, v = flash_inputs(m["b"], m["hq"], m["hkv"], m["s"], m["d"],
                                torch.bfloat16, gen, views=True)
-        gqa, causal = m["hq"] != m["hkv"], m["causal"]
+        gqa, causal, window = m["hq"] != m["hkv"], m["causal"], m["window"]
+        lib, lib_note = sdpa_call(q, k, v, causal, window, gqa)
         flash[arch] = {
-            "ms": time_ms(lambda: flash_attention(q, k, v, causal=causal),
-                          10, 2),
+            "ms": time_ms(lambda: flash_attention(q, k, v, causal=causal,
+                                                  window=window), 10, 2),
             "plain_ms": time_ms(lambda: by_batch(
-                flash_attention_plain, q, k, v, causal=causal), 1),
+                flash_attention_plain, q, k, v, causal=causal,
+                window=window), 1),
             "plain_note": "the plain version one batch row at a time",
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=causal, enable_gqa=gqa), 10, 2),
-            "library_note": "F.scaled_dot_product_attention"
-                            + (", enable_gqa" if gqa else ""),
+            "library_ms": time_ms(lib, 10, 2),
+            "library_note": lib_note,
+            "library_kernels_ms": device_kernel_ms(lib),
             "shape": f"q [8,{m['hq']},{m['s']},{m['d']}], k,v "
                      f"[8,{m['hkv']},{m['s']},{m['d']}] bf16 "
-                     f"{'causal' if causal else 'not causal'}, "
+                     f"{'causal' if causal else 'not causal'}"
+                     f"{f', window {window}' if window else ''}, "
                      f"transposed views ({arch})",
             "body": flash_body(torch.bfloat16, m["d"]),
             **flash_bound_ms(**m, dtype=torch.bfloat16)}
@@ -1444,33 +1489,37 @@ def time_bwd_kernels(gen) -> dict:
                       for a, m in path_flash())):
         q, k, v = flash_inputs(m["b"], m["hq"], m["hkv"], m["s"], m["d"],
                                torch.bfloat16, gen, views=True)
-        causal = m["causal"]
-        o, lse = flash_attention_fwd(q, k, v, causal=causal, with_lse=True)
+        causal, window = m["causal"], m["window"]
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                     with_lse=True)
         do = torch.randn(o.shape, generator=gen, device="cuda").to(o.dtype)
         qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
         gqa = m["hq"] != m["hkv"]
-        sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
-                                              enable_gqa=gqa)
+        lib, lib_note = sdpa_call(qs, ks, vs, causal, window, gqa)
+        sdpa = lib()
+        lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            sdpa, (qs, ks, vs), do, retain_graph=True)
+        kernel = lambda: flash_attention_bwd(  # noqa: E731
+            q, k, v, o, lse, do, causal=causal, window=window)
         out[name] = {
-            "ms": time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
-                                                      causal=causal), 20, 3),
+            "ms": time_ms(kernel, 20, 3),
             "plain_ms": time_ms(lambda: by_batch(
                 flash_attention_bwd_plain, q, k, v, o, lse, do,
-                causal=causal), 1),
+                causal=causal, window=window), 1),
             "plain_note": "the plain version one batch row at a time",
-            "library_ms": time_ms(lambda: torch.autograd.grad(
-                sdpa, (qs, ks, vs), do, retain_graph=True), 10, 2),
-            "library_note": "F.scaled_dot_product_attention's backward "
-                            "alone (autograd.grad of its output), forward "
-                            "excluded" + (", enable_gqa" if gqa else ""),
+            "library_ms": time_ms(lib_bwd, 10, 2),
+            "library_note": lib_note.replace(
+                "F.scaled_dot_product_attention",
+                "F.scaled_dot_product_attention's backward alone "
+                "(autograd.grad of its output), forward excluded", 1),
+            "library_kernels_ms": device_kernel_ms(lib_bwd),
             "shape": f"q [{m['b']},{m['hq']},{m['s']},{m['d']}], k,v "
                      f"[{m['b']},{m['hkv']},{m['s']},{m['d']}] bf16 "
-                     f"{'causal' if causal else 'not causal'}, transposed "
+                     f"{'causal' if causal else 'not causal'}"
+                     f"{f', window {window}' if window else ''}, transposed "
                      f"views",
             "body": flash_bwd_body(torch.bfloat16, m["d"]),
-            "cuda_kernels_ms": device_kernel_ms(
-                lambda: flash_attention_bwd(q, k, v, o, lse, do,
-                                            causal=causal)),
+            "cuda_kernels_ms": device_kernel_ms(kernel),
             **flash_bwd_bound_ms(**m, dtype=torch.bfloat16)}
         out[name]["ratio_to_library"] = (out[name]["ms"]
                                          / out[name]["library_ms"])
@@ -1572,6 +1621,24 @@ def expected_flash_masks(cfg, expected: dict) -> dict:
     return out
 
 
+def expected_flash_windows(cfg, expected: dict) -> dict:
+    """The flash forward and backward launches of ``expected`` split by
+    window, as ``ops.flash_window_launches`` counts them (keys with no
+    launch left out): a window-pattern arch's layers by their position's
+    window (gemma3-12b: 5 of every 6 at ``w1024``), every other
+    self-attention ``global``."""
+    out = {}
+    for name in ("flash_attention", "flash_attention_bwd"):
+        n = expected[name]
+        pattern = cfg.window_pattern or (None,)
+        counts = {}
+        for w in pattern:
+            key = flash_mod.window_key(w)
+            counts[key] = counts.get(key, 0) + n // len(pattern)
+        out[name] = {k: v for k, v in counts.items() if v}
+    return out
+
+
 def _n_attention(cfg) -> int:
     """Self-attention layers (an encoder-decoder's encoder and decoder
     layers), or applications of a shared block, a forward."""
@@ -1610,6 +1677,7 @@ def serve_run(engine: ServeEngine, reqs, frontend=None) -> dict:
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
     masks = ops.flash_mask_launches()
+    windows = ops.flash_window_launches()
     bodies = {b: n for b, n in ops.matmul_body_launches().items() if n}
     rounds, steps = (engine.stats["admission_rounds"],
                      engine.stats["decode_steps"])
@@ -1619,6 +1687,7 @@ def serve_run(engine: ServeEngine, reqs, frontend=None) -> dict:
         expected = {name: 0 for name in expected}
         expected_b = {}
     expected_m = expected_flash_masks(engine.model.cfg, expected)
+    expected_w = expected_flash_windows(engine.model.cfg, expected)
     if any(len(c.tokens) != r.max_new_tokens for c, r in zip(outs, reqs)):
         raise AssertionError("a request did not complete with all its tokens")
     if launches != expected:
@@ -1630,9 +1699,14 @@ def serve_run(engine: ServeEngine, reqs, frontend=None) -> dict:
     if masks != expected_m:
         raise AssertionError(f"flash launches by mask {masks} in {rounds} "
                              f"admission rounds, expected {expected_m}")
+    if windows != expected_w:
+        raise AssertionError(f"flash launches by window {windows} in "
+                             f"{rounds} admission rounds, expected "
+                             f"{expected_w}")
     new_tokens = sum(len(c.tokens) for c in outs)
     return {"tokens": [c.tokens for c in outs], "wall_s": wall,
             "launches": launches, "flash_mask_launches": masks,
+            "flash_window_launches": windows,
             "matmul_epilogue_bodies": bodies,
             "stats": dict(engine.stats),
             "prefill_s": max(c.prefill_time_s for c in outs),
@@ -1671,20 +1745,26 @@ def control_logits(model, params, toks, fault, max_len: int,
 # rounds them to bf16 first.  Each bound is 1.5 x the largest reading of
 # these sound paths on an H100 (qwen 0.104, mamba2 0.305, zamba2 0.254;
 # qwen1.5-4b 0.110, stablelm-12b 0.120, qwen1.5-110b at 10 layers 0.062;
-# pixtral-12b 0.125, whisper-small 0.054), rounded up to a multiple of 0.05.
+# pixtral-12b 0.125, whisper-small 0.054; gemma3-12b 0.131, its controls
+# 0.219 and 0.145), rounded up to a multiple of 0.05.
 # No such bound tells a subtle rounding fault from the sound paths' own
 # rounding: the CONTROLS move the readings by less than 0.05, so
 # ``check_controls`` holds them at the kernel's level.  Last,
 # the depth of the fp32 comparison of greedy streams with and without the
 # kernels: 4 layers, for zamba2 12, the least depth with two applications
 # of shared blocks (attn_every 6), and for qwen1.5-110b 2 (its fp32 weights
-# are 5.4 GB a layer and 10 GB the embedding and head).
+# are 5.4 GB a layer and 10 GB the embedding and head), and for gemma3-12b 6,
+# one whole cycle of its window pattern (five local layers and a global
+# one; prompts past its 1024-slot rings).
 SERVE_PATHS = [("qwen1.5-0.5b", 0.2, 4), ("mamba2-1.3b", 0.5, 4),
                ("zamba2-2.7b", 0.4, 12), ("qwen1.5-4b", 0.2, 4),
                ("stablelm-12b", 0.2, 4), ("qwen1.5-110b", 0.1, 2),
-               ("pixtral-12b", 0.2, 4), ("whisper-small", 0.1, 12)]
+               ("pixtral-12b", 0.2, 4), ("whisper-small", 0.1, 12),
+               ("gemma3-12b", 0.2, 6)]
 # Prompt lengths and cache length of each serve path: 256-2048 tokens in a
-# 4096-slot cache (pixtral's 1024 patches, prepended, fit beside them);
+# 4096-slot cache (pixtral's 1024 patches, prepended, fit beside them;
+# gemma3-12b's local layers keep rings of 1024 slots, which most prompts
+# overrun);
 # whisper's decoder at its published context of 448 tokens, prompts of
 # 32-416 and 32 new tokens (its 1500 frames live in the cross cache)
 SERVE_SHAPE = dict(lo=256, hi=2048, max_len=4096)
@@ -1696,6 +1776,14 @@ SERVE_SHAPES = {"whisper-small": dict(lo=32, hi=WHISPER_CTX - 32,
 # width and depth.  Width, heads and every other field stay.  Each phase's
 # line prints its cut.
 DEPTH_CUTS = {
+    ("gemma3-12b", "train"): (
+        6, "weights, gradients and the fp32 AdamW moments take 12 bytes a "
+           "parameter (2.69 GB a layer, 24.2 GB the embedding and head), "
+           "AdamW's fp32 temporaries of the embedding and the head (1.0B "
+           "parameters each) and a cycle's recomputed activations come on "
+           "top: 6 layers peak at 69.0 GB, 12 (two cycles) run out of "
+           "memory at 80.7 GB (tools/train_depth.py; H100 80GB HBM3, "
+           "700 W)"),
     ("qwen1.5-110b", "serve"): (
         10, "2.72 GB of bf16 weights a layer; beside them the serve phase "
             "holds the plain path's prefill (the logits it compares with), "
@@ -1873,6 +1961,7 @@ def phase_serve(arch: str, bf16_tol: float, fp32_layers: int) -> dict:
             "max_len": max_len,
             "main_path_launches": main_launches,
             "main_path_flash_mask_launches": run1["flash_mask_launches"],
+            "main_path_flash_window_launches": run1["flash_window_launches"],
             "main_path_matmul_epilogue_bodies": run1["matmul_epilogue_bodies"],
             "static": _summary(run1), "static_again": _summary(run2),
             "continuous_slots4": continuous,
@@ -1924,7 +2013,8 @@ def _leaves(tree):
 TRAIN_PATHS = [("qwen1.5-0.5b", "none", 0.05), ("mamba2-1.3b", "full", 0.05),
                ("zamba2-2.7b", "full", 0.05), ("qwen1.5-4b", "full", 0.05),
                ("stablelm-12b", "full", 0.05), ("qwen1.5-110b", "full", 0.05),
-               ("pixtral-12b", "full", 0.05), ("whisper-small", "none", 0.05)]
+               ("pixtral-12b", "full", 0.05), ("whisper-small", "none", 0.05),
+               ("gemma3-12b", "full", 0.05)]
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 5
 # tokens a row where an arch's own context is shorter than TRAIN_SEQ
 TRAIN_SEQS = {"whisper-small": WHISPER_CTX}
@@ -1936,6 +2026,14 @@ TRAIN_SEQS = {"whisper-small": WHISPER_CTX}
 ZERO_GRAD_LEAVES = ("cross.b_k",)
 TRAIN_FP32_BOUND = 1e-3
 PARITY_BATCH, PARITY_SEQ = 2, 1024
+# a window-pattern arch's parity cut runs past its window (1024 for gemma:
+# at 1024 positions the window would mask nothing)
+PARITY_SEQ_WINDOWED = 2048
+
+
+def parity_seq(cfg) -> int:
+    """Tokens a row of the parity and fp32 determinism batches."""
+    return PARITY_SEQ_WINDOWED if cfg.window_pattern else PARITY_SEQ
 
 
 def parity_config(cfg, dtype: str):
@@ -1948,7 +2046,13 @@ def parity_config(cfg, dtype: str):
     that takes 12 layers, where bf16 rounding alone parts the two paths by
     more (an H100 read 0.054-0.058 for zamba2 and 0.046 for mamba2 at 12
     layers, each path as near the fp32 gradients as the other:
-    ``tools/train_parity.py``)."""
+    ``tools/train_parity.py``).  A window-pattern arch keeps one local
+    layer and one global one (pattern ``(local_window, None)``), run over
+    :func:`parity_seq` positions."""
+    if cfg.window_pattern is not None:
+        # one local layer and one global, both through the flash backward
+        return dataclasses.replace(cfg, n_layers=2, dtype=dtype,
+                                   window_pattern=(cfg.local_window, None))
     if cfg.enc_dec is not None:
         return dataclasses.replace(
             cfg, n_layers=min(2, cfg.n_layers), dtype=dtype,
@@ -2018,7 +2122,8 @@ def grad_parity(cfg, remat: str, dtype: str) -> dict:
     cfg_s = parity_config(cfg, dtype)
     model = build_model(cfg_s)
     params = model.init(SEED)
-    batch = random_batch(cfg.vocab_size, PARITY_BATCH, PARITY_SEQ, cfg_s)
+    batch = random_batch(cfg.vocab_size, PARITY_BATCH, parity_seq(cfg),
+                         cfg_s)
     out = {}
     for use_kernel in (True, False):
         loss, _, grads = value_and_grad(model, params, batch, remat=remat,
@@ -2041,7 +2146,7 @@ def grad_parity(cfg, remat: str, dtype: str) -> dict:
     torch.cuda.empty_cache()
     return {"dtype": dtype, "layers": cfg_s.n_layers,
             "attn_every": cfg_s.hybrid.attn_every if cfg_s.hybrid else None,
-            "batch": [PARITY_BATCH, PARITY_SEQ],
+            "batch": [PARITY_BATCH, parity_seq(cfg)],
             "max_rel_err": rel[worst], "worst_leaf": worst,
             "rel_err_by_leaf": rel}
 
@@ -2081,7 +2186,7 @@ def determinism(cfg, remat: str, model, params, batch) -> dict:
     params_s = model_s.init(SEED)
     out["fp32"] = grads_bit_identical(
         model_s, params_s, random_batch(cfg.vocab_size, PARITY_BATCH,
-                                        PARITY_SEQ, cfg_s), remat)
+                                        parity_seq(cfg), cfg_s), remat)
     out["fp32"]["layers"] = cfg_s.n_layers
     del params_s
     torch.cuda.empty_cache()
@@ -2144,11 +2249,13 @@ def phase_train(arch: str, remat: str, bf16_bound: float) -> dict:
         norms.append(float(metrics["grad_norm"]))
     launches = ops.launch_counts()
     masks = ops.flash_mask_launches()
+    windows = ops.flash_window_launches()
     bodies = {b: n for b, n in ops.matmul_body_launches().items() if n}
     peak = torch.cuda.max_memory_allocated()
     expected = expected_train_launches(cfg, remat, TRAIN_BATCH, seq,
                                        TRAIN_STEPS)
     expected_m = expected_flash_masks(cfg, expected)
+    expected_w = expected_flash_windows(cfg, expected)
     if not all(math.isfinite(v) for v in losses + norms):
         raise AssertionError(f"{arch}: non-finite loss or grad norm: "
                              f"{losses}, {norms}")
@@ -2163,6 +2270,10 @@ def phase_train(arch: str, remat: str, bf16_bound: float) -> dict:
         raise AssertionError(f"{arch}: flash launches by mask {masks} in "
                              f"{TRAIN_STEPS} train steps, expected "
                              f"{expected_m}")
+    if windows != expected_w:
+        raise AssertionError(f"{arch}: flash launches by window {windows} "
+                             f"in {TRAIN_STEPS} train steps, expected "
+                             f"{expected_w}")
     n_params = sum(t.numel() for t in _leaves(params))
     del params, opt, batch, step
     torch.cuda.empty_cache()
@@ -2189,6 +2300,7 @@ def phase_train(arch: str, remat: str, bf16_bound: float) -> dict:
             "warm_median_step_ms": float(np.median(times[1:])),
             "launches": launches, "expected_launches": expected,
             "flash_mask_launches": masks,
+            "flash_window_launches": windows,
             "matmul_epilogue_bodies": bodies,
             "max_memory_allocated_bytes": peak,
             "gradient_parity": parity,
@@ -2553,28 +2665,34 @@ def main() -> None:
         "zamba2-2.7b", "flash_attention")
     ssd_times["zamba2"]["launches"] = arch_launches("zamba2-2.7b",
                                                     "ssd_scan")
-    def shape_launches(tag, kernel, phase=None):
-        """The launches of ``kernel`` at the flash shape ``tag`` on its
-        arch's serve and train paths (``phase`` "train": the train path's
-        alone), as counted by mask: whisper's encoder is the one shape that
-        is not causal."""
+    def shape_launches(tag, m, kernel, phase=None):
+        """The launches of ``kernel`` at the flash shape ``tag`` (``m``) on
+        its arch's serve and train paths (``phase`` "train": the train
+        path's alone), as counted by mask, or for a window-pattern arch by
+        window: whisper's encoder is the one shape that is not causal,
+        gemma3-12b's local and global layers differ by window."""
         arch, _, part = tag.partition(" ")
-        key = "not_causal" if part == "encoder" else "causal"
-        n = train[arch]["flash_mask_launches"][kernel][key]
+        if get_config(arch).window_pattern is not None:
+            count, key = "window", flash_mod.window_key(m["window"])
+        else:
+            count = "mask"
+            key = "not_causal" if part == "encoder" else "causal"
+        n = train[arch][f"flash_{count}_launches"][kernel].get(key, 0)
         if phase != "train":
-            n += serve[arch]["main_path_flash_mask_launches"][kernel][key]
+            n += serve[arch][f"main_path_flash_{count}_launches"][
+                kernel].get(key, 0)
         return n
 
-    for tag, _ in path_flash():
+    for tag, m in path_flash():
         times["flash_attention"][tag].update(
             max_abs_err=err_of(flash_cases, f"{tag} main path"),
-            launches=shape_launches(tag, "flash_attention"))
+            launches=shape_launches(tag, m, "flash_attention"))
         bwd_times[f"flash_attention_bwd {tag}"].update(
             max_abs_err=err_of(flash_bwd_cases, f"{tag} main path"),
-            launches=shape_launches(tag, "flash_attention_bwd", "train"))
+            launches=shape_launches(tag, m, "flash_attention_bwd", "train"))
     for tag, _ in path_mm():
         mm_times[tag]["max_abs_err"] = err_of(mm_cases, f"{tag} main path")
-    for arch in (*WIDE_ARCHS, *FRONTEND_ARCHS):
+    for arch in (*WIDE_ARCHS, "gemma3-12b", *FRONTEND_ARCHS):
         mm_times[f"{arch} {'gate' if arch != 'whisper-small' else 'head'}"
                  ].update(launches=arch_launches(arch, "matmul_epilogue"),
                           launches_note="every launch on the arch's serve "

@@ -29,8 +29,9 @@ Rows:
     batched over the widened space on every cell, and every traced ranking
     agreement holds.
 
-The grid cells are the reference's for the archs the port has registered
-(its gemma3-12b cells wait for the window-pattern family).
+The grid cells are the reference's: qwen1.5-0.5b's and gemma3-12b's
+memory-bound decode cells and qwen's train cell (``--quick``: the first
+two).
 """
 from __future__ import annotations
 
@@ -54,9 +55,12 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.matmul_epilogue import matmul_epilogue
 from repro_torch.models.model import require_device
 
-# The reference's memory-bound serving cell and its train cell, for qwen.
+# The reference's memory-bound serving cells (decode streams weights and
+# KV; epilogue fusion trims the elementwise round trips) and its train cell.
 FLIP_CELLS = [
     ("qwen1.5-0.5b", "decode_32k", "pod"),
+    ("gemma3-12b", "decode_32k", "pod"),
+    ("gemma3-12b", "decode_32k", "v5p-pod"),
     ("qwen1.5-0.5b", "train_4k", "pod"),
 ]
 
@@ -65,7 +69,7 @@ def _flip_rows(quick: bool, cache: PlanCostCache):
     rows: List[str] = []
     decode_flip = False
     all_match = True
-    cells = FLIP_CELLS[:1] if quick else FLIP_CELLS
+    cells = FLIP_CELLS[:2] if quick else FLIP_CELLS
     for arch_id, shape_id, cl in cells:
         arch, shape, cc = get_config(arch_id), SHAPES[shape_id], CLUSTERS[cl]
         t0 = time.perf_counter()

@@ -25,6 +25,7 @@ _MODULES = {
     "qwen1.5-110b": "repro_torch.configs.qwen15_110b",
     "pixtral-12b": "repro_torch.configs.pixtral_12b",
     "whisper-small": "repro_torch.configs.whisper_small",
+    "gemma3-12b": "repro_torch.configs.gemma3_12b",
 }
 
 PORTED_ARCH_IDS: List[str] = list(_MODULES)

@@ -26,7 +26,7 @@ _FP32_LEAVES = ("ln1", "ln2", "ln", "ln_cross", "final_norm", "enc_norm",
 def _convert(tree: Any, name: str, device, dtype: torch.dtype) -> Any:
     if isinstance(tree, dict):
         return {k: _convert(v, k, device, dtype) for k, v in tree.items()}
-    if isinstance(tree, list):               # the hybrid's shared_attn blocks
+    if isinstance(tree, list):   # the hybrid's shared_attn, the cycles
         return [_convert(v, name, device, dtype) for v in tree]
     t = torch.tensor(np.asarray(tree), device=device)    # always a copy
     if t.is_floating_point():
@@ -41,7 +41,9 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
     layer stack with its leading layer axis) as the port's tree on ``device``:
     same keys and shapes (the encoder-decoder's ``enc_blocks``, ``enc_norm``
     and the decoder's ``cross`` among them), lists (the hybrid's
-    ``shared_attn``, one block dict each) kept as lists, the leaves the
+    ``shared_attn``, one block dict each; the window-pattern family's
+    ``cycles``, one block dict a position of the pattern, each leaf with a
+    leading cycle axis) kept as lists, the leaves the
     reference keeps in fp32 (norm scales, ``A_log``, ``D``, ``dt_bias``) in
     fp32, everything else in ``dtype`` (default ``cfg.dtype``)."""
     return _convert(tree, "", torch.device(device),
@@ -54,7 +56,8 @@ def cache_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
     """The reference's decode cache as the port's: ``pos`` becomes a host
     integer, ``k``/``v``, the encoder-decoder's ``cross_k``/``cross_v`` and
     the SSM's ``conv`` take ``dtype`` (default ``cfg.dtype``), the SSM's
-    ``state`` stays fp32, ``kpos`` stays int32."""
+    ``state`` stays fp32, ``kpos`` stays int32; the window-pattern family's
+    ``p0`` ... ``p{period-1}`` come across as the other caches' ``self``."""
     out = _convert({k: v for k, v in tree.items() if k != "pos"}, "",
                    torch.device(device), dtype or torch_dtype(cfg.dtype))
     out["pos"] = int(np.asarray(tree["pos"]))

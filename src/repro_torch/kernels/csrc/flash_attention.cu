@@ -16,10 +16,10 @@
 // itself: Sq and Skv are arbitrary.
 //
 // Two bodies, chosen by the wrapper from the type:
-//   * bf16, every head dim (32, 64, 80, 128, 160): wgmma + TMA,
-//     warp-specialised, 128 query rows and KV tiles of 128 keys, the operands
-//     split along D into 64-column parts and one narrow part; see its
-//     section below.
+//   * bf16, every head dim (32, 64, 80, 128, 160, 256): wgmma + TMA,
+//     warp-specialised, 128 query rows and KV tiles of 128 keys (64 at D =
+//     256), the operands split along D into 64-column parts and one narrow
+//     part; see its section below.
 //   * fp32: fp32 FMA on shared-memory tiles, 16x16 threads with a 4x4
 //     micro-tile of S each.  Full fp32 products, no TF32: the reference holds
 //     fp32 to rtol 2e-5.
@@ -174,12 +174,13 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NT][4],
 //
 // 384 threads: warpgroups 0 and 1 consume, 64 query rows each (128 a
 // block); warpgroup 2 produces, one thread issuing TMA loads of K and V
-// tiles of 128 keys into a ring of stages (`fwd_stages`: four up to D = 80,
-// three at 128, two at 160, as many as 227 KB of shared memory hold), with
-// an mbarrier for "full" (K and V apart, so Q.K^T starts before V has
-// landed) and one for "empty" per stage.  The producer gives its registers
-// to the consumers (`setmaxnreg`).  S = Q.K^T is one wgmma.m64n128k16 per
-// 16-deep step, both operands in shared memory; P (the fp32 S accumulator
+// tiles of BK keys (`fwd_bk`: 128, 64 at D = 256) into a ring of stages
+// (`fwd_stages`: four up to D = 80, three at 128, two at 160 and 256, as
+// many as 227 KB of shared memory hold), with an mbarrier for "full" (K and
+// V apart, so Q.K^T starts before V has landed) and one for "empty" per
+// stage.  The producer gives its registers to the consumers (`setmaxnreg`).
+// S = Q.K^T is one wgmma.m64n{BK}k16 per 16-deep step, both operands in
+// shared memory; P (the fp32 S accumulator
 // rounded to bf16) stays in registers, where it has the layout of wgmma's
 // register A operand, and O += P.V takes V as an MN-major B operand (the
 // transpose bit).  Every operand is split along D (`ColSplit`): parts of 64
@@ -191,6 +192,14 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NT][4],
 // fp32 a warpgroup (D / 2 registers a thread).  TMA fills rows past the end
 // with zeros; keys >= Skv are masked, rows >= Sq are not stored.  Every D
 // writes the row log-sum-exp when asked.
+//
+// D = 256: with 128-key tiles one stage alone would take 197.6 KB and O,
+// S and P 128 + 64 + 32 registers a thread.  So the KV tiles hold 64 keys:
+// registers a consumer thread, O 128 (four 64-column parts, no narrow part),
+// S of the next tile 32, P of the current one 16, the softmax state 6, of
+// the 240 that `setmaxnreg` gives; shared memory 1 KB of alignment + Q 64 KB
+// + two stages of K and V at 32 KB each (128 KB) + barriers: 197,704 bytes
+// of 232,448.
 //
 // What bounds it, measured on the H100 (PERF.md): the exponentials and the
 // other softmax work of two warps a scheduler, and at D = 80 the K/V bytes
@@ -206,8 +215,10 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NT][4],
 //     fresh array: otherwise ptxas serializes every wgmma (C7514).
 
 constexpr int WG_BQ = 128;  // query rows a block
-constexpr int WG_BK = 128;  // keys a KV tile
 constexpr int WG_THREADS = 384;
+
+// keys a KV tile: 128, and 64 at D = 256, where O takes 128 registers
+__host__ __device__ constexpr int fwd_bk(int d) { return d > 160 ? 64 : 128; }
 
 // stages of the K/V ring: as many as fit beside Q in 227 KB
 __host__ __device__ constexpr int fwd_stages(int d) {
@@ -216,7 +227,7 @@ __host__ __device__ constexpr int fwd_stages(int d) {
 
 template <int D>
 constexpr int fwd_smem_bytes() {
-  return 1024 + 2 * (WG_BQ + 2 * fwd_stages(D) * WG_BK) * D +
+  return 1024 + 2 * (WG_BQ + 2 * fwd_stages(D) * fwd_bk(D)) * D +
          8 * (2 + 3 * fwd_stages(D)) + 8;
 }
 
@@ -266,6 +277,17 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[16][4], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// S (+)= Q K^T of a KV tile of BK keys: one wgmma.m64n{BK}k16, both
+// operands in shared memory (K-major).
+template <int BK>
+__device__ __forceinline__ void wgmma_s(float (&d)[BK / 8][4], uint64_t da,
+                                        uint64_t db, int accumulate) {
+  if constexpr (BK == 128)
+    wgmma_ss_n128(d, da, db, accumulate);
+  else
+    wgmma_ss_n64<0, 0>(d, da, db, accumulate);
+}
+
 // Work item j of a call.  The (batch, head) pairs are taken in bands of
 // `band`, about one wave of q-tiles, so that the K and V the blocks in
 // flight read stay in L2; within a band the longest causal q-tiles come
@@ -275,7 +297,7 @@ struct WorkItem {
 };
 
 __device__ __forceinline__ WorkItem work_item(const Params& p, int j,
-                                              int band) {
+                                              int band, int bk) {
   const int nqt = (p.Sq + WG_BQ - 1) / WG_BQ;
   const int first = j / (band * nqt) * band;  // first pair of j's band
   const int pairs = min(band, p.Hq * p.B - first);
@@ -285,7 +307,7 @@ __device__ __forceinline__ WorkItem work_item(const Params& p, int j,
   w.q_lo = (nqt - 1 - jj / pairs) * WG_BQ;
   w.h = hb % p.Hq;
   w.b = hb / p.Hq;
-  band_tiles(p, w.q_lo, min(w.q_lo + WG_BQ, p.Sq) - 1, WG_BK, w.kt_lo,
+  band_tiles(p, w.q_lo, min(w.q_lo + WG_BQ, p.Sq) - 1, bk, w.kt_lo,
              w.kt_hi);
   return w;
 }
@@ -301,9 +323,10 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
                          const Params p, int* next_item) {
   using CS = ColSplit<D>;
   constexpr int NF = CS::NF, DB = CS::DB;
-  constexpr int STAGES = fwd_stages(D);
-  constexpr int QT = WG_BQ * D * 2, KT = WG_BK * D * 2;  // tile bytes
-  constexpr int QN = CS::narrow_at(WG_BQ), KN = CS::narrow_at(WG_BK);
+  constexpr int STAGES = fwd_stages(D), BK = fwd_bk(D);
+  constexpr int NT = BK / 8, KK = BK / 16;  // n-blocks of S, key steps of P
+  constexpr int QT = WG_BQ * D * 2, KT = BK * D * 2;  // tile bytes
+  constexpr int QN = CS::narrow_at(WG_BQ), KN = CS::narrow_at(BK);
   constexpr float LOG2E = 1.4426950408889634f;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // tiles at 1024-byte boundaries, as the 128-byte swizzle wants
@@ -356,18 +379,18 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
           mbar_arrive(q_full);  // no more work: the consumers stop
           break;
         }
-        const WorkItem w = work_item(p, j, band);
+        const WorkItem w = work_item(p, j, band, BK);
         const int kvh = w.h / (p.Hq / p.Hkv);
         mbar_expect_tx(q_full, QT);
         load(sQ, maps.q, q_full, WG_BQ, w.q_lo, w.h, w.b);
         for (int kt = w.kt_lo; kt < w.kt_hi; ++kt, ++it) {
           const int s = it % STAGES;
           if (it >= STAGES) mbar_wait(kv_empty(s), (it / STAGES - 1) & 1);
-          const int k_lo = kt * WG_BK;
+          const int k_lo = kt * BK;
           mbar_expect_tx(k_full(s), KT);
-          load(sK + s * KT, maps.k, k_full(s), WG_BK, k_lo, kvh, w.b);
+          load(sK + s * KT, maps.k, k_full(s), BK, k_lo, kvh, w.b);
           mbar_expect_tx(v_full(s), KT);
-          load(sV + s * KT, maps.v, v_full(s), WG_BK, k_lo, kvh, w.b);
+          load(sV + s * KT, maps.v, v_full(s), BK, k_lo, kvh, w.b);
         }
       }
     }
@@ -385,7 +408,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     if (wg == 1) named_arrive(1);
     float oa[NF > 0 ? NF : 1][8][4], ob[DB > 0 ? DB / 8 : 1][4];
     float m_run[2], l_run[2];
-    uint32_t pf[8][4];
+    uint32_t pf[KK][4];
     // every O accumulator, for the fences around the products
     auto fence_o = [&]() {
 #pragma unroll
@@ -398,7 +421,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       mbar_wait(q_full, n & 1);
       const int j = s_item[n & 1];
       if (j < 0) break;
-      const WorkItem w = work_item(p, j, band);
+      const WorkItem w = work_item(p, j, band, BK);
       const int wq_lo = w.q_lo + wg * 64;  // this warpgroup's rows
       const int wq_hi = wq_lo + 63;
       const int row0 = wq_lo + warp * 16 + (lane >> 2);  // and row0 + 8
@@ -417,7 +440,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       // S = Q K^T of tile i of the item (issued, not waited for).  Each tile
       // has an accumulator of its own, declared where it is issued: one
       // array reused across tiles makes ptxas serialize every wgmma.
-      auto issue_s = [&](float (&sacc)[16][4], int i) {
+      auto issue_s = [&](float (&sacc)[NT][4], int i) {
         const int s = (it + i) % STAGES;
         const uint32_t k = sK + s * KT;
         mbar_wait(k_full(s), ((it + i) / STAGES) & 1);
@@ -426,39 +449,39 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         for (int f = 0; f < NF; ++f)
 #pragma unroll
           for (int ks = 0; ks < 4; ++ks)
-            wgmma_ss_n128(
+            wgmma_s<BK>(
                 sacc, wg_desc(qa + f * WG_BQ * 128 + ks * 32, 16, 1024, SW128),
-                wg_desc(k + f * WG_BK * 128 + ks * 32, 16, 1024, SW128),
+                wg_desc(k + f * BK * 128 + ks * 32, 16, 1024, SW128),
                 f + ks);
         if constexpr (DB > 0) {
 #pragma unroll
           for (int ks = 0; ks < DB / 16; ++ks)
-            wgmma_ss_n128(sacc,
-                          wg_desc(qb + ks * 32, 16, CS::SBO, CS::LAYOUT),
-                          wg_desc(k + KN + ks * 32, 16, CS::SBO, CS::LAYOUT),
-                          NF + ks);
+            wgmma_s<BK>(sacc,
+                        wg_desc(qb + ks * 32, 16, CS::SBO, CS::LAYOUT),
+                        wg_desc(k + KN + ks * 32, 16, CS::SBO, CS::LAYOUT),
+                        NF + ks);
         }
         wgmma_commit();
       };
       // the online softmax of tile i on its S; returns the rescale factors
-      auto softmax = [&](float (&sacc)[16][4], int i, float (&alpha)[2]) {
-        const int k_lo = (w.kt_lo + i) * WG_BK;
-        bool need_mask = k_lo + WG_BK > p.Skv || scale2 <= 0.f;
-        if (p.causal) need_mask = need_mask || (k_lo + WG_BK - 1 > wq_lo);
+      auto softmax = [&](float (&sacc)[NT][4], int i, float (&alpha)[2]) {
+        const int k_lo = (w.kt_lo + i) * BK;
+        bool need_mask = k_lo + BK > p.Skv || scale2 <= 0.f;
+        if (p.causal) need_mask = need_mask || (k_lo + BK - 1 > wq_lo);
         if (p.window > 0)
           need_mask = need_mask || (k_lo <= wq_hi - p.window);
         if (need_mask)
-          softmax_tile<true, 16>(sacc, m_run, l_run, alpha, p, scale2, row0,
+          softmax_tile<true, NT>(sacc, m_run, l_run, alpha, p, scale2, row0,
                                  k_lo + t2);
         else
-          softmax_tile<false, 16>(sacc, m_run, l_run, alpha, p, scale2, 0,
+          softmax_tile<false, NT>(sacc, m_run, l_run, alpha, p, scale2, 0,
                                   0);
       };
       // P in wgmma's register A layout: key step kk is S columns
       // 16kk .. 16kk + 15, the n-blocks 2kk and 2kk + 1
-      auto pack_p = [&](const float (&sacc)[16][4]) {
+      auto pack_p = [&](const float (&sacc)[NT][4]) {
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
+        for (int kk = 0; kk < KK; ++kk) {
           pf[kk][0] = pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]);
           pf[kk][1] = pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]);
           pf[kk][2] = pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]);
@@ -475,7 +498,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       // run while tile i's P.V is in flight.
       if (n_tiles == 0) release_q();
       if (n_tiles > 0) {
-        float alpha[2], sacc[16][4];
+        float alpha[2], sacc[NT][4];
         named_sync(1 + wg);
         issue_s(sacc, 0);
         named_arrive(2 - wg);
@@ -493,11 +516,11 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         fence_o();
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
+        for (int kk = 0; kk < KK; ++kk) {
 #pragma unroll
           for (int f = 0; f < NF; ++f)
             wgmma_rs_n64(oa[f], pf[kk],
-                         wg_desc(v + f * WG_BK * 128 + kk * 16 * 128, 16,
+                         wg_desc(v + f * BK * 128 + kk * 16 * 128, 16,
                                  1024, SW128));
           if constexpr (DB > 0)
             wgmma_rs_narrow<DB>(ob, pf[kk],
@@ -511,7 +534,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         wgmma_wait<0>();
         fence_o();
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk)
+        for (int kk = 0; kk < KK; ++kk)
 #pragma unroll
           for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(pf[kk][e]));
         if (lane == 0) mbar_arrive(kv_empty((it + i) % STAGES));
@@ -519,7 +542,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       // The loop body has no branch around its products: ptxas serializes
       // every wgmma when it cannot match a wait to what it retires.
       for (int i = 0; i + 1 < n_tiles; ++i) {
-        float alpha[2], sacc[16][4];  // S of tile i + 1
+        float alpha[2], sacc[NT][4];  // S of tile i + 1
         named_sync(1 + wg);
         issue_s(sacc, i + 1);
         issue_pv(i);
@@ -594,6 +617,10 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 // ---------------------------------------------------------------------------
 // fp32 FMA body
 // ---------------------------------------------------------------------------
+//
+// Shared memory: Q, K and V 64 x (D + 4) fp32 and P 64 x 68, 217,088 bytes
+// at D = 256 of 232,448; registers: a 4 x D / 16 slice of O a thread (64
+// at D = 256) beside a 4 x 4 tile of S.
 
 template <int D, int LD>
 __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
@@ -771,6 +798,7 @@ int launch_wgmma(const Params& p, void* next_item, cudaStream_t stream) {
                                  static_cast<const __nv_bfloat16*>(p.v)};
   CUtensorMap* dst[3] = {maps.q, maps.k, maps.v};
   const int S[3] = {p.Sq, p.Skv, p.Skv}, H[3] = {p.Hq, p.Hkv, p.Hkv};
+  const int rows[3] = {WG_BQ, fwd_bk(D), fwd_bk(D)};
   const long long ss[3] = {p.q_ss, p.k_ss, p.v_ss};
   const long long sh[3] = {p.q_sh, p.k_sh, p.v_sh};
   const long long sb[3] = {p.q_sb, p.k_sb, p.v_sb};
@@ -778,11 +806,11 @@ int launch_wgmma(const Params& p, void* next_item, cudaStream_t stream) {
     int err = 0;
     if (CS::NF > 0)
       err = tensor_map_4d(&dst[t][0], src[t], 64 * CS::NF, 64, S[t], H[t],
-                          p.B, ss[t], sh[t], sb[t], 128,
+                          p.B, ss[t], sh[t], sb[t], rows[t],
                           CU_TENSOR_MAP_SWIZZLE_128B);
     if (err == 0 && CS::DB > 0)
       err = tensor_map_4d(&dst[t][1], src[t] + 64 * CS::NF, CS::DB, CS::DB,
-                          S[t], H[t], p.B, ss[t], sh[t], sb[t], 128,
+                          S[t], H[t], p.B, ss[t], sh[t], sb[t], rows[t],
                           CS::TMA_SWIZZLE);
     if (err != 0) return err;
   }
@@ -823,7 +851,7 @@ int dispatch_d(const Params& p, int body, void* next_item,
 
 // body: 0 = the fp32 FMA body (float32 tensors), 2 = the bf16 wgmma + TMA
 // body (bfloat16 tensors); the wrapper chooses it by type.  D = 32, 64, 80,
-// 128 or 160.  Body 2 takes its work items from `next_item`, one int32 in
+// 128, 160 or 256.  Body 2 takes its work items from `next_item`, one int32 in
 // device memory that is 0 at launch.  Both write each row's log-sum-exp to
 // `lse` ([B,Hq,Sq] fp32) unless it is null, for the backward.  window <= 0
 // means no window.  Strides are in elements; the stride along D is 1.  bf16 pointers
@@ -855,6 +883,8 @@ extern "C" int repro_flash_attention_fwd(
       return dispatch_d<128>(p, body, next_item, s);
     case 160:
       return dispatch_d<160>(p, body, next_item, s);
+    case 256:
+      return dispatch_d<256>(p, body, next_item, s);
     default:
       return -1;
   }

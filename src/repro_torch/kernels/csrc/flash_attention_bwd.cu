@@ -17,12 +17,13 @@
 // cores' bf16 rate.
 //
 // Two bodies, chosen by the wrapper from the type (`flash_bwd_body`), at
-// D = 64, 80, 128 and 160; both start with `delta` (one warp a row,
+// D = 64, 80, 128, 160 and 256; both start with `delta` (one warp a row,
 // rowsum(dO o O) in fp32, O and dO read through their strides) and sum dQ
 // over the key tiles in fp32 in device memory, in a fixed order, the last
 // key tile first: a call repeats bit for bit.
-//   * bf16: wgmma + TMA, warp-specialised, in two layouts (`flash_bwd_wgmma`
-//     for D = 64 and 80, `flash_bwd_wide` for 128 and 160); see their
+//   * bf16: wgmma + TMA, warp-specialised, in three layouts
+//     (`flash_bwd_wgmma` for D = 64 and 80, `flash_bwd_wide` for 128 and
+//     160, and `flash_bwd_wide` with `shared_consume` for 256); see their
 //     section below.  P and dS are rounded once to bf16 for the products
 //     that take them, as the forward rounds P; dQ is reduce-added into one
 //     buffer, the key tiles taking turns, and cast once at the end.
@@ -118,8 +119,11 @@ __global__ void __launch_bounds__(256) flash_bwd_delta(const Params p) {
 // fp32 body: FMA from shared memory
 // ---------------------------------------------------------------------------
 //
-// One block of 256 threads per (b, kv head, tile of 64 keys).  K and V of the
-// tile stay in shared memory; the block walks the query heads of its group
+// One block of 256 threads per (b, kv head, tile of 64 keys) and, at D = 256,
+// per half of the head's columns (`fma_cols`: each block owns DH = 128 of
+// them).  K and V of the tile stay in shared memory (at D = 256 they are
+// brought in again for each query tile, a half at a time); the block walks
+// the query heads of its group
 // and, for each, the 64-row query tiles of the band (tiles outside the causal
 // / window band are skipped, as the forward skips them; ragged Sq and Skv are
 // masked), recomputes S and P from lse, and accumulates dK and dV in
@@ -131,9 +135,23 @@ __global__ void __launch_bounds__(256) flash_bwd_delta(const Params p) {
 // as the bf16 bodies order their sums: no atomics, a call repeats bit for
 // bit, and G (the wrapper's choice) only bounds the scratch.  Every product is fp32 FMA on fp32 copies of the
 // operands in shared memory.  Each thread owns a 4 x (64 / 16) tile of S and
-// dP and a 4 x (D / 16) tile of dK, dV and dQ; rows of K, V, Q and dO are
+// dP and a 4 x (DH / 16) tile of dK, dV and dQ; rows of K, V, Q and dO are
 // padded to an odd length, so reads along a column are free of bank
 // conflicts.
+//
+// D = 256: four 64 x 257 fp32 tiles alone would take 263 KB, and dK, dV and
+// dQ of all 256 columns 192 registers a thread.  So each block owns one half
+// of the columns (grid.y = 2 Hkv): S and dP are summed over both halves of
+// D, the halves brought in one after the other in column order (both blocks
+// of a key tile sum in the same order, so they form the same P and dS), and
+// then its own half of Q, dO and K (brought in again if it was not the last)
+// gives its columns of dV, dK and dQ.  Shared memory: four 64 x 129 fp32
+// tiles, P and dS, lse and delta: 165,888 bytes; registers: dK, dV, dQ 96
+// a thread, S and dP 32.
+
+// columns of D a block of the fp32 body owns: all of them up to D = 160,
+// half of them at 256
+__host__ __device__ constexpr int fma_cols(int d) { return d > 160 ? 128 : d; }
 
 // the query tiles [x, y] whose rows can see a key of key tile kt (empty
 // when x > y); the main kernel visits them, `sum_dq_tiles` sums them
@@ -147,8 +165,10 @@ __device__ __forceinline__ int2 fma_query_tiles(const Params& p, int kt) {
 
 template <int D>
 __global__ void __launch_bounds__(THREADS) flash_bwd_main(const Params p) {
-  constexpr int LD = D + 1;    // odd: column reads are conflict-free
-  constexpr int DC = D / 16;   // columns of D a thread owns
+  constexpr int DH = fma_cols(D);  // columns of D this block owns
+  constexpr int NH = D / DH;       // blocks a key tile: 1, or 2 at D = 256
+  constexpr int LD = DH + 1;   // odd: column reads are conflict-free
+  constexpr int DC = DH / 16;  // columns of DH a thread owns
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sK = reinterpret_cast<float*>(smem_raw);
   float* sV = sK + BT * LD;
@@ -159,15 +179,18 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_main(const Params p) {
   float* sL = sS + BT * LP;    // lse of the tile's rows
   float* sD = sL + BT;         // delta of the tile's rows
 
-  const int kt = p.kt0 + blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int kt = p.kt0 + blockIdx.x, b = blockIdx.z;
+  const int kvh = blockIdx.y / NH, c0 = blockIdx.y % NH * DH;  // own columns
   const int group = p.Hq / p.Hkv;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int k_lo = kt * BT;
+  const float* kp = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const float* vp = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
 
-  load_rows<D, LD>(sK, static_cast<const float*>(p.k) + b * p.k_sb +
-                              kvh * p.k_sh, p.k_ss, k_lo, p.Skv);
-  load_rows<D, LD>(sV, static_cast<const float*>(p.v) + b * p.v_sb +
-                              kvh * p.v_sh, p.v_ss, k_lo, p.Skv);
+  if (NH == 1) {
+    load_rows<DH, LD>(sK, kp, p.k_ss, k_lo, p.Skv);
+    load_rows<DH, LD>(sV, vp, p.v_ss, k_lo, p.Skv);
+  }
 
   // the query tiles whose rows can see a key of this tile
   const int2 qts = fma_query_tiles(p, kt);
@@ -191,42 +214,54 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_main(const Params p) {
     const long long row_base = ((long long)b * p.Hq + h) * p.Sq;
     for (int qt = qt_lo; qt <= qt_hi; ++qt) {
       const int q_lo = qt * BT;
-      __syncthreads();  // the previous tile's readers are done
-      load_rows<D, LD>(sQ, qp, p.q_ss, q_lo, p.Sq);
-      load_rows<D, LD>(sO, dop, p.do_ss, q_lo, p.Sq);
       if (threadIdx.x < BT) {
         const int row = q_lo + threadIdx.x;
         sL[threadIdx.x] = row < p.Sq ? p.lse[row_base + row] : 0.f;
         sD[threadIdx.x] = row < p.Sq ? p.delta[row_base + row] : 0.f;
       }
-      __syncthreads();
 
-      // S = Q K^T and dP = dO V^T
+      // S = Q K^T and dP = dO V^T, over the column parts in order
       float s[4][4], dp[4][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int c = 0; c < NH; ++c) {
+        __syncthreads();  // the previous part's or tile's readers are done
+        if (NH > 1) {
+          load_rows<DH, LD>(sK, kp + c * DH, p.k_ss, k_lo, p.Skv);
+          load_rows<DH, LD>(sV, vp + c * DH, p.v_ss, k_lo, p.Skv);
+        }
+        load_rows<DH, LD>(sQ, qp + c * DH, p.q_ss, q_lo, p.Sq);
+        load_rows<DH, LD>(sO, dop + c * DH, p.do_ss, q_lo, p.Sq);
+        __syncthreads();
 #pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float aq[4], ao[4], bk[4], bv[4];
+        for (int d = 0; d < DH; ++d) {
+          float aq[4], ao[4], bk[4], bv[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          aq[i] = sQ[(ty * 4 + i) * LD + d];
-          ao[i] = sO[(ty * 4 + i) * LD + d];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          bk[j] = sK[(tx + 16 * j) * LD + d];
-          bv[j] = sV[(tx + 16 * j) * LD + d];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
+          for (int i = 0; i < 4; ++i) {
+            aq[i] = sQ[(ty * 4 + i) * LD + d];
+            ao[i] = sO[(ty * 4 + i) * LD + d];
+          }
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(aq[i], bk[j], s[i][j]);
-            dp[i][j] = fmaf(ao[i], bv[j], dp[i][j]);
+            bk[j] = sK[(tx + 16 * j) * LD + d];
+            bv[j] = sV[(tx + 16 * j) * LD + d];
           }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              s[i][j] = fmaf(aq[i], bk[j], s[i][j]);
+              dp[i][j] = fmaf(ao[i], bv[j], dp[i][j]);
+            }
+        }
+      }  // part c
+      if (NH > 1 && c0 + DH < D) {  // this block's part again, but for V
+        __syncthreads();
+        load_rows<DH, LD>(sK, kp + c0, p.k_ss, k_lo, p.Skv);
+        load_rows<DH, LD>(sQ, qp + c0, p.q_ss, q_lo, p.Sq);
+        load_rows<DH, LD>(sO, dop + c0, p.do_ss, q_lo, p.Sq);
       }
       // P and dS, into shared memory
 #pragma unroll
@@ -278,7 +313,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_main(const Params p) {
       for (int i = 0; i < 4; ++i) {
         const int row = q_lo + ty * 4 + i;
         if (row < p.Sq) {
-          float* dst = dq_part + (row_base + row) * D;
+          float* dst = dq_part + (row_base + row) * D + c0;
 #pragma unroll
           for (int c = 0; c < DC; ++c) dst[tx + 16 * c] = dq[i][c] * p.scale;
         }
@@ -287,9 +322,11 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_main(const Params p) {
   }
 
   float* dkp =
-      static_cast<float*>(p.dk) + (((long long)b * p.Hkv + kvh) * p.Skv) * D;
+      static_cast<float*>(p.dk) + (((long long)b * p.Hkv + kvh) * p.Skv) * D +
+      c0;
   float* dvp =
-      static_cast<float*>(p.dv) + (((long long)b * p.Hkv + kvh) * p.Skv) * D;
+      static_cast<float*>(p.dv) + (((long long)b * p.Hkv + kvh) * p.Skv) * D +
+      c0;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = k_lo + ty * 4 + i;
@@ -327,7 +364,7 @@ __global__ void sum_dq_tiles(const Params p, float* dq, long long n, int kt1,
 // ---------------------------------------------------------------------------
 //
 // Two bodies share the plan below: `flash_bwd_wgmma` for D = 64 and 80 and
-// `flash_bwd_wide` for D = 128 and 160.  One block of 384 threads per (b, kv
+// `flash_bwd_wide` for D = 128, 160 and 256.  One block of 384 threads per (b, kv
 // head, tile of keys), the blocks of a head next to each other, so that the
 // dQ and the Q and dO tiles that the blocks in flight share stay in L2.
 // Warpgroups 0 and 1 consume; warpgroup 2 produces: one thread brings K and
@@ -387,6 +424,29 @@ __global__ void sum_dq_tiles(const Params p, float* dq, long long n, int kt1,
 // dK and dV.  Each stages its own columns of dQ, for a writer and with a
 // counter of its own.
 //
+// D = 256 (`flash_bwd_wide` with `shared_consume`): with the layout of 128
+// and 160 a thread would hold 128 columns of dK and dV (128 registers), S^T
+// and dP^T of all 64 keys (64) and 128 columns of dQ (64): 256 before any
+// address, past the 240 a consumer has.  Of the three ways out (dQ in two
+// 64-column halves one after the other; S^T and dP^T once across the two
+// warpgroups, handed over through shared memory; dQ in a pass of its own),
+// this body takes the second: it saves registers and products alike.  Each
+// warpgroup computes S^T and dP^T of the 64 keys against its own 32 query
+// columns of the tile (m64n32, 16 + 16 registers), forms its half of P^T and
+// dS^T and writes both in bf16 into shared memory with the 128-byte swizzle;
+// after a barrier over both warpgroups each reads all of P^T and dS^T as A
+// from shared memory: dV += P^T dO and dK += dS^T Q (A K-major) and dQ = dS
+// K (A MN-major) for its 128 columns (two 64-column parts).  5 products of D
+// x 64 x 64 a tile, not 7.  Registers a consumer thread: dK and dV 128, dQ
+// 64 (formed after S^T and dP^T are spent), S^T, dP^T, lse and delta 48
+// while the scores are formed.  P^T and dS^T are double-buffered by the
+// tile's parity, so the barrier of each tile also guards the buffers of the
+// one before.  Shared memory: 1 KB of alignment, K and V 64 KB, one stage
+// of Q and dO 64 KB, P^T and dS^T twice 32 KB, the dQ staging 64 KB, the
+// barriers: 230,456 bytes of 232,448, so Q and dO have one stage: the next
+// tile's load waits for this one's products.  dQ is summed over the key
+// tiles in the same fixed order, a writer and a counter a warpgroup.
+//
 // Each tile's accumulators S^T, dP^T and dQ are fresh arrays and no branch
 // reads an accumulator between a commit and its wait: otherwise ptxas
 // serializes every wgmma (C7514).
@@ -403,7 +463,7 @@ template <int D>
 struct BwdPlan {
   static constexpr bool WIDE = D > 80;
   static constexpr int BK = WIDE ? 64 : 128;
-  static constexpr int STAGES = D <= 80 ? 4 : D <= 128 ? 3 : 2;
+  static constexpr int STAGES = D <= 80 ? 4 : D <= 128 ? 3 : D <= 160 ? 2 : 1;
   static constexpr int KT = BK * D * 2, QT = BW_BQ * D * 2;  // tile bytes
   static constexpr int DS = 64 * BW_BQ * 2;  // one dS^T tile
   static constexpr int SMEM = 1024 + 2 * KT + 2 * STAGES * QT + 4 * DS +
@@ -537,15 +597,16 @@ __device__ __forceinline__ void bwd_produce(const BwdMaps& maps,
 }
 
 // lse (base 2) and delta of this thread's query columns of a tile, in the
-// column order of a 64-wide accumulator; columns past Sq read 0 and are
-// masked.
+// column order of an accumulator of NJ n-blocks (8 NJ columns from q_lo);
+// columns past Sq read 0 and are masked.
+template <int NJ>
 __device__ __forceinline__ void load_rows_stats(const Params& p,
                                                 long long row_base, int q_lo,
-                                                int t2, float (&l2)[16],
-                                                float (&dl)[16]) {
+                                                int t2, float (&l2)[2 * NJ],
+                                                float (&dl)[2 * NJ]) {
   constexpr float LOG2E = 1.4426950408889634f;
 #pragma unroll
-  for (int c = 0; c < 16; ++c) {
+  for (int c = 0; c < 2 * NJ; ++c) {
     const int q = q_lo + (c >> 1) * 8 + t2 + (c & 1);
     l2[c] = q < p.Sq ? __ldg(p.lse + row_base + q) * LOG2E : 0.f;
     dl[c] = q < p.Sq ? __ldg(p.delta + row_base + q) : 0.f;
@@ -553,18 +614,19 @@ __device__ __forceinline__ void load_rows_stats(const Params& p,
 }
 
 // P^T and dS^T in place of S^T and dP^T for keys key0 (+ 8) of this thread
-// and the tile's query columns.
+// and the 8 NJ query columns from q_lo.
+template <int NJ>
 __device__ __forceinline__ void scores_to_grads(const Params& p,
-                                                float (&st)[8][4],
-                                                float (&dp)[8][4],
-                                                const float (&l2)[16],
-                                                const float (&dl)[16],
+                                                float (&st)[NJ][4],
+                                                float (&dp)[NJ][4],
+                                                const float (&l2)[2 * NJ],
+                                                const float (&dl)[2 * NJ],
                                                 bool need_mask, int key0,
                                                 int q_lo, int t2,
                                                 float scale2) {
   if (need_mask) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = key0 + (e >> 1) * 8;
@@ -579,7 +641,7 @@ __device__ __forceinline__ void scores_to_grads(const Params& p,
       }
   } else {
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = 2 * j + (e & 1);
@@ -798,7 +860,7 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
     const int q_lo = qt * BW_BQ;
     const long long row_base = ((long long)b * p.Hq + h) * p.Sq;
     float l2[16], dl[16];
-    load_rows_stats(p, row_base, q_lo, t2, l2, dl);
+    load_rows_stats<8>(p, row_base, q_lo, t2, l2, dl);
     const uint32_t sq = sQ + s * QT, so = sO + s * QT;
     const uint32_t sqb = sq + CS::narrow_at(BW_BQ);
     const uint32_t sob = so + CS::narrow_at(BW_BQ);
@@ -811,7 +873,8 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
     if (p.causal) need_mask = need_mask || (kw_lo + 63 > q_lo);
     if (p.window > 0)
       need_mask = need_mask || (kw_lo <= q_lo + BW_BQ - 1 - p.window);
-    scores_to_grads(p, st, dp, l2, dl, need_mask, key0, q_lo, t2, scale2);
+    scores_to_grads<8>(p, st, dp, l2, dl, need_mask, key0, q_lo, t2,
+                       scale2);
     uint32_t pf[4][4], df[4][4];
     const uint32_t sds = sDS + (wg * 2 + (it & 1)) * DS;
     pack_grads(st, dp, pf, df, sds, warp, g8, lane);
@@ -959,7 +1022,7 @@ __device__ __forceinline__ void wide_consume(const Params& p,
     const int q_lo = qt * BW_BQ;
     const long long row_base = ((long long)b * p.Hq + h) * p.Sq;
     float l2[16], dl[16];
-    load_rows_stats(p, row_base, q_lo, t2, l2, dl);
+    load_rows_stats<8>(p, row_base, q_lo, t2, l2, dl);
     const uint32_t sq = sQ + s * QT, so = sO + s * QT;
     const uint32_t sqf = sq + W * BW_BQ * 128, sof = so + W * BW_BQ * 128;
     const uint32_t sqn = sq + CS::narrow_at(BW_BQ);
@@ -973,7 +1036,8 @@ __device__ __forceinline__ void wide_consume(const Params& p,
     if (p.causal) need_mask = need_mask || (k_lo + 63 > q_lo);
     if (p.window > 0)
       need_mask = need_mask || (k_lo <= q_lo + BW_BQ - 1 - p.window);
-    scores_to_grads(p, st, dp, l2, dl, need_mask, key0, q_lo, t2, scale2);
+    scores_to_grads<8>(p, st, dp, l2, dl, need_mask, key0, q_lo, t2,
+                       scale2);
     uint32_t pf[4][4], df[4][4];
     const uint32_t sds = sDS + (W * 2 + (it & 1)) * DS;
     pack_grads(st, dp, pf, df, sds, warp, g8, lane);
@@ -1053,13 +1117,182 @@ __device__ __forceinline__ void wide_consume(const Params& p,
     store_dkv<NB>(p, dkn, dvn, dkp, dvp, D, key0, 64 * CS::NF, t2);
 }
 
+// Consumer warpgroup W of `flash_bwd_wide` at D = 256: S^T and dP^T of the
+// 64 keys against its 32 query columns, its half of P^T and dS^T into the
+// shared buffers, then, with both halves in, its 128 columns (parts 2 W and
+// 2 W + 1) of dK, dV and dQ, A read from shared memory.
+template <int W>
+__device__ __forceinline__ void shared_consume(const Params& p,
+                                               unsigned char* smem_raw,
+                                               uint32_t smem_base,
+                                               uint32_t sK, uint32_t sV,
+                                               uint32_t sQ, uint32_t sO,
+                                               uint32_t sDS, uint32_t sDQ,
+                                               uint32_t bars_full,
+                                               uint32_t bars_empty,
+                                               uint32_t dq_full,
+                                               uint32_t dq_empty, int kt,
+                                               int kvh, int b,
+                                               const Band& band, int n_qt,
+                                               int n_tiles) {
+  constexpr int D = 256;
+  using PL = BwdPlan<D>;
+  constexpr int STAGES = PL::STAGES, QT = PL::QT, DS = PL::DS;
+  constexpr int BK = PL::BK;  // 64 keys, 4 parts of 64 columns
+  constexpr float LOG2E = 1.4426950408889634f;
+  const int group = p.Hq / p.Hkv;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g8 = lane >> 2, t2 = (lane & 3) * 2;
+  const float scale2 = p.scale * LOG2E;  // P in base 2
+  const int k_lo = kt * BK;
+  const int key0 = k_lo + warp * 16 + g8;  // this thread's rows: key0, +8
+
+  float dk[2][8][4], dv[2][8][4];  // parts 2 W and 2 W + 1
+#pragma unroll
+  for (int f = 0; f < 2; ++f)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[f][j][e] = dv[f][j][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % STAGES;
+    const int h = kvh * group + it / n_qt;
+    const int qt = band.qt_lo + it % n_qt;
+    const int q_lo = qt * BW_BQ;
+    const int qw_lo = q_lo + 32 * W;  // this warpgroup's query columns
+    const long long row_base = ((long long)b * p.Hq + h) * p.Sq;
+    float l2[8], dl[8];
+    load_rows_stats<4>(p, row_base, qw_lo, t2, l2, dl);
+    const uint32_t sq = sQ + s * QT, so = sO + s * QT;
+    const uint32_t sp = sDS + (it & 1) * DS;         // P^T
+    const uint32_t sds = sDS + (2 + (it & 1)) * DS;  // dS^T
+    mbar_wait(bars_full + 8 * s, (it / STAGES) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T, this warpgroup's 32 query columns
+    float st[4][4], dp[4][4];
+    wgmma_fence();
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_ss_n32<0, 0>(
+            st, wg_desc(sK + f * BK * 128 + ks * 32, 16, 1024, SW128),
+            wg_desc(sq + f * BW_BQ * 128 + W * 32 * 128 + ks * 32, 16, 1024,
+                    SW128),
+            f + ks);
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_ss_n32<0, 0>(
+            dp, wg_desc(sV + f * BK * 128 + ks * 32, 16, 1024, SW128),
+            wg_desc(so + f * BW_BQ * 128 + W * 32 * 128 + ks * 32, 16, 1024,
+                    SW128),
+            f + ks);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(st);
+    fence_acc(dp);
+
+    bool need_mask = k_lo + 64 > p.Skv || q_lo + BW_BQ > p.Sq;
+    if (p.causal) need_mask = need_mask || (k_lo + 63 > q_lo);
+    if (p.window > 0)
+      need_mask = need_mask || (k_lo <= q_lo + BW_BQ - 1 - p.window);
+    scores_to_grads<4>(p, st, dp, l2, dl, need_mask, key0, qw_lo, t2,
+                       scale2);
+    // this half of P^T and dS^T in bf16: row r (key) at r * 128 bytes,
+    // 16-byte chunk j (query columns 8 j ..) at (j ^ (r & 7)) * 16
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = warp * 16 + g8 + r * 8, chunk = 4 * W + j;
+        const uint32_t off =
+            row * 128 + ((chunk ^ (row & 7)) << 4) + (lane & 3) * 4;
+        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(sp + off),
+                     "r"(pack_bf16(st[j][2 * r], st[j][2 * r + 1]))
+                     : "memory");
+        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(sds + off),
+                     "r"(pack_bf16(dp[j][2 * r], dp[j][2 * r + 1]))
+                     : "memory");
+      }
+    // the generic-proxy writes become visible to wgmma's reads, and both
+    // warpgroups' halves are in
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    pair_sync(3 + (it & 1));
+
+    // dV += P^T dO, dK += dS^T Q, dQ = dS K, this warpgroup's columns
+    float dq[2][8][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int f = 0; f < 2; ++f) {
+        const int part = (2 * W + f) * BW_BQ * 128;
+        wgmma_ss_n64<0, 1>(dv[f], wg_desc(sp + kk * 32, 16, 1024, SW128),
+                           wg_desc(so + part + kk * 2048, 16, 1024, SW128),
+                           1);
+        wgmma_ss_n64<0, 1>(dk[f], wg_desc(sds + kk * 32, 16, 1024, SW128),
+                           wg_desc(sq + part + kk * 2048, 16, 1024, SW128),
+                           1);
+      }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int f = 0; f < 2; ++f)
+        wgmma_ss_n64<1, 1>(
+            dq[f], wg_desc(sds + kk * 2048, 16, 1024, SW128),
+            wg_desc(sK + (2 * W + f) * BK * 128 + kk * 2048, 16, 1024,
+                    SW128),
+            kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int f = 0; f < 2; ++f) {
+      fence_acc(dv[f]);
+      fence_acc(dk[f]);
+      fence_acc(dq[f]);
+    }
+    if (lane == 0) mbar_arrive(bars_empty + 8 * s);  // Q and dO are read
+
+    // this warpgroup's columns of dQ (scaled) into its buffer in register
+    // order, once the writer has read the previous tile's; the writer adds
+    // them into the tile's fp32 sum at register block 16 W, in turn
+    const uint32_t xq_addr = sDQ + W * 16 * 128 * 16;
+    float4* xq = reinterpret_cast<float4*>(smem_raw + (xq_addr - smem_base)) +
+                 (threadIdx.x & 127);
+    if (it >= 1) mbar_wait(dq_empty, (it - 1) & 1);
+#pragma unroll
+    for (int f = 0; f < 2; ++f)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        xq[(8 * f + j) * 128] =
+            make_float4(dq[f][j][0] * p.scale, dq[f][j][1] * p.scale,
+                        dq[f][j][2] * p.scale, dq[f][j][3] * p.scale);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    wg_sync(1 + W);
+    if ((threadIdx.x & 127) == 0) mbar_arrive(dq_full);
+  }
+
+  __nv_bfloat16* dkp = static_cast<__nv_bfloat16*>(p.dk) +
+                       ((long long)b * p.Hkv + kvh) * p.Skv * D;
+  __nv_bfloat16* dvp = static_cast<__nv_bfloat16*>(p.dv) +
+                       ((long long)b * p.Hkv + kvh) * p.Skv * D;
+#pragma unroll
+  for (int f = 0; f < 2; ++f)
+    store_dkv<8>(p, dk[f], dv[f], dkp, dvp, D, key0, 64 * (2 * W + f), t2);
+}
+
 template <int D>
 __global__ void __launch_bounds__(BW_THREADS, 1)
     flash_bwd_wide(const __grid_constant__ BwdMaps maps, const Params p,
                    int* counters) {
   using CS = ColSplit<D>;
   using PL = BwdPlan<D>;
-  static_assert(CS::NF == 2, "two 64-column parts, one a warpgroup");
+  static_assert(CS::NF == 2 || D == 256,
+                "two 64-column parts, one a warpgroup, or four, two each");
+  constexpr int C0 = D == 256 ? 128 : 64;  // columns of warpgroup 0
   constexpr int STAGES = PL::STAGES, KT = PL::KT, QT = PL::QT, DS = PL::DS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t smem_base =
@@ -1099,16 +1332,16 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
     // producer: one thread issues every load, one writer a warpgroup's dQ
-    // (columns 0-63 at register block 0, the rest at block 8)
+    // (columns 0 to C0 - 1 at register block 0, the rest at block C0 / 8)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 256)
       bwd_produce<D>(maps, p, sK, sV, sQ, sO, kv_full, bars_full, bars_empty,
                      kt * PL::BK, kvh, b, band.qt_lo, n_qt, n_tiles);
     if (threadIdx.x == 288 || threadIdx.x == 320) {
       const int w = (threadIdx.x - 288) / 32;
-      const int bytes = (w == 0 ? 64 : D - 64) * 64 * 4;
-      dq_write<1>(p, counters, w, w * 8 * 128 * 4, bytes,
-                  sDQ + w * 8 * 128 * 16, 0, dq_full + 8 * w,
+      const int bytes = (w == 0 ? C0 : D - C0) * 64 * 4;
+      dq_write<1>(p, counters, w, w * C0 / 8 * 128 * 4, bytes,
+                  sDQ + w * C0 / 8 * 128 * 16, 0, dq_full + 8 * w,
                   dq_empty + 8 * w, kt, kvh, b, band, n_qt, n_tiles,
                   BW_BQ * D);
     }
@@ -1116,7 +1349,16 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
   mbar_wait(kv_full, 0);
-  if (wg == 0)
+  if constexpr (D == 256) {
+    if (wg == 0)
+      shared_consume<0>(p, smem_raw, smem_base, sK, sV, sQ, sO, sDS, sDQ,
+                        bars_full, bars_empty, dq_full, dq_empty, kt, kvh, b,
+                        band, n_qt, n_tiles);
+    else
+      shared_consume<1>(p, smem_raw, smem_base, sK, sV, sQ, sO, sDS, sDQ,
+                        bars_full, bars_empty, dq_full + 8, dq_empty + 8, kt,
+                        kvh, b, band, n_qt, n_tiles);
+  } else if (wg == 0)
     wide_consume<D, 0>(p, smem_raw, smem_base, sK, sV, sQ, sO, sDS, sDQ,
                        bars_full, bars_empty, dq_full, dq_empty, kt, kvh, b,
                        band, n_qt, n_tiles);
@@ -1164,8 +1406,9 @@ template <int D>
 int launch_fma(const Params& p, float* dq_out, int run, cudaStream_t stream) {
   cudaError_t err = launch_delta<float, D>(p, stream);
   if (err != cudaSuccess) return (int)err;
+  constexpr int DH = fma_cols(D);
   const size_t smem =
-      sizeof(float) * (4 * BT * (D + 1) + 2 * BT * LP + 2 * BT);
+      sizeof(float) * (4 * BT * (DH + 1) + 2 * BT * LP + 2 * BT);
   auto kernel = flash_bwd_main<D>;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1177,7 +1420,8 @@ int launch_fma(const Params& p, float* dq_out, int run, cudaStream_t stream) {
     Params pr = p;
     pr.kt0 = kt0;
     const int kt1 = min(kt0 + run, n_kt);
-    kernel<<<dim3(kt1 - kt0, p.Hkv, p.B), THREADS, smem, stream>>>(pr);
+    kernel<<<dim3(kt1 - kt0, p.Hkv * (D / DH), p.B), THREADS, smem,
+             stream>>>(pr);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     sum_dq_tiles<D><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
@@ -1246,8 +1490,8 @@ int dispatch_d(const Params& p, int body, void* dq_out, int* counters,
 }  // namespace
 
 // body: 0 = the fp32 FMA body (float32 tensors), 2 = the bf16 wgmma + TMA
-// bodies (bfloat16 tensors); the wrapper chooses it by type.  D = 64, 80, 128
-// or 160.  lse [B,Hq,Sq] fp32 from the forward; delta [B,Hq,Sq] fp32 scratch;
+// bodies (bfloat16 tensors); the wrapper chooses it by type.  D = 64, 80,
+// 128, 160 or 256.  lse [B,Hq,Sq] fp32 from the forward; delta [B,Hq,Sq] fp32 scratch;
 // dq_acc fp32 scratch: for an fp32 call [fma_run,B,Hq,Sq,D], the dQ partials
 // of a run of fma_run key tiles (1 <= fma_run; not zeroed: only the pairs the
 // band visits are written and read), summed in order into dq_out [B,Hq,Sq,D]
@@ -1291,6 +1535,8 @@ extern "C" int repro_flash_attention_bwd(
       return dispatch_d<128>(p, body, dq_out, counters, fma_run, s);
     case 160:
       return dispatch_d<160>(p, body, dq_out, counters, fma_run, s);
+    case 256:
+      return dispatch_d<256>(p, body, dq_out, counters, fma_run, s);
     default:
       return -1;
   }

@@ -17,7 +17,7 @@ On this card causal attention is bound by operations, not bytes: at
 The backward (``csrc/flash_attention_bwd.cu``) has no TPU kernel of its
 own: the reference differentiates its plain attention.  It recomputes P from
 the row log-sum-exp that the forward leaves behind and forms dQ, dK and dV
-(D = 64, 80, 128 and 160) with dK and dV
+(D = 64, 80, 128, 160 and 256) with dK and dV
 summed over each GQA group.  Two bodies, chosen by :func:`flash_bwd_body`:
 ``wgmma`` + TMA for bf16, with P and dS rounded once to bf16 for the
 products that take them (:func:`flash_attention_bwd_tc_plain` is the same
@@ -43,10 +43,10 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.models.layers import NEG_INF, _band_mask, attention_dense
 
-SUPPORTED_HEAD_DIMS = (32, 64, 80, 128, 160)
+SUPPORTED_HEAD_DIMS = (32, 64, 80, 128, 160, 256)
 # head dims the backward takes (a forward that saves the lse for it refuses
 # the others)
-BACKWARD_HEAD_DIMS = (64, 80, 128, 160)
+BACKWARD_HEAD_DIMS = (64, 80, 128, 160, 256)
 _BODY_CODE = {"fma": 0, "wgmma": 2}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -142,7 +142,7 @@ def fma_dq_run(b: int, hq: int, sq: int, skv: int, d: int) -> int:
 
 def bwd_block_keys(d: int) -> int:
     """Keys a block of the bf16 backward body takes at head dim ``d``: 128
-    at D = 64 and 80, 64 at D = 128 and 160 (where the block's two
+    at D = 64 and 80, 64 at D = 128, 160 and 256 (where the block's two
     warpgroups split D instead of the keys)."""
     return 128 if d <= 80 else 64
 
@@ -251,6 +251,20 @@ def _mask_key(causal: bool) -> str:
     return "causal" if causal else "not_causal"
 
 
+def window_key(window: Optional[int]) -> str:
+    """The key of a launch in the wrappers' ``window_launches``: ``"global"``
+    without a window, else ``"w<window>"``."""
+    return "global" if window is None else f"w{window}"
+
+
+def _count(fn, causal: bool, window: Optional[int]) -> None:
+    """One launch of ``fn``'s kernel: in all, by mask and by window."""
+    fn.launches += 1
+    fn.mask_launches[_mask_key(causal)] += 1
+    key = window_key(window)
+    fn.window_launches[key] = fn.window_launches.get(key, 0) + 1
+
+
 def flash_body(dtype: torch.dtype, d: int) -> str:
     """The body a CUDA call runs, by type alone: ``"wgmma"`` (wgmma + TMA)
     for bf16, ``"fma"`` for fp32, at every head dim, window and GQA ratio."""
@@ -260,7 +274,7 @@ def flash_body(dtype: torch.dtype, d: int) -> str:
 def flash_bwd_body(dtype: torch.dtype, d: int) -> str:
     """The backward body a CUDA call runs, by type and head dim alone:
     ``"wgmma"`` (wgmma + TMA) for bf16, ``"fma"`` for fp32, at D = 64, 80,
-    128 and 160.  Other head dims have no backward and raise."""
+    128, 160 and 256.  Other head dims have no backward and raise."""
     if d not in BACKWARD_HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd: head dim {d} not in "
                          f"{BACKWARD_HEAD_DIMS}")
@@ -334,8 +348,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   lse.data_ptr() if lse is not None else None, stream)
     _build.check(lib, code, "flash_attention launch",
                  "repro_flash_attention_error_string")
-    flash_attention.launches += 1
-    flash_attention.mask_launches[_mask_key(causal)] += 1
+    _count(flash_attention, causal, window)
     return o, lse
 
 
@@ -411,13 +424,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   _BODY_CODE[body], run, stream)
     _build.check(lib, code, "flash_attention_bwd launch",
                  "repro_flash_attention_bwd_error_string")
-    flash_attention_bwd.launches += 1
-    flash_attention_bwd.mask_launches[_mask_key(causal)] += 1
+    _count(flash_attention_bwd, causal, window)
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.mask_launches = {"causal": 0, "not_causal": 0}
+flash_attention_bwd.window_launches = {}
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -466,10 +479,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     :func:`flash_body`'s: bf16 runs the ``wgmma`` + TMA body, fp32 the FMA
     body.  The output is allocated as ``[B,Sq,Hq,D]`` and returned as its
     ``transpose(1, 2)`` view, so the caller's merge of heads is free.
-    ``Sq`` and ``Skv`` are arbitrary; ``D`` must be 32, 64, 80, 128 or 160
-    (not 32 when a gradient is wanted) and the type float32 or bfloat16,
-    anything else raises.  Counts forward launches, in all and by mask
-    (``mask_launches``: causal or not); the backward kernel counts its own
+    ``Sq`` and ``Skv`` are arbitrary; ``D`` must be 32, 64, 80, 128, 160 or
+    256 (not 32 when a gradient is wanted) and the type float32 or bfloat16,
+    anything else raises.  Counts forward launches, in all, by mask
+    (``mask_launches``: causal or not) and by window (``window_launches``,
+    keyed by :func:`window_key`); the backward kernel counts its own
     (:func:`flash_attention_bwd`).
     """
     # the Function's forward runs with grad mode off, so the wrapper decides
@@ -481,3 +495,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.mask_launches = {"causal": 0, "not_causal": 0}
+flash_attention.window_launches = {}

@@ -91,10 +91,19 @@ def flash_mask_launches() -> Dict[str, Dict[str, int]]:
             for name in ("flash_attention", "flash_attention_bwd")}
 
 
+def flash_window_launches() -> Dict[str, Dict[str, int]]:
+    """Launches of the flash forward and backward kernels since the last
+    reset, by window: ``"global"`` (no window) or ``"w<window>"`` (they sum
+    to their counts in :func:`launch_counts`)."""
+    return {name: dict(_WRAPPERS[name].window_launches)
+            for name in ("flash_attention", "flash_attention_bwd")}
+
+
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS.values():
         fn.launches = 0
         for key in getattr(fn, "mask_launches", {}):
             fn.mask_launches[key] = 0
+        getattr(fn, "window_launches", {}).clear()
     for body in _mme.matmul_epilogue.body_launches:
         _mme.matmul_epilogue.body_launches[body] = 0

@@ -18,6 +18,10 @@ Components per architecture family (the reference's names and counts):
     positions, the prepended patches not counted, as in the reference)
   * ssm     : ``mamba_layer``   x n_layers
   * hybrid  : ``mamba_layer`` x n_layers + ``shared_attn`` x its applications
+  * dense with a window pattern: ``layer_w{w}`` for each distinct window
+    ``w`` of the pattern (``layer_wglobal`` for ``None``) x its layers, the
+    window cut to ``min(w, seq_len)``, a decode component with its position's
+    ring cache (``p{i}``, the first position of that window)
   * enc-dec : ``encoder_layer`` x n_encoder_layers (prefill and train only:
     decode reads the cached cross K/V) over the ``encoder_seq`` frames, and
     ``decoder_layer`` x n_layers, with the cross K/V of the encoder's
@@ -31,8 +35,8 @@ Components per architecture family (the reference's names and counts):
 
 Where the port differs: prefill's ``lm_head`` heads the last position only,
 as both packages' ``prefill`` does (the reference's component heads every
-position).  MoE, MLA and window-pattern archs raise, as the port's models
-do; more than one device raises (the reference's
+position).  MoE and MLA archs raise, as the port's models do; more than
+one device raises (the reference's
 ``grad_reduce`` component and its shardings wait for ``launch/shardings``,
 ROADMAP item 14).  What is traced is the plain program (the kernel wrappers
 see CPU tensors), as ``graph_cost`` says.
@@ -40,6 +44,8 @@ see CPU tensors), as ``graph_cost`` says.
 from __future__ import annotations
 
 import dataclasses
+import functools
+from collections import Counter
 from typing import Any, Callable, Dict, List
 
 import torch
@@ -119,13 +125,13 @@ def component_costs(arch: ArchConfig, shape: ShapeConfig, plan: ShardingPlan,
         comps.append(Component(name, count, lower_and_cost(name, fn,
                                                            args)[1]))
 
-    def attn_fwd(p, x):
+    def attn_fwd(p, x, window=None):
         pos = T._positions(x.shape[0], x.shape[1], x.device)
-        return T.block_apply(cfg, p, x, positions=pos, window=None)[0]
+        return T.block_apply(cfg, p, x, positions=pos, window=window)[0]
 
-    def attn_decode(p, x, c):
+    def attn_decode(p, x, c, window=None):
         pos = torch.full((x.shape[0], 1), kv_len - 1, dtype=torch.int32)
-        out, c2, _ = T.block_apply(cfg, p, x, positions=pos, window=None,
+        out, c2, _ = T.block_apply(cfg, p, x, positions=pos, window=window,
                                    kv_cache=c, pos=kv_len - 1)
         return out, c2
 
@@ -142,14 +148,26 @@ def component_costs(arch: ArchConfig, shape: ShapeConfig, plan: ShardingPlan,
             fn = _train_wrap(fwd, plan.remat) if mode == "train" else fwd
             cost(name, count * micro, fn, (p, x))
 
-    layer0 = T._layer(params["blocks"], 0)
     if cfg.enc_dec is not None:
         _enc_dec_layers(cfg, params, cache, x, mode, plan, micro, kv_len,
                         cost)
+    elif cfg.window_pattern is not None:
+        pattern = cfg.window_pattern
+        n_cycles = cfg.n_layers // len(pattern)
+        for w, cnt in Counter(pattern).items():
+            i = pattern.index(w)
+            eff = None if w is None else min(w, kv_len)
+            add_layer(f"layer_w{w or 'global'}", n_cycles * cnt,
+                      T._layer(params["cycles"][i], 0),
+                      functools.partial(attn_fwd, window=eff),
+                      functools.partial(attn_decode, window=eff),
+                      cache and T._layer(cache[f"p{i}"], 0))
     elif cfg.family in ("dense", "vlm"):
+        layer0 = T._layer(params["blocks"], 0)
         add_layer("decoder_layer", cfg.n_layers, layer0, attn_fwd,
                   attn_decode, cache and T._layer(cache["self"], 0))
     else:
+        layer0 = T._layer(params["blocks"], 0)
         add_layer("mamba_layer", cfg.n_layers, layer0, mamba_fwd,
                   mamba_decode, cache and T._layer(cache["mamba"], 0))
         if cfg.family == "hybrid":

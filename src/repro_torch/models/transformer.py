@@ -9,11 +9,16 @@ alternating, ``zamba2-2.7b``), the vlm family (the dense stack over
 precomputed patch embeddings prepended to the tokens, ``pixtral-12b``) and
 the encoder-decoder audio family (a non-causal encoder over precomputed
 frame embeddings, then a decoder of causal self-attention, cross-attention
-over the encoder's output and an MLP, ``whisper-small``).  Every other
-family raises ``NotImplementedError``.
+over the encoder's output and an MLP, ``whisper-small``) and the dense
+window-pattern family (a stack of cycles of ``len(window_pattern)`` GQA
+blocks, block ``i`` of a cycle attending over window ``window_pattern[i]``
+or, for ``None``, globally, ``gemma3-12b``).  Every other family raises
+``NotImplementedError``.
 
 Params are nested dicts of tensors; leaves of the layer stack carry a leading
 layer axis, as in the reference, and the stack runs as a python loop over it.
+The window-pattern family's ``params["cycles"]`` is a list of one block dict
+per position of the pattern, each leaf with a leading cycle axis.
 
 Training: :func:`loss_fn` is the reference's next-token CE with the
 time-chunked head of :func:`_chunked_ce`, each chunk under a checkpoint; the
@@ -26,7 +31,11 @@ hybrid family has ``mamba`` and ``attn``, the latter stacked over the
 ``L // attn_every`` applications of a shared block, not over layers; the
 encoder-decoder has ``self`` and the cross-attention K/V ``cross_k``,
 ``cross_v`` ``[L,B,Hkv,F,hd]``, which ``prefill`` replaces with the ones it
-computes from the encoder's output (F frames, in the encoder's type).
+computes from the encoder's output (F frames, in the encoder's type); the
+window-pattern family has ``p0`` ... ``p{period-1}``, each ``{"k", "v":
+[n_cycles,B,Hkv,cap,hd], "kpos": [n_cycles,cap]}`` with ``cap = max_len`` for
+a global position and ``min(w, max_len)`` for a position of window ``w``: a
+ring in which position ``p`` sits in slot ``p % cap``.
 ``pos`` is a host integer, so that a decode step never waits for a device
 scalar.  ``prefill`` and ``decode_step`` **write the cache tensors in place**
 and return a dict that holds the same tensors.
@@ -59,10 +68,11 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def require_ported(cfg: ArchConfig) -> None:
     """Raise unless ``cfg`` is of a family the port runs: the plain dense
-    decoder, the attention-free ssm stack, the hybrid of the two, the dense
-    decoder behind a vision stub (vlm), or the encoder-decoder (audio)."""
-    plain = (cfg.moe is None and cfg.mla is None
-             and cfg.window_pattern is None)
+    decoder (with or without a window pattern), the attention-free ssm
+    stack, the hybrid of the two, the dense decoder behind a vision stub
+    (vlm), or the encoder-decoder (audio)."""
+    plain = cfg.moe is None and cfg.mla is None and (
+        cfg.window_pattern is None or cfg.family == "dense")
     ok = {"dense": cfg.enc_dec is None and cfg.frontend == "none",
           "ssm": cfg.enc_dec is None and cfg.frontend == "none"
           and cfg.ssm is not None,
@@ -73,12 +83,17 @@ def require_ported(cfg: ArchConfig) -> None:
     if not (plain and ok):
         raise NotImplementedError(
             f"arch '{cfg.name}' (family {cfg.family}): not ported yet; the "
-            f"port runs the dense, ssm, hybrid, vlm (vision stub) and "
-            f"encoder-decoder families only")
+            f"port runs the dense (window pattern included), ssm, hybrid, "
+            f"vlm (vision stub) and encoder-decoder families only")
     if cfg.family == "hybrid" and cfg.n_layers % cfg.hybrid.attn_every:
         raise ValueError(f"hybrid arch '{cfg.name}': n_layers "
                          f"{cfg.n_layers} is not a multiple of attn_every "
                          f"{cfg.hybrid.attn_every}")
+    if cfg.window_pattern is not None \
+            and cfg.n_layers % len(cfg.window_pattern):
+        raise ValueError(f"arch '{cfg.name}': n_layers {cfg.n_layers} is not "
+                         f"a multiple of the window pattern's period "
+                         f"{len(cfg.window_pattern)}")
 
 
 # ---------------------------------------------------------------------------
@@ -174,6 +189,11 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
                                          device=gen.device)
         params["blocks"] = block_init(gen, cfg, dtype=dtype, lead=lead,
                                       cross=True)
+    elif cfg.window_pattern is not None:
+        period = len(cfg.window_pattern)
+        params["cycles"] = [
+            block_init(gen, cfg, dtype=dtype, lead=(cfg.n_layers // period,))
+            for _ in range(period)]
     else:
         params["blocks"] = block_init(gen, cfg, dtype=dtype, lead=lead)
     return params
@@ -226,9 +246,14 @@ def gqa_attention(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
                                           valid[None, None, None, :])
         else:                                          # prefill
             if s >= cap:
-                ck.copy_(k[:, :, s - cap:])
-                cv.copy_(v[:, :, s - cap:])
-                kpos.copy_(positions[0, s - cap:])
+                # the last cap positions, position p in slot p % cap, where
+                # decode writes it (the reference keeps them at slots 0 to
+                # cap - 1, which decode's slots match only when s % cap == 0)
+                kept = positions[0, s - cap:]
+                slots = kept.long() % cap
+                ck.index_copy_(2, slots, k[:, :, s - cap:])
+                cv.index_copy_(2, slots, v[:, :, s - cap:])
+                kpos.index_copy_(0, slots, kept.to(kpos.dtype))
             else:
                 ck[:, :, :s] = k
                 cv[:, :, :s] = v
@@ -402,11 +427,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     require_ported(cfg)
     dtype = torch_dtype(cfg.dtype)
 
-    def kvc(n: int) -> Dict[str, torch.Tensor]:
-        shape = (n, batch, cfg.n_kv_heads, max_len, cfg.head_dim_)
+    def kvc(n: int, cap: int = max_len) -> Dict[str, torch.Tensor]:
+        shape = (n, batch, cfg.n_kv_heads, cap, cfg.head_dim_)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device),
-                "kpos": torch.full((n, max_len), -1, dtype=torch.int32,
+                "kpos": torch.full((n, cap), -1, dtype=torch.int32,
                                    device=device)}
 
     if cfg.enc_dec is not None:
@@ -415,6 +440,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
         return {"pos": 0, "self": kvc(cfg.n_layers),
                 "cross_k": torch.zeros(cross, dtype=dtype, device=device),
                 "cross_v": torch.zeros(cross, dtype=dtype, device=device)}
+    if cfg.window_pattern is not None:
+        n_cycles = cfg.n_layers // len(cfg.window_pattern)
+        return {"pos": 0, **{
+            f"p{i}": kvc(n_cycles, max_len if w is None else min(w, max_len))
+            for i, w in enumerate(cfg.window_pattern)}}
     if cfg.family in ("dense", "vlm"):
         return {"pos": 0, "self": kvc(cfg.n_layers)}
     s = cfg.ssm
@@ -455,6 +485,9 @@ def _stack_runner(cfg: ArchConfig, params: Params, x: torch.Tensor,
     if cfg.family == "hybrid":
         return _hybrid_stack(cfg, params, x, positions, cache, use_kernel,
                              pos, remat)
+    if cfg.window_pattern is not None:
+        return _cycle_stack(cfg, params, x, positions, cache, use_kernel,
+                            pos, remat)
 
     def body(p, h, c):
         return block_apply(cfg, p, h, positions=positions, window=None,
@@ -490,6 +523,38 @@ def _hybrid_stack(cfg: ArchConfig, params: Params, x: torch.Tensor,
     new_cache = ({"mamba": cache["mamba"], "attn": cache["attn"]}
                  if cache is not None else None)
     return x, new_cache, 0.0
+
+
+def _cycle_stack(cfg: ArchConfig, params: Params, x: torch.Tensor,
+                 positions: torch.Tensor, cache: Optional[Cache],
+                 use_kernel: bool, pos: Optional[int], remat: str = "none"):
+    """The window-pattern stack: for each cycle, block ``i`` of the pattern
+    with ``window=window_pattern[i]`` (``None``: global), as the reference
+    passes it, and its cache ``cache[f"p{i}"][cycle]``, written in place.
+    Without a cache each whole cycle runs under ``remat``, one checkpoint a
+    cycle, as the reference's scan body over cycles is wrapped."""
+    pattern = cfg.window_pattern
+    cycles = params["cycles"]
+    n_cycles = cfg.n_layers // len(pattern)
+
+    def cycle(ps, h, cs):
+        for i, w in enumerate(pattern):
+            h, _, _ = block_apply(cfg, ps[i], h, positions=positions,
+                                  window=w,
+                                  kv_cache=cs[i] if cs is not None else None,
+                                  pos=pos, use_kernel=use_kernel)
+        return h
+
+    if cache is None:
+        body = _remat_wrap(lambda ps, h: cycle(ps, h, None), remat)
+        for c in range(n_cycles):
+            x = body([_layer(p, c) for p in cycles], x)
+        return x, None, 0.0
+    names = [f"p{i}" for i in range(len(pattern))]
+    for c in range(n_cycles):
+        x = cycle([_layer(p, c) for p in cycles], x,
+                  [_layer(cache[n], c) for n in names])
+    return x, {n: cache[n] for n in names}, 0.0
 
 
 def _head(cfg: ArchConfig, params: Params, x: torch.Tensor,

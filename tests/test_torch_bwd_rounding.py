@@ -52,6 +52,8 @@ FLASH_CASES = {
     "D = 128, not causal": (1, 4, 4, 90, 90, 128, False, None),
     "D = 160, GQA 4, window": (1, 8, 2, 150, 150, 160, True, 48),
     "D = 160, ragged, Sq < Skv": (1, 4, 1, 70, 130, 160, True, None),
+    "D = 256, GQA 2": (1, 4, 2, 150, 150, 256, True, None),
+    "D = 256, window, not causal": (1, 4, 2, 100, 100, 256, False, 32),
 }
 
 
@@ -145,12 +147,13 @@ def test_ssd_rounded_once_control_fails_dlog_a():
     (BF16, 64, "wgmma"), (BF16, 80, "wgmma"),
     (torch.float32, 64, "fma"), (torch.float32, 80, "fma"),
     (BF16, 128, "wgmma"), (BF16, 160, "wgmma"),
-    (torch.float32, 128, "fma"), (torch.float32, 160, "fma")])
+    (torch.float32, 128, "fma"), (torch.float32, 160, "fma"),
+    (BF16, 256, "wgmma"), (torch.float32, 256, "fma")])
 def test_flash_bwd_body(dtype, d, body):
     assert flash_bwd_body(dtype, d) == body
 
 
-@pytest.mark.parametrize("d", [32, 256])
+@pytest.mark.parametrize("d", [32, 96])
 def test_flash_bwd_body_refuses_other_head_dims(d):
     with pytest.raises(ValueError):
         flash_bwd_body(BF16, d)
@@ -163,7 +166,7 @@ def test_ssd_bwd_body(dtype, body):
     assert TC_BWD_CHUNK == 256
 
 
-@pytest.mark.parametrize("d", [64, 80, 128, 160])
+@pytest.mark.parametrize("d", [64, 80, 128, 160, 256])
 def test_fixed_order_dq_repeats_and_matches_fp32(d):
     """The bf16 bodies' dQ plan: each key tile's dQ apart, added into a zero
     fp32 accumulator in a fixed order, the last key tile first.  Two runs
@@ -247,3 +250,30 @@ def test_fma_dq_scratch_is_bounded(b, hq, sq, skv, d, want):
     assert run == want
     assert 1 <= run <= -(-skv // FMA_BLOCK_KEYS)
     assert run * slice_bytes <= max(FMA_DQ_SCRATCH_BYTES, slice_bytes)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 48),
+                                           (False, 32)])
+def test_d256_plans_match_autograd_of_the_plain_forward(causal, window):
+    """gemma3-12b's head dim, GQA 2: the bf16 body's plan
+    (``flash_attention_bwd_tc_plain``, 64 keys a tile) and the fp32 body's
+    order (``flash_attention_bwd_fma_plain``) against ``torch.autograd`` of
+    the plain forward in fp32 on the same values, each within the kernel
+    tolerance of its type (``BWD_RTOL``)."""
+    rng = np.random.default_rng(256)
+    b, hq, hkv, s, d = 1, 4, 2, 160, 256
+    q, k, v, do = (bf16(rng, b, h, s, d) for h in (hq, hkv, hkv, hq))
+    kw = dict(causal=causal, window=window)
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    o32 = flash_attention_plain(*leaves, **kw)
+    want = torch.autograd.grad(o32, leaves, do.float())
+    assert bwd_block_keys(d) == 64
+    for dtype, plan in ((BF16, flash_attention_bwd_tc_plain),
+                        (torch.float32, flash_attention_bwd_fma_plain)):
+        qq, kk, vv, dd = (t.to(dtype) for t in (q, k, v, do))
+        o = flash_attention_plain(qq, kk, vv, **kw)
+        lse = flash_lse_plain(qq, kk, **kw)
+        got = plan(qq, kk, vv, o, lse, dd, **kw)
+        for a, r in zip(got, want):
+            assert a.dtype == dtype and a.shape == r.shape
+            compare_rel(a, r, BWD_RTOL[dtype])

@@ -118,7 +118,9 @@ def test_fusion_rows_match_the_reference():
     flips = [n for n in mine if n.startswith(("fusion.flip.",
                                               "fusion.search."))]
     assert flips == ["fusion.flip.qwen1.5-0.5b|decode_32k|pod",
-                     "fusion.search.qwen1.5-0.5b|decode_32k|pod"]
+                     "fusion.search.qwen1.5-0.5b|decode_32k|pod",
+                     "fusion.flip.gemma3-12b|decode_32k|pod",
+                     "fusion.search.gemma3-12b|decode_32k|pod"]
     for name in flips:
         assert mine[name] == ref[name]
     graph = [n for n in mine if n.startswith("fusion.graph.")]
@@ -133,3 +135,25 @@ def test_fusion_rows_match_the_reference():
             theirs["ana_fused"], theirs["ana_unfused"])
     gate = mine["resource_opt.fusion"]
     assert "PASS" in gate and gate["graph_match"] == "True"
+
+
+def test_gemma_fusion_cells_match_the_reference(monkeypatch):
+    """gemma3-12b's two decode cells of the full grid (``pod`` and
+    ``v5p-pod``; the quick run takes the first), row for row against the
+    reference's: each flips the winner to a fused plan, and beam and batched
+    search find the exhaustive winner."""
+    from repro.core.costmodel import PlanCostCache as RefPlanCostCache
+    from repro_torch.core.costmodel import PlanCostCache
+    cells = [c for c in ref_fusion.FLIP_CELLS if c[0] == "gemma3-12b"]
+    assert cells == [c for c in bench_fusion.FLIP_CELLS
+                     if c[0] == "gemma3-12b"]
+    assert [c[2] for c in cells] == ["pod", "v5p-pod"]
+    monkeypatch.setattr(ref_fusion, "FLIP_CELLS", cells)
+    monkeypatch.setattr(bench_fusion, "FLIP_CELLS", cells)
+    ref_rows, ref_flip, ref_match = ref_fusion._flip_rows(False,
+                                                          RefPlanCostCache())
+    rows, flip, match = bench_fusion._flip_rows(False, PlanCostCache())
+    assert [parse(r) for r in rows] == [parse(r) for r in ref_rows]
+    assert len(rows) == 4 and (flip, match) == (ref_flip, ref_match) == (
+        True, True)
+    assert all("FLIP" in r for r in rows if r.startswith("fusion.flip."))

@@ -2,9 +2,11 @@
 ``launch/component_cost.py`` on a one-device CPU mesh: ``.reduced()`` fp32
 qwen1.5-0.5b, mamba2-1.3b, zamba2-2.7b, qwen1.5-4b, stablelm-12b,
 qwen1.5-110b, pixtral-12b (vlm: the dense components over ``seq_len``
-positions, the patches not counted, as in the reference) and whisper-small
+positions, the patches not counted, as in the reference), whisper-small
 (encoder-decoder: ``encoder_layer`` at prefill and train, ``decoder_layer``
-with its cross K/V) at B 2 x S 64, in prefill, decode and train (train under
+with its cross K/V) and gemma3-12b (window pattern ``(8, None)``:
+``layer_w8`` and ``layer_wglobal``, decode with each one's ring cache) at
+B 2 x S 64, in prefill, decode and train (train under
 remat ``none`` and ``full``).
 
 Names and counts are the reference's.  FLOPs agree within
@@ -38,7 +40,8 @@ from repro_torch.models.model import build_model
 # the dense archs qwen1.5-4b, stablelm-12b and qwen1.5-110b take the dense
 # family's components as they are: no change was needed for them
 ARCHS = ("qwen1.5-0.5b", "mamba2-1.3b", "zamba2-2.7b", "qwen1.5-4b",
-         "stablelm-12b", "qwen1.5-110b", "pixtral-12b", "whisper-small")
+         "stablelm-12b", "qwen1.5-110b", "pixtral-12b", "whisper-small",
+         "gemma3-12b")
 BATCH, SEQ = 2, 64
 FLOP_BAND = (0.75, 1.25)
 

@@ -201,7 +201,8 @@ def test_only_ported_archs_are_registered():
     assert configs.PORTED_ARCH_IDS == ["qwen1.5-0.5b", "mamba2-1.3b",
                                        "zamba2-2.7b", "qwen1.5-4b",
                                        "stablelm-12b", "qwen1.5-110b",
-                                       "pixtral-12b", "whisper-small"]
+                                       "pixtral-12b", "whisper-small",
+                                       "gemma3-12b"]
     cfg = configs.get_config("qwen1.5-0.5b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff,
             cfg.vocab_size, cfg.qkv_bias) == (24, 1024, 16, 2816, 151936, True)
@@ -232,12 +233,18 @@ def test_only_ported_archs_are_registered():
             cfg.vocab_size, cfg.gated_mlp, cfg.qkv_bias,
             cfg.enc_dec.encoder_seq) == (
                 "audio", 12, 12, 768, 12, 64, 3072, 51865, False, True, 1500)
+    cfg = configs.get_config("gemma3-12b")
+    assert (cfg.family, cfg.n_layers, cfg.d_model, cfg.n_heads,
+            cfg.n_kv_heads, cfg.head_dim_, cfg.d_ff, cfg.vocab_size,
+            cfg.tie_embeddings, cfg.window_pattern, cfg.local_window) == (
+                "dense", 48, 3840, 16, 8, 256, 15360, 262144, False,
+                (1024,) * 5 + (None,), 1024)
     with pytest.raises(KeyError):
         configs.get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("arch_id", [
-    "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b", "gemma3-12b"])
+    "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b"])
 def test_unported_arch_raises_not_implemented(arch_id):
     from repro_torch import configs
     assert arch_id in configs.ARCH_IDS
@@ -248,7 +255,8 @@ def test_unported_arch_raises_not_implemented(arch_id):
 @pytest.mark.parametrize("arch_id", ["qwen1.5-0.5b", "mamba2-1.3b",
                                      "zamba2-2.7b", "qwen1.5-4b",
                                      "stablelm-12b", "qwen1.5-110b",
-                                     "pixtral-12b", "whisper-small"])
+                                     "pixtral-12b", "whisper-small",
+                                     "gemma3-12b"])
 def test_config_copy_equals_the_reference(arch_id):
     """The port keeps its own copy of the config schema; it must not drift."""
     from repro.configs import ARCH_IDS, get_config as ref_get
@@ -262,10 +270,11 @@ def test_config_copy_equals_the_reference(arch_id):
 
 
 def test_non_dense_family_raises_in_the_model():
-    """A family still unported (mixture of experts, sliding-window
-    patterns) raises, and so does a hybrid config without its
-    HybridConfig; the ssm and hybrid families build."""
-    from repro_torch.configs import MoEConfig, get_config
+    """A family still unported (mixture of experts, multi-head latent
+    attention) raises, and so does a hybrid config without its
+    HybridConfig; the ssm and hybrid families build, and so does the dense
+    family with a window pattern."""
+    from repro_torch.configs import MLAConfig, MoEConfig, get_config
     from repro_torch.models.model import build_model
     ssm = get_config("mamba2-1.3b").reduced()
     assert build_model(ssm, device="cpu").cfg is ssm
@@ -274,7 +283,11 @@ def test_non_dense_family_raises_in_the_model():
     dense = get_config("qwen1.5-0.5b").reduced()
     for cfg in (dataclasses.replace(dense, family="moe",
                                     moe=MoEConfig(4, 2, 64)),
-                dataclasses.replace(dense, window_pattern=(8, None)),
+                dataclasses.replace(dense, mla=MLAConfig(
+                    q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=16,
+                    qk_rope_head_dim=8, v_head_dim=16)),
                 dataclasses.replace(ssm, family="hybrid")):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             build_model(cfg, device="cpu")
+    windowed = dataclasses.replace(dense, window_pattern=(8, None))
+    assert build_model(windowed, device="cpu").cfg is windowed

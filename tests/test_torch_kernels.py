@@ -208,6 +208,9 @@ FLASH_CASES = [
     (2, 8, 2, 512, 64, True, 128),
     (1, 2, 1, 512, 128, True, None),
     (1, 4, 1, 256, 64, False, 64),
+    # gemma3-12b's head dim and GQA ratio, its global and local bands
+    (1, 4, 2, 256, 256, True, None),
+    (1, 4, 2, 256, 256, True, 64),
 ]
 
 
@@ -264,7 +267,7 @@ def test_flash_attention_ragged_length(s, window):
 
 
 @pytest.mark.parametrize("d,causal,window", [(64, True, 64), (64, False, 32),
-                                               (80, True, 64)])
+                                               (80, True, 64), (256, True, 64)])
 def test_flash_attention_more_queries_than_keys_with_a_window(d, causal,
                                                               window):
     """Query rows at or past Skv + window see no key and come out zero, as
@@ -286,10 +289,10 @@ def test_flash_attention_more_queries_than_keys_with_a_window(d, causal,
 @pytest.mark.parametrize("dtype,d,body", [
     (torch.float32, 32, "fma"), (torch.float32, 64, "fma"),
     (torch.float32, 80, "fma"), (torch.float32, 128, "fma"),
-    (torch.float32, 160, "fma"),
+    (torch.float32, 160, "fma"), (torch.float32, 256, "fma"),
     (torch.bfloat16, 32, "wgmma"), (torch.bfloat16, 64, "wgmma"),
     (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 160, "wgmma")])
+    (torch.bfloat16, 160, "wgmma"), (torch.bfloat16, 256, "wgmma")])
 def test_flash_body_goes_by_type_and_head_dim(dtype, d, body):
     assert flash_body(dtype, d) == body
 

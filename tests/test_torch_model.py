@@ -152,16 +152,25 @@ def test_reference_prefill_through_its_kernel_matches_the_port(pair):
 
 
 def test_prefill_longer_than_the_cache_keeps_the_last_keys(pair):
+    """The last ``cap`` keys, as the reference keeps them, but placed by
+    position: position ``p`` in slot ``p % cap``, where decode writes it
+    (the reference keeps them at slots 0 to cap - 1; ROADMAP Queue 3,
+    settled divergences)."""
     ref_cfg, ref_params, cfg, params, tokens = pair
     ref_model, model = ref_build_model(ref_cfg), build_model(cfg, "cpu")
+    cap, s = 10, tokens.shape[1]
+    assert s > cap and s % cap
     lg_ref, c_ref = ref_model.prefill(ref_params, jnp.asarray(tokens),
-                                      ref_model.init_cache(2, 10))
+                                      ref_model.init_cache(2, cap))
     lg, cache = model.prefill(params, torch.from_numpy(tokens),
-                              model.init_cache(2, 10))
+                              model.init_cache(2, cap))
     np.testing.assert_allclose(lg.numpy(), np.asarray(lg_ref), **TOL)
-    assert np.array_equal(cache["self"]["kpos"].numpy(),
-                          np.asarray(c_ref["self"]["kpos"]))
-    np.testing.assert_allclose(cache["self"]["k"].numpy(),
+    slots = np.arange(s - cap, s) % cap   # of the reference's slots 0..cap-1
+    kpos = cache["self"]["kpos"].numpy()
+    assert np.array_equal(kpos[:, slots], np.asarray(c_ref["self"]["kpos"]))
+    assert np.array_equal(kpos[:, np.arange(s - cap, s) % cap],
+                          np.tile(np.arange(s - cap, s), (kpos.shape[0], 1)))
+    np.testing.assert_allclose(cache["self"]["k"].numpy()[:, :, :, slots],
                                np.asarray(c_ref["self"]["k"]), **TOL)
 
 

@@ -12,7 +12,9 @@ path runs on the card (``chip_smoke.path_config``; reduced in width here),
 with GQA kept (4 heads over 2 kv heads), and so are the frontend archs
 pixtral-12b (patches prepended) and whisper-small (a non-causal encoder
 and a decoder with cross-attention, which takes no kernel), each with its
-frontend embeddings.  The serve count is held over a ``generate`` of static
+frontend embeddings, and so is gemma3-12b (its window pattern reduced to
+``(8, None)``), whose flash launches are also held by window, as every
+arch's are.  The serve count is held over a ``generate`` of static
 and of continuous batching (static only with a frontend, which is
 single-admission)."""
 import dataclasses
@@ -25,8 +27,9 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import (expected_launches,  # noqa: E402
-                        expected_train_launches, parity_config, path_config)
+from chip_smoke import (expected_flash_windows,  # noqa: E402
+                        expected_launches, expected_train_launches,
+                        parity_config, path_config)
 from repro_torch.runtime.serve_engine import (EngineConfig,  # noqa: E402
                                               Request, ServeEngine)
 from repro_torch.configs import get_config                     # noqa: E402
@@ -47,7 +50,7 @@ STAND_INS = [(fa, "flash_attention_plain", "flash_attention"),
              (mme, "matmul_epilogue_plain", "matmul_epilogue")]
 
 
-DENSE = ("qwen1.5-4b", "stablelm-12b", "qwen1.5-110b")
+DENSE = ("qwen1.5-4b", "stablelm-12b", "qwen1.5-110b", "gemma3-12b")
 FRONTEND = ("pixtral-12b", "whisper-small")
 
 
@@ -62,8 +65,9 @@ def small(arch: str, phase: str):
     return red
 
 
-def count_stand_ins(monkeypatch) -> dict:
-    """Each plain version that stands in for a launch, counted."""
+def count_stand_ins(monkeypatch, windows=None) -> dict:
+    """Each plain version that stands in for a launch, counted; the flash
+    ones also by window into ``windows`` (keyed as the wrappers count)."""
     calls = dict.fromkeys(("flash_attention", "flash_attention_bwd",
                            "tsmm_upper", "ssd_scan", "ssd_scan_bwd",
                            "matmul_epilogue"), 0)
@@ -71,6 +75,10 @@ def count_stand_ins(monkeypatch) -> dict:
     def counted(fn, kernel):
         def wrapper(*args, **kwargs):
             calls[kernel] += 1
+            if windows is not None and kernel.startswith("flash"):
+                key = fa.window_key(kwargs.get("window"))
+                counts = windows.setdefault(kernel, {})
+                counts[key] = counts.get(key, 0) + 1
             return fn(*args, **kwargs)
         return wrapper
 
@@ -94,7 +102,8 @@ def frontend(model, batch: int):
 def test_expected_train_launches_match_the_kernel_path(arch, remat,
                                                        monkeypatch):
     cfg = small(arch, "train")
-    calls = count_stand_ins(monkeypatch)
+    windows = {}
+    calls = count_stand_ins(monkeypatch, windows)
     model = build_model(cfg, device="cpu")
     params = model.init(0)
     opt_cfg = adamw.AdamWConfig()
@@ -110,7 +119,10 @@ def test_expected_train_launches_match_the_kernel_path(arch, remat,
     for _ in range(STEPS):
         params, opt, _, metrics = step(params, opt, None, batch)
         assert torch.isfinite(metrics["loss"])
-    assert calls == expected_train_launches(cfg, remat, BATCH, SEQ, STEPS)
+    expected = expected_train_launches(cfg, remat, BATCH, SEQ, STEPS)
+    assert calls == expected
+    assert windows == {k: v for k, v in expected_flash_windows(
+        cfg, expected).items() if v}
     if cfg.family == "hybrid":
         assert calls["flash_attention_bwd"] == (
             STEPS * cfg.n_layers // cfg.hybrid.attn_every) > 0
@@ -157,12 +169,16 @@ def test_expected_launches_match_the_serve_path(arch, batching,
     reqs = [Request(prompt=torch.randint(1, cfg.vocab_size, (n,),
                                          generator=rng).tolist(),
                     max_new_tokens=4) for n in (9, 16, 5, 12, 7)]
-    calls = count_stand_ins(monkeypatch)
+    windows = {}
+    calls = count_stand_ins(monkeypatch, windows)
     outs = engine.generate(reqs, fe)
     assert all(len(o.tokens) == 4 for o in outs)
     rounds, steps = (engine.stats["admission_rounds"],
                      engine.stats["decode_steps"])
     assert rounds >= (2 if batching == "continuous" and fe is None else 1)
-    assert calls == expected_launches(cfg, rounds, steps)
+    expected = expected_launches(cfg, rounds, steps)
+    assert calls == expected
+    assert windows == {k: v for k, v in expected_flash_windows(
+        cfg, expected).items() if v}
     enc = cfg.enc_dec.n_encoder_layers if cfg.enc_dec else 0
     assert calls["flash_attention"] == (cfg.n_layers + enc) * rounds > 0

@@ -48,11 +48,11 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 
-SOFTMAX = ("auto softmax = [&](float (&sacc)[16][4], int i, "
+SOFTMAX = ("auto softmax = [&](float (&sacc)[NT][4], int i, "
            "float (&alpha)[2]) {")
 PV = ("wgmma_rs_n64(oa[f], pf[kk],", "wgmma_rs_narrow<DB>(ob, pf[kk],")
-QK = ("wgmma_ss_n128(\n                sacc, wg_desc(qa",
-      "wgmma_ss_n128(sacc,\n                          wg_desc(qb")
+QK = ("wgmma_s<BK>(\n                sacc, wg_desc(qa",
+      "wgmma_s<BK>(sacc,\n                        wg_desc(qb")
 # ex2 is defined in csrc/tma.cuh: the variant redefines its calls here
 EX2 = '#include "tma.cuh"'
 VARIANTS = ("base", "loads_only", "no_softmax", "ex2_as_fma", "stages5")
