@@ -12,10 +12,10 @@ epilogue kernel and of tsmm that the same check must catch, and the SSD
 scan's rounding plans, forward and backward, against one bf16 rounding of
 their state paths; every backward call again, bit for bit), with
 ``--ptxas`` a ``ptxas`` line (registers, shared memory and spills of every
-kernel), ``train`` nine times (qwen1.5-0.5b, mamba2-1.3b, zamba2-2.7b,
+kernel), ``train`` ten times (qwen1.5-0.5b, mamba2-1.3b, zamba2-2.7b,
 qwen1.5-4b and whisper-small at full width and depth, stablelm-12b,
-qwen1.5-110b, pixtral-12b and gemma3-12b at the depth ``DEPTH_CUTS``
-states, in bf16 through ``make_train_step(use_kernel=True,
+qwen1.5-110b, pixtral-12b, gemma3-12b and phi3.5-moe-42b-a6.6b at the
+depth ``DEPTH_CUTS`` states, in bf16 through ``make_train_step(use_kernel=True,
 donate=True)``, pixtral with its
 1024 patch embeddings and whisper with its 1500 frame embeddings: one
 step's gradients twice, which must be bit-identical, in bf16 at the path's
@@ -24,14 +24,21 @@ repeated batch, losses, step times, peak memory and every kernel's
 launches against the count the path must give, then the gradients of the
 kernel path against the plain path at two layers, or for zamba2 at one
 application of each shared block, for gemma3-12b at one local and one
-global layer over 2048 positions), ``serve`` nine times (the same archs,
-gemma3-12b at full depth, qwen1.5-110b at its ``DEPTH_CUTS`` depth, in
+global layer over 2048 positions), ``serve`` ten times (the same archs,
+gemma3-12b at full depth, qwen1.5-110b and phi3.5-moe at their
+``DEPTH_CUTS`` depth, in
 bf16 through ``ServeEngine``, static and continuous batching, with a
 frontend the continuous run's second admission raising as the
 reference's does, with the launch count of every kernel, of each body of
 the epilogue kernel and of flash by mask and by window, held against the
 count the arch's path must give, and the bf16 prefill logits with the
-kernels against without them and against the controls),
+kernels against without them and against the controls; for the moe arch a
+``moe`` line before each of its serve and train lines: the share of (token,
+slot) expert choices and of drop decisions that differ between the kernel
+path and the plain path on the same input, at the prefill and at the
+gradient parity's cut, and the share of slots dropped, in the prefill
+rounds, in the decode steps (8 tokens a group: capacity 1 an expert) and
+in a train step),
 ``linreg`` (the
 LinReg DS example at 262144 x 1024 through the tsmm kernel, cold, then warm
 and split into its parts), ``estimate`` (the paper's §3.4 check on the card:
@@ -56,6 +63,7 @@ needs a CUDA device and raises at once without one.  It imports the port
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -99,6 +107,7 @@ from repro_torch.kernels.tsmm import tsmm_upper, tsmm_upper_plain  # noqa: E402
 from repro_torch.core import ShardingPlan, h100_single_config    # noqa: E402
 from repro_torch.launch.component_cost import (  # noqa: E402
     aggregate, component_costs)
+from repro_torch.models import layers as model_layers           # noqa: E402
 from repro_torch.models.layers import _band_mask                 # noqa: E402
 from repro_torch.models.model import build_model                 # noqa: E402
 from repro_torch.optim import adamw                              # noqa: E402
@@ -145,6 +154,10 @@ WIDE_ARCHS = ("qwen1.5-4b", "qwen1.5-110b", "stablelm-12b")
 # (arXiv:2212.04356)
 FRONTEND_ARCHS = ("pixtral-12b", "whisper-small")
 WHISPER_CTX = 448
+# The moe arch: GQA blocks whose MLP is 16 routed experts (top-2, GShard
+# capacity routing, plain batched products); its kernels are flash and the
+# epilogue's head
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 TSMM_CASES = [(512, 256), (1024, 512), (768, 384), (2048, 128)]
 # (b, s, h, p, n, chunk): the reference's kernel test cases
 SSD_CASES = [(2, 128, 4, 16, 32, 32), (1, 256, 2, 64, 128, 64),
@@ -320,14 +333,15 @@ def arch_flash(arch: str, s: int = 2048, causal: bool = True) -> dict:
 
 def path_flash() -> list:
     """(tag, shape) of every wide main-path flash shape: the dense archs'
-    at 2048; gemma3-12b's global layers (causal) and local layers (causal,
-    window 1024) at 2048; pixtral's layers over 1024 patches + 2048 tokens,
-    causal; whisper's encoder over its 1500 frames, not causal (ragged
+    and phi3.5-moe's (32 heads x 128 over 8) at 2048; gemma3-12b's global
+    layers (causal) and local layers (causal, window 1024) at 2048;
+    pixtral's layers over 1024 patches + 2048 tokens, causal; whisper's encoder over its 1500 frames, not causal (ragged
     against every tile); whisper's decoder over its 448-token context,
     causal."""
     pix, whi = get_config("pixtral-12b"), get_config("whisper-small")
     gemma = arch_flash("gemma3-12b")
     return [*((a, arch_flash(a)) for a in WIDE_ARCHS),
+            (MOE_ARCH, arch_flash(MOE_ARCH)),
             ("gemma3-12b global", gemma),
             ("gemma3-12b local",
              {**gemma, "window": get_config("gemma3-12b").local_window}),
@@ -356,13 +370,15 @@ def arch_head(arch: str) -> dict:
 
 def path_mm() -> list:
     """(tag, shape) of the wide archs' epilogue products: each dense arch's
-    prefill gate and head, gemma3-12b's prefill gate, decode gate and head
+    prefill gate and head, phi3.5-moe's head (its experts take no kernel),
+    gemma3-12b's prefill gate, decode gate and head
     (vocab 262144), pixtral's prefill gate over 8 x (1024 + 2048) rows,
     decode gate and head, and whisper's head (its MLP is not gated: no
     epilogue)."""
     pix = get_config("pixtral-12b")
     return [*((f"{a} {kind}", fn(a)) for a in WIDE_ARCHS
               for kind, fn in (("gate", arch_gate), ("head", arch_head))),
+            (f"{MOE_ARCH} head", arch_head(MOE_ARCH)),
             ("gemma3-12b gate", arch_gate("gemma3-12b")),
             ("gemma3-12b decode gate", arch_gate("gemma3-12b", 8)),
             ("gemma3-12b head", arch_head("gemma3-12b")),
@@ -1567,6 +1583,100 @@ def time_bwd_kernels(gen) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# moe routing
+# ---------------------------------------------------------------------------
+
+
+class RoutingRecorder:
+    """While active, each ``layers.moe_route`` call's expert choices
+    ``gate_idx`` and drop decisions ``keep`` (``[G, Tg, k]``, on the card;
+    nothing is read back until asked) are kept, in call order.  It adds no
+    launch of a kernel and no copy to the host.  With ``replay`` (another
+    recorder's calls) call ``i``'s top-k (``layers.stable_top_k``) returns
+    the experts call ``i`` of that run chose and this run's probabilities
+    at them: the same choices, hence the same queues and drops, with this
+    run's own gates."""
+
+    def __init__(self, replay=None):
+        self.calls = []
+        self.replay = replay
+        self._real = None
+
+    def __enter__(self):
+        self._real = (model_layers.moe_route, model_layers.stable_top_k)
+        route, _ = self._real
+
+        def recorded(*args, **kwargs):
+            r = route(*args, **kwargs)
+            self.calls.append((r["gate_idx"].detach(), r["keep"].detach()))
+            return r
+
+        def replayed(probs, k):
+            idx = self.replay[len(self.calls)][0]     # the call under way
+            return torch.gather(probs, -1, idx), idx
+        model_layers.moe_route = recorded
+        if self.replay is not None:
+            model_layers.stable_top_k = replayed
+        return self
+
+    def __exit__(self, *exc):
+        model_layers.moe_route, model_layers.stable_top_k = self._real
+
+
+def routing(cfg, replay=None):
+    """A :class:`RoutingRecorder` (replaying ``replay``'s choices when
+    given) for a moe arch, else a context that records nothing."""
+    if cfg.moe is None:
+        return contextlib.nullcontext()
+    return RoutingRecorder(replay)
+
+
+# Routing is discontinuous: one rounding of difference near a tie sends a
+# token to another expert, or past its expert's capacity, and moves its
+# output by O(1).  The kernel path and the plain path round at other places
+# (flash's P in bf16, the head's fp32 flush), so on the moe arch they route
+# some tokens apart (the moe line's ``choice_flip_share``), and the bf16
+# plain path parts from fp32 by as much (an H100 read 0.35 at the 2-layer
+# parity cut: tools/train_parity.py).  The moe arch's kernel path is
+# therefore held to each bound with the plain path's expert choices
+# replayed (``RoutingRecorder(replay=...)``): the same queues and drops, so
+# the difference is the kernels' own, as on every other arch.  The
+# free-running comparison is reported beside it against the same bound,
+# PASS or FAIL, not raised: a FAIL there is the routing's discontinuity.
+def bound_verdict(value: float, bound: float) -> str:
+    return "PASS" if value <= bound else "FAIL"
+
+
+def routing_flips(a: RoutingRecorder, b: RoutingRecorder) -> dict:
+    """Between two runs of the same moe_route calls (the kernel path's and
+    the plain path's on the same input): the share of (token, slot) expert
+    choices that differ, and of keep / drop decisions that differ, over all
+    the calls and per call (one a layer, and again where a checkpoint
+    reruns it), and each run's share of dropped slots."""
+    if len(a.calls) != len(b.calls):
+        raise AssertionError(f"routing: {len(a.calls)} moe_route calls "
+                             f"against {len(b.calls)}")
+    slots = choice = keep = 0
+    per_call = []
+    for (ia, ka), (ib, kb) in zip(a.calls, b.calls):
+        c = int((ia != ib).sum())
+        slots += ia.numel()
+        choice += c
+        keep += int((ka != kb).sum())
+        per_call.append(c / ia.numel())
+    return {"calls": len(a.calls), "slots": slots,
+            "choice_flip_share": choice / slots,
+            "keep_flip_share": keep / slots,
+            "choice_flip_share_by_call": per_call,
+            "drop_share": [drop_share(r.calls) for r in (a, b)]}
+
+
+def drop_share(calls) -> float:
+    """Share of (token, slot) pairs dropped by their expert's capacity."""
+    kept = sum(int(k.sum()) for _, k in calls)
+    return 1.0 - kept / max(sum(k.numel() for _, k in calls), 1)
+
+
 # serve
 # ---------------------------------------------------------------------------
 
@@ -1595,13 +1705,14 @@ def expected_launches(cfg, rounds: int, steps: int) -> dict:
     decode steps of ``cfg``'s kernel path must make.  Per round: flash once
     for each self-attention layer (or application of a shared block; an
     encoder-decoder's encoder layers and decoder layers both), the SSD scan
-    once for each Mamba2 layer, the epilogue kernel once for each gated MLP
-    and once for the head.  Per decode step: the MLP gates and the head
-    (decode attention, cross-attention and the one-token SSM step are
-    plain)."""
+    once for each Mamba2 layer, the epilogue kernel once for each gated
+    dense MLP (:func:`_n_gate`: a moe layer's experts are plain batched
+    products) and once for the head.  Per decode step: the MLP gates and
+    the head (decode attention, cross-attention and the one-token SSM step
+    are plain)."""
     n_attn = _n_attention(cfg)
     n_ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
-    n_gate = n_attn if cfg.gated_mlp else 0
+    n_gate = _n_gate(cfg)
     return {"flash_attention": n_attn * rounds, "flash_attention_bwd": 0,
             "tsmm_upper": 0, "ssd_scan": n_ssd * rounds, "ssd_scan_bwd": 0,
             "matmul_epilogue": (n_gate + 1) * (rounds + steps)}
@@ -1644,9 +1755,22 @@ def _n_attention(cfg) -> int:
     layers), or applications of a shared block, a forward."""
     if cfg.enc_dec is not None:
         return cfg.n_layers + cfg.enc_dec.n_encoder_layers
-    return {"dense": cfg.n_layers, "vlm": cfg.n_layers,
+    return {"dense": cfg.n_layers, "vlm": cfg.n_layers, "moe": cfg.n_layers,
             "hybrid": cfg.n_layers // cfg.hybrid.attn_every
             if cfg.hybrid else 0}.get(cfg.family, 0)
+
+
+def _n_gate(cfg) -> int:
+    """Gated MLPs a forward runs through the epilogue kernel: one for each
+    self-attention layer (or application of a shared block) of a gated
+    arch; of a moe arch only its dense layers' and its shared experts' (its
+    routed experts are plain batched products, as the reference's)."""
+    if not cfg.gated_mlp:
+        return 0
+    if cfg.moe is not None:
+        nd = cfg.moe.first_dense_layers
+        return nd + ((cfg.n_layers - nd) if cfg.moe.n_shared_experts else 0)
+    return _n_attention(cfg)
 
 
 def expected_bodies(cfg, rounds: int, steps: int) -> dict:
@@ -1654,7 +1778,7 @@ def expected_bodies(cfg, rounds: int, steps: int) -> dict:
     with none left out).  bf16: a round's gates (M = requests x prompt
     length > 64) take ``wgmma``; the heads (one row a request) and a decode
     step's gates take ``small_m``.  fp32: every call takes ``fma``."""
-    n_gate = _n_attention(cfg) if cfg.gated_mlp else 0
+    n_gate = _n_gate(cfg)
     if cfg.dtype == "float32":
         bodies = {"fma": (n_gate + 1) * (rounds + steps)}
     else:
@@ -1718,14 +1842,35 @@ def _summary(run: dict) -> dict:
     return {k: v for k, v in run.items() if k != "tokens"}
 
 
+def prefill_logits(model, params, toks, max_len: int, frontend=None):
+    """The last-token prefill logits of the plain path (``False``), of the
+    kernel path (``True``) and of the kernel path with the plain path's
+    expert choices replayed (``"replayed"``; on an arch without experts the
+    kernel path's own), with a moe arch's routing recorders."""
+    cfg = model.cfg
+    lg, recs = {}, {}
+    with torch.no_grad():
+        for key in [False, True] + (["replayed"] if cfg.moe else []):
+            replay = recs[False].calls if key == "replayed" else None
+            with routing(cfg, replay) as recs[key]:
+                lg[key], _ = model.prefill(params, toks,
+                                           model.init_cache(8, max_len),
+                                           frontend,
+                                           use_kernel=key is not False)
+    torch.cuda.synchronize()
+    lg.setdefault("replayed", lg[True])
+    return lg, recs
+
+
 def control_logits(model, params, toks, fault, max_len: int,
-                   frontend=None) -> torch.Tensor:
+                   frontend=None, replay=None) -> torch.Tensor:
     """Prefill logits of the kernel path with ``ops.matmul_epilogue`` (the
-    MLP gates and the head) replaced by ``fault`` for this one call."""
+    MLP gates and the head) replaced by ``fault`` for this one call (a moe
+    arch replaying the expert choices ``replay``)."""
     real = ops.matmul_epilogue
     ops.matmul_epilogue = fault
     try:
-        with torch.no_grad():
+        with torch.no_grad(), routing(model.cfg, replay):
             logits, _ = model.prefill(params, toks,
                                       model.init_cache(8, max_len), frontend,
                                       use_kernel=True)
@@ -1746,7 +1891,9 @@ def control_logits(model, params, toks, fault, max_len: int,
 # these sound paths on an H100 (qwen 0.104, mamba2 0.305, zamba2 0.254;
 # qwen1.5-4b 0.110, stablelm-12b 0.120, qwen1.5-110b at 10 layers 0.062;
 # pixtral-12b 0.125, whisper-small 0.054; gemma3-12b 0.131, its controls
-# 0.219 and 0.145), rounded up to a multiple of 0.05.
+# 0.219 and 0.145; phi3.5-moe at 24 layers 0.081 with the plain path's
+# expert choices replayed, its controls 0.156 and 0.082, free-running 0.504:
+# ``bound_verdict``'s note), rounded up to a multiple of 0.05.
 # No such bound tells a subtle rounding fault from the sound paths' own
 # rounding: the CONTROLS move the readings by less than 0.05, so
 # ``check_controls`` holds them at the kernel's level.  Last,
@@ -1755,12 +1902,13 @@ def control_logits(model, params, toks, fault, max_len: int,
 # of shared blocks (attn_every 6), and for qwen1.5-110b 2 (its fp32 weights
 # are 5.4 GB a layer and 10 GB the embedding and head), and for gemma3-12b 6,
 # one whole cycle of its window pattern (five local layers and a global
-# one; prompts past its 1024-slot rings).
+# one; prompts past its 1024-slot rings), and for phi3.5-moe 4 (5.2 GB of
+# fp32 weights a layer).
 SERVE_PATHS = [("qwen1.5-0.5b", 0.2, 4), ("mamba2-1.3b", 0.5, 4),
                ("zamba2-2.7b", 0.4, 12), ("qwen1.5-4b", 0.2, 4),
                ("stablelm-12b", 0.2, 4), ("qwen1.5-110b", 0.1, 2),
                ("pixtral-12b", 0.2, 4), ("whisper-small", 0.1, 12),
-               ("gemma3-12b", 0.2, 6)]
+               ("gemma3-12b", 0.2, 6), (MOE_ARCH, 0.15, 4)]
 # Prompt lengths and cache length of each serve path: 256-2048 tokens in a
 # 4096-slot cache (pixtral's 1024 patches, prepended, fit beside them;
 # gemma3-12b's local layers keep rings of 1024 slots, which most prompts
@@ -1776,6 +1924,21 @@ SERVE_SHAPES = {"whisper-small": dict(lo=32, hi=WHISPER_CTX - 32,
 # width and depth.  Width, heads and every other field stay.  Each phase's
 # line prints its cut.
 DEPTH_CUTS = {
+    (MOE_ARCH, "serve"): (
+        24, "2.60 GB of bf16 weights a layer (the 16 experts 16 x 3 x 4096 "
+            "x 6400), 0.53 GB the embedding and head; beside them the serve "
+            "phase holds the plain path's prefill, whose fp32 scores at 32 "
+            "heads x 2048 x 2048 take 4.3 GB a tensor, and a layer's MoE "
+            "transients (the fp32 dispatch and combine [4, 4096, 16, 640] "
+            "671 MB each): 24 layers peak at 81.0 GB (H100 80GB HBM3, "
+            "700 W)"),
+    (MOE_ARCH, "train"): (
+        2, "weights, gradients and the fp32 AdamW moments take 12 bytes a "
+           "parameter (15.6 GB a layer), and AdamW's fp32 temporaries of a "
+           "stacked expert leaf (0.42B parameters a layer) come on top: 3 "
+           "layers run out of memory at 80.2 GB allocating one (4.69 GiB), "
+           "4 at 79.1 GB, 2 peak at 57.9 GB (tools/train_depth.py; H100 "
+           "80GB HBM3, 700 W)"),
     ("gemma3-12b", "train"): (
         6, "weights, gradients and the fp32 AdamW moments take 12 bytes a "
            "parameter (2.69 GB a layer, 24.2 GB the embedding and head), "
@@ -1882,7 +2045,8 @@ def phase_serve(arch: str, bf16_tol: float, fp32_layers: int) -> dict:
     fe = frontend_embeddings(cfg, len(reqs))
 
     static = ServeEngine(model, params, EngineConfig(max_len=max_len))
-    run1 = serve_run(static, reqs, fe)
+    with routing(cfg) as rec_run1:
+        run1 = serve_run(static, reqs, fe)
     main_launches = run1["launches"]                  # the main path's count
     run2 = serve_run(static, reqs, fe)
     if run1["tokens"] != run2["tokens"]:
@@ -1899,12 +2063,35 @@ def phase_serve(arch: str, bf16_tol: float, fp32_layers: int) -> dict:
 
     # prefill logits with the kernels against without, bf16, full depth
     toks = padded_batch(reqs, model.device)
-    with torch.no_grad():
-        lg_k, _ = model.prefill(params, toks, model.init_cache(8, max_len),
-                                fe, use_kernel=True)
-        lg_p, _ = model.prefill(params, toks, model.init_cache(8, max_len),
-                                fe, use_kernel=False)
-    torch.cuda.synchronize()
+    lg, recs = prefill_logits(model, params, toks, max_len, fe)
+    lg_k, lg_p = lg["replayed"], lg[False]
+    if cfg.moe is not None:
+        decode = [c for c in rec_run1.calls if c[0].shape[:2] == (1, 8)]
+        prefill = [c for c in rec_run1.calls if c[0].shape[:2] != (1, 8)]
+        moe = {"phase": "moe", "path": "serve", "arch": cfg.name,
+               "n_layers": cfg.n_layers,
+               "capacity_factor": cfg.moe.capacity_factor,
+               "prefill_kernel_vs_plain": routing_flips(recs[True],
+                                                        recs[False]),
+               "static_run": {
+                   "prefill_calls": len(prefill),
+                   "prefill_drop_share": drop_share(prefill),
+                   "decode_calls": len(decode),
+                   "decode_tokens_a_group": 8,
+                   "decode_capacity": max(int(
+                       cfg.moe.capacity_factor * cfg.moe.top_k * 8
+                       / cfg.moe.n_experts), 1),
+                   "decode_drop_share": drop_share(decode)}}
+        moe["prefill_kernel_vs_plain"].pop("choice_flip_share_by_call")
+        free = float((lg[True] - lg_p).abs().max())
+        moe["bf16_prefill_logits"] = {
+            "free_running_max_abs_diff": free, "bound": bf16_tol,
+            "verdict": bound_verdict(free, bf16_tol),
+            "replayed_max_abs_diff": float((lg_k - lg_p).abs().max())}
+        emit(moe)            # before the bound is checked: a miss shows why
+    # the plain path's expert choices, which the controls replay
+    replay = recs[False].calls if cfg.moe is not None else None
+    del recs, rec_run1, lg
     if lg_k.shape != (8, cfg.vocab_size) or not bool(
             torch.isfinite(lg_k).all()):
         raise AssertionError("prefill logits: wrong shape or non-finite")
@@ -1913,9 +2100,10 @@ def phase_serve(arch: str, bf16_tol: float, fp32_layers: int) -> dict:
         raise AssertionError(f"bf16 prefill logits differ by {bf16_err}")
     logit_std = float(lg_p.std())
     peak_bytes = torch.cuda.max_memory_allocated()
-    controls = {name: float((control_logits(model, params, toks, fault,
-                                            max_len, fe) - lg_p).abs().max())
-                for name, fault in CONTROLS.items()}
+    controls = {name: float((control_logits(
+        model, params, toks, fault, max_len, fe, replay) - lg_p).abs().max())
+        for name, fault in CONTROLS.items()}
+    del replay
     del params, static, lg_k, lg_p
     torch.cuda.empty_cache()
 
@@ -1933,14 +2121,18 @@ def phase_serve(arch: str, bf16_tol: float, fp32_layers: int) -> dict:
     if with_k["tokens"] != without["tokens"]:
         raise AssertionError("fp32 greedy streams with and without the "
                              "kernels differ")
-    with torch.no_grad():
-        lsk, _ = model_s.prefill(params_s, toks,
-                                 model_s.init_cache(8, max_len), fe32,
-                                 use_kernel=True)
-        lsp, _ = model_s.prefill(params_s, toks,
-                                 model_s.init_cache(8, max_len), fe32,
-                                 use_kernel=False)
-    fp32_err = float((lsk - lsp).abs().max())
+    ls, recs = prefill_logits(model_s, params_s, toks, max_len, fe32)
+    fp32_err = float((ls["replayed"] - ls[False]).abs().max())
+    fp32_free = None
+    if cfg.moe is not None:
+        free = float((ls[True] - ls[False]).abs().max())
+        fp32_free = {"free_running_max_abs_diff": free, "bound": 1e-3,
+                     "verdict": bound_verdict(free, 1e-3),
+                     "routing": routing_flips(recs[True], recs[False])}
+        fp32_free["routing"].pop("choice_flip_share_by_call")
+        emit({"phase": "moe", "path": "serve fp32", "arch": cfg.name,
+              "n_layers": fp32_layers, "fp32_prefill_logits": fp32_free})
+    del ls, recs
     if fp32_err > 1e-3:       # fp32 sums in another order, a few layers
         raise AssertionError(f"fp32 prefill logits differ by {fp32_err}")
     del params_s
@@ -1972,6 +2164,7 @@ def phase_serve(arch: str, bf16_tol: float, fp32_layers: int) -> dict:
             "fp32_layers": fp32_layers,
             "fp32_streams_identical": True,
             "fp32_prefill_logits_max_abs_diff": fp32_err,
+            "prefill_logits_routing_replayed": cfg.moe is not None,
             "fp32_with_kernels": _summary(with_k),
             "fp32_without_kernels": _summary(without),
             "max_memory_allocated_bytes": peak_bytes}
@@ -2009,12 +2202,15 @@ def _leaves(tree):
 # are; zamba2 takes the same bound (it read 0.0197 there).  The fp32
 # gradients of the same comparison are held to TRAIN_FP32_BOUND: both paths
 # multiply in fp32 and differ in the order of sums (the H100 read 1.5e-6,
-# 8.4e-5 and 1.2e-4).
+# 8.4e-5 and 1.2e-4).  The moe arch's kernel path is held to both with the
+# plain path's expert choices replayed (``bound_verdict``'s note; free
+# running, an H100 read 0.40 in bf16, where the plain path itself parts
+# from fp32 by 0.35: tools/train_parity.py).
 TRAIN_PATHS = [("qwen1.5-0.5b", "none", 0.05), ("mamba2-1.3b", "full", 0.05),
                ("zamba2-2.7b", "full", 0.05), ("qwen1.5-4b", "full", 0.05),
                ("stablelm-12b", "full", 0.05), ("qwen1.5-110b", "full", 0.05),
                ("pixtral-12b", "full", 0.05), ("whisper-small", "none", 0.05),
-               ("gemma3-12b", "full", 0.05)]
+               ("gemma3-12b", "full", 0.05), (MOE_ARCH, "full", 0.05)]
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 5
 # tokens a row where an arch's own context is shorter than TRAIN_SEQ
 TRAIN_SEQS = {"whisper-small": WHISPER_CTX}
@@ -2081,15 +2277,16 @@ def expected_train_launches(cfg, remat: str, batch: int, seq: int,
     """Launches of each kernel that ``steps`` train steps of ``cfg``'s
     kernel path must make.  A step: each attention layer's flash forward
     and backward, each Mamba2 layer's SSD scan forward and backward, each
-    gated MLP's gate (forward, and again in its backward to recompute the
-    pre-activation) and each CE chunk's head through the epilogue kernel.
+    gated dense MLP's gate (:func:`_n_gate`; forward, and again in its
+    backward to recompute the pre-activation) and each CE chunk's head
+    through the epilogue kernel.
     A forward that a checkpoint reruns in the backward launches again:
     every layer's under remat ``full`` or ``selective``, and every CE
     chunk's head (each chunk is checkpointed)."""
     again = 2 if remat in ("full", "selective") else 1
     n_attn = _n_attention(cfg)
     n_ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
-    n_gate = n_attn if cfg.gated_mlp else 0
+    n_gate = _n_gate(cfg)
     per_step = {"flash_attention": n_attn * again,
                 "flash_attention_bwd": n_attn, "tsmm_upper": 0,
                 "ssd_scan": n_ssd * again, "ssd_scan_bwd": n_ssd,
@@ -2118,37 +2315,57 @@ def grad_parity(cfg, remat: str, dtype: str) -> dict:
     """The gradients of the kernel path against the plain path, at full
     width and the depth of :func:`parity_config`, on one batch: each leaf's
     largest error over its largest magnitude (a :data:`ZERO_GRAD_LEAVES`
-    leaf's over the tree's largest gradient)."""
+    leaf's over the tree's largest gradient).  A moe arch's kernel path
+    replays the plain path's expert choices (:func:`bound_verdict`'s
+    note); its free-running gradients are compared too
+    (``free_running``), with the routing flips between the two paths."""
     cfg_s = parity_config(cfg, dtype)
     model = build_model(cfg_s)
     params = model.init(SEED)
     batch = random_batch(cfg.vocab_size, PARITY_BATCH, parity_seq(cfg),
                          cfg_s)
-    out = {}
-    for use_kernel in (True, False):
-        loss, _, grads = value_and_grad(model, params, batch, remat=remat,
-                                        use_kernel=use_kernel)
-        out[use_kernel] = (float(loss), dict(_named_leaves(grads)))
-    rel = {}
+    out, recs = {}, {}
+    runs = [False, True] + (["replayed"] if cfg.moe is not None else [])
+    for key in runs:
+        replay = recs[False].calls if key == "replayed" else None
+        with routing(cfg, replay) as recs[key]:
+            loss, _, grads = value_and_grad(model, params, batch,
+                                            remat=remat,
+                                            use_kernel=key is not False)
+        out[key] = (float(loss), dict(_named_leaves(grads)))
     tree_top = max(float(g.float().abs().max())
                    for g in out[False][1].values() if g is not None)
-    for name, gk in out[True][1].items():
-        gp = out[False][1][name]
-        if gk is None or gp is None or not bool(torch.isfinite(gk).all()):
-            raise AssertionError(f"gradient parity: leaf {name} has no "
-                                 f"finite gradient")
-        top = tree_top if zero_grad_leaf(name) else float(
-            gp.float().abs().max())
-        rel[name] = float((gk.float() - gp.float()).abs().max()) / max(top,
-                                                                     1e-30)
+
+    def rel_errors(kernel):
+        rel = {}
+        for name, gk in out[kernel][1].items():
+            gp = out[False][1][name]
+            if gk is None or gp is None or not bool(
+                    torch.isfinite(gk).all()):
+                raise AssertionError(f"gradient parity: leaf {name} has no "
+                                     f"finite gradient")
+            top = tree_top if zero_grad_leaf(name) else float(
+                gp.float().abs().max())
+            rel[name] = float((gk.float() - gp.float()).abs().max()) / max(
+                top, 1e-30)
+        return rel
+    rel = rel_errors("replayed" if cfg.moe is not None else True)
     worst = max(rel, key=rel.get)
-    del params, out
+    free = None
+    if cfg.moe is not None:
+        free_rel = rel_errors(True)
+        free_worst = max(free_rel, key=free_rel.get)
+        free = {"max_rel_err": free_rel[free_worst],
+                "worst_leaf": free_worst,
+                "routing": routing_flips(recs[True], recs[False])}
+    del params, out, recs
     torch.cuda.empty_cache()
     return {"dtype": dtype, "layers": cfg_s.n_layers,
             "attn_every": cfg_s.hybrid.attn_every if cfg_s.hybrid else None,
             "batch": [PARITY_BATCH, parity_seq(cfg)],
+            "routing_replayed": cfg.moe is not None,
             "max_rel_err": rel[worst], "worst_leaf": worst,
-            "rel_err_by_leaf": rel}
+            "rel_err_by_leaf": rel, "free_running": free}
 
 
 def grads_bit_identical(model, params, batch, remat: str) -> dict:
@@ -2217,8 +2434,11 @@ def phase_train(arch: str, remat: str, bf16_bound: float) -> dict:
 
     # every leaf gets a gradient, none all zero (but the leaves whose
     # gradient is zero in exact arithmetic): a cut graph shows here
-    _, _, grads = value_and_grad(model, params, batch, remat=remat,
-                                 use_kernel=True)
+    with routing(cfg) as rec:
+        _, _, grads = value_and_grad(model, params, batch, remat=remat,
+                                     use_kernel=True)
+    moe_drop = drop_share(rec.calls) if cfg.moe is not None else None
+    del rec
     dead = [name for name, g in _named_leaves(grads)
             if g is None or not (zero_grad_leaf(name)
                                  or bool((g != 0).any()))]
@@ -2280,6 +2500,27 @@ def phase_train(arch: str, remat: str, bf16_bound: float) -> dict:
 
     parity = {"fp32": grad_parity(cfg, remat, "float32"),
               "bf16": grad_parity(cfg, remat, "bfloat16")}
+    if cfg.moe is not None:
+        free = {dtype: parity[dtype].pop("free_running")
+                for dtype in ("fp32", "bf16")}
+        for dtype, bound in (("fp32", TRAIN_FP32_BOUND),
+                             ("bf16", bf16_bound)):
+            free[dtype]["bound"] = bound
+            free[dtype]["verdict"] = bound_verdict(
+                free[dtype]["max_rel_err"], bound)
+            free[dtype]["replayed_max_rel_err"] = parity[dtype][
+                "max_rel_err"]
+        emit({"phase": "moe", "path": "train", "arch": arch,
+              "n_layers": cfg.n_layers,
+              "capacity_factor": cfg.moe.capacity_factor,
+              "drop_share": moe_drop,
+              "drop_share_note": "the kernel path's first step at the "
+                                 "path's depth, B 8 x S 2048 (4 groups "
+                                 "of 4096 tokens), its checkpoints' "
+                                 "reruns counted again",
+              "parity_free_running": free})
+    for p in parity.values():
+        p.pop("free_running", None)
     if not parity["fp32"]["max_rel_err"] <= TRAIN_FP32_BOUND:
         raise AssertionError(f"{arch}: fp32 gradients of the kernel path "
                              f"off by {parity['fp32']['max_rel_err']}")
@@ -2692,12 +2933,12 @@ def main() -> None:
             launches=shape_launches(tag, m, "flash_attention_bwd", "train"))
     for tag, _ in path_mm():
         mm_times[tag]["max_abs_err"] = err_of(mm_cases, f"{tag} main path")
-    for arch in (*WIDE_ARCHS, "gemma3-12b", *FRONTEND_ARCHS):
-        mm_times[f"{arch} {'gate' if arch != 'whisper-small' else 'head'}"
-                 ].update(launches=arch_launches(arch, "matmul_epilogue"),
-                          launches_note="every launch on the arch's serve "
-                                        "and train paths, its gates and "
-                                        "heads together")
+    for arch in (*WIDE_ARCHS, MOE_ARCH, "gemma3-12b", *FRONTEND_ARCHS):
+        kind = "gate" if _n_gate(get_config(arch)) else "head"
+        mm_times[f"{arch} {kind}"].update(
+            launches=arch_launches(arch, "matmul_epilogue"),
+            launches_note="every launch on the arch's serve and train "
+                          "paths, its gates and heads together")
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

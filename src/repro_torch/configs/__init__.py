@@ -26,6 +26,7 @@ _MODULES = {
     "pixtral-12b": "repro_torch.configs.pixtral_12b",
     "whisper-small": "repro_torch.configs.whisper_small",
     "gemma3-12b": "repro_torch.configs.gemma3_12b",
+    "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi35_moe",
 }
 
 PORTED_ARCH_IDS: List[str] = list(_MODULES)

@@ -18,9 +18,10 @@ from repro_torch.models.transformer import torch_dtype
 
 # leaves the reference keeps in fp32 whatever cfg.dtype says: norm scales
 # (the encoder-decoder's ln_cross and enc_norm among them), the Mamba2
-# block's A_log / D / dt_bias / norm_scale, the SSM cache's state
+# block's A_log / D / dt_bias / norm_scale, the SSM cache's state, the MoE
+# router (in bf16 it would route other tokens than the reference's)
 _FP32_LEAVES = ("ln1", "ln2", "ln", "ln_cross", "final_norm", "enc_norm",
-                "A_log", "D", "dt_bias", "norm_scale", "state")
+                "A_log", "D", "dt_bias", "norm_scale", "state", "w_router")
 
 
 def _convert(tree: Any, name: str, device, dtype: torch.dtype) -> Any:
@@ -43,9 +44,11 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
     and the decoder's ``cross`` among them), lists (the hybrid's
     ``shared_attn``, one block dict each; the window-pattern family's
     ``cycles``, one block dict a position of the pattern, each leaf with a
-    leading cycle axis) kept as lists, the leaves the
-    reference keeps in fp32 (norm scales, ``A_log``, ``D``, ``dt_bias``) in
-    fp32, everything else in ``dtype`` (default ``cfg.dtype``)."""
+    leading cycle axis) kept as lists, the moe family's ``dense_blocks`` and
+    ``blocks`` with their ``moe`` subtrees, the leaves the
+    reference keeps in fp32 (norm scales, ``A_log``, ``D``, ``dt_bias``, the
+    MoE router ``w_router``) in fp32, everything else in ``dtype`` (default
+    ``cfg.dtype``)."""
     return _convert(tree, "", torch.device(device),
                     dtype or torch_dtype(cfg.dtype))
 
@@ -57,7 +60,8 @@ def cache_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
     integer, ``k``/``v``, the encoder-decoder's ``cross_k``/``cross_v`` and
     the SSM's ``conv`` take ``dtype`` (default ``cfg.dtype``), the SSM's
     ``state`` stays fp32, ``kpos`` stays int32; the window-pattern family's
-    ``p0`` ... ``p{period-1}`` come across as the other caches' ``self``."""
+    ``p0`` ... ``p{period-1}`` and the moe family's ``dense`` and ``moe``
+    groups come across as the other caches' ``self``."""
     out = _convert({k: v for k, v in tree.items() if k != "pos"}, "",
                    torch.device(device), dtype or torch_dtype(cfg.dtype))
     out["pos"] = int(np.asarray(tree["pos"]))

@@ -19,7 +19,20 @@ and returns the reference's own :class:`CompiledCost`:
     packages' counts are comparable; they are not equal where the two
     decompose an op their own ways (XLA keeps transcendentals apart, and
     ``jnp.take`` selects over every gathered element), so a whole layer
-    agrees within a band and a product exactly.
+    agrees within a band and a product exactly.  The untagged ops a MoE
+    layer traces are counted as their XLA lowerings count them, or by the
+    same rule where the lowering differs: ``sort`` as XLA's
+    ``HandleSort``, ``n * ceil(log2 n)`` over the operand's ``n``
+    elements (the reference's ``jax.lax.top_k``, which the port's stable
+    sort stands for, lowers on the CPU to a ``TopK`` custom call that XLA
+    counts as none); ``cumsum`` one add an element, the work of a scan
+    (XLA's CPU lowering, a tree of ``reduce-window`` ops, counts about 17
+    an element); ``_softmax`` as its decomposition (the max and the sum by
+    their inputs, the subtraction, exponential and division by their
+    outputs: 5 an element) and its backward 4 an element (a product, a
+    sum, a difference and a product).  The comparisons and ``where`` of
+    the one-hots and the capacity mask are tagged pointwise, one FLOP an
+    element, as XLA counts ``compare`` and ``select``.
   * ``bytes_per_device``: for every op that is not a view or a metadata op,
     the bytes of each distinct input tensor plus the bytes of its outputs.
     Eager runs every op unfused, so this is the traffic of the plan that
@@ -58,6 +71,7 @@ jax.
 """
 from __future__ import annotations
 
+import math
 import weakref
 from typing import Any, Callable, Dict, Sequence, Tuple
 
@@ -82,6 +96,14 @@ _ALLOCATE_ONLY = frozenset(("empty", "empty_strided", "empty_like",
 # XLA counts none for a copy.
 _MOVE_ONLY = frozenset(("clone", "copy", "copy_", "_to_copy",
                         "lift_fresh_copy"))
+# FLOPs of arithmetic ops that carry neither tag, by the elements of their
+# first operand (see the module's docstring)
+_UNTAGGED_FLOPS = {
+    "sort": lambda n: n * math.ceil(math.log2(n)) if n > 1 else 0,
+    "cumsum": lambda n: n,
+    "_softmax": lambda n: 5 * n,
+    "_softmax_backward_data": lambda n: 4 * n,
+}
 
 
 def mesh_devices(mesh) -> int:
@@ -164,6 +186,8 @@ def _elementwise_flops(func, args, kwargs, ins, outs) -> int:
     name = func._overloadpacket.__name__
     if name in _MOVE_ONLY:
         return 0
+    if name in _UNTAGGED_FLOPS:
+        return _UNTAGGED_FLOPS[name](args[0].numel())
     if torch.Tag.reduction in func.tags:
         return max(t.numel() for t in ins.values())
     if torch.Tag.pointwise in func.tags:

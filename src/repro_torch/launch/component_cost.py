@@ -27,6 +27,10 @@ Components per architecture family (the reference's names and counts):
     ``decoder_layer`` x n_layers, with the cross K/V of the encoder's
     output computed inside it at prefill and train, read from the cache
     (``ck``, ``cv``) beside the self-attention cache's slice at decode
+  * moe     : ``dense_layer`` x first_dense_layers (when there are any) and
+    ``moe_layer`` x the rest, decode with the ``dense`` / ``moe`` cache
+    group's slice; the moe layer routes the component's ``B*S`` tokens
+    (B at decode) in the reference's groups
   plus a tail: ``ce_head``, ``embed`` and ``optimizer`` for train,
   ``lm_head`` for serve.  Layer counts are multiplied by the microbatches.
   Decode components carry their layer's cache slice, so the cache traffic is
@@ -35,7 +39,7 @@ Components per architecture family (the reference's names and counts):
 
 Where the port differs: prefill's ``lm_head`` heads the last position only,
 as both packages' ``prefill`` does (the reference's component heads every
-position).  MoE and MLA archs raise, as the port's models do; more than
+position).  MLA archs raise, as the port's models do; more than
 one device raises (the reference's
 ``grad_reduce`` component and its shardings wait for ``launch/shardings``,
 ROADMAP item 14).  What is traced is the plain program (the kernel wrappers
@@ -125,14 +129,15 @@ def component_costs(arch: ArchConfig, shape: ShapeConfig, plan: ShardingPlan,
         comps.append(Component(name, count, lower_and_cost(name, fn,
                                                            args)[1]))
 
-    def attn_fwd(p, x, window=None):
+    def attn_fwd(p, x, window=None, moe=False):
         pos = T._positions(x.shape[0], x.shape[1], x.device)
-        return T.block_apply(cfg, p, x, positions=pos, window=window)[0]
+        return T.block_apply(cfg, p, x, positions=pos, window=window,
+                             moe=moe)[0]
 
-    def attn_decode(p, x, c, window=None):
+    def attn_decode(p, x, c, window=None, moe=False):
         pos = torch.full((x.shape[0], 1), kv_len - 1, dtype=torch.int32)
         out, c2, _ = T.block_apply(cfg, p, x, positions=pos, window=window,
-                                   kv_cache=c, pos=kv_len - 1)
+                                   moe=moe, kv_cache=c, pos=kv_len - 1)
         return out, c2
 
     def mamba_fwd(p, x):
@@ -162,6 +167,17 @@ def component_costs(arch: ArchConfig, shape: ShapeConfig, plan: ShardingPlan,
                       functools.partial(attn_fwd, window=eff),
                       functools.partial(attn_decode, window=eff),
                       cache and T._layer(cache[f"p{i}"], 0))
+    elif cfg.moe is not None:
+        nd = cfg.moe.first_dense_layers
+        if nd:
+            add_layer("dense_layer", nd, T._layer(params["dense_blocks"], 0),
+                      attn_fwd, attn_decode,
+                      cache and T._layer(cache["dense"], 0))
+        add_layer("moe_layer", cfg.n_layers - nd,
+                  T._layer(params["blocks"], 0),
+                  functools.partial(attn_fwd, moe=True),
+                  functools.partial(attn_decode, moe=True),
+                  cache and T._layer(cache["moe"], 0))
     elif cfg.family in ("dense", "vlm"):
         layer0 = T._layer(params["blocks"], 0)
         add_layer("decoder_layer", cfg.n_layers, layer0, attn_fwd,

@@ -4,6 +4,9 @@ Batched prefill+decode with the ServeEngine, on the GPU unless
 ``--device cpu`` is given (there is no silent fall back to the CPU).  An
 arch with a frontend (pixtral-12b's patches, whisper-small's frames) gets
 random embeddings from the seed, as the reference's serve script makes them.
+``--arch`` takes the ported archs; ``--layers`` cuts the depth of one that
+does not fit the card at full depth (``qwen1.5-110b``,
+``phi3.5-moe-42b-a6.6b``), width and every other field kept.
 """
 from __future__ import annotations
 
@@ -13,15 +16,17 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs import PORTED_ARCH_IDS, get_config
 from repro_torch.models.model import build_model
 from repro_torch.runtime.serve_engine import Request, ServeEngine
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
+    ap.add_argument("--arch", required=True, choices=PORTED_ARCH_IDS)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=16)
@@ -39,6 +44,8 @@ def main(argv=None) -> None:
         arch = dataclasses.replace(arch.reduced(), dtype="float32")
     if args.dtype is not None:
         arch = dataclasses.replace(arch, dtype=args.dtype)
+    if args.layers is not None:
+        arch = dataclasses.replace(arch, n_layers=args.layers)
     model = build_model(arch, device=args.device)
     params = model.init(0)
     engine = ServeEngine(model, params, max_len=args.max_len,

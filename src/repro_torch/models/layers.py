@@ -10,15 +10,18 @@ Plain functions on tensors.  Layouts are the reference's: weights
     under grad mode it runs under a checkpoint, as in the reference;
   * sliding-window layers visit a bounded band of KV chunks;
   * the gated MLP's ``act(x @ w_gate)`` goes through the matmul-epilogue
-    kernel under ``use_kernel``.
-
-``moe_ffn`` is not ported yet.
+    kernel under ``use_kernel``;
+  * ``moe_ffn`` is the reference's GShard capacity routing, as plain torch
+    ops: an fp32 router, a top-k (``stable_top_k``) that keeps
+    ``jax.lax.top_k``'s order among equal values, queue positions by an
+    exclusive cumsum in (token, slot) order, and dense fp32 one-hot
+    dispatch and combine products.
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -263,3 +266,105 @@ def ffn(x: torch.Tensor, params: Dict[str, torch.Tensor], gated: bool,
     else:
         h = actf(dense(x, params["w_up"], params.get("b_up")))
     return dense(h, params["w_down"], params.get("b_down"))
+
+
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+
+
+def stable_top_k(x: torch.Tensor,
+                 k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest entries of the last axis and their indices, largest
+    first and equal values in index order (the lower index first), as
+    ``jax.lax.top_k`` orders them.  ``torch.topk`` promises no order among
+    equal values, on the CPU or on the GPU; a stable descending sort
+    does."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_route(x: torch.Tensor, w_router: torch.Tensor, *, top_k: int,
+              capacity_factor: float,
+              group_size: int = 4096) -> Dict[str, torch.Tensor]:
+    """The reference's routing of ``moe_ffn`` for x ``[T, d]`` over the
+    router ``[d, E]``.  Tokens go in groups of ``tg = min(group_size, T)``
+    (one group when ``T % tg``), each expert takes ``capacity`` (token,
+    slot) pairs a group, in (token, slot) order.  Returns ``probs``
+    ``[G, Tg, E]`` fp32, ``onehot`` ``[G, Tg, k, E]`` (before drops),
+    ``gate_idx`` ``[G, Tg, k]``, ``keep`` (bool, the slot is within its
+    expert's capacity), the fp32 ``dispatch`` and ``combine`` ``[G, Tg, E,
+    C]`` and ``capacity``."""
+    t, d = x.shape
+    e = w_router.shape[-1]
+    tg = min(group_size, t)
+    if t % tg:                                       # fall back: one group
+        tg = t
+    g = t // tg
+    capacity = max(int(capacity_factor * top_k * tg / e), 1)
+    xg = x.reshape(g, tg, d)
+
+    logits = torch.einsum("gtd,de->gte", xg.to(torch.float32),
+                          w_router.to(torch.float32))
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = stable_top_k(probs, top_k)         # [G, Tg, k]
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    # position of each (token, slot) within its expert queue (per group);
+    # one-hots by comparison, as jax.nn.one_hot makes them
+    onehot = (gate_idx[..., None] == torch.arange(
+        e, device=x.device)).to(torch.float32)                  # [G, Tg, k, E]
+    flat = onehot.reshape(g, tg * top_k, e)
+    pos = (torch.cumsum(flat, dim=1) - flat).reshape(g, tg, top_k, e)
+    pos = torch.einsum("gtke,gtke->gtk", pos, onehot)           # [G, Tg, k]
+    keep = pos < capacity
+    gate_vals = gate_vals * keep
+
+    pos_cap = torch.where(keep, pos, 0).to(torch.int32)
+    disp = onehot * keep[..., None]                             # [G, Tg, k, E]
+    pos_onehot = (pos_cap[..., None] == torch.arange(
+        capacity, device=x.device)).to(torch.float32)
+    dispatch = torch.einsum("gtke,gtkc->gtec", disp, pos_onehot)
+    combine = torch.einsum("gtk,gtke,gtkc->gtec", gate_vals, disp,
+                           pos_onehot)
+    return {"probs": probs, "onehot": onehot, "gate_idx": gate_idx,
+            "keep": keep, "dispatch": dispatch, "combine": combine,
+            "capacity": capacity}
+
+
+def moe_ffn(x: torch.Tensor, params: Dict[str, torch.Tensor], *, top_k: int,
+            capacity_factor: float, gated: bool,
+            group_size: int = 4096) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GShard-style capacity-based MoE with token grouping (the reference's
+    ``moe_ffn``, line for line).
+
+    x: [T, d].  params: w_router [d, E] (fp32); w_gate / w_up [E, d, ff];
+    w_down [E, ff, d].  Returns (out [T, d] in x's type, the Switch aux
+    loss, a 0-d fp32 tensor).  Routing is :func:`moe_route`'s.  The tokens
+    reach their experts' queues ``[G, E, C, d]`` and come back through
+    dense fp32 one-hot products, cast to x's type where the reference
+    casts; the expert products are batched products in x's type.  Every
+    sum has one fixed order: a rerun repeats bit for bit.
+    """
+    t, d = x.shape
+    r = moe_route(x, params["w_router"], top_k=top_k,
+                  capacity_factor=capacity_factor, group_size=group_size)
+    g = r["probs"].shape[0]
+    xg = x.reshape(g, t // g, d)
+    xe = torch.einsum("gtd,gtec->gecd", xg.to(torch.float32), r["dispatch"])
+    xe = xe.to(x.dtype)                                         # [G, E, C, d]
+    up = torch.einsum("gecd,edf->gecf", xe, params["w_up"].to(x.dtype))
+    if gated:
+        h = F.silu(torch.einsum("gecd,edf->gecf", xe,
+                                params["w_gate"].to(x.dtype))) * up
+    else:
+        h = F.silu(up)
+    ye = torch.einsum("gecf,efd->gecd", h, params["w_down"].to(x.dtype))
+    out = torch.einsum("gecd,gtec->gtd", ye.to(torch.float32), r["combine"])
+
+    # load-balance aux loss (Switch-style), averaged over groups
+    e = r["probs"].shape[-1]
+    density = r["onehot"].sum(2).mean(1)                        # [G, E]
+    density_proxy = r["probs"].mean(1)
+    aux = (density * density_proxy).sum(-1).mean() * e
+    return out.reshape(t, d).to(x.dtype), aux.to(torch.float32)

@@ -45,29 +45,34 @@ class Model:
 
     # ------------------------------------------------------------ training
     def loss(self, params, batch, *, remat: str = "none",
-             use_kernel: bool = False):
+             use_kernel: bool = False, capacity_factor=None):
         return T.loss_fn(self.cfg, params, batch, remat=remat,
-                         use_kernel=use_kernel)
+                         use_kernel=use_kernel,
+                         capacity_factor=capacity_factor)
 
     def forward(self, params, tokens, frontend=None, *, remat: str = "none",
-                use_kernel: bool = False):
+                use_kernel: bool = False, capacity_factor=None):
         return T.forward(self.cfg, params, tokens, frontend, remat=remat,
-                         use_kernel=use_kernel)
+                         use_kernel=use_kernel,
+                         capacity_factor=capacity_factor)
 
     # ------------------------------------------------------------ serving
     def init_cache(self, batch: int, max_len: int) -> T.Cache:
         return T.init_cache(self.cfg, batch, max_len, self.device)
 
     def prefill(self, params, tokens, cache, frontend=None, *,
-                use_kernel: bool = False):
+                use_kernel: bool = False, capacity_factor=None):
         """Writes ``cache`` in place and returns it beside the logits."""
         return T.prefill(self.cfg, params, tokens, cache, frontend,
-                         use_kernel=use_kernel)
+                         use_kernel=use_kernel,
+                         capacity_factor=capacity_factor)
 
-    def decode_step(self, params, token, cache, *, use_kernel: bool = False):
+    def decode_step(self, params, token, cache, *, use_kernel: bool = False,
+                    capacity_factor=None):
         """Writes ``cache`` in place and returns it beside the logits."""
         return T.decode_step(self.cfg, params, token, cache,
-                             use_kernel=use_kernel)
+                             use_kernel=use_kernel,
+                             capacity_factor=capacity_factor)
 
     # ------------------------------------------------------------- helpers
     def frontend_shape(self, batch: int) -> Optional[Tuple[int, ...]]:

@@ -12,13 +12,20 @@ frame embeddings, then a decoder of causal self-attention, cross-attention
 over the encoder's output and an MLP, ``whisper-small``) and the dense
 window-pattern family (a stack of cycles of ``len(window_pattern)`` GQA
 blocks, block ``i`` of a cycle attending over window ``window_pattern[i]``
-or, for ``None``, globally, ``gemma3-12b``).  Every other family raises
+or, for ``None``, globally, ``gemma3-12b``) and the moe family (GQA blocks
+whose MLP is the reference's GShard capacity-routed experts,
+:func:`layers.moe_ffn`, after ``first_dense_layers`` dense blocks,
+``phi3.5-moe-42b-a6.6b``).  MLA (``deepseek-v3``) raises
 ``NotImplementedError``.
 
 Params are nested dicts of tensors; leaves of the layer stack carry a leading
 layer axis, as in the reference, and the stack runs as a python loop over it.
 The window-pattern family's ``params["cycles"]`` is a list of one block dict
-per position of the pattern, each leaf with a leading cycle axis.
+per position of the pattern, each leaf with a leading cycle axis.  The moe
+family keeps the reference's two stacks: ``dense_blocks`` (only when
+``first_dense_layers``) and ``blocks``, whose ``moe`` subtree holds the
+fp32 router ``w_router [L,d,E]`` and the experts ``w_gate``, ``w_up``
+``[L,E,d,ff]`` and ``w_down`` ``[L,E,ff,d]``.
 
 Training: :func:`loss_fn` is the reference's next-token CE with the
 time-chunked head of :func:`_chunked_ce`, each chunk under a checkpoint; the
@@ -35,7 +42,9 @@ computes from the encoder's output (F frames, in the encoder's type); the
 window-pattern family has ``p0`` ... ``p{period-1}``, each ``{"k", "v":
 [n_cycles,B,Hkv,cap,hd], "kpos": [n_cycles,cap]}`` with ``cap = max_len`` for
 a global position and ``min(w, max_len)`` for a position of window ``w``: a
-ring in which position ``p`` sits in slot ``p % cap``.
+ring in which position ``p`` sits in slot ``p % cap``; the moe family has
+the reference's ``dense`` (only when ``first_dense_layers``) and ``moe``
+groups, each the dense family's ``self``.
 ``pos`` is a host integer, so that a decode step never waits for a device
 scalar.  ``prefill`` and ``decode_step`` **write the cache tensors in place**
 and return a dict that holds the same tensors.
@@ -70,21 +79,24 @@ def require_ported(cfg: ArchConfig) -> None:
     """Raise unless ``cfg`` is of a family the port runs: the plain dense
     decoder (with or without a window pattern), the attention-free ssm
     stack, the hybrid of the two, the dense decoder behind a vision stub
-    (vlm), or the encoder-decoder (audio)."""
-    plain = cfg.moe is None and cfg.mla is None and (
-        cfg.window_pattern is None or cfg.family == "dense")
+    (vlm), the encoder-decoder (audio), or the moe decoder without MLA."""
+    plain = cfg.mla is None and (cfg.moe is None) == (cfg.family != "moe") \
+        and (cfg.window_pattern is None or cfg.family == "dense")
     ok = {"dense": cfg.enc_dec is None and cfg.frontend == "none",
           "ssm": cfg.enc_dec is None and cfg.frontend == "none"
           and cfg.ssm is not None,
           "hybrid": cfg.enc_dec is None and cfg.frontend == "none"
           and cfg.ssm is not None and cfg.hybrid is not None,
           "vlm": cfg.enc_dec is None and cfg.frontend == "vision_stub",
-          "audio": cfg.enc_dec is not None}.get(cfg.family, False)
+          "audio": cfg.enc_dec is not None,
+          "moe": cfg.enc_dec is None and cfg.frontend == "none"
+          }.get(cfg.family, False)
     if not (plain and ok):
         raise NotImplementedError(
             f"arch '{cfg.name}' (family {cfg.family}): not ported yet; the "
             f"port runs the dense (window pattern included), ssm, hybrid, "
-            f"vlm (vision stub) and encoder-decoder families only")
+            f"vlm (vision stub), encoder-decoder and moe (without MLA) "
+            f"families only")
     if cfg.family == "hybrid" and cfg.n_layers % cfg.hybrid.attn_every:
         raise ValueError(f"hybrid arch '{cfg.name}': n_layers "
                          f"{cfg.n_layers} is not a multiple of attn_every "
@@ -103,8 +115,17 @@ def require_ported(cfg: ArchConfig) -> None:
 
 def _norm_init(gen: torch.Generator, shape, scale: float,
                dtype: torch.dtype) -> torch.Tensor:
-    return (torch.randn(shape, generator=gen, device=gen.device,
-                        dtype=torch.float32) * scale).to(dtype)
+    """``N(0, scale^2)`` drawn in fp32, in ``dtype``.  A leaf of more than two
+    axes (a stack) is filled one matrix at a time, so the fp32 draw never
+    holds more than one: a whole stacked expert leaf of phi3.5-moe at 24
+    layers would take 40 GB in fp32."""
+    if len(shape) <= 2:
+        return (torch.randn(shape, generator=gen, device=gen.device,
+                            dtype=torch.float32) * scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for i in range(shape[0]):
+        out[i] = _norm_init(gen, shape[1:], scale, dtype)
+    return out
 
 
 def attn_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
@@ -140,17 +161,43 @@ def mlp_init(gen: torch.Generator, cfg: ArchConfig, d_ff: int,
     return p
 
 
+def moe_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
+             lead: Tuple[int, ...] = ()) -> Params:
+    """The routed experts' weights in ``dtype`` and the router in fp32
+    whatever ``dtype`` is, as the reference keeps it; a shared expert's MLP
+    (``shared``) when ``n_shared_experts``."""
+    mc = cfg.moe
+    d, e, f = cfg.d_model, mc.n_experts, mc.d_ff_expert
+    std = d ** -0.5
+    p = {"w_router": _norm_init(gen, lead + (d, e), std, torch.float32),
+         "w_up": _norm_init(gen, lead + (e, d, f), std, dtype),
+         "w_down": _norm_init(gen, lead + (e, f, d), f ** -0.5, dtype)}
+    if cfg.gated_mlp:
+        p["w_gate"] = _norm_init(gen, lead + (e, d, f), std, dtype)
+    if mc.n_shared_experts:
+        p["shared"] = mlp_init(gen, cfg, mc.n_shared_experts * f, dtype, lead)
+    return p
+
+
 def block_init(gen: torch.Generator, cfg: ArchConfig, *, dtype: torch.dtype,
-               lead: Tuple[int, ...] = (), cross: bool = False) -> Params:
+               lead: Tuple[int, ...] = (), cross: bool = False,
+               moe: bool = False) -> Params:
     """A pre-norm block; ``cross`` adds the decoder's cross-attention and its
-    norm (``ln_cross``, ``cross``)."""
+    norm (``ln_cross``, ``cross``); ``moe`` puts the routed experts
+    (``moe``) where the MLP is.  A moe arch's dense blocks take
+    ``d_ff_dense`` when it is set."""
     d = cfg.d_model
     zeros = lambda: torch.zeros(lead + (d,), dtype=torch.float32,
                                 device=gen.device)
     p = {"ln1": zeros(), "ln2": zeros(),
-         "attn": attn_init(gen, cfg, dtype, lead),
-         "mlp": mlp_init(gen, cfg, cfg.d_ff if cfg.d_ff else 4 * d, dtype,
-                         lead)}
+         "attn": attn_init(gen, cfg, dtype, lead)}
+    if moe:
+        p["moe"] = moe_init(gen, cfg, dtype, lead)
+    else:
+        d_ff = cfg.d_ff if cfg.d_ff else 4 * d
+        if cfg.moe is not None and cfg.moe.d_ff_dense:
+            d_ff = cfg.moe.d_ff_dense
+        p["mlp"] = mlp_init(gen, cfg, d_ff, dtype, lead)
     if cross:
         p["ln_cross"] = zeros()
         p["cross"] = attn_init(gen, cfg, dtype, lead)
@@ -189,6 +236,13 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
                                          device=gen.device)
         params["blocks"] = block_init(gen, cfg, dtype=dtype, lead=lead,
                                       cross=True)
+    elif cfg.moe is not None:
+        nd = cfg.moe.first_dense_layers
+        if nd:
+            params["dense_blocks"] = block_init(gen, cfg, dtype=dtype,
+                                                lead=(nd,))
+        params["blocks"] = block_init(gen, cfg, dtype=dtype,
+                                      lead=(cfg.n_layers - nd,), moe=True)
     elif cfg.window_pattern is not None:
         period = len(cfg.window_pattern)
         params["cycles"] = [
@@ -313,12 +367,17 @@ def cross_kv(cfg: ArchConfig, p: Params, src: torch.Tensor):
 
 def block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
                 positions: torch.Tensor, window: Optional[int],
-                causal: bool = True, kv_cache: Optional[Dict] = None,
+                causal: bool = True, moe: bool = False,
+                kv_cache: Optional[Dict] = None,
                 cross_state: Optional[Tuple] = None,
-                pos: Optional[int] = None, use_kernel: bool = False):
+                pos: Optional[int] = None,
+                capacity_factor: Optional[float] = None,
+                use_kernel: bool = False):
     """One transformer block; ``cross_state`` (K, V) adds the decoder's
-    cross-attention after the self-attention. Returns (x, cache,
-    aux_loss)."""
+    cross-attention after the self-attention; ``moe`` routes the MLP's
+    tokens to the experts (:func:`layers.moe_ffn` over the ``B*S`` tokens,
+    ``capacity_factor`` or the config's), plus the shared expert where the
+    config has one. Returns (x, cache, aux_loss)."""
     h_in = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     attn_out, new_cache = gqa_attention(cfg, p["attn"], h_in,
                                         positions=positions, window=window,
@@ -331,6 +390,18 @@ def block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
                                 L.rms_norm(x, p["ln_cross"], cfg.norm_eps),
                                 ck, cv)
     h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    if moe:
+        mc = cfg.moe
+        b, s, d = h2.shape
+        out2d, aux = L.moe_ffn(
+            h2.reshape(b * s, d), p["moe"], top_k=mc.top_k,
+            capacity_factor=capacity_factor or mc.capacity_factor,
+            gated=cfg.gated_mlp)
+        out = out2d.reshape(b, s, d)
+        if mc.n_shared_experts:
+            out = out + L.ffn(h2, p["moe"]["shared"], cfg.gated_mlp,
+                              use_kernel=use_kernel)
+        return x + out, new_cache, aux
     out = L.ffn(h2, p["mlp"], cfg.gated_mlp,
                 act="silu" if cfg.gated_mlp else "gelu",
                 use_kernel=use_kernel)
@@ -447,6 +518,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
             for i, w in enumerate(cfg.window_pattern)}}
     if cfg.family in ("dense", "vlm"):
         return {"pos": 0, "self": kvc(cfg.n_layers)}
+    if cfg.moe is not None:
+        nd = cfg.moe.first_dense_layers
+        cache = {"pos": 0}
+        if nd:
+            cache["dense"] = kvc(nd)
+        cache["moe"] = kvc(cfg.n_layers - nd)
+        return cache
     s = cfg.ssm
     conv_ch = s.d_inner(cfg.d_model) + 2 * s.n_groups * s.state_size
     cache: Cache = {"pos": 0, "mamba": {
@@ -468,10 +546,12 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 def _stack_runner(cfg: ArchConfig, params: Params, x: torch.Tensor,
                   positions: torch.Tensor, cache: Optional[Cache],
                   use_kernel: bool, pos: Optional[int] = None,
-                  remat: str = "none"):
+                  remat: str = "none",
+                  capacity_factor: Optional[float] = None):
     """Run the layer stack. Returns (x, new_cache, aux).  ``remat`` applies
     without a cache (training), as in the reference.  The encoder-decoder's
-    stack runs in its callers."""
+    stack runs in its callers.  ``capacity_factor`` reaches the moe
+    family's experts (None: the config's)."""
     require_ported(cfg)
     if cfg.enc_dec is not None:
         raise RuntimeError("enc_dec is handled in forward_hidden / prefill / "
@@ -488,6 +568,9 @@ def _stack_runner(cfg: ArchConfig, params: Params, x: torch.Tensor,
     if cfg.window_pattern is not None:
         return _cycle_stack(cfg, params, x, positions, cache, use_kernel,
                             pos, remat)
+    if cfg.moe is not None:
+        return _moe_stack(cfg, params, x, positions, cache, use_kernel, pos,
+                          remat, capacity_factor)
 
     def body(p, h, c):
         return block_apply(cfg, p, h, positions=positions, window=None,
@@ -523,6 +606,35 @@ def _hybrid_stack(cfg: ArchConfig, params: Params, x: torch.Tensor,
     new_cache = ({"mamba": cache["mamba"], "attn": cache["attn"]}
                  if cache is not None else None)
     return x, new_cache, 0.0
+
+
+def _moe_stack(cfg: ArchConfig, params: Params, x: torch.Tensor,
+               positions: torch.Tensor, cache: Optional[Cache],
+               use_kernel: bool, pos: Optional[int], remat: str = "none",
+               capacity_factor: Optional[float] = None):
+    """The moe stack, as the reference's: the dense blocks
+    (``dense_blocks``, cache group ``dense``), then the moe blocks
+    (``blocks``, cache group ``moe``), each a :func:`scan_stack`; the aux
+    losses summed over the layers."""
+    aux_total = 0.0
+    new_cache = {} if cache is not None else None
+    for moe, name, key in ((False, "dense_blocks", "dense"),
+                           (True, "blocks", "moe")):
+        if name not in params:
+            continue
+
+        def body(p, h, c, _moe=moe):
+            return block_apply(cfg, p, h, positions=positions, window=None,
+                               moe=_moe, kv_cache=c, pos=pos,
+                               capacity_factor=capacity_factor,
+                               use_kernel=use_kernel)
+        x, c2, aux = scan_stack(params[name], x, body,
+                                cache[key] if cache is not None else None,
+                                remat)
+        aux_total = aux_total + aux
+        if cache is not None:
+            new_cache[key] = c2
+    return x, new_cache, aux_total
 
 
 def _cycle_stack(cfg: ArchConfig, params: Params, x: torch.Tensor,
@@ -610,9 +722,11 @@ def _embed(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
 
 def forward_hidden(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
                    frontend: Optional[torch.Tensor] = None, *,
-                   remat: str = "none", use_kernel: bool = False):
+                   remat: str = "none", use_kernel: bool = False,
+                   capacity_factor: Optional[float] = None):
     """Trunk only: returns (pre-head hidden [B,S_total,d], aux_loss);
-    ``S_total`` counts the prepended patches of a vision stub."""
+    ``S_total`` counts the prepended patches of a vision stub.
+    ``capacity_factor``: the moe family's, None for the config's."""
     b = tokens.shape[0]
     x, enc_out = _embed(cfg, params, tokens, frontend, remat, use_kernel)
     positions = _positions(b, x.shape[1], x.device)
@@ -624,27 +738,31 @@ def forward_hidden(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
         x, _, aux = scan_stack(params["blocks"], x, body, None, remat)
         return x, aux
     x, _, aux = _stack_runner(cfg, params, x, positions, None, use_kernel,
-                              remat=remat)
+                              remat=remat, capacity_factor=capacity_factor)
     return x, aux
 
 
 def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
             frontend: Optional[torch.Tensor] = None, *,
-            remat: str = "none", use_kernel: bool = False):
+            remat: str = "none", use_kernel: bool = False,
+            capacity_factor: Optional[float] = None):
     """Full-sequence forward.  Returns (logits [B,S_total,V] fp32,
     aux_loss)."""
     x, aux = forward_hidden(cfg, params, tokens, frontend, remat=remat,
-                            use_kernel=use_kernel)
+                            use_kernel=use_kernel,
+                            capacity_factor=capacity_factor)
     return _head(cfg, params, x, use_kernel), aux
 
 
 def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
             *, remat: str = "none", use_kernel: bool = False,
-            aux_weight: float = 0.01, ce_chunk: int = 2048):
-    """Next-token CE (+ ``aux_weight`` x the MoE aux loss, zero for the
-    ported families).  batch: ``{"tokens": [B,S] int}``, plus ``"frontend"``
-    [B,F,d] for a vision stub (the patches prepended, the CE over the
-    tokens' positions only) or an encoder-decoder (the encoder's frames).
+            aux_weight: float = 0.01,
+            capacity_factor: Optional[float] = None, ce_chunk: int = 2048):
+    """Next-token CE (+ ``aux_weight`` x the MoE aux loss, summed over the
+    moe layers, zero for the other families).  batch: ``{"tokens": [B,S]
+    int}``, plus ``"frontend"`` [B,F,d] for a vision stub (the patches
+    prepended, the CE over the tokens' positions only) or an
+    encoder-decoder (the encoder's frames).
     Returns (loss, ``{"ce", "aux"}``), each a 0-d fp32 tensor.
 
     The CE head is chunked and rematerialised (:func:`_chunked_ce`), so the
@@ -657,7 +775,8 @@ def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
     tokens = batch["tokens"]
     frontend = batch.get("frontend")
     hidden, aux = forward_hidden(cfg, params, tokens, frontend, remat=remat,
-                                 use_kernel=use_kernel)
+                                 use_kernel=use_kernel,
+                                 capacity_factor=capacity_factor)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=hidden.device)
     offset = 0
     if cfg.frontend != "none" and cfg.enc_dec is None and frontend is not None:
@@ -701,7 +820,9 @@ def _chunked_ce(cfg: ArchConfig, params: Params, h: torch.Tensor,
 
 def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
             cache: Cache, frontend: Optional[torch.Tensor] = None, *,
-            use_kernel: bool = False) -> Tuple[torch.Tensor, Cache]:
+            use_kernel: bool = False,
+            capacity_factor: Optional[float] = None
+            ) -> Tuple[torch.Tensor, Cache]:
     """Fill the decode cache (in place) from a prompt; returns (last-token
     logits [B,V], cache).  Only the last position goes through the head.
     A vision stub's patches come first, so the cache's ``pos`` is patches +
@@ -727,14 +848,15 @@ def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
                          cross_v=torch.stack(cvs))
     else:
         x, c2, _ = _stack_runner(cfg, params, x, positions, cache,
-                                 use_kernel)
+                                 use_kernel, capacity_factor=capacity_factor)
         new_cache.update(c2)
     logits = _head(cfg, params, x[:, -1:], use_kernel)
     return logits[:, 0], new_cache
 
 
 def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
-                cache: Cache, *, use_kernel: bool = False
+                cache: Cache, *, use_kernel: bool = False,
+                capacity_factor: Optional[float] = None
                 ) -> Tuple[torch.Tensor, Cache]:
     """One decoding step.  token: [B] int.  Returns (logits [B,V], cache);
     the cache tensors are updated in place."""
@@ -756,7 +878,8 @@ def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
                          cross_v=cache["cross_v"])
     else:
         x, c2, _ = _stack_runner(cfg, params, x, positions, cache,
-                                 use_kernel, pos=pos)
+                                 use_kernel, pos=pos,
+                                 capacity_factor=capacity_factor)
         new_cache.update(c2)
     logits = _head(cfg, params, x, use_kernel)
     return logits[:, 0], new_cache

@@ -196,3 +196,63 @@ def test_more_than_one_device_raises():
     _, cost = lower_and_cost("mm", lambda a: a @ a, (torch.ones(4, 4),),
                              mesh=[torch.device("cpu")])
     assert cost.flops_per_device == 2 * 4 ** 3
+
+
+def test_sort_counts_as_the_reference_lowers_it():
+    """``sort`` (the port's stable top-k) is counted as XLA's
+    ``HandleSort`` counts ``jnp.sort``: ``n * ceil(log2 n)`` over the
+    operand's ``n`` elements, equal to the reference's count."""
+    x = np.random.default_rng(SEED).standard_normal((1, 128, 4)).astype(
+        np.float32)
+    _, ref = ref_lower_and_cost("sort", lambda a: jnp.sort(a, axis=-1),
+                                (jnp.asarray(x),), ref_mesh())
+    _, cost = lower_and_cost(
+        "sort", lambda a: torch.sort(a, dim=-1, descending=True,
+                                     stable=True)[0], (torch.from_numpy(x),))
+    assert cost.flops_per_device == ref.flops_per_device == 512 * 9
+
+
+def test_moe_layer_counts_every_arithmetic_op(monkeypatch):
+    """Every op a MoE layer's forward and backward trace (``moe_ffn``:
+    the router, the stable top-k, the one-hots by comparison, the cumsum
+    of the queue positions, the capacity mask, the dispatch and combine
+    products) is counted, or moves data only: no arithmetic op counts 0.
+    ``cumsum`` one add an element, ``_softmax`` 5 and its backward 4."""
+    from repro_torch.core import graph_cost
+    from repro_torch.models import layers as L
+    seen = {}
+    real = graph_cost._elementwise_flops
+
+    def spy(func, args, kwargs, ins, outs):
+        n = real(func, args, kwargs, ins, outs)
+        name = func._overloadpacket.__name__
+        seen[name] = seen.get(name, 0) + n
+        return n
+    monkeypatch.setattr(graph_cost, "_elementwise_flops", spy)
+    t, d, e, f = 64, 16, 4, 32
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.standard_normal((t, d)).astype(np.float32))
+    p = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+         for k, s in (("w_router", (d, e)), ("w_gate", (e, d, f)),
+                      ("w_up", (e, d, f)), ("w_down", (e, f, d)))}
+
+    def fwd_bwd(x, p):
+        x = x.detach().requires_grad_()
+        p = {k: v.detach().requires_grad_() for k, v in p.items()}
+        with torch.enable_grad():
+            out, aux = L.moe_ffn(x, p, top_k=2, capacity_factor=1.25,
+                                 gated=True)
+            (out.sum() + aux).backward()
+        return out.detach()
+    lower_and_cost("moe", fwd_bwd, (x, p))
+    # allocations, copies, casts and the slice's backward (zeros with the
+    # gradient copied in: XLA's pad)
+    moves = {"arange", "device", "scalar_tensor", "zeros_like", "new_zeros",
+             "zero_", "fill_", "scatter", "expand", "ones_like", "full_like",
+             "_to_copy", "_unsafe_view", "clone", "slice_backward"}
+    uncounted = {name for name, n in seen.items() if n == 0} - moves
+    assert not uncounted
+    assert seen["cumsum"] == t * 2 * e
+    assert seen["_softmax"] == 5 * t * e
+    assert seen["_softmax_backward_data"] == 4 * t * e
+    assert seen["sort"] == t * e * 8 and seen["eq"] > 0 and seen["where"] > 0

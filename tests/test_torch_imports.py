@@ -180,6 +180,20 @@ def test_launcher_serves_mamba_on_the_cpu_when_asked(capsys):
     assert "req1:" in out and "kernels off" in out
 
 
+def test_launcher_serves_phi_moe_on_the_cpu_when_asked(capsys):
+    """The moe arch through the launcher, at one layer (``--layers``);
+    an arch the port does not run is refused by ``--arch``."""
+    from repro_torch.launch import serve
+    serve.main(["--arch", "phi3.5-moe-42b-a6.6b", "--reduced", "--layers",
+                "1", "--device", "cpu", "--batch", "2", "--prompt-len", "20",
+                "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert "req1:" in out and "kernels off" in out
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", "deepseek-v3-671b", "--reduced", "--device",
+                    "cpu"])
+
+
 def test_launcher_serves_zamba2_on_the_cpu_when_asked(capsys):
     from repro_torch.launch import serve
     serve.main(["--arch", "zamba2-2.7b", "--reduced", "--device", "cpu",
@@ -202,7 +216,7 @@ def test_only_ported_archs_are_registered():
                                        "zamba2-2.7b", "qwen1.5-4b",
                                        "stablelm-12b", "qwen1.5-110b",
                                        "pixtral-12b", "whisper-small",
-                                       "gemma3-12b"]
+                                       "gemma3-12b", "phi3.5-moe-42b-a6.6b"]
     cfg = configs.get_config("qwen1.5-0.5b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff,
             cfg.vocab_size, cfg.qkv_bias) == (24, 1024, 16, 2816, 151936, True)
@@ -239,12 +253,18 @@ def test_only_ported_archs_are_registered():
             cfg.tie_embeddings, cfg.window_pattern, cfg.local_window) == (
                 "dense", 48, 3840, 16, 8, 256, 15360, 262144, False,
                 (1024,) * 5 + (None,), 1024)
+    cfg = configs.get_config("phi3.5-moe-42b-a6.6b")
+    assert (cfg.family, cfg.n_layers, cfg.d_model, cfg.n_heads,
+            cfg.n_kv_heads, cfg.head_dim_, cfg.vocab_size, cfg.moe.n_experts,
+            cfg.moe.top_k, cfg.moe.d_ff_expert, cfg.moe.capacity_factor,
+            cfg.moe.first_dense_layers, cfg.mla) == (
+                "moe", 32, 4096, 32, 8, 128, 32064, 16, 2, 6400, 1.25, 0,
+                None)
     with pytest.raises(KeyError):
         configs.get_config("no-such-arch")
 
 
-@pytest.mark.parametrize("arch_id", [
-    "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b"])
+@pytest.mark.parametrize("arch_id", ["deepseek-v3-671b"])
 def test_unported_arch_raises_not_implemented(arch_id):
     from repro_torch import configs
     assert arch_id in configs.ARCH_IDS
@@ -256,7 +276,7 @@ def test_unported_arch_raises_not_implemented(arch_id):
                                      "zamba2-2.7b", "qwen1.5-4b",
                                      "stablelm-12b", "qwen1.5-110b",
                                      "pixtral-12b", "whisper-small",
-                                     "gemma3-12b"])
+                                     "gemma3-12b", "phi3.5-moe-42b-a6.6b"])
 def test_config_copy_equals_the_reference(arch_id):
     """The port keeps its own copy of the config schema; it must not drift."""
     from repro.configs import ARCH_IDS, get_config as ref_get
@@ -270,9 +290,10 @@ def test_config_copy_equals_the_reference(arch_id):
 
 
 def test_non_dense_family_raises_in_the_model():
-    """A family still unported (mixture of experts, multi-head latent
-    attention) raises, and so does a hybrid config without its
-    HybridConfig; the ssm and hybrid families build, and so does the dense
+    """A family still unported (multi-head latent attention, with or
+    without experts, as deepseek-v3 has them) raises, and so does a
+    hybrid config without its HybridConfig and a dense config that holds
+    experts; the ssm, hybrid and moe families build, and so does the dense
     family with a window pattern."""
     from repro_torch.configs import MLAConfig, MoEConfig, get_config
     from repro_torch.models.model import build_model
@@ -281,11 +302,13 @@ def test_non_dense_family_raises_in_the_model():
     hybrid = get_config("zamba2-2.7b").reduced()
     assert build_model(hybrid, device="cpu").cfg is hybrid
     dense = get_config("qwen1.5-0.5b").reduced()
-    for cfg in (dataclasses.replace(dense, family="moe",
-                                    moe=MoEConfig(4, 2, 64)),
-                dataclasses.replace(dense, mla=MLAConfig(
-                    q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=16,
-                    qk_rope_head_dim=8, v_head_dim=16)),
+    moe = dataclasses.replace(dense, family="moe", moe=MoEConfig(4, 2, 64))
+    assert build_model(moe, device="cpu").cfg is moe
+    mla = MLAConfig(q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=16,
+                    qk_rope_head_dim=8, v_head_dim=16)
+    for cfg in (dataclasses.replace(moe, mla=mla),
+                dataclasses.replace(dense, moe=MoEConfig(4, 2, 64)),
+                dataclasses.replace(dense, mla=mla),
                 dataclasses.replace(ssm, family="hybrid")):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             build_model(cfg, device="cpu")

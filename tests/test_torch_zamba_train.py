@@ -14,7 +14,9 @@ pixtral-12b (patches prepended) and whisper-small (a non-causal encoder
 and a decoder with cross-attention, which takes no kernel), each with its
 frontend embeddings, and so is gemma3-12b (its window pattern reduced to
 ``(8, None)``), whose flash launches are also held by window, as every
-arch's are.  The serve count is held over a ``generate`` of static
+arch's are, and so is phi3.5-moe-42b-a6.6b (4 heads over 2 kv heads, 4
+experts), whose routed experts take no kernel: its epilogue launches are
+the heads' alone.  The serve count is held over a ``generate`` of static
 and of continuous batching (static only with a frontend, which is
 single-admission)."""
 import dataclasses
@@ -50,7 +52,8 @@ STAND_INS = [(fa, "flash_attention_plain", "flash_attention"),
              (mme, "matmul_epilogue_plain", "matmul_epilogue")]
 
 
-DENSE = ("qwen1.5-4b", "stablelm-12b", "qwen1.5-110b", "gemma3-12b")
+DENSE = ("qwen1.5-4b", "stablelm-12b", "qwen1.5-110b", "gemma3-12b",
+         "phi3.5-moe-42b-a6.6b")
 FRONTEND = ("pixtral-12b", "whisper-small")
 
 
@@ -182,3 +185,53 @@ def test_expected_launches_match_the_serve_path(arch, batching,
         cfg, expected).items() if v}
     enc = cfg.enc_dec.n_encoder_layers if cfg.enc_dec else 0
     assert calls["flash_attention"] == (cfg.n_layers + enc) * rounds > 0
+
+
+def test_routing_recorder_reads_every_moe_layer():
+    """``chip_smoke.RoutingRecorder`` keeps one (choices, drops) pair a moe
+    layer of a forward, and ``routing_flips`` reads the share of choices
+    and drops that two runs decide apart: none between the kernel path and
+    the plain path on the CPU here (plain versions both, whose bf16
+    roundings move no choice across a tie), all of them against a run
+    whose choices are shifted by one expert.  The layers' routing is
+    the same with and without the recorder.  A recorder that replays
+    another run's choices routes every layer to them: the plain path
+    replaying its own gives its logits again, the kernel path replaying
+    shifted choices other logits, each layer's choices the shifted
+    ones."""
+    from chip_smoke import RoutingRecorder, drop_share, routing_flips
+    cfg = small("phi3.5-moe-42b-a6.6b", "serve")
+    model = build_model(cfg, device="cpu")
+    params = model.init(0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32),
+                           generator=torch.Generator().manual_seed(3))
+    recs = {}
+    for use_kernel in (True, False):
+        with RoutingRecorder() as recs[use_kernel]:
+            logits, _ = model.forward(params, tokens, use_kernel=use_kernel,
+                                      capacity_factor=0.5)
+    plain, _ = model.forward(params, tokens, capacity_factor=0.5)
+    torch.testing.assert_close(logits, plain, rtol=0, atol=0)
+    assert len(recs[True].calls) == cfg.n_layers
+    idx, keep = recs[True].calls[0]
+    assert idx.shape == keep.shape == (1, 64, cfg.moe.top_k)
+    flips = routing_flips(recs[True], recs[False])
+    assert flips["choice_flip_share"] == flips["keep_flip_share"] == 0.0
+    assert flips["calls"] == cfg.n_layers and flips["slots"] == (
+        cfg.n_layers * 64 * cfg.moe.top_k)
+    assert 0 < drop_share(recs[True].calls) == flips["drop_share"][1] < 1
+    shifted = RoutingRecorder()
+    shifted.calls = [((i + 1) % cfg.moe.n_experts, ~k)
+                     for i, k in recs[False].calls]
+    flips = routing_flips(recs[True], shifted)
+    assert flips["choice_flip_share"] == flips["keep_flip_share"] == 1.0
+    with RoutingRecorder(replay=recs[False].calls) as again:
+        same, _ = model.forward(params, tokens, capacity_factor=0.5)
+    torch.testing.assert_close(same, plain, rtol=0, atol=0)
+    with RoutingRecorder(replay=shifted.calls) as forced:
+        other, _ = model.forward(params, tokens, use_kernel=True,
+                                 capacity_factor=0.5)
+    assert not torch.allclose(other, plain)
+    for (idx, _), (want, _) in zip(forced.calls, shifted.calls):
+        assert torch.equal(idx, want)
+    assert len(again.calls) == len(forced.calls) == cfg.n_layers

@@ -4,7 +4,10 @@
 depth of ``chip_smoke.py``'s train phase, bf16, random weights, the
 reference's AdamW defaults) with
 torch.profiler and prints device time by kernel, the device's busy share
-and the peak memory.
+and the peak memory; for a moe arch also the device time of each
+``torch.einsum`` of the forward and of its rerun under remat
+(``tools/profile_serve.py``'s ``einsum_ranges``; the backward's products
+are not in them).
 
     python3 tools/profile_train.py \
         [--arch qwen1.5-0.5b|mamba2-1.3b|zamba2-2.7b|qwen1.5-4b|...]
@@ -29,7 +32,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 from chip_smoke import (TRAIN_BATCH, TRAIN_PATHS, TRAIN_SEQ,  # noqa: E402
                         path_config)
 import torch                                                 # noqa: E402
-from profile_serve import window                            # noqa: E402
+from profile_serve import einsum_ranges, window             # noqa: E402
 from repro_torch.core import ShardingPlan                    # noqa: E402
 from repro_torch.models.model import build_model            # noqa: E402
 from repro_torch.optim import adamw                         # noqa: E402
@@ -69,7 +72,8 @@ def main() -> None:
     print(json.dumps({"arch": args.arch, "layers": cfg.n_layers,
                       "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": remat,
                       "max_memory_allocated_bytes": peak}), flush=True)
-    window("train step", one_step, 1)
+    with einsum_ranges(cfg):
+        window("train step", one_step, 1)
 
 
 if __name__ == "__main__":
