@@ -12,11 +12,12 @@ epilogue kernel and of tsmm that the same check must catch, and the SSD
 scan's rounding plans, forward and backward, against one bf16 rounding of
 their state paths; every backward call again, bit for bit), with
 ``--ptxas`` a ``ptxas`` line (registers, shared memory and spills of every
-kernel), ``train`` ten times (qwen1.5-0.5b, mamba2-1.3b, zamba2-2.7b,
+kernel), ``train`` eleven times (qwen1.5-0.5b, mamba2-1.3b, zamba2-2.7b,
 qwen1.5-4b and whisper-small at full width and depth, stablelm-12b,
-qwen1.5-110b, pixtral-12b, gemma3-12b and phi3.5-moe-42b-a6.6b at the
-depth ``DEPTH_CUTS`` states, in bf16 through ``make_train_step(use_kernel=True,
-donate=True)``, pixtral with its
+qwen1.5-110b, pixtral-12b, gemma3-12b, phi3.5-moe-42b-a6.6b and
+deepseek-v3-671b at the cut ``DEPTH_CUTS`` states (layers; deepseek's dense
+layers, routed experts and batch too), in bf16 through
+``make_train_step(use_kernel=True, donate=True)``, pixtral with its
 1024 patch embeddings and whisper with its 1500 frame embeddings: one
 step's gradients twice, which must be bit-identical, in bf16 at the path's
 width and depth and in fp32 at the parity cut, then five steps on a
@@ -24,21 +25,26 @@ repeated batch, losses, step times, peak memory and every kernel's
 launches against the count the path must give, then the gradients of the
 kernel path against the plain path at two layers, or for zamba2 at one
 application of each shared block, for gemma3-12b at one local and one
-global layer over 2048 positions), ``serve`` ten times (the same archs,
-gemma3-12b at full depth, qwen1.5-110b and phi3.5-moe at their
-``DEPTH_CUTS`` depth, in
+global layer over 2048 positions, for a moe arch one dense layer and one
+moe layer), ``checkpoint`` (qwen1.5-0.5b at 2 layers: batches of the port's
+``make_pipeline`` onto the card, two train steps, an
+``AsyncCheckpointer.save`` of the weights and the AdamW state while step 3
+runs, ``restore`` into a fresh tree, every leaf equal, step 3 again from
+it bit-identical), ``serve`` eleven times (the same archs,
+gemma3-12b at full depth, qwen1.5-110b, phi3.5-moe and deepseek-v3 at their
+``DEPTH_CUTS`` cut, in
 bf16 through ``ServeEngine``, static and continuous batching, with a
 frontend the continuous run's second admission raising as the
 reference's does, with the launch count of every kernel, of each body of
 the epilogue kernel and of flash by mask and by window, held against the
-count the arch's path must give, and the bf16 prefill logits with the
-kernels against without them and against the controls; for the moe arch a
+count the arch's path must give (deepseek-v3's MLA takes no flash
+launch: its Dk differs from its Dv), and the bf16 prefill logits with the
+kernels against without them and against the controls; for each moe arch a
 ``moe`` line before each of its serve and train lines: the share of (token,
 slot) expert choices and of drop decisions that differ between the kernel
 path and the plain path on the same input, at the prefill and at the
 gradient parity's cut, and the share of slots dropped, in the prefill
-rounds, in the decode steps (8 tokens a group: capacity 1 an expert) and
-in a train step),
+rounds, in the decode steps (8 tokens a group) and in a train step),
 ``linreg`` (the
 LinReg DS example at 262144 x 1024 through the tsmm kernel, cold, then warm
 and split into its parts), ``estimate`` (the paper's §3.4 check on the card:
@@ -70,6 +76,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -89,6 +96,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.benchmarks import (bench_accuracy,  # noqa: E402
                                     bench_calibrate, bench_fusion)
+from repro_torch.checkpoint import store                         # noqa: E402
 from repro_torch.configs import get_config                       # noqa: E402
 from repro_torch.configs.base import ShapeConfig                 # noqa: E402
 from repro_torch.examples import linreg_ds                       # noqa: E402
@@ -105,6 +113,7 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_scan_bwd_split_plain, ssd_scan_plain, ssd_scan_split_plain)
 from repro_torch.kernels.tsmm import tsmm_upper, tsmm_upper_plain  # noqa: E402
 from repro_torch.core import ShardingPlan, h100_single_config    # noqa: E402
+from repro_torch.data.pipeline import SyntheticLM, make_pipeline  # noqa: E402
 from repro_torch.launch.component_cost import (  # noqa: E402
     aggregate, component_costs)
 from repro_torch.models import layers as model_layers           # noqa: E402
@@ -154,10 +163,14 @@ WIDE_ARCHS = ("qwen1.5-4b", "qwen1.5-110b", "stablelm-12b")
 # (arXiv:2212.04356)
 FRONTEND_ARCHS = ("pixtral-12b", "whisper-small")
 WHISPER_CTX = 448
-# The moe arch: GQA blocks whose MLP is 16 routed experts (top-2, GShard
-# capacity routing, plain batched products); its kernels are flash and the
-# epilogue's head
-MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+# The moe archs: phi3.5-moe's GQA blocks whose MLP is 16 routed experts
+# (top-2, GShard capacity routing, plain batched products; its kernels are
+# flash and the epilogue's head), and deepseek-v3's MLA blocks, 3 dense
+# layers first, then 256 routed experts (top-8) beside a shared expert, and
+# an MTP head (its kernel is the epilogue's, on the dense and shared-expert
+# gates and the heads: MLA's Dk != Dv keeps its attention off flash)
+PHI, DEEPSEEK = "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b"
+MOE_ARCHS = (PHI, DEEPSEEK)
 TSMM_CASES = [(512, 256), (1024, 512), (768, 384), (2048, 128)]
 # (b, s, h, p, n, chunk): the reference's kernel test cases
 SSD_CASES = [(2, 128, 4, 16, 32, 32), (1, 256, 2, 64, 128, 64),
@@ -341,7 +354,7 @@ def path_flash() -> list:
     pix, whi = get_config("pixtral-12b"), get_config("whisper-small")
     gemma = arch_flash("gemma3-12b")
     return [*((a, arch_flash(a)) for a in WIDE_ARCHS),
-            (MOE_ARCH, arch_flash(MOE_ARCH)),
+            (PHI, arch_flash(PHI)),
             ("gemma3-12b global", gemma),
             ("gemma3-12b local",
              {**gemma, "window": get_config("gemma3-12b").local_window}),
@@ -371,6 +384,8 @@ def arch_head(arch: str) -> dict:
 def path_mm() -> list:
     """(tag, shape) of the wide archs' epilogue products: each dense arch's
     prefill gate and head, phi3.5-moe's head (its experts take no kernel),
+    deepseek-v3's dense-layer gate (``d_ff_dense``) and shared-expert gate,
+    each at a prefill round and a decode step, and its head,
     gemma3-12b's prefill gate, decode gate and head
     (vocab 262144), pixtral's prefill gate over 8 x (1024 + 2048) rows,
     decode gate and head, and whisper's head (its MLP is not gated: no
@@ -378,7 +393,10 @@ def path_mm() -> list:
     pix = get_config("pixtral-12b")
     return [*((f"{a} {kind}", fn(a)) for a in WIDE_ARCHS
               for kind, fn in (("gate", arch_gate), ("head", arch_head))),
-            (f"{MOE_ARCH} head", arch_head(MOE_ARCH)),
+            (f"{PHI} head", arch_head(PHI)),
+            *((f"{DEEPSEEK} {kind}", {**arch_gate(DEEPSEEK, m), "n": n})
+              for kind, m, n in deepseek_gates()),
+            (f"{DEEPSEEK} head", arch_head(DEEPSEEK)),
             ("gemma3-12b gate", arch_gate("gemma3-12b")),
             ("gemma3-12b decode gate", arch_gate("gemma3-12b", 8)),
             ("gemma3-12b head", arch_head("gemma3-12b")),
@@ -387,6 +405,18 @@ def path_mm() -> list:
             ("pixtral-12b decode gate", arch_gate("pixtral-12b", 8)),
             ("pixtral-12b head", arch_head("pixtral-12b")),
             ("whisper-small head", arch_head("whisper-small"))]
+
+
+def deepseek_gates() -> list:
+    """(tag, rows, width) of deepseek-v3's gates on the epilogue kernel:
+    its dense layers' (``d_ff_dense``) and its shared expert's, at a
+    prefill round of 8 x 2048 tokens and at a decode step of 8."""
+    moe = get_config(DEEPSEEK).moe
+    shared = moe.n_shared_experts * moe.d_ff_expert
+    return [("gate", 8 * 2048, moe.d_ff_dense),
+            ("shared gate", 8 * 2048, shared),
+            ("decode gate", 8, moe.d_ff_dense),
+            ("decode shared gate", 8, shared)]
 
 
 def sdpa_call(q, k, v, causal: bool, window, gqa: bool):
@@ -1623,10 +1653,17 @@ class RoutingRecorder:
         model_layers.moe_route, model_layers.stable_top_k = self._real
 
 
+def routed(cfg) -> bool:
+    """Whether ``cfg`` has a layer of routed experts (a moe arch cut to its
+    dense layers has none)."""
+    return cfg.moe is not None and cfg.n_layers > cfg.moe.first_dense_layers
+
+
 def routing(cfg, replay=None):
     """A :class:`RoutingRecorder` (replaying ``replay``'s choices when
-    given) for a moe arch, else a context that records nothing."""
-    if cfg.moe is None:
+    given) for a config with routed experts, else a context that records
+    nothing."""
+    if not routed(cfg):
         return contextlib.nullcontext()
     return RoutingRecorder(replay)
 
@@ -1704,13 +1741,14 @@ def expected_launches(cfg, rounds: int, steps: int) -> dict:
     """Launches of each kernel that ``rounds`` admission rounds and ``steps``
     decode steps of ``cfg``'s kernel path must make.  Per round: flash once
     for each self-attention layer (or application of a shared block; an
-    encoder-decoder's encoder layers and decoder layers both), the SSD scan
+    encoder-decoder's encoder layers and decoder layers both; none for MLA:
+    :func:`_n_flash`), the SSD scan
     once for each Mamba2 layer, the epilogue kernel once for each gated
     dense MLP (:func:`_n_gate`: a moe layer's experts are plain batched
     products) and once for the head.  Per decode step: the MLP gates and
     the head (decode attention, cross-attention and the one-token SSM step
     are plain)."""
-    n_attn = _n_attention(cfg)
+    n_attn = _n_flash(cfg)
     n_ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
     n_gate = _n_gate(cfg)
     return {"flash_attention": n_attn * rounds, "flash_attention_bwd": 0,
@@ -1760,11 +1798,21 @@ def _n_attention(cfg) -> int:
             if cfg.hybrid else 0}.get(cfg.family, 0)
 
 
+def _n_flash(cfg) -> int:
+    """Flash launches a forward makes: one for each self-attention layer
+    (:func:`_n_attention`), none for MLA, whose Dk (``qk_head_dim``)
+    differs from its Dv and keeps it on dense attention, as the reference's
+    dispatch does."""
+    return 0 if cfg.mla is not None else _n_attention(cfg)
+
+
 def _n_gate(cfg) -> int:
     """Gated MLPs a forward runs through the epilogue kernel: one for each
     self-attention layer (or application of a shared block) of a gated
     arch; of a moe arch only its dense layers' and its shared experts' (its
-    routed experts are plain batched products, as the reference's)."""
+    routed experts are plain batched products, as the reference's; the MTP
+    head's block runs without the kernels, as the reference's
+    ``mtp_hidden`` calls it)."""
     if not cfg.gated_mlp:
         return 0
     if cfg.moe is not None:
@@ -1850,11 +1898,12 @@ def prefill_logits(model, params, toks, max_len: int, frontend=None):
     cfg = model.cfg
     lg, recs = {}, {}
     with torch.no_grad():
-        for key in [False, True] + (["replayed"] if cfg.moe else []):
+        for key in [False, True] + (["replayed"] if routed(cfg) else []):
             replay = recs[False].calls if key == "replayed" else None
             with routing(cfg, replay) as recs[key]:
                 lg[key], _ = model.prefill(params, toks,
-                                           model.init_cache(8, max_len),
+                                           model.init_cache(len(toks),
+                                                            max_len),
                                            frontend,
                                            use_kernel=key is not False)
     torch.cuda.synchronize()
@@ -1872,8 +1921,8 @@ def control_logits(model, params, toks, fault, max_len: int,
     try:
         with torch.no_grad(), routing(model.cfg, replay):
             logits, _ = model.prefill(params, toks,
-                                      model.init_cache(8, max_len), frontend,
-                                      use_kernel=True)
+                                      model.init_cache(len(toks), max_len),
+                                      frontend, use_kernel=True)
         torch.cuda.synchronize()
     finally:
         ops.matmul_epilogue = real
@@ -1893,7 +1942,9 @@ def control_logits(model, params, toks, fault, max_len: int,
 # pixtral-12b 0.125, whisper-small 0.054; gemma3-12b 0.131, its controls
 # 0.219 and 0.145; phi3.5-moe at 24 layers 0.081 with the plain path's
 # expert choices replayed, its controls 0.156 and 0.082, free-running 0.504:
-# ``bound_verdict``'s note), rounded up to a multiple of 0.05.
+# ``bound_verdict``'s note; deepseek-v3 at 5 layers 0.0454, replayed, its
+# controls 0.281 and 0.047, free-running 0.170), rounded up to a multiple
+# of 0.05.
 # No such bound tells a subtle rounding fault from the sound paths' own
 # rounding: the CONTROLS move the readings by less than 0.05, so
 # ``check_controls`` holds them at the kernel's level.  Last,
@@ -1903,12 +1954,13 @@ def control_logits(model, params, toks, fault, max_len: int,
 # are 5.4 GB a layer and 10 GB the embedding and head), and for gemma3-12b 6,
 # one whole cycle of its window pattern (five local layers and a global
 # one; prompts past its 1024-slot rings), and for phi3.5-moe 4 (5.2 GB of
-# fp32 weights a layer).
+# fp32 weights a layer), and for deepseek-v3 3, its dense layers (one moe
+# layer of 256 experts is 45 GB in fp32).
 SERVE_PATHS = [("qwen1.5-0.5b", 0.2, 4), ("mamba2-1.3b", 0.5, 4),
                ("zamba2-2.7b", 0.4, 12), ("qwen1.5-4b", 0.2, 4),
                ("stablelm-12b", 0.2, 4), ("qwen1.5-110b", 0.1, 2),
                ("pixtral-12b", 0.2, 4), ("whisper-small", 0.1, 12),
-               ("gemma3-12b", 0.2, 6), (MOE_ARCH, 0.15, 4)]
+               ("gemma3-12b", 0.2, 6), (PHI, 0.15, 4), (DEEPSEEK, 0.1, 3)]
 # Prompt lengths and cache length of each serve path: 256-2048 tokens in a
 # 4096-slot cache (pixtral's 1024 patches, prepended, fit beside them;
 # gemma3-12b's local layers keep rings of 1024 slots, which most prompts
@@ -1919,73 +1971,124 @@ SERVE_SHAPE = dict(lo=256, hi=2048, max_len=4096)
 SERVE_SHAPES = {"whisper-small": dict(lo=32, hi=WHISPER_CTX - 32,
                                       max_len=WHISPER_CTX)}
 
-# Depth cuts of the paths that do not fit one H100's 80 GB at full depth
-# (bf16, B 8 x S 2048), each with its reason; every other path runs at full
-# width and depth.  Width, heads and every other field stay.  Each phase's
-# line prints its cut.
+# Cuts of the paths that do not fit one H100's 80 GB at full size (bf16,
+# B 8 x S 2048), each with its reason and measured peak: ``n_layers``, and
+# for a moe arch its dense layers first (``first_dense_layers``) and its
+# routed experts (``n_experts``; top-k kept), and the requests of a serve
+# round or the rows of a train batch (``batch``).  Every other path runs at
+# full width and depth; widths, heads, the MLA ranks, d_ff, top-k, the
+# capacity factor and every other field stay.  Each phase's line prints its
+# cut (:func:`depth_cut`).
 DEPTH_CUTS = {
-    (MOE_ARCH, "serve"): (
-        24, "2.60 GB of bf16 weights a layer (the 16 experts 16 x 3 x 4096 "
-            "x 6400), 0.53 GB the embedding and head; beside them the serve "
-            "phase holds the plain path's prefill, whose fp32 scores at 32 "
-            "heads x 2048 x 2048 take 4.3 GB a tensor, and a layer's MoE "
-            "transients (the fp32 dispatch and combine [4, 4096, 16, 640] "
-            "671 MB each): 24 layers peak at 81.0 GB (H100 80GB HBM3, "
-            "700 W)"),
-    (MOE_ARCH, "train"): (
-        2, "weights, gradients and the fp32 AdamW moments take 12 bytes a "
-           "parameter (15.6 GB a layer), and AdamW's fp32 temporaries of a "
-           "stacked expert leaf (0.42B parameters a layer) come on top: 3 "
-           "layers run out of memory at 80.2 GB allocating one (4.69 GiB), "
-           "4 at 79.1 GB, 2 peak at 57.9 GB (tools/train_depth.py; H100 "
-           "80GB HBM3, 700 W)"),
-    ("gemma3-12b", "train"): (
-        6, "weights, gradients and the fp32 AdamW moments take 12 bytes a "
-           "parameter (2.69 GB a layer, 24.2 GB the embedding and head), "
-           "AdamW's fp32 temporaries of the embedding and the head (1.0B "
-           "parameters each) and a cycle's recomputed activations come on "
-           "top: 6 layers peak at 69.0 GB, 12 (two cycles) run out of "
-           "memory at 80.7 GB (tools/train_depth.py; H100 80GB HBM3, "
-           "700 W)"),
-    ("qwen1.5-110b", "serve"): (
-        10, "2.72 GB of bf16 weights a layer; beside them the serve phase "
-            "holds the plain path's prefill (the logits it compares with), "
-            "whose fp32 scores at 64 heads x 2048 x 2048 take 8.6 GB a "
-            "tensor"),
-    ("stablelm-12b", "train"): (
-        12, "weights, gradients and the fp32 AdamW moments take 12 bytes a "
-            "parameter (3.3 GB a layer, 12.3 GB the embedding and head), "
-            "and AdamW's fp32 temporaries of the stacked MLP leaves (about "
-            "17 GB at 12 layers) and the saved activations come on top"),
-    ("qwen1.5-110b", "train"): (
-        1, "16.3 GB of weights, gradients and fp32 moments a layer, 29.9 GB "
-           "the embedding and head, and AdamW's fp32 temporaries of the "
-           "embedding or the head (1.25B parameters: about 25 GB)"),
-    ("pixtral-12b", "train"): (
-        12, "weights, gradients and the fp32 AdamW moments take 12 bytes a "
-            "parameter (3.27 GB a layer, 16.1 GB the embedding and head), "
-            "AdamW's fp32 temporaries of the stacked MLP leaves and the "
-            "activations saved over 1024 patches + 2048 tokens come on top: "
-            "12 layers peak at 80.2 GB (74.7 GiB of the card's 79.2), 13 "
-            "run out of memory in AdamW's update (H100 80GB HBM3, 700 W)"),
+    (PHI, "serve"): dict(
+        n_layers=24, reason="2.60 GB of bf16 weights a layer (the 16 "
+        "experts 16 x 3 x 4096 x 6400), 0.53 GB the embedding and head; "
+        "beside them the serve phase holds the plain path's prefill, whose "
+        "fp32 scores at 32 heads x 2048 x 2048 take 4.3 GB a tensor, and a "
+        "layer's MoE transients (the fp32 dispatch and combine [4, 4096, "
+        "16, 640] 671 MB each): 24 layers peak at 81.0 GB (H100 80GB HBM3, "
+        "700 W)"),
+    (PHI, "train"): dict(
+        n_layers=2, reason="weights, gradients and the fp32 AdamW moments "
+        "take 12 bytes a parameter (15.6 GB a layer), and AdamW's fp32 "
+        "temporaries of a stacked expert leaf (0.42B parameters a layer) "
+        "come on top: 3 layers run out of memory at 80.2 GB allocating one "
+        "(4.69 GiB), 4 at 79.1 GB, 2 peak at 57.9 GB (tools/train_depth.py; "
+        "H100 80GB HBM3, 700 W)"),
+    (DEEPSEEK, "serve"): dict(
+        n_layers=5, reason="the 3 dense layers and 2 of the 58 moe layers, "
+        "all 256 experts: 23.0 GB of bf16 weights a moe layer, 1.17 GB a "
+        "dense layer, 3.7 GB the embedding and head, 1.4 GB the MTP head; "
+        "beside them the plain path's prefill holds one fp32 score tensor "
+        "of 128 heads x 2048 x 2048, 17.2 GB (in place under no_grad), and "
+        "a moe layer's fp32 dispatch and combine [4, 4096, 256, 160] take "
+        "2.7 GB each: 5 layers peak at 81.0 GB (tools/serve_depth.py; H100 "
+        "80GB HBM3, 700 W)"),
+    (DEEPSEEK, "train"): dict(
+        n_layers=2, first_dense_layers=1, n_experts=16, batch=1,
+        reason="one dense and one moe layer, as .reduced() cuts "
+        "first_dense_layers, and 16 of the 256 routed experts (top-8 "
+        "kept): one moe layer with all 256 holds 11.3B parameters, 135 GB "
+        "of weights, gradients and fp32 AdamW moments; at 16 the tree with "
+        "the MTP head is 4.06B parameters, 49 GB at 12 bytes a parameter; "
+        "B 1: the plain dense attention's fp32 scores take 2.1 GB a "
+        "sequence at 128 heads x 2048 x 2048, and the MTP block keeps them "
+        "for its backward: B 2 ran out of memory in the donated step's "
+        "backward at 83.3 GB, allocating 4 GiB; B 1 peaks at 74.7 GB "
+        "(tools/train_depth.py; H100 80GB HBM3, 700 W)"),
+    ("gemma3-12b", "train"): dict(
+        n_layers=6, reason="weights, gradients and the fp32 AdamW moments "
+        "take 12 bytes a parameter (2.69 GB a layer, 24.2 GB the embedding "
+        "and head), AdamW's fp32 temporaries of the embedding and the head "
+        "(1.0B parameters each) and a cycle's recomputed activations come "
+        "on top: 6 layers peak at 69.0 GB, 12 (two cycles) run out of "
+        "memory at 80.7 GB (tools/train_depth.py; H100 80GB HBM3, 700 W)"),
+    ("qwen1.5-110b", "serve"): dict(
+        n_layers=10, reason="2.72 GB of bf16 weights a layer; beside them "
+        "the serve phase holds the plain path's prefill (the logits it "
+        "compares with), whose fp32 scores at 64 heads x 2048 x 2048 take "
+        "8.6 GB a tensor"),
+    ("stablelm-12b", "train"): dict(
+        n_layers=12, reason="weights, gradients and the fp32 AdamW moments "
+        "take 12 bytes a parameter (3.3 GB a layer, 12.3 GB the embedding "
+        "and head), and AdamW's fp32 temporaries of the stacked MLP leaves "
+        "(about 17 GB at 12 layers) and the saved activations come on "
+        "top"),
+    ("qwen1.5-110b", "train"): dict(
+        n_layers=1, reason="16.3 GB of weights, gradients and fp32 moments "
+        "a layer, 29.9 GB the embedding and head, and AdamW's fp32 "
+        "temporaries of the embedding or the head (1.25B parameters: about "
+        "25 GB)"),
+    ("pixtral-12b", "train"): dict(
+        n_layers=12, reason="weights, gradients and the fp32 AdamW moments "
+        "take 12 bytes a parameter (3.27 GB a layer, 16.1 GB the embedding "
+        "and head), AdamW's fp32 temporaries of the stacked MLP leaves and "
+        "the activations saved over 1024 patches + 2048 tokens come on "
+        "top: 12 layers peak at 80.2 GB (74.7 GiB of the card's 79.2), 13 "
+        "run out of memory in AdamW's update (H100 80GB HBM3, 700 W)"),
 }
+SERVE_BATCH = 8
 
 
 def path_config(arch: str, phase: str):
     """``arch``'s config as the ``phase`` ("serve" or "train") runs it: at
-    full depth, or cut to :data:`DEPTH_CUTS`'s layers."""
+    full size, or cut as :data:`DEPTH_CUTS` says (layers; a moe arch's
+    dense layers and routed experts)."""
     cfg = get_config(arch)
-    cut = DEPTH_CUTS.get((arch, phase))
-    return cfg if cut is None else dataclasses.replace(cfg, n_layers=cut[0])
+    cut = DEPTH_CUTS.get((arch, phase), {})
+    if "n_layers" in cut:
+        cfg = dataclasses.replace(cfg, n_layers=cut["n_layers"])
+    moe = {k: cut[k] for k in ("first_dense_layers", "n_experts")
+           if k in cut}
+    if moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               **moe))
+    return cfg
+
+
+def path_batch(arch: str, phase: str) -> int:
+    """Requests of a serve round or rows of a train batch of that path."""
+    full = SERVE_BATCH if phase == "serve" else TRAIN_BATCH
+    return DEPTH_CUTS.get((arch, phase), {}).get("batch", full)
 
 
 def depth_cut(arch: str, phase: str):
-    """The cut of that path, as its phase line prints it, or None."""
+    """The cut of that path, as its phase line prints it (each field beside
+    its full value, then the reason), or None."""
     cut = DEPTH_CUTS.get((arch, phase))
     if cut is None:
         return None
-    return {"n_layers": cut[0], "n_layers_full": get_config(arch).n_layers,
-            "reason": cut[1]}
+    cfg = get_config(arch)
+    full = {"n_layers": cfg.n_layers,
+            "batch": SERVE_BATCH if phase == "serve" else TRAIN_BATCH}
+    out = {}
+    for key, value in cut.items():
+        if key != "reason":
+            out[key] = value
+            out[f"{key}_full"] = full[key] if key in full else getattr(
+                cfg.moe, key)
+    out["reason"] = cut["reason"]
+    return out
 
 
 def frontend_embeddings(cfg, batch: int, dtype=None):
@@ -2036,7 +2139,9 @@ def phase_serve(arch: str, bf16_tol: float, fp32_layers: int) -> dict:
     the fp32 model)."""
     cfg = path_config(arch, "serve")
     shape = SERVE_SHAPES.get(arch, SERVE_SHAPE)
-    reqs = make_requests(cfg.vocab_size, lo=shape["lo"], hi=shape["hi"])
+    n_req = path_batch(arch, "serve")
+    reqs = make_requests(cfg.vocab_size, n_req, lo=shape["lo"],
+                         hi=shape["hi"])
     max_len = shape["max_len"]
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg)
@@ -2065,9 +2170,10 @@ def phase_serve(arch: str, bf16_tol: float, fp32_layers: int) -> dict:
     toks = padded_batch(reqs, model.device)
     lg, recs = prefill_logits(model, params, toks, max_len, fe)
     lg_k, lg_p = lg["replayed"], lg[False]
-    if cfg.moe is not None:
-        decode = [c for c in rec_run1.calls if c[0].shape[:2] == (1, 8)]
-        prefill = [c for c in rec_run1.calls if c[0].shape[:2] != (1, 8)]
+    if routed(cfg):
+        decode = [c for c in rec_run1.calls if c[0].shape[:2] == (1, n_req)]
+        prefill = [c for c in rec_run1.calls
+                   if c[0].shape[:2] != (1, n_req)]
         moe = {"phase": "moe", "path": "serve", "arch": cfg.name,
                "n_layers": cfg.n_layers,
                "capacity_factor": cfg.moe.capacity_factor,
@@ -2077,9 +2183,9 @@ def phase_serve(arch: str, bf16_tol: float, fp32_layers: int) -> dict:
                    "prefill_calls": len(prefill),
                    "prefill_drop_share": drop_share(prefill),
                    "decode_calls": len(decode),
-                   "decode_tokens_a_group": 8,
+                   "decode_tokens_a_group": n_req,
                    "decode_capacity": max(int(
-                       cfg.moe.capacity_factor * cfg.moe.top_k * 8
+                       cfg.moe.capacity_factor * cfg.moe.top_k * n_req
                        / cfg.moe.n_experts), 1),
                    "decode_drop_share": drop_share(decode)}}
         moe["prefill_kernel_vs_plain"].pop("choice_flip_share_by_call")
@@ -2090,9 +2196,9 @@ def phase_serve(arch: str, bf16_tol: float, fp32_layers: int) -> dict:
             "replayed_max_abs_diff": float((lg_k - lg_p).abs().max())}
         emit(moe)            # before the bound is checked: a miss shows why
     # the plain path's expert choices, which the controls replay
-    replay = recs[False].calls if cfg.moe is not None else None
+    replay = recs[False].calls if routed(cfg) else None
     del recs, rec_run1, lg
-    if lg_k.shape != (8, cfg.vocab_size) or not bool(
+    if lg_k.shape != (n_req, cfg.vocab_size) or not bool(
             torch.isfinite(lg_k).all()):
         raise AssertionError("prefill logits: wrong shape or non-finite")
     bf16_err = float((lg_k - lg_p).abs().max())
@@ -2124,7 +2230,7 @@ def phase_serve(arch: str, bf16_tol: float, fp32_layers: int) -> dict:
     ls, recs = prefill_logits(model_s, params_s, toks, max_len, fe32)
     fp32_err = float((ls["replayed"] - ls[False]).abs().max())
     fp32_free = None
-    if cfg.moe is not None:
+    if routed(cfg_s):
         free = float((ls[True] - ls[False]).abs().max())
         fp32_free = {"free_running_max_abs_diff": free, "bound": 1e-3,
                      "verdict": bound_verdict(free, 1e-3),
@@ -2164,7 +2270,7 @@ def phase_serve(arch: str, bf16_tol: float, fp32_layers: int) -> dict:
             "fp32_layers": fp32_layers,
             "fp32_streams_identical": True,
             "fp32_prefill_logits_max_abs_diff": fp32_err,
-            "prefill_logits_routing_replayed": cfg.moe is not None,
+            "prefill_logits_routing_replayed": routed(cfg),
             "fp32_with_kernels": _summary(with_k),
             "fp32_without_kernels": _summary(without),
             "max_memory_allocated_bytes": peak_bytes}
@@ -2210,7 +2316,8 @@ TRAIN_PATHS = [("qwen1.5-0.5b", "none", 0.05), ("mamba2-1.3b", "full", 0.05),
                ("zamba2-2.7b", "full", 0.05), ("qwen1.5-4b", "full", 0.05),
                ("stablelm-12b", "full", 0.05), ("qwen1.5-110b", "full", 0.05),
                ("pixtral-12b", "full", 0.05), ("whisper-small", "none", 0.05),
-               ("gemma3-12b", "full", 0.05), (MOE_ARCH, "full", 0.05)]
+               ("gemma3-12b", "full", 0.05), (PHI, "full", 0.05),
+               (DEEPSEEK, "full", 0.05)]
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 5
 # tokens a row where an arch's own context is shorter than TRAIN_SEQ
 TRAIN_SEQS = {"whisper-small": WHISPER_CTX}
@@ -2244,7 +2351,9 @@ def parity_config(cfg, dtype: str):
     layers, each path as near the fp32 gradients as the other:
     ``tools/train_parity.py``).  A window-pattern arch keeps one local
     layer and one global one (pattern ``(local_window, None)``), run over
-    :func:`parity_seq` positions."""
+    :func:`parity_seq` positions.  A moe arch keeps at most one dense layer
+    first, so that the cut has a moe layer (deepseek-v3's 3 dense layers
+    would fill it), and at most its train cut's routed experts."""
     if cfg.window_pattern is not None:
         # one local layer and one global, both through the flash backward
         return dataclasses.replace(cfg, n_layers=2, dtype=dtype,
@@ -2255,6 +2364,12 @@ def parity_config(cfg, dtype: str):
             enc_dec=dataclasses.replace(
                 cfg.enc_dec,
                 n_encoder_layers=min(2, cfg.enc_dec.n_encoder_layers)))
+    if cfg.moe is not None:
+        experts = DEPTH_CUTS.get((cfg.name, "train"), {}).get(
+            "n_experts", cfg.moe.n_experts)
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, first_dense_layers=min(cfg.moe.first_dense_layers, 1),
+            n_experts=min(cfg.moe.n_experts, experts)))
     if cfg.family != "hybrid":
         return dataclasses.replace(cfg, n_layers=min(2, cfg.n_layers),
                                    dtype=dtype)
@@ -2279,19 +2394,21 @@ def expected_train_launches(cfg, remat: str, batch: int, seq: int,
     and backward, each Mamba2 layer's SSD scan forward and backward, each
     gated dense MLP's gate (:func:`_n_gate`; forward, and again in its
     backward to recompute the pre-activation) and each CE chunk's head
-    through the epilogue kernel.
+    through the epilogue kernel, and with an MTP head each chunk of its CE
+    (over S - 2 positions) too.
     A forward that a checkpoint reruns in the backward launches again:
     every layer's under remat ``full`` or ``selective``, and every CE
     chunk's head (each chunk is checkpointed)."""
     again = 2 if remat in ("full", "selective") else 1
-    n_attn = _n_attention(cfg)
+    n_attn = _n_flash(cfg)
     n_ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
     n_gate = _n_gate(cfg)
+    heads = ce_chunks(batch, seq) + (ce_chunks(batch, seq - 1)
+                                     if cfg.mtp_depth else 0)
     per_step = {"flash_attention": n_attn * again,
                 "flash_attention_bwd": n_attn, "tsmm_upper": 0,
                 "ssd_scan": n_ssd * again, "ssd_scan_bwd": n_ssd,
-                "matmul_epilogue": n_gate * (again + 1)
-                + 2 * ce_chunks(batch, seq)}
+                "matmul_epilogue": n_gate * (again + 1) + 2 * heads}
     return {k: v * steps for k, v in per_step.items()}
 
 
@@ -2324,22 +2441,26 @@ def grad_parity(cfg, remat: str, dtype: str) -> dict:
     params = model.init(SEED)
     batch = random_batch(cfg.vocab_size, PARITY_BATCH, parity_seq(cfg),
                          cfg_s)
-    out, recs = {}, {}
-    runs = [False, True] + (["replayed"] if cfg.moe is not None else [])
-    for key in runs:
+    moe = routed(cfg_s)
+    recs, rels = {}, {}
+    plain = tree_top = None
+    # the plain path's gradients are kept; each kernel run's are compared
+    # with them and dropped (a moe arch's parity cut holds 16 GB of fp32
+    # gradients a run)
+    for key in [False, True] + (["replayed"] if moe else []):
         replay = recs[False].calls if key == "replayed" else None
-        with routing(cfg, replay) as recs[key]:
-            loss, _, grads = value_and_grad(model, params, batch,
-                                            remat=remat,
-                                            use_kernel=key is not False)
-        out[key] = (float(loss), dict(_named_leaves(grads)))
-    tree_top = max(float(g.float().abs().max())
-                   for g in out[False][1].values() if g is not None)
-
-    def rel_errors(kernel):
+        with routing(cfg_s, replay) as recs[key]:
+            _, _, grads = value_and_grad(model, params, batch, remat=remat,
+                                         use_kernel=key is not False)
+        grads = dict(_named_leaves(grads))
+        if key is False:
+            plain = grads
+            tree_top = max(float(g.float().abs().max())
+                           for g in plain.values() if g is not None)
+            continue
         rel = {}
-        for name, gk in out[kernel][1].items():
-            gp = out[False][1][name]
+        for name, gk in grads.items():
+            gp = plain[name]
             if gk is None or gp is None or not bool(
                     torch.isfinite(gk).all()):
                 raise AssertionError(f"gradient parity: leaf {name} has no "
@@ -2348,22 +2469,23 @@ def grad_parity(cfg, remat: str, dtype: str) -> dict:
                 gp.float().abs().max())
             rel[name] = float((gk.float() - gp.float()).abs().max()) / max(
                 top, 1e-30)
-        return rel
-    rel = rel_errors("replayed" if cfg.moe is not None else True)
+        rels[key] = rel
+        del grads
+    rel = rels["replayed" if moe else True]
     worst = max(rel, key=rel.get)
     free = None
-    if cfg.moe is not None:
-        free_rel = rel_errors(True)
+    if moe:
+        free_rel = rels[True]
         free_worst = max(free_rel, key=free_rel.get)
         free = {"max_rel_err": free_rel[free_worst],
                 "worst_leaf": free_worst,
                 "routing": routing_flips(recs[True], recs[False])}
-    del params, out, recs
+    del params, plain, recs
     torch.cuda.empty_cache()
     return {"dtype": dtype, "layers": cfg_s.n_layers,
             "attn_every": cfg_s.hybrid.attn_every if cfg_s.hybrid else None,
             "batch": [PARITY_BATCH, parity_seq(cfg)],
-            "routing_replayed": cfg.moe is not None,
+            "routing_replayed": moe,
             "max_rel_err": rel[worst], "worst_leaf": worst,
             "rel_err_by_leaf": rel, "free_running": free}
 
@@ -2420,12 +2542,13 @@ def phase_train(arch: str, remat: str, bf16_bound: float) -> dict:
     against the plain one, in fp32 and in bf16."""
     cfg = path_config(arch, "train")
     seq = TRAIN_SEQS.get(arch, TRAIN_SEQ)
+    rows = path_batch(arch, "train")
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg)
     params = model.init(SEED)
     plan = ShardingPlan(name="dp", remat=remat)
     opt_cfg = adamw.AdamWConfig()
-    batch = random_batch(cfg.vocab_size, TRAIN_BATCH, seq, cfg)
+    batch = random_batch(cfg.vocab_size, rows, seq, cfg)
     fe = batch.get("frontend")
     # the positions the trunk runs: a vision stub's patches come first
     positions = seq + (fe.shape[1] if fe is not None
@@ -2437,7 +2560,7 @@ def phase_train(arch: str, remat: str, bf16_bound: float) -> dict:
     with routing(cfg) as rec:
         _, _, grads = value_and_grad(model, params, batch, remat=remat,
                                      use_kernel=True)
-    moe_drop = drop_share(rec.calls) if cfg.moe is not None else None
+    moe_drop = drop_share(rec.calls) if routed(cfg) else None
     del rec
     dead = [name for name, g in _named_leaves(grads)
             if g is None or not (zero_grad_leaf(name)
@@ -2472,8 +2595,7 @@ def phase_train(arch: str, remat: str, bf16_bound: float) -> dict:
     windows = ops.flash_window_launches()
     bodies = {b: n for b, n in ops.matmul_body_launches().items() if n}
     peak = torch.cuda.max_memory_allocated()
-    expected = expected_train_launches(cfg, remat, TRAIN_BATCH, seq,
-                                       TRAIN_STEPS)
+    expected = expected_train_launches(cfg, remat, rows, seq, TRAIN_STEPS)
     expected_m = expected_flash_masks(cfg, expected)
     expected_w = expected_flash_windows(cfg, expected)
     if not all(math.isfinite(v) for v in losses + norms):
@@ -2500,7 +2622,7 @@ def phase_train(arch: str, remat: str, bf16_bound: float) -> dict:
 
     parity = {"fp32": grad_parity(cfg, remat, "float32"),
               "bf16": grad_parity(cfg, remat, "bfloat16")}
-    if cfg.moe is not None:
+    if routed(cfg):
         free = {dtype: parity[dtype].pop("free_running")
                 for dtype in ("fp32", "bf16")}
         for dtype, bound in (("fp32", TRAIN_FP32_BOUND),
@@ -2514,10 +2636,10 @@ def phase_train(arch: str, remat: str, bf16_bound: float) -> dict:
               "n_layers": cfg.n_layers,
               "capacity_factor": cfg.moe.capacity_factor,
               "drop_share": moe_drop,
-              "drop_share_note": "the kernel path's first step at the "
-                                 "path's depth, B 8 x S 2048 (4 groups "
-                                 "of 4096 tokens), its checkpoints' "
-                                 "reruns counted again",
+              "drop_share_note": f"the kernel path's first step at the "
+                                 f"path's cut, B {rows} x S {seq} (groups "
+                                 f"of {min(4096, rows * seq)} tokens), its "
+                                 f"checkpoints' reruns counted again",
               "parity_free_running": free})
     for p in parity.values():
         p.pop("free_running", None)
@@ -2534,7 +2656,7 @@ def phase_train(arch: str, remat: str, bf16_bound: float) -> dict:
     return {"phase": "train", "arch": arch, "dtype": cfg.dtype,
             "n_layers": cfg.n_layers, "depth_cut": depth_cut(arch, "train"),
             "n_params": n_params,
-            "n_leaves": n_leaves, "batch": TRAIN_BATCH, "seq_len": seq,
+            "n_leaves": n_leaves, "batch": rows, "seq_len": seq,
             "frontend": fe, "positions": positions,
             "remat": remat, "optimizer": dataclasses.asdict(opt_cfg),
             "losses": losses, "grad_norms": norms, "step_ms": times,
@@ -2547,6 +2669,139 @@ def phase_train(arch: str, remat: str, bf16_bound: float) -> dict:
             "gradient_parity": parity,
             "fp32_bound": TRAIN_FP32_BOUND, "bf16_bound": bf16_bound,
             "determinism": repro}
+
+
+# ---------------------------------------------------------------------------
+# checkpoint
+# ---------------------------------------------------------------------------
+
+# The checkpoint phase's path: qwen1.5-0.5b at its parity cut (2 layers,
+# full width, bf16), written into the build directory, which .gitignore
+# lists, and removed afterwards
+CKPT_ARCH = "qwen1.5-0.5b"
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+
+
+def _timed_step(step, params, opt, batch):
+    """One train step, timed by CUDA events: (params, opt, loss, ms)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    params, opt, _, metrics = step(params, opt, None, batch)
+    end.record()
+    torch.cuda.synchronize()
+    return params, opt, metrics["loss"], start.elapsed_time(end)
+
+
+def _state(params, opt) -> dict:
+    """The weights and the AdamW moments as one tree of dicts."""
+    return {"params": params, "m": opt.m, "v": opt.v}
+
+
+def _differing_leaves(a: dict, b: dict) -> list:
+    """The names of the leaves of two trees of one structure that differ
+    in type or in any bit."""
+    lb = dict(_named_leaves(b))
+    return [name for name, t in _named_leaves(a)
+            if not (t.dtype == lb[name].dtype and torch.equal(t, lb[name]))]
+
+
+def phase_checkpoint() -> dict:
+    """The data pipeline and the checkpoint store on the card: batches of
+    the port's ``make_pipeline`` (seed 0, B 8 x S 2048, prefetched onto the
+    card; held equal to ``SyntheticLM``'s arrays), two donated train steps
+    of :data:`CKPT_ARCH`, then ``AsyncCheckpointer.save`` of the weights and
+    the AdamW state while step 3 runs (the snapshot is taken before it
+    returns; the step updates the same tensors in place); ``restore`` into a
+    fresh tree, every leaf ``torch.equal`` to the state saved; step 3 again
+    from the restored state, bit-identical to step 3 from the live state.
+    Reports the checkpoint's bytes, the snapshot, write and restore
+    seconds, and step 3's time with the write in flight and without it."""
+    t0 = time.perf_counter()
+    cfg = parity_config(get_config(CKPT_ARCH), "bfloat16")
+    remat = dict((a, r) for a, r, _ in TRAIN_PATHS)[CKPT_ARCH]
+    model = build_model(cfg)
+    params = model.init(SEED)
+    opt_cfg = adamw.AdamWConfig()
+    step = make_train_step(model, opt_cfg, ShardingPlan(name="dp",
+                                                        remat=remat),
+                           use_kernel=True, donate=True)
+    opt = adamw.init(opt_cfg, params)
+    pipe = make_pipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED,
+                         device="cuda")
+    try:
+        got = [next(pipe) for _ in range(3)]
+    finally:
+        pipe.close()
+    source = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+    for i, (step_i, batch) in enumerate(got):
+        tokens = batch["tokens"]
+        if step_i != i or tokens.device.type != "cuda" or not np.array_equal(
+                tokens.cpu().numpy(), source.batch_at(i)["tokens"]):
+            raise AssertionError(f"pipeline batch {i} (step {step_i}) is "
+                                 f"not SyntheticLM's on the card")
+    batches = [b for _, b in got]
+    losses, times = [], []
+    for batch in batches[:2]:
+        params, opt, loss, ms = _timed_step(step, params, opt, batch)
+        losses.append(float(loss))
+        times.append(ms)
+    saved = adamw.tree_map(torch.Tensor.clone, _state(params, opt))
+    opt_step = opt.step
+    if CKPT_DIR.exists():
+        shutil.rmtree(CKPT_DIR)
+    ck = store.AsyncCheckpointer(str(CKPT_DIR), keep=1)
+    t = time.perf_counter()
+    ck.save(2, {"params": params, "opt": opt}, extra_meta={"arch": cfg.name})
+    snapshot_s = time.perf_counter() - t
+    params, opt, loss_live, step3_in_flight_ms = _timed_step(
+        step, params, opt, batches[2])
+    ck.wait()
+    write_s = time.perf_counter() - t
+    nbytes = sum(f.stat().st_size for f in CKPT_DIR.rglob("*")
+                 if f.is_file())
+    if store.latest_step(str(CKPT_DIR)) != 2:
+        raise AssertionError("checkpoint: LATEST does not name step 2")
+
+    fresh = {"params": model.init(SEED + 1),
+             "opt": adamw.init(opt_cfg, model.init(SEED + 1))}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    restored, at = store.restore(str(CKPT_DIR), fresh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    del fresh
+    differ = _differing_leaves(saved, _state(restored["params"],
+                                             restored["opt"]))
+    if at != 2 or restored["opt"].step != opt_step or differ:
+        raise AssertionError(f"checkpoint: restored step {at}, leaves not "
+                             f"equal to the saved ones: {differ[:8]}")
+    del saved
+    p3, o3, loss_restored, step3_ms = _timed_step(
+        step, restored["params"], restored["opt"], batches[2])
+    differ = _differing_leaves(_state(params, opt), _state(p3, o3))
+    if differ or o3.step != opt.step or not torch.equal(loss_live,
+                                                         loss_restored):
+        raise AssertionError(f"checkpoint: step 3 from the restored state "
+                             f"is not bit-identical to step 3 from the live "
+                             f"state: {differ[:8]}")
+    n_leaves = sum(1 for _ in _leaves(params)) * 3 + 1
+    del params, opt, p3, o3, restored, batches, got
+    shutil.rmtree(CKPT_DIR)
+    torch.cuda.empty_cache()
+    return {"phase": "checkpoint", "arch": cfg.name, "dtype": cfg.dtype,
+            "n_layers": cfg.n_layers, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+            "pipeline": "make_pipeline(seed 0), pinned, non_blocking onto "
+                        "the card; equal to SyntheticLM's arrays",
+            "losses": losses + [float(loss_live)], "step_ms": times,
+            "checkpoint_bytes": nbytes, "checkpoint_leaves": n_leaves,
+            "snapshot_s": snapshot_s, "save_write_s": write_s,
+            "restore_s": restore_s,
+            "step3_ms_with_write_in_flight": step3_in_flight_ms,
+            "step3_ms_without": step3_ms,
+            "restored_leaves_equal": True,
+            "step3_bit_identical_from_restored": True,
+            "seconds": time.perf_counter() - t0}
 
 
 # ---------------------------------------------------------------------------
@@ -2854,6 +3109,7 @@ def main() -> None:
     if varying:
         raise AssertionError(f"train steps are not bit-identical on a "
                              f"rerun: {varying}")
+    emit(phase_checkpoint())
     if args.stop_after == "train":
         return
 
@@ -2933,7 +3189,7 @@ def main() -> None:
             launches=shape_launches(tag, m, "flash_attention_bwd", "train"))
     for tag, _ in path_mm():
         mm_times[tag]["max_abs_err"] = err_of(mm_cases, f"{tag} main path")
-    for arch in (*WIDE_ARCHS, MOE_ARCH, "gemma3-12b", *FRONTEND_ARCHS):
+    for arch in (*WIDE_ARCHS, *MOE_ARCHS, "gemma3-12b", *FRONTEND_ARCHS):
         kind = "gate" if _n_gate(get_config(arch)) else "head"
         mm_times[f"{arch} {kind}"].update(
             launches=arch_launches(arch, "matmul_epilogue"),

@@ -19,9 +19,11 @@ from repro_torch.models.transformer import torch_dtype
 # leaves the reference keeps in fp32 whatever cfg.dtype says: norm scales
 # (the encoder-decoder's ln_cross and enc_norm among them), the Mamba2
 # block's A_log / D / dt_bias / norm_scale, the SSM cache's state, the MoE
-# router (in bf16 it would route other tokens than the reference's)
+# router (in bf16 it would route other tokens than the reference's), MLA's
+# q_norm and kv_norm and the MTP head's norm
 _FP32_LEAVES = ("ln1", "ln2", "ln", "ln_cross", "final_norm", "enc_norm",
-                "A_log", "D", "dt_bias", "norm_scale", "state", "w_router")
+                "A_log", "D", "dt_bias", "norm_scale", "state", "w_router",
+                "q_norm", "kv_norm", "norm")
 
 
 def _convert(tree: Any, name: str, device, dtype: torch.dtype) -> Any:
@@ -47,7 +49,8 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
     leading cycle axis) kept as lists, the moe family's ``dense_blocks`` and
     ``blocks`` with their ``moe`` subtrees, the leaves the
     reference keeps in fp32 (norm scales, ``A_log``, ``D``, ``dt_bias``, the
-    MoE router ``w_router``) in fp32, everything else in ``dtype`` (default
+    MoE router ``w_router``, MLA's ``q_norm`` and ``kv_norm``, the MTP
+    head's ``norm``) in fp32, everything else in ``dtype`` (default
     ``cfg.dtype``)."""
     return _convert(tree, "", torch.device(device),
                     dtype or torch_dtype(cfg.dtype))
@@ -61,7 +64,8 @@ def cache_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
     the SSM's ``conv`` take ``dtype`` (default ``cfg.dtype``), the SSM's
     ``state`` stays fp32, ``kpos`` stays int32; the window-pattern family's
     ``p0`` ... ``p{period-1}`` and the moe family's ``dense`` and ``moe``
-    groups come across as the other caches' ``self``."""
+    groups come across as the other caches' ``self`` (with MLA, their
+    ``ckv`` and ``krope`` in ``dtype``)."""
     out = _convert({k: v for k, v in tree.items() if k != "pos"}, "",
                    torch.device(device), dtype or torch_dtype(cfg.dtype))
     out["pos"] = int(np.asarray(tree["pos"]))

@@ -29,8 +29,11 @@ Components per architecture family (the reference's names and counts):
     (``ck``, ``cv``) beside the self-attention cache's slice at decode
   * moe     : ``dense_layer`` x first_dense_layers (when there are any) and
     ``moe_layer`` x the rest, decode with the ``dense`` / ``moe`` cache
-    group's slice; the moe layer routes the component's ``B*S`` tokens
-    (B at decode) in the reference's groups
+    group's slice (with MLA the 3-D latent slices ``ckv`` and ``krope``);
+    the moe layer routes the component's ``B*S`` tokens (B at decode) in
+    the reference's groups, its shared expert beside them; MLA's prefill
+    and train components run dense attention, its decode the absorbed
+    path (the MTP head is not a component, as in the reference)
   plus a tail: ``ce_head``, ``embed`` and ``optimizer`` for train,
   ``lm_head`` for serve.  Layer counts are multiplied by the microbatches.
   Decode components carry their layer's cache slice, so the cache traffic is
@@ -39,8 +42,7 @@ Components per architecture family (the reference's names and counts):
 
 Where the port differs: prefill's ``lm_head`` heads the last position only,
 as both packages' ``prefill`` does (the reference's component heads every
-position).  MLA archs raise, as the port's models do; more than
-one device raises (the reference's
+position).  More than one device raises (the reference's
 ``grad_reduce`` component and its shardings wait for ``launch/shardings``,
 ROADMAP item 14).  What is traced is the plain program (the kernel wrappers
 see CPU tensors), as ``graph_cost`` says.

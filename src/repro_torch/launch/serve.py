@@ -4,9 +4,10 @@ Batched prefill+decode with the ServeEngine, on the GPU unless
 ``--device cpu`` is given (there is no silent fall back to the CPU).  An
 arch with a frontend (pixtral-12b's patches, whisper-small's frames) gets
 random embeddings from the seed, as the reference's serve script makes them.
-``--arch`` takes the ported archs; ``--layers`` cuts the depth of one that
-does not fit the card at full depth (``qwen1.5-110b``,
-``phi3.5-moe-42b-a6.6b``), width and every other field kept.
+``--arch`` takes every arch of the reference; ``--layers`` cuts the depth
+of one that does not fit the card at full depth (``qwen1.5-110b``,
+``phi3.5-moe-42b-a6.6b``, ``deepseek-v3-671b``, whose first 3 layers are
+its dense ones), width and every other field kept.
 """
 from __future__ import annotations
 

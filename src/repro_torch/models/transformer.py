@@ -12,11 +12,17 @@ frame embeddings, then a decoder of causal self-attention, cross-attention
 over the encoder's output and an MLP, ``whisper-small``) and the dense
 window-pattern family (a stack of cycles of ``len(window_pattern)`` GQA
 blocks, block ``i`` of a cycle attending over window ``window_pattern[i]``
-or, for ``None``, globally, ``gemma3-12b``) and the moe family (GQA blocks
+or, for ``None``, globally, ``gemma3-12b``) and the moe family (blocks
 whose MLP is the reference's GShard capacity-routed experts,
-:func:`layers.moe_ffn`, after ``first_dense_layers`` dense blocks,
-``phi3.5-moe-42b-a6.6b``).  MLA (``deepseek-v3``) raises
-``NotImplementedError``.
+:func:`layers.moe_ffn`, plus a shared expert where the config has one,
+after ``first_dense_layers`` dense blocks: GQA attention for
+``phi3.5-moe-42b-a6.6b``, DeepSeek's multi-head latent attention
+(:func:`mla_attention`: low-rank q and kv, a decoupled rope key, the
+absorbed MQA-over-latent decode) and the MTP head (:func:`mtp_hidden`,
+``loss_fn``'s ``mtp_ce`` term) for ``deepseek-v3-671b``).  MLA outside the
+moe family raises ``NotImplementedError``: the reference names its cache
+group ``moe`` there while its dense stack reads ``self``, so it has no
+decode to hold the port to.
 
 Params are nested dicts of tensors; leaves of the layer stack carry a leading
 layer axis, as in the reference, and the stack runs as a python loop over it.
@@ -25,7 +31,11 @@ per position of the pattern, each leaf with a leading cycle axis.  The moe
 family keeps the reference's two stacks: ``dense_blocks`` (only when
 ``first_dense_layers``) and ``blocks``, whose ``moe`` subtree holds the
 fp32 router ``w_router [L,d,E]`` and the experts ``w_gate``, ``w_up``
-``[L,E,d,ff]`` and ``w_down`` ``[L,E,ff,d]``.
+``[L,E,d,ff]`` and ``w_down`` ``[L,E,ff,d]``; a stack with no layers
+(every layer dense) is left out.  MLA's attention holds ``w_dq``,
+``q_norm`` (fp32), ``w_uq``, ``w_dkv``, ``kv_norm`` (fp32), ``w_ukv`` and
+``w_o``; the MTP head is ``params["mtp"] = {"proj" [2d,d], "block" (a
+dense block), "norm" (fp32)}``.
 
 Training: :func:`loss_fn` is the reference's next-token CE with the
 time-chunked head of :func:`_chunked_ce`, each chunk under a checkpoint; the
@@ -44,7 +54,10 @@ window-pattern family has ``p0`` ... ``p{period-1}``, each ``{"k", "v":
 a global position and ``min(w, max_len)`` for a position of window ``w``: a
 ring in which position ``p`` sits in slot ``p % cap``; the moe family has
 the reference's ``dense`` (only when ``first_dense_layers``) and ``moe``
-groups, each the dense family's ``self``.
+groups (each only when it has layers), each the dense family's ``self``,
+or with MLA ``{"ckv": [n,B,max_len,kv_lora_rank], "krope":
+[n,B,max_len,qk_rope_head_dim]}``: the compressed latent and the shared
+rope key, written at their position.
 ``pos`` is a host integer, so that a decode step never waits for a device
 scalar.  ``prefill`` and ``decode_step`` **write the cache tensors in place**
 and return a dict that holds the same tensors.
@@ -79,8 +92,10 @@ def require_ported(cfg: ArchConfig) -> None:
     """Raise unless ``cfg`` is of a family the port runs: the plain dense
     decoder (with or without a window pattern), the attention-free ssm
     stack, the hybrid of the two, the dense decoder behind a vision stub
-    (vlm), the encoder-decoder (audio), or the moe decoder without MLA."""
-    plain = cfg.mla is None and (cfg.moe is None) == (cfg.family != "moe") \
+    (vlm), the encoder-decoder (audio), or the moe decoder, with GQA or
+    with MLA (MLA only there: see the module's docstring)."""
+    plain = (cfg.mla is None or cfg.family == "moe") \
+        and (cfg.moe is None) == (cfg.family != "moe") \
         and (cfg.window_pattern is None or cfg.family == "dense")
     ok = {"dense": cfg.enc_dec is None and cfg.frontend == "none",
           "ssm": cfg.enc_dec is None and cfg.frontend == "none"
@@ -95,7 +110,7 @@ def require_ported(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"arch '{cfg.name}' (family {cfg.family}): not ported yet; the "
             f"port runs the dense (window pattern included), ssm, hybrid, "
-            f"vlm (vision stub), encoder-decoder and moe (without MLA) "
+            f"vlm (vision stub), encoder-decoder and moe (MLA only there) "
             f"families only")
     if cfg.family == "hybrid" and cfg.n_layers % cfg.hybrid.attn_every:
         raise ValueError(f"hybrid arch '{cfg.name}': n_layers "
@@ -130,12 +145,32 @@ def _norm_init(gen: torch.Generator, shape, scale: float,
 
 def attn_init(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype,
               lead: Tuple[int, ...] = ()) -> Params:
-    """GQA projection weights; ``lead`` prepends stack axes to every leaf."""
-    if cfg.mla is not None:
-        raise NotImplementedError("MLA attention: not ported yet")
+    """GQA projection weights, or MLA's with ``cfg.mla`` (its two norm
+    scales fp32 zeros, as the reference keeps them); ``lead`` prepends
+    stack axes to every leaf."""
     d, hd = cfg.d_model, cfg.head_dim_
     nh, nkv = cfg.n_heads, cfg.n_kv_heads
     std = d ** -0.5
+    if cfg.mla is not None:
+        m = cfg.mla
+        zeros = lambda n: torch.zeros(lead + (n,), dtype=torch.float32,
+                                      device=gen.device)
+        return {
+            "w_dq": _norm_init(gen, lead + (d, m.q_lora_rank), std, dtype),
+            "q_norm": zeros(m.q_lora_rank),
+            "w_uq": _norm_init(gen, lead + (m.q_lora_rank,
+                                            nh * m.qk_head_dim),
+                               m.q_lora_rank ** -0.5, dtype),
+            "w_dkv": _norm_init(gen, lead + (d, m.kv_lora_rank
+                                             + m.qk_rope_head_dim),
+                                std, dtype),
+            "kv_norm": zeros(m.kv_lora_rank),
+            "w_ukv": _norm_init(gen, lead + (m.kv_lora_rank, nh * (
+                m.qk_nope_head_dim + m.v_head_dim)),
+                m.kv_lora_rank ** -0.5, dtype),
+            "w_o": _norm_init(gen, lead + (nh * m.v_head_dim, d),
+                              (nh * m.v_head_dim) ** -0.5, dtype),
+        }
     p = {
         "w_q": _norm_init(gen, lead + (d, nh * hd), std, dtype),
         "w_k": _norm_init(gen, lead + (d, nkv * hd), std, dtype),
@@ -241,8 +276,16 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
         if nd:
             params["dense_blocks"] = block_init(gen, cfg, dtype=dtype,
                                                 lead=(nd,))
-        params["blocks"] = block_init(gen, cfg, dtype=dtype,
-                                      lead=(cfg.n_layers - nd,), moe=True)
+        if cfg.n_layers > nd:
+            params["blocks"] = block_init(gen, cfg, dtype=dtype,
+                                          lead=(cfg.n_layers - nd,),
+                                          moe=True)
+        if cfg.mtp_depth:
+            params["mtp"] = {
+                "proj": _norm_init(gen, (2 * d, d), (2 * d) ** -0.5, dtype),
+                "block": block_init(gen, cfg, dtype=dtype),
+                "norm": torch.zeros((d,), dtype=torch.float32,
+                                    device=gen.device)}
     elif cfg.window_pattern is not None:
         period = len(cfg.window_pattern)
         params["cycles"] = [
@@ -337,6 +380,85 @@ def _masked_dense_attention(q, k, v, mask) -> torch.Tensor:
     return o.reshape(b, hq, sq, dv).to(q.dtype)
 
 
+def mla_attention(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
+                  positions: torch.Tensor,
+                  kv_cache: Optional[Dict[str, torch.Tensor]] = None,
+                  pos: Optional[int] = None,
+                  use_kernel: bool = False,
+                  ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """DeepSeek's multi-head latent attention (the reference's
+    ``mla_attention``).  x: [B,S,d].  q from the low-rank ``c_q``, the keys
+    and values from the compressed latent ``c_kv`` (``kv_lora_rank``), a
+    rope key of ``qk_rope_head_dim`` shared by every head.
+
+    Without a cache, or with one and S > 1 (prefill): k_nope and v from
+    ``c_kv @ w_ukv``, the rope key broadcast to the heads, then
+    :func:`layers.attention` at scale ``1/sqrt(qk_head_dim)``; Dk != Dv
+    keeps it off the flash kernel, as the reference's dispatch does.
+    Prefill writes ``c_kv`` and the rope key at slots ``0 .. S-1`` of the
+    cache ``{"ckv": [B,cap,r], "krope": [B,cap,rd]}``, in place.
+
+    With a cache and S == 1 (decode; ``pos`` the host position): the
+    absorbed path, MQA over the latent cache.  ``q_nope`` is absorbed into
+    the latent (``q_nope . W_uk`` in fp32, cast to the model's type), the
+    keys are ``[ckv | krope]`` and the values ``ckv``, the scale corrected
+    to MLA's own inside q, and the output goes through ``W_uv`` in fp32.
+    """
+    m = cfg.mla
+    b, s, _ = x.shape
+    nh = cfg.n_heads
+    r, rd = m.kv_lora_rank, m.qk_rope_head_dim
+    dn, dv = m.qk_nope_head_dim, m.v_head_dim
+
+    cq = L.rms_norm(L.dense(x, p["w_dq"]), p["q_norm"], cfg.norm_eps)
+    q = L.dense(cq, p["w_uq"]).reshape(b, s, nh, m.qk_head_dim).transpose(1, 2)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    # one position row for every head: the reference's jnp.repeat along
+    # the head axis, as a broadcast
+    q_rope = L.apply_rope(q_rope, positions[:, None, :], cfg.rope_theta)
+
+    ckv_full = L.dense(x, p["w_dkv"])                      # [B,S,r+rd]
+    c_kv = L.rms_norm(ckv_full[..., :r], p["kv_norm"], cfg.norm_eps)
+    k_rope = L.apply_rope(ckv_full[..., None, r:].transpose(1, 2),
+                          positions[:, None, :], cfg.rope_theta)  # [B,1,S,rd]
+
+    scale = 1.0 / math.sqrt(m.qk_head_dim)
+    if kv_cache is not None and s == 1:
+        cc, ckr = kv_cache["ckv"], kv_cache["krope"]       # [B,cap,r|rd]
+        cc[:, pos:pos + 1] = c_kv
+        ckr[:, pos:pos + 1] = k_rope[:, 0]
+        w_ukv = p["w_ukv"].reshape(r, nh, dn + dv)
+        w_uk, w_uv = w_ukv[..., :dn], w_ukv[..., dn:]
+        q_lat = torch.einsum("bhsd,rhd->bhsr", q_nope.to(torch.float32),
+                             w_uk.to(torch.float32)).to(x.dtype)
+        q_full = torch.cat([q_lat, q_rope], dim=-1)        # [B,H,1,r+rd]
+        k_full = torch.cat([cc, ckr], dim=-1)[:, None]     # [B,1,cap,r+rd]
+        kmask = (torch.arange(cc.shape[1], device=x.device)
+                 <= pos)[None, None, None, :]
+        # _masked_dense_attention scales by 1/sqrt(r+rd); MLA's scale is
+        # 1/sqrt(qk_head_dim): the correction goes into q
+        corr = math.sqrt(q_full.shape[-1]) * scale
+        o_lat = _masked_dense_attention(q_full * corr, k_full, cc[:, None],
+                                        kmask)
+        out = torch.einsum("bhsr,rhd->bshd", o_lat.to(torch.float32),
+                           w_uv.to(torch.float32))
+        out = out.reshape(b, s, nh * dv).to(x.dtype)
+    else:
+        kv = L.dense(c_kv, p["w_ukv"]).reshape(b, s, nh, dn + dv)
+        k_nope = kv[..., :dn].transpose(1, 2)
+        v = kv[..., dn:].transpose(1, 2)
+        k = torch.cat([k_nope, k_rope.expand(b, nh, s, rd).to(k_nope.dtype)],
+                      dim=-1)
+        qf = torch.cat([q_nope, q_rope], dim=-1)
+        o = L.attention(qf, k, v, causal=True, scale=scale,
+                        use_kernel=use_kernel)
+        out = o.transpose(1, 2).reshape(b, s, nh * dv)
+        if kv_cache is not None:                          # prefill
+            kv_cache["ckv"][:, :s] = c_kv
+            kv_cache["krope"][:, :s] = k_rope[:, 0]
+    return L.dense(out, p["w_o"]), kv_cache
+
+
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
@@ -373,16 +495,24 @@ def block_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
                 pos: Optional[int] = None,
                 capacity_factor: Optional[float] = None,
                 use_kernel: bool = False):
-    """One transformer block; ``cross_state`` (K, V) adds the decoder's
+    """One transformer block (MLA attention where the config has it);
+    ``cross_state`` (K, V) adds the decoder's
     cross-attention after the self-attention; ``moe`` routes the MLP's
     tokens to the experts (:func:`layers.moe_ffn` over the ``B*S`` tokens,
     ``capacity_factor`` or the config's), plus the shared expert where the
     config has one. Returns (x, cache, aux_loss)."""
     h_in = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    attn_out, new_cache = gqa_attention(cfg, p["attn"], h_in,
-                                        positions=positions, window=window,
-                                        causal=causal, kv_cache=kv_cache,
-                                        pos=pos, use_kernel=use_kernel)
+    if cfg.mla is not None:
+        attn_out, new_cache = mla_attention(cfg, p["attn"], h_in,
+                                            positions=positions,
+                                            kv_cache=kv_cache, pos=pos,
+                                            use_kernel=use_kernel)
+    else:
+        attn_out, new_cache = gqa_attention(cfg, p["attn"], h_in,
+                                            positions=positions,
+                                            window=window, causal=causal,
+                                            kv_cache=kv_cache, pos=pos,
+                                            use_kernel=use_kernel)
     x = x + attn_out
     if cross_state is not None:
         ck, cv = cross_state
@@ -521,9 +651,17 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     if cfg.moe is not None:
         nd = cfg.moe.first_dense_layers
         cache = {"pos": 0}
-        if nd:
-            cache["dense"] = kvc(nd)
-        cache["moe"] = kvc(cfg.n_layers - nd)
+        for name, n in (("dense", nd), ("moe", cfg.n_layers - nd)):
+            if n and cfg.mla is not None:
+                m = cfg.mla
+                cache[name] = {
+                    "ckv": torch.zeros((n, batch, max_len, m.kv_lora_rank),
+                                       dtype=dtype, device=device),
+                    "krope": torch.zeros((n, batch, max_len,
+                                          m.qk_rope_head_dim),
+                                         dtype=dtype, device=device)}
+            elif n:
+                cache[name] = kvc(n)
         return cache
     s = cfg.ssm
     conv_ch = s.d_inner(cfg.d_model) + 2 * s.n_groups * s.state_size
@@ -754,24 +892,42 @@ def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     return _head(cfg, params, x, use_kernel), aux
 
 
+def mtp_hidden(cfg: ArchConfig, params: Params, h_main: torch.Tensor,
+               tokens: torch.Tensor) -> torch.Tensor:
+    """DeepSeek's MTP trunk (the reference's ``mtp_hidden``): the hidden
+    state ``[B,S-1,d]`` that predicts token ``t+2`` from ``norm(h[t])`` and
+    the embedding of token ``t+1``, through ``proj`` and one dense block.
+    As in the reference the block runs with neither the kernels nor remat:
+    its gate is a plain product on both paths."""
+    p = params["mtp"]
+    b, s = tokens.shape
+    h = L.rms_norm(h_main[:, :-1], p["norm"], cfg.norm_eps)
+    nxt = params["embed"][tokens[:, 1:]]
+    x = torch.cat([h, nxt], dim=-1) @ p["proj"].to(h.dtype)
+    x, _, _ = block_apply(cfg, p["block"], x,
+                          positions=_positions(b, s - 1, x.device),
+                          window=None)
+    return x
+
+
 def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
             *, remat: str = "none", use_kernel: bool = False,
-            aux_weight: float = 0.01,
+            aux_weight: float = 0.01, mtp_weight: float = 0.1,
             capacity_factor: Optional[float] = None, ce_chunk: int = 2048):
     """Next-token CE (+ ``aux_weight`` x the MoE aux loss, summed over the
-    moe layers, zero for the other families).  batch: ``{"tokens": [B,S]
-    int}``, plus ``"frontend"`` [B,F,d] for a vision stub (the patches
-    prepended, the CE over the tokens' positions only) or an
-    encoder-decoder (the encoder's frames).
-    Returns (loss, ``{"ce", "aux"}``), each a 0-d fp32 tensor.
+    moe layers, zero for the other families, + ``mtp_weight`` x the MTP
+    head's CE where the config and the tree have one).  batch:
+    ``{"tokens": [B,S] int}``, plus ``"frontend"`` [B,F,d] for a vision
+    stub (the patches prepended, the CE over the tokens' positions only) or
+    an encoder-decoder (the encoder's frames).
+    Returns (loss, ``{"ce", "aux"}`` and ``"mtp_ce"`` with MTP), each a 0-d
+    fp32 tensor.
 
     The CE head is chunked and rematerialised (:func:`_chunked_ce`), so the
-    ``[T, vocab]`` fp32 logits never exist whole.  The reference's MTP
-    branch needs archs the port does not run yet: it raises
-    ``NotImplementedError``."""
+    ``[T, vocab]`` fp32 logits never exist whole.  The MTP CE is the same
+    head over :func:`mtp_hidden`'s first S - 2 positions against tokens
+    ``2 ..``, with the same ``use_kernel``."""
     require_ported(cfg)
-    if cfg.mtp_depth:
-        raise NotImplementedError("loss_fn: MTP is not ported yet")
     tokens = batch["tokens"]
     frontend = batch.get("frontend")
     hidden, aux = forward_hidden(cfg, params, tokens, frontend, remat=remat,
@@ -784,7 +940,16 @@ def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
     ce = _chunked_ce(cfg, params,
                      hidden[:, offset:offset + tokens.shape[1] - 1],
                      tokens[:, 1:], ce_chunk, use_kernel)
-    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
+    total = ce + aux_weight * aux
+    metrics = {"ce": ce, "aux": aux}
+    if cfg.mtp_depth and "mtp" in params:
+        mtp_h = mtp_hidden(cfg, params,
+                           hidden[:, offset:offset + tokens.shape[1]], tokens)
+        mtp_ce = _chunked_ce(cfg, params, mtp_h[:, :-1], tokens[:, 2:],
+                             ce_chunk, use_kernel)
+        total = total + mtp_weight * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+    return total, metrics
 
 
 def _chunked_ce(cfg: ArchConfig, params: Params, h: torch.Tensor,

@@ -7,7 +7,9 @@ positions, the patches not counted, as in the reference), whisper-small
 with its cross K/V) and gemma3-12b (window pattern ``(8, None)``:
 ``layer_w8`` and ``layer_wglobal``, decode with each one's ring cache) and
 phi3.5-moe-42b-a6.6b (``moe_layer``: 4 experts, top-2, the dense fp32
-dispatch and combine products) at
+dispatch and combine products) and deepseek-v3-671b (``dense_layer`` and
+``moe_layer`` with MLA, the shared expert, decode with the ``ckv`` /
+``krope`` cache slices; MLA's ranks at full size) at
 B 2 x S 64, in prefill, decode and train (train under
 remat ``none`` and ``full``).
 
@@ -43,7 +45,7 @@ from repro_torch.models.model import build_model
 # family's components as they are: no change was needed for them
 ARCHS = ("qwen1.5-0.5b", "mamba2-1.3b", "zamba2-2.7b", "qwen1.5-4b",
          "stablelm-12b", "qwen1.5-110b", "pixtral-12b", "whisper-small",
-         "gemma3-12b", "phi3.5-moe-42b-a6.6b")
+         "gemma3-12b", "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b")
 BATCH, SEQ = 2, 64
 FLOP_BAND = (0.75, 1.25)
 

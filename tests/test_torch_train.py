@@ -255,9 +255,11 @@ def test_model_loss_and_forward_take_remat(pair):
 def test_loss_rejects_frontend_batches(pair):
     """An arch without a frontend takes no frontend: a batch that carries
     one gives the loss without it, as the reference's ``loss_fn`` ignores
-    it (the frontend archs are tests/test_torch_frontend_archs.py's); the
-    MTP branch, not ported, still raises.  The name dates from before the
-    frontend was ported and is kept so that the test keeps its history."""
+    it (the frontend archs are tests/test_torch_frontend_archs.py's); an
+    ``mtp_depth`` on a tree without an ``mtp`` head adds no MTP term, as in
+    the reference (the MTP head is tests/test_torch_mla_archs.py's).  The
+    name dates from before the frontend and the MTP head were ported and is
+    kept so that the test keeps its history."""
     ref_cfg, ref_params, cfg, params, tokens = pair
     fe = np.random.default_rng(4).standard_normal(
         (4, 2, cfg.d_model)).astype(np.float32)
@@ -269,9 +271,14 @@ def test_loss_rejects_frontend_batches(pair):
     ref, _ = RT.loss_fn(ref_cfg, ref_params, {"tokens": jnp.asarray(tokens),
                                               "frontend": jnp.asarray(fe)})
     np.testing.assert_allclose(float(got), float(ref), rtol=2e-5)
-    with pytest.raises(NotImplementedError):
-        TT.loss_fn(dataclasses.replace(cfg, mtp_depth=1), params,
-                   {"tokens": toks})
+    no_head, metrics = TT.loss_fn(dataclasses.replace(cfg, mtp_depth=1),
+                                  params, {"tokens": toks})
+    ref_no_head, ref_metrics = RT.loss_fn(
+        dataclasses.replace(ref_cfg, mtp_depth=1), ref_params,
+        {"tokens": jnp.asarray(tokens)})
+    assert torch.equal(no_head, base)
+    assert sorted(metrics) == sorted(ref_metrics) == ["aux", "ce"]
+    np.testing.assert_allclose(float(no_head), float(ref_no_head), rtol=2e-5)
 
 
 def _saved_bytes(fn):

@@ -16,7 +16,9 @@ frontend embeddings, and so is gemma3-12b (its window pattern reduced to
 ``(8, None)``), whose flash launches are also held by window, as every
 arch's are, and so is phi3.5-moe-42b-a6.6b (4 heads over 2 kv heads, 4
 experts), whose routed experts take no kernel: its epilogue launches are
-the heads' alone.  The serve count is held over a ``generate`` of static
+the heads' alone, and so is deepseek-v3-671b (MLA, so no flash launch at
+all; its dense layers' and shared experts' gates and, in training, the
+MTP head's CE chunks on the epilogue kernel, the MTP block's gate plain).  The serve count is held over a ``generate`` of static
 and of continuous batching (static only with a frontend, which is
 single-admission)."""
 import dataclasses
@@ -29,9 +31,10 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import (expected_flash_windows,  # noqa: E402
-                        expected_launches, expected_train_launches,
-                        parity_config, path_config)
+from chip_smoke import (DEPTH_CUTS, depth_cut,  # noqa: E402
+                        expected_flash_windows, expected_launches,
+                        expected_train_launches, parity_config, path_batch,
+                        path_config)
 from repro_torch.runtime.serve_engine import (EngineConfig,  # noqa: E402
                                               Request, ServeEngine)
 from repro_torch.configs import get_config                     # noqa: E402
@@ -53,7 +56,7 @@ STAND_INS = [(fa, "flash_attention_plain", "flash_attention"),
 
 
 DENSE = ("qwen1.5-4b", "stablelm-12b", "qwen1.5-110b", "gemma3-12b",
-         "phi3.5-moe-42b-a6.6b")
+         "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b")
 FRONTEND = ("pixtral-12b", "whisper-small")
 
 
@@ -151,6 +154,39 @@ def test_parity_config_applies_every_shared_block_once():
             cfg, n_layers=2, dtype="float32")
 
 
+def test_deepseek_cuts_and_parity_config_keep_a_moe_layer():
+    """deepseek-v3's train cut names its layers, its dense layers first,
+    its routed experts and its batch; its parity cut keeps one dense layer
+    and one moe layer of the train cut's experts (2 layers of the full
+    config would be 2 of its 3 dense layers), from the full config and from
+    the train cut alike.  Widths, heads, the MLA ranks and top-k stay."""
+    full = get_config("deepseek-v3-671b")
+    train = path_config("deepseek-v3-671b", "train")
+    assert (train.n_layers, train.moe.first_dense_layers,
+            train.moe.n_experts, train.moe.top_k) == (2, 1, 16, 8)
+    assert path_batch("deepseek-v3-671b", "train") == 1
+    assert path_batch("deepseek-v3-671b", "serve") == 8
+    serve = path_config("deepseek-v3-671b", "serve")
+    assert (serve.n_layers, serve.moe.first_dense_layers,
+            serve.moe.n_experts) == (5, 3, 256)
+    for cfg in (full, train):
+        cut = parity_config(cfg, "float32")
+        assert (cut.n_layers, cut.moe.first_dense_layers, cut.moe.n_experts,
+                cut.dtype) == (2, 1, 16, "float32")
+        assert dataclasses.replace(cut, n_layers=full.n_layers,
+                                   dtype=full.dtype, moe=full.moe) == full
+    line = depth_cut("deepseek-v3-671b", "train")
+    assert (line["n_experts"], line["n_experts_full"], line["batch"],
+            line["batch_full"], line["first_dense_layers_full"],
+            line["n_layers_full"]) == (16, 256, 1, 8, 3, 61)
+    assert list(line)[-1] == "reason"
+    assert all(isinstance(cut["reason"], str) and cut["n_layers"] > 0
+               for cut in DEPTH_CUTS.values())
+    phi = get_config("phi3.5-moe-42b-a6.6b")
+    assert parity_config(phi, "float32") == dataclasses.replace(
+        phi, n_layers=2, dtype="float32")
+
+
 @pytest.mark.parametrize("batching", ["static", "continuous"])
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", *DENSE, *FRONTEND])
 def test_expected_launches_match_the_serve_path(arch, batching,
@@ -184,7 +220,10 @@ def test_expected_launches_match_the_serve_path(arch, batching,
     assert windows == {k: v for k, v in expected_flash_windows(
         cfg, expected).items() if v}
     enc = cfg.enc_dec.n_encoder_layers if cfg.enc_dec else 0
-    assert calls["flash_attention"] == (cfg.n_layers + enc) * rounds > 0
+    if cfg.mla is not None:
+        assert calls["flash_attention"] == 0 < calls["matmul_epilogue"]
+    else:
+        assert calls["flash_attention"] == (cfg.n_layers + enc) * rounds > 0
 
 
 def test_routing_recorder_reads_every_moe_layer():

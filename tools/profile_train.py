@@ -13,7 +13,7 @@ are not in them).
         [--arch qwen1.5-0.5b|mamba2-1.3b|zamba2-2.7b|qwen1.5-4b|...]
 
 The batch, sequence length and remat policy are those of ``chip_smoke.py``'s
-train phase (``TRAIN_BATCH``, ``TRAIN_SEQ``, ``TRAIN_PATHS``).
+train phase (``path_batch``, ``TRAIN_SEQ``, ``TRAIN_PATHS``).
 """
 from __future__ import annotations
 
@@ -29,8 +29,8 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 # first: it sets the allocator's configuration before torch is imported
-from chip_smoke import (TRAIN_BATCH, TRAIN_PATHS, TRAIN_SEQ,  # noqa: E402
-                        path_config)
+from chip_smoke import (TRAIN_PATHS, TRAIN_SEQ,  # noqa: E402
+                        path_batch, path_config)
 import torch                                                 # noqa: E402
 from profile_serve import einsum_ranges, window             # noqa: E402
 from repro_torch.core import ShardingPlan                    # noqa: E402
@@ -56,9 +56,9 @@ def main() -> None:
     step = make_train_step(model, opt_cfg, ShardingPlan(remat=remat),
                            use_kernel=True, donate=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size,
-                                     (TRAIN_BATCH, TRAIN_SEQ), generator=gen,
-                                     device="cuda")}
+    rows = path_batch(args.arch, "train")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (rows, TRAIN_SEQ),
+                                     generator=gen, device="cuda")}
     state = {"params": params, "opt": adamw.init(opt_cfg, params)}
 
     def one_step():
@@ -70,7 +70,7 @@ def main() -> None:
     one_step()
     peak = torch.cuda.max_memory_allocated()
     print(json.dumps({"arch": args.arch, "layers": cfg.n_layers,
-                      "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": remat,
+                      "batch": rows, "seq": TRAIN_SEQ, "remat": remat,
                       "max_memory_allocated_bytes": peak}), flush=True)
     with einsum_ranges(cfg):
         window("train step", one_step, 1)

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Whether a serve path fits one GPU at a given depth: ``chip_smoke.py``'s
-serve phase for the arch at full width and ``--layers`` layers (bf16,
-random weights from the seed, the phase's requests, static twice and
-continuous, the prefill logits with and without the kernels, the controls,
-then the fp32 streams at the phase's fp32 depth), with no bound on the bf16
-prefill logits.  Prints the phase's lines (for a moe arch its ``moe`` line
-too) and one JSON line: the card's name and power limit, the depth, the
-peak memory, and ``"out_of_memory"`` (exit 0 either way).
+"""Whether a serve path fits one GPU at a given cut: ``chip_smoke.py``'s
+serve phase for the arch at full width and ``--layers`` layers (a moe
+arch's routed experts cut to ``--experts``, the round's requests to
+``--batch``; bf16, random weights from the seed, the phase's requests,
+static twice and continuous, the prefill logits with and without the
+kernels, the controls, then the fp32 streams at the phase's fp32 depth),
+with no bound on the bf16 prefill logits.  Prints the phase's lines (for a
+moe arch its ``moe`` line too) and one JSON line: the card's name and power
+limit, the cut, the peak memory, and ``"out_of_memory"`` (exit 0 either
+way).
 
-    python3 tools/serve_depth.py --arch phi3.5-moe-42b-a6.6b --layers 24
+    python3 tools/serve_depth.py --arch deepseek-v3-671b --layers 5
 """
 from __future__ import annotations
 
@@ -30,13 +32,21 @@ FP32_LAYERS = {arch: n for arch, _, n in chip_smoke.SERVE_PATHS}
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default=chip_smoke.MOE_ARCH,
+    ap.add_argument("--arch", default=chip_smoke.DEEPSEEK,
                     choices=sorted(FP32_LAYERS))
     ap.add_argument("--layers", type=int, required=True)
+    ap.add_argument("--experts", type=int, default=None,
+                    help="routed experts of a moe arch (default: all)")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="requests of a round (default: the phase's)")
     args = ap.parse_args()
     smi = chip_smoke.device_line()
-    chip_smoke.DEPTH_CUTS[(args.arch, "serve")] = (args.layers, "probe")
-    out = {"device": smi, "arch": args.arch, "n_layers": args.layers}
+    cut = {"n_layers": args.layers, "reason": "probe"}
+    for key, value in (("n_experts", args.experts), ("batch", args.batch)):
+        if value is not None:
+            cut[key] = value
+    chip_smoke.DEPTH_CUTS[(args.arch, "serve")] = cut
+    out = {"device": smi, "arch": args.arch, "cut": cut}
     torch.cuda.reset_peak_memory_stats()
     try:
         line = chip_smoke.phase_serve(args.arch, float("inf"),
