@@ -56,7 +56,13 @@ the calibrated profile of the next phase), ``calibrate`` (the reference's
 calibration harvest on the card: matmul, stream, LinReg and full-width
 arch cells costed through ``graph_cost``, a fitted H100 profile, each
 cell's drift and the gate's PASS or FAIL; the fusion rows with the fusing
-kernels' times; each train path's step costed component by component).
+kernels' times; each train path's step costed component by component),
+``trainer`` (the runtime through its entry points: qwen1.5-0.5b at full
+size through ``Trainer.run`` on ``choose_plan``'s plan for one H100, ten
+steps with the online recalibrator on, each step's time against the train
+phase's, a run stopped after a checkpoint and resumed from it bit-identical
+to the straight run, the recalibrator's events, and ``launch/train.py``
+run in this process).
 Then one ``{"kernels": [...]}`` line with each kernel's time at its main-path
 shape beside its roofline bound, the plain version's time and a PyTorch
 library call's time (null where no single call computes the function), the
@@ -71,6 +77,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import math
@@ -112,8 +119,10 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_bwd_body, ssd_scan, ssd_scan_bwd, ssd_scan_bwd_plain,
     ssd_scan_bwd_split_plain, ssd_scan_plain, ssd_scan_split_plain)
 from repro_torch.kernels.tsmm import tsmm_upper, tsmm_upper_plain  # noqa: E402
-from repro_torch.core import ShardingPlan, h100_single_config    # noqa: E402
+from repro_torch.core import (ShardingPlan, choose_plan,  # noqa: E402
+                              h100_single_config)
 from repro_torch.data.pipeline import SyntheticLM, make_pipeline  # noqa: E402
+from repro_torch.launch import train as train_driver            # noqa: E402
 from repro_torch.launch.component_cost import (  # noqa: E402
     aggregate, component_costs)
 from repro_torch.models import layers as model_layers           # noqa: E402
@@ -122,7 +131,8 @@ from repro_torch.models.model import build_model                 # noqa: E402
 from repro_torch.optim import adamw                              # noqa: E402
 from repro_torch.runtime.serve_engine import (EngineConfig, Request,  # noqa: E402
                                               ServeEngine)
-from repro_torch.runtime.train_loop import (make_train_step,  # noqa: E402
+from repro_torch.runtime.train_loop import (Trainer,  # noqa: E402
+                                            TrainerConfig, make_train_step,
                                             value_and_grad)
 
 # Published dense peaks of one H100 SXM at its full power limit (NVIDIA's
@@ -3012,6 +3022,206 @@ def add_calibrated(estimate: dict, drift: dict, cc_cal) -> None:
         est["ratio_cal"] = cal["total_ms"] / est["measured_ms"]
 
 
+# ---------------------------------------------------------------------------
+# trainer
+# ---------------------------------------------------------------------------
+
+# The trainer phase's path: qwen1.5-0.5b at full size (24 layers, bf16) at
+# the train phase's B 8 x S 2048, on the plan choose_plan picks for one
+# H100, through the user's entry points (Trainer, launch/train.py).  The
+# stopped run checkpoints into the build directory, which .gitignore lists,
+# and the directory is removed afterwards.
+TRAINER_ARCH = "qwen1.5-0.5b"
+TRAINER_STEPS, TRAINER_STOP, TRAINER_CKPT_EVERY = 10, 6, 5
+TRAINER_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_trainer"
+# a Trainer step's host seconds (read after a synchronise) must come to at
+# least this share of the train phase's CUDA-event median for the same arch
+# and plan: a Trainer that timed the launch alone would read far below it
+TRAINER_TIME_FLOOR = 0.9
+DRIVER_STEPS = 3
+
+
+def _trainer_launches(cfg, plan, steps: int) -> dict:
+    """The kernel launches ``steps`` Trainer steps of ``cfg`` on ``plan``
+    must make: each microbatch is a forward and backward of its rows."""
+    micro = max(plan.microbatches, 1)
+    return expected_train_launches(cfg, plan.remat, TRAIN_BATCH // micro,
+                                   TRAIN_SEQ, steps * micro)
+
+
+def _check_launches(where: str, launches: dict, expected: dict) -> None:
+    used = ("flash_attention", "flash_attention_bwd", "matmul_epilogue")
+    if any(launches[k] < 1 for k in used) or launches != expected:
+        raise AssertionError(f"trainer: {where} launched {launches}, "
+                             f"expected {expected}")
+
+
+def phase_trainer(train: dict) -> dict:
+    """The runtime on the card through its entry points: a straight
+    ``Trainer.run`` of TRAINER_STEPS steps with the recalibrator on, each
+    step's ``time_s`` held against the train phase's CUDA-event median;
+    then a run stopped after TRAINER_STOP steps (a checkpoint at step
+    TRAINER_CKPT_EVERY) and a resumed run to TRAINER_STEPS from ``LATEST``,
+    whose losses and final weights and AdamW state must equal the straight
+    run's bit for bit; the recalibrator's events, the straggler verdict and
+    the checkpoint's bytes; and the training driver ``launch/train.py`` in
+    this process for DRIVER_STEPS steps."""
+    t0 = time.perf_counter()
+    cfg = get_config(TRAINER_ARCH)
+    shape = ShapeConfig("h100_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    cc = h100_single_config()
+    decision = choose_plan(cfg, shape, cc, top_k=1)[0]
+    plan = decision.plan
+    opt_cfg = adamw.AdamWConfig(total_steps=TRAINER_STEPS)
+
+    def trainer(steps, ckpt_dir=None, recalibrate=False):
+        return Trainer(cfg, shape, cc, "cuda", plan=plan, opt_cfg=opt_cfg,
+                       tcfg=TrainerConfig(
+                           steps=steps, log_every=1,
+                           checkpoint_every=TRAINER_CKPT_EVERY,
+                           ckpt_dir=ckpt_dir, recalibrate=recalibrate))
+
+    # 1. straight through, the recalibrator watching
+    t = time.perf_counter()
+    straight = trainer(TRAINER_STEPS, recalibrate=True)
+    rec = straight.recalibrator
+    est_before = rec.estimated
+    ops.reset_launch_counts()
+    run = straight.run()
+    launches = ops.launch_counts()
+    straight_s = time.perf_counter() - t
+    hist = run["history"]
+    losses = [h["loss"] for h in hist]
+    times = [h["time_s"] for h in hist]
+    if [h["step"] for h in hist] != list(range(TRAINER_STEPS)) or not all(
+            math.isfinite(v) for v in losses):
+        raise AssertionError(f"trainer: steps {[h['step'] for h in hist]}, "
+                             f"losses {losses}")
+    expected = _trainer_launches(cfg, plan, TRAINER_STEPS)
+    _check_launches("the straight run", launches, expected)
+    warm_ms = train[TRAINER_ARCH]["warm_median_step_ms"]
+    median_ms = float(np.median(times[1:])) * 1e3
+    if not median_ms >= TRAINER_TIME_FLOOR * warm_ms:
+        raise AssertionError(f"trainer: median step {median_ms} ms under "
+                             f"{TRAINER_TIME_FLOOR} x the train phase's "
+                             f"{warm_ms} ms: the launch was timed")
+    lo, hi = rec.band
+    if not rec.events and not lo <= rec.ewma <= hi and \
+            TRAINER_STEPS >= rec.min_observations:
+        raise AssertionError(f"trainer: EWMA ratio {rec.ewma} outside "
+                             f"{rec.band} after {TRAINER_STEPS} steps and "
+                             f"no recalibration")
+    events = [{"step": e.step, "ewma_ratio": e.ratio,
+               "factors": e.profile.to_json(),
+               "profile": e.profile.describe(), "replanned": e.replanned,
+               "old_plan": e.old_plan, "new_plan": e.new_plan,
+               "elastic": None if e.elastic is None else {
+                   "mesh_shape": list(e.elastic.mesh_shape),
+                   "lr_scale": e.elastic.lr_scale,
+                   "plan": e.elastic.decision.plan.describe(),
+                   "estimated_ms": e.elastic.decision.time * 1e3}}
+              for e in rec.events]
+    recalibration = {
+        "band": list(rec.band), "events": events,
+        "estimated_ms_before": est_before * 1e3,
+        "estimated_ms_after": rec.estimated * 1e3,
+        "measured_median_ms": median_ms,
+        "ratio_before": median_ms / (est_before * 1e3),
+        "ratio_after": median_ms / (rec.estimated * 1e3),
+        "plan_after": rec.plan.describe(),
+        "ewma_at_end": rec.ewma}
+    straggler = dataclasses.asdict(straight.monitor.detect())
+    final = {"params": run["params"], "opt": run["opt_state"]}
+    del run, straight, rec
+    torch.cuda.empty_cache()
+
+    # 2. stopped after TRAINER_STOP steps, a checkpoint at TRAINER_CKPT_EVERY
+    if TRAINER_DIR.exists():
+        shutil.rmtree(TRAINER_DIR)
+    t = time.perf_counter()
+    stopped = trainer(TRAINER_STOP, ckpt_dir=str(TRAINER_DIR)).run()
+    stopped_s = time.perf_counter() - t
+    at = store.latest_step(str(TRAINER_DIR))
+    ckpt_bytes = sum(f.stat().st_size for f in TRAINER_DIR.rglob("*")
+                     if f.is_file())
+    stopped_losses = [h["loss"] for h in stopped["history"]]
+    del stopped
+    torch.cuda.empty_cache()
+    if at != TRAINER_CKPT_EVERY:
+        raise AssertionError(f"trainer: LATEST names step {at}")
+
+    # 3. resumed from LATEST to TRAINER_STEPS
+    t = time.perf_counter()
+    ops.reset_launch_counts()
+    resumed = trainer(TRAINER_STEPS, ckpt_dir=str(TRAINER_DIR)).run()
+    resumed_launches = ops.launch_counts()
+    resumed_s = time.perf_counter() - t
+    tail = [h["loss"] for h in resumed["history"]]
+    steps_resumed = [h["step"] for h in resumed["history"]]
+    differ = _differing_leaves(
+        _state(final["params"], final["opt"]),
+        _state(resumed["params"], resumed["opt_state"]))
+    if (steps_resumed != list(range(TRAINER_STOP, TRAINER_STEPS))
+            or tail != losses[TRAINER_STOP:]
+            or resumed["opt_state"].step != final["opt"].step or differ):
+        raise AssertionError(f"trainer: resumed steps {steps_resumed}, "
+                             f"losses {tail} against {losses[TRAINER_STOP:]}"
+                             f", leaves differing {differ[:8]}")
+    _check_launches("the resumed run", resumed_launches,
+                    _trainer_launches(cfg, plan,
+                                      TRAINER_STEPS - TRAINER_STOP))
+    if stopped_losses != losses[:TRAINER_STOP]:
+        raise AssertionError(f"trainer: the stopped run's losses "
+                             f"{stopped_losses} are not the straight run's")
+    del resumed, final
+    shutil.rmtree(TRAINER_DIR)
+    torch.cuda.empty_cache()
+
+    # 4. the training driver, in this process
+    out = io.StringIO()
+    t = time.perf_counter()
+    ops.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        train_driver.main(["--arch", TRAINER_ARCH, "--steps",
+                           str(DRIVER_STEPS), "--global-batch",
+                           str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ)])
+    driver_launches = ops.launch_counts()
+    driver_s = time.perf_counter() - t
+    text = out.getvalue()
+    rows = [json.loads(line) for line in text.splitlines()
+            if line.startswith("{")]
+    driver_losses = [r["loss"] for r in rows]
+    if ("== cost-based plan ranking (h100_sxm) ==" not in text
+            or [r["step"] for r in rows] != list(range(DRIVER_STEPS))
+            or not all(math.isfinite(v) for v in driver_losses)):
+        raise AssertionError(f"trainer: the driver printed {text!r}")
+    _check_launches("the driver", driver_launches,
+                    _trainer_launches(cfg, plan, DRIVER_STEPS))
+    torch.cuda.empty_cache()
+    return {"phase": "trainer", "arch": cfg.name, "dtype": cfg.dtype,
+            "n_layers": cfg.n_layers, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+            "plan": plan.describe(), "plan_estimated_ms": decision.time * 1e3,
+            "steps": TRAINER_STEPS, "losses": losses, "time_s": times,
+            "median_step_ms": median_ms,
+            "train_phase_warm_median_step_ms": warm_ms,
+            "time_floor": TRAINER_TIME_FLOOR,
+            "launches": launches, "expected_launches": expected,
+            "recalibration": recalibration, "straggler": straggler,
+            "stopped_at": TRAINER_STOP, "checkpoint_step": at,
+            "checkpoint_bytes": ckpt_bytes,
+            "resumed_steps": steps_resumed, "resumed_losses": tail,
+            "resumed_bit_identical": True,
+            "resumed_launches": resumed_launches,
+            "driver": {"argv_steps": DRIVER_STEPS,
+                       "ranking": [line.strip() for line in
+                                   text.splitlines()[1:4]],
+                       "losses": driver_losses,
+                       "launches": driver_launches, "seconds": driver_s},
+            "straight_s": straight_s, "stopped_s": stopped_s,
+            "resumed_s": resumed_s,
+            "seconds": time.perf_counter() - t0}
+
+
 def _measured_ms(run: dict, key: str) -> float:
     """Milliseconds of one static run's prefill round (``prefill``) or of
     one of its decode steps (``decode``)."""
@@ -3124,6 +3334,7 @@ def main() -> None:
     add_calibrated(estimate, calib["drift"], cc_cal)
     emit(estimate)
     emit(calib)
+    emit(phase_trainer(train))
 
     def err_of(cases, tag):
         return next(c["max_abs_err"] for c in cases if c["case"] == tag)

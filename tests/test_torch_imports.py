@@ -31,6 +31,9 @@ MODULES = [
     "repro_torch.configs.deepseek_v3", "repro_torch.data",
     "repro_torch.data.pipeline", "repro_torch.checkpoint",
     "repro_torch.checkpoint.store", "chip_smoke",
+    "repro_torch.runtime.straggler", "repro_torch.runtime.elastic",
+    "repro_torch.launch.train", "repro_torch.examples.train_lm",
+    "repro_torch.examples.serve_lm",
 ] + [f"repro_torch.core.{m}" for m in (
     "npvec", "calibration", "cluster", "symbols", "plan", "linalg_ops",
     "hlo_cost", "costmodel", "explain", "linreg", "dominance", "planner",
@@ -61,6 +64,23 @@ def test_import_leaves_no_jax_and_no_reference(module):
 def test_cost_model_loads_no_torch(module):
     """The cost model is numpy and the standard library: ``parallel``'s spawn
     workers import it, and must never load torch or initialise CUDA."""
+    code = (
+        "import sys, importlib\n"
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}]\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'repro'))\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", ["repro_torch.runtime.straggler",
+                                    "repro_torch.runtime.elastic"])
+def test_array_free_runtime_loads_no_torch(module):
+    """The straggler monitor and the elastic replan are numpy and the cost
+    model; ``elastic.reshard`` imports torch only when it is called."""
     code = (
         "import sys, importlib\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}]\n"
@@ -165,6 +185,80 @@ def test_launcher_and_example_raise_without_cuda():
             serve.main(["--arch", arch, "--reduced"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         linreg_ds.execute_small(256, 64)
+
+
+# the train driver at a CPU size: the reduced model, B 4 x S 32
+TRAIN_CPU = ["--arch", "qwen1.5-0.5b", "--reduced", "--steps", "3",
+             "--global-batch", "4", "--seq-len", "32"]
+
+
+def test_trainer_driver_and_examples_raise_without_cuda(tmp_path):
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core import h100_single_config
+    from repro_torch.examples import serve_lm, train_lm
+    from repro_torch.launch import train
+    from repro_torch.runtime.train_loop import Trainer
+    _needs_no_gpu()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(TRAIN_CPU)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_lm.main(["--steps", "3", "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_lm.main([])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(get_config("qwen1.5-0.5b").reduced(), SHAPES["train_4k"],
+                h100_single_config())
+    assert not list(tmp_path.iterdir())
+
+
+def test_trainer_driver_runs_on_the_cpu_when_asked(capsys):
+    """The ranking (costed for the CPU host), then three logged steps,
+    each a JSON line with a finite loss."""
+    import json
+    import math
+    from repro_torch.launch import train
+    train.main(TRAIN_CPU + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "== cost-based plan ranking (cpu_host) ==" in out
+    rows = [json.loads(line) for line in out.splitlines()
+            if line.startswith("{")]
+    assert [r["step"] for r in rows] == [0, 1, 2]
+    assert all(math.isfinite(r["loss"]) for r in rows)
+    assert "kernels off" in out
+
+
+def test_trainer_driver_explains_without_a_device(capsys):
+    """``--explain`` costs the winner for the card and prints EXPLAIN; it
+    runs nothing, so it needs no card."""
+    from repro_torch.launch import train
+    train.main(["--arch", "qwen1.5-0.5b", "--global-batch", "8",
+                "--seq-len", "2048", "--explain"])
+    out = capsys.readouterr().out
+    assert "(h100_sxm)" in out and "dp+tp[batch=data,remat=none]" in out
+    assert "PROGRAM" in out
+
+
+@pytest.mark.parametrize("mesh", ["single", "multi"])
+def test_trainer_driver_refuses_a_mesh(mesh):
+    from repro_torch.launch import train
+    with pytest.raises(NotImplementedError, match="item 14"):
+        train.main(TRAIN_CPU + ["--device", "cpu", "--mesh", mesh])
+
+
+def test_examples_run_on_the_cpu_when_asked(capsys, tmp_path):
+    """``train_lm`` trains the reduced model 3 steps and checkpoints
+    nothing before step 100; ``serve_lm`` keeps its determinism assert and
+    its 2-slot continuous pool."""
+    from repro_torch.examples import serve_lm, train_lm
+    train_lm.main(["--device", "cpu", "--steps", "3", "--ckpt-dir",
+                   str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "device=cpu" in out and "straggler verdict: none" in out
+    serve_lm.main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "determinism check passed" in out
+    assert "continuous, slots=2: 2 admission rounds" in out
+    assert "kernels off" in out
 
 
 def test_launcher_runs_on_the_cpu_when_asked(capsys):
