@@ -62,7 +62,14 @@ size through ``Trainer.run`` on ``choose_plan``'s plan for one H100, ten
 steps with the online recalibrator on, each step's time against the train
 phase's, a run stopped after a checkpoint and resumed from it bit-identical
 to the straight run, the recalibrator's events, and ``launch/train.py``
-run in this process).
+run in this process), ``mesh`` (the same ``Trainer`` built on a one-rank
+CUDA mesh of nccl, ``Trainer(arch, shape, cc, mesh)``: every parameter a
+``DTensor``, the kernels reached through ``local_map``, five steps whose
+losses must equal the trainer phase's bit for bit, each timed by CUDA
+events, a checkpoint at step 2 restored onto the shardings leaf for leaf,
+and one dry-run cell, qwen1.5-0.5b ``train_4k`` on one H100 node's fake
+8-rank mesh, traced in a subprocess meanwhile; one card checks placements
+and one-rank execution, nothing multi-GPU).
 Then one ``{"kernels": [...]}`` line with each kernel's time at its main-path
 shape beside its roofline bound, the plain version's time and a PyTorch
 library call's time (null where no single call computes the function), the
@@ -3222,6 +3229,208 @@ def phase_trainer(train: dict) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# mesh
+# ---------------------------------------------------------------------------
+
+# The mesh phase's path: the trainer phase's Trainer (same arch, size, plan,
+# seed and AdamW schedule) built on a one-rank CUDA mesh of nccl, so that
+# its weights, moments and batches are DTensors; MESH_STEPS steps (the last
+# one under torch.profiler, for the device's busy time), a checkpoint at
+# MESH_CKPT_AT restored onto the shardings; then, once nothing is timed,
+# one dry-run cell in a subprocess on the fake process group.  One card
+# checks the placements and one-rank execution only: nothing here is
+# multi-GPU.
+MESH_STEPS, MESH_CKPT_AT = 6, 2
+MESH_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_mesh"
+MESH_DRYRUN = ("qwen1.5-0.5b", "train_4k", "single")
+MESH_DRYRUN_TIMEOUT_S = 400
+
+
+def _mesh_dryrun_cell() -> dict:
+    """One dry-run cell (:data:`MESH_DRYRUN`) in a subprocess, on the CPU
+    (the fake process group is apart from this process's nccl group): its
+    status (it must be ``ok``) and collectives."""
+    arch, shape, mesh = MESH_DRYRUN
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", mesh, "--force", "--artifact-dir",
+         str(MESH_DIR / "dryrun")], env=env, capture_output=True, text=True,
+        timeout=MESH_DRYRUN_TIMEOUT_S)
+    seconds = time.perf_counter() - t
+    path = MESH_DIR / "dryrun" / f"dryrun_{arch}_{shape}_{mesh}.json"
+    if proc.returncode != 0 or not path.exists():
+        raise AssertionError(f"mesh: the dry-run cell failed "
+                             f"({proc.returncode}): {proc.stdout[-2000:]} "
+                             f"{proc.stderr[-6000:]}")
+    d = json.loads(path.read_text())
+    if d["status"] != "ok":
+        raise AssertionError(f"mesh: dry-run status {d['status']}: "
+                             f"{d.get('error')}")
+    print(f"status={d['status']} collectives_by_kind="
+          f"{json.dumps(d['collectives_by_kind'])}", flush=True)
+    return {"cell": list(MESH_DRYRUN), "status": d["status"],
+            "plan": d["plan"], "collectives_by_kind": d["collectives_by_kind"],
+            "n_collectives": len(d["compiled_cost"]["collectives"]),
+            "roofline": d["roofline"], "trace_s": d["trace_s"],
+            "subprocess_s": seconds}
+
+
+def phase_mesh(train: dict, trainer_run: dict) -> dict:
+    """The sharded Trainer on the card: nccl at world size 1 from a
+    FileStore under ``build/``, ``make_host_mesh("cuda")``, then
+    ``Trainer(arch, shape, cc, mesh, plan=...)`` on the trainer phase's
+    arch, size, plan, seed and AdamW schedule for MESH_STEPS steps: every
+    parameter a DTensor, the kernels' launches ``expected_train_launches``
+    x MESH_STEPS, the losses bit-identical to the trainer phase's first
+    MESH_STEPS, each step timed by CUDA events; the last step runs under
+    torch.profiler, whose kernels' device time is set beside the other
+    steps' CUDA-event median (the rest of the step the device waits: no
+    collective runs on one rank).  A
+    checkpoint at step MESH_CKPT_AT restored onto the shardings equals,
+    leaf for leaf, the state the step saved.  Then one dry-run cell
+    (:data:`MESH_DRYRUN`) traces in a subprocess, once nothing is timed,
+    and must end ``ok``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.sharded import is_dtensor
+
+    t0 = time.perf_counter()
+    cfg = get_config(TRAINER_ARCH)
+    shape = ShapeConfig("h100_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    cc = h100_single_config()
+    plan = choose_plan(cfg, shape, cc, top_k=1)[0].plan
+    if plan.describe() != trainer_run["plan"]:
+        raise AssertionError(f"mesh: plan {plan.describe()} is not the "
+                             f"trainer phase's {trainer_run['plan']}")
+    if MESH_DIR.exists():
+        shutil.rmtree(MESH_DIR)
+    MESH_DIR.mkdir(parents=True)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(MESH_DIR / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh("cuda")
+        trainer = Trainer(cfg, shape, cc, mesh, plan=plan,
+                          opt_cfg=adamw.AdamWConfig(total_steps=TRAINER_STEPS),
+                          tcfg=TrainerConfig(
+                              steps=MESH_STEPS, log_every=1,
+                              checkpoint_every=MESH_CKPT_AT,
+                              ckpt_dir=str(MESH_DIR / "ckpt")))
+        saved = {}
+        save = trainer.checkpointer.save
+
+        def keep_and_save(step, tree, **kw):
+            # the state the step saves, whole on the host, to compare with
+            if step == MESH_CKPT_AT:
+                saved.update(_state(*(
+                    store._map_with_paths(lambda _, x: store._to_host(x), t)
+                    for t in (tree["params"], tree["opt"]))))
+                saved["step"] = tree["opt"].step
+            return save(step, tree, **kw)
+        trainer.checkpointer.save = keep_and_save
+        step_ms = []
+        step = trainer.train_step
+
+        profiled = {}
+
+        def timed(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            if len(step_ms) < MESH_STEPS - 1:
+                start.record()
+                out = step(*args)
+                end.record()
+                end.synchronize()
+                step_ms.append(start.elapsed_time(end))
+                return out
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                start.record()
+                out = step(*args)
+                end.record()
+                end.synchronize()
+            profiled["event_ms"] = start.elapsed_time(end)
+            profiled["device_busy_ms"] = sum(
+                e.device_time_total / 1e3 for e in prof.key_averages()
+                if e.device_time_total > 0 and e.device_type
+                == torch.autograd.DeviceType.CUDA)
+            return out
+        trainer.train_step = timed
+        ops.reset_launch_counts()
+        run = trainer.run()
+        launches = ops.launch_counts()
+        losses = [h["loss"] for h in run["history"]]
+        leaves = list(_leaves(run["params"]))
+        placements = sorted({str(tuple(x.placements)) for x in leaves
+                             if is_dtensor(x)})
+        if not all(is_dtensor(x) for x in leaves):
+            raise AssertionError("mesh: a parameter is not a DTensor")
+        expected = _trainer_launches(cfg, plan, MESH_STEPS)
+        _check_launches("the mesh run", launches, expected)
+        want = trainer_run["losses"][:MESH_STEPS]
+        if losses != want:
+            raise AssertionError(f"mesh: losses {losses} are not the "
+                                 f"trainer phase's {want}")
+        del run
+        torch.cuda.empty_cache()
+
+        # restore the step-MESH_CKPT_AT checkpoint onto the shardings
+        like_p, like_o, _ = trainer.init_state()
+        sh = trainer.shardings(like_p, like_o)
+        t = time.perf_counter()
+        restored, at = store.restore(str(MESH_DIR / "ckpt"),
+                                     {"params": like_p, "opt": like_o},
+                                     step=MESH_CKPT_AT, shardings=sh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        got = _state(restored["params"], restored["opt"])
+        n_leaves = len(list(_leaves(got)))
+        n_dtensor = sum(is_dtensor(x) for x in _leaves(got))
+        local = store._map_with_paths(
+            lambda _, x: x.to_local().cpu() if is_dtensor(x) else x, got)
+        differ = _differing_leaves(local, {k: saved[k] for k in got})
+        if (at != MESH_CKPT_AT or restored["opt"].step != saved["step"]
+                or differ or n_dtensor != n_leaves):
+            raise AssertionError(f"mesh: restored step {at}, DTensors "
+                                 f"{n_dtensor} of {n_leaves}, "
+                                 f"leaves differing {differ[:8]}")
+        del restored, got, local, saved, like_p, like_o, trainer
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    shutil.rmtree(MESH_DIR / "ckpt", ignore_errors=True)
+    dryrun_cell = _mesh_dryrun_cell()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    return {"phase": "mesh", "arch": cfg.name, "dtype": cfg.dtype,
+            "n_layers": cfg.n_layers, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+            "mesh": {"shape": list(mesh.shape),
+                     "axes": list(mesh.mesh_dim_names),
+                     "device_type": mesh.device_type, "backend": "nccl"},
+            "plan": plan.describe(), "param_placements": placements,
+            "losses": losses, "losses_bit_identical_to_trainer": True,
+            "trainer_losses": want, "launches": launches,
+            "expected_launches": expected, "step_ms": step_ms,
+            "median_step_ms": float(np.median(step_ms[1:])),
+            # the profiler's own host work stretches the profiled step;
+            # its kernels' busy time does not move, and is set beside the
+            # median of the steps run without it
+            "profiled_step": profiled,
+            "device_idle_share_at_median": max(
+                0.0, 1 - profiled["device_busy_ms"]
+                / float(np.median(step_ms[1:]))),
+            "trainer_median_step_ms": trainer_run["median_step_ms"],
+            "train_phase_warm_median_step_ms":
+                train[TRAINER_ARCH]["warm_median_step_ms"],
+            "restored_step": at, "restore_s": restore_s,
+            "restored_bit_identical": True, "dryrun": dryrun_cell,
+            "seconds": time.perf_counter() - t0}
+
+
 def _measured_ms(run: dict, key: str) -> float:
     """Milliseconds of one static run's prefill round (``prefill``) or of
     one of its decode steps (``decode``)."""
@@ -3334,7 +3543,9 @@ def main() -> None:
     add_calibrated(estimate, calib["drift"], cc_cal)
     emit(estimate)
     emit(calib)
-    emit(phase_trainer(train))
+    trainer_run = phase_trainer(train)
+    emit(trainer_run)
+    emit(phase_mesh(train, trainer_run))
 
     def err_of(cases, tag):
         return next(c["max_abs_err"] for c in cases if c["case"] == tag)

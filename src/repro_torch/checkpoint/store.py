@@ -24,9 +24,13 @@ A checkpoint written by either package restores into the other:
 
 ``AsyncCheckpointer.save`` copies every leaf to host memory before it
 returns (a step that updates the weights in place may run at once) and
-writes in a daemon thread.  ``restore`` places the leaves on ``device`` (by
-default each on its ``tree_like`` leaf's device); restoring onto reference
-shardings waits for the port's ``launch/shardings`` (ROADMAP item 14).
+writes in a daemon thread.  A ``DTensor`` leaf is saved whole: its copy
+gathers the shards (a collective: every rank of its mesh saves, and one,
+``write=True``, writes).  ``restore`` places the leaves on ``device`` (by
+default each on its ``tree_like`` leaf's device), or with ``shardings``
+(a tree of ``launch.shardings.Sharding`` or of ``(mesh, placements)``)
+returns ``DTensor``s: each rank reads the file and keeps its shard, as the
+reference restores onto its ``NamedSharding`` tree.
 """
 from __future__ import annotations
 
@@ -39,6 +43,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from repro_torch.models.sharded import is_dtensor
 
 _SEP = "/"
 # logical dtype -> (the numpy type of its bits, the torch type)
@@ -85,8 +91,18 @@ def _to_host(leaf: Any) -> Any:
     tensor."""
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach()
+        if is_dtensor(leaf):                         # gather it (its local
+            leaf = leaf.full_tensor()                # one if whole)
         return leaf.clone() if leaf.device.type == "cpu" else leaf.cpu()
     return leaf
+
+
+def _join_gather(leaf: Any) -> None:
+    """This rank's part in gathering a ``DTensor`` leaf (a collective) for
+    another rank that writes; the whole leaf is dropped at once and nothing
+    comes to the host."""
+    if is_dtensor(leaf):
+        leaf.detach().full_tensor()
 
 
 def _to_savable(leaf: Any) -> Tuple[np.ndarray, str]:
@@ -163,11 +179,18 @@ class AsyncCheckpointer:
         self._thread: Optional[threading.Thread] = None
         self.last_error: Optional[BaseException] = None
 
-    def save(self, step: int, tree: Any, **kw) -> None:
+    def save(self, step: int, tree: Any, *, write: bool = True,
+             **kw) -> None:
         """Waits for the previous write, copies every leaf of ``tree`` to
-        the host (a CUDA leaf by a blocking copy, a CPU tensor by a clone),
-        then returns while a thread writes the copy."""
+        the host (a CUDA leaf by a blocking copy, a CPU tensor by a clone,
+        a ``DTensor`` gathered whole), then returns while a thread writes
+        the copy.  With ``write=False`` the rank only takes its part in
+        each ``DTensor``'s gather, one leaf at a time, and keeps nothing:
+        the other ranks of a sharded tree do so while one writes."""
         self.wait()
+        if not write:
+            _map_with_paths(lambda _, leaf: _join_gather(leaf), tree)
+            return
         host_tree = _map_with_paths(lambda _, leaf: _to_host(leaf), tree)
 
         def _write():
@@ -203,15 +226,61 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
         return None
 
 
+def _is_sharding(x: Any) -> bool:
+    """A ``Sharding`` (``mesh`` and ``placements``) or a ``(mesh,
+    placements)`` pair."""
+    if hasattr(x, "mesh") and hasattr(x, "spec"):
+        return True
+    return (isinstance(x, tuple) and len(x) == 2
+            and hasattr(x[0], "mesh_dim_names"))
+
+
+def _shardings_by_path(tree: Any, prefix: Tuple[str, ...] = ()
+                       ) -> Dict[str, Any]:
+    """``{path: sharding}`` over a tree of shardings, the paths as
+    :func:`_map_with_paths` builds them."""
+    if tree is None:
+        return {}
+    if _is_sharding(tree):
+        return {_SEP.join(prefix): tree}
+    if isinstance(tree, dict):
+        items = [(str(k), v) for k, v in tree.items()]
+    elif _is_namedtuple(tree):
+        items = [(f".{f}", v) for f, v in zip(tree._fields, tree)]
+    elif isinstance(tree, (list, tuple)):
+        items = [(f"[{i}]", v) for i, v in enumerate(tree)]
+    else:
+        return {}
+    out: Dict[str, Any] = {}
+    for part, v in items:
+        out.update(_shardings_by_path(v, prefix + (part,)))
+    return out
+
+
+def _place(t: torch.Tensor, sharding: Any, device) -> torch.Tensor:
+    """``t`` (whole, on the host of every rank) as a ``DTensor`` that keeps
+    this rank's shard, which alone moves to ``device``."""
+    from repro_torch.launch.shardings import place, place_local
+
+    if hasattr(sharding, "spec"):
+        return place(t, sharding, device)
+    mesh, placements = sharding
+    return place_local(t, mesh, tuple(placements), device)
+
+
 def restore(ckpt_dir: str, tree_like: Any, *, step: Optional[int] = None,
             device: Optional[Union[str, torch.device]] = None,
+            shardings: Any = None,
             verify: bool = True) -> Tuple[Any, int]:
     """Restore into the structure of ``tree_like`` (the newest step unless
     ``step`` is given).  A tensor or array leaf comes back as a tensor of
     the saved type on ``device`` (default: the ``tree_like`` leaf's device,
-    the CPU for a numpy leaf), a scalar leaf as a Python scalar.  Raises
-    ``KeyError`` for a leaf the checkpoint lacks and ``IOError`` for a file
-    whose crc32 differs."""
+    the CPU for a numpy leaf), a scalar leaf as a Python scalar.  With
+    ``shardings`` (a tree like ``tree_like``'s whose leaves are shardings;
+    see the module's docstring) each tensor leaf that has one comes back as
+    a ``DTensor`` holding this rank's shard.  Raises ``KeyError`` for a
+    leaf the checkpoint lacks and ``IOError`` for a file whose crc32
+    differs."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -219,6 +288,7 @@ def restore(ckpt_dir: str, tree_like: Any, *, step: Optional[int] = None,
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "MANIFEST.json")) as f:
         manifest = json.load(f)
+    placed = _shardings_by_path(shardings)
 
     def load(key: str, like: Any) -> Any:
         ent = manifest["leaves"].get(key)
@@ -234,5 +304,7 @@ def restore(ckpt_dir: str, tree_like: Any, *, step: Optional[int] = None,
             return arr.item()
         dev = device if device is not None else (
             like.device if isinstance(like, torch.Tensor) else "cpu")
+        if key in placed:
+            return _place(_from_savable(arr, ent["dtype"]), placed[key], dev)
         return _from_savable(arr, ent["dtype"]).to(dev)
     return _map_with_paths(load, tree_like), step

@@ -552,6 +552,25 @@ def h100_single_config(**kw) -> ClusterConfig:
                          **kw)
 
 
+def h100_node_config(**kw) -> ClusterConfig:
+    """One H100 SXM node: mesh ``(1, 8)`` over ``("data", "model")``, the
+    eight cards of one NVLink/NVSwitch baseboard (:data:`H100_SXM`'s
+    ``ici_bw_per_link`` and ``ici_domain``); both axes ride NVLink."""
+    return ClusterConfig(chip=H100_SXM, mesh_shape=(1, 8),
+                         mesh_axes=("data", "model"), **kw)
+
+
+def h100_multi_node_config(**kw) -> ClusterConfig:
+    """Two H100 SXM nodes: mesh ``(2, 1, 8)`` over ``("pod", "data",
+    "model")``, the ``pod`` axis on the network between the nodes.  The
+    network rate is a DGX H100's per node, from NVIDIA's DGX H100 datasheet:
+    eight ConnectX-7 ports of 400 Gb/s each (the compute fabric), 8 x 400e9
+    / 8 = 400e9 bytes/s, in place of the chip default's TPU figure."""
+    chip = dataclasses.replace(H100_SXM, dcn_bw=8 * 400e9 / 8)
+    return ClusterConfig(chip=chip, mesh_shape=(2, 1, 8),
+                         mesh_axes=("pod", "data", "model"), **kw)
+
+
 DTYPE_BYTES = {
     "bfloat16": 2, "float16": 2, "float32": 4, "float64": 8,
     "int8": 1, "uint8": 1, "int16": 2, "int32": 4, "int64": 8,

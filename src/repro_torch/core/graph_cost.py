@@ -48,10 +48,28 @@ and returns the reference's own :class:`CompiledCost`:
     the trace allocates (each freed when its last fake tensor dies, by
     ``weakref.finalize``): the largest live sum beyond the returned
     outputs, and the arguments plus the largest live sum.
-  * ``collectives``: ``[]``.  The port has no multi-device path yet.
+  * ``collectives``: one :class:`CollectiveStat` for each functional
+    collective the trace dispatches (``_c10d_functional.all_reduce``,
+    ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+    ``all_to_all_single``; its ``wait_tensor`` skipped, as
+    ``parse_collectives`` skips ``*-done``),
+    with the reference's canonical kind, the bytes of its operand and result
+    on one device, and the size of its group.  A collective over a group of
+    one (a mesh dim of size 1) moves nothing and is left out, as XLA drops
+    it.  A collective's bytes are not in ``bytes_per_device``.
   * ``unknown_dtypes``: a type missing from the byte table counts 4 bytes
     and is listed, as in ``hlo_cost._shape_bytes``, so a calibration fit
     rejects the record as polluted.
+
+Arguments that are ``DTensor``s (on a ``DeviceMesh``: the fake process
+group of ``launch.mesh.fake_process_group`` in the dry run) are traced as
+fake ``DTensor``s with the same placements.  DTensor's dispatch turns each
+op into ops on the local shards and the collectives its redistributions
+need; the counting mode lets DTensor run first (it returns
+``NotImplemented`` for an op on ``DTensor``s, as
+``torch.distributed.tensor.debug.CommDebugMode`` does) and counts what it
+runs, so FLOPs and bytes are per device, as XLA's ``cost_analysis``
+counts the SPMD program.
 
 Autograd's backward ops run through the same dispatch mode, so a ``fn``
 that calls ``.backward()`` or ``torch.autograd.grad`` is costed with its
@@ -71,11 +89,12 @@ jax.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import weakref
 from typing import Any, Callable, Dict, Sequence, Tuple
 
-from repro_torch.core.hlo_cost import CompiledCost
+from repro_torch.core.hlo_cost import CollectiveStat, CompiledCost
 
 # Bytes of an element by torch type name (``str(dtype)`` without "torch."),
 # the counterpart of ``hlo_cost._HLO_DTYPE_BYTES``.
@@ -108,21 +127,26 @@ _UNTAGGED_FLOPS = {
 
 def mesh_devices(mesh) -> int:
     """Devices of ``mesh``: 1 for ``None``, ``mesh.size()`` for a
-    ``DeviceMesh``, else its length (a sequence of devices)."""
+    ``DeviceMesh``, else its length (a sequence of devices, which may hold
+    one device only: more need a ``DeviceMesh`` to place tensors on)."""
     if mesh is None:
         return 1
     if callable(getattr(mesh, "size", None)):
         return int(mesh.size())
-    return len(mesh)
+    if len(mesh) != 1:
+        raise TypeError(f"{len(mesh)} devices as a {type(mesh).__name__}: "
+                        "costing more than one device needs a DeviceMesh "
+                        "(launch.mesh) and DTensor arguments")
+    return 1
 
 
-def require_one_device(mesh) -> None:
-    n = mesh_devices(mesh)
-    if n != 1:
-        raise NotImplementedError(
-            f"costing on {n} devices needs the port's shardings "
-            f"(launch/shardings.py, ROADMAP item 14); only one device is "
-            f"supported")
+# functional collectives -> the reference's canonical kinds
+COLLECTIVE_KINDS = {
+    "all_reduce": "all_reduce",
+    "all_gather_into_tensor": "all_gather",
+    "reduce_scatter_tensor": "reduce_scatter",
+    "all_to_all_single": "all_to_all",
+}
 
 
 def lower_and_cost(name: str, fn: Callable, args: Sequence[Any], mesh=None,
@@ -135,12 +159,13 @@ def lower_and_cost(name: str, fn: Callable, args: Sequence[Any], mesh=None,
     CPU tensor of its shape, strides, type and ``requires_grad``, one per
     distinct tensor.  Nothing is allocated and no kernel is launched.
     Returns ``fn`` itself, the callable to time, beside the cost.  ``mesh``
-    is ``None`` or one device; more raise ``NotImplementedError``."""
+    is ``None`` (one device) or the ``DeviceMesh`` the ``DTensor`` arguments
+    live on; the counts are per device either way."""
     import torch
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils import _pytree as pytree
 
-    require_one_device(mesh)
+    n_devices = mesh_devices(mesh)
     counter = _counter_mode(torch)()
     with FakeTensorMode():
         memo: Dict[int, Any] = {}
@@ -149,31 +174,90 @@ def lower_and_cost(name: str, fn: Callable, args: Sequence[Any], mesh=None,
             if not isinstance(t, torch.Tensor):
                 return t
             if id(t) not in memo:
-                f = torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
-                                        device="cpu")
-                memo[id(t)] = f.requires_grad_(t.requires_grad)
+                memo[id(t)] = _fake_like(torch, t)
             return memo[id(t)]
 
         fake_args = pytree.tree_map(to_fake, list(args))
-        arg_leaves = [t for t in pytree.tree_leaves(fake_args)
+        arg_leaves = [_local(t) for t in pytree.tree_leaves(fake_args)
                       if isinstance(t, torch.Tensor)]
         counter.exclude(arg_leaves)
-        with counter:
+        with _paused_in_sharding_prop(counter), counter:
             out = fn(*fake_args)
-        out_leaves = [t for t in pytree.tree_leaves(out)
+        out_leaves = [_local(t) for t in pytree.tree_leaves(out)
                       if isinstance(t, torch.Tensor)]
         argument_bytes = sum(counter.nbytes(t) for t in arg_leaves
                              if t.untyped_storage()._cdata in counter.read)
         output_bytes = sum(counter.nbytes(t) for t in out_leaves)
     return fn, CompiledCost(
         name=name, flops_per_device=float(counter.flops),
-        bytes_per_device=float(counter.bytes), collectives=[],
-        num_devices=1, argument_bytes=float(argument_bytes),
+        bytes_per_device=float(counter.bytes),
+        collectives=counter.collectives,
+        num_devices=n_devices, argument_bytes=float(argument_bytes),
         output_bytes=float(output_bytes),
         temp_bytes=float(max(counter.peak - output_bytes, 0)),
         peak_memory_bytes=float(argument_bytes + counter.peak),
         dispatch_count=dispatch_count,
         unknown_dtypes=sorted(counter.unknown))
+
+
+@contextlib.contextmanager
+def _paused_in_sharding_prop(counter):
+    """Pause ``counter`` while DTensor's sharding propagation runs an op on
+    global-shape fake tensors to learn its output's shape (on a cache
+    miss): that op is no part of the program."""
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+
+    orig = ShardingPropagator._propagate_tensor_meta_non_cached
+
+    def paused(self, *args, **kwargs):
+        counter.paused += 1
+        try:
+            return orig(self, *args, **kwargs)
+        finally:
+            counter.paused -= 1
+    ShardingPropagator._propagate_tensor_meta_non_cached = paused
+    try:
+        yield
+    finally:
+        ShardingPropagator._propagate_tensor_meta_non_cached = orig
+
+
+def _local(t):
+    """A ``DTensor``'s local shard; a plain tensor as it is."""
+    from repro_torch.models.sharded import is_dtensor
+    return t._local_tensor if is_dtensor(t) else t
+
+
+def _fake_like(torch, t):
+    """A fake CPU tensor of ``t``'s shape, strides, type and
+    ``requires_grad``; of a ``DTensor``, a fake ``DTensor`` of its mesh and
+    placements over a fake local shard."""
+    local = _local(t)
+    f = torch.empty_strided(local.shape, local.stride(), dtype=local.dtype,
+                            device="cpu")
+    if local is t:
+        return f.requires_grad_(t.requires_grad)
+    from torch.distributed.tensor import DTensor
+    d = DTensor.from_local(f, t.device_mesh, t.placements, run_check=False,
+                           shape=t.shape, stride=t.stride())
+    return d.detach().requires_grad_(t.requires_grad)
+
+
+def _collective(func, args, kwargs, outs, index: int):
+    """The :class:`CollectiveStat` of a functional collective: its operand
+    and result bytes on this device, and its group's size."""
+    import torch
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    from torch.utils import _pytree as pytree
+
+    name = func._overloadpacket.__name__
+    flat = pytree.tree_leaves((args, kwargs))
+    group = next(a for a in reversed(flat) if isinstance(a, str))
+    ins = [t for t in flat if isinstance(t, torch.Tensor)]
+    nbytes = lambda ts: float(sum(t.numel() * t.element_size() for t in ts))
+    return CollectiveStat(COLLECTIVE_KINDS[name], nbytes(ins), nbytes(outs),
+                          _resolve_process_group(group).size(),
+                          f"{name}.{index}")
 
 
 def _elementwise_flops(func, args, kwargs, ins, outs) -> int:
@@ -203,6 +287,7 @@ def _elementwise_flops(func, args, kwargs, ins, outs) -> int:
 def _counter_mode(torch):
     """The dispatch mode class that counts (built here: torch is imported
     only when a trace runs)."""
+    from torch.distributed.tensor import DTensor
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils import _pytree as pytree
     from torch.utils.flop_counter import flop_registry
@@ -220,6 +305,8 @@ def _counter_mode(torch):
             self._excluded = set()
             self.read = set()               # storages some op read
             self._seen = set()              # ids of the tensors tracked
+            self.collectives = []
+            self.paused = 0
 
         def nbytes(self, t, read: bool = False) -> int:
             """Bytes of ``t``; of a tensor read, only the elements it
@@ -269,8 +356,26 @@ def _counter_mode(torch):
             weakref.finalize(t, self._release, id(t), key)
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                # let DTensor run first: its ops on the local shards and
+                # its collectives come back through this mode
+                return NotImplemented
             kwargs = kwargs or {}
             out = func(*args, **kwargs)
+            if self.paused:
+                return out
+            packet = getattr(func, "_overloadpacket", None)
+            if packet is not None and func.namespace == "_c10d_functional":
+                if packet.__name__ in COLLECTIVE_KINDS:
+                    outs = [t for t in pytree.tree_leaves(out)
+                            if isinstance(t, torch.Tensor)]
+                    for t in outs:
+                        self._track(t)
+                    stat = _collective(func, args, kwargs, outs,
+                                       len(self.collectives))
+                    if stat.group_size > 1:     # a group of one moves nothing
+                        self.collectives.append(stat)
+                return out
             outs = [t for t in pytree.tree_leaves(out)
                     if isinstance(t, torch.Tensor)]
             for t in outs:

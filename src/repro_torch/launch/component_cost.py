@@ -1,5 +1,5 @@
 """Component-level costing of the generated plan: the counterpart of the
-reference's ``launch/component_cost.py``, for one device.
+reference's ``launch/component_cost.py``.
 
 The paper's methodology: cost each *instruction* of the runtime program and
 aggregate over the program structure (Eq 1).  Here the instructions are the
@@ -34,18 +34,29 @@ Components per architecture family (the reference's names and counts):
     the reference's groups, its shared expert beside them; MLA's prefill
     and train components run dense attention, its decode the absorbed
     path (the MTP head is not a component, as in the reference)
-  plus a tail: ``ce_head``, ``embed`` and ``optimizer`` for train,
-  ``lm_head`` for serve.  Layer counts are multiplied by the microbatches.
+  plus a tail: ``ce_head``, ``embed``, ``optimizer`` and (see below)
+  ``grad_reduce`` for train, ``lm_head`` for serve.  Layer counts are multiplied by the microbatches.
   Decode components carry their layer's cache slice, so the cache traffic is
   costed.  A train component runs its forward under the plan's remat policy
   (``transformer._remat_wrap``), then its backward with a ones cotangent.
 
+On a ``DeviceMesh`` (the fake process group of the dry run) the
+components are the reference's local plan: each layer component is traced
+as ONE data-parallel replica, the batch pre-sliced by the dp degree and the
+sequence by the sp degree, the dp and sp axes dropped from the activations
+and caches, while the parameters keep the whole plan's shardings (TP, FSDP
+and EP axes) as fake ``DTensor``s, so DTensor generates their collectives
+and ``graph_cost`` counts them, per device.  The real step accumulates the
+gradients locally and reduces them once: ``grad_reduce``, one all-reduce
+of every gradient's local shard over the dp axes in
+``plan.grad_reduce_dtype``, when those axes hold more than one device and
+there is no fsdp.  The optimizer runs on the whole trees, placed by the
+plan's parameter and AdamW (ZeRO-1) shardings.
+
 Where the port differs: prefill's ``lm_head`` heads the last position only,
 as both packages' ``prefill`` does (the reference's component heads every
-position).  More than one device raises (the reference's
-``grad_reduce`` component and its shardings wait for ``launch/shardings``,
-ROADMAP item 14).  What is traced is the plain program (the kernel wrappers
-see CPU tensors), as ``graph_cost`` says.
+position).  What is traced is the plain program (the kernel wrappers see
+CPU tensors), as ``graph_cost`` says.
 """
 from __future__ import annotations
 
@@ -59,10 +70,12 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.cluster import ClusterConfig
-from repro_torch.core.graph_cost import lower_and_cost, require_one_device
+from repro_torch.core.graph_cost import lower_and_cost, mesh_devices
 from repro_torch.core.hlo_cost import CompiledCost
 from repro_torch.core.planner import ShardingPlan
+from repro_torch.launch import shardings as S
 from repro_torch.models import transformer as T
+from repro_torch.models.sharded import replicate_dims
 from repro_torch.models.model import build_model
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_leaves, tree_map
@@ -106,11 +119,85 @@ def _grads_of(fn: Callable, wrt: Callable) -> Callable:
     return wrapped
 
 
+class _Placer:
+    """Fake ``DTensor``s of a component's operands on ``mesh`` under the
+    plan's shardings (the reference's ``_param_specs``, ``_act_spec`` and
+    ``_cache_slice_specs``); without a mesh, the plain views."""
+
+    def __init__(self, mesh, plan: ShardingPlan):
+        self.mesh, self.plan = mesh, plan
+        self.local_plan = (None if mesh is None else dataclasses.replace(
+            plan, batch_axes=(), seq_axes=()))
+
+    def layer(self, stacked: Any, prefix: str, drop_stack: bool = True):
+        """One layer of ``stacked`` (all of it without ``drop_stack``), each
+        leaf sharded as the stacked leaf's spec says, less its stack dim."""
+        if self.mesh is None:
+            return T._layer(stacked, 0) if drop_stack else stacked
+
+        def one(path, leaf):
+            key = f"{prefix}/{path}"
+            spec = list(S.param_sharding(self.mesh, self.plan, key,
+                                         tuple(leaf.shape)).spec)
+            spec += [None] * (leaf.ndim - len(spec))
+            if drop_stack:
+                spec, leaf = spec[1:], leaf[0]
+            return S.place(leaf, S.Sharding(self.mesh, tuple(spec)))
+        return S.map_with_paths(one, stacked)
+
+    def replicated(self, t: torch.Tensor, *spec) -> torch.Tensor:
+        """``t`` under ``spec`` (replicated when empty)."""
+        if self.mesh is None:
+            return t
+        return S.place(t, S.Sharding(self.mesh, tuple(spec)))
+
+    def cache_slice(self, group: Any):
+        """Layer 0 of a cache group, sharded as the reference's
+        ``_cache_slice_specs`` shards one layer's slice."""
+        if group is None:
+            return None
+        layer = T._layer(group, 0)
+        if self.mesh is None:
+            return layer
+        mesh, plan = self.mesh, self.local_plan
+        out = {}
+        for key, t in layer.items():
+            shp, nd = t.shape, t.ndim
+            if key == "kpos":
+                out[key] = self.replicated(t)
+                continue
+            b = _guarded(mesh, shp[0], plan.batch_axes)
+            if nd == 4:      # [B, H, cap, hd] kv  / [B, H, P, N] ssm state
+                h = _guarded(mesh, shp[1], plan.tp_axes)
+                s = None
+                if b is None and key in ("k", "v"):
+                    s = _guarded(mesh, shp[2], plan.batch_axes)
+                out[key] = self.replicated(t, b, h, s, None)
+            elif nd == 3:    # [B, S, r] mla latent / [B, W-1, C] conv
+                s = None
+                if b is None and key in ("ckv", "krope"):
+                    s = _guarded(mesh, shp[1], plan.batch_axes)
+                out[key] = self.replicated(t, b, s, None)
+            else:
+                out[key] = self.replicated(t, b, *([None] * (nd - 1)))
+        return out
+
+
+def _guarded(mesh, dim: int, axes):
+    """The reference's ``_guarded``: ``shardings._guard`` over the axes the
+    mesh has."""
+    sizes = S.mesh_axes(mesh)
+    return S._guard(mesh, dim, tuple(a for a in axes if a in sizes))
+
+
 def component_costs(arch: ArchConfig, shape: ShapeConfig, plan: ShardingPlan,
                     mesh=None) -> List[Component]:
     """The step of ``arch`` at ``shape`` under ``plan``, component by
-    component (see the module's docstring), on one device."""
-    require_one_device(mesh)
+    component (see the module's docstring): on one device for ``mesh``
+    ``None``, else per device of the ``DeviceMesh``."""
+    if mesh is not None and not hasattr(mesh, "mesh_dim_names"):
+        mesh_devices(mesh)          # a list of one device (more raise)
+        mesh = None
     cfg = arch
     model = build_model(cfg, device="cpu")      # raises for unported families
     mode = shape.mode
@@ -120,16 +207,31 @@ def component_costs(arch: ArchConfig, shape: ShapeConfig, plan: ShardingPlan,
     q_len = 1 if mode == "decode" else shape.seq_len
     kv_len = shape.seq_len
     d = cfg.d_model
+    place = _Placer(mesh, plan)
+    if mesh is not None:
+        # one data-parallel replica: the batch and sequence pre-sliced
+        batch = max(batch // S._axis_size(mesh, plan.batch_axes), 1)
+        if mode != "decode":
+            q_len = max(q_len // S._axis_size(mesh, plan.seq_axes), 1)
 
     with FakeTensorMode():
         params = model.init(0)
         cache = model.init_cache(batch, kv_len) if mode == "decode" else None
-        x = torch.empty((batch, q_len, d), dtype=dtype)
+        x = place.replicated(torch.empty((batch, q_len, d), dtype=dtype))
     comps: List[Component] = []
 
     def cost(name: str, count: int, fn: Callable, args) -> None:
-        comps.append(Component(name, count, lower_and_cost(name, fn,
-                                                           args)[1]))
+        if mesh is not None:
+            from torch.distributed.tensor.experimental import (
+                implicit_replication)
+
+            def run(*a, _fn=fn):
+                with implicit_replication():
+                    return _fn(*a)
+        else:
+            run = fn
+        comps.append(Component(name, count,
+                               lower_and_cost(name, run, args, mesh)[1]))
 
     def attn_fwd(p, x, window=None, moe=False):
         pos = T._positions(x.shape[0], x.shape[1], x.device)
@@ -157,7 +259,7 @@ def component_costs(arch: ArchConfig, shape: ShapeConfig, plan: ShardingPlan,
 
     if cfg.enc_dec is not None:
         _enc_dec_layers(cfg, params, cache, x, mode, plan, micro, kv_len,
-                        cost)
+                        cost, place)
     elif cfg.window_pattern is not None:
         pattern = cfg.window_pattern
         n_cycles = cfg.n_layers // len(pattern)
@@ -165,49 +267,62 @@ def component_costs(arch: ArchConfig, shape: ShapeConfig, plan: ShardingPlan,
             i = pattern.index(w)
             eff = None if w is None else min(w, kv_len)
             add_layer(f"layer_w{w or 'global'}", n_cycles * cnt,
-                      T._layer(params["cycles"][i], 0),
+                      place.layer(params["cycles"][i], "blocks"),
                       functools.partial(attn_fwd, window=eff),
                       functools.partial(attn_decode, window=eff),
-                      cache and T._layer(cache[f"p{i}"], 0))
+                      place.cache_slice(cache and cache[f"p{i}"]))
     elif cfg.moe is not None:
         nd = cfg.moe.first_dense_layers
         if nd:
-            add_layer("dense_layer", nd, T._layer(params["dense_blocks"], 0),
+            add_layer("dense_layer", nd,
+                      place.layer(params["dense_blocks"], "blocks"),
                       attn_fwd, attn_decode,
-                      cache and T._layer(cache["dense"], 0))
+                      place.cache_slice(cache and cache["dense"]))
         add_layer("moe_layer", cfg.n_layers - nd,
-                  T._layer(params["blocks"], 0),
+                  place.layer(params["blocks"], "blocks"),
                   functools.partial(attn_fwd, moe=True),
                   functools.partial(attn_decode, moe=True),
-                  cache and T._layer(cache["moe"], 0))
+                  place.cache_slice(cache and cache["moe"]))
     elif cfg.family in ("dense", "vlm"):
-        layer0 = T._layer(params["blocks"], 0)
-        add_layer("decoder_layer", cfg.n_layers, layer0, attn_fwd,
-                  attn_decode, cache and T._layer(cache["self"], 0))
+        add_layer("decoder_layer", cfg.n_layers,
+                  place.layer(params["blocks"], "blocks"), attn_fwd,
+                  attn_decode, place.cache_slice(cache and cache["self"]))
     else:
-        layer0 = T._layer(params["blocks"], 0)
-        add_layer("mamba_layer", cfg.n_layers, layer0, mamba_fwd,
-                  mamba_decode, cache and T._layer(cache["mamba"], 0))
+        add_layer("mamba_layer", cfg.n_layers,
+                  place.layer(params["blocks"], "blocks"), mamba_fwd,
+                  mamba_decode, place.cache_slice(cache and cache["mamba"]))
         if cfg.family == "hybrid":
             add_layer("shared_attn", cfg.n_layers // cfg.hybrid.attn_every,
-                      params["shared_attn"][0], attn_fwd, attn_decode,
-                      cache and T._layer(cache["attn"], 0))
+                      place.layer(params["shared_attn"][0], "shared",
+                                  drop_stack=False),
+                      attn_fwd, attn_decode,
+                      place.cache_slice(cache and cache["attn"]))
 
     # ------------------------------------------------------------- tail
-    embed_p = {k: params[k] for k in ("embed", "final_norm", "lm_head")
-               if k in params}
+    embed_p = place.layer({k: params[k] for k in ("embed", "final_norm",
+                                                  "lm_head") if k in params},
+                          "", drop_stack=False)
     if mode == "train":
         # the CE head unchunked over the microbatch: the FLOPs and logits
         # traffic of the chunked head, its weight gradient formed once
         ce_tokens = batch * max(q_len - 1, 1)
         with FakeTensorMode():
-            hc = torch.empty((ce_tokens, d), dtype=dtype)
-            tc = torch.empty((ce_tokens,), dtype=torch.int64)
-            tokens = torch.empty((batch, q_len), dtype=torch.int64)
+            hc = place.replicated(torch.empty((ce_tokens, d), dtype=dtype))
+            tc = place.replicated(torch.empty((ce_tokens,),
+                                              dtype=torch.int64))
+            tokens = place.replicated(torch.empty((batch, q_len),
+                                                  dtype=torch.int64))
             opt_state = adamw.init(adamw.AdamWConfig(), params)
+        full_params = params
+        if mesh is not None:
+            psh = S.params_shardings(mesh, plan, params)
+            full_params = S.place_tree(params, psh)
+            opt_state = S.place_tree(opt_state, S.opt_state_shardings(
+                mesh, plan, psh, opt_state))
 
         def ce(ep, hc, tc):
-            logits = T._head(cfg, ep, hc[None])[0]
+            # whole over the vocab first, as transformer._chunked_ce
+            logits = replicate_dims(T._head(cfg, ep, hc[None])[0], [-1])
             logz = torch.logsumexp(logits, dim=-1)
             ll = torch.gather(logits, -1, tc[:, None])[:, 0]
             return (logz - ll).sum()
@@ -222,7 +337,9 @@ def component_costs(arch: ArchConfig, shape: ShapeConfig, plan: ShardingPlan,
         ocfg = adamw.AdamWConfig()
         cost("optimizer", 1,
              lambda p, o, g: adamw.apply(ocfg, o, g, p)[:2],
-             (params, opt_state, params))
+             (full_params, opt_state, full_params))
+        if mesh is not None:
+            _grad_reduce(mesh, plan, params, cost)
     else:
         last = mode == "prefill"
         cost("lm_head", 1,
@@ -231,9 +348,36 @@ def component_costs(arch: ArchConfig, shape: ShapeConfig, plan: ShardingPlan,
     return comps
 
 
+def _grad_reduce(mesh, plan: ShardingPlan, params: Any,
+                 cost: Callable) -> None:
+    """The reference's ``grad_reduce``: one all-reduce of every gradient's
+    local shard (the parameters' shardings, in ``plan.grad_reduce_dtype``)
+    over the dp axes, when they hold more than one device and there is no
+    fsdp (which reduce-scatters inside its layers instead)."""
+    dp_axes = tuple(a for a in plan.batch_axes if a in S.mesh_axes(mesh))
+    if S._axis_size(mesh, dp_axes) <= 1 or plan.fsdp_axes:
+        return
+    import torch.distributed._functional_collectives as funcol
+
+    live = [a for a in dp_axes if S.mesh_axes(mesh)[a] > 1]
+    sub = mesh[tuple(live)] if len(live) > 1 else mesh[live[0]]
+    group = sub._flatten() if len(live) > 1 else sub
+    gd = T.torch_dtype(plan.grad_reduce_dtype)
+    psh = S.params_shardings(mesh, plan, params)
+    coord = mesh.get_coordinate()
+    with FakeTensorMode():
+        grads = tree_map(lambda p, s: torch.empty(
+            [sl.stop - sl.start for sl in S.local_slices(
+                p.shape, mesh, s.placements, coord)], dtype=gd), params, psh)
+
+    def reduce(g):
+        return tree_map(lambda t: funcol.all_reduce(t, "sum", group), g)
+    cost("grad_reduce", 1, reduce, (grads,))
+
+
 def _enc_dec_layers(cfg: ArchConfig, params, cache, x: torch.Tensor,
                     mode: str, plan: ShardingPlan, micro: int, kv_len: int,
-                    cost: Callable) -> None:
+                    cost: Callable, place: _Placer) -> None:
     """The encoder-decoder's layer components (the reference's branch):
     ``encoder_layer`` at prefill and train over the ``encoder_seq`` frames,
     non-causal; ``decoder_layer`` with its cross K/V computed from the
@@ -243,9 +387,10 @@ def _enc_dec_layers(cfg: ArchConfig, params, cache, x: torch.Tensor,
     batch, d = x.shape[0], cfg.d_model
     enc_len = cfg.enc_dec.encoder_seq
     with FakeTensorMode():
-        enc_x = torch.empty((batch, enc_len, d), dtype=x.dtype)
-    enc0 = T._layer(params["enc_blocks"], 0)
-    dec0 = T._layer(params["blocks"], 0)
+        enc_x = place.replicated(torch.empty((batch, enc_len, d),
+                                             dtype=x.dtype))
+    enc0 = place.layer(params["enc_blocks"], "enc_blocks")
+    dec0 = place.layer(params["blocks"], "blocks")
 
     def enc_fwd(p, h):
         pos = T._positions(h.shape[0], h.shape[1], h.device)
@@ -263,8 +408,11 @@ def _enc_dec_layers(cfg: ArchConfig, params, cache, x: torch.Tensor,
                                        pos=kv_len - 1)
             return out, c2
         ck = T._layer(cache["cross_k"], 0)
+        if place.mesh is not None:          # [B, Hkv, F, hd]: heads over tp
+            ck = place.replicated(ck, None, _guarded(
+                place.mesh, ck.shape[1], plan.tp_axes), None, None)
         cost("decoder_layer", cfg.n_layers * micro, dec_decode,
-             (dec0, x, T._layer(cache["self"], 0), ck, ck))
+             (dec0, x, place.cache_slice(cache["self"]), ck, ck))
         return
 
     def dec_fwd(p, h, e):

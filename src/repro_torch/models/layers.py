@@ -27,6 +27,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models.sharded import (is_dtensor, local_call, per_head,
+                                        replicate_dims, shard_like)
+
 NEG_INF = -1e30
 
 # ---------------------------------------------------------------------------
@@ -62,10 +65,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  On ``DTensor``s: a vocab-sharded table is
+    gathered whole first (GSPMD masks the lookup and all-reduces the rows
+    instead; ROADMAP Queue 3), and sharded tokens go through
+    ``F.embedding``, whose backward DTensor sums into a partial table
+    gradient: its index backward would gather the tokens.  Unsharded
+    tokens take the index, the one-device program's op."""
+    table = replicate_dims(table, [0])
+    if is_dtensor(tokens) and any(p.is_shard() for p in tokens.placements):
+        return F.embedding(tokens, table)
+    return table[tokens]
+
+
 def dense(x: torch.Tensor, w: torch.Tensor,
           b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``x @ w (+ b)``; the weights follow the activation's type."""
-    y = x @ w.to(x.dtype)
+    """``x @ w (+ b)``; the weights follow the activation's type.  A
+    ``DTensor`` product over a sharded contraction (a row-parallel weight)
+    is all-reduced here, as GSPMD reduces it: left partial, DTensor
+    reduce-scatters it onto the sequence at the next add and the layer's
+    later reshapes meet strided shards."""
+    y = replicate_dims(x @ w.to(x.dtype), ())
     if b is not None:
         y = y + b.to(y.dtype)
     return y
@@ -100,6 +120,10 @@ def attention_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bits): an MLA prefill at 128 heads x 2048 x 2048 holds one 17.2 GB
     score tensor of B 8 instead of about three.
     """
+    if is_dtensor(q) or is_dtensor(k):
+        return per_head(functools.partial(
+            attention_dense, causal=causal, q_offset=q_offset, window=window,
+            scale=scale), q, k, v)
     b, hq, sq, dk = q.shape
     _, hkv, skv, dv = v.shape
     g = hq // hkv
@@ -222,9 +246,16 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``use_kernel=True`` routes to the hand-written flash kernel
     (:mod:`repro_torch.kernels.ops`): launched for CUDA tensors, its plain
-    version for CPU tensors.
+    version for CPU tensors.  ``DTensor`` operands reach either as their
+    local shards, batch and heads kept sharded (:func:`sharded.per_head`):
+    attention is independent per (batch, head), and a kernel never sees a
+    ``DTensor``.
     """
     sq, skv = q.shape[2], k.shape[2]
+    if is_dtensor(q) or is_dtensor(k):
+        return per_head(functools.partial(
+            attention, causal=causal, window=window, q_offset=q_offset,
+            scale=scale, use_kernel=use_kernel), q, k, v)
     if use_kernel and sq > 1 and q.shape[-1] == v.shape[-1]:
         from repro_torch.kernels import ops as kops
         return kops.flash_attention(q, k, v, causal=causal, window=window,
@@ -265,9 +296,11 @@ def ffn(x: torch.Tensor, params: Dict[str, torch.Tensor], gated: bool,
     actf = _act(act)
     if gated and use_kernel:
         from repro_torch.kernels import ops as kops
-        gate = kops.matmul_epilogue(
-            x.reshape(-1, x.shape[-1]), params["w_gate"].to(x.dtype),
-            epilogue=act, out_dtype=x.dtype).reshape(*x.shape[:-1], -1)
+        gate = local_call(functools.partial(
+            kops.matmul_epilogue, epilogue=act, out_dtype=x.dtype),
+            (x.reshape(-1, x.shape[-1]), params["w_gate"].to(x.dtype)),
+            ({0: "m"}, {1: "n"}), (("m", "n"),)
+        ).reshape(*x.shape[:-1], -1)
         h = gate * dense(x, params["w_up"])
     elif gated:
         h = actf(dense(x, params["w_gate"])) * dense(x, params["w_up"])
@@ -340,6 +373,19 @@ def moe_route(x: torch.Tensor, w_router: torch.Tensor, *, top_k: int,
             "capacity": capacity}
 
 
+def _experts(xe: torch.Tensor, w_up: torch.Tensor,
+             w_gate: Optional[torch.Tensor], w_down: torch.Tensor, *,
+             dtype: torch.dtype) -> torch.Tensor:
+    """The experts' batched products over their queues ``xe [G, E, C, d]``
+    (``w_gate`` ``None``: not gated), in ``dtype``."""
+    up = torch.einsum("gecd,edf->gecf", xe, w_up.to(dtype))
+    if w_gate is not None:
+        h = F.silu(torch.einsum("gecd,edf->gecf", xe, w_gate.to(dtype))) * up
+    else:
+        h = F.silu(up)
+    return torch.einsum("gecf,efd->gecd", h, w_down.to(dtype))
+
+
 def moe_ffn(x: torch.Tensor, params: Dict[str, torch.Tensor], *, top_k: int,
             capacity_factor: float, gated: bool,
             group_size: int = 4096) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -359,16 +405,29 @@ def moe_ffn(x: torch.Tensor, params: Dict[str, torch.Tensor], *, top_k: int,
                   capacity_factor=capacity_factor, group_size=group_size)
     g = r["probs"].shape[0]
     xg = x.reshape(g, t // g, d)
-    xe = torch.einsum("gtd,gtec->gecd", xg.to(torch.float32), r["dispatch"])
+    # tokens sharded (dp): each rank's queues hold its tokens' share; they
+    # are summed whole here (left partial, DTensor may reduce-scatter them
+    # onto the capacity dim, which the combine cannot flatten when uneven)
+    xe = replicate_dims(torch.einsum("gtd,gtec->gecd", xg.to(torch.float32),
+                                     r["dispatch"]), ())
     xe = xe.to(x.dtype)                                         # [G, E, C, d]
-    up = torch.einsum("gecd,edf->gecf", xe, params["w_up"].to(x.dtype))
-    if gated:
-        h = F.silu(torch.einsum("gecd,edf->gecf", xe,
-                                params["w_gate"].to(x.dtype))) * up
-    else:
-        h = F.silu(up)
-    ye = torch.einsum("gecf,efd->gecd", h, params["w_down"].to(x.dtype))
-    out = torch.einsum("gecd,gtec->gtd", ye.to(torch.float32), r["combine"])
+    # the experts on each rank's own experts (ep): the queues are split as
+    # the weights are (a local slice), and DTensor's backward of these
+    # batched products views a non-contiguous local shard, which fails
+    w_up, w_down = params["w_up"], params["w_down"]
+    xe = shard_like(xe, 1, w_up, 0)
+    experts = {0: "e"}
+    ye = local_call(functools.partial(_experts, dtype=x.dtype),
+                    (xe, w_up, params.get("w_gate") if gated else None,
+                     w_down),
+                    ({1: "e"}, experts, experts, experts),
+                    ((None, "e", None, None),))
+    # experts sharded (ep): the expert outputs are gathered over the
+    # experts before the combine, as GSPMD gathers them (torch 2.11's
+    # DTensor cannot flatten the sharded expert dim inside this einsum)
+    out = torch.einsum("gecd,gtec->gtd",
+                       replicate_dims(ye.to(torch.float32), [1]),
+                       replicate_dims(r["combine"], [2]))
 
     # load-balance aux loss (Switch-style), averaged over groups
     e = r["probs"].shape[-1]

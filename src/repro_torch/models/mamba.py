@@ -15,12 +15,14 @@ exactly as they are.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.models.sharded import draw_leaf, keep_slice, local_call
 
 
 def segsum(log_a: torch.Tensor) -> torch.Tensor:
@@ -155,8 +157,9 @@ def mamba_block_init(gen: torch.Generator, d_model: int, ssm,
     dev = gen.device
 
     def normal(shape, scale):
-        return (torch.randn(lead + shape, generator=gen, device=dev,
-                            dtype=torch.float32) * scale).to(dtype)
+        return draw_leaf(lead + shape, lambda sl: keep_slice(
+            torch.randn(lead + shape, generator=gen, device=dev,
+                        dtype=torch.float32) * scale, sl, dtype))
 
     def fp32(row):
         return row.to(device=dev).expand(lead + row.shape).clone()
@@ -191,6 +194,17 @@ def _causal_conv(xc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         out = out + xpad[:, i:i + s, :] * w[i]
     new_state = xpad[:, -(width - 1):, :]
     return F.silu(out + b), new_state
+
+
+def _ssd_kernel(xh, dt, A_log, Bh, Ch, D, init, *, chunk: int):
+    from repro_torch.kernels import ops as kops
+    return kops.ssd_scan(xh, dt, A_log, Bh, Ch, D, chunk=chunk,
+                         init_state=init)
+
+
+def _ssd_plain(xh, dt, A_log, Bh, Ch, D, init, *, chunk: int):
+    return ssd_chunked(xh, dt, A_log, Bh, Ch, D, chunk=chunk,
+                       init_state=init)
 
 
 def mamba_block_apply(params: Dict[str, torch.Tensor], x: torch.Tensor, ssm,
@@ -229,15 +243,18 @@ def mamba_block_apply(params: Dict[str, torch.Tensor], x: torch.Tensor, ssm,
         y = y[:, None]                                  # [B,1,H,P]
     else:
         init = cache["state"] if cache is not None else None
-        if use_kernel:
-            from repro_torch.kernels import ops as kops
-            y, new_state = kops.ssd_scan(xh, dt, params["A_log"], Bh, Ch,
-                                         params["D"], chunk=ssm.chunk_size,
-                                         init_state=init)
-        else:
-            y, new_state = ssd_chunked(xh, dt, params["A_log"], Bh, Ch,
-                                       params["D"], chunk=ssm.chunk_size,
-                                       init_state=init)
+        # the scan, kernel or plain, on the local shards of DTensors (torch
+        # 2.11's DTensor has no strategy for the flip of cumsum's
+        # backward); heads stay sharded only with one group (every head
+        # reads group 0's B and C, whatever heads a rank holds)
+        h_ = "h" if g == 1 else None
+        bh, hh = {0: "b", 2: h_}, {0: h_}
+        y, new_state = local_call(
+            functools.partial(_ssd_kernel if use_kernel else _ssd_plain,
+                              chunk=ssm.chunk_size),
+            (xh, dt, params["A_log"], Bh, Ch, params["D"], init),
+            (bh, bh, hh, {0: "b"}, {0: "b"}, hh, {0: "b", 1: h_}),
+            (("b", None, h_, None), ("b", h_, None, None)))
     y = y.reshape(bsz, s, di)
     y = L.rms_norm(y * F.silu(z.to(torch.float32)).to(y.dtype),
                    params["norm_scale"])

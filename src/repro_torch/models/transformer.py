@@ -70,12 +70,15 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
+from repro_torch.models.sharded import (draw_leaf, is_dtensor, keep_slice,
+                                        local_call, per_head, replicate_dims)
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
@@ -130,16 +133,39 @@ def require_ported(cfg: ArchConfig) -> None:
 
 def _norm_init(gen: torch.Generator, shape, scale: float,
                dtype: torch.dtype) -> torch.Tensor:
-    """``N(0, scale^2)`` drawn in fp32, in ``dtype``.  A leaf of more than two
-    axes (a stack) is filled one matrix at a time, so the fp32 draw never
-    holds more than one: a whole stacked expert leaf of phi3.5-moe at 24
-    layers would take 40 GB in fp32."""
+    """``N(0, scale^2)`` drawn in fp32, in ``dtype``, through
+    ``sharded.draw_leaf``: a sharded init keeps only the rank's slice."""
+    shape = tuple(shape)
+    return draw_leaf(shape, lambda sl: _draw(gen, shape, scale, dtype, sl))
+
+
+def _draw(gen: torch.Generator, shape: Tuple[int, ...], scale: float,
+          dtype: torch.dtype, sl: Optional[Tuple[slice, ...]]
+          ) -> torch.Tensor:
+    """The ``sl`` part (``None``: all) of :func:`_norm_init`'s leaf.  A leaf
+    of more than two axes (a stack) is filled one matrix at a time, so the
+    fp32 draw never holds more than one: a whole stacked expert leaf of
+    phi3.5-moe at 24 layers would take 40 GB in fp32.  Every matrix is
+    drawn whole, kept or not, so the generator gives the same numbers
+    whatever part is kept.  Under ``FakeTensorMode`` (shapes only) a stack
+    is left unfilled: there is nothing to fill, and deepseek-v3's 44544
+    expert matrices took 34 s to fake-fill."""
     if len(shape) <= 2:
-        return (torch.randn(shape, generator=gen, device=gen.device,
-                            dtype=torch.float32) * scale).to(dtype)
-    out = torch.empty(shape, dtype=dtype, device=gen.device)
+        return keep_slice(torch.randn(shape, generator=gen,
+                                      device=gen.device,
+                                      dtype=torch.float32) * scale, sl, dtype)
+    rows = range(shape[0]) if sl is None else range(
+        *sl[0].indices(shape[0]))
+    sub = None if sl is None else sl[1:]
+    out = torch.empty((len(rows),) + tuple(
+        len(range(*s.indices(n))) for s, n in zip(sub, shape[1:]))
+        if sub is not None else shape, dtype=dtype, device=gen.device)
+    if is_fake(out):
+        return out
     for i in range(shape[0]):
-        out[i] = _norm_init(gen, shape[1:], scale, dtype)
+        m = _draw(gen, shape[1:], scale, dtype, sub)
+        if i in rows:
+            out[i - rows.start] = m
     return out
 
 
@@ -364,7 +390,10 @@ def gqa_attention(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
 
 def _masked_dense_attention(q, k, v, mask) -> torch.Tensor:
     """Softmax attention of q over a cache under an explicit key mask
-    [1,1,1,Skv] (decode)."""
+    [1,1,1,Skv] (decode); ``DTensor`` operands on their local shards
+    (:func:`sharded.per_head`)."""
+    if is_dtensor(q) or is_dtensor(k):
+        return per_head(_masked_dense_attention, q, k, v, mask)
     b, hq, sq, dk = q.shape
     _, hkv, skv, dv = v.shape
     g = hq // hkv
@@ -817,8 +846,10 @@ def _head(cfg: ArchConfig, params: Params, x: torch.Tensor,
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     if use_kernel:
         from repro_torch.kernels import ops as kops
-        logits = kops.matmul_epilogue(h.reshape(-1, h.shape[-1]),
-                                      w.to(h.dtype), out_dtype=torch.float32)
+        logits = local_call(functools.partial(
+            kops.matmul_epilogue, out_dtype=torch.float32),
+            (h.reshape(-1, h.shape[-1]), w.to(h.dtype)),
+            ({0: "m"}, {1: "n"}), (("m", "n"),))
         return logits.reshape(*h.shape[:-1], -1)
     return (h @ w.to(h.dtype)).to(torch.float32)
 
@@ -848,7 +879,7 @@ def _embed(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     """Token embeddings, the patch embeddings (cast to the model's type)
     prepended for a vision stub, and the encoder's output for an
     encoder-decoder (else None)."""
-    x = params["embed"][tokens]
+    x = L.embed_lookup(params["embed"], tokens)
     if cfg.enc_dec is not None:
         if frontend is None:
             raise ValueError("enc-dec arch needs frontend embeddings")
@@ -902,7 +933,7 @@ def mtp_hidden(cfg: ArchConfig, params: Params, h_main: torch.Tensor,
     p = params["mtp"]
     b, s = tokens.shape
     h = L.rms_norm(h_main[:, :-1], p["norm"], cfg.norm_eps)
-    nxt = params["embed"][tokens[:, 1:]]
+    nxt = L.embed_lookup(params["embed"], tokens[:, 1:])
     x = torch.cat([h, nxt], dim=-1) @ p["proj"].to(h.dtype)
     x, _, _ = block_apply(cfg, p["block"], x,
                           positions=_positions(b, s - 1, x.device),
@@ -967,11 +998,21 @@ def _chunked_ce(cfg: ArchConfig, params: Params, h: torch.Tensor,
     c = max(min(chunk // max(b, 1), s), 1)
     pad = (-s) % c
     if pad:
-        h = F.pad(h, (0, 0, 0, pad))
-        targets = F.pad(targets, (0, pad), value=-1)
+        # on a DTensor each rank pads its own rows (torch 2.11's DTensor
+        # fails to redistribute a batch split over two mesh dims for pad)
+        h = local_call(functools.partial(F.pad, pad=(0, 0, 0, pad)), (h,),
+                       ({0: "b"},), (("b", None, None),))
+        targets = local_call(functools.partial(F.pad, pad=(0, pad),
+                                               value=-1), (targets,),
+                             ({0: "b"},), (("b", None),))
 
     def chunk_loss(hc, tc):
         logits = _head(cfg, params, hc, use_kernel)         # [b, c, V] fp32
+        # a vocab-sharded (tp) or partial (fsdp) head: DTensor's gather
+        # along the vocab dim leaves a masked partial that fails to reduce,
+        # so the logits are made whole over the vocab first, as GSPMD
+        # gathers them for the CE
+        logits = replicate_dims(logits, [-1])
         logz = torch.logsumexp(logits, dim=-1)
         ll = torch.gather(logits, -1, tc.clamp_min(0)[..., None])[..., 0]
         return torch.where(tc >= 0, logz - ll, 0.0).sum()
@@ -1027,7 +1068,7 @@ def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
     the cache tensors are updated in place."""
     b = token.shape[0]
     pos = int(cache["pos"])
-    x = params["embed"][token[:, None]]
+    x = L.embed_lookup(params["embed"], token[:, None])
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     new_cache: Cache = {"pos": pos + 1}
     if cfg.enc_dec is not None:

@@ -17,6 +17,8 @@ from typing import Any, Callable, Dict, List, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.models.sharded import is_dtensor
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -71,8 +73,12 @@ def schedule(cfg: AdamWConfig, step: int) -> float:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
+def moment_dtype(cfg: AdamWConfig) -> torch.dtype:
+    return _DTYPES[cfg.moment_dtype]
+
+
 def init(cfg: AdamWConfig, params: Any) -> AdamWState:
-    mdt = _DTYPES[cfg.moment_dtype]
+    mdt = moment_dtype(cfg)
     zeros = lambda p: torch.zeros(p.shape, dtype=mdt, device=p.device)
     return AdamWState(step=0, m=tree_map(zeros, params),
                       v=tree_map(zeros, params))
@@ -109,7 +115,9 @@ def apply(cfg: AdamWConfig, state: AdamWState, grads: Any, params: Any,
         upd32 = (m32 / b1c) / (torch.sqrt(v32 / b2c) + cfg.eps)
         p32 = p.to(torch.float32)
         p32 = p32 - lr * (upd32 + cfg.weight_decay * p32)
-        new = p32.to(p.dtype), m32.to(mdt), v32.to(mdt)
+        new = tuple(placed_like(value, old) for value, old in
+                    zip((p32.to(p.dtype), m32.to(mdt), v32.to(mdt)),
+                        (p, m, v)))
         if not donate:
             return new
         for old, value in zip((p, m, v), new):
@@ -120,6 +128,17 @@ def apply(cfg: AdamWConfig, state: AdamWState, grads: Any, params: Any,
     new_p, new_m, new_v = (tree_pick(out, i) for i in range(3))
     return (new_p, AdamWState(step, new_m, new_v),
             {"grad_norm": gnorm, "lr": lr})
+
+
+def placed_like(value: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``value`` (or ``None``) in ``like``'s placements when both are
+    ``DTensor``s (else ``value``): the new parameter of a ZeRO-1 update
+    comes out in the moments' placements, and DTensor refuses an in-place
+    copy that would change ``like``'s."""
+    if (value is None or not is_dtensor(like)
+            or tuple(value.placements) == tuple(like.placements)):
+        return value
+    return value.redistribute(like.device_mesh, like.placements)
 
 
 def tree_pick(tree: Any, i: int) -> Any:

@@ -9,9 +9,9 @@ so restoring onto any mesh is a placement of each leaf.
 
 ``ElasticPlan``, ``replan`` and ``_dp_degree`` are the reference's over the
 port's copy of the cost model (numpy only; they decide bit for bit as the
-reference does).  ``reshard`` moves a tree onto one device; placements
-across devices wait for the port's multi-device launch (ROADMAP item 14).
-Nothing here imports torch but ``reshard``.
+reference does).  ``reshard`` moves a tree onto one device, or places it
+on a ``DeviceMesh`` by a tree of shardings.  Nothing here imports torch
+but ``reshard``.
 """
 from __future__ import annotations
 
@@ -145,17 +145,42 @@ def reshard(tree: Any, placement: Any) -> Any:
 
     ``None`` returns ``tree`` itself, as the reference does without
     shardings.  A ``torch.device`` (or its name) moves every tensor leaf
-    there; other leaves stay as they are.  DTensor placements over a device
-    mesh wait for the port's multi-device launch (ROADMAP item 14) and
-    raise ``NotImplementedError``."""
+    there; other leaves stay as they are.  A tree of shardings (the
+    structure of ``tree``, each leaf a ``launch.shardings.Sharding`` or a
+    ``(mesh, placements)`` pair; ``None`` keeps a leaf as it is) places
+    each tensor leaf on its mesh: a whole tensor keeps this rank's shard, a
+    ``DTensor`` is redistributed.  Anything else raises ``TypeError``."""
     if placement is None:
         return tree
     import torch
 
-    if not isinstance(placement, (str, torch.device)):
-        raise NotImplementedError(
-            f"reshard onto {type(placement).__name__}: placements across "
-            "devices wait for the multi-device launch (ROADMAP item 14)")
-    device = torch.device(placement)
-    return _map_leaves(lambda leaf: leaf.to(device)
-                       if isinstance(leaf, torch.Tensor) else leaf, tree)
+    if isinstance(placement, (str, torch.device)):
+        device = torch.device(placement)
+        return _map_leaves(lambda leaf: leaf.to(device)
+                           if isinstance(leaf, torch.Tensor) else leaf, tree)
+    from repro_torch.checkpoint.store import _is_sharding, _place
+
+    def place(leaf, sh):
+        if sh is None or not isinstance(leaf, torch.Tensor):
+            return leaf
+        if not _is_sharding(sh):
+            raise TypeError(f"reshard onto {sh!r}: no mesh; give a Sharding "
+                            "or a (mesh, placements) pair")
+        return _place(leaf, sh, leaf.device)
+    return _zip_leaves(place, tree, placement)
+
+
+def _zip_leaves(fn, tree: Any, shardings: Any) -> Any:
+    """``fn(leaf, sharding)`` over ``tree`` and a tree of shardings of its
+    structure, in which a sharding or a pair is a leaf."""
+    from repro_torch.checkpoint.store import _is_sharding
+
+    if isinstance(tree, dict) and isinstance(shardings, dict):
+        return {k: _zip_leaves(fn, v, shardings.get(k))
+                for k, v in tree.items()}
+    if (isinstance(tree, (list, tuple)) and not _is_sharding(shardings)
+            and isinstance(shardings, (list, tuple))):
+        out = [_zip_leaves(fn, v, s) for v, s in zip(tree, shardings)]
+        return type(tree)(*out) if hasattr(tree, "_fields") \
+            else type(tree)(out)
+    return fn(tree, shardings)

@@ -5,13 +5,17 @@
 describes: the remat policy, microbatch accumulation, gradient compression
 and AdamW.  PyTorch runs it eagerly, one kernel after another, where the
 reference compiles it into one program; the arithmetic is the reference's.
-On one card only the plan's ``remat`` and ``microbatches`` are read.
+The step runs as well on ``DTensor`` trees (the sharded ``Trainer``): each
+gradient is reduced once, into its moments' placements (the data-parallel
+reduce), microbatches split the local shard of the batch (no gather of the
+tokens), and plain tensors the model makes (positions, masks) count as
+replicated.
 
-``Trainer`` adds the operational shell on one device: cost-based plan
-selection, the prefetching data pipeline, async checkpointing and resume,
-the straggler monitor, and the online recalibrator.  The sharded
-constructor (a device mesh in place of the device) waits for the port's
-multi-device launch (ROADMAP item 14).
+``Trainer`` adds the operational shell: cost-based plan selection, the
+prefetching data pipeline, async checkpointing and resume, the straggler
+monitor, and the online recalibrator, on one device or, given a
+``DeviceMesh``, with the parameters, AdamW state and batches placed by the
+plan's shardings (``launch/shardings.py``).
 
 ``OnlineRecalibrator`` closes the estimate-against-reality loop at run
 time: it watches the measured/estimated step-time ratio (EWMA), refits a
@@ -39,6 +43,7 @@ from repro_torch.core.planner import (OVERLAP_FRACTION, ShardingPlan,
                                       build_step_program, choose_plan)
 from repro_torch.data.pipeline import make_pipeline
 from repro_torch.models.model import Model, build_model
+from repro_torch.models.sharded import is_dtensor, split_batch
 from repro_torch.optim import adamw, compress
 from repro_torch.optim.adamw import tree_leaves, tree_map
 from repro_torch.runtime.straggler import StepTimeMonitor
@@ -51,7 +56,9 @@ def value_and_grad(model: Model, params: Any, batch: Dict[str, torch.Tensor],
     of every leaf of the tree, by ``torch.autograd.grad`` over the leaves
     (detached aliases that require a gradient, so no ``.grad`` field is
     written and ``params`` is left as it is).  A leaf the loss does not
-    reach gets ``None``."""
+    reach gets ``None``.  A ``DTensor`` leaf's gradient comes back as
+    autograd leaves it (a partial sum over the data-parallel ranks, say):
+    the train step reduces it."""
     live = tree_map(lambda t: t.detach().requires_grad_(), params)
     with torch.enable_grad():
         loss, metrics = model.loss(live, batch, remat=remat,
@@ -79,7 +86,12 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
     reference's ``lax.scan`` does; no per-microbatch metrics come back.  A
     leaf the loss does not reach gets a zero gradient, as under
     ``jax.grad``.  metrics: ``loss``, ``grad_norm``, ``lr`` and, with one
-    microbatch, ``ce`` and ``aux``."""
+    microbatch, ``ce`` and ``aux``.
+
+    On ``DTensor`` trees the gradients are summed over the microbatches as
+    autograd leaves them and reduced once, into the moments' placements
+    (a reduce-scatter under ZeRO-1, as GSPMD reduces into the update);
+    AdamW writes the new weights back in the weights' placements."""
     micro = max(plan.microbatches, 1)
 
     def grads_of(params, batch):
@@ -90,25 +102,33 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
         return loss, metrics, grads
 
     def train_step(params, opt_state, ef_state, batch):
+        if not is_dtensor(tree_leaves(params)[0]):
+            return step(params, opt_state, ef_state, batch)
+        from torch.distributed.tensor.experimental import implicit_replication
+        with implicit_replication():
+            return step(params, opt_state, ef_state, batch)
+
+    def step(params, opt_state, ef_state, batch):
         if micro > 1:
-            parts = {k: v.chunk(micro, dim=0) for k, v in batch.items()}
+            parts = {k: split_batch(v, micro) for k, v in batch.items()}
             if any(len(v) != micro or v[0].shape[0] * micro != t.shape[0]
                    for v, t in zip(parts.values(), batch.values())):
                 raise ValueError(f"batch of {next(iter(batch.values())).shape[0]} "
                                  f"does not split into {micro} microbatches")
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            loss = 0.0
+            grads, loss = None, 0.0
             for i in range(micro):
                 l_i, _, g_i = grads_of(params, {k: v[i]
                                                 for k, v in parts.items()})
-                grads = tree_map(
-                    lambda a, g: a.add_(g.to(torch.float32) / micro),
-                    grads, g_i)
+                g_i = tree_map(lambda g: g.to(torch.float32) / micro, g_i)
+                # the first is kept as it is (0 + g is g): an accumulator
+                # of zeros would be placed unlike a partial gradient
+                grads = g_i if grads is None else tree_map(
+                    lambda a, g: a.add_(g), grads, g_i)
                 loss = loss + l_i / micro
             metrics: Dict[str, Any] = {}
         else:
             loss, metrics, grads = grads_of(params, batch)
+        grads = tree_map(adamw.placed_like, grads, opt_state.m)
         grads, ef_state = compress.compress_grads(grads, ef_state,
                                                   compress_scheme)
         new_params, new_opt, opt_metrics = adamw.apply(opt_cfg, opt_state,
@@ -118,6 +138,14 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
                                                **metrics}
 
     return train_step
+
+
+def _mesh_device(mesh) -> torch.device:
+    """The device this process drives on ``mesh``: the current CUDA device
+    of a cuda mesh (``init_device_mesh`` sets it), else the CPU."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
 
 
 # ---------------------------------------------------------------------------
@@ -289,7 +317,17 @@ class TrainerConfig:
 class Trainer:
     """End-to-end orchestration on one device: the GPU unless
     ``device="cpu"`` is given (building it raises when CUDA is absent;
-    nothing falls back to the CPU).
+    nothing falls back to the CPU); or, given a ``DeviceMesh`` in place of
+    the device (the reference's ``Trainer(arch, shape, cc, mesh, ...)``),
+    on every rank of that mesh, each process driving its own device.
+
+    On a mesh, the parameters, the AdamW state (ZeRO-1 moments under
+    ``plan.zero1``) and each batch are ``DTensor``s placed by the plan's
+    shardings (``launch.shardings``); every rank makes the same weights and
+    batches from the seed and keeps its shard.  The kernels see local
+    tensors only (``models.sharded.local_call``).  A checkpoint is gathered
+    on every rank and written by rank 0, in the one format; resume places
+    it back by the shardings.
 
     The checkpoint holds ``{"params", "opt"}``, as the reference's does, so
     each package resumes the other's checkpoints; the error-feedback
@@ -306,11 +344,14 @@ class Trainer:
 
     def __init__(self, arch: ArchConfig, shape: ShapeConfig,
                  cc: ClusterConfig,
-                 device: Union[str, torch.device] = "cuda", *,
+                 device: Union[str, torch.device, Any] = "cuda", *,
                  plan: Optional[ShardingPlan] = None,
                  opt_cfg: Optional[adamw.AdamWConfig] = None,
                  tcfg: Optional[TrainerConfig] = None):
         self.arch, self.shape, self.cc = arch, shape, cc
+        self.mesh = None
+        if not isinstance(device, (str, torch.device)):
+            self.mesh, device = device, _mesh_device(device)
         self.model = build_model(arch, device)
         self.device = self.model.device
         self.tcfg = tcfg or TrainerConfig()
@@ -332,13 +373,43 @@ class Trainer:
                              if self.tcfg.recalibrate else None)
         self.checkpointer = (store.AsyncCheckpointer(self.tcfg.ckpt_dir)
                              if self.tcfg.ckpt_dir else None)
+        self.rank = 0 if self.mesh is None else self.mesh.get_rank()
+
+    # ------------------------------------------------------------------
+    def shardings(self, params, opt_state=None):
+        """The plan's shardings of ``params`` (and of ``opt_state``) on the
+        mesh: ``{"params", "opt"}``, or ``None`` without a mesh."""
+        if self.mesh is None:
+            return None
+        from repro_torch.launch import shardings as S
+
+        psh = S.params_shardings(self.mesh, self.plan, params)
+        out = {"params": psh}
+        if opt_state is not None:
+            out["opt"] = S.opt_state_shardings(self.mesh, self.plan, psh,
+                                               opt_state)
+        return out
+
+    def place_batch(self, batch: Dict[str, torch.Tensor]):
+        """A global batch (the same on every rank) as ``DTensor``s sharded
+        by the plan's batch shardings; as it is without a mesh."""
+        if self.mesh is None:
+            return batch
+        from repro_torch.launch import shardings as S
+
+        return S.place_tree(batch, S.batch_shardings(self.mesh, self.plan,
+                                                     batch))
 
     # ------------------------------------------------------------------
     def init_state(self, seed: Optional[int] = None):
         """(params, AdamW state, error-feedback state) on the device, the
         weights from ``seed`` (default ``tcfg.seed``)."""
-        params = self.model.init(self.tcfg.seed if seed is None else seed)
-        opt_state = adamw.init(self.opt_cfg, params)
+        seed = self.tcfg.seed if seed is None else seed
+        if self.mesh is None:
+            params = self.model.init(seed)
+            opt_state = adamw.init(self.opt_cfg, params)
+        else:
+            params, opt_state = self._init_placed(seed)
         if self.tcfg.compress_scheme == "int8_ef":
             ef = compress.init_error_feedback(params)
         else:
@@ -346,6 +417,24 @@ class Trainer:
                 lambda p: torch.zeros((), dtype=torch.float32,
                                       device=p.device), params))
         return params, opt_state, ef
+
+    def _init_placed(self, seed: int):
+        """The weights and zero moments made in their placements: each
+        rank draws the one-device init's numbers and keeps its shards
+        (``shardings.init_params``), and makes its shards of the moments
+        (ZeRO-1's under ``plan.zero1``) only."""
+        from repro_torch.launch import shardings as S
+
+        params, psh = S.init_params(self.model, seed, self.mesh, self.plan)
+        osh = S.opt_state_shardings(self.mesh, self.plan, psh,
+                                    adamw.AdamWState(0, params, params))
+        mdt = adamw.moment_dtype(self.opt_cfg)
+
+        def zeros(p, sh):
+            return S.zeros(p.shape, mdt, sh, self.device)
+        return params, adamw.AdamWState(
+            step=0, m=tree_map(zeros, params, osh.m),
+            v=tree_map(zeros, params, osh.v))
 
     def maybe_resume(self, params, opt_state):
         """The newest checkpoint of ``tcfg.ckpt_dir`` restored onto the
@@ -357,7 +446,7 @@ class Trainer:
             return params, opt_state, 0
         restored, step = store.restore(
             self.tcfg.ckpt_dir, {"params": params, "opt": opt_state},
-            device=self.device)
+            device=self.device, shardings=self.shardings(params, opt_state))
         return restored["params"], restored["opt"], step + 1
 
     def run(self, *, start_step: int = 0, params=None, opt_state=None,
@@ -384,10 +473,11 @@ class Trainer:
                     break
                 t0 = time.perf_counter()
                 params, opt_state, ef, metrics = self.train_step(
-                    params, opt_state, ef, batch)
+                    params, opt_state, ef, self.place_batch(batch))
                 if on_cuda:
                     torch.cuda.synchronize(self.device)
-                metrics = {k: float(v) for k, v in metrics.items()}
+                metrics = {k: float(v.full_tensor() if is_dtensor(v) else v)
+                           for k, v in metrics.items()}
                 dt = time.perf_counter() - t0
                 self.monitor.record({0: dt})
                 if self.recalibrator is not None:
@@ -400,8 +490,10 @@ class Trainer:
                         on_metrics(history[-1])
                 if (self.checkpointer and gstep > 0
                         and gstep % self.tcfg.checkpoint_every == 0):
+                    # every rank gathers its shards; rank 0 writes
                     self.checkpointer.save(
-                        gstep, {"params": params, "opt": opt_state})
+                        gstep, {"params": params, "opt": opt_state},
+                        write=self.rank == 0)
         finally:
             pipe.close()
             if self.checkpointer:

@@ -128,7 +128,7 @@ def test_prefill_components_sum_to_the_whole_program(arch, monkeypatch):
 
 def test_more_than_one_device_raises():
     cfg = reduced_fp32(get_config, "qwen1.5-0.5b")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+    with pytest.raises(TypeError, match="needs a DeviceMesh"):
         component_costs(cfg, ShapeConfig("s", SEQ, BATCH, "train"),
                         ShardingPlan(), mesh=[torch.device("cpu")] * 2)
 

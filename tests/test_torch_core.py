@@ -290,7 +290,8 @@ def test_exports_equal_the_reference_but_the_lowering():
 # jitted step (the port's ``lower_and_cost`` comes from ``graph_cost``).
 # Nothing else may differ but docstrings and line breaks.
 MIRROR_DIFFERS = {
-    "cluster": {"H100_SXM", "h100_single_config"},
+    "cluster": {"H100_SXM", "h100_single_config", "h100_node_config",
+                "h100_multi_node_config"},
     "hlo_cost": {"from_compiled", "lower_and_cost"},
     "__init__": {"repro_torch.core.cluster:H100_SXM",
                  "repro_torch.core.cluster:h100_single_config",

@@ -190,7 +190,7 @@ def test_unknown_dtype_is_counted_at_four_bytes_and_listed():
 
 
 def test_more_than_one_device_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+    with pytest.raises(TypeError, match="needs a DeviceMesh"):
         lower_and_cost("mm", lambda a: a @ a, (torch.ones(4, 4),),
                        mesh=[torch.device("cpu")] * 2)
     _, cost = lower_and_cost("mm", lambda a: a @ a, (torch.ones(4, 4),),

@@ -33,7 +33,9 @@ MODULES = [
     "repro_torch.checkpoint.store", "chip_smoke",
     "repro_torch.runtime.straggler", "repro_torch.runtime.elastic",
     "repro_torch.launch.train", "repro_torch.examples.train_lm",
-    "repro_torch.examples.serve_lm",
+    "repro_torch.examples.serve_lm", "repro_torch.launch.mesh",
+    "repro_torch.launch.shardings", "repro_torch.launch.dryrun",
+    "repro_torch.benchmarks.bench_roofline", "repro_torch.models.sharded",
 ] + [f"repro_torch.core.{m}" for m in (
     "npvec", "calibration", "cluster", "symbols", "plan", "linalg_ops",
     "hlo_cost", "costmodel", "explain", "linreg", "dominance", "planner",
@@ -52,10 +54,29 @@ def test_import_leaves_no_jax_and_no_reference(module):
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.') "
         "or m.split('.')[0] == 'ml_dtypes')\n"
         "assert not bad, bad\n"
-        "assert 'triton' not in sys.modules\n")
+        "assert 'triton' not in sys.modules\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized(), 'a process group'\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_h100_node_presets():
+    """One node: (1, 8) on NVLink; two: (2, 1, 8), the pod axis on the
+    network at a DGX H100's 8 x 400 Gb/s; neither in the sweep tables."""
+    from repro_torch.core import cluster, sweep
+    node, multi = cluster.h100_node_config(), cluster.h100_multi_node_config()
+    assert (node.mesh_shape, node.mesh_axes) == ((1, 8), ("data", "model"))
+    assert node.chip == cluster.H100_SXM
+    assert (multi.mesh_shape, multi.mesh_axes) == ((2, 1, 8),
+                                                   ("pod", "data", "model"))
+    assert multi.chip.dcn_bw == 400e9 and multi.chip.name == "h100_sxm"
+    assert multi.link_class("pod") == "dcn"
+    assert multi.link_class("model") == node.link_class("model") == "ici"
+    assert multi.link_bw("model") == node.link_bw("model")
+    assert all(cc.chip.name != "h100_sxm"
+               for cc in sweep.CLUSTERS.values())
 
 
 @pytest.mark.parametrize("module", ["repro_torch.core",
@@ -239,10 +260,20 @@ def test_trainer_driver_explains_without_a_device(capsys):
 
 
 @pytest.mark.parametrize("mesh", ["single", "multi"])
-def test_trainer_driver_refuses_a_mesh(mesh):
+def test_trainer_driver_refuses_a_mesh(mesh, monkeypatch):
+    """A production mesh runs under torchrun on GPUs: on the CPU, outside
+    torchrun, or in a world of another size than the mesh's, the driver
+    refuses it before it initialises anything."""
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="--device cpu runs --mesh host"):
         train.main(TRAIN_CPU + ["--device", "cpu", "--mesh", mesh])
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(RuntimeError, match="runs under torchrun"):
+        train.main(TRAIN_CPU + ["--mesh", mesh])
+    monkeypatch.setenv("WORLD_SIZE", "3")
+    need = 8 if mesh == "single" else 16
+    with pytest.raises(ValueError, match=f"{need} GPUs; torchrun started 3"):
+        train.main(TRAIN_CPU + ["--mesh", mesh])
 
 
 def test_examples_run_on_the_cpu_when_asked(capsys, tmp_path):

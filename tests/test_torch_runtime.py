@@ -394,5 +394,8 @@ def test_reshard_moves_every_tensor_to_a_device(placement):
 
 
 def test_reshard_onto_a_mesh_placement_raises():
-    with pytest.raises(NotImplementedError, match="item 14"):
+    """Axis names without a mesh place nothing: a placement is a device, a
+    ``Sharding`` or a ``(mesh, placements)`` pair
+    (``tests/test_torch_sharded_train.py`` reshards onto a mesh)."""
+    with pytest.raises(TypeError, match="no mesh"):
         elastic.reshard({"w": torch.ones(2)}, {"w": ("data",)})
