@@ -68,8 +68,16 @@ CUDA mesh of nccl, ``Trainer(arch, shape, cc, mesh)``: every parameter a
 losses must equal the trainer phase's bit for bit, each timed by CUDA
 events, a checkpoint at step 2 restored onto the shardings leaf for leaf,
 and one dry-run cell, qwen1.5-0.5b ``train_4k`` on one H100 node's fake
-8-rank mesh, traced in a subprocess meanwhile; one card checks placements
-and one-rank execution, nothing multi-GPU).
+8-rank mesh, traced in a subprocess during the entrypoints phase's
+cost-model work; one card checks placements
+and one-rank execution, nothing multi-GPU), ``entrypoints`` (the
+cost-model entry points as a user runs them: the LinReg DS example at
+262144 x 1024 through ``tsmm``, one launch a solve, with the Table-1 plans
+and its estimate on one H100 beside the warm solve; the four cost-model
+examples with ``--h100``, each winner feasible; the paper-table modules
+that no earlier phase runs at ``--quick``, with no EXCEPTION, MISMATCH or
+nonzero ``max_abs_err`` and their wall-clock claims reported; and
+``render_tables`` over the mesh phase's dry-run cell).
 Then one ``{"kernels": [...]}`` line with each kernel's time at its main-path
 shape beside its roofline bound, the plain version's time and a PyTorch
 library call's time (null where no single call computes the function), the
@@ -84,6 +92,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import importlib
 import io
 import itertools
 import json
@@ -95,6 +104,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 # zamba2's train step runs within a few GB of the card's 80: AdamW's fp32
 # temporaries of the stacked Mamba2 w_in (5.4 GiB each) found no room in the
@@ -3245,27 +3255,52 @@ MESH_STEPS, MESH_CKPT_AT = 6, 2
 MESH_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_mesh"
 MESH_DRYRUN = ("qwen1.5-0.5b", "train_4k", "single")
 MESH_DRYRUN_TIMEOUT_S = 400
+# The cell's artifact, kept apart from MESH_DIR for the entrypoints phase's
+# render_tables, which removes it.
+MESH_DRYRUN_DIR = Path(__file__).resolve().parent / "build" / \
+    "chip_smoke_dryrun"
+MESH_DRYRUN_LOG = MESH_DRYRUN_DIR.with_suffix(".log")
 
 
-def _mesh_dryrun_cell() -> dict:
-    """One dry-run cell (:data:`MESH_DRYRUN`) in a subprocess, on the CPU
-    (the fake process group is apart from this process's nccl group): its
-    status (it must be ``ok``) and collectives."""
+def start_mesh_dryrun_cell():
+    """Start the dry-run cell (:data:`MESH_DRYRUN`) in a subprocess, on the
+    CPU (the fake process group is apart from this process's nccl group),
+    its output into :data:`MESH_DRYRUN_LOG` (a pipe nobody reads while the
+    cell runs could fill and stall it); returns the process and its start
+    time."""
     arch, shape, mesh = MESH_DRYRUN
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
                PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
-    t = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--shape", shape, "--mesh", mesh, "--force", "--artifact-dir",
-         str(MESH_DIR / "dryrun")], env=env, capture_output=True, text=True,
-        timeout=MESH_DRYRUN_TIMEOUT_S)
+    MESH_DRYRUN_LOG.parent.mkdir(parents=True, exist_ok=True)
+    with open(MESH_DRYRUN_LOG, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--force",
+             "--artifact-dir", str(MESH_DRYRUN_DIR)], env=env, stdout=log,
+            stderr=subprocess.STDOUT)
+    return proc, time.perf_counter()
+
+
+def _mesh_dryrun_cell(started=None) -> dict:
+    """The dry-run cell's status (it must be ``ok``) and collectives, once
+    its subprocess (``started`` by :func:`start_mesh_dryrun_cell`, or
+    started here) ends; killed at :data:`MESH_DRYRUN_TIMEOUT_S`."""
+    arch, shape, mesh = MESH_DRYRUN
+    proc, t = started if started is not None else start_mesh_dryrun_cell()
+    try:
+        proc.wait(timeout=max(
+            MESH_DRYRUN_TIMEOUT_S - (time.perf_counter() - t), 1))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     seconds = time.perf_counter() - t
-    path = MESH_DIR / "dryrun" / f"dryrun_{arch}_{shape}_{mesh}.json"
+    out = MESH_DRYRUN_LOG.read_text()
+    MESH_DRYRUN_LOG.unlink()
+    path = MESH_DRYRUN_DIR / f"dryrun_{arch}_{shape}_{mesh}.json"
     if proc.returncode != 0 or not path.exists():
         raise AssertionError(f"mesh: the dry-run cell failed "
-                             f"({proc.returncode}): {proc.stdout[-2000:]} "
-                             f"{proc.stderr[-6000:]}")
+                             f"({proc.returncode}): {out[-8000:]}")
     d = json.loads(path.read_text())
     if d["status"] != "ok":
         raise AssertionError(f"mesh: dry-run status {d['status']}: "
@@ -3291,9 +3326,11 @@ def phase_mesh(train: dict, trainer_run: dict) -> dict:
     steps' CUDA-event median (the rest of the step the device waits: no
     collective runs on one rank).  A
     checkpoint at step MESH_CKPT_AT restored onto the shardings equals,
-    leaf for leaf, the state the step saved.  Then one dry-run cell
-    (:data:`MESH_DRYRUN`) traces in a subprocess, once nothing is timed,
-    and must end ``ok``."""
+    leaf for leaf, the state the step saved.  The phase's dry-run cell
+    (:data:`MESH_DRYRUN`) traces in a subprocess on the host's CPU while
+    the entrypoints phase's cost-model work runs there, once nothing on the
+    card is timed: :func:`phase_entrypoints` adds it to this phase's line
+    as ``dryrun``, and it must end ``ok``."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_host_mesh
@@ -3403,8 +3440,6 @@ def phase_mesh(train: dict, trainer_run: dict) -> dict:
         torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
-    shutil.rmtree(MESH_DIR / "ckpt", ignore_errors=True)
-    dryrun_cell = _mesh_dryrun_cell()
     shutil.rmtree(MESH_DIR, ignore_errors=True)
     return {"phase": "mesh", "arch": cfg.name, "dtype": cfg.dtype,
             "n_layers": cfg.n_layers, "batch": [TRAIN_BATCH, TRAIN_SEQ],
@@ -3427,7 +3462,202 @@ def phase_mesh(train: dict, trainer_run: dict) -> dict:
             "train_phase_warm_median_step_ms":
                 train[TRAINER_ARCH]["warm_median_step_ms"],
             "restored_step": at, "restore_s": restore_s,
-            "restored_bit_identical": True, "dryrun": dryrun_cell,
+            "restored_bit_identical": True,
+            "seconds": time.perf_counter() - t0}
+
+
+# ---------------------------------------------------------------------------
+# entrypoints
+# ---------------------------------------------------------------------------
+
+ENTRY_LINREG = ["--m", str(LINREG_M), "--n", str(LINREG_N)]
+ENTRY_LINREG_SOLVES = 2          # linreg_ds.main: a cold and a warm solve
+# Each cost-model example as a user runs it on the card's grid, by name.
+ENTRY_EXAMPLES = [("quickstart", ["--h100"]), ("autotune_plan", ["--h100"]),
+                  ("optimize_resources", ["--h100"]),
+                  ("optimize_resources", ["--h100", "--shape", "chat_2k"]),
+                  ("sweep_plans", ["--h100"])]
+# The paper-table modules that no earlier phase runs (accuracy, calibrate
+# and fusion run in the estimate and calibrate phases).
+ENTRY_TABLES = ("scenarios", "plan_costing", "costing_speed", "resource_opt",
+                "serving", "parallel")
+# Row fields that read the host's clock; a PASS / FAIL beside one is a
+# wall-clock claim, reported and not enforced.
+WALL_FIELD = re.compile(r"^(\w*speedup\w*|\w*_us|ncpu|gate)=")
+
+
+@contextlib.contextmanager
+def spawn_without_main_script():
+    """A ``spawn`` worker first runs its parent's main script (as
+    ``__mp_main__``) when that is a file: here this script, which imports
+    torch.  ``core.parallel``'s workers are functions of
+    ``repro_torch.core`` and need none of it, so the script's path is
+    hidden from ``multiprocessing`` while pools start: the workers load the
+    cost model alone."""
+    main_mod = sys.modules["__main__"]
+    path = main_mod.__dict__.pop("__file__", None)
+    try:
+        yield
+    finally:
+        if path is not None:
+            main_mod.__file__ = path
+
+
+def _captured(fn, *args, **kw):
+    """``fn``'s result and what it printed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    return out, buf.getvalue()
+
+
+def _example_winner(name: str, result) -> dict:
+    """The winner an example printed: its id, estimated step ms (a serving
+    winner's decode step) and feasibility."""
+    if name == "quickstart":
+        d = result[0]
+        return {"winner": d.plan.describe(), "cluster": "h100_node_config",
+                "est_step_ms": d.time * 1e3, "feasible": d.feasible}
+    if name == "autotune_plan":
+        label, d = min(((label, d) for label, ds in result.items()
+                        for d in ds if d.feasible),
+                       key=lambda ld: ld[1].time,
+                       default=(None, None))
+        if d is None:
+            return {"winner": None, "feasible": False}
+        return {"winner": d.plan.describe(), "cluster": label,
+                "est_step_ms": d.time * 1e3, "feasible": d.feasible}
+    if name == "optimize_resources":
+        rd = result[0]
+        out = {"winner": rd.cluster_id, "plan": rd.decision.plan.describe(),
+               "est_step_ms": rd.time * 1e3, "feasible": rd.feasible}
+        if hasattr(rd, "ttft_p99"):
+            out.update(slots=rd.slots, est_ttft_p99_ms=rd.ttft_p99 * 1e3)
+        return out
+    cells = [c for c in result if c.feasible]
+    best = min(cells, key=lambda c: c.time, default=None)
+    if best is None:
+        return {"winner": None, "feasible": False}
+    return {"winner": best.key, "plan": best.decision.plan.describe(),
+            "est_step_ms": best.time * 1e3, "feasible": True,
+            "feasible_cells": len(cells), "cells": len(result)}
+
+
+def _table_verdicts(name: str, rows: list) -> dict:
+    """Rows of one paper-table module, split: faults (an ``EXCEPTION`` or
+    ``MISMATCH`` row, a ``max_abs_err`` other than 0, a FAIL beside no
+    wall-clock field) and wall-clock claims (a PASS / FAIL beside one)."""
+    faults, claims, gates = [], [], []
+    for row in rows:
+        row_name, us, derived = row.split(",", 2)
+        fields = derived.split(";")
+        wall = any(WALL_FIELD.match(f) for f in fields)
+        errs = [f for f in fields if f.startswith("max_abs_err=")]
+        if "EXCEPTION" in fields or any("MISMATCH" in f for f in fields) \
+                or any(float(f.split("=")[1]) != 0 for f in errs):
+            faults.append(row)
+        elif wall and ("PASS" in fields or "FAIL" in fields):
+            claims.append({"row": row_name, "us_per_call": float(us),
+                           "verdict": "PASS" if "PASS" in fields else "FAIL",
+                           "fields": [f for f in fields
+                                      if "=" in f and WALL_FIELD.match(f)
+                                      or f.startswith("claim=")]})
+        elif "FAIL" in fields:
+            faults.append(row)
+        elif "PASS" in fields:
+            gates.append(row_name)
+    return {"rows": len(rows), "faults": faults, "wall_clock_claims": claims,
+            "gates_passed": gates}
+
+
+def phase_entrypoints(mesh: Optional[dict] = None) -> dict:
+    """The cost-model entry points as a user runs them: (a) the LinReg DS
+    example at 262144 x 1024 on the card (the scenario table, a cold and a
+    warm solve through ``tsmm``, the estimate on one H100 beside the warm
+    seconds), the launch counts set to 0 just before and read just after;
+    (b) each cost-model example with ``--h100``, whose winner must be
+    feasible; (c) the paper-table modules no earlier phase runs, at
+    ``run(quick=True)``, and ``render_tables`` over the mesh phase's
+    dry-run cell, which traces in a subprocess during (b) and (c) (all of
+    it host work: nothing on the card is timed then) and goes into
+    ``mesh["dryrun"]``."""
+    from repro_torch.benchmarks import render_tables
+    from repro_torch.examples import (autotune_plan, optimize_resources,
+                                      quickstart, sweep_plans)
+    t0 = time.perf_counter()
+    examples = {"quickstart": quickstart, "autotune_plan": autotune_plan,
+                "optimize_resources": optimize_resources,
+                "sweep_plans": sweep_plans}
+
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    r, text = _captured(linreg_ds.main, ENTRY_LINREG)
+    linreg_s = time.perf_counter() - t
+    launches = ops.launch_counts()
+    beta = r.pop("beta")
+    bound = 1e-4     # fp32 Gram and solve of a well-conditioned system
+    if launches["tsmm_upper"] != ENTRY_LINREG_SOLVES:
+        raise AssertionError(f"entrypoints: {launches['tsmm_upper']} tsmm "
+                             f"launches for {ENTRY_LINREG_SOLVES} solves")
+    if beta.shape != (LINREG_N, 1) or not bool(torch.isfinite(beta).all()) \
+            or r["max_abs_err_vs_f64"] > bound \
+            or r["chip_spec"] != "h100_sxm" or "est / measured" not in text \
+            or "costed plan, scenario XS" not in text:
+        raise AssertionError(f"entrypoints: linreg_ds is off: {r}")
+    linreg = {**r, "bound": bound, "tsmm_launches": launches["tsmm_upper"],
+              "solves": ENTRY_LINREG_SOLVES, "launches": launches,
+              "printed_lines": len(text.splitlines()),
+              "main_seconds": linreg_s}
+    print(text.splitlines()[-1], flush=True)
+
+    dryrun = start_mesh_dryrun_cell()
+    try:
+        winners = []
+        for name, argv in ENTRY_EXAMPLES:
+            t = time.perf_counter()
+            result, text = _captured(examples[name].main, argv)
+            w = {"example": name, "argv": argv,
+                 **_example_winner(name, result),
+                 "seconds": time.perf_counter() - t}
+            if not w["feasible"] or w["winner"] is None \
+                    or w["winner"].split(": ")[0] not in text:
+                raise AssertionError(f"entrypoints: {name} {argv} printed "
+                                     f"no feasible winner: {w}")
+            winners.append(w)
+
+        tables = {}
+        for name in ENTRY_TABLES:
+            mod = importlib.import_module(
+                f"repro_torch.benchmarks.bench_{name}")
+            t = time.perf_counter()
+            with spawn_without_main_script():
+                rows, _ = _captured(mod.run, quick=True)
+            tables[name] = {**_table_verdicts(name, rows),
+                            "seconds": time.perf_counter() - t}
+    except BaseException:
+        dryrun[0].kill()
+        dryrun[0].wait()
+        raise
+    t = time.perf_counter()
+    cell = _mesh_dryrun_cell(dryrun)
+    if mesh is not None:
+        mesh["dryrun"] = cell
+    dryrun_wait_s = time.perf_counter() - t
+    t = time.perf_counter()
+    rendered = render_tables.render("all", str(MESH_DRYRUN_DIR))
+    arch, shape, mesh = MESH_DRYRUN
+    if f"| {arch} | {shape} | {mesh} | ok |" not in rendered:
+        raise AssertionError(f"entrypoints: render_tables shows no row of "
+                             f"the mesh phase's cell:\n{rendered}")
+    tables["render_tables"] = {"lines": len(rendered.splitlines()),
+                               "seconds": time.perf_counter() - t}
+    shutil.rmtree(MESH_DRYRUN_DIR, ignore_errors=True)
+    faults = {n: v["faults"] for n, v in tables.items() if v.get("faults")}
+    if faults:
+        raise AssertionError(f"entrypoints: paper-table faults: {faults}")
+    return {"phase": "entrypoints", "linreg_ds": linreg,
+            "examples": winners, "tables": tables,
+            "dryrun_wait_s": dryrun_wait_s, "cpu_count": os.cpu_count(),
             "seconds": time.perf_counter() - t0}
 
 
@@ -3545,7 +3775,10 @@ def main() -> None:
     emit(calib)
     trainer_run = phase_trainer(train)
     emit(trainer_run)
-    emit(phase_mesh(train, trainer_run))
+    mesh = phase_mesh(train, trainer_run)
+    entry = phase_entrypoints(mesh)     # adds the mesh phase's dry-run cell
+    emit(mesh)
+    emit(entry)
 
     def err_of(cases, tag):
         return next(c["max_abs_err"] for c in cases if c["case"] == tag)
@@ -3630,6 +3863,7 @@ def main() -> None:
          "source": "src/repro_torch/kernels/csrc/tsmm.cu",
          "replaces": "src/repro/kernels/tsmm.py:101",
          "launches": linreg["tsmm_launches"],
+         "entrypoints_launches": entry["linreg_ds"]["tsmm_launches"],
          "max_abs_err": err_of(tsmm_cases, "LinReg DS"),
          **tsmm_bound_ms(LINREG_M, LINREG_N, torch.float32),
          **times["tsmm_upper"]},

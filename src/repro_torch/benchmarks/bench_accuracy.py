@@ -176,6 +176,29 @@ def linreg_rows(device="cuda",
     return rows
 
 
+def run(quick: bool = False, device="cuda") -> List[str]:
+    """The reference's rows for the benchmark runner: one
+    ``accuracy.<scenario>`` row (est / actual / ratio) per scenario of
+    :func:`linreg_rows`, then the worst factor against the paper's 2x.  The
+    card runs :data:`H100_SCENARIOS` (quick: the tsmm row and f64-S); the CPU
+    runs their float64 rows (quick: f64-S), a smoke of the path, since the
+    estimate is one H100's either way."""
+    dev = require_device(device)
+    if dev.type == "cuda":
+        scenarios = H100_SCENARIOS[:2] if quick else H100_SCENARIOS
+    else:
+        scenarios = H100_SCENARIOS[1:2 if quick else 4]
+    rows = linreg_rows(dev, scenarios)
+    out = [f"accuracy.{r['name']},0,est={r['est_ms']:.1f}ms;"
+           f"actual={r['actual_ms']:.1f}ms;ratio={r['ratio']:.2f};"
+           f"path={r['path']};tsmm_launches={r['tsmm_launches']}"
+           for r in rows[:-1]]
+    summary = rows[-1]
+    out.append(f"accuracy.worst_factor,0,{summary['worst_factor']:.2f};"
+               f"paper_claim={PAPER_CLAIM};{summary['verdict']}")
+    return out
+
+
 def _breakdown_ms(costed) -> Dict[str, float]:
     b = costed.breakdown
     return {"total_ms": costed.total * 1e3, "io_ms": b.io * 1e3,

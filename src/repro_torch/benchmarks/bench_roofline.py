@@ -22,7 +22,10 @@ from repro_torch.launch.dryrun import ARTIFACT_DIR, cluster
 
 
 def load_artifacts(artifact_dir: str = ARTIFACT_DIR,
-                   mesh: Optional[str] = None, tag: str = "") -> List[dict]:
+                   mesh: Optional[str] = None,
+                   tag: Optional[str] = "") -> List[dict]:
+    """The artifacts in ``artifact_dir``, of one mesh kind when ``mesh`` is
+    given and of one tag (``None``: every tag)."""
     rows = []
     for path in sorted(glob.glob(os.path.join(artifact_dir,
                                               "dryrun_*.json"))):
@@ -30,7 +33,7 @@ def load_artifacts(artifact_dir: str = ARTIFACT_DIR,
             d = json.load(f)
         if mesh and d.get("mesh") != mesh:
             continue
-        if d.get("tag", "") != tag:
+        if tag is not None and d.get("tag", "") != tag:
             continue
         rows.append(d)
     return rows
@@ -41,11 +44,17 @@ def hbm_budget(d: dict) -> float:
     return cluster(d["mesh"]).chip.hbm_bytes
 
 
+def used_bytes(d: dict) -> float:
+    """The traced step's per-device memory: its peak, or where the trace
+    gave none, arguments + temporaries + outputs."""
+    ma = d["memory_analysis"]
+    return ma["peak_bytes"] or (ma["argument_bytes"] + ma["temp_bytes"]
+                                + ma["output_bytes"])
+
+
 def describe(d: dict) -> str:
     r = d["roofline"]
-    ma = d["memory_analysis"]
-    used = ma["peak_bytes"] or (ma["argument_bytes"] + ma["temp_bytes"]
-                                + ma["output_bytes"])
+    used = used_bytes(d)
     ufr = d.get("useful_flops_ratio")
     parts = [
         f"dom={r['dominant'].replace('_s', '')}",

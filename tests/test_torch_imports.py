@@ -40,8 +40,18 @@ MODULES = [
     "npvec", "calibration", "cluster", "symbols", "plan", "linalg_ops",
     "hlo_cost", "costmodel", "explain", "linreg", "dominance", "planner",
     "workload", "resource", "serving", "sweep", "parallel",
-    "graph_cost")] + [
+    "graph_cost", "gpu_clusters")] + [
     "repro_torch.core"]
+# The cost-model entry points: they cost plans and import no torch.
+COST_MODEL_ENTRY_POINTS = [
+    "repro_torch.examples.quickstart", "repro_torch.examples.autotune_plan",
+    "repro_torch.examples.optimize_resources",
+    "repro_torch.examples.sweep_plans"] + [
+    f"repro_torch.benchmarks.{m}" for m in (
+        "bench_scenarios", "bench_plan_costing", "bench_costing_speed",
+        "bench_resource_opt", "bench_serving", "bench_parallel",
+        "render_tables", "run")]
+MODULES += COST_MODEL_ENTRY_POINTS
 
 
 @pytest.mark.parametrize("module", MODULES)
@@ -81,7 +91,9 @@ def test_h100_node_presets():
 
 @pytest.mark.parametrize("module", ["repro_torch.core",
                                     "repro_torch.core.parallel",
-                                    "repro_torch.core.graph_cost"])
+                                    "repro_torch.core.graph_cost",
+                                    "repro_torch.core.gpu_clusters",
+                                    *COST_MODEL_ENTRY_POINTS])
 def test_cost_model_loads_no_torch(module):
     """The cost model is numpy and the standard library: ``parallel``'s spawn
     workers import it, and must never load torch or initialise CUDA."""

@@ -30,7 +30,9 @@ def main() -> None:
                                   "launches", "max_memory_allocated_bytes")})
     trainer_run = cs.phase_trainer({cs.TRAINER_ARCH: run})
     cs.emit(trainer_run)
-    cs.emit(cs.phase_mesh({cs.TRAINER_ARCH: run}, trainer_run))
+    mesh = cs.phase_mesh({cs.TRAINER_ARCH: run}, trainer_run)
+    mesh["dryrun"] = cs._mesh_dryrun_cell()
+    cs.emit(mesh)
     cs.emit({"total_s": time.perf_counter() - t0})
 
 
