@@ -133,7 +133,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.matmul_epilogue import (  # noqa: E402
     LN_MAX_N, matmul_body, matmul_epilogue, matmul_epilogue_plain)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
-    ssd_bwd_body, ssd_scan, ssd_scan_bwd, ssd_scan_bwd_plain,
+    ssd_bwd_body, ssd_fwd_body, ssd_scan, ssd_scan_bwd, ssd_scan_bwd_plain,
     ssd_scan_bwd_split_plain, ssd_scan_plain, ssd_scan_split_plain)
 from repro_torch.kernels.tsmm import tsmm_upper, tsmm_upper_plain  # noqa: E402
 from repro_torch.core import (ShardingPlan, choose_plan,  # noqa: E402
@@ -1074,7 +1074,7 @@ def check_ssd(gen) -> list:
         res = compare(y, y_ref, **tol["y"])
         res["state"] = compare(state, st_ref, **tol["state"])
         res.update(case=tag, shape=[b, s, h, p, g, n], chunk=chunk,
-                   dtype=str(dtype).split(".")[-1])
+                   dtype=str(dtype).split(".")[-1], body=ssd_fwd_body(dtype))
         cases.append(res)
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -1145,7 +1145,7 @@ def check_ssd_bwd(gen) -> list:
             views=True)
         run("groups G = 2", 2, 256, 8, 64, 2, 128, 64, dtype)
         run("initial state", 2, 300, 4, 64, 1, 128, 128, dtype, init=True)
-        # the tensor-core body runs chunks of at most 256 rows
+        # the wgmma body runs chunks of at most 256 rows
         run("chunk 512, ragged S", 1, 600, 2, 32, 1, 64, 512, dtype)
     for tag, m in (("main path", SSD_MAIN), ("zamba2 main path", SSD_ZAMBA)):
         run(tag, m["b"], m["s"], m["h"], m["p"], m["g"], m["n"], m["chunk"],
@@ -1245,7 +1245,7 @@ SSD_BWD_CASES = [("reference case", (1, 256, 2, 64, 1, 128, 64), {}),
 
 def check_ssd_bwd_control(gen) -> list:
     """The SSD backward's rounding plan against its control, on the card:
-    ``ssd_scan_bwd_split_plain`` as the tensor-core body splits every fp32
+    ``ssd_scan_bwd_split_plain`` as the wgmma body splits every fp32
     operand (hi + lo), then with each rounded once to bf16, both held to
     ``BWD_RTOL`` against :func:`ssd_scan_bwd_plain`.  The split must pass at
     every case; at the reference case the single rounding must be caught
@@ -1403,6 +1403,7 @@ def time_kernels(gen) -> dict:
             "library_note": "no single PyTorch call computes an SSD scan",
             "shape": f"xbar [8,2048,{m['h']},64] bf16, B/C "
                      f"[8,2048,1,{m['n']}] views, chunk 256",
+            "body": ssd_fwd_body(torch.bfloat16),
             "cuda_kernels_ms": device_kernel_ms(
                 lambda: ssd_scan(xbar, log_a, bm, cm, chunk=m["chunk"])),
             **ssd_bound_ms(**m, dtype=torch.bfloat16),

@@ -17,7 +17,7 @@
 // the roofline bound (about 0.09 ms) is set by bytes.
 //
 // Two bodies, chosen by the type of xbar, B and C:
-//   * bf16 (every served call): chunk-parallel on the tensor cores, four
+//   * bf16 (every served call): chunk-parallel on wgmma with TMA, three
 //     kernels a call; see "bf16 body" below.
 //   * fp32: the full-fp32 FMA body that follows, which the fp32 comparisons
 //     of the serve paths hold to fp32 precision.
@@ -58,7 +58,6 @@ namespace {
 
 constexpr int RT = 64;         // rows of a query tile and of a key tile
 constexpr int THREADS = 256;   // 16 x 16
-constexpr int MAX_CHUNK = 1024;
 
 struct Params {
   const void* xbar;
@@ -356,133 +355,150 @@ int dispatch_p(const Params& p, int P, int N, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 body: tensor cores, chunk-parallel
+// bf16 body: wgmma + TMA, chunk-parallel
 // ---------------------------------------------------------------------------
 //
-// Four kernels a call, in this order on the caller's stream:
-//   ssd_cb           C_c B_c^T once per (b, chunk, group), the 64 x 64 tiles
-//                    on or below the diagonal, into `cb` [B,nc,G,LT,LT] fp32
-//                    (LT: L rounded up to whole tiles);
-//   ssd_chunk_states per (b, chunk, head): the cumsum of log_a into `cum`
-//                    [B,H,nc,L], and the chunk's own state contribution
-//                    emit = (exp(total - cum) o Xbar)^T B into `st`
-//                    [B,nc,H,P,N] fp32;
-//   ssd_state_pass   one block per (b, head): over the chunks,
-//                    S_in[c] = S; S <- exp(total_c) S + emit[c].  S_in
-//                    overwrites emit in place as a bf16 hi and a bf16 lo
-//                    matrix; the last S is the final state;
-//   ssd_chunk_out    per (b, chunk, head, 64-row tile of the chunk):
+// Three kernels a call, in this order on the caller's stream:
+//   ssd_emit         (ssd_tc.cuh) per (chunk, head, b): the cumsum of log_a
+//                    into `cum` [B,H,nc,LT], and the chunk's own state
+//                    contribution emit = (exp(total - cum) o Xbar)^T B into
+//                    `st` [B,H,nc,P,N] fp32;
+//   ssd_state_pass   one block per (b, head, part of the rows of
+//                    [P][N]): over the chunks, S_in[c] = S; S <-
+//                    exp(total_c) S + emit[c].  S_in overwrites emit in
+//                    place, each row as a bf16 hi row and a bf16 lo row;
+//                    the last S is the final state;
+//   ssd_chunk_out    per (64-row tile, chunk, b and head):
 //                    Y = exp(cum) o (C S_in^T) + ((C B^T) o L) Xbar.
-// Every product runs on `mma.sync.m16n8k16` (bf16 in, fp32 accumulate).  An
-// fp32 operand (the decayed Xbar of emit, (C B^T) o L, S_in) is split as
-// hi = bf16(v), lo = bf16(v - hi) and multiplied twice into one accumulator,
-// so it keeps about 16 bits of mantissa: one bf16 rounding of the decayed
-// Xbar breaks the state's fp32 tolerance, and one of (C B^T) o L or S_in
-// breaks y's at the reference's decays.  Xbar, B and C are bf16 inputs and
-// enter the products exactly.
+// Every product runs on wgmma (bf16 in, fp32 accumulate), its operands in
+// the tiles of ssd_tc.cuh brought in by TMA.  An fp32 operand (the decayed
+// Xbar of emit, (C B^T) o L, S_in) is split as hi = bf16(v), lo = bf16(v -
+// hi) and multiplied twice into one accumulator, so it keeps about 16 bits
+// of mantissa: one bf16 rounding of the decayed Xbar breaks the state's fp32
+// tolerance, and one of (C B^T) o L or S_in breaks y's at the reference's
+// decays.  Xbar, B and C are bf16 inputs and enter the products exactly.
+// `ssd_scan_split_plain` (kernels/ssd_scan.py) is the same plan in plain
+// PyTorch.
+//
+// ssd_chunk_out is causal attention with the decay mask in place of the
+// softmax, and takes the shape of flash_attention.cu's wgmma body: warps
+// 0-3 are one consumer warpgroup, warp 4 a producer that brings in the
+// query tile's C once and, through a ring, S_in (hi, then lo) and each key
+// tile's B and Xbar.  Y_off = C S_in^T by wgmma, both K-major; then for
+// each key tile kj <= qi: C B^T by wgmma from shared memory (formed again
+// for every head: no fp32 scratch of it, and no loads of it from L2),
+// decayed and masked in registers (the exponential on the special-function
+// unit: y is rounded to bf16), split hi + lo into wgmma's register A layout,
+// then accumulated against the Xbar tile read MN-major, as flash reads V.
+// Blocks run the longest query tiles first.
+//
+// What bounds them, measured on an H100 (PERF.md; tools/ssd_bwd_variants.py
+// --fwd): the
+// bound of the whole scan is bytes (0.30 GB against 5.2e10 flop at mamba2's
+// shape, 0.089 ms), but each kernel runs its steps one after the other
+// (load, product, decay, product) with four or eight consumer warps an SM,
+// so latency, not a unit's rate, sets the time: of ssd_chunk_out's 0.30 ms
+// at mamba2-1.3b's shape, the products with Xbar (A in registers) take
+// 0.07, the decays 0.03, C B^T and C S_in^T 0.02 each.
+// Against that: the ring keeps the next key tile in flight, S_in comes
+// through the ring so that three blocks fit an SM at N = 128 (69 KB), and
+// ssd_emit and the pass are at two and about four blocks an SM.
 
 struct TcParams {
-  const __nv_bfloat16* xbar;
   const float* log_a;
-  const __nv_bfloat16* bm;
-  const __nv_bfloat16* cm;
   const float* init;  // may be null: zero initial state
   __nv_bfloat16* y;
   float* state_out;
-  float* cum;  // [B,H,nc,L]
-  float* cb;   // [B,nc,G,LT,LT]
-  float* st;   // [B,nc,H,P,N]
+  float* cum;  // [B,H,nc,LT]: the last value repeated past L
+  float* st;   // [B,H,nc,P,N]
   int B, S, H, G, L, nc;
-  int LT;  // row pitch of cb: L rounded up to whole tiles
-  long long b_sb, b_ss, c_sb, c_ss;
+  int LT;  // L rounded up to whole 64-row tiles
 };
 
-// The cumsum of the chunk and its state contribution emit [P][N] for one
-// (b, chunk, head): `chunk_state_tc` with the decay to the chunk's end.
-template <int P, int N>
-__global__ void __launch_bounds__(TC_THREADS) ssd_chunk_states(
-    const TcParams p) {
-  constexpr int LDX = P + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sCum = reinterpret_cast<float*>(smem_raw);  // [MAX_CHUNK]
-  float* sWarp = sCum + MAX_CHUNK;                    // [32]
-  __nv_bfloat16* sX = reinterpret_cast<__nv_bfloat16*>(sWarp + 32);
-  __nv_bfloat16* sXl = sX + 2 * TT * LDX;  // [2][l][p] Xbar, then hi; lo
-  __nv_bfloat16* sB = sXl + TT * LDX;      // [2][l][n]
-
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int g = h / (p.H / p.G);
-  const int r0 = c * p.L, l = min(p.L, p.S - r0);
-  const long long x_ss = (long long)p.H * P;
-  const __nv_bfloat16* xp = p.xbar + ((long long)b * p.S + r0) * x_ss + h * P;
-  const __nv_bfloat16* bp = p.bm + b * p.b_sb + (long long)r0 * p.b_ss + g * N;
-  chunk_state_prefetch<P, N>(xp, x_ss, bp, p.b_ss, l, sX, sB);
-
-  const float* la = p.log_a + ((long long)b * p.S + r0) * p.H + h;
-  chunk_cumsum<TC_THREADS>(sCum, sWarp, la, p.H, l, p.L);
-  float* cum_out = p.cum + (((long long)b * p.H + h) * p.nc + c) * p.L;
-  for (int i = threadIdx.x; i < p.L; i += TC_THREADS) cum_out[i] = sCum[i];
-  chunk_state_tc<P, N>(xp, x_ss, bp, p.b_ss, l, sCum, sCum[p.L - 1], true,
-                       sX, sXl, sB,
-                       p.st + (((long long)b * p.nc + c) * p.H + h) * P * N);
+// The state recurrence over the chunks for one (b, head, part of the rows
+// of [P][N]), ROWS N / 256 elements a thread.  S_in[c] is written over
+// emit[c], each row as a bf16 hi row and a bf16 lo row, once every thread
+// has read emit[c]; the next chunk's emit is loaded before that, so the
+// loads stay in flight.
+// The forward's state pass runs one block per (b, head, part of the rows of
+// [P][N]), 256 threads and at most 2048 elements a block.
+__host__ __device__ constexpr int pass_parts(int p, int n) {
+  return p * n > 2048 ? p * n / 2048 : 1;
 }
 
-// The state recurrence over the chunks for one (b, head), P N / 256
-// elements of [P][N] a thread.  S_in[c] is written over emit[c] as two bf16
-// matrices, hi then lo, once every thread has read emit[c]; the next
-// chunk's emit is loaded before that, so the loads stay in flight.
 template <int P, int N>
 __global__ void __launch_bounds__(256) ssd_state_pass(const TcParams p) {
-  constexpr int PN = P * N, EPT = PN / 256;
-  const int h = blockIdx.x % p.H, b = blockIdx.x / p.H;
+  constexpr int PN = P * N, PARTS = pass_parts(P, N);
+  constexpr int PE = PN / PARTS, EPT = PE / 256;
+  const int part = blockIdx.x % PARTS, bhx = blockIdx.x / PARTS;
+  const int h = bhx % p.H, b = bhx / p.H;
+  const int row0 = part * (P / PARTS), off = row0 * N;
   const long long bh = (long long)b * p.H + h;
   float s[EPT], next[EPT];
 #pragma unroll
   for (int e = 0; e < EPT; ++e)
-    s[e] = p.init != nullptr ? p.init[bh * PN + threadIdx.x + e * 256] : 0.f;
-  const float* cum = p.cum + bh * p.nc * p.L;
-  float* slab = p.st + ((long long)b * p.nc * p.H + h) * PN;  // chunk 0
-  const long long c_stride = (long long)p.H * PN;
+    s[e] = p.init != nullptr ? p.init[bh * PN + off + threadIdx.x + e * 256]
+                             : 0.f;
+  const float* cum = p.cum + bh * p.nc * p.LT;
+  float* slab = p.st + bh * p.nc * PN;  // chunk 0
+  const long long c_stride = PN;
+  const int at = split_row_at<N>(row0);
 #pragma unroll
-  for (int e = 0; e < EPT; ++e) next[e] = slab[threadIdx.x + e * 256];
+  for (int e = 0; e < EPT; ++e) next[e] = slab[off + threadIdx.x + e * 256];
   for (int c = 0; c < p.nc; ++c, slab += c_stride) {
     float emit[EPT];
 #pragma unroll
     for (int e = 0; e < EPT; ++e) {
       emit[e] = next[e];
-      if (c + 1 < p.nc) next[e] = slab[c_stride + threadIdx.x + e * 256];
+      if (c + 1 < p.nc)
+        next[e] = slab[c_stride + off + threadIdx.x + e * 256];
     }
-    const float decay = expf(cum[(long long)c * p.L + p.L - 1]);
+    const float decay = expf(cum[(long long)c * p.LT + p.L - 1]);
     __syncthreads();  // every thread has read emit[c]
-    __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(slab);
 #pragma unroll
     for (int e = 0; e < EPT; ++e) {
-      const __nv_bfloat16 hi = __float2bfloat16_rn(s[e]);
-      out[threadIdx.x + e * 256] = hi;
-      out[PN + threadIdx.x + e * 256] =
-          __float2bfloat16_rn(s[e] - __bfloat162float(hi));
+      store_split_at(reinterpret_cast<__nv_bfloat16*>(slab), at + 512 * e, N,
+                     s[e]);
       s[e] = fmaf(s[e], decay, emit[e]);
     }
   }
 #pragma unroll
   for (int e = 0; e < EPT; ++e)
-    p.state_out[bh * PN + threadIdx.x + e * 256] = s[e];
+    p.state_out[bh * PN + off + threadIdx.x + e * 256] = s[e];
 }
 
-// y for one 64-row tile of one (b, chunk, head).  Warp w owns rows 16w..
-// of the tile and all P columns.  Key tiles of Xbar are double-buffered
-// with cp.async, and a warp loads its C B^T fragments of a key tile before
-// it waits for that tile.
+constexpr int OUT_THREADS = 160;
+constexpr float LOG2E = 1.4426950408889634f;
+// ring slots of ssd_chunk_out: two of 24 KB at N = 128 (three blocks an
+// SM), three of 16 KB below
+__host__ __device__ constexpr int out_stages(int n) { return n > 64 ? 2 : 3; }
+
+struct OutMaps {
+  CUtensorMap x, b, c, st;
+};
+
+template <int N>
+constexpr int out_smem_bytes(int lt) {
+  return 1024 + parts(N) * TILE + out_stages(N) * (parts(N) + 1) * TILE +
+         8 * (1 + 2 * out_stages(N)) + 4 * lt;
+}
+
+// y for one 64-row tile qi of one (b, chunk, head).  C of the tile stays;
+// the ring brings S_in hi, S_in lo, then each key tile's B and Xbar, so
+// that three blocks fit an SM (69 KB of shared memory at N = 128).
 template <int P, int N>
-__global__ void __launch_bounds__(TC_THREADS) ssd_chunk_out(const TcParams p) {
-  constexpr int LDC = N + 8, LDX = P + 8;
-  constexpr int PT = P / 8;  // n-tiles of y
+__global__ void __launch_bounds__(OUT_THREADS, 3)
+    ssd_chunk_out(const __grid_constant__ OutMaps maps, const TcParams p) {
+  constexpr int NP = parts(N), ST = out_stages(N);
+  constexpr int STAGE = (NP + 1) * TILE;  // B_kj's parts, then Xbar_kj
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sCum = reinterpret_cast<float*>(smem_raw);  // [MAX_CHUNK]
-  __nv_bfloat16* sC = reinterpret_cast<__nv_bfloat16*>(sCum + MAX_CHUNK);
-  __nv_bfloat16* sSh = sC + TT * LDC;  // S_in, hi and lo: [p][n]
-  __nv_bfloat16* sSl = sSh + P * LDC;
-  __nv_bfloat16* sX = sSl + P * LDC;   // [2][l][p] key tiles of Xbar
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gen = smem_raw + (base - raw);
+  const uint32_t sC = base;
+  const Ring ring{sC + NP * TILE, sC + NP * TILE + ST * STAGE, ST, STAGE};
+  const uint32_t head = ring.bars + 16 * ST;  // C landed
+  float* sCum = reinterpret_cast<float*>(gen + (head + 8 - base));
 
   const int qi = gridDim.x - 1 - blockIdx.x;  // longest tiles first
   const int c = blockIdx.y;
@@ -491,134 +507,127 @@ __global__ void __launch_bounds__(TC_THREADS) ssd_chunk_out(const TcParams p) {
   const int r0 = c * p.L, l = min(p.L, p.S - r0);
   const int q0 = qi * TT;
   if (q0 >= l) return;
+  if (threadIdx.x == 0) {
+    ring.init(4);
+    mbar_init(head, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // the producer
+    if (threadIdx.x == 128) {
+      const int slab = (b * p.H + h) * p.nc + c;
+      mbar_expect_tx(head, NP * TILE);
+      for (int f = 0; f < NP; ++f)
+        tma_load_4d(sC + f * TILE, &maps.c, head, 64 * f, r0 + q0, g, b);
+      for (int hl = 0; hl < 2; ++hl) {  // items 0, 1: S_in hi, lo
+        ring.acquire(hl, NP * TILE);
+        for (int f = 0; f < NP; ++f)
+          tma_load_4d(ring.slot(hl) + f * TILE, &maps.st, ring.full(hl),
+                      64 * f, 0, hl, slab);
+      }
+      for (int kj = 0; kj <= qi; ++kj) {  // item 2 + kj: B_kj, Xbar_kj
+        const int k = 2 + kj;
+        const uint32_t s = ring.slot(k);
+        ring.acquire(k, STAGE);
+        for (int f = 0; f < NP; ++f)
+          tma_load_4d(s + f * TILE, &maps.b, ring.full(k), 64 * f,
+                      r0 + kj * TT, g, b);
+        tma_load_4d(s + NP * TILE, &maps.x, ring.full(k), 0, r0 + kj * TT,
+                    h, b);
+      }
+    }
+    return;
+  }
+
+  const float* cum = p.cum + (((long long)b * p.H + h) * p.nc + c) * p.LT;
+  for (int i = threadIdx.x; i < p.L; i += 128) sCum[i] = cum[i];
+  bar_sync(1, 128);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g8 = lane >> 2, t2 = (lane & 3) * 2;
 
-  const long long x_ss = (long long)p.H * P;
-  const __nv_bfloat16* xp = p.xbar + ((long long)b * p.S + r0) * x_ss + h * P;
-  const __nv_bfloat16* cp = p.cm + b * p.c_sb + (long long)r0 * p.c_ss + g * N;
-  const __nv_bfloat16* sin = reinterpret_cast<const __nv_bfloat16*>(
-      p.st + (((long long)b * p.nc + c) * p.H + h) * P * N);  // hi, lo
-  load_bf16_rows_async<N, LDC>(sC, cp, p.c_ss, q0, l);
-  load_bf16_rows_async<N, LDC, P>(sSh, sin, N, 0, P);
-  load_bf16_rows_async<N, LDC, P>(sSl, sin + P * N, N, 0, P);
-  load_bf16_rows_async<P, LDX>(sX, xp, x_ss, 0, l);
-  cp_async_commit();
-
-  const float* cum = p.cum + (((long long)b * p.H + h) * p.nc + c) * p.L;
-  for (int i = threadIdx.x; i < p.L; i += TC_THREADS) sCum[i] = cum[i];
-  cp_async_wait<0>();
-  __syncthreads();
-
-  float acc[PT][4];
+  // Y_off = C S_in^T, S_in hi then lo, then scaled by exp(cum) of the row
+  float y[8][4];
+  zero_acc(y);
+  mbar_wait(head, 0);
+  for (int hl = 0; hl < 2; ++hl) {
+    ring.wait(hl);
+    const uint32_t st = ring.slot(hl);
+    wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < PT; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  // Y_off = C S_in^T, then scaled by exp(cum) of the row
+    for (int f = 0; f < NP; ++f)
 #pragma unroll
-  for (int ks = 0; ks < N / 16; ++ks) {
-    uint32_t a[4];
-    frag_a(a, sC + warp * 16 * LDC + ks * 16, LDC, lane);
-#pragma unroll
-    for (int nt = 0; nt < PT; nt += 2) {
-      uint32_t bh[4], bl[4];
-      frag_b2_nk(bh, sSh + nt * 8 * LDC + ks * 16, LDC, lane);
-      frag_b2_nk(bl, sSl + nt * 8 * LDC + ks * 16, LDC, lane);
-      mma_16816(acc[nt], a, bh[0], bh[1]);
-      mma_16816(acc[nt], a, bl[0], bl[1]);
-      mma_16816(acc[nt + 1], a, bh[2], bh[3]);
-      mma_16816(acc[nt + 1], a, bl[2], bl[3]);
-    }
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_ss_n64<0, 0>(y, desc_k(sC + f * TILE, ks),
+                           desc_k(st + f * TILE, ks), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(y);
+    ring.release(hl);
   }
   int row[2];
   float crow[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    row[r] = q0 + warp * 16 + g8 + r * 8;
-    crow[r] = sCum[min(row[r], p.L - 1)];
-    const float e = expf(crow[r]);
+  for (int k = 0; k < 2; ++k) {
+    row[k] = q0 + warp * 16 + g8 + k * 8;
+    crow[k] = sCum[min(row[k], p.L - 1)];
+    const float e = expf(crow[k]);
 #pragma unroll
-    for (int i = 0; i < PT; ++i) {
-      acc[i][2 * r] *= e;
-      acc[i][2 * r + 1] *= e;
+    for (int i = 0; i < 8; ++i) {
+      y[i][2 * k] *= e;
+      y[i][2 * k + 1] *= e;
     }
   }
 
   // Y_diag = ((C B^T) o L) Xbar over the key tiles kj <= qi
-  const float* cbp =
-      p.cb + (((long long)b * p.nc + c) * p.G + g) * p.LT * p.LT;
   for (int kj = 0; kj <= qi; ++kj) {
     const int k0 = kj * TT;
-    const __nv_bfloat16* tX = sX + (kj & 1) * TT * LDX;
-    if (kj < qi) {  // the next key tile into the other buffer
-      load_bf16_rows_async<P, LDX>(sX + ((kj + 1) & 1) * TT * LDX, xp, x_ss,
-                                   k0 + TT, l);
-      cp_async_commit();
-    }
-    // on the diagonal tile, key steps past this warp's last row are empty
-    const int n_ks = kj == qi ? warp + 1 : TT / 16;
-    float2 cbv[TT / 16][2][2];  // [key step][half][row]
+    ring.wait(2 + kj);
+    const uint32_t s = ring.slot(2 + kj);
+    float sc[8][4];
+    zero_acc(sc);
+    wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < TT / 16; ++ks)
+    for (int f = 0; f < NP; ++f)
 #pragma unroll
-      for (int half = 0; half < 2; ++half)
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_ss_n64<0, 0>(sc, desc_k(sC + f * TILE, ks),
+                           desc_k(s + f * TILE, ks), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(sc);
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int i = row[r], j = k0 + ks * 16 + half * 8 + t2;
-          cbv[ks][half][r] = make_float2(0.f, 0.f);
-          if (ks < n_ks && i < l && j <= i)
-            cbv[ks][half][r] = *reinterpret_cast<const float2*>(
-                cbp + (long long)i * p.LT + j);
-        }
-    if (kj < qi)
-      cp_async_wait<1>();
-    else
-      cp_async_wait<0>();
-    __syncthreads();  // key tile kj has landed
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int ks = 0; ks < TT / 16; ++ks) {
-      if (ks >= n_ks) break;  // warp-uniform
-      uint32_t ah[4], al[4];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int j = k0 + ks * 16 + half * 8 + t2;
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int i = row[r];
-          float v0 = 0.f, v1 = 0.f;
-          if (i < l && j <= i) {
-            v0 = cbv[ks][half][r].x * expf(crow[r] - sCum[j]);
-            if (j + 1 <= i)
-              v1 = cbv[ks][half][r].y * expf(crow[r] - sCum[j + 1]);
-          }
-          __nv_bfloat162 hi, lo;
-          split2(v0, v1, hi, lo);
-          ah[half * 2 + r] = bf16x2_bits(hi);
-          al[half * 2 + r] = bf16x2_bits(lo);
-        }
+      for (int e = 0; e < 4; ++e) {
+        const int k = e >> 1, j = k0 + 8 * i + t2 + (e & 1);
+        const bool ok = j <= row[k] && row[k] < l;
+        // 2^(x log2 e) on the special-function unit: y is rounded to bf16,
+        // a few fp32 ulps of the decay do not reach it
+        sc[i][e] *=
+            ex2(ok ? (crow[k] - sCum[min(j, p.L - 1)]) * LOG2E : -INFINITY);
       }
-#pragma unroll
-      for (int nt = 0; nt < PT; nt += 2) {
-        uint32_t bf[4];
-        frag_b2_kn(bf, tX + ks * 16 * LDX + nt * 8, LDX, lane);
-        mma_16816(acc[nt], ah, bf[0], bf[1]);
-        mma_16816(acc[nt], al, bf[0], bf[1]);
-        mma_16816(acc[nt + 1], ah, bf[2], bf[3]);
-        mma_16816(acc[nt + 1], al, bf[2], bf[3]);
-      }
-    }
-    __syncthreads();  // readers of this buffer are done before its refill
+    uint32_t fh[4][4], fl[4][4];
+    split_frags(sc, fh, fl);
+    wgmma_fence();
+    rs_split(y, fh, fl, s + NP * TILE);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(y);
+    ring.release(2 + kj);
   }
 
-  __nv_bfloat16* yp = p.y + ((long long)b * p.S + r0) * x_ss + h * P;
+  __nv_bfloat16* yp =
+      p.y + (((long long)b * p.S + r0) * p.H + h) * P;
+  const long long x_ss = (long long)p.H * P;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (row[r] >= l) continue;
+  for (int k = 0; k < 2; ++k) {
+    if (row[k] >= l) continue;
 #pragma unroll
-    for (int i = 0; i < PT; ++i)
-      *reinterpret_cast<__nv_bfloat162*>(yp + row[r] * x_ss + i * 8 + t2) =
-          __floats2bfloat162_rn(acc[i][2 * r], acc[i][2 * r + 1]);
+    for (int i = 0; i < 8; ++i)
+      if (8 * i + t2 < P)
+        *reinterpret_cast<__nv_bfloat162*>(yp + row[k] * x_ss + 8 * i + t2) =
+            __floats2bfloat162_rn(y[i][2 * k], y[i][2 * k + 1]);
   }
 }
 
@@ -629,63 +638,57 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 }
 
 template <int P, int N>
-int launch_tc(const TcParams& p, cudaStream_t stream) {
+int launch_tc(const TcParams& p, const EmitMaps& em, const OutMaps& om,
+              cudaStream_t stream) {
   const int T = (p.L + TT - 1) / TT;
-  const CbArgs cb{p.bm,   p.cm, p.b_sb, p.b_ss, p.c_sb, p.c_ss,
-                  p.S,    p.L,  p.nc,   p.G,    p.LT,   p.cb};
-  ssd_cb<N><<<dim3(T * (T + 1) / 2, p.nc, p.B * p.G), TC_THREADS, 0,
-              stream>>>(cb);
-  cudaError_t err = cudaGetLastError();
+  const EmitArgs ea{p.log_a, p.cum, p.st, nullptr, p.S,
+                    p.H,     p.G,   p.L,  p.nc,    p.LT};
+  const size_t smem_emit = emit_smem_bytes<P, N>();
+  cudaError_t err = allow_smem(ssd_emit<P, N>, smem_emit);
   if (err != cudaSuccess) return (int)err;
-
-  const size_t smem_states =
-      sizeof(float) * (MAX_CHUNK + 32) +
-      sizeof(__nv_bfloat16) * TT * (3 * (P + 8) + 2 * (N + 8));
-  err = allow_smem(ssd_chunk_states<P, N>, smem_states);
-  if (err != cudaSuccess) return (int)err;
-  ssd_chunk_states<P, N><<<dim3(p.nc, p.H, p.B), TC_THREADS, smem_states,
-                           stream>>>(p);
+  ssd_emit<P, N><<<dim3(p.nc, p.H, p.B), EMIT_THREADS, smem_emit, stream>>>(
+      em, ea);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  ssd_state_pass<P, N><<<p.B * p.H, 256, 0, stream>>>(p);
+  ssd_state_pass<P, N><<<p.B * p.H * pass_parts(P, N), 256, 0, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const size_t smem_out =
-      sizeof(float) * MAX_CHUNK +
-      sizeof(__nv_bfloat16) * ((TT + 2 * P) * (N + 8) + 2 * TT * (P + 8));
+  const size_t smem_out = out_smem_bytes<N>(T * TT);
   err = allow_smem(ssd_chunk_out<P, N>, smem_out);
   if (err != cudaSuccess) return (int)err;
-  ssd_chunk_out<P, N><<<dim3(T, p.nc, p.B * p.H), TC_THREADS, smem_out,
-                        stream>>>(p);
+  ssd_chunk_out<P, N><<<dim3(T, p.nc, p.B * p.H), OUT_THREADS, smem_out,
+                        stream>>>(om, p);
   return (int)cudaGetLastError();
 }
 
 template <int P>
-int dispatch_tc_n(const TcParams& p, int N, cudaStream_t stream) {
+int dispatch_tc_n(const TcParams& p, const EmitMaps& em, const OutMaps& om,
+                  int N, cudaStream_t stream) {
   switch (N) {
     case 16:
-      return launch_tc<P, 16>(p, stream);
+      return launch_tc<P, 16>(p, em, om, stream);
     case 32:
-      return launch_tc<P, 32>(p, stream);
+      return launch_tc<P, 32>(p, em, om, stream);
     case 64:
-      return launch_tc<P, 64>(p, stream);
+      return launch_tc<P, 64>(p, em, om, stream);
     case 128:
-      return launch_tc<P, 128>(p, stream);
+      return launch_tc<P, 128>(p, em, om, stream);
     default:
       return -1;
   }
 }
 
-int dispatch_tc(const TcParams& p, int P, int N, cudaStream_t stream) {
+int dispatch_tc(const TcParams& p, const EmitMaps& em, const OutMaps& om,
+                int P, int N, cudaStream_t stream) {
   switch (P) {
     case 16:
-      return dispatch_tc_n<16>(p, N, stream);
+      return dispatch_tc_n<16>(p, em, om, N, stream);
     case 32:
-      return dispatch_tc_n<32>(p, N, stream);
+      return dispatch_tc_n<32>(p, em, om, N, stream);
     case 64:
-      return dispatch_tc_n<64>(p, N, stream);
+      return dispatch_tc_n<64>(p, em, om, N, stream);
     default:
       return -1;
   }
@@ -698,16 +701,17 @@ int dispatch_tc(const TcParams& p, int P, int N, cudaStream_t stream) {
 // contiguous; B and C have unit stride along N and stride N between groups,
 // with the given batch and row strides (elements).  init_state may be null.
 // P in {16, 32, 64}, N in {16, 32, 64, 128}, 1 <= chunk <= 1024.
-// bf16 only: the rows of B and C are 16-byte aligned, and the caller gives
-// the scratch buffers, with L = min(chunk, S), nc = ceil(S / L) and LT = L
-// rounded up to a multiple of 64: cum [B,H,nc,L], cb [B,nc,G,LT,LT] and
-// st [B,nc,H,P,N], all fp32 (null for fp32 inputs).  Returns a cudaError_t,
-// or -1 for an unsupported argument; never synchronises.
+// bf16 only: the base and the strides of B and C are 16-byte aligned (TMA
+// reads them in place), and the caller gives the scratch buffers, with L =
+// min(chunk, S), nc = ceil(S / L) and LT = L rounded up to a multiple of 64:
+// cum [B,H,nc,LT] and st [B,H,nc,P,N], fp32 (null for fp32 inputs).
+// Returns a cudaError_t, -1 for an unsupported
+// argument or -2 when a tensor map cannot be encoded; never synchronises.
 extern "C" int repro_ssd_scan_fwd(const void* xbar, const void* log_a,
                                   const void* bm, const void* cm,
                                   const void* init, void* y, void* state_out,
-                                  void* cum, void* cb, void* st, int B, int S,
-                                  int H, int G, int P, int N, int chunk,
+                                  void* cum, void* st, int B, int S, int H,
+                                  int G, int P, int N, int chunk,
                                   long long b_sb, long long b_ss,
                                   long long c_sb, long long c_ss, int dtype,
                                   void* stream) {
@@ -721,27 +725,32 @@ extern "C" int repro_ssd_scan_fwd(const void* xbar, const void* log_a,
              c_sb, c_ss};
     return dispatch_p(p, P, N, s);
   }
-  if (dtype != 1 || cum == nullptr || cb == nullptr || st == nullptr)
-    return -1;
+  if (dtype != 1 || cum == nullptr || st == nullptr) return -1;
   const int L = chunk < S ? chunk : S;
   const int nc = (S + L - 1) / L;
   if (nc > 65535 || (long long)B * H > 65535) return -1;
-  TcParams p{static_cast<const __nv_bfloat16*>(xbar),
-             static_cast<const float*>(log_a),
-             static_cast<const __nv_bfloat16*>(bm),
-             static_cast<const __nv_bfloat16*>(cm),
-             static_cast<const float*>(init),
-             static_cast<__nv_bfloat16*>(y),
-             static_cast<float*>(state_out),
-             static_cast<float*>(cum),
-             static_cast<float*>(cb),
-             static_cast<float*>(st),
-             B, S, H, G, L, nc, (L + TT - 1) / TT * TT,
-             b_sb, b_ss, c_sb, c_ss};
-  return dispatch_tc(p, P, N, s);
+  const TcParams p{static_cast<const float*>(log_a),
+                   static_cast<const float*>(init),
+                   static_cast<__nv_bfloat16*>(y),
+                   static_cast<float*>(state_out),
+                   static_cast<float*>(cum),
+                   static_cast<float*>(st),
+                   B, S, H, G, L, nc, (L + TT - 1) / TT * TT};
+  const long long x_ss = (long long)H * P;
+  EmitMaps em;
+  OutMaps om;
+  if (rows_map(&om.x, xbar, P, S, H, B, x_ss, P, S * x_ss) != 0 ||
+      rows_map(&om.b, bm, N, S, G, B, b_ss, N, b_sb) != 0 ||
+      rows_map(&om.c, cm, N, S, G, B, c_ss, N, c_sb) != 0 ||
+      state_map(&om.st, st, P, N, (long long)B * nc * H) != 0)
+    return ERR_TENSOR_MAP;
+  em.x = em.dy = om.x;  // the forward has one product: dy and c unused
+  em.b = em.c = om.b;
+  return dispatch_tc(p, em, om, P, N, s);
 }
 
 extern "C" const char* repro_ssd_scan_error_string(int code) {
   if (code == -1) return "unsupported argument";
+  if (code == ERR_TENSOR_MAP) return "a tensor map could not be encoded";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -28,8 +28,9 @@
 // chunk 256): operations, at the tensor cores' bf16 rate.
 //
 // Two bodies, chosen by the wrapper from the type (`ssd_bwd_body`):
-//   * bf16: chunk-parallel on the tensor cores, five kernels a call, every
-//     fp32 operand of a product split hi + lo; see its section below.
+//   * bf16: chunk-parallel on wgmma with TMA, four kernels and two sums a
+//     call, every fp32 operand of a product split hi + lo; see its section
+//     below.
 //   * fp32: every product an fp32 FMA, four kernels a call; see its section
 //     below.
 // Both sum in a fixed order, so a call repeats bit for bit.
@@ -46,7 +47,6 @@ namespace {
 
 constexpr int RT = 64;         // rows of a tile
 constexpr int THREADS = 256;   // 16 x 16
-constexpr int MAX_CHUNK = 1024;
 constexpr int LM = RT + 1;     // padded row of M and Wd in shared memory
 
 struct Params {
@@ -610,188 +610,217 @@ int dispatch_p(const Params& p, int P, int N, cudaStream_t s) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 body: tensor cores, chunk-parallel
+// bf16 body: wgmma + TMA, chunk-parallel
 // ---------------------------------------------------------------------------
 //
-// Five kernels a call, in this order on the caller's stream, on chunks of L
-// = min(chunk, 256, S) rows (the gradient does not depend on the chunk; at
-// most four 64-row tiles keep a tile's work in shared memory):
-//   ssd_cb               C B^T once per (b, chunk, group), the tiles on or
-//                        below the diagonal: the forward's kernel;
-//   ssd_bwd_emit         per (b, chunk, head): the cumsum (sequential, in
-//                        torch.cumsum's order) into `cum`, then
-//                        emit = (exp(total - cum) o Xbar)^T B into `s_in` and
-//                        demit = (exp(cum) o dY)^T C into `ds_out`, each
-//                        [P][N] fp32, the decayed Xbar / dY split hi + lo
-//                        (the forward's `chunk_state_tc`);
+// Four kernels a call and the two sums, in this order on the caller's
+// stream, on chunks of L = min(chunk, 256, S) rows (the gradient does not
+// depend on the chunk; at most four 64-row tiles keep a tile's work in
+// shared memory):
+//   ssd_emit             (ssd_tc.cuh) per (chunk, head, b): the cumsum
+//                        (sequential, in torch.cumsum's order) into `cum`,
+//                        then emit = (exp(total - cum) o Xbar)^T B into
+//                        `s_in` and demit = (exp(cum) o dY)^T C into
+//                        `ds_out`, each [P][N] fp32, the decayed Xbar / dY
+//                        split hi + lo;
 //   ssd_bwd_pass         per (b, head), elementwise over the chunks: S_in in
 //                        the forward's order, written over emit as a bf16 hi
 //                        and lo matrix; dS_out in reverse from d final_state,
 //                        written over demit the same way; d init_state; and
 //                        dtotal's state part exp(total) sum(dS_out o S_in);
-//   ssd_bwd_tile         per (b, chunk, group, 64-row tile r, slice of the
-//                        group's heads), looping over the heads: for each, W
-//                        = dY Xbar^T of the tile pairs (r, j <= r) and, as
-//                        W^T, (i >= r, r); M = (C B^T) o Lmask and Wd = W o
-//                        Lmask in fp32 registers; rowsum and colsum of M o W
-//                        into dcum; dXbar_r = M^T dY + exp(total - cum) o
-//                        (B_r dS_out^T); the state terms of dB_r, dC_r and
-//                        dcum.  Wd is summed over the slice's heads in shared
-//                        memory, so dB_r = Wd^T C and dC_r = Wd B run once a
-//                        slice; each slice writes its own dB and dC, and the
-//                        tile's part of dtotal;
+//   ssd_bwd_tile         per (64-row tile r, (b, chunk, group), slice of the
+//                        group's heads), looping over the heads: every
+//                        gradient of the tile's rows but dlog_a's reverse
+//                        cumsum (below);
 //   ssd_bwd_finish       per (b, chunk, head), sequential: dlog_a = the
-//                        reverse cumsum of dcum, dtotal (the state part, then
-//                        the tiles' parts in order) added on the chunk's last
-//                        row;
+//                        reverse cumsum of dcum (its two parts added row by
+//                        row), dtotal (the state part, then the tiles' parts
+//                        in order) added on the chunk's last row;
 //   sum_cast_bf16        dB and dC: the slices summed in order, cast.
 // Every sum runs in a fixed order, so a call repeats bit for bit: no block
-// adds into memory another block adds into, and the warps of a block that
-// share a row of dcum keep a part each, summed in warp order.
-// Every product runs on `mma.sync.m16n8k16` (bf16 in, fp32 accumulate).  An
-// fp32 operand (the decayed Xbar and dY, S_in, dS_out, M, the summed Wd) is
-// split hi + lo and multiplied twice into one accumulator, as the forward
-// does: one bf16 rounding of the state path breaks dlog_a's fp32 tolerance.
-// Xbar, dY, B and C enter exactly, and W = dY Xbar^T is exact in fp32.
+// adds into memory another block adds into, a thread sums its own elements
+// in a fixed order, and a row's parts are summed within its warp or in warp
+// order.  Every product runs on wgmma (bf16 in, fp32 accumulate), on the
+// tiles of ssd_tc.cuh brought in by TMA.  An fp32 operand (the decayed
+// Xbar and dY, S_in, dS_out, M, the summed Wd) is split hi + lo and
+// multiplied twice into one accumulator, as the forward does: one bf16
+// rounding of the state path breaks dlog_a's fp32 tolerance.  Xbar, dY, B
+// and C enter exactly, and W = dY Xbar^T is exact in fp32.
+// `ssd_scan_bwd_split_plain` (kernels/ssd_scan.py) is the same plan in
+// plain PyTorch.
+//
+// ssd_bwd_tile.  384 threads: warpgroup 0 takes the tile's rows as t (the
+// pairs (r, j <= r)), warpgroup 1 as s (the pairs (i >= r, r)), warpgroup 2
+// produces (it gives its registers to the consumers, `setmaxnreg`).  For
+// each head of the slice:
+//   warpgroup 0, for j <= r: W = dY_r Xbar_j^T and C_r B_j^T by wgmma; M =
+//     (C B^T) o Lmask and Wd = W o Lmask in registers; rowsum(M o W) into
+//     dcum; Wd added into its sum over the slice's heads; then dC_r +=
+//     exp(cum) o (dY_r S_in), and C_r . that into dcum;
+//   warpgroup 1: first dXbar_r = exp(total - cum) o (B_r dS_out^T), Xbar_r
+//     . that out of dcum and into the tile's part of dtotal, dB_r +=
+//     exp(total - cum) o (Xbar_r dS_out); then for i >= r: W^T = Xbar_r
+//     dY_i^T and B_r C_i^T; colsum(M o W) out of dcum; Wd^T into its sum
+//     (i > r); dXbar_r += M^T dY_i with M^T split hi + lo as wgmma's
+//     register A operand (as flash_attention_bwd.cu takes P and dS);
+//     dXbar_r is written.
+// The decays exp(cum_t - cum_s) run on the special-function unit (ex2):
+// against ssd_scan_bwd_split_plain, dlog_a reads 5.2e-7 of its largest
+// value at mamba2-1.3b's shape (chip_smoke.py; 4.2e-7 for the earlier
+// kernel with expf), and SSD_BWD_SPLIT_LIMIT is 1e-5.
+// After the last head: dC_r += sum_j Wd[r, j] B_j (warpgroup 0) and dB_r +=
+// sum_i Wd[i, r]^T C_i (warpgroup 1; the diagonal's sum is warpgroup 0's,
+// handed over as a bf16 hi and lo tile and read MN-major), each Wd sum
+// split hi + lo: once a slice, not once a head; each slice writes its own
+// dB and dC.
+// What held the earlier tile kernel (warp-level m16n8k16 products, cp.async
+// loads) back, and what this one does about it:
+//   * C B^T was read element by element from an fp32 scratch in L2: here it
+//     is formed by wgmma from B and C tiles that stay in shared memory for
+//     the whole slice (the tiles B_j, j <= r, and C_i, i >= r);
+//   * each head's loads waited for the last head's products: here a
+//     producer keeps them in flight, Xbar_r, dY_r and the head's cumsum in
+//     two buffers (the next head's while this head runs) and each
+//     warpgroup's own tiles and states (a part of N at a time) in a ring of
+//     its own;
+//   * the Wd sums lived in padded shared memory that all threads read and
+//     wrote: here each thread keeps its own elements, in register order (no
+//     bank conflicts, no barriers);
+//   * the two halves of the warps met at barriers every head: here the two
+//     warpgroups run apart, each its own pairs, and meet only at the buffers
+//     of Xbar_r and dY_r.
+// What bounds it now, measured on an H100 (tools/ssd_bwd_variants.py and
+// PERF.md): each warpgroup runs its steps one after the other (products,
+// then the decays and sums in registers, then the next products), two
+// consumer warpgroups an SM, so latency sets the time, not a unit's rate:
+// of 1.39-1.40 ms at mamba2-1.3b's shape, forming C B^T again for every
+// head takes 0.23 and the Wd sums' shared-memory traffic 0.22; no other
+// part taken out alone saves as much (tools/ssd_bwd_variants.py).  A branch
+// on the warpgroup that ptxas takes for divergent serializes every wgmma
+// (C7520): the warpgroup index is made warp-uniform with a shuffle.
+// Shared memory at N = 128, four tiles a chunk: 80 KB of B and C tiles,
+// 64 KB of Wd sums, 34 KB for Xbar_r, dY_r and the cumsum, two 8 KB ring
+// slots a warpgroup: 216 KB, one block an SM.
 
 // rows a chunk of this body, at most, as shared memory is laid out: the
 // wrapper chooses L (ssd_scan.py's TC_BWD_CHUNK) and the entry refuses more
 constexpr int TC_CHUNK = 256;
-constexpr int TL_THREADS = 256;
+constexpr int TL_T = TC_CHUNK / TT;  // tiles a chunk, at most
+constexpr int TL_THREADS = 384;
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct BwdTc {
-  const __nv_bfloat16* xbar;  // [B,S,H,P]
-  const float* log_a;         // [B,S,H]
-  const __nv_bfloat16* bm;    // [B,S,G,N]
-  const __nv_bfloat16* cm;
-  const __nv_bfloat16* dy;    // [B,S,H,P]
   const float* dfinal;        // [B,H,P,N] or null
   const float* init;          // [B,H,P,N] or null
-  __nv_bfloat16* dxbar;
+  __nv_bfloat16* dxbar;       // [B,S,H,P]
   float* dlog_a;              // [B,S,H]
-  float* db;                  // [B,S,G,N] fp32, zero at launch
+  float* db;                  // [slices,B,S,G,N] fp32: dB of each slice
   float* dc;
   float* dinit;               // [B,H,P,N] or null
-  float* cum;                 // [B,H,nc,L]
-  float* cb;                  // [B,nc,G,LT,LT]
+  float* cum;                 // [B,H,nc,LT]: the last value repeated past L
   float* s_in;                // [B,H,nc,P,N]: emit, then S_in (bf16 hi, lo)
   float* ds_out;              // [B,H,nc,P,N]: demit, then dS_out
-  float* dcum;                // [B,H,nc,L]
+  float* dcum;                // [2,B,H,nc,L]: warpgroup 0's part, then 1's
   float* dtot;                // [B,H,nc,1 + LT / 64]: the state part, then
                               // each 64-row tile's
   int B, S, H, G, L, nc, LT;
-  int hs;                     // heads a slice of ssd_bwd_tile; db and dc
-                              // hold one [B,S,G,N] a slice
+  int hs;                     // heads a slice of ssd_bwd_tile
 };
 
-// Per (b, chunk, head): the cumsum, emit and demit.
-template <int P, int N>
-__global__ void __launch_bounds__(TC_THREADS) ssd_bwd_emit(const BwdTc p) {
-  constexpr int LDX = P + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sCum = reinterpret_cast<float*>(smem_raw);  // [TC_CHUNK]
-  __nv_bfloat16* sX = reinterpret_cast<__nv_bfloat16*>(sCum + TC_CHUNK);
-  __nv_bfloat16* sXl = sX + 2 * TT * LDX;
-  __nv_bfloat16* sB = sXl + TT * LDX;
+struct TileMaps {
+  CUtensorMap x, dy, b, c, s_in, ds_out;
+};
 
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int g = h / (p.H / p.G);
-  const int r0 = c * p.L, l = min(p.L, p.S - r0);
-  const long long x_ss = (long long)p.H * P, b_ss = (long long)p.G * N;
-  const long long xo = ((long long)b * p.S + r0) * x_ss + h * P;
-  const long long bo = ((long long)b * p.S + r0) * b_ss + g * N;
-  chunk_state_prefetch<P, N>(p.xbar + xo, x_ss, p.bm + bo, b_ss, l, sX, sB);
+// Shared memory of ssd_bwd_tile, and the slots of each consumer's ring (a
+// tile each): as many as fit beside the rest at four tiles a chunk, at most
+// four, at least two (the diagonal's Wd sum is handed over in ring 0).
+template <int N>
+struct TilePlan {
+  static constexpr int NP = parts(N);
+  static constexpr int SLOT = NP * TILE;  // a B or C tile
+  static constexpr int WD = TT * TT * 4;  // one Wd sum, fp32
+  static constexpr int XY = 2 * TILE;     // Xbar_r, dY_r; and the cumsum:
+  static constexpr int CUM = TC_CHUNK * 4;
+  static constexpr int MISC = 256;        // barriers and dtotal's parts
+  static constexpr int FIXED =
+      1024 + (TL_T + 1) * SLOT + TL_T * WD + 2 * (XY + CUM);
+  static constexpr int FIT = (232448 - FIXED - MISC) / (2 * TILE);
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static_assert(STAGES >= 2, "ssd_bwd_tile does not fit shared memory");
+  static constexpr int smem(int T) {
+    return 1024 + (T + 1) * SLOT + T * WD + 2 * (XY + CUM) +
+           2 * STAGES * TILE + MISC;
+  }
+};
 
-  // the cumsum in the order of a sequential scan, torch.cumsum's along a
-  // dimension that is not the innermost: at the serve path's |cum| of about
-  // 2000 a block scan moves each decay by about eps * |cum|, and dlog_a
-  // with it, by several 1e-5 of its largest value
-  const float* la = p.log_a + ((long long)b * p.S + r0) * p.H + h;
-  for (int i = threadIdx.x; i < p.L; i += TC_THREADS)
-    sCum[i] = i < l ? la[(long long)i * p.H] : 0.f;
-  __syncthreads();
-  if (threadIdx.x == 0)
-    for (int i = 1; i < p.L; ++i) sCum[i] += sCum[i - 1];
-  __syncthreads();
-  const long long bhc = ((long long)b * p.H + h) * p.nc + c;
-  for (int i = threadIdx.x; i < p.L; i += TC_THREADS)
-    p.cum[bhc * p.L + i] = sCum[i];
-  const float total = sCum[p.L - 1];
-  chunk_state_tc<P, N>(p.xbar + xo, x_ss, p.bm + bo, b_ss, l, sCum, total,
-                       true, sX, sXl, sB, p.s_in + bhc * P * N);
-  chunk_state_prefetch<P, N>(p.dy + xo, x_ss, p.cm + bo, b_ss, l, sX, sB);
-  chunk_state_tc<P, N>(p.dy + xo, x_ss, p.cm + bo, b_ss, l, sCum, total,
-                       false, sX, sXl, sB, p.ds_out + bhc * P * N);
-}
-
-// v as a bf16 hi and lo, at element i of a [2][PN] bf16 slab
-__device__ __forceinline__ void store_split(__nv_bfloat16* slab, long long pn,
-                                            int i, float v) {
-  const __nv_bfloat16 hi = __float2bfloat16_rn(v);
-  slab[i] = hi;
-  slab[pn + i] = __float2bfloat16_rn(v - __bfloat162float(hi));
-}
-
-// Per (b, head): the state entering each chunk (over emit) and the gradient
-// of the one leaving it (over demit), P N / 256 elements a thread; a slot is
-// overwritten only after every thread has read it.
+// Per (b, head): the state entering each chunk (over emit) and the
+// gradient of the one leaving it (over demit), P N / 256 elements a thread,
+// each row written as a bf16 hi and a bf16 lo row; a slot is overwritten
+// only after every thread has read it.  (Split by rows as the forward's
+// pass is, it ran slower on an H100 at mamba2-1.3b's shape.)
 template <int P, int N>
 __global__ void __launch_bounds__(256) ssd_bwd_pass(const BwdTc p) {
   constexpr int PN = P * N, EPT = PN / 256;
+  constexpr int row0 = 0, off = 0;
   __shared__ float sRed[8];
   const int h = blockIdx.x % p.H, b = blockIdx.x / p.H;
   const long long bh = (long long)b * p.H + h;
-  const float* cum = p.cum + bh * p.nc * p.L;
+  const float* cum = p.cum + bh * p.nc * p.LT;
+  const int T = p.LT / TT;
+  const int at = split_row_at<N>(row0);
   float s[EPT];
 #pragma unroll
   for (int e = 0; e < EPT; ++e)
-    s[e] = p.init != nullptr ? p.init[bh * PN + threadIdx.x + e * 256] : 0.f;
+    s[e] = p.init != nullptr ? p.init[bh * PN + off + threadIdx.x + e * 256]
+                             : 0.f;
   for (int c = 0; c < p.nc; ++c) {
     float* slot = p.s_in + (bh * p.nc + c) * PN;
     float emit[EPT];
 #pragma unroll
-    for (int e = 0; e < EPT; ++e) emit[e] = slot[threadIdx.x + e * 256];
-    const float decay = expf(cum[(long long)c * p.L + p.L - 1]);
+    for (int e = 0; e < EPT; ++e) emit[e] = slot[off + threadIdx.x + e * 256];
+    const float decay = expf(cum[(long long)c * p.LT + p.L - 1]);
     __syncthreads();  // every thread has read emit[c]
 #pragma unroll
     for (int e = 0; e < EPT; ++e) {
-      store_split(reinterpret_cast<__nv_bfloat16*>(slot), PN,
-                  threadIdx.x + e * 256, s[e]);
+      store_split_at(reinterpret_cast<__nv_bfloat16*>(slot), at + 512 * e, N,
+                     s[e]);
       s[e] = fmaf(s[e], decay, emit[e]);
     }
   }
 #pragma unroll
   for (int e = 0; e < EPT; ++e)
-    s[e] = p.dfinal != nullptr ? p.dfinal[bh * PN + threadIdx.x + e * 256]
-                               : 0.f;
+    s[e] = p.dfinal != nullptr
+               ? p.dfinal[bh * PN + off + threadIdx.x + e * 256]
+               : 0.f;
   for (int c = p.nc - 1; c >= 0; --c) {
     float* slot = p.ds_out + (bh * p.nc + c) * PN;
     const __nv_bfloat16* sin =
         reinterpret_cast<const __nv_bfloat16*>(p.s_in + (bh * p.nc + c) * PN);
-    float demit[EPT], part = 0.f;
+    float demit[EPT], sum = 0.f;
 #pragma unroll
     for (int e = 0; e < EPT; ++e) {
       const int i = threadIdx.x + e * 256;
-      demit[e] = slot[i];
-      const float sv = __bfloat162float(sin[i]) + __bfloat162float(sin[PN + i]);
-      part = fmaf(s[e], sv, part);
+      demit[e] = slot[off + i];
+      const float sv = __bfloat162float(sin[at + 512 * e]) +
+                       __bfloat162float(sin[at + 512 * e + N]);
+      sum = fmaf(s[e], sv, sum);
     }
-    const float total = cum[(long long)c * p.L + p.L - 1];
+    const float total = cum[(long long)c * p.LT + p.L - 1];
     const float decay = expf(total);
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      part += __shfl_xor_sync(0xffffffffu, part, off);
-    if ((threadIdx.x & 31) == 0) sRed[threadIdx.x >> 5] = part;
+    for (int o = 16; o > 0; o >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if ((threadIdx.x & 31) == 0) sRed[threadIdx.x >> 5] = sum;
     __syncthreads();  // every thread has read demit[c]; sRed is complete
     if (threadIdx.x == 0) {
-      float sum = 0.f;
-      for (int w = 0; w < 8; ++w) sum += sRed[w];
-      p.dtot[(bh * p.nc + c) * (1 + p.LT / TT)] = decay * sum;
+      float t = 0.f;
+      for (int w = 0; w < 8; ++w) t += sRed[w];
+      p.dtot[(bh * p.nc + c) * (1 + T)] = decay * t;
     }
 #pragma unroll
     for (int e = 0; e < EPT; ++e) {
-      store_split(reinterpret_cast<__nv_bfloat16*>(slot), PN,
-                  threadIdx.x + e * 256, s[e]);
+      store_split_at(reinterpret_cast<__nv_bfloat16*>(slot), at + 512 * e, N,
+                     s[e]);
       s[e] = fmaf(s[e], decay, demit[e]);
     }
     __syncthreads();  // sRed is read before it is written again
@@ -799,82 +828,8 @@ __global__ void __launch_bounds__(256) ssd_bwd_pass(const BwdTc p) {
   if (p.dinit != nullptr) {
 #pragma unroll
     for (int e = 0; e < EPT; ++e)
-      p.dinit[bh * PN + threadIdx.x + e * 256] = s[e];
+      p.dinit[bh * PN + off + threadIdx.x + e * 256] = s[e];
   }
-}
-
-// acc[nt] (16 rows x 8 NT columns) += sum over a of A[a] B for one 16-deep
-// step, B read from shared memory at `b` = (k 0, n 0): stored [k][n] (KN) or
-// [n][k], pitch ld.
-template <bool KN, int NT, int NA>
-__device__ __forceinline__ void mma_row(float (&acc)[NT][4],
-                                        const uint32_t (&a)[NA][4],
-                                        const __nv_bfloat16* b, int ld,
-                                        int lane) {
-#pragma unroll
-  for (int nt = 0; nt + 1 < NT; nt += 2) {
-    uint32_t f[4];
-    if constexpr (KN)
-      frag_b2_kn(f, b + nt * 8, ld, lane);
-    else
-      frag_b2_nk(f, b + nt * 8 * ld, ld, lane);
-#pragma unroll
-    for (int i = 0; i < NA; ++i) {
-      mma_16816(acc[nt], a[i], f[0], f[1]);
-      mma_16816(acc[nt + 1], a[i], f[2], f[3]);
-    }
-  }
-  if constexpr (NT % 2 == 1) {
-    uint32_t f[2];
-    if constexpr (KN)
-      frag_b1_kn(f, b + (NT - 1) * 8, ld, lane);
-    else
-      frag_b1_nk(f, b + (NT - 1) * 8 * ld, ld, lane);
-#pragma unroll
-    for (int i = 0; i < NA; ++i) mma_16816(acc[NT - 1], a[i], f[0], f[1]);
-  }
-}
-
-// The A fragment (16 x 16) of an fp32 matrix in shared memory, split: a[0]
-// hi, a[1] lo.  Stored [m][k] or, with KM, [k][m]; pitch ld floats.
-template <bool KM>
-__device__ __forceinline__ void frag_a_f32(uint32_t (&a)[2][4],
-                                           const float* base, int ld,
-                                           int lane) {
-  const int g8 = lane >> 2, t2 = (lane & 3) * 2;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int m = g8 + (q & 1) * 8, k = t2 + (q >> 1) * 8;
-    float x, y;
-    if constexpr (KM) {
-      x = base[k * ld + m];
-      y = base[(k + 1) * ld + m];
-    } else {
-      const float2 v = *reinterpret_cast<const float2*>(base + m * ld + k);
-      x = v.x;
-      y = v.y;
-    }
-    __nv_bfloat162 hi, lo;
-    split2(x, y, hi, lo);
-    a[0][q] = bf16x2_bits(hi);
-    a[1][q] = bf16x2_bits(lo);
-  }
-}
-
-// The A fragments of a 16 x 32 fp32 accumulator (four n-tiles) as two
-// 16-deep steps, split: a[kk][0] hi, a[kk][1] lo.
-__device__ __forceinline__ void frag_a_acc(uint32_t (&a)[2][2][4],
-                                           const float (&v)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float* src = v[2 * kk + (q >> 1)] + (q & 1) * 2;
-      __nv_bfloat162 hi, lo;
-      split2(src[0], src[1], hi, lo);
-      a[kk][0][q] = bf16x2_bits(hi);
-      a[kk][1][q] = bf16x2_bits(lo);
-    }
 }
 
 // the sum over the four threads of a fragment row (lanes 4g .. 4g + 3)
@@ -883,397 +838,471 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// Per (64-row tile r, (b, chunk, group), slice of the group's heads); see
+// the section's note.  Resident slot q of shared memory holds B_q for q <= r
+// and C_(q - 1) beyond; the Wd sum of warpgroup 0's pair (r, j) is at Wd
+// slot j ([t][s]), warpgroup 1's (i, r), i > r, at Wd slot i ([s][t]), each
+// thread's 32 elements in register order.  The diagonal pair's is warpgroup
+// 0's alone: warpgroup 1 reads it transposed, as a bf16 hi and lo tile that
+// warpgroup 0 writes at the end.
 template <int P, int N>
-constexpr int tile_smem_bytes(int T) {
-  return 4 * (T * TT * (TT + 4) + TC_CHUNK + 2 * TT + 8) +
-         2 * (2 * TT * (N + 8) +
-              ((T + 1) * TT * (P + 8) > TT * (N + 8) ? (T + 1) * TT * (P + 8)
-                                                     : TT * (N + 8)) +
-              4 * P * (N + 8));
-}
-
-// Per (b, chunk, group, 64-row tile r, slice of the group's heads): every
-// gradient of the tile's rows but dlog_a's reverse cumsum.  8 warps; warp w
-// owns rows 16 (w % 4) of a 64-row product and one half (w / 4) of its
-// columns, or of the depth of the dXbar products, whose halves are summed
-// in shared memory at the end of each head.
-template <int P, int N>
-__global__ void __launch_bounds__(TL_THREADS, 1) ssd_bwd_tile(const BwdTc p) {
-  constexpr int LDX = P + 8, LDN = N + 8, LDW = TT + 4;
-  constexpr int NTX = P / 8;   // n-tiles of dXbar, all of P
-  constexpr int NTP = P / 16;  // n-tiles of half of P
-  constexpr int NTN = N / 16;  // n-tiles of half of N
+__global__ void __launch_bounds__(TL_THREADS, 1)
+    ssd_bwd_tile(const __grid_constant__ TileMaps maps, const BwdTc p) {
+  using TP = TilePlan<N>;
+  constexpr int NP = TP::NP, SLOT = TP::SLOT, ST = TP::STAGES;
   const int T = p.LT / TT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sWd = reinterpret_cast<float*>(smem_raw);  // [T][TT][LDW]
-  float* sCum = sWd + T * TT * LDW;                 // [TC_CHUNK]
-  // dcum of the tile's rows, one part for each half wn of the warps
-  float* sDcum = sCum + TC_CHUNK;                   // [2][TT]
-  float* sEsum = sDcum + 2 * TT;                    // [8]: dtotal by warp
-  __nv_bfloat16* sBr = reinterpret_cast<__nv_bfloat16*>(sEsum + 8);
-  __nv_bfloat16* sCr = sBr + TT * LDN;
-  // Xbar tile j <= r at slot j, dY tile i >= r at slot i + 1; at the end, one
-  // tile of B or C
-  __nv_bfloat16* sXY = sCr + TT * LDN;
-  __nv_bfloat16* sSt =  // [4][P][LDN]: dS_out hi, lo, S_in hi, lo
-      sXY + ((T + 1) * TT * LDX > TT * LDN ? (T + 1) * TT * LDX : TT * LDN);
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gen = smem_raw + (base - raw);
+  const uint32_t sRes = base;                     // [T + 1] slots
+  const uint32_t sXY = sRes + (T + 1) * SLOT;     // [2][Xbar_r, dY_r]
+  const uint32_t sCumA = sXY + 2 * TP::XY;        // [2][TC_CHUNK] fp32
+  const uint32_t sR0 = sCumA + 2 * TP::CUM, sR1 = sR0 + ST * TILE;
+  const uint32_t sWdA = sR1 + ST * TILE;          // [T] Wd sums
+  const uint32_t bars = sWdA + T * TP::WD;
+  const uint32_t res_full = bars;
+  const Ring ring0{sR0, bars + 40, ST, TILE};
+  const Ring ring1{sR1, bars + 40 + 16 * ST, ST, TILE};
+  float* sEsum = reinterpret_cast<float*>(gen + (bars + 40 + 32 * ST - base));
+  float4* sWd = reinterpret_cast<float4*>(gen + (sWdA - base));
+  auto xy_full = [&](int i) { return bars + 8 + 8 * i; };
+  auto xy_empty = [&](int i) { return bars + 24 + 8 * i; };
 
   const int r = blockIdx.x;
   const int g = blockIdx.y % p.G, c = (blockIdx.y / p.G) % p.nc;
   const int b = blockIdx.y / (p.G * p.nc);
   const int r0 = c * p.L, l = min(p.L, p.S - r0);
   if (r * TT >= l) return;  // rows past the chunk's end: all zero
+  const int Tl = (l + TT - 1) / TT;  // tiles with rows in the chunk
   const int rep = p.H / p.G;
   const int h0 = g * rep + blockIdx.z * p.hs;
-  const int h1 = min(h0 + p.hs, (g + 1) * rep);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp & 3, wn = warp >> 2;
+  const int nh = min(h0 + p.hs, (g + 1) * rep) - h0;
+  if (threadIdx.x == 0) {
+    mbar_init(res_full, 1);
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(xy_full(i), 1);
+      mbar_init(xy_empty(i), 8);  // every consumer warp
+    }
+    ring0.init(4);
+    ring1.init(4);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the warpgroup, as a value the compiler knows to be the same across a
+  // warp: a branch on threadIdx.x / 128 alone is divergent to ptxas, which
+  // then serializes every wgmma behind it (C7520)
+  const int wg = __shfl_sync(0xffffffffu, (int)(threadIdx.x / 128), 0);
+  if (wg == 2) {  // the producers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    const int row_r = r0 + r * TT;
+    if (threadIdx.x == 256) {  // B and C, Xbar_r and dY_r, ring 0
+      mbar_expect_tx(res_full, (Tl + 1) * SLOT);
+      for (int q = 0; q <= Tl; ++q) {
+        const bool is_b = q <= r;
+        for (int f = 0; f < NP; ++f)
+          tma_load_4d(sRes + q * SLOT + f * TILE, is_b ? &maps.b : &maps.c,
+                      res_full, 64 * f, r0 + (is_b ? q : q - 1) * TT, g, b);
+      }
+      int k = 0;
+      for (int n = 0; n < nh; ++n) {
+        const int h = h0 + n, xb = n & 1;
+        if (n >= 2) mbar_wait(xy_empty(xb), ((n >> 1) - 1) & 1);
+        mbar_expect_tx(xy_full(xb), 2 * TILE + p.LT * 4);
+        bulk_load(sCumA + xb * TP::CUM,
+                  p.cum + (((long long)b * p.H + h) * p.nc + c) * p.LT,
+                  p.LT * 4, xy_full(xb));
+        tma_load_4d(sXY + xb * 2 * TILE, &maps.x, xy_full(xb), 0, row_r, h,
+                    b);
+        tma_load_4d(sXY + xb * 2 * TILE + TILE, &maps.dy, xy_full(xb), 0,
+                    row_r, h, b);
+        for (int j = 0; j <= r; ++j, ++k) {  // Xbar_j
+          ring0.acquire(k, TILE);
+          tma_load_4d(ring0.slot(k), &maps.x, ring0.full(k), 0, r0 + j * TT,
+                      h, b);
+        }
+        const int slab = (b * p.H + h) * p.nc + c;
+        for (int f = 0; f < NP; ++f)
+          for (int hl = 0; hl < 2; ++hl, ++k) {  // S_in part f, hi and lo
+            ring0.acquire(k, TILE);
+            tma_load_4d(ring0.slot(k), &maps.s_in, ring0.full(k), 64 * f, 0,
+                        hl, slab);
+          }
+      }
+    } else if (threadIdx.x == 288) {  // ring 1
+      int k = 0;
+      for (int n = 0; n < nh; ++n) {
+        const int h = h0 + n;
+        const int slab = (b * p.H + h) * p.nc + c;
+        for (int f = 0; f < NP; ++f)
+          for (int hl = 0; hl < 2; ++hl, ++k) {  // dS_out part f, hi, lo
+            ring1.acquire(k, TILE);
+            tma_load_4d(ring1.slot(k), &maps.ds_out, ring1.full(k), 64 * f,
+                        0, hl, slab);
+          }
+        for (int i = r; i < Tl; ++i, ++k) {  // dY_i
+          ring1.acquire(k, TILE);
+          tma_load_4d(ring1.slot(k), &maps.dy, ring1.full(k), 0, r0 + i * TT,
+                      h, b);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int ct = threadIdx.x & 127;
   const int g8 = lane >> 2, t2 = (lane & 3) * 2;
+  const int rr = r * TT + warp * 16 + g8;  // this thread's rows rr, rr + 8
   const long long x_ss = (long long)p.H * P, b_ss = (long long)p.G * N;
-  const long long bo = ((long long)b * p.S + r0) * b_ss + g * N;
-  const float* cbp = p.cb + (((long long)b * p.nc + c) * p.G + g) *
-                                (long long)p.LT * p.LT;
-  const __nv_bfloat16* sXr = sXY + r * TT * LDX;
-  const __nv_bfloat16* sYr = sXY + (r + 1) * TT * LDX;
-
-  load_bf16_rows_async<N, LDN, TT, TL_THREADS>(sBr, p.bm + bo, b_ss, r * TT,
-                                               l);
-  load_bf16_rows_async<N, LDN, TT, TL_THREADS>(sCr, p.cm + bo, b_ss, r * TT,
-                                               l);
-  cp_async_commit();
-  for (int i = threadIdx.x; i < T * TT * LDW; i += TL_THREADS) sWd[i] = 0.f;
-
-  // dB and dC of the tile's rows 16 wm + g8 (+ 8), columns N / 2 wn + 8 nt
-  // + t2 (+ 1), summed over the slice's heads
-  float dbr[NTN][4], dcr[NTN][4];
+  const Ring& ring = wg == 0 ? ring0 : ring1;
+  // this warpgroup's Wd sums
+  const int q_lo = wg == 0 ? 0 : r + 1, q_hi = wg == 0 ? r + 1 : Tl;
+  for (int q = q_lo; q < q_hi; ++q)
 #pragma unroll
-  for (int nt = 0; nt < NTN; ++nt)
+    for (int i = 0; i < 8; ++i)
+      sWd[(q * 8 + i) * 128 + ct] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // dC_r (warpgroup 0) or dB_r (warpgroup 1), over the slice's heads
+  float acc_bc[NP][8][4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dbr[nt][e] = dcr[nt][e] = 0.f;
+  for (int f = 0; f < NP; ++f) zero_acc(acc_bc[f]);
+  const uint32_t sBr = sRes + r * SLOT, sCr = sRes + (r + 1) * SLOT;
+  mbar_wait(res_full, 0);
 
-  for (int h = h0; h < h1; ++h) {
+  int k = 0;  // this warpgroup's ring items
+  for (int n = 0; n < nh; ++n) {
+    const int h = h0 + n, xb = n & 1;
     const long long bhc = ((long long)b * p.H + h) * p.nc + c;
-    const long long xo = ((long long)b * p.S + r0) * x_ss + h * P;
-    for (int j = 0; j <= r; ++j)
-      load_bf16_rows_async<P, LDX, TT, TL_THREADS>(
-          sXY + j * TT * LDX, p.xbar + xo, x_ss, j * TT, l);
-    for (int i = r; i < T; ++i)
-      load_bf16_rows_async<P, LDX, TT, TL_THREADS>(
-          sXY + (i + 1) * TT * LDX, p.dy + xo, x_ss, i * TT, l);
-    const __nv_bfloat16* dso =
-        reinterpret_cast<const __nv_bfloat16*>(p.ds_out + bhc * P * N);
-    const __nv_bfloat16* sin =
-        reinterpret_cast<const __nv_bfloat16*>(p.s_in + bhc * P * N);
-    load_bf16_rows_async<N, LDN, P, TL_THREADS>(sSt, dso, N, 0, P);
-    load_bf16_rows_async<N, LDN, P, TL_THREADS>(sSt + P * LDN, dso + P * N, N,
-                                                0, P);
-    load_bf16_rows_async<N, LDN, P, TL_THREADS>(sSt + 2 * P * LDN, sin, N, 0,
-                                                P);
-    load_bf16_rows_async<N, LDN, P, TL_THREADS>(sSt + 3 * P * LDN,
-                                                sin + P * N, N, 0, P);
-    cp_async_commit();
-    for (int i = threadIdx.x; i < p.L; i += TL_THREADS)
-      sCum[i] = p.cum[bhc * p.L + i];
-    if (threadIdx.x < 2 * TT) sDcum[threadIdx.x] = 0.f;
-    // one lane of a warp owns each row of its half's part: no atomics
-    float* dcum_w = sDcum + wn * TT + wm * 16 + g8;
-    cp_async_wait<0>();
-    __syncthreads();
-    const float total = sCum[p.L - 1];
+    mbar_wait(xy_full(xb), (n >> 1) & 1);
+    // the head's cumsum, LT values (the last repeated past L)
+    const float* cum =
+        reinterpret_cast<const float*>(gen + (sCumA + xb * TP::CUM - base));
+    float cr[2];  // cum of this thread's rows
+#pragma unroll
+    for (int q = 0; q < 2; ++q) cr[q] = cum[rr + 8 * q];
+    const uint32_t sX = sXY + xb * 2 * TILE, sY = sX + TILE;
+    float part[2] = {0.f, 0.f};  // this thread's share of dcum of its rows
 
-    // this warp's share of dXbar of the tile: rows 16 wm + g8 (+ 8), all P
-    // columns, over half of each product's depth
-    float dx[NTX][4];
+    if (wg == 0) {
+      // the pairs (r, j <= r): rows t of tile r, columns s of tile j
+      for (int j = 0; j <= r; ++j, ++k) {
+        ring.wait(k);
+        const uint32_t xj = ring.slot(k);
+        float w[8][4], cb[8][4];
+        zero_acc(w);
+        zero_acc(cb);
+        wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < NTX; ++nt)
+        for (int ks = 0; ks < 4; ++ks)
+          wgmma_ss_n64<0, 0>(w, desc_k(sY, ks), desc_k(xj, ks), 1);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dx[nt][e] = 0.f;
-
-    // the pairs (r, j < r): W = dY_r Xbar_j^T, rows t of tile r, columns s
-    // of tile j: rowsum(M o W) into dcum, Wd into its sum ([t][s])
-    for (int j = 0; j <= r; ++j) {
-      float w[4][4];
+        for (int f = 0; f < NP; ++f)
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
+          for (int ks = 0; ks < 4; ++ks)
+            wgmma_ss_n64<0, 0>(cb, desc_k(sCr + f * TILE, ks),
+                               desc_k(sRes + j * SLOT + f * TILE, ks), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(w);
+        fence_acc(cb);
+        ring.release(k);
+        float4* wd = sWd + (j * 8) * 128 + ct;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) w[nt][e] = 0.f;
+        for (int i = 0; i < 8; ++i) {
 #pragma unroll
-      for (int ks = 0; ks < P / 16; ++ks) {
-        uint32_t a[1][4];
-        frag_a(a[0], sYr + wm * 16 * LDX + ks * 16, LDX, lane);
-        mma_row<false, 4, 1>(w, a, sXY + j * TT * LDX + wn * 32 * LDX + ks * 16,
-                             LDX, lane);
-      }
-      float rows[2] = {0.f, 0.f};
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int tl = wm * 16 + g8 + (e >> 1) * 8;
-          const int sl = wn * 32 + nt * 8 + t2 + (e & 1);
-          const int t = r * TT + tl, s = j * TT + sl;
-          const bool ok = s <= t && t < l;
-          const float lm = ok ? expf(sCum[t] - sCum[s]) : 0.f;
-          const float m = ok ? cbp[(long long)t * p.LT + s] * lm : 0.f;
-          rows[e >> 1] += m * w[nt][e];
-          if (j < r) sWd[(j * TT + tl) * LDW + sl] += w[nt][e] * lm;
-        }
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const float v = quad_sum(rows[q]);
-        if ((lane & 3) == 0) dcum_w[q * 8] += v;
-      }
-    }
-
-    // the pairs (i >= r, r): W^T = Xbar_r dY_i^T, rows s of tile r, columns
-    // t of tile i: colsum(M o W) into dcum, Wd into its sum ([s][t]), and
-    // dXbar_r += M^T dY_i over this warp's 32 t
-    for (int i = r; i < T; ++i) {
-      const __nv_bfloat16* sYi = sXY + (i + 1) * TT * LDX;
-      float w[4][4];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) w[nt][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < P / 16; ++ks) {
-        uint32_t a[1][4];
-        frag_a(a[0], sXr + wm * 16 * LDX + ks * 16, LDX, lane);
-        mma_row<false, 4, 1>(w, a, sYi + wn * 32 * LDX + ks * 16, LDX, lane);
-      }
-      float cols[2] = {0.f, 0.f};
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int sl = wm * 16 + g8 + (e >> 1) * 8;
-          const int tl = wn * 32 + nt * 8 + t2 + (e & 1);
-          const int s = r * TT + sl, t = i * TT + tl;
-          const bool ok = s <= t && t < l;
-          const float lm = ok ? expf(sCum[t] - sCum[s]) : 0.f;
-          const float m = ok ? cbp[(long long)t * p.LT + s] * lm : 0.f;
-          cols[e >> 1] += m * w[nt][e];
-          sWd[(i * TT + sl) * LDW + tl] += w[nt][e] * lm;
-          w[nt][e] = m;  // M^T from here on
-        }
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const float v = quad_sum(cols[q]);
-        if ((lane & 3) == 0) dcum_w[q * 8] -= v;
-      }
-      uint32_t a[2][2][4];
-      frag_a_acc(a, w);
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk)
-        mma_row<true, NTX, 2>(dx, a[kk], sYi + (wn * 32 + kk * 16) * LDX, LDX,
-                              lane);
-    }
-
-    // the state terms of the tile's rows
-    float wend[2], wcum[2];
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int row = r * TT + wm * 16 + g8 + q * 8;
-      wend[q] = row < l ? expf(total - sCum[row]) : 0.f;
-      wcum[q] = row < l ? expf(sCum[row]) : 0.f;
-    }
-    float e_sum = 0.f;
-    {  // dXbar += exp(total - cum) o (B_r dS_out^T), columns P / 2 wn ..
-      float xo_[NTP][4];
-#pragma unroll
-      for (int nt = 0; nt < NTP; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) xo_[nt][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < N / 16; ++ks) {
-        uint32_t a[1][4];
-        frag_a(a[0], sBr + wm * 16 * LDN + ks * 16, LDN, lane);
-        mma_row<false, NTP, 1>(xo_, a, sSt + wn * (P / 2) * LDN + ks * 16, LDN,
-                               lane);
-        mma_row<false, NTP, 1>(
-            xo_, a, sSt + P * LDN + wn * (P / 2) * LDN + ks * 16, LDN, lane);
-      }
-      float ex[2] = {0.f, 0.f};
-#pragma unroll
-      for (int nt = 0; nt < NTP; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int sl = wm * 16 + g8 + (e >> 1) * 8;
-          const int col = wn * (P / 2) + nt * 8 + t2 + (e & 1);
-          const float v = xo_[nt][e] * wend[e >> 1];
-          dx[wn * NTP + nt][e] += v;
-          ex[e >> 1] += __bfloat162float(sXr[sl * LDX + col]) * v;
-        }
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const float v = quad_sum(ex[q]);
-        if ((lane & 3) == 0) {
-          dcum_w[q * 8] -= v;
-          e_sum += v;
+          for (int e = 0; e < 4; ++e) {
+            const int q = e >> 1, t = rr + 8 * q;
+            const int s = j * TT + 8 * i + t2 + (e & 1);
+            const bool ok = s <= t && t < l;
+            const float lm =
+                ex2(ok ? (cr[q] - cum[s]) * LOG2E : -INFINITY);
+            const float m = cb[i][e] * lm;
+            part[q] += m * w[i][e];
+            w[i][e] *= lm;
+          }
+          float4 v = wd[i * 128];
+          v.x += w[i][0];
+          v.y += w[i][1];
+          v.z += w[i][2];
+          v.w += w[i][3];
+          wd[i * 128] = v;
         }
       }
-    }
-    {  // dB += exp(total - cum) o (Xbar_r dS_out), columns N / 2 wn ..
-      float bo_[NTN][4];
+      // dC_r += exp(cum) o (dY_r S_in), a part of N at a time, S_in hi
+      // then lo; C_r . that into dcum
+      const unsigned char* cR = gen + (sCr - base);
+      float wc[2];
 #pragma unroll
-      for (int nt = 0; nt < NTN; ++nt)
+      for (int q = 0; q < 2; ++q) wc[q] = rr + 8 * q < l ? expf(cr[q]) : 0.f;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) bo_[nt][e] = 0.f;
+      for (int f = 0; f < NP; ++f) {
+        float co[8][4];
+        zero_acc(co);
 #pragma unroll
-      for (int ks = 0; ks < P / 16; ++ks) {
-        uint32_t a[1][4];
-        frag_a(a[0], sXr + wm * 16 * LDX + ks * 16, LDX, lane);
-        mma_row<true, NTN, 1>(bo_, a, sSt + ks * 16 * LDN + wn * (N / 2), LDN,
-                              lane);
-        mma_row<true, NTN, 1>(
-            bo_, a, sSt + P * LDN + ks * 16 * LDN + wn * (N / 2), LDN, lane);
-      }
+        for (int hl = 0; hl < 2; ++hl, ++k) {
+          ring.wait(k);
+          const uint32_t st = ring.slot(k);
+          wgmma_fence();
 #pragma unroll
-      for (int nt = 0; nt < NTN; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dbr[nt][e] += bo_[nt][e] * wend[e >> 1];
-    }
-    {  // dC += exp(cum) o (dY_r S_in), and C_r . that into dcum
-      float co[NTN][4];
-#pragma unroll
-      for (int nt = 0; nt < NTN; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) co[nt][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < P / 16; ++ks) {
-        uint32_t a[1][4];
-        frag_a(a[0], sYr + wm * 16 * LDX + ks * 16, LDX, lane);
-        mma_row<true, NTN, 1>(
-            co, a, sSt + 2 * P * LDN + ks * 16 * LDN + wn * (N / 2), LDN,
-            lane);
-        mma_row<true, NTN, 1>(
-            co, a, sSt + 3 * P * LDN + ks * 16 * LDN + wn * (N / 2), LDN,
-            lane);
-      }
-      float cd[2] = {0.f, 0.f};
-#pragma unroll
-      for (int nt = 0; nt < NTN; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int tl = wm * 16 + g8 + (e >> 1) * 8;
-          const int col = wn * (N / 2) + nt * 8 + t2 + (e & 1);
-          const float v = co[nt][e] * wcum[e >> 1];
-          dcr[nt][e] += v;
-          cd[e >> 1] += __bfloat162float(sCr[tl * LDN + col]) * v;
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss_n64<0, 1>(co, desc_k(sY, kk), desc_mn(st, kk), 1);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_acc(co);
+          ring.release(k);
         }
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const float v = quad_sum(cd[q]);
-        if ((lane & 3) == 0) dcum_w[q * 8] += v;
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      e_sum += __shfl_xor_sync(0xffffffffu, e_sum, off);
-    if (lane == 0) sEsum[warp] = e_sum;
-    __syncthreads();  // the head's products are done; sDcum is complete
-    if (threadIdx.x == 0) {  // this tile's part of dtotal, in warp order
-      float e = 0.f;
-      for (int w = 0; w < 8; ++w) e += sEsum[w];
-      p.dtot[bhc * (1 + T) + 1 + r] = e;
-    }
-
-    // dXbar of the tile: the two halves of the depth summed
-    float* sEx = reinterpret_cast<float*>(sXY);  // [TT][P + 4]
-    if (wn == 1) {
-#pragma unroll
-      for (int nt = 0; nt < NTX; ++nt)
 #pragma unroll
         for (int q = 0; q < 2; ++q)
-          *reinterpret_cast<float2*>(
-              sEx + (wm * 16 + g8 + q * 8) * (P + 4) + nt * 8 + t2) =
-              make_float2(dx[nt][2 * q], dx[nt][2 * q + 1]);
-    }
-    if (threadIdx.x < TT && r * TT + threadIdx.x < p.L)
-      p.dcum[bhc * p.L + r * TT + threadIdx.x] =
-          sDcum[threadIdx.x] + sDcum[TT + threadIdx.x];
-    __syncthreads();
-    if (wn == 0) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float v0 = co[i][2 * q] * wc[q], v1 = co[i][2 * q + 1] * wc[q];
+            acc_bc[f][i][2 * q] += v0;
+            acc_bc[f][i][2 * q + 1] += v1;
+            const float2 cv = tile_pair(cR + f * TILE, rr + 8 * q - r * TT,
+                                        8 * i + t2);
+            part[q] += cv.x * v0 + cv.y * v1;
+          }
+      }
+    } else {
+      // the state terms first, a part of N at a time, dS_out hi then lo:
+      // dXbar_r = exp(total - cum) o (B_r dS_out^T), Xbar_r . that out of
+      // dcum and into dtotal, dB_r += exp(total - cum) o (Xbar_r dS_out)
+      float we[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        we[q] = rr + 8 * q < l ? expf(cum[p.L - 1] - cr[q]) : 0.f;
+      float dx[8][4];
+      zero_acc(dx);
+#pragma unroll
+      for (int f = 0; f < NP; ++f) {
+        float bo[8][4];
+        zero_acc(bo);
+#pragma unroll
+        for (int hl = 0; hl < 2; ++hl, ++k) {
+          ring.wait(k);
+          const uint32_t st = ring.slot(k);
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            wgmma_ss_n64<0, 0>(dx, desc_k(sBr + f * TILE, ks),
+                               desc_k(st, ks), 1);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss_n64<0, 1>(bo, desc_k(sX, kk), desc_mn(st, kk), 1);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_acc(dx);
+          fence_acc(bo);
+          ring.release(k);
+        }
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            acc_bc[f][i][2 * q] += bo[i][2 * q] * we[q];
+            acc_bc[f][i][2 * q + 1] += bo[i][2 * q + 1] * we[q];
+          }
+      }
+      const unsigned char* xR = gen + (sX - base);
+      float e_sum = 0.f;
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
-        const int sl = wm * 16 + g8 + q * 8;
-        if (r * TT + sl >= l) continue;
-        __nv_bfloat16* dst = p.dxbar + xo + (long long)(r * TT + sl) * x_ss;
+        float ev = 0.f;
 #pragma unroll
-        for (int nt = 0; nt < NTX; ++nt) {
-          const float2 o = *reinterpret_cast<const float2*>(
-              sEx + sl * (P + 4) + nt * 8 + t2);
-          *reinterpret_cast<__nv_bfloat162*>(dst + nt * 8 + t2) =
-              __floats2bfloat162_rn(dx[nt][2 * q] + o.x,
-                                    dx[nt][2 * q + 1] + o.y);
+        for (int i = 0; i < 8; ++i) {
+          dx[i][2 * q] *= we[q];
+          dx[i][2 * q + 1] *= we[q];
+          const float2 xv = tile_pair(xR, rr + 8 * q - r * TT, 8 * i + t2);
+          ev += xv.x * dx[i][2 * q] + xv.y * dx[i][2 * q + 1];
+        }
+        part[q] -= ev;
+        e_sum += ev;
+      }
+
+      // the pairs (i >= r, r): rows s of tile r, columns t of tile i
+      for (int i = r; i < Tl; ++i, ++k) {
+        ring.wait(k);
+        const uint32_t yi = ring.slot(k);
+        float w[8][4], cb[8][4];
+        zero_acc(w);
+        zero_acc(cb);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          wgmma_ss_n64<0, 0>(w, desc_k(sX, ks), desc_k(yi, ks), 1);
+#pragma unroll
+        for (int f = 0; f < NP; ++f)
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            wgmma_ss_n64<0, 0>(cb, desc_k(sBr + f * TILE, ks),
+                               desc_k(sRes + (i + 1) * SLOT + f * TILE, ks),
+                               1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(w);
+        fence_acc(cb);
+        float4* wd = sWd + (i * 8) * 128 + ct;
+#pragma unroll
+        for (int i8 = 0; i8 < 8; ++i8) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int q = e >> 1, s = rr + 8 * q;
+            const int t = i * TT + 8 * i8 + t2 + (e & 1);
+            const bool ok = s <= t && t < l;
+            const float lm =
+                ex2(ok ? (cum[t] - cr[q]) * LOG2E : -INFINITY);
+            const float m = cb[i8][e] * lm;
+            part[q] -= m * w[i8][e];
+            w[i8][e] *= lm;
+            cb[i8][e] = m;  // M^T from here on
+          }
+          if (i > r) {  // the diagonal's sum is warpgroup 0's
+            float4 v = wd[i8 * 128];
+            v.x += w[i8][0];
+            v.y += w[i8][1];
+            v.z += w[i8][2];
+            v.w += w[i8][3];
+            wd[i8 * 128] = v;
+          }
+        }
+        // dXbar_r += M^T dY_i
+        uint32_t fh[4][4], fl[4][4];
+        split_frags(cb, fh, fl);
+        wgmma_fence();
+        rs_split(dx, fh, fl, yi);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(dx);
+        ring.release(k);
+      }
+      __nv_bfloat16* dxp = p.dxbar + ((long long)b * p.S + r0) * x_ss +
+                           (long long)h * P;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int s = rr + 8 * q;
+        if (s < l) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            if (8 * i + t2 < P)
+              *reinterpret_cast<__nv_bfloat162*>(dxp + s * x_ss + 8 * i +
+                                                 t2) =
+                  __floats2bfloat162_rn(dx[i][2 * q], dx[i][2 * q + 1]);
         }
       }
-    }
-    __syncthreads();  // sXY, sSt, sCum and sDcum are free for the next head
-  }
-
-  // dB_r += sum_{i >= r} Wd[i, r]^T C_i and dC_r += sum_{j <= r} Wd[r, j] B_j,
-  // Wd summed over the slice's heads and split hi + lo; one tile of B or C
-  // at a time in sXY
-  for (int q = 0; q < T; ++q) {
-    const __nv_bfloat16* tile = q == r ? nullptr : sXY;
-    if (q != r) {
-      load_bf16_rows_async<N, LDN, TT, TL_THREADS>(
-          sXY, (q > r ? p.cm : p.bm) + bo, b_ss, q * TT, l);
-      cp_async_commit();
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* wd = sWd + q * TT * LDW;
+      // this tile's part of dtotal: the warps' sums in warp order
 #pragma unroll
-    for (int kk = 0; kk < TT / 16; ++kk) {
-      uint32_t a[2][4];
-      if (q >= r) {  // [s][t]: dB_r, A = Wd^T rows s
-        frag_a_f32<false>(a, wd + wm * 16 * LDW + kk * 16, LDW, lane);
-        mma_row<true, NTN, 2>(dbr, a,
-                              (q > r ? tile : sCr) + kk * 16 * LDN +
-                                  wn * (N / 2),
-                              LDN, lane);
-      }
-      if (q < r) {  // [t][s]: dC_r, A = Wd rows t
-        frag_a_f32<false>(a, wd + wm * 16 * LDW + kk * 16, LDW, lane);
-        mma_row<true, NTN, 2>(dcr, a, tile + kk * 16 * LDN + wn * (N / 2),
-                              LDN, lane);
-      }
-      if (q == r) {  // the diagonal, stored [s][t]: dC_r reads it transposed
-        frag_a_f32<true>(a, wd + kk * 16 * LDW + wm * 16, LDW, lane);
-        mma_row<true, NTN, 2>(dcr, a, sBr + kk * 16 * LDN + wn * (N / 2), LDN,
-                              lane);
-      }
+      for (int off = 16; off > 0; off >>= 1)
+        e_sum += __shfl_xor_sync(0xffffffffu, e_sum, off);
+      if (lane == 0) sEsum[xb * 4 + warp] = e_sum;
+      bar_sync(2, 128);
+      if (ct == 0)
+        p.dtot[bhc * (1 + T) + 1 + r] =
+            ((sEsum[xb * 4] + sEsum[xb * 4 + 1]) +
+                                         sEsum[xb * 4 + 2]) +
+                                        sEsum[xb * 4 + 3];
     }
-    __syncthreads();  // the tile's readers are done before the next load
+
+    // this warpgroup's part of dcum of the tile's rows
+    float* dcum = p.dcum + (long long)wg * p.B * p.H * p.nc * p.L +
+                  bhc * p.L;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const float v = quad_sum(part[q]);
+      if ((lane & 3) == 0 && rr + 8 * q < l) dcum[rr + 8 * q] = v;
+    }
+    if (lane == 0) mbar_arrive(xy_empty(xb));
   }
 
-  // this slice's dB and dC of the tile's rows, summed over the slices by
-  // sum_cast_bf16
-  const long long slice = (long long)blockIdx.z * p.B * p.S * p.G * N;
+  // dC_r += sum_j Wd[r, j] B_j (warpgroup 0), dB_r += sum_i Wd[i, r]^T C_i
+  // (warpgroup 1): the Wd sums split hi + lo, B_j and C_i read MN-major.
+  // The diagonal's: warpgroup 0 writes its sum as a bf16 hi and lo tile
+  // into ring 0 (free now), and warpgroup 1 reads them MN-major: Wd^T.
+  const uint32_t sDh = sR0, sDl = sR0 + TILE;
+  if (wg == 1) {
+    bar_sync(3, 256);
+    wgmma_fence();
+#pragma unroll
+    for (int f = 0; f < NP; ++f) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n64<1, 1>(acc_bc[f], desc_mn(sDh, kk),
+                           desc_mn(sCr + f * TILE, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n64<1, 1>(acc_bc[f], desc_mn(sDl, kk),
+                           desc_mn(sCr + f * TILE, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int f = 0; f < NP; ++f) fence_acc(acc_bc[f]);
+  }
+  for (int q = q_lo; q < q_hi; ++q) {
+    float v[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 t = sWd[(q * 8 + i) * 128 + ct];
+      v[i][0] = t.x;
+      v[i][1] = t.y;
+      v[i][2] = t.z;
+      v[i][3] = t.w;
+    }
+    uint32_t fh[4][4], fl[4][4];
+    split_frags(v, fh, fl);
+    if (wg == 0 && q == r) {  // the diagonal, for warpgroup 1
+      unsigned char* dh = gen + (sDh - base);
+      unsigned char* dl = gen + (sDl - base);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = warp * 16 + g8 + (e & 1) * 8;
+          const int col = 16 * kk + (e >> 1) * 8 + t2;
+          *reinterpret_cast<uint32_t*>(dh + swz(row, col)) = fh[kk][e];
+          *reinterpret_cast<uint32_t*>(dl + swz(row, col)) = fl[kk][e];
+        }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      bar_arrive(3, 256);
+    }
+    // slot q holds B_q for q <= r, C_(q - 1) beyond
+    const uint32_t bt = sRes + (wg == 0 ? q : q + 1) * SLOT;
+    wgmma_fence();
+#pragma unroll
+    for (int f = 0; f < NP; ++f) rs_split(acc_bc[f], fh, fl, bt + f * TILE);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int f = 0; f < NP; ++f) fence_acc(acc_bc[f]);
+  }
+
+  // this slice's dC (warpgroup 0) or dB (warpgroup 1) of the tile's rows,
+  // summed over the slices by sum_cast_bf16
+  float* out = (wg == 0 ? p.dc : p.db) +
+               (long long)blockIdx.z * p.B * p.S * p.G * N +
+               ((long long)b * p.S + r0) * b_ss + (long long)g * N;
 #pragma unroll
   for (int q = 0; q < 2; ++q) {
-    const int row = r * TT + wm * 16 + g8 + q * 8;
+    const int row = rr + 8 * q;
     if (row >= l) continue;
-    float* db = p.db + slice + bo + row * b_ss;
-    float* dc = p.dc + slice + bo + row * b_ss;
 #pragma unroll
-    for (int nt = 0; nt < NTN; ++nt) {
-      const int col = wn * (N / 2) + nt * 8 + t2;
-      *reinterpret_cast<float2*>(db + col) =
-          make_float2(dbr[nt][2 * q], dbr[nt][2 * q + 1]);
-      *reinterpret_cast<float2*>(dc + col) =
-          make_float2(dcr[nt][2 * q], dcr[nt][2 * q + 1]);
-    }
+    for (int f = 0; f < NP; ++f)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = 64 * f + 8 * i + t2;
+        if (col < N)
+          *reinterpret_cast<float2*>(out + row * b_ss + col) =
+              make_float2(acc_bc[f][i][2 * q], acc_bc[f][i][2 * q + 1]);
+      }
   }
 }
 
 // One thread per (b, head, chunk): dlog_a = the reverse cumsum of dcum over
-// the chunk's rows, dtotal added on its last row, in the order of a
-// sequential scan (as the cumsum, torch.cumsum's); dtotal is the state part
-// and then each 64-row tile's part that ssd_bwd_tile wrote (rows past l have
-// none).
+// the chunk's rows (its two parts added row by row), dtotal added on its
+// last row, in the order of a sequential scan (as the cumsum,
+// torch.cumsum's); dtotal is the state part and then each 64-row tile's
+// part that ssd_bwd_tile wrote (rows past l have none).
 __global__ void __launch_bounds__(128) ssd_bwd_finish(const BwdTc p) {
   const long long idx = blockIdx.x * 128LL + threadIdx.x;  // heads fastest
   if (idx >= (long long)p.B * p.H * p.nc) return;
@@ -1281,37 +1310,29 @@ __global__ void __launch_bounds__(128) ssd_bwd_finish(const BwdTc p) {
   const int b = (int)(idx / ((long long)p.H * p.nc));
   const long long bhc = ((long long)b * p.H + h) * p.nc + c;
   const int r0 = c * p.L, l = min(p.L, p.S - r0);
-  const float* dcum = p.dcum + bhc * p.L;
+  const float* dcum0 = p.dcum + bhc * p.L;
+  const float* dcum1 = dcum0 + (long long)p.B * p.H * p.nc * p.L;
   float* out = p.dlog_a + ((long long)b * p.S + r0) * p.H + h;
   const int T = p.LT / TT;
   const float* dtot = p.dtot + bhc * (1 + T);
   float acc = dtot[0];
   for (int r = 0; r < T && r * TT < l; ++r) acc += dtot[1 + r];
   for (int i = l - 1; i >= 0; --i) {
-    acc += dcum[i];
+    acc += dcum0[i] + dcum1[i];
     out[(long long)i * p.H] = acc;
   }
 }
 
 template <int P, int N>
-int launch_tc(const BwdTc& p, cudaStream_t stream) {
+int launch_tc(const BwdTc& p, const EmitMaps& em, const EmitArgs& ea,
+              const TileMaps& tm, cudaStream_t stream) {
   const int T = p.LT / TT;
-  const CbArgs cb{p.bm, p.cm, (long long)p.S * p.G * N, (long long)p.G * N,
-                  (long long)p.S * p.G * N, (long long)p.G * N, p.S, p.L,
-                  p.nc, p.G, p.LT, p.cb};
-  ssd_cb<N><<<dim3(T * (T + 1) / 2, p.nc, p.B * p.G), TC_THREADS, 0,
-              stream>>>(cb);
-  cudaError_t err = cudaGetLastError();
+  const int smem_emit = emit_smem_bytes<P, N>();
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_emit<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_emit);
   if (err != cudaSuccess) return (int)err;
-
-  const int smem_emit = sizeof(float) * TC_CHUNK +
-                        2 * TT * (3 * (P + 8) + 2 * (N + 8));
-  err = cudaFuncSetAttribute(ssd_bwd_emit<P, N>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_emit);
-  if (err != cudaSuccess) return (int)err;
-  ssd_bwd_emit<P, N><<<dim3(p.nc, p.H, p.B), TC_THREADS, smem_emit,
-                       stream>>>(p);
+  ssd_emit<P, N><<<dim3(p.nc, p.H, p.B), EMIT_THREADS, smem_emit, stream>>>(
+      em, ea);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -1319,7 +1340,7 @@ int launch_tc(const BwdTc& p, cudaStream_t stream) {
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const int smem_tile = tile_smem_bytes<P, N>(T);
+  const int smem_tile = TilePlan<N>::smem(T);
   err = cudaFuncSetAttribute(ssd_bwd_tile<P, N>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_tile);
@@ -1328,7 +1349,7 @@ int launch_tc(const BwdTc& p, cudaStream_t stream) {
   // states and tiles, which then come from L2
   ssd_bwd_tile<P, N><<<dim3(T, p.B * p.nc * p.G, (p.H / p.G + p.hs - 1) /
                                                      p.hs),
-                       TL_THREADS, smem_tile, stream>>>(p);
+                       TL_THREADS, smem_tile, stream>>>(tm, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -1338,29 +1359,31 @@ int launch_tc(const BwdTc& p, cudaStream_t stream) {
 }
 
 template <int P>
-int dispatch_tc_n(const BwdTc& p, int N, cudaStream_t s) {
+int dispatch_tc_n(const BwdTc& p, const EmitMaps& em, const EmitArgs& ea,
+                  const TileMaps& tm, int N, cudaStream_t s) {
   switch (N) {
     case 16:
-      return launch_tc<P, 16>(p, s);
+      return launch_tc<P, 16>(p, em, ea, tm, s);
     case 32:
-      return launch_tc<P, 32>(p, s);
+      return launch_tc<P, 32>(p, em, ea, tm, s);
     case 64:
-      return launch_tc<P, 64>(p, s);
+      return launch_tc<P, 64>(p, em, ea, tm, s);
     case 128:
-      return launch_tc<P, 128>(p, s);
+      return launch_tc<P, 128>(p, em, ea, tm, s);
     default:
       return -1;
   }
 }
 
-int dispatch_tc(const BwdTc& p, int P, int N, cudaStream_t s) {
+int dispatch_tc(const BwdTc& p, const EmitMaps& em, const EmitArgs& ea,
+                const TileMaps& tm, int P, int N, cudaStream_t s) {
   switch (P) {
     case 16:
-      return dispatch_tc_n<16>(p, N, s);
+      return dispatch_tc_n<16>(p, em, ea, tm, N, s);
     case 32:
-      return dispatch_tc_n<32>(p, N, s);
+      return dispatch_tc_n<32>(p, em, ea, tm, N, s);
     case 64:
-      return dispatch_tc_n<64>(p, N, s);
+      return dispatch_tc_n<64>(p, em, ea, tm, N, s);
     default:
       return -1;
   }
@@ -1368,8 +1391,8 @@ int dispatch_tc(const BwdTc& p, int P, int N, cudaStream_t s) {
 
 }  // namespace
 
-// body: 0 = the fp32 FMA body (float32 tensors), 1 = the bf16 tensor-core
-// body (bfloat16 tensors); the wrapper chooses it by type.  Every tensor
+// body: 0 = the fp32 FMA body (float32 tensors), 1 = the bf16 wgmma body
+// (bfloat16 tensors); the wrapper chooses it by type.  Every tensor
 // contiguous; xbar, B, C, dy, dxbar and db_out / dc_out in the body's type,
 // the rest fp32.  db_acc, dc_acc fp32 [ceil(H / G / hs),B,S,G,N], one
 // [B,S,G,N] for each slice of hs heads of a group (the fp32 body takes hs =
@@ -1377,21 +1400,22 @@ int dispatch_tc(const BwdTc& p, int P, int N, cudaStream_t s) {
 // [B,S,G,N] (cast for bf16).
 // dfinal, init and dinit may be null (zero; not written).  Chunks of L rows,
 // nc = ceil(S / L), L chosen by the wrapper (which sizes the scratch from
-// it): at most S, MAX_CHUNK and, for the tensor-core body, TC_CHUNK, else -1.
-// s_in, ds_out [B,H,nc,P,N] fp32 scratch; the tensor-core body also takes
-// cum and dcum [B,H,nc,L], cb [B,nc,G,LT,LT] (LT: L rounded up to a multiple
-// of 64) and dtot [B,H,nc,1 + LT / 64], fp32 scratch (null for the FMA
-// body), and hs, the heads a slice of its tile kernel takes (1 <= hs <=
-// H / G; the wrapper chooses it so that the tiles and slices make about two
-// blocks an SM).  P in (16, 32, 64), N in (16, 32, 64, 128).  Returns a
-// cudaError_t, or -1 for an unsupported argument; never synchronises.
+// it): at most S, MAX_CHUNK and, for the wgmma body, TC_CHUNK, else -1.
+// s_in, ds_out [B,H,nc,P,N] fp32 scratch; the wgmma body also takes cum
+// [B,H,nc,LT] (LT: L rounded up to a multiple of 64), dcum [2,B,H,nc,L]
+// and dtot [B,H,nc,1 + LT / 64], fp32 scratch (null for the FMA body),
+// and hs, the heads a slice of its tile kernel takes (1 <= hs <= H / G; the
+// wrapper chooses it so that the tiles and slices make about four blocks an
+// SM).  P in (16, 32, 64), N in (16, 32, 64, 128).  Returns a cudaError_t,
+// -1 for an unsupported argument or -2 when a tensor map cannot be
+// encoded; never synchronises.
 extern "C" int repro_ssd_scan_bwd(
     const void* xbar, const float* log_a, const void* bm, const void* cm,
     const void* dy, const float* dfinal, const float* init, void* dxbar,
     float* dlog_a, float* db_acc, float* dc_acc, void* db_out, void* dc_out,
-    float* dinit, float* s_in, float* ds_out, float* cum, float* cb,
-    float* dcum, float* dtot, int B, int S, int H, int G, int P, int N,
-    int L, int hs, int body, void* stream) {
+    float* dinit, float* s_in, float* ds_out, float* cum, float* dcum,
+    float* dtot, int B, int S, int H, int G, int P, int N, int L, int hs,
+    int body, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0) return -1;
   if (L <= 0 || L > S || L > MAX_CHUNK || B > 65535 || H > 65535) return -1;
   if (body < 0 || body > 1 || db_out == nullptr || dc_out == nullptr ||
@@ -1414,32 +1438,27 @@ extern "C" int repro_ssd_scan_bwd(
     return (int)cudaGetLastError();
   }
   const int rep = H / G;
-  if (cum == nullptr || cb == nullptr || dcum == nullptr || dtot == nullptr ||
-      L > TC_CHUNK || hs < 1 || hs > rep)
+  if (cum == nullptr || dcum == nullptr || dtot == nullptr || L > TC_CHUNK ||
+      hs < 1 || hs > rep)
     return -1;
   const int nc = (S + L - 1) / L;
   const int LT = (L + TT - 1) / TT * TT;
   if (nc > 65535 || (long long)B * nc * G > 65535) return -1;
-  const BwdTc p{static_cast<const __nv_bfloat16*>(xbar),
-                log_a,
-                static_cast<const __nv_bfloat16*>(bm),
-                static_cast<const __nv_bfloat16*>(cm),
-                static_cast<const __nv_bfloat16*>(dy),
-                dfinal,
-                init,
-                static_cast<__nv_bfloat16*>(dxbar),
-                dlog_a,
-                db_acc,
-                dc_acc,
-                dinit,
-                cum,
-                cb,
-                s_in,
-                ds_out,
-                dcum,
-                dtot,
-                B, S, H, G, L, nc, LT, hs};
-  int err = dispatch_tc(p, P, N, s);
+  const BwdTc p{dfinal, init,   static_cast<__nv_bfloat16*>(dxbar),
+                dlog_a, db_acc, dc_acc, dinit, cum, s_in, ds_out, dcum, dtot,
+                B,      S,      H,      G,     L,   nc,   LT,     hs};
+  const EmitArgs ea{log_a, cum, s_in, ds_out, S, H, G, L, nc, LT};
+  const long long x_ss = (long long)H * P, b_ss = (long long)G * N;
+  TileMaps tm;
+  if (rows_map(&tm.x, xbar, P, S, H, B, x_ss, P, S * x_ss) != 0 ||
+      rows_map(&tm.dy, dy, P, S, H, B, x_ss, P, S * x_ss) != 0 ||
+      rows_map(&tm.b, bm, N, S, G, B, b_ss, N, S * b_ss) != 0 ||
+      rows_map(&tm.c, cm, N, S, G, B, b_ss, N, S * b_ss) != 0 ||
+      state_map(&tm.s_in, s_in, P, N, (long long)B * H * nc) != 0 ||
+      state_map(&tm.ds_out, ds_out, P, N, (long long)B * H * nc) != 0)
+    return ERR_TENSOR_MAP;
+  const EmitMaps em{tm.x, tm.b, tm.dy, tm.c};
+  int err = dispatch_tc(p, em, ea, tm, P, N, s);
   if (err != 0) return err;
   const long long n = (long long)B * S * G * N;
   const unsigned blocks = (unsigned)((n + 255) / 256);
@@ -1453,5 +1472,6 @@ extern "C" int repro_ssd_scan_bwd(
 
 extern "C" const char* repro_ssd_scan_bwd_error_string(int code) {
   if (code == -1) return "unsupported argument";
+  if (code == ERR_TENSOR_MAP) return "a tensor map could not be encoded";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -8,11 +8,12 @@ Replaces the TPU kernel ``ssd_scan_kernel`` / ``_ssd_kernel`` of
 across chunks and returned.  The CUDA source is ``csrc/ssd_scan.cu``; its
 header says how the design differs from the TPU kernel.  Two bodies:
 
-* bf16 (the served path): chunk-parallel on the tensor cores, four CUDA
-  kernels a call (C B^T once per group, chunk states, state passing, chunk
-  outputs), each fp32 operand of a product split into a bf16 hi and lo part.
-  :func:`ssd_scan_split_plain` is the same order of work and the same
-  roundings in plain PyTorch; the tests hold it against the reference.
+* bf16 (the served path): chunk-parallel on wgmma, the tiles brought in by
+  TMA, three CUDA kernels a call (chunk states, state passing, chunk
+  outputs, which forms C B^T itself), each fp32 operand of a product split
+  into a bf16 hi and lo part.  :func:`ssd_scan_split_plain` is the same
+  order of work and the same roundings in plain PyTorch; the tests hold it
+  against the reference.
 * fp32: one block per ``(b, h)`` looping over the chunks with the state in
   shared memory, full-fp32 FMA, no tensor cores.
 
@@ -26,10 +27,10 @@ reference differentiates its plain ``ssd_chunked``.  It recomputes the chunk
 states, runs the state gradient through the chunks in reverse and forms
 every intra-chunk term from the same decay masks, with dB and dC summed over
 the heads of each group.  Two bodies, chosen by :func:`ssd_bwd_body`: bf16
-on the tensor cores, chunk-parallel, five CUDA kernels a call, every fp32
+on wgmma with TMA, chunk-parallel, six CUDA kernels a call, every fp32
 operand of a product split hi + lo (:func:`ssd_scan_bwd_split_plain` is the
 same order of work and the same roundings in plain PyTorch), on chunks of at
-most :data:`TC_BWD_CHUNK` rows; fp32 FMA, two CUDA kernels a call.
+most :data:`TC_BWD_CHUNK` rows; fp32 FMA, four CUDA kernels a call.
 :class:`SsdScanFn` runs the forward kernel and the backward kernel; on CPU
 tensors it runs :func:`ssd_scan_plain` and :func:`ssd_scan_bwd_plain`.
 
@@ -55,7 +56,7 @@ MAX_CHUNK = 1024
 # shared memory
 TC_BWD_CHUNK = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_BWD_BODY_CODE = {"fma": 0, "tc": 1}
+_BWD_BODY_CODE = {"fma": 0, "wgmma": 1}
 
 
 def ssd_scan_plain(xbar: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
@@ -325,7 +326,7 @@ def _entry():
     fn = lib.repro_ssd_scan_fwd
     if not fn.argtypes:
         ll, ci, vp = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-        fn.argtypes = [vp] * 10 + [ci] * 7 + [ll] * 4 + [ci, vp]
+        fn.argtypes = [vp] * 9 + [ci] * 7 + [ll] * 4 + [ci, vp]
         fn.restype = ci
     return lib, fn
 
@@ -334,9 +335,8 @@ def reads_in_place(t: torch.Tensor) -> bool:
     """Whether the kernel reads B or C ``[B,S,G,N]`` through its strides or
     the wrapper makes it contiguous first.  Unit stride along N and stride N
     between groups; batch and row strides may be anything (the model hands
-    over views of its projection), except that the bf16 body loads 16-byte
-    chunks: there the base and both strides must keep every row 16-byte
-    aligned."""
+    over views of its projection), except that the bf16 body reads them by
+    TMA: there the base and both strides must be 16-byte aligned."""
     if t.stride(3) != 1 or t.stride(2) != t.shape[3]:
         return False
     if t.dtype != torch.bfloat16:
@@ -349,14 +349,22 @@ def reads_in_place(t: torch.Tensor) -> bool:
 def scratch_shapes(b: int, s: int, h: int, g: int, p: int, n: int,
                    chunk: int) -> dict:
     """Shapes of the bf16 body's fp32 scratch buffers, with L = min(chunk,
-    S) rows a chunk: the chunk cumsums, C B^T by group (rows padded to whole
-    64-row tiles) and the per-chunk states (emit, then the state entering
-    each chunk)."""
+    S) rows a chunk: the chunk cumsums, rows of L rounded up to whole 64-row
+    tiles (the backward reads a head's as one bulk copy; both bodies keep
+    one layout), and the per-chunk states (emit, then the state entering
+    each chunk), by (b, head, chunk) as the backward's.  C B^T has none: the
+    chunk-output kernel forms it in shared memory."""
     ln = min(chunk, s)
     nc = -(-s // ln)
     lt = -(-ln // 64) * 64
-    return {"cum": (b, h, nc, ln), "cb": (b, nc, g, lt, lt),
-            "st": (b, nc, h, p, n)}
+    return {"cum": (b, h, nc, lt), "st": (b, h, nc, p, n)}
+
+
+def ssd_fwd_body(dtype: torch.dtype) -> str:
+    """The forward body a CUDA call runs, by type alone: ``"wgmma"`` (wgmma
+    and TMA, every fp32 operand split hi + lo) for bf16, ``"fma"`` for
+    fp32."""
+    return "fma" if dtype == torch.float32 else "wgmma"
 
 
 def _check(xbar, log_a, B, C, chunk, init_state) -> None:
@@ -399,7 +407,7 @@ def _launch_fwd(xbar, log_a, B, C, chunk, init_state):
     y = torch.empty_like(xbar, memory_format=torch.contiguous_format)
     state = torch.empty((b, h, p, n), dtype=torch.float32,
                         device=xbar.device)
-    scratch = [None] * 3
+    scratch = [None] * 2
     if xbar.dtype == torch.bfloat16:
         scratch = [torch.empty(shape, dtype=torch.float32, device=xbar.device)
                    for shape in scratch_shapes(b, s, h, g, p, n,
@@ -425,25 +433,28 @@ def _bwd_entry():
     fn = lib.repro_ssd_scan_bwd
     if not fn.argtypes:
         ci, vp = ctypes.c_int, ctypes.c_void_p
-        fn.argtypes = [vp] * 20 + [ci] * 9 + [vp]
+        fn.argtypes = [vp] * 19 + [ci] * 9 + [vp]
         fn.restype = ci
     return lib, fn
 
 
 def ssd_bwd_body(dtype: torch.dtype) -> str:
-    """The backward body a CUDA call runs, by type alone: ``"tc"`` (tensor
-    cores, every fp32 operand split hi + lo) for bf16, ``"fma"`` for
-    fp32."""
-    return "fma" if dtype == torch.float32 else "tc"
+    """The backward body a CUDA call runs, by type alone: ``"wgmma"``
+    (wgmma and TMA, every fp32 operand split hi + lo) for bf16, ``"fma"``
+    for fp32."""
+    return "fma" if dtype == torch.float32 else "wgmma"
 
 
 def tile_heads(b: int, nc: int, g: int, lt: int, rep: int, sms: int) -> int:
-    """Heads of a group that one block of the tensor-core backward's tile
-    kernel takes (a slice): as few as make about two blocks an SM of the
-    ``b * nc * g * lt / 64`` tiles and the slices, at least 1, at most the
-    group's ``rep`` heads."""
+    """Heads of a group that one block of the wgmma backward's tile kernel
+    takes (a slice): as few as make about four blocks an SM of the ``b * nc
+    * g * lt / 64`` tiles and the slices, at least 1, at most the group's
+    ``rep`` heads.  The kernel runs one block an SM (216 KB of shared memory
+    at N = 128), so four waves keep the last one's idle SMs few; each slice
+    more adds a dB and a dC ``[B,S,G,N]`` in fp32 and the Wd products once
+    more."""
     tiles = b * nc * g * (lt // 64)
-    slices = min(max(-(-2 * sms // tiles), 1), rep)
+    slices = min(max(-(-4 * sms // tiles), 1), rep)
     return -(-rep // slices)
 
 
@@ -464,8 +475,9 @@ def ssd_scan_bwd(xbar: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
     summed in fp32 in order (bf16: :func:`tile_heads`'s slices, before the
     cast; fp32: one head a slice, ``2 x [H/G,B,S,G,N]``, 67 MB each at
     mamba2-1.3b's gradient-parity cut, B 2 x S 1024), and for bf16 the
-    chunk cumsums and dcum ``[B,H,nc,L]``, C B^T ``[B,nc,G,LT,LT]`` and
-    dtotal ``[B,H,nc,1 + LT / 64]`` (about 59 MB more there).  Both bodies
+    chunk cumsums ``[B,H,nc,LT]`` (LT: the chunk's rows rounded up to whole
+    64-row tiles, so that a head's cumsum is one bulk copy), dcum in two
+    parts ``[2,B,H,nc,L]`` and dtotal ``[B,H,nc,1 + LT / 64]``.  Both bodies
     sum in a fixed order, so a call repeats bit for bit."""
     _check(xbar, log_a, B, C, chunk, init_state)
     b, s, h, p = xbar.shape
@@ -488,22 +500,22 @@ def ssd_scan_bwd(xbar: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
     dxbar = torch.empty_like(xbar)
     dla = torch.empty((b, s, h), **f32)
     hs = 1
-    if body == "tc":  # each slice of hs heads writes its own dB and dC
+    if body == "wgmma":  # each slice of hs heads writes its own dB and dC
         hs = tile_heads(b, nc, g, lt, h // g,
                         torch.cuda.get_device_properties(
                             dev).multi_processor_count)
     # the FMA body adds each query tile's dC into its head's slice
     db_acc = torch.empty((-(-(h // g) // hs), b, s, g, n), **f32)
-    dc_acc = (torch.empty_like if body == "tc" else torch.zeros_like)(db_acc)
+    dc_acc = (torch.empty_like if body == "wgmma" else
+              torch.zeros_like)(db_acc)
     db, dc = torch.empty_like(B), torch.empty_like(C)
     dinit = torch.empty((b, h, p, n), **f32) if init is not None else None
     s_in = torch.empty((b, h, nc, p, n), **f32)
     ds_out = torch.empty_like(s_in)
-    tc = [None] * 4
-    if body == "tc":  # cum, C B^T, dcum, dtotal
+    tc = [None] * 3
+    if body == "wgmma":  # cum, dcum's two parts, dtotal
         tc = [torch.empty(shape, **f32) for shape in (
-            (b, h, nc, ln), (b, nc, g, lt, lt), (b, h, nc, ln),
-            (b, h, nc, 1 + lt // 64))]
+            (b, h, nc, lt), (2, b, h, nc, ln), (b, h, nc, 1 + lt // 64))]
     ptr = lambda t: t.data_ptr() if t is not None else None
     lib, fn = _bwd_entry()
     with torch.cuda.device(dev):
@@ -565,9 +577,10 @@ def ssd_scan(xbar: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
     first.  Anything else raises.  Counts forward launches; the backward
     kernel counts its own (:func:`ssd_scan_bwd`).
 
-    bf16 runs the tensor-core body: four CUDA kernels in one launch count,
-    with fp32 scratch from ``torch.empty`` (:func:`scratch_shapes`: 155 MB at
-    mamba2-1.3b's prefill, ``[8, 2048]`` tokens).  fp32 runs the FMA body.
+    bf16 runs the wgmma body (:func:`ssd_fwd_body`): three CUDA kernels in
+    one launch count, with fp32 scratch from ``torch.empty``
+    (:func:`scratch_shapes`: 139 MB at mamba2-1.3b's prefill, ``[8, 2048]``
+    tokens).  fp32 runs the FMA body.
     """
     want = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad

@@ -26,8 +26,9 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_bwd_plain, flash_attention_bwd_tc_plain,
     flash_attention_plain, flash_bwd_body, flash_lse_plain, fma_dq_run)
 from repro_torch.kernels.ssd_scan import (TC_BWD_CHUNK, ssd_bwd_body,
-                                          ssd_scan_bwd_plain,
-                                          ssd_scan_bwd_split_plain)
+                                          ssd_fwd_body, ssd_scan_bwd_plain,
+                                          ssd_scan_bwd_split_plain,
+                                          tile_heads)
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import BWD_RTOL, compare_rel  # noqa: E402
@@ -159,11 +160,33 @@ def test_flash_bwd_body_refuses_other_head_dims(d):
         flash_bwd_body(BF16, d)
 
 
-@pytest.mark.parametrize("dtype,body", [(BF16, "tc"),
+@pytest.mark.parametrize("dtype,body", [(BF16, "wgmma"),
                                         (torch.float32, "fma")])
 def test_ssd_bwd_body(dtype, body):
     assert ssd_bwd_body(dtype) == body
     assert TC_BWD_CHUNK == 256
+
+
+@pytest.mark.parametrize("dtype,body", [(BF16, "wgmma"),
+                                        (torch.float32, "fma")])
+def test_ssd_fwd_body(dtype, body):
+    assert ssd_fwd_body(dtype) == body
+
+
+@pytest.mark.parametrize("b,nc,h,sms,hs", [
+    (8, 8, 64, 132, 22),    # mamba2's train step: 256 tiles, 3 slices
+    (8, 8, 80, 132, 27),    # zamba2's: 3 slices of 27, 27 and 26 heads
+    (1, 1, 2, 132, 1),      # few tiles: a slice a head
+    (64, 8, 64, 132, 64),   # tiles enough alone: one slice
+])
+def test_ssd_tile_heads(b, nc, h, sms, hs):
+    """The tile kernel's slices of a group's heads make about four blocks an
+    SM: it runs one block an SM."""
+    lt = 256
+    assert tile_heads(b, nc, 1, lt, h, sms) == hs
+    tiles, slices = b * nc * lt // 64, -(-h // hs)
+    assert slices == 1 or tiles * (slices - 1) < 4 * sms <= tiles * slices \
+        or hs == 1
 
 
 @pytest.mark.parametrize("d", [64, 80, 128, 160, 256])

@@ -348,19 +348,20 @@ def test_ssd_reads_b_and_c_in_place_where_rows_are_aligned(dtype, offset,
 
 
 def test_ssd_scratch_at_the_serve_shapes():
-    """The bf16 body's fp32 scratch: 155 MB at mamba2's prefill, 106 MB at
-    zamba2's; C B^T rows padded to whole 64-row tiles."""
+    """The bf16 body's fp32 scratch: 138 MB at mamba2's prefill, 89 MB at
+    zamba2's; no C B^T scratch (the chunk-output kernel forms it in shared
+    memory); the cumsums' rows padded to whole 64-row tiles, the states by
+    (b, head, chunk)."""
     def mb(shapes):
         return sum(4 * np.prod(v) for v in shapes.values()) / 1e6
     m = scratch_shapes(8, 2048, 64, 1, 64, 128, 256)
-    assert m == {"cum": (8, 64, 8, 256), "cb": (8, 8, 1, 256, 256),
-                 "st": (8, 8, 64, 64, 128)}
-    assert round(mb(m)) == 155
-    assert round(mb(scratch_shapes(8, 2048, 80, 1, 64, 64, 256))) == 106
-    assert scratch_shapes(2, 600, 4, 1, 64, 128, 256)["cb"] == \
-        (2, 3, 1, 256, 256)
+    assert m == {"cum": (8, 64, 8, 256), "st": (8, 64, 8, 64, 128)}
+    assert round(mb(m)) == 138
+    assert round(mb(scratch_shapes(8, 2048, 80, 1, 64, 64, 256))) == 89
+    assert scratch_shapes(2, 600, 4, 1, 64, 128, 256) == {
+        "cum": (2, 4, 3, 256), "st": (2, 4, 3, 64, 128)}
     assert scratch_shapes(1, 7, 2, 1, 16, 16, 256) == {
-        "cum": (1, 2, 1, 7), "cb": (1, 1, 1, 64, 64), "st": (1, 1, 2, 16, 16)}
+        "cum": (1, 2, 1, 64), "st": (1, 2, 1, 16, 16)}
 
 
 # ------------------------------------------------------------- ssd scan

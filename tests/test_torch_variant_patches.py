@@ -29,6 +29,7 @@ def _cases():
         ("flash_attention", flash.variant_source, flash.VARIANTS),
         ("flash_attention_bwd", flash.bwd_variant_source, flash.BWD_VARIANTS),
         ("ssd_scan_bwd", ssd.variant_source, ssd.VARIANTS),
+        ("ssd_scan", ssd.fwd_variant_source, ssd.FWD_VARIANTS),
         ("matmul_epilogue", mm.variant_source,
          mm.VARIANTS + mm.SMALL_M_VARIANTS[1:] + ("sm_l2_256",)),
         ("tsmm", tsmm.variant_source, tsmm.VARIANTS),
@@ -48,3 +49,5 @@ def test_unknown_variant_raises():
     ssd = _tool("ssd_bwd_variants")
     with pytest.raises(ValueError):
         ssd.variant_source("", "no_such_variant")
+    with pytest.raises(ValueError):
+        ssd.fwd_variant_source("", "no_such_variant")
