@@ -8,7 +8,8 @@ Phases, each printing one JSON line: ``device`` (name and power limit),
 ``build`` (compiles ``src/repro_torch/kernels/csrc/*.cu`` with nvcc),
 ``kernels`` (every hand-written kernel, the two backward kernels included,
 against its plain PyTorch version on the card, faulty controls of the
-epilogue kernel and of tsmm that the same check must catch, and the SSD
+epilogue kernel, of tsmm and of the flash backward's dS^T hand-over at
+D = 128 that the same check must catch, and the SSD
 scan's rounding plans, forward and backward, against one bf16 rounding of
 their state paths; every backward call again, bit for bit), with
 ``--ptxas`` a ``ptxas`` line (registers, shared memory and spills of every
@@ -632,12 +633,41 @@ def in_runs_of_one_tile(fn):
         flash_mod.FMA_DQ_SCRATCH_BYTES = bytes_
 
 
+def unexchanged_dq_fault(q, k, v, o, lse, do, *, causal=True, window=None,
+                         scale=None):
+    """The D = 128 bf16 body's dQ with the hand-over of dS^T between its
+    two warpgroups left out: each warpgroup's 64 columns of dQ summed over
+    the keys of its own 64-key half of every 128-key block only (the other
+    half's dS^T never read), fp32.  A control: ``BWD_RTOL`` must catch
+    it."""
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    s, mask, scale = flash_mod._scores(q, k, causal, window, scale)
+
+    def f32(t):
+        return t.to(torch.float32).reshape(b, hkv, g, sq, -1)
+
+    p = torch.where(mask, torch.exp(s - f32(lse)), 0.0)
+    dog = f32(do)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, v.to(torch.float32))
+    ds = p * (dp - (dog * f32(o)).sum(dim=-1, keepdim=True))
+    half = torch.arange(k.shape[2], device=q.device) // 64 % 2
+    cols = torch.arange(d, device=q.device) // 64
+    dq = sum(torch.einsum("bhgqk,bhkd->bhgqd", ds * (half == w),
+                          k.to(torch.float32) * (cols == w))
+             for w in (0, 1)) * scale
+    return dq.reshape(b, hq, sq, d)
+
+
 def check_flash_bwd(gen) -> list:
     """The forward's log-sum-exp against :func:`flash_lse_plain`, and the
     backward kernel against :func:`flash_attention_bwd_plain` on the same
     q, k, v, o, lse and dO (o and lse from the forward kernel); a call again
     must repeat bit for bit, in fp32 also when the body takes its key tiles
-    in runs of one (:func:`in_runs_of_one_tile`)."""
+    in runs of one (:func:`in_runs_of_one_tile`).  At D = 128 the control
+    :func:`unexchanged_dq_fault` on the same values must fail dQ's
+    tolerance."""
     cases = []
 
     def run(tag, q, k, v, causal, window, dtype):
@@ -666,6 +696,19 @@ def check_flash_bwd(gen) -> list:
                 got, lambda: in_runs_of_one_tile(again), dtype)
         res["max_abs_err"] = max(res[n]["max_abs_err"]
                                  for n in ("dq", "dk", "dv"))
+        if q.shape[-1] == 128 and dtype == torch.bfloat16 \
+                and k.shape[2] > 64:
+            fault = by_batch(unexchanged_dq_fault, q, k, v, o, lse, do,
+                             causal=causal, window=window)
+            try:
+                compare_rel(fault, ref[0].float(), BWD_RTOL[dtype])
+            except AssertionError as e:
+                res["unexchanged_dq_control"] = {"caught": True,
+                                                 "why": str(e)[:160]}
+            else:
+                raise AssertionError(f"{tag}: the unexchanged dQ control "
+                                     f"passed dQ's tolerance")
+            del fault
         cases.append(res)
         del o, lse, do, got, ref
 
@@ -691,6 +734,21 @@ def check_flash_bwd(gen) -> list:
         q, _, _ = flash_inputs(1, 4, 2, 200, 256, dtype, gen)
         _, k, v = flash_inputs(1, 4, 2, 70, 256, dtype, gen)
         run("Sq > Skv, causal, window, D = 256", q, k, v, True, 32, dtype)
+        # the split-D heads: ragged S (no multiple of 128), Sq != Skv both
+        # ways, GQA 8
+        for d in (128, 160):
+            run(f"D = {d}, ragged S, window, strided views",
+                *flash_inputs(1, 4, 4, 333, d, dtype, gen, True), True, 100,
+                dtype)
+            q, _, _ = flash_inputs(2, 4, 2, 100, d, dtype, gen)
+            _, k, v = flash_inputs(2, 4, 2, 300, d, dtype, gen)
+            run(f"Sq < Skv, causal, D = {d}", q, k, v, True, None, dtype)
+            q, _, _ = flash_inputs(1, 4, 2, 330, d, dtype, gen)
+            _, k, v = flash_inputs(1, 4, 2, 200, d, dtype, gen)
+            run(f"Sq > Skv, causal, window, D = {d}", q, k, v, True, 48,
+                dtype)
+            run(f"GQA 8, D = {d}", *flash_inputs(2, 8, 1, 200, d, dtype, gen),
+                True, None, dtype)
         for b, hq, hkv, s, d, causal, window in FLASH_CASES:
             if d in BACKWARD_HEAD_DIMS:
                 run("reference case", *flash_inputs(b, hq, hkv, s, d, dtype,

@@ -21,12 +21,15 @@
 // rowsum(dO o O) in fp32, O and dO read through their strides) and sum dQ
 // over the key tiles in fp32 in device memory, in a fixed order, the last
 // key tile first: a call repeats bit for bit.
-//   * bf16: wgmma + TMA, warp-specialised, in three layouts
-//     (`flash_bwd_wgmma` for D = 64 and 80, `flash_bwd_wide` for 128 and
-//     160, and `flash_bwd_wide` with `shared_consume` for 256); see their
-//     section below.  P and dS are rounded once to bf16 for the products
-//     that take them, as the forward rounds P; dQ is reduce-added into one
-//     buffer, the key tiles taking turns, and cast once at the end.
+//   * bf16: wgmma + TMA, warp-specialised, in three layouts, each forming
+//     S^T and dP^T once for every (key, query) pair, 5 products a tile:
+//     `flash_bwd_wgmma` for D = 64 and 80, `flash_bwd_wide` with
+//     `halves_consume` for 128 (128 keys a block, one warpgroup a 64-key
+//     half) and with `shared_consume` for 160 and 256 (64 keys a block, the
+//     scores split by query columns and handed over through shared memory);
+//     see their section below.  P and dS are rounded once to bf16 for the
+//     products that take them, as the forward rounds P; dQ is reduce-added
+//     into one buffer, the key tiles taking turns, and cast once at the end.
 //   * fp32: FMA from shared memory, every product in full fp32; each key
 //     tile writes its own dQ partials and `sum_dq_tiles` adds them in order,
 //     a run of key tiles at a time; see its section below.
@@ -363,12 +366,12 @@ __global__ void sum_dq_tiles(const Params p, float* dq, long long n, int kt1,
 // bf16 bodies: wgmma + TMA, warp-specialised
 // ---------------------------------------------------------------------------
 //
-// Two bodies share the plan below: `flash_bwd_wgmma` for D = 64 and 80 and
-// `flash_bwd_wide` for D = 128, 160 and 256.  One block of 384 threads per (b, kv
-// head, tile of keys), the blocks of a head next to each other, so that the
-// dQ and the Q and dO tiles that the blocks in flight share stay in L2.
-// Warpgroups 0 and 1 consume; warpgroup 2 produces: one thread brings K and
-// V of the tile in once by TMA, then streams the Q and dO tiles (64 rows
+// Two kernels share the plan below: `flash_bwd_wgmma` for D = 64 and 80 and
+// `flash_bwd_wide` for D = 128, 160 and 256.  One block of 384 threads per
+// (b, kv head, tile of keys), the blocks of a head next to each other, so
+// that the dQ and the Q and dO tiles that the blocks in flight share stay in
+// L2.  Warpgroups 0 and 1 consume; warpgroup 2 produces: one thread brings K
+// and V of the tile in once by TMA, then streams the Q and dO tiles (64 rows
 // each) of every query head of the group and every query tile of the band
 // through a ring of stages, with an mbarrier for "full" and one for "empty"
 // per stage.  Tiles outside the band are never loaded.  The scores are
@@ -379,13 +382,16 @@ __global__ void sum_dq_tiles(const Params p, float* dq, long long n, int kt1,
 //   P^T  = exp(S^T scale - lse), dS^T = P^T o (dP^T - delta)   in fp32
 //                                          registers; the mask only on tiles
 //                                          that the band, Skv or Sq cut
-//   dV  += P^T dO,  dK += dS^T Q           wgmma, A = P^T / dS^T from registers
-//                                          (rounded once to bf16), B = dO / Q
-//                                          in shared memory, MN-major
+//   dV  += P^T dO,  dK += dS^T Q           wgmma, A = P^T / dS^T (rounded
+//                                          once to bf16) from registers or
+//                                          shared memory, B = dO / Q in shared
+//                                          memory, MN-major
 //   dQ   = dS K                            wgmma, A = dS^T written to shared
 //                                          memory in bf16 with the 128-byte
 //                                          swizzle and read MN-major, B = K
-// Every operand is split along D as the forward splits it (`ColSplit`).
+// Every operand is split along D as the forward splits it (`ColSplit`).  Each
+// body forms S^T and dP^T once for every (key, query) pair: 5 products of
+// D x 64 x 64 for every 64 keys and 64 queries.
 //
 // dQ is summed over the key tiles in a fixed order, so that a step repeats
 // bit for bit: each 64-row dQ tile is added into an fp32 buffer in device
@@ -414,42 +420,57 @@ __global__ void sum_dq_tiles(const Params p, float* dq, long long n, int kt1,
 // tiles are double-buffered, so that the next tile's writes never meet a dQ
 // product still reading.
 //
-// D = 128 and 160 (`flash_bwd_wide`): dK and dV of 128 keys would take 128
-// or 160 registers a thread beside S^T and dP^T (64), past what a thread has.
-// So a block takes 64 keys, and the consumer warpgroups split D instead:
-// both compute S^T, dP^T, P^T and dS^T of all 64 keys (the two score
-// products twice, 7 products of D x 64 x 64 a tile instead of 5), and
-// warpgroup 0 then owns columns 0-63 of dK, dV and dQ, warpgroup 1 the rest
-// (64-127, and 128-159 at D = 160): 64 or 96 columns, 64 or 96 registers of
-// dK and dV.  Each stages its own columns of dQ, for a writer and with a
-// counter of its own.
+// D = 128 (`flash_bwd_wide` with `halves_consume`): 128 keys a block, 64
+// per consumer warpgroup, as at 64 and 80.  But dK and dV of a warpgroup's
+// 64 keys over all 128 columns take 128 registers a thread and S^T and dP^T
+// 64 more, so a warpgroup cannot also form its keys' dQ over all 128
+// columns (64) as the D = 64 body does.  The warpgroups split dQ's columns
+// instead: warpgroup W forms S^T and dP^T of its own 64 keys (m64n64), P^T
+// and dS^T in registers, dV and dK of its keys over all 128 columns (A from
+// registers), and writes its dS^T in bf16 with the 128-byte swizzle into
+// the tile's buffer; after a barrier over both warpgroups it forms its own
+// 64 columns of dQ = dS K over all 128 keys (A MN-major from shared memory,
+// B = K), 32 registers once S^T and dP^T are spent, and stages them for a
+// writer and a counter of its own.  lse and delta of a tile come from
+// shared memory: a warp of the producer (`stats_produce`) brings them in
+// with the stage, the stage's second arrival, so that no thread holds them
+// in registers.  Against 64 keys a block, every Q / dO tile of the band
+// streams through the ring, and every dQ tile is reduce-added, half as
+// often.  dS^T is double-buffered by the tile's parity, so the barrier of
+// each tile also guards the buffer of the one before.  Shared memory: 1 KB
+// of alignment, K and V 64 KB, three stages of Q and dO 96 KB and of their
+// lse and delta 1.5 KB, the two warpgroups' dS^T in two buffers 32 KB, the
+// dQ staging 32 KB, the barriers: 232,024 bytes of 232,448.
 //
-// D = 256 (`flash_bwd_wide` with `shared_consume`): with the layout of 128
-// and 160 a thread would hold 128 columns of dK and dV (128 registers), S^T
-// and dP^T of all 64 keys (64) and 128 columns of dQ (64): 256 before any
-// address, past the 240 a consumer has.  Of the three ways out (dQ in two
-// 64-column halves one after the other; S^T and dP^T once across the two
-// warpgroups, handed over through shared memory; dQ in a pass of its own),
-// this body takes the second: it saves registers and products alike.  Each
-// warpgroup computes S^T and dP^T of the 64 keys against its own 32 query
-// columns of the tile (m64n32, 16 + 16 registers), forms its half of P^T and
-// dS^T and writes both in bf16 into shared memory with the 128-byte swizzle;
-// after a barrier over both warpgroups each reads all of P^T and dS^T as A
-// from shared memory: dV += P^T dO and dK += dS^T Q (A K-major) and dQ = dS
-// K (A MN-major) for its 128 columns (two 64-column parts).  5 products of D
-// x 64 x 64 a tile, not 7.  Registers a consumer thread: dK and dV 128, dQ
-// 64 (formed after S^T and dP^T are spent), S^T, dP^T, lse and delta 48
-// while the scores are formed.  P^T and dS^T are double-buffered by the
-// tile's parity, so the barrier of each tile also guards the buffers of the
-// one before.  Shared memory: 1 KB of alignment, K and V 64 KB, one stage
-// of Q and dO 64 KB, P^T and dS^T twice 32 KB, the dQ staging 64 KB, the
-// barriers: 230,456 bytes of 232,448, so Q and dO have one stage: the next
-// tile's load waits for this one's products.  dQ is summed over the key
-// tiles in the same fixed order, a writer and a counter a warpgroup.
+// D = 160 and 256 (`flash_bwd_wide` with `shared_consume`): 64 keys a
+// block.  dK and dV of 128 keys would take 160 or 256 registers a thread,
+// so a warpgroup cannot hold its own keys' gradients over all of D, and the
+// warpgroups split D for the gradients instead; to form each score once,
+// they split the tile's query columns for the scores.  Each warpgroup
+// computes S^T and dP^T of the 64 keys against its own 32 query columns of
+// the tile (m64n32, 16 + 16 registers), forms its half of P^T and dS^T and
+// writes both in bf16 into shared memory with the 128-byte swizzle; after a
+// barrier over both warpgroups each reads all of P^T and dS^T as A from
+// shared memory: dV += P^T dO and dK += dS^T Q (A K-major) and dQ = dS K (A
+// MN-major) for its own columns, NF / 2 64-column parts from part W NF / 2,
+// and at D = 160 warpgroup 1 the narrow part too: columns 0-63 and 64-159
+// at 160 (dK and dV 64 or 96 registers), 0-127 and 128-255 at 256 (128).
+// dQ is formed after S^T and dP^T are spent (32, 48 or 64 registers).  P^T
+// and dS^T are double-buffered by the tile's parity.  Shared memory at 160:
+// K and V 40 KB, two stages of Q and dO 80 KB, P^T and dS^T twice 32 KB,
+// the dQ staging 40 KB: 197,720 bytes; at 256: K and V 64 KB, one stage of
+// Q and dO 64 KB, the rest as at 160 with 64 KB of staging: 230,456 bytes,
+// so at 256 the next tile's load waits for this one's products.  dQ is
+// summed over the key tiles in the same fixed order, a writer and a counter
+// a warpgroup.
 //
 // Each tile's accumulators S^T, dP^T and dQ are fresh arrays and no branch
 // reads an accumulator between a commit and its wait: otherwise ptxas
-// serializes every wgmma (C7514).
+// serializes every wgmma (C7514).  At D = 128, S^T and dP^T of the next tile
+// issued before this tile's dQ is staged put a wgmma under a branch (C7518)
+// or, peeled out of the loop, spilled (C7520 too); dQ formed a tile behind,
+// the warpgroups half a tile apart, gained nothing on an H100: the body
+// keeps its tiles in series.
 
 constexpr int BW_BQ = 64;   // query rows a tile
 constexpr int BW_THREADS = 384;
@@ -461,13 +482,15 @@ struct BwdMaps {  // [0]: the 64-column parts; [1]: the narrow part
 // keys a block, stages of the Q / dO ring and shared memory of each body
 template <int D>
 struct BwdPlan {
-  static constexpr bool WIDE = D > 80;
-  static constexpr int BK = WIDE ? 64 : 128;
+  static constexpr bool WIDE = D > 80;        // flash_bwd_wide
+  static constexpr bool HALVES = D == 128;    // halves_consume
+  static constexpr int BK = D <= 128 ? 128 : 64;
   static constexpr int STAGES = D <= 80 ? 4 : D <= 128 ? 3 : D <= 160 ? 2 : 1;
   static constexpr int KT = BK * D * 2, QT = BW_BQ * D * 2;  // tile bytes
   static constexpr int DS = 64 * BW_BQ * 2;  // one dS^T tile
+  static constexpr int ST = HALVES ? 2 * BW_BQ * 4 : 0;  // lse, delta a stage
   static constexpr int SMEM = 1024 + 2 * KT + 2 * STAGES * QT + 4 * DS +
-                              (WIDE ? 1 : 2) * BW_BQ * D * 4 +
+                              (WIDE ? 1 : 2) * BW_BQ * D * 4 + STAGES * ST +
                               8 * (1 + 2 * STAGES + 4);
   static_assert(SMEM <= 232448, "shared memory of one block");
 };
@@ -596,6 +619,38 @@ __device__ __forceinline__ void bwd_produce(const BwdMaps& maps,
   }
 }
 
+// The stats warp of the D = 128 body: lse (base 2) and delta of every tile's
+// 64 query rows (0 past Sq) into the stage's `stats` beside its Q and dO,
+// the second of the two arrivals that fill the stage.
+template <int D>
+__device__ __forceinline__ void stats_produce(const Params& p, float* stats,
+                                              uint32_t bars_full,
+                                              uint32_t bars_empty, int kvh,
+                                              int b, int qt_lo, int n_qt,
+                                              int n_tiles, int lane) {
+  using PL = BwdPlan<D>;
+  constexpr float LOG2E = 1.4426950408889634f;
+  const int group = p.Hq / p.Hkv;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % PL::STAGES;
+    const int h = kvh * group + it / n_qt;
+    const int q_lo = (qt_lo + it % n_qt) * BW_BQ;
+    const long long row = ((long long)b * p.Hq + h) * p.Sq + q_lo;
+    if (it >= PL::STAGES)
+      mbar_wait(bars_empty + 8 * s, (it / PL::STAGES - 1) & 1);
+    float* st = stats + s * 2 * BW_BQ;
+#pragma unroll
+    for (int i = 0; i < BW_BQ / 32; ++i) {
+      const int r = lane + 32 * i;
+      const bool in = q_lo + r < p.Sq;
+      st[r] = in ? __ldg(p.lse + row + r) * LOG2E : 0.f;
+      st[BW_BQ + r] = in ? __ldg(p.delta + row + r) : 0.f;
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars_full + 8 * s);
+  }
+}
+
 // lse (base 2) and delta of this thread's query columns of a tile, in the
 // column order of an accumulator of NJ n-blocks (8 NJ columns from q_lo);
 // columns past Sq read 0 and are masked.
@@ -614,15 +669,15 @@ __device__ __forceinline__ void load_rows_stats(const Params& p,
 }
 
 // P^T and dS^T in place of S^T and dP^T for keys key0 (+ 8) of this thread
-// and the 8 NJ query columns from q_lo.
-template <int NJ>
+// and the 8 NJ query columns from q_lo; stats(c) gives lse (base 2) and
+// delta of the thread's query column c (0 <= c < 2 NJ, in the order of
+// `load_rows_stats`).
+template <int NJ, typename Stats>
 __device__ __forceinline__ void scores_to_grads(const Params& p,
                                                 float (&st)[NJ][4],
                                                 float (&dp)[NJ][4],
-                                                const float (&l2)[2 * NJ],
-                                                const float (&dl)[2 * NJ],
-                                                bool need_mask, int key0,
-                                                int q_lo, int t2,
+                                                Stats stats, bool need_mask,
+                                                int key0, int q_lo, int t2,
                                                 float scale2) {
   if (need_mask) {
 #pragma unroll
@@ -634,23 +689,33 @@ __device__ __forceinline__ void scores_to_grads(const Params& p,
         bool ok = q < p.Sq && key < p.Skv;
         if (p.causal) ok = ok && key <= q;
         if (p.window > 0) ok = ok && key > q - p.window;
-        const int c = 2 * j + (e & 1);
-        const float pv = ok ? ex2(fmaf(st[j][e], scale2, -l2[c])) : 0.f;
+        const float2 ld = stats(2 * j + (e & 1));
+        const float pv = ok ? ex2(fmaf(st[j][e], scale2, -ld.x)) : 0.f;
         st[j][e] = pv;
-        dp[j][e] = pv * (dp[j][e] - dl[c]);
+        dp[j][e] = pv * (dp[j][e] - ld.y);
       }
   } else {
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int c = 2 * j + (e & 1);
-        const float pv = ex2(fmaf(st[j][e], scale2, -l2[c]));
+        const float2 ld = stats(2 * j + (e & 1));
+        const float pv = ex2(fmaf(st[j][e], scale2, -ld.x));
         st[j][e] = pv;
-        dp[j][e] = pv * (dp[j][e] - dl[c]);
+        dp[j][e] = pv * (dp[j][e] - ld.y);
       }
   }
 }
+
+// stats() of `scores_to_grads` from the arrays of `load_rows_stats`
+template <int NJ>
+struct RegStats {
+  const float (&l2)[2 * NJ];
+  const float (&dl)[2 * NJ];
+  __device__ __forceinline__ float2 operator()(int c) const {
+    return make_float2(l2[c], dl[c]);
+  }
+};
 
 // P^T and dS^T in wgmma's register A layout (key step kk: query columns
 // 16kk .. 16kk + 15), and dS^T in bf16 into the buffer `sds`: row r (key) at
@@ -873,8 +938,8 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
     if (p.causal) need_mask = need_mask || (kw_lo + 63 > q_lo);
     if (p.window > 0)
       need_mask = need_mask || (kw_lo <= q_lo + BW_BQ - 1 - p.window);
-    scores_to_grads<8>(p, st, dp, l2, dl, need_mask, key0, q_lo, t2,
-                       scale2);
+    scores_to_grads<8>(p, st, dp, RegStats<8>{l2, dl}, need_mask, key0,
+                       q_lo, t2, scale2);
     uint32_t pf[4][4], df[4][4];
     const uint32_t sds = sDS + (wg * 2 + (it & 1)) * DS;
     pack_grads(st, dp, pf, df, sds, warp, g8, lane);
@@ -974,116 +1039,105 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
   if constexpr (SPLIT) store_dkv<DB / 8>(p, dkb, dvb, dkp, dvp, D, key0, 64, t2);
 }
 
-// Consumer warpgroup W of `flash_bwd_wide`: all 64 keys' scores, then its
-// own columns of dK, dV and dQ: W = 0 part 0 (columns 0-63), W = 1 part 1
-// (64-127) and the narrow part (128-159) if there is one.
-template <int D, int W>
-__device__ __forceinline__ void wide_consume(const Params& p,
-                                             unsigned char* smem_raw,
-                                             uint32_t smem_base, uint32_t sK,
-                                             uint32_t sV, uint32_t sQ,
-                                             uint32_t sO, uint32_t sDS,
-                                             uint32_t sDQ, uint32_t bars_full,
-                                             uint32_t bars_empty,
-                                             uint32_t dq_full,
-                                             uint32_t dq_empty, int kt,
-                                             int kvh, int b,
-                                             const Band& band, int n_qt,
-                                             int n_tiles) {
-  using CS = ColSplit<D>;
+// Consumer warpgroup W of `flash_bwd_wide` at D = 128: keys 64 W .. 64 W +
+// 63 of the block's 128.  S^T and dP^T of its keys, P^T and dS^T in
+// registers, dV and dK of its keys over all 128 columns, its dS^T into the
+// tile's shared buffer; then, with both halves in, its 64 columns of dQ over
+// all 128 keys.
+template <int W>
+__device__ __forceinline__ void halves_consume(const Params& p,
+                                               unsigned char* smem_raw,
+                                               uint32_t smem_base,
+                                               uint32_t sK, uint32_t sV,
+                                               uint32_t sQ, uint32_t sO,
+                                               uint32_t sDS, uint32_t sDQ,
+                                               uint32_t sST,
+                                               uint32_t bars_full,
+                                               uint32_t bars_empty,
+                                               uint32_t dq_full,
+                                               uint32_t dq_empty, int kt,
+                                               int kvh, int b,
+                                               const Band& band, int n_qt,
+                                               int n_tiles) {
+  constexpr int D = 128;
   using PL = BwdPlan<D>;
-  constexpr bool NARROW = W == 1 && CS::DB > 0;
-  constexpr int NB = NARROW ? CS::DB / 8 : 1;  // narrow n-blocks
-  constexpr int STAGES = PL::STAGES, QT = PL::QT, DS = PL::DS;
+  constexpr int STAGES = PL::STAGES, QT = PL::QT, DS = PL::DS, BK = PL::BK;
   constexpr float LOG2E = 1.4426950408889634f;
-  const int group = p.Hq / p.Hkv;
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g8 = lane >> 2, t2 = (lane & 3) * 2;
   const float scale2 = p.scale * LOG2E;  // P in base 2
-  const int k_lo = kt * PL::BK;
-  const int key0 = k_lo + warp * 16 + g8;  // this thread's rows: key0, +8
-  const uint32_t kf = sK + W * PL::BK * 128;  // K of this part
-  const uint32_t kn = sK + CS::narrow_at(PL::BK);
+  const int kw_lo = kt * BK + 64 * W;    // this warpgroup's keys
+  const int key0 = kw_lo + warp * 16 + g8;  // this thread's rows: key0, +8
 
-  float dk[8][4], dv[8][4], dkn[NB][4], dvn[NB][4];
+  float dk[2][8][4], dv[2][8][4];  // columns 0-63, 64-127
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int f = 0; f < 2; ++f)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-  for (int j = 0; j < NB; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dkn[j][e] = dvn[j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) dk[f][j][e] = dv[f][j][e] = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
     const int s = it % STAGES;
-    const int h = kvh * group + it / n_qt;
-    const int qt = band.qt_lo + it % n_qt;
-    const int q_lo = qt * BW_BQ;
-    const long long row_base = ((long long)b * p.Hq + h) * p.Sq;
-    float l2[16], dl[16];
-    load_rows_stats<8>(p, row_base, q_lo, t2, l2, dl);
+    const int q_lo = (band.qt_lo + it % n_qt) * BW_BQ;
     const uint32_t sq = sQ + s * QT, so = sO + s * QT;
-    const uint32_t sqf = sq + W * BW_BQ * 128, sof = so + W * BW_BQ * 128;
-    const uint32_t sqn = sq + CS::narrow_at(BW_BQ);
-    const uint32_t son = so + CS::narrow_at(BW_BQ);
+    const uint32_t sds = sDS + (it & 1) * 2 * DS;  // [warpgroup] dS^T
+    const float* stat = reinterpret_cast<const float*>(
+        smem_raw + (sST + s * PL::ST - smem_base));
     mbar_wait(bars_full + 8 * s, (it / STAGES) & 1);
 
     float st[8][4], dp[8][4];
-    score_products<D>(st, dp, sK, sV, sq, so, PL::BK, 0);
+    score_products<D>(st, dp, sK, sV, sq, so, BK, 64 * W);
 
-    bool need_mask = k_lo + 64 > p.Skv || q_lo + BW_BQ > p.Sq;
-    if (p.causal) need_mask = need_mask || (k_lo + 63 > q_lo);
+    bool need_mask = kw_lo + 64 > p.Skv || q_lo + BW_BQ > p.Sq;
+    if (p.causal) need_mask = need_mask || (kw_lo + 63 > q_lo);
     if (p.window > 0)
-      need_mask = need_mask || (k_lo <= q_lo + BW_BQ - 1 - p.window);
-    scores_to_grads<8>(p, st, dp, l2, dl, need_mask, key0, q_lo, t2,
-                       scale2);
+      need_mask = need_mask || (kw_lo <= q_lo + BW_BQ - 1 - p.window);
+    // lse and delta read from the stage as they are needed
+    const auto stats = [&](int c) {
+      const int col = (c >> 1) * 8 + t2 + (c & 1);
+      return make_float2(stat[col], stat[BW_BQ + col]);
+    };
+    scores_to_grads<8>(p, st, dp, stats, need_mask, key0, q_lo, t2, scale2);
     uint32_t pf[4][4], df[4][4];
-    const uint32_t sds = sDS + (W * 2 + (it & 1)) * DS;
-    pack_grads(st, dp, pf, df, sds, warp, g8, lane);
-    wg_sync(1 + W);
+    pack_grads(st, dp, pf, df, sds + W * DS, warp, g8, lane);
 
-    // dV += P^T dO, dK += dS^T Q, dQ = dS K, this warpgroup's columns
-    float dq[8][4], dqn[NB][4];
+    // dV += P^T dO, dK += dS^T Q, all 128 columns
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      wgmma_rs_n64(dv, pf[kk], wg_desc(sof + kk * 2048, 16, 1024, SW128));
-      wgmma_rs_n64(dk, df[kk], wg_desc(sqf + kk * 2048, 16, 1024, SW128));
-      if constexpr (NARROW) {
-        wgmma_rs_narrow<CS::DB>(dvn, pf[kk],
-                                wg_desc(son + kk * 16 * CS::RB, 16, CS::SBO,
-                                        CS::LAYOUT));
-        wgmma_rs_narrow<CS::DB>(dkn, df[kk],
-                                wg_desc(sqn + kk * 16 * CS::RB, 16, CS::SBO,
-                                        CS::LAYOUT));
-      }
-    }
+    for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+      for (int f = 0; f < 2; ++f) {
+        const int part = f * BW_BQ * 128 + kk * 2048;
+        wgmma_rs_n64(dv[f], pf[kk], wg_desc(so + part, 16, 1024, SW128));
+        wgmma_rs_n64(dk[f], df[kk], wg_desc(sq + part, 16, 1024, SW128));
+      }
+    wgmma_commit();
+    // both halves of dS^T are in: dQ = dS K, this warpgroup's columns over
+    // the block's 128 keys (A MN-major: dS^T rows are keys)
+    pair_sync(3 + (it & 1));
+    float dq[8][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
       wgmma_ss_n64<1, 1>(dq, wg_desc(sds + kk * 2048, 16, 1024, SW128),
-                         wg_desc(kf + kk * 2048, 16, 1024, SW128), kk);
-      if constexpr (NARROW)
-        wgmma_ss_narrow<CS::DB, 1, 1>(
-            dqn, wg_desc(sds + kk * 2048, 16, 1024, SW128),
-            wg_desc(kn + kk * 16 * CS::RB, 16, CS::SBO, CS::LAYOUT), kk);
-    }
+                         wg_desc(sK + W * BK * 128 + kk * 2048, 16, 1024,
+                                 SW128),
+                         kk);
     wgmma_commit();
     wgmma_wait<0>();
-    fence_acc(dv);
-    fence_acc(dk);
-    fence_acc(dq);
-    if constexpr (NARROW) {
-      fence_acc(dvn);
-      fence_acc(dkn);
-      fence_acc(dqn);
+#pragma unroll
+    for (int f = 0; f < 2; ++f) {
+      fence_acc(dv[f]);
+      fence_acc(dk[f]);
     }
+    fence_acc(dq);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         asm volatile("" : "+r"(pf[kk][e]), "+r"(df[kk][e]));
-    if (lane == 0) mbar_arrive(bars_empty + 8 * s);  // Q and dO are read
+    if (lane == 0) mbar_arrive(bars_empty + 8 * s);  // Q, dO, stats read
 
     // this warpgroup's columns of dQ (scaled) into its buffer in register
     // order, once the writer has read the previous tile's; the writer adds
@@ -1096,13 +1150,6 @@ __device__ __forceinline__ void wide_consume(const Params& p,
     for (int j = 0; j < 8; ++j)
       xq[j * 128] = make_float4(dq[j][0] * p.scale, dq[j][1] * p.scale,
                                 dq[j][2] * p.scale, dq[j][3] * p.scale);
-    if constexpr (NARROW) {
-#pragma unroll
-      for (int j = 0; j < NB; ++j)
-        xq[(8 + j) * 128] =
-            make_float4(dqn[j][0] * p.scale, dqn[j][1] * p.scale,
-                        dqn[j][2] * p.scale, dqn[j][3] * p.scale);
-    }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     wg_sync(1 + W);
     if ((threadIdx.x & 127) == 0) mbar_arrive(dq_full);
@@ -1112,16 +1159,19 @@ __device__ __forceinline__ void wide_consume(const Params& p,
                        ((long long)b * p.Hkv + kvh) * p.Skv * D;
   __nv_bfloat16* dvp = static_cast<__nv_bfloat16*>(p.dv) +
                        ((long long)b * p.Hkv + kvh) * p.Skv * D;
-  store_dkv<8>(p, dk, dv, dkp, dvp, D, key0, 64 * W, t2);
-  if constexpr (NARROW)
-    store_dkv<NB>(p, dkn, dvn, dkp, dvp, D, key0, 64 * CS::NF, t2);
+#pragma unroll
+  for (int f = 0; f < 2; ++f)
+    store_dkv<8>(p, dk[f], dv[f], dkp, dvp, D, key0, 64 * f, t2);
 }
 
-// Consumer warpgroup W of `flash_bwd_wide` at D = 256: S^T and dP^T of the
-// 64 keys against its 32 query columns, its half of P^T and dS^T into the
-// shared buffers, then, with both halves in, its 128 columns (parts 2 W and
-// 2 W + 1) of dK, dV and dQ, A read from shared memory.
-template <int W>
+// Consumer warpgroup W of `flash_bwd_wide` at D = 160 and 256, 64 keys a
+// block: S^T and dP^T of the 64 keys against its 32 query columns, its half
+// of P^T and dS^T into the shared buffers, then, with both halves in, its
+// own columns of dK, dV and dQ, A read from shared memory: NP = NF / 2
+// 64-column parts from part W NP (columns 0-63 and 64-127 at D = 160,
+// 0-127 and 128-255 at 256), and warpgroup 1 the narrow part too (columns
+// 128-159 at D = 160).
+template <int D, int W>
 __device__ __forceinline__ void shared_consume(const Params& p,
                                                unsigned char* smem_raw,
                                                uint32_t smem_base,
@@ -1135,10 +1185,13 @@ __device__ __forceinline__ void shared_consume(const Params& p,
                                                int kvh, int b,
                                                const Band& band, int n_qt,
                                                int n_tiles) {
-  constexpr int D = 256;
+  using CS = ColSplit<D>;
   using PL = BwdPlan<D>;
+  constexpr int NP = CS::NF / 2;  // 64-column parts of this warpgroup
+  constexpr bool NARROW = W == 1 && CS::DB > 0;
+  constexpr int NB = NARROW ? CS::DB / 8 : 1;  // narrow n-blocks
   constexpr int STAGES = PL::STAGES, QT = PL::QT, DS = PL::DS;
-  constexpr int BK = PL::BK;  // 64 keys, 4 parts of 64 columns
+  constexpr int BK = PL::BK;  // 64 keys
   constexpr float LOG2E = 1.4426950408889634f;
   const int group = p.Hq / p.Hkv;
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
@@ -1146,14 +1199,19 @@ __device__ __forceinline__ void shared_consume(const Params& p,
   const float scale2 = p.scale * LOG2E;  // P in base 2
   const int k_lo = kt * BK;
   const int key0 = k_lo + warp * 16 + g8;  // this thread's rows: key0, +8
+  const uint32_t kn = sK + CS::narrow_at(BK);
 
-  float dk[2][8][4], dv[2][8][4];  // parts 2 W and 2 W + 1
+  float dk[NP][8][4], dv[NP][8][4], dkn[NB][4], dvn[NB][4];
 #pragma unroll
-  for (int f = 0; f < 2; ++f)
+  for (int f = 0; f < NP; ++f)
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dk[f][j][e] = dv[f][j][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dkn[j][e] = dvn[j][e] = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
     const int s = it % STAGES;
@@ -1165,6 +1223,8 @@ __device__ __forceinline__ void shared_consume(const Params& p,
     float l2[8], dl[8];
     load_rows_stats<4>(p, row_base, qw_lo, t2, l2, dl);
     const uint32_t sq = sQ + s * QT, so = sO + s * QT;
+    const uint32_t sqn = sq + CS::narrow_at(BW_BQ);
+    const uint32_t son = so + CS::narrow_at(BW_BQ);
     const uint32_t sp = sDS + (it & 1) * DS;         // P^T
     const uint32_t sds = sDS + (2 + (it & 1)) * DS;  // dS^T
     mbar_wait(bars_full + 8 * s, (it / STAGES) & 1);
@@ -1173,7 +1233,7 @@ __device__ __forceinline__ void shared_consume(const Params& p,
     float st[4][4], dp[4][4];
     wgmma_fence();
 #pragma unroll
-    for (int f = 0; f < 4; ++f)
+    for (int f = 0; f < CS::NF; ++f)
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks)
         wgmma_ss_n32<0, 0>(
@@ -1181,8 +1241,16 @@ __device__ __forceinline__ void shared_consume(const Params& p,
             wg_desc(sq + f * BW_BQ * 128 + W * 32 * 128 + ks * 32, 16, 1024,
                     SW128),
             f + ks);
+    if constexpr (CS::DB > 0) {
 #pragma unroll
-    for (int f = 0; f < 4; ++f)
+      for (int ks = 0; ks < CS::DB / 16; ++ks)
+        wgmma_ss_n32<0, 0>(
+            st, wg_desc(kn + ks * 32, 16, CS::SBO, CS::LAYOUT),
+            wg_desc(sqn + W * 32 * CS::RB + ks * 32, 16, CS::SBO, CS::LAYOUT),
+            1);
+    }
+#pragma unroll
+    for (int f = 0; f < CS::NF; ++f)
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks)
         wgmma_ss_n32<0, 0>(
@@ -1190,6 +1258,16 @@ __device__ __forceinline__ void shared_consume(const Params& p,
             wg_desc(so + f * BW_BQ * 128 + W * 32 * 128 + ks * 32, 16, 1024,
                     SW128),
             f + ks);
+    if constexpr (CS::DB > 0) {
+#pragma unroll
+      for (int ks = 0; ks < CS::DB / 16; ++ks)
+        wgmma_ss_n32<0, 0>(
+            dp,
+            wg_desc(sV + CS::narrow_at(BK) + ks * 32, 16, CS::SBO,
+                    CS::LAYOUT),
+            wg_desc(son + W * 32 * CS::RB + ks * 32, 16, CS::SBO, CS::LAYOUT),
+            1);
+    }
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(st);
@@ -1199,8 +1277,8 @@ __device__ __forceinline__ void shared_consume(const Params& p,
     if (p.causal) need_mask = need_mask || (k_lo + 63 > q_lo);
     if (p.window > 0)
       need_mask = need_mask || (k_lo <= q_lo + BW_BQ - 1 - p.window);
-    scores_to_grads<4>(p, st, dp, l2, dl, need_mask, key0, qw_lo, t2,
-                       scale2);
+    scores_to_grads<4>(p, st, dp, RegStats<4>{l2, dl}, need_mask, key0,
+                       qw_lo, t2, scale2);
     // this half of P^T and dS^T in bf16: row r (key) at r * 128 bytes,
     // 16-byte chunk j (query columns 8 j ..) at (j ^ (r & 7)) * 16
 #pragma unroll
@@ -1223,13 +1301,13 @@ __device__ __forceinline__ void shared_consume(const Params& p,
     pair_sync(3 + (it & 1));
 
     // dV += P^T dO, dK += dS^T Q, dQ = dS K, this warpgroup's columns
-    float dq[2][8][4];
+    float dq[NP][8][4], dqn[NB][4];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-      for (int f = 0; f < 2; ++f) {
-        const int part = (2 * W + f) * BW_BQ * 128;
+      for (int f = 0; f < NP; ++f) {
+        const int part = (NP * W + f) * BW_BQ * 128;
         wgmma_ss_n64<0, 1>(dv[f], wg_desc(sp + kk * 32, 16, 1024, SW128),
                            wg_desc(so + part + kk * 2048, 16, 1024, SW128),
                            1);
@@ -1237,39 +1315,65 @@ __device__ __forceinline__ void shared_consume(const Params& p,
                            wg_desc(sq + part + kk * 2048, 16, 1024, SW128),
                            1);
       }
+      if constexpr (NARROW) {
+        wgmma_ss_narrow<CS::DB, 0, 1>(
+            dvn, wg_desc(sp + kk * 32, 16, 1024, SW128),
+            wg_desc(son + kk * 16 * CS::RB, 16, CS::SBO, CS::LAYOUT), 1);
+        wgmma_ss_narrow<CS::DB, 0, 1>(
+            dkn, wg_desc(sds + kk * 32, 16, 1024, SW128),
+            wg_desc(sqn + kk * 16 * CS::RB, 16, CS::SBO, CS::LAYOUT), 1);
+      }
+    }
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-      for (int f = 0; f < 2; ++f)
+      for (int f = 0; f < NP; ++f)
         wgmma_ss_n64<1, 1>(
             dq[f], wg_desc(sds + kk * 2048, 16, 1024, SW128),
-            wg_desc(sK + (2 * W + f) * BK * 128 + kk * 2048, 16, 1024,
+            wg_desc(sK + (NP * W + f) * BK * 128 + kk * 2048, 16, 1024,
                     SW128),
             kk);
+      if constexpr (NARROW)
+        wgmma_ss_narrow<CS::DB, 1, 1>(
+            dqn, wg_desc(sds + kk * 2048, 16, 1024, SW128),
+            wg_desc(kn + kk * 16 * CS::RB, 16, CS::SBO, CS::LAYOUT), kk);
+    }
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
-    for (int f = 0; f < 2; ++f) {
+    for (int f = 0; f < NP; ++f) {
       fence_acc(dv[f]);
       fence_acc(dk[f]);
       fence_acc(dq[f]);
+    }
+    if constexpr (NARROW) {
+      fence_acc(dvn);
+      fence_acc(dkn);
+      fence_acc(dqn);
     }
     if (lane == 0) mbar_arrive(bars_empty + 8 * s);  // Q and dO are read
 
     // this warpgroup's columns of dQ (scaled) into its buffer in register
     // order, once the writer has read the previous tile's; the writer adds
-    // them into the tile's fp32 sum at register block 16 W, in turn
-    const uint32_t xq_addr = sDQ + W * 16 * 128 * 16;
+    // them into the tile's fp32 sum at register block 8 NP W, in turn
+    const uint32_t xq_addr = sDQ + W * 8 * NP * 128 * 16;
     float4* xq = reinterpret_cast<float4*>(smem_raw + (xq_addr - smem_base)) +
                  (threadIdx.x & 127);
     if (it >= 1) mbar_wait(dq_empty, (it - 1) & 1);
 #pragma unroll
-    for (int f = 0; f < 2; ++f)
+    for (int f = 0; f < NP; ++f)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         xq[(8 * f + j) * 128] =
             make_float4(dq[f][j][0] * p.scale, dq[f][j][1] * p.scale,
                         dq[f][j][2] * p.scale, dq[f][j][3] * p.scale);
+    if constexpr (NARROW) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        xq[(8 * NP + j) * 128] =
+            make_float4(dqn[j][0] * p.scale, dqn[j][1] * p.scale,
+                        dqn[j][2] * p.scale, dqn[j][3] * p.scale);
+    }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     wg_sync(1 + W);
     if ((threadIdx.x & 127) == 0) mbar_arrive(dq_full);
@@ -1280,8 +1384,10 @@ __device__ __forceinline__ void shared_consume(const Params& p,
   __nv_bfloat16* dvp = static_cast<__nv_bfloat16*>(p.dv) +
                        ((long long)b * p.Hkv + kvh) * p.Skv * D;
 #pragma unroll
-  for (int f = 0; f < 2; ++f)
-    store_dkv<8>(p, dk[f], dv[f], dkp, dvp, D, key0, 64 * (2 * W + f), t2);
+  for (int f = 0; f < NP; ++f)
+    store_dkv<8>(p, dk[f], dv[f], dkp, dvp, D, key0, 64 * (NP * W + f), t2);
+  if constexpr (NARROW)
+    store_dkv<NB>(p, dkn, dvn, dkp, dvp, D, key0, 64 * CS::NF, t2);
 }
 
 template <int D>
@@ -1290,9 +1396,8 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
                    int* counters) {
   using CS = ColSplit<D>;
   using PL = BwdPlan<D>;
-  static_assert(CS::NF == 2 || D == 256,
-                "two 64-column parts, one a warpgroup, or four, two each");
-  constexpr int C0 = D == 256 ? 128 : 64;  // columns of warpgroup 0
+  static_assert(CS::NF % 2 == 0, "the 64-column parts split evenly");
+  constexpr int C0 = 64 * (CS::NF / 2);  // columns of warpgroup 0
   constexpr int STAGES = PL::STAGES, KT = PL::KT, QT = PL::QT, DS = PL::DS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t smem_base =
@@ -1301,9 +1406,10 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
   const uint32_t sK = base, sV = sK + KT;
   const uint32_t sQ = sV + KT;                   // [stage]
   const uint32_t sO = sQ + STAGES * QT;          // [stage] dO
-  const uint32_t sDS = sO + STAGES * QT;         // [warpgroup][buffer]
+  const uint32_t sDS = sO + STAGES * QT;         // [buffer][warpgroup]
   const uint32_t sDQ = sDS + 4 * DS;             // [warpgroup] dQ, fp32
-  const uint32_t bars = sDQ + BW_BQ * D * 4;
+  const uint32_t sST = sDQ + BW_BQ * D * 4;      // [stage] lse, delta
+  const uint32_t bars = sST + STAGES * PL::ST;
   const uint32_t kv_full = bars;
   const uint32_t bars_full = bars + 8, bars_empty = bars + 8 * (1 + STAGES);
   // each warpgroup's dQ buffer: staged [W], read by its writer [W]
@@ -1318,7 +1424,8 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(bars_full + 8 * s, 1);
+      // the loads' thread, and at D = 128 the stats warp
+      mbar_init(bars_full + 8 * s, PL::HALVES ? 2 : 1);
       mbar_init(bars_empty + 8 * s, 8);  // one arrival per consumer warp
     }
     for (int i = 0; i < 2; ++i) {
@@ -1332,7 +1439,8 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
     // producer: one thread issues every load, one writer a warpgroup's dQ
-    // (columns 0 to C0 - 1 at register block 0, the rest at block C0 / 8)
+    // (columns 0 to C0 - 1 at register block 0, the rest at block C0 / 8),
+    // and at D = 128 one warp brings in lse and delta
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 256)
       bwd_produce<D>(maps, p, sK, sV, sQ, sO, kv_full, bars_full, bars_empty,
@@ -1345,27 +1453,36 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
                   dq_empty + 8 * w, kt, kvh, b, band, n_qt, n_tiles,
                   BW_BQ * D);
     }
+    if constexpr (PL::HALVES) {
+      if (threadIdx.x >= 352)
+        stats_produce<D>(p,
+                         reinterpret_cast<float*>(smem_raw +
+                                                  (sST - smem_base)),
+                         bars_full, bars_empty, kvh, b, band.qt_lo, n_qt,
+                         n_tiles, threadIdx.x & 31);
+    }
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
   mbar_wait(kv_full, 0);
-  if constexpr (D == 256) {
+  if constexpr (PL::HALVES) {
     if (wg == 0)
-      shared_consume<0>(p, smem_raw, smem_base, sK, sV, sQ, sO, sDS, sDQ,
-                        bars_full, bars_empty, dq_full, dq_empty, kt, kvh, b,
-                        band, n_qt, n_tiles);
+      halves_consume<0>(p, smem_raw, smem_base, sK, sV, sQ, sO, sDS, sDQ, sST,
+                        bars_full, bars_empty, dq_full, dq_empty, kt, kvh,
+                        b, band, n_qt, n_tiles);
     else
-      shared_consume<1>(p, smem_raw, smem_base, sK, sV, sQ, sO, sDS, sDQ,
+      halves_consume<1>(p, smem_raw, smem_base, sK, sV, sQ, sO, sDS, sDQ, sST,
                         bars_full, bars_empty, dq_full + 8, dq_empty + 8, kt,
                         kvh, b, band, n_qt, n_tiles);
-  } else if (wg == 0)
-    wide_consume<D, 0>(p, smem_raw, smem_base, sK, sV, sQ, sO, sDS, sDQ,
-                       bars_full, bars_empty, dq_full, dq_empty, kt, kvh, b,
-                       band, n_qt, n_tiles);
-  else
-    wide_consume<D, 1>(p, smem_raw, smem_base, sK, sV, sQ, sO, sDS, sDQ,
-                       bars_full, bars_empty, dq_full + 8, dq_empty + 8, kt,
-                       kvh, b, band, n_qt, n_tiles);
+  } else if (wg == 0) {
+    shared_consume<D, 0>(p, smem_raw, smem_base, sK, sV, sQ, sO, sDS, sDQ,
+                         bars_full, bars_empty, dq_full, dq_empty, kt, kvh, b,
+                         band, n_qt, n_tiles);
+  } else {
+    shared_consume<D, 1>(p, smem_raw, smem_base, sK, sV, sQ, sO, sDS, sDQ,
+                         bars_full, bars_empty, dq_full + 8, dq_empty + 8, kt,
+                         kvh, b, band, n_qt, n_tiles);
+  }
 }
 
 // dQ [B,Hq,Sq,D] in bf16 from the bf16 bodies' fp32 buffer [B,Hq,nqt,64 D],

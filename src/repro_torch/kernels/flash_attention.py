@@ -22,7 +22,8 @@ summed over each GQA group.  Two bodies, chosen by :func:`flash_bwd_body`:
 ``wgmma`` + TMA for bf16, with P and dS rounded once to bf16 for the
 products that take them (:func:`flash_attention_bwd_tc_plain` is the same
 rounding in plain PyTorch) and dQ summed over the key tiles in a fixed order
-(:func:`dq_fixed_order_plain` is that order in plain PyTorch), and
+(:func:`dq_fixed_order_plain` is that order in plain PyTorch; a tile is
+:func:`bwd_block_keys` keys: 128 up to D = 128, 64 beyond), and
 full-fp32 FMA for fp32, which sums dQ over 64-key tiles in the same order
 (:func:`flash_attention_bwd_fma_plain`): either body repeats bit for bit.
 :class:`FlashAttentionFn` runs the forward kernel and saves q, k, v, o and
@@ -142,9 +143,11 @@ def fma_dq_run(b: int, hq: int, sq: int, skv: int, d: int) -> int:
 
 def bwd_block_keys(d: int) -> int:
     """Keys a block of the bf16 backward body takes at head dim ``d``: 128
-    at D = 64 and 80, 64 at D = 128, 160 and 256 (where the block's two
-    warpgroups split D instead of the keys)."""
-    return 128 if d <= 80 else 64
+    at D = 64, 80 and 128 (each of the block's two warpgroups takes 64 of
+    them; at D = 128 each then forms its half of dQ's columns over all 128),
+    64 at D = 160 and 256 (the warpgroups split the tile's query columns for
+    the scores and D for the gradients)."""
+    return 128 if d <= 128 else 64
 
 
 def dq_fixed_order_plain(ds: torch.Tensor, k: torch.Tensor, scale: float,

@@ -31,7 +31,8 @@ from repro_torch.kernels.ssd_scan import (TC_BWD_CHUNK, ssd_bwd_body,
                                           tile_heads)
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import BWD_RTOL, compare_rel  # noqa: E402
+from chip_smoke import (BWD_RTOL, compare_rel,  # noqa: E402
+                        unexchanged_dq_fault)
 
 BF16 = torch.bfloat16
 
@@ -195,7 +196,7 @@ def test_fixed_order_dq_repeats_and_matches_fp32(d):
     fp32 accumulator in a fixed order, the last key tile first.  Two runs
     give the same bits, the sum stays within the kernel tolerance of the
     fp32 plain backward's one product, and it is the tile-by-tile sum the
-    docstring names (128 keys a tile up to D = 80, 64 beyond)."""
+    docstring names (128 keys a tile up to D = 128, 64 beyond)."""
     rng = np.random.default_rng(d)
     b, hq, hkv, sq, skv = 1, 4, 2, 200, 330
     q, k, v = bf16(rng, b, hq, sq, d), bf16(rng, b, hkv, skv, d), \
@@ -211,7 +212,7 @@ def test_fixed_order_dq_repeats_and_matches_fp32(d):
     s, mask, scale = _scores(q, k, False, None, None)
     ds = torch.where(mask, s, 0.0)
     tiles = bwd_block_keys(d)
-    assert tiles == (128 if d <= 80 else 64)
+    assert tiles == (128 if d <= 128 else 64)
     want = torch.zeros(ds.shape[:-1] + (d,))
     for lo in sorted(range(0, skv, tiles), reverse=True):
         want = want + torch.einsum(
@@ -300,3 +301,71 @@ def test_d256_plans_match_autograd_of_the_plain_forward(causal, window):
         for a, r in zip(got, want):
             assert a.dtype == dtype and a.shape == r.shape
             compare_rel(a, r, BWD_RTOL[dtype])
+
+
+# (d, b, hq, hkv, sq, skv, causal, window): the split-D heads with Skv of
+# 200 and 330 (no multiple of 128), GQA, a window and Sq != Skv both ways
+SPLIT_D_CASES = [
+    (128, 1, 8, 1, 200, 200, True, None),
+    (128, 1, 4, 2, 150, 330, True, 48),
+    (128, 1, 4, 1, 330, 200, False, 64),
+    (160, 1, 4, 1, 200, 200, False, 64),
+    (160, 1, 8, 2, 150, 330, True, None),
+    (160, 1, 4, 2, 330, 200, True, 100),
+]
+
+
+@pytest.mark.parametrize("d,b,hq,hkv,sq,skv,causal,window", SPLIT_D_CASES)
+def test_split_d_plans_match_autograd_of_the_plain_forward(
+        d, b, hq, hkv, sq, skv, causal, window):
+    """D = 128 and 160: the bf16 body's plan (``flash_attention_bwd_tc_plain``,
+    128 keys a tile at D = 128, 64 at 160) against ``torch.autograd`` of the
+    plain forward in fp32 on the same values within ``BWD_RTOL``, and its dQ
+    order (``dq_fixed_order_plain`` at ``bwd_block_keys``) the tile-by-tile
+    sum, the last tile first."""
+    rng = np.random.default_rng(d + skv)
+    q, do = bf16(rng, b, hq, sq, d), bf16(rng, b, hq, sq, d)
+    k, v = bf16(rng, b, hkv, skv, d), bf16(rng, b, hkv, skv, d)
+    kw = dict(causal=causal, window=window)
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_plain(*leaves, **kw), leaves,
+                               do.float())
+    o = flash_attention_plain(q, k, v, **kw)
+    lse = flash_lse_plain(q, k, **kw)
+    got = flash_attention_bwd_tc_plain(q, k, v, o, lse, do, **kw)
+    for a, r in zip(got, want):
+        assert a.dtype == BF16 and a.shape == r.shape
+        compare_rel(a, r, BWD_RTOL[BF16])
+    tiles = bwd_block_keys(d)
+    assert tiles == (128 if d == 128 else 64)
+    s, mask, scale = _scores(q, k, causal, window, None)
+    ds = torch.where(mask, s, 0.0)
+    want_dq = torch.zeros(ds.shape[:-1] + (d,))
+    for lo in sorted(range(0, skv, tiles), reverse=True):
+        want_dq = want_dq + torch.einsum(
+            "bhgqk,bhkd->bhgqd", ds[..., lo:lo + tiles],
+            k[:, :, lo:lo + tiles].float()) * scale
+    assert torch.equal(dq_fixed_order_plain(ds, k, scale, tiles), want_dq)
+
+
+@pytest.mark.parametrize("d,b,hq,hkv,sq,skv,causal,window",
+                         [c for c in SPLIT_D_CASES if c[0] == 128])
+def test_unexchanged_dq_control_fails(d, b, hq, hkv, sq, skv, causal,
+                                      window):
+    """The control ``chip_smoke.py`` holds beside the D = 128 body: dQ with
+    the hand-over of dS^T between the two warpgroups left out (each 64
+    columns summed over its own 64-key half of every block) leaves dQ's
+    bf16 tolerance, so the check that the body passes has the power to
+    fail."""
+    rng = np.random.default_rng(d + skv)
+    q, do = bf16(rng, b, hq, sq, d), bf16(rng, b, hq, sq, d)
+    k, v = bf16(rng, b, hkv, skv, d), bf16(rng, b, hkv, skv, d)
+    kw = dict(causal=causal, window=window)
+    o = flash_attention_plain(q, k, v, **kw)
+    lse = flash_lse_plain(q, k, **kw)
+    ref = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    compare_rel(flash_attention_bwd_tc_plain(q, k, v, o, lse, do, **kw)[0],
+                ref[0], BWD_RTOL[BF16])
+    with pytest.raises(AssertionError):
+        compare_rel(unexchanged_dq_fault(q, k, v, o, lse, do, **kw),
+                    ref[0].float(), BWD_RTOL[BF16])

@@ -21,15 +21,24 @@ With ``--bwd`` the variants are of the backward's ``wgmma`` body
 (``csrc/flash_attention_bwd.cu``), timed as ``flash_attention_bwd`` calls
 on o and lse from the forward kernel, beside SDPA's backward alone:
 
-    python3 tools/flash_variants.py --bwd [variant ...]
+    python3 tools/flash_variants.py --bwd [--src PATH] [variant ...]
+
+``--src PATH`` takes the variants of another copy of
+``flash_attention_bwd.cu`` (another tree's, from ``git archive``), built
+against this tree's headers.
 
 ``base``, ``no_dq_atomics`` (dQ computed and summed, not reduce-added to
 the fp32 buffer, and no block waits for its turn), ``no_dq`` (neither the dQ
-product nor its sum nor its reduce-add),
+product nor its sum nor its staging nor its reduce-add), ``no_dq_stage``
+(at D = 128 and 160 the dQ product without its staging and reduce-add),
 ``no_p`` (P and dS without the exponential and the mask), ``ex2_as_fma``,
-``stages2`` (a ring of two Q / dO stages instead of four), ``keys_outer``
-(the blocks in the order of their key tiles over all heads, the last first,
-instead of head by head).
+``stages2`` (a ring of two Q / dO stages instead of four at D = 64 and 80),
+``stages_less`` (one Q / dO stage fewer at D = 64, 80, 128 and 160: 3, 2,
+1), ``keys_outer`` (the blocks in the order of their key tiles over all
+heads, the last first, instead of head by head).  Timed at qwen1.5-0.5b's
+``[8,16,2048,64]``, zamba2-2.7b's ``[8,32,2048,80]``, qwen1.5-4b's
+``[8,20,2048,128]`` and stablelm-12b's ``[8,32,2048,160]`` over 8 kv heads
+(``chip_smoke.path_flash``).
 """
 from __future__ import annotations
 
@@ -88,16 +97,24 @@ def variant_source(src: str, name: str) -> str:
 
 BWD_ATOMICS = ("    if (turn > 0) {\n      int seen = 0;",
                "    asm volatile(\n        \"cp.reduce.async.bulk")
-BWD_DQ = ("wgmma_ss_n64<1, 1>(dq,", "wgmma_ss_narrow<DB, 1, 1>(dqb,")
+BWD_DQ = ("wgmma_ss_n64<1, 1>(dq,", "wgmma_ss_narrow<DB, 1, 1>(dqb,",
+          "wgmma_ss_n64<1, 1>(\n            dq[f],",
+          "wgmma_ss_narrow<CS::DB, 1, 1>(\n            dqn,")
 BWD_EXCHANGE = ("    const int buf = it & 1;\n",
                 "if (threadIdx.x == 288)\n      dq_write<2>")
+# the split-D bodies' dQ staging (in their tile loops) and their writers
+BWD_STAGE = ("    const uint32_t xq_addr = sDQ + W * ",
+             "if (threadIdx.x == 288 || threadIdx.x == 320) {")
 BWD_MASK = "if (need_mask) {"
 BWD_ORDER = ("const int kt = block_key_tile(), kvh = blockIdx.y, "
              "b = blockIdx.z;",
              "const dim3 grid((p.Skv + PL::BK - 1) / PL::BK, p.Hkv, p.B);")
-BWD_P = "const float pv = ex2(fmaf(st[j][e], scale2, -l2[c]));"
-BWD_VARIANTS = ("base", "no_dq_atomics", "no_dq", "no_p", "ex2_as_fma",
-                "stages2", "keys_outer")
+# P's exponential; the second as older copies of the source have it (--src)
+BWD_P = ("const float pv = ex2(fmaf(st[j][e], scale2, -ld.x));",
+         "const float pv = ex2(fmaf(st[j][e], scale2, -l2[c]));")
+BWD_STAGES = "STAGES = D <= 80 ? 4 : D <= 128 ? 3 : D <= 160 ? 2 : 1;"
+BWD_VARIANTS = ("base", "no_dq_atomics", "no_dq", "no_dq_stage", "no_p",
+                "ex2_as_fma", "stages2", "stages_less", "keys_outer")
 
 
 def bwd_variant_source(src: str, name: str) -> str:
@@ -109,21 +126,30 @@ def bwd_variant_source(src: str, name: str) -> str:
             "turn > 0", "turn > 0 && p.Sq < 0"))
         return _replace(s, BWD_ATOMICS[1], "    if (p.Sq < 0) " +
                         BWD_ATOMICS[1].lstrip())
-    if name == "no_dq":  # no product, no exchange, no writer
-        s = src
+    if name == "no_dq":  # no product, no exchange or staging, no writer
+        s = bwd_variant_source(src, "no_dq_stage")
         for old in BWD_DQ:
             s = _replace(s, old, "if (kk < 0) " + old)
         s = _replace(s, BWD_EXCHANGE[0],
                      BWD_EXCHANGE[0] + "    if (p.Sq > 0) continue;\n")
         return _replace(s, BWD_EXCHANGE[1], BWD_EXCHANGE[1].replace(
             "288)", "288 && p.Sq < 0)"))
+    if name == "no_dq_stage":  # split-D: dQ formed, never staged or added
+        s = _replace(src, BWD_STAGE[0],
+                     "    if (p.Sq > 0) continue;\n" + BWD_STAGE[0])
+        return _replace(s, BWD_STAGE[1], "if ((threadIdx.x == 288 || "
+                        "threadIdx.x == 320) && p.Sq < 0) {")
     if name == "no_p":  # P = S, dS = S o (dP - delta): no ex2, no mask
         s = _replace(src, BWD_MASK, "if (need_mask && p.Sq < 0) {")
-        return _replace(s, BWD_P, "const float pv = st[j][e];")
+        old = next((o for o in BWD_P if o in s), BWD_P[0])
+        return _replace(s, old, "const float pv = st[j][e];")
     if name == "ex2_as_fma":
         return variant_source(src, name)
     if name == "stages2":
         return _replace(src, "STAGES = D <= 80 ? 4 :", "STAGES = D <= 80 ? 2 :")
+    if name == "stages_less":
+        return _replace(src, BWD_STAGES,
+                        "STAGES = D <= 80 ? 3 : D <= 128 ? 2 : 1;")
     if name == "keys_outer":  # the key tiles of every head first, then the next
         s = _replace(src, BWD_ORDER[0], "const int kvh = blockIdx.x, "
                      "b = blockIdx.y, kt = gridDim.z - 1 - blockIdx.z;")
@@ -132,23 +158,30 @@ def bwd_variant_source(src: str, name: str) -> str:
     raise ValueError(f"unknown variant {name!r}")
 
 
-def build(names, source="flash_attention", make=variant_source) -> dict:
-    src = (_build.CSRC / f"{source}.cu").read_text()
+def build(names, source="flash_attention", make=variant_source,
+          src_path=None) -> dict:
+    src = Path(src_path or _build.CSRC / f"{source}.cu").read_text()
     return _build.build_variants(
         source, {name: make(src, name) for name in names})
 
 
-def main_bwd(names) -> None:
-    libs = build(names, "flash_attention_bwd", bwd_variant_source)
+def main_bwd(names, src_path=None) -> None:
+    libs = build(names, "flash_attention_bwd", bwd_variant_source, src_path)
     print(cs.device_line(), flush=True)
+    if src_path:
+        print(json.dumps({"src": str(src_path)}), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
-    for shape, m in (("d64", cs.FLASH_MAIN), ("d80", cs.FLASH_D80)):
+    wide = dict(cs.path_flash())
+    for shape, m in (("d64", cs.FLASH_MAIN), ("d80", cs.FLASH_D80),
+                     ("d128 qwen1.5-4b", wide["qwen1.5-4b"]),
+                     ("d160 stablelm-12b", wide["stablelm-12b"])):
         q, k, v = cs.flash_inputs(m["b"], m["hq"], m["hkv"], m["s"], m["d"],
                                   torch.bfloat16, gen, views=True)
         o, lse = fa.flash_attention_fwd(q, k, v, causal=True, with_lse=True)
         do = torch.randn(o.shape, generator=gen, device="cuda").to(o.dtype)
         qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
-        sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        sdpa = F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True, enable_gqa=m["hq"] != m["hkv"])
         res = {"shape": shape, "sdpa_bwd_ms": cs.time_ms(
             lambda: torch.autograd.grad(sdpa, (qs, ks, vs), do,
                                         retain_graph=True), 20, 3)}
@@ -166,7 +199,12 @@ def main() -> None:
         raise SystemExit("flash_variants: needs an NVIDIA GPU")
     args = sys.argv[1:]
     if args[:1] == ["--bwd"]:
-        main_bwd(args[1:] or BWD_VARIANTS)
+        args, src_path = args[1:], None
+        if "--src" in args:
+            i = args.index("--src")
+            src_path = args[i + 1]
+            del args[i:i + 2]
+        main_bwd(args or BWD_VARIANTS, src_path)
         return
     names = args or VARIANTS
     libs = build(names)
