@@ -1,0 +1,7 @@
+"""One minus the union of the device's intervals over the traced window
+(prefill cells)."""
+from gpubench.lib import readers
+
+
+def read(r):
+    return readers.idle_share(r, "prefill")
