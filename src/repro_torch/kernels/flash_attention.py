@@ -41,6 +41,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import _build
 from repro_torch.models.layers import NEG_INF, _band_mask, attention_dense
 
@@ -315,6 +316,7 @@ def _check_fwd(q, k, v, window) -> None:
         raise ValueError("flash_attention: window must be >= 1")
 
 
+@tracing.spanned("kernel.flash_attention")
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: Optional[int] = None,
                         scale: Optional[float] = None, with_lse: bool = False):
@@ -355,6 +357,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
+@tracing.spanned("kernel.flash_attention_bwd")
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                         *, causal: bool = True, window: Optional[int] = None,

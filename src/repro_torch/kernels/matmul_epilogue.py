@@ -48,6 +48,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.kernels import _build
 
 EPILOGUES = (None, "bias", "silu", "gelu", "layernorm")
@@ -209,6 +210,7 @@ def _check_args(x, w, bias, epilogue) -> None:
         raise ValueError(f"matmul_epilogue: bias [n], got {tuple(bias.shape)}")
 
 
+@tracing.spanned("kernel.matmul_epilogue")
 def _launch(x, w, bias, epilogue, out_dtype) -> torch.Tensor:
     """One launch of the kernel on CUDA tensors."""
     out_dtype = out_dtype or x.dtype

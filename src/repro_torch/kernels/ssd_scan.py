@@ -45,6 +45,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.kernels import _build
 from repro_torch.models.mamba import ssd_scan_prescaled
 
@@ -395,6 +396,7 @@ def _check(xbar, log_a, B, C, chunk, init_state) -> None:
         raise ValueError(f"ssd_scan: chunk {chunk} outside [1, {MAX_CHUNK}]")
 
 
+@tracing.spanned("kernel.ssd_scan")
 def _launch_fwd(xbar, log_a, B, C, chunk, init_state):
     """One launch of the forward kernel: (y, final_state)."""
     _check(xbar, log_a, B, C, chunk, init_state)
@@ -458,6 +460,7 @@ def tile_heads(b: int, nc: int, g: int, lt: int, rep: int, sms: int) -> int:
     return -(-rep // slices)
 
 
+@tracing.spanned("kernel.ssd_scan_bwd")
 def ssd_scan_bwd(xbar: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor,
                  C: torch.Tensor, dy: torch.Tensor,
                  dfinal: Optional[torch.Tensor], *, chunk: int,

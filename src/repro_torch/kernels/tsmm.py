@@ -25,6 +25,7 @@ from fractions import Fraction
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import _build
 
 TILE = 128            # output tile edge of the kernel
@@ -89,6 +90,12 @@ def tsmm_upper(x: torch.Tensor, *, reg: float = 0.0) -> torch.Tensor:
         raise ValueError(f"tsmm_upper: x must be [m, n], got {tuple(x.shape)}")
     if not x.is_cuda:
         return tsmm_upper_plain(x, reg=reg)
+    return _launch(x, reg)
+
+
+@tracing.spanned("kernel.tsmm_upper")
+def _launch(x: torch.Tensor, reg: float) -> torch.Tensor:
+    """One call of the kernel on a CUDA ``x``: :func:`tsmm_upper`'s."""
     m, n = x.shape
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"tsmm_upper: float32 or bfloat16, got {x.dtype}")

@@ -21,6 +21,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.models import layers as L
 from repro_torch.models.sharded import draw_leaf, keep_slice, local_call
 
@@ -224,41 +225,47 @@ def mamba_block_apply(params: Dict[str, torch.Tensor], x: torch.Tensor, ssm,
     h = ssm.n_heads(d)
     g, n = ssm.n_groups, ssm.state_size
 
-    proj = L.dense(x, params["w_in"])                  # [B,S,2di+2gn+h]
+    with tracing.span("mamba.in_proj"):
+        proj = L.dense(x, params["w_in"])              # [B,S,2di+2gn+h]
     z = proj[..., :di]
     conv_in = proj[..., di:2 * di + 2 * g * n]         # xin | Bx | Cx
     dt = proj[..., 2 * di + 2 * g * n:]
     conv_state = cache.get("conv") if cache else None
-    conv_out, new_conv = _causal_conv(conv_in, params["conv_w"],
-                                      params["conv_b"], conv_state)
+    with tracing.span("mamba.conv"):
+        conv_out, new_conv = _causal_conv(conv_in, params["conv_w"],
+                                          params["conv_b"], conv_state)
     xh = conv_out[..., :di].reshape(bsz, s, h, ssm.head_dim)
     Bh = conv_out[..., di:di + g * n].reshape(bsz, s, g, n)
     Ch = conv_out[..., di + g * n:].reshape(bsz, s, g, n)
-    dt = F.softplus(dt.to(torch.float32) + params["dt_bias"])
 
-    if cache is not None and s == 1:
-        y, new_state = ssd_decode_step(cache["state"], xh[:, 0], dt[:, 0],
-                                       params["A_log"], Bh[:, 0], Ch[:, 0],
-                                       params["D"])
-        y = y[:, None]                                  # [B,1,H,P]
-    else:
-        init = cache["state"] if cache is not None else None
-        # the scan, kernel or plain, on the local shards of DTensors (torch
-        # 2.11's DTensor has no strategy for the flip of cumsum's
-        # backward); heads stay sharded only with one group (every head
-        # reads group 0's B and C, whatever heads a rank holds)
-        h_ = "h" if g == 1 else None
-        bh, hh = {0: "b", 2: h_}, {0: h_}
-        y, new_state = local_call(
-            functools.partial(_ssd_kernel if use_kernel else _ssd_plain,
-                              chunk=ssm.chunk_size),
-            (xh, dt, params["A_log"], Bh, Ch, params["D"], init),
-            (bh, bh, hh, {0: "b"}, {0: "b"}, hh, {0: "b", 1: h_}),
-            (("b", None, h_, None), ("b", h_, None, None)))
-    y = y.reshape(bsz, s, di)
-    y = L.rms_norm(y * F.silu(z.to(torch.float32)).to(y.dtype),
-                   params["norm_scale"])
-    out = L.dense(y, params["w_out"])
+    with tracing.span("mamba.ssd"):
+        dt = F.softplus(dt.to(torch.float32) + params["dt_bias"])
+        if cache is not None and s == 1:
+            y, new_state = ssd_decode_step(
+                cache["state"], xh[:, 0], dt[:, 0], params["A_log"],
+                Bh[:, 0], Ch[:, 0], params["D"])
+            y = y[:, None]                              # [B,1,H,P]
+        else:
+            init = cache["state"] if cache is not None else None
+            # the scan, kernel or plain, on the local shards of DTensors
+            # (torch 2.11's DTensor has no strategy for the flip of
+            # cumsum's backward); heads stay sharded only with one group
+            # (every head reads group 0's B and C, whatever heads a rank
+            # holds)
+            h_ = "h" if g == 1 else None
+            bh, hh = {0: "b", 2: h_}, {0: h_}
+            y, new_state = local_call(
+                functools.partial(_ssd_kernel if use_kernel else _ssd_plain,
+                                  chunk=ssm.chunk_size),
+                (xh, dt, params["A_log"], Bh, Ch, params["D"], init),
+                (bh, bh, hh, {0: "b"}, {0: "b"}, hh, {0: "b", 1: h_}),
+                (("b", None, h_, None), ("b", h_, None, None)))
+    with tracing.span("mamba.gate_norm"):
+        y = y.reshape(bsz, s, di)
+        y = L.rms_norm(y * F.silu(z.to(torch.float32)).to(y.dtype),
+                       params["norm_scale"])
+    with tracing.span("mamba.out_proj"):
+        out = L.dense(y, params["w_out"])
     new_cache = ({"conv": new_conv, "state": new_state}
                  if cache is not None else None)
     return out, new_cache

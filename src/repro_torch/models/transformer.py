@@ -74,11 +74,13 @@ from torch._subclasses.fake_tensor import is_fake
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models.sharded import (draw_leaf, is_dtensor, keep_slice,
                                         local_call, per_head, replicate_dims)
+from repro_torch.optim.adamw import tree_leaves
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
@@ -622,6 +624,19 @@ def _layer(tree: Any, i: int) -> Any:
     return tree[i]
 
 
+def _trace_stack_grad(stacked: Params, p: Params, x: torch.Tensor) -> None:
+    """While a profiler records, under grad: the span ``model.stack_grad``
+    over what the backward does between this layer's body and the body of
+    the layer below (whose output is ``x``): the backward of each slice
+    ``p`` takes of a stacked leaf fills a whole-stack zero tensor, and
+    autograd adds it into the stack's gradient.  The counter
+    ``model.stack_grad_bytes`` adds those whole-stack tensors' bytes."""
+    whole = [t for t in tree_leaves(stacked) if t.requires_grad]
+    tracing.count("model.stack_grad_bytes",
+                  sum(t.numel() * t.element_size() for t in whole))
+    tracing.grad_span("model.stack_grad", tree_leaves(p), x)
+
+
 def scan_stack(stacked: Params, x: torch.Tensor, body_fn: Callable,
                cache: Optional[Dict] = None, remat: str = "none"):
     """Run a homogeneous layer stack: a python loop over the leading layer
@@ -637,7 +652,10 @@ def scan_stack(stacked: Params, x: torch.Tensor, body_fn: Callable,
     if cache is None:
         body = _remat_wrap(lambda p, h: body_fn(p, h, None), remat)
         for i in range(n_layers):
-            x, _, aux = body(_layer(stacked, i), x)
+            p = _layer(stacked, i)
+            if tracing.recording() and torch.is_grad_enabled():
+                _trace_stack_grad(stacked, p, x)
+            x, _, aux = body(p, x)
             aux_total = aux_total + aux
         return x, None, aux_total
     for i in range(n_layers):

@@ -28,10 +28,19 @@ On a CUDA model the prefill takes the hand-written kernels
 (``use_kernel=True``: flash attention for the self-attention layers, an
 encoder's among them, the SSD scan for the Mamba2 layers, the
 matmul-epilogue kernel for the gated MLPs and the head); on a CPU model it
-takes the plain path.  Seconds are
-read after the device has finished (``torch.cuda.synchronize``), so
-``prefill_time_s`` and ``decode_time_s`` are execution times, not launch
-times.
+takes the plain path.  ``prefill_time_s`` and ``decode_time_s`` are
+execution times, not launch times: on the card a pair of CUDA events around
+the work, read once the sampled tokens' copy to the host has waited for the
+device (no synchronise of its own); on the CPU the host clock.
+
+While a torch profiler records, the engine adds spans and counters to
+:mod:`repro_torch.tracing`: ``serve.admit`` (with ``serve.init_cache``,
+``serve.prefill`` and ``serve.sample`` in it) and ``serve.decode``; per
+request ``serve.queued`` (``submit()`` to the start of the round that admits
+it) and ``serve.request`` (``submit()`` to the end of the ``step()`` that
+commits its first token), host times with the rid; the counters
+``serve.prefill_positions`` (rows x padded length) and
+``serve.prompt_positions`` (the real history tokens).
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.models.model import Model
 
 
@@ -96,6 +106,8 @@ class _Slot:
     done: bool = False
     prefill_s: float = 0.0
     decode_s: float = 0.0
+    t_submit: int = 0         # perf_counter_ns at submit()
+    t_admit: int = 0          # perf_counter_ns at its admission round
 
 
 class ServeEngine:
@@ -134,7 +146,8 @@ class ServeEngine:
         round.  Returns the request id completions are matched by."""
         rid = self._next_rid
         self._next_rid += 1
-        self._queue.append(_Slot(request, rid))
+        self._queue.append(_Slot(request, rid,
+                                 t_submit=time.perf_counter_ns()))
         return rid
 
     @property
@@ -146,20 +159,34 @@ class ServeEngine:
         return torch.Generator(device=self.device).manual_seed(
             self.config.seed)
 
-    def _clock(self) -> float:
-        """Host seconds, read once the device has finished its queue."""
+    def _mark(self):
+        """A point in the device's queue: a recorded CUDA event on the card,
+        the host clock elsewhere."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(self.device))
+            return ev
         return time.perf_counter()
 
-    def _sample(self, logits: torch.Tensor) -> np.ndarray:
+    @staticmethod
+    def _seconds(t0, t1) -> float:
+        """Seconds between two :meth:`_mark` s; CUDA events only once the
+        host has waited for the later one (a copy to the host after it)."""
+        if isinstance(t0, float):
+            return t1 - t0
+        return t0.elapsed_time(t1) * 1e-3
+
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         """Greedy at temperature 0; else a draw from the engine's seeded
-        generator (same tokens for the same seed, not the reference's)."""
+        generator (same tokens for the same seed, not the reference's).
+        The tokens stay on the device."""
         if self.config.temperature <= 0:
-            tok = torch.argmax(logits, dim=-1)
-        else:
-            probs = torch.softmax(logits / self.config.temperature, dim=-1)
-            tok = torch.multinomial(probs, 1, generator=self._rng)[:, 0]
+            return torch.argmax(logits, dim=-1)
+        probs = torch.softmax(logits / self.config.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=self._rng)[:, 0]
+
+    @staticmethod
+    def _to_host(tok: torch.Tensor) -> np.ndarray:
         return tok.to("cpu", torch.int32).numpy()
 
     def _slot_budget(self) -> int:
@@ -173,6 +200,7 @@ class ServeEngine:
         queued requests into the freed lanes, and prefill the new batch's
         full histories (survivors continue exactly — prefill/decode
         equivalence)."""
+        t_round = time.perf_counter_ns()
         survivors = [s for s in self._active if not s.done]
         free = self._slot_budget() - len(survivors)
         admitted = self._queue[:max(free, 0)]
@@ -183,18 +211,27 @@ class ServeEngine:
             self._cache = None
             return
         self.stats["admission_rounds"] += 1
+        for s in admitted:
+            s.t_admit = t_round
         hists = [list(s.request.prompt) + s.tokens for s in batch]
         plen = max(len(h) for h in hists)
+        tracing.count("serve.prefill_positions", len(batch) * plen)
+        tracing.count("serve.prompt_positions", sum(len(h) for h in hists))
         prompts = np.zeros((len(batch), plen), np.int64)
         for i, h in enumerate(hists):               # left-pad
             prompts[i, plen - len(h):] = h
-        cache = self.model.init_cache(len(batch), self.config.max_len)
+        with tracing.span("serve.init_cache"):
+            cache = self.model.init_cache(len(batch), self.config.max_len)
         tokens = torch.from_numpy(prompts).to(self.device)
-        t0 = self._clock()
-        logits, self._cache = self.model.prefill(
-            self.params, tokens, cache, frontend, use_kernel=self.use_kernel)
-        dt = self._clock() - t0
-        tok = self._sample(logits)
+        with tracing.span("serve.prefill"):
+            t0 = self._mark()
+            logits, self._cache = self.model.prefill(
+                self.params, tokens, cache, frontend,
+                use_kernel=self.use_kernel)
+            t1 = self._mark()
+        with tracing.span("serve.sample"):
+            tok = self._to_host(self._sample(logits))
+        dt = self._seconds(t0, t1)
         new_rids = {s.rid for s in admitted}
         for i, s in enumerate(batch):
             s.pending = int(tok[i])
@@ -216,12 +253,25 @@ class ServeEngine:
                           slot.prefill_s, slot.decode_s, rid=slot.rid)
 
     # -- the continuous-batching core ------------------------------------
-    @torch.no_grad()
     def step(self, frontend: Optional[torch.Tensor] = None
              ) -> List[Completion]:
         """Advance the pool one schedule tick: admit if lanes free up,
         commit each live slot's pending token, decode one token for the
         still-running slots.  Returns the requests that finished."""
+        firsts: List[_Slot] = []
+        finished = self._step(frontend, firsts)
+        if firsts and tracing.recording():
+            t = time.perf_counter_ns()
+            for s in firsts:
+                tracing.record("serve.queued", s.t_submit, s.t_admit, s.rid)
+                tracing.record("serve.request", s.t_submit, t, s.rid)
+        return finished
+
+    @torch.no_grad()
+    def _step(self, frontend: Optional[torch.Tensor],
+              firsts: List[_Slot]) -> List[Completion]:
+        """:meth:`step`; the slots whose first token it commits go into
+        ``firsts``."""
         if self._queue and (self._cache is None
                             or any(s.done for s in self._active)
                             or len(self._active) < self._slot_budget()):
@@ -229,13 +279,16 @@ class ServeEngine:
                 raise NotImplementedError(
                     "frontend features are single-admission only: submit "
                     "all requests before the first step")
-            self._admit(frontend)
+            with tracing.span("serve.admit"):
+                self._admit(frontend)
         finished: List[Completion] = []
         if not self._active:
             return finished
         for s in self._active:
             if not s.done:
                 self._commit(s)
+                if len(s.tokens) == 1:
+                    firsts.append(s)
                 if s.done:
                     finished.append(self._completion(s))
         live = [s for s in self._active if not s.done]
@@ -246,13 +299,16 @@ class ServeEngine:
         # One lockstep decode over the whole batch; finished lanes ride
         # along as padding until the next admission compacts them, and
         # their samples are masked out of the accounting below.
-        tok = torch.tensor([s.pending for s in self._active],
-                           dtype=torch.int64, device=self.device)
-        t0 = self._clock()
-        logits, self._cache = self.model.decode_step(
-            self.params, tok, self._cache, use_kernel=self.use_kernel)
-        nxt = self._sample(logits)
-        dt = self._clock() - t0
+        with tracing.span("serve.decode"):
+            tok = torch.tensor([s.pending for s in self._active],
+                               dtype=torch.int64, device=self.device)
+            t0 = self._mark()
+            logits, self._cache = self.model.decode_step(
+                self.params, tok, self._cache, use_kernel=self.use_kernel)
+            nxt = self._sample(logits)
+            t1 = self._mark()
+            nxt = self._to_host(nxt)
+        dt = self._seconds(t0, t1)
         self.stats["decode_steps"] += 1
         self.stats["wasted_slot_steps"] += len(self._active) - len(live)
         for i, s in enumerate(self._active):

@@ -32,6 +32,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.checkpoint import store
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.calibration import (CalibrationProfile,
@@ -61,10 +62,13 @@ def value_and_grad(model: Model, params: Any, batch: Dict[str, torch.Tensor],
     the train step reduces it."""
     live = tree_map(lambda t: t.detach().requires_grad_(), params)
     with torch.enable_grad():
-        loss, metrics = model.loss(live, batch, remat=remat,
-                                   use_kernel=use_kernel)
-        grads = iter(torch.autograd.grad(loss, tree_leaves(live),
-                                         allow_unused=True))
+        with tracing.span("train.forward"):
+            loss, metrics = model.loss(live, batch, remat=remat,
+                                       use_kernel=use_kernel)
+        # autograd's engine thread opens its spans under this one
+        with tracing.span("train.backward", adopt=True):
+            grads = iter(torch.autograd.grad(loss, tree_leaves(live),
+                                             allow_unused=True))
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             tree_map(lambda _: next(grads), live))
 
@@ -128,12 +132,12 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
             metrics: Dict[str, Any] = {}
         else:
             loss, metrics, grads = grads_of(params, batch)
-        grads = tree_map(adamw.placed_like, grads, opt_state.m)
-        grads, ef_state = compress.compress_grads(grads, ef_state,
-                                                  compress_scheme)
-        new_params, new_opt, opt_metrics = adamw.apply(opt_cfg, opt_state,
-                                                       grads, params,
-                                                       donate=donate)
+        with tracing.span("train.optimizer"):
+            grads = tree_map(adamw.placed_like, grads, opt_state.m)
+            grads, ef_state = compress.compress_grads(grads, ef_state,
+                                                      compress_scheme)
+            new_params, new_opt, opt_metrics = adamw.apply(
+                opt_cfg, opt_state, grads, params, donate=donate)
         return new_params, new_opt, ef_state, {"loss": loss, **opt_metrics,
                                                **metrics}
 
