@@ -6,7 +6,7 @@ for the roofline bounds).
 
 Phases, each printing one JSON line: ``device`` (name and power limit),
 ``build`` (compiles ``src/repro_torch/kernels/csrc/*.cu`` with nvcc),
-``kernels`` (every hand-written kernel, the two backward kernels included,
+``kernels`` (every hand-written kernel, the backward kernels included,
 against its plain PyTorch version on the card, faulty controls of the
 epilogue kernel, of tsmm and of the flash backward's dS^T hand-over at
 D = 128 that the same check must catch, and the SSD
@@ -126,6 +126,8 @@ from repro_torch.configs import get_config                       # noqa: E402
 from repro_torch.configs.base import ShapeConfig                 # noqa: E402
 from repro_torch.examples import linreg_ds                       # noqa: E402
 from repro_torch.kernels import _build, ops                      # noqa: E402
+from repro_torch.kernels.causal_conv import (  # noqa: E402
+    causal_conv, causal_conv_bwd, causal_conv_bwd_plain)
 from repro_torch.kernels import flash_attention as flash_mod     # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     BACKWARD_HEAD_DIMS, flash_attention, flash_attention_bwd,
@@ -145,6 +147,7 @@ from repro_torch.launch.component_cost import (  # noqa: E402
     aggregate, component_costs)
 from repro_torch.models import layers as model_layers           # noqa: E402
 from repro_torch.models.layers import _band_mask                 # noqa: E402
+from repro_torch.models.mamba import _causal_conv                # noqa: E402
 from repro_torch.models.model import build_model                 # noqa: E402
 from repro_torch.optim import adamw                              # noqa: E402
 from repro_torch.runtime.serve_engine import (EngineConfig, Request,  # noqa: E402
@@ -207,6 +210,23 @@ SSD_MAIN = dict(b=8, s=2048, h=64, p=64, g=1, n=128, chunk=256)
 # zamba2-2.7b's Mamba2 layers: 80 heads of 64, state 64
 SSD_ZAMBA = dict(b=8, s=2048, h=80, p=64, g=1, n=64, chunk=256)
 # (m, n, k): the reference's kernel test shapes
+
+
+def conv_layout(arch: str) -> dict:
+    """The Mamba2 block's conv as the model calls it: C = di + 2 G N
+    channels, read in place at column di of the ``[B, S, 2 di + 2 G N + H]``
+    in-projection, width W."""
+    cfg = get_config(arch)
+    ssm, d = cfg.ssm, cfg.d_model
+    di, gn = ssm.d_inner(d), ssm.n_groups * ssm.state_size
+    return dict(c=di + 2 * gn, width=ssm.conv_width, offset=di,
+                proj=2 * di + 2 * gn + ssm.n_heads(d))
+
+
+# mamba2-1.3b: a train step's conv (no state) and the prefill cell's longest
+# round (with the engine's conv state)
+CONV_TRAIN = dict(b=8, s=2048, state=False, **conv_layout("mamba2-1.3b"))
+CONV_PREFILL = dict(b=8, s=4096, state=True, **conv_layout("mamba2-1.3b"))
 MM_CASES = [(512, 256, 256), (256, 512, 384)]
 # zamba2-2.7b's path: the MLP gate silu(x @ w_gate) of a prefill round of
 # 8 x 2048 tokens, bf16 out; the head at one token a request, fp32 logits
@@ -356,6 +376,34 @@ def compare(out: torch.Tensor, ref: torch.Tensor, rtol: float,
            "rtol": rtol, "atol": atol}
     if excess > 0:
         raise AssertionError(f"kernel disagrees with its plain version: {res}")
+    return res
+
+
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bf16 unit in the last place at each value's magnitude."""
+    mag = t.abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def compare_ulp(out: torch.Tensor, ref: torch.Tensor, rel: float) -> dict:
+    """The causal conv's rule against its fp32 plain version: bf16 within
+    one bf16 ulp of ``ref`` plus ``rel`` x max|ref| (fp32's own rounding in
+    another order of the sums, where terms cancel); fp32 within 2 ``rel`` x
+    max|ref|.  Raises beyond."""
+    o, r = out.float(), ref.float()
+    if o.shape != r.shape or not bool(torch.isfinite(o).all()):
+        raise AssertionError(f"shape {tuple(o.shape)} vs {tuple(r.shape)} or "
+                             f"non-finite values")
+    err = (o - r).abs()
+    scale = float(r.abs().max())
+    limit = (bf16_ulp(r) + rel * scale if out.dtype == torch.bfloat16
+             else torch.full_like(r, 2 * rel * scale))
+    bad = int((err > limit).sum())
+    res = {"max_abs_err": float(err.max()), "ref_max_abs": scale, "rel": rel,
+           "ulp": out.dtype == torch.bfloat16}
+    if bad:
+        raise AssertionError(f"kernel disagrees with its plain version at "
+                             f"{bad} of {err.numel()}: {res}")
     return res
 
 
@@ -1376,6 +1424,132 @@ def check_ssd_bwd_control(gen) -> list:
     return cases
 
 
+def conv_inputs(b, s, c, width, offset, proj, state, dtype, gen):
+    """x as the model hands it over (columns ``offset`` to ``offset + c`` of
+    a ``[b, s, proj]`` projection), w, the bias, the state or None, and an
+    output gradient; on the generator's device."""
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=gen.device)
+                * scale).to(dtype)
+    x = randn(b, s, proj)[..., offset:offset + c]
+    return (x, randn(width, c, scale=0.4), randn(c, scale=0.5),
+            randn(b, width - 1, c) if state else None, randn(b, s, c))
+
+
+def conv_bound_ms(b, s, c, width, state, dtype, backward=False,
+                  **_) -> dict:
+    """bytes: x read and the output written (backward: x and dout read, dx
+    written), the state read and the new state written (backward: dstate,
+    with a state), w and the bias read (backward: dw and db written too);
+    flop: about 2 W + 5 an element forward (the products, the bias, the
+    SiLU) and 6 W + 11 backward (the forward again, the SiLU's derivative,
+    dx and dw), on the fp32 FMA units."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    rows = b * s * (3 if backward else 2)
+    st = b * (width - 1) * c * (2 if state else 0 if backward else 1)
+    nbytes = (rows * c + st + (width + 1) * c * (2 if backward else 1)) \
+        * esize
+    flops = (6 * width + 11 if backward else 2 * width + 5) * b * s * c
+    t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flop": flops, "bytes": nbytes}
+
+
+# (tag, conv_inputs' shape, dtype): the two main paths, a decode step,
+# zamba2's width, the narrower widths on a short prompt, channels that take
+# the element path (C no multiple of 8, x off 16-byte alignment), fp32
+CONV_CASES = [
+    ("main path", CONV_TRAIN, torch.bfloat16),
+    ("prefill main path", CONV_PREFILL, torch.bfloat16),
+    ("decode step", {**CONV_PREFILL, "s": 1}, torch.bfloat16),
+    ("zamba2 main path", dict(b=8, s=2048, state=False,
+                              **conv_layout("zamba2-2.7b")), torch.bfloat16),
+    *((f"W = {w}, short prompt", dict(b=2, s=255, c=160, width=w, offset=64,
+                                      proj=296, state=True), torch.bfloat16)
+      for w in (2, 3)),
+    ("element path", dict(b=2, s=255, c=100, width=4, offset=3, proj=111,
+                          state=True), torch.bfloat16),
+    ("fp32 main path", CONV_TRAIN, torch.float32),
+]
+
+
+def check_causal_conv(gen) -> list:
+    """The forward kernel against ``mamba._causal_conv`` in fp32: the
+    output by :func:`compare_ulp`, contiguous, the new state bit for bit;
+    then the calls it must refuse."""
+    cases = []
+    for tag, m, dtype in CONV_CASES:
+        x, w, bias, st, _ = conv_inputs(**m, dtype=dtype, gen=gen)
+        out, new = causal_conv(x, w, bias, st)
+        ref, ref_new = _causal_conv(
+            *(t.float() if t is not None else None for t in (x, w, bias, st)))
+        if not out.is_contiguous() or not torch.equal(new, ref_new.to(dtype)):
+            raise AssertionError(f"causal_conv {tag}: the output is not "
+                                 f"contiguous or the new state is not the "
+                                 f"last W-1 rows of [state | x]")
+        cases.append({"case": tag, "shape": [m["b"], m["s"], m["c"]],
+                      "width": m["width"], "row_stride": x.stride(1),
+                      "state": m["state"],
+                      "dtype": str(dtype).split(".")[-1],
+                      **compare_ulp(out, ref, 1e-5)})
+        del x, w, bias, st, out, new, ref, ref_new
+    x, w, bias, st, _ = conv_inputs(1, 8, 16, 4, 0, 16, True, torch.bfloat16,
+                                    gen)
+    for bad in (lambda: causal_conv(x, torch.cat([w, w[:1]]), bias),
+                lambda: causal_conv(x.half(), w.half(), bias.half()),
+                lambda: causal_conv(x, w, bias, st[:, 1:]),
+                lambda: causal_conv(x.cpu(), w.cpu(), bias.cpu())):
+        try:
+            bad()
+        except (ValueError, TypeError):
+            continue
+        raise AssertionError("an unsupported causal_conv call did not raise")
+    torch.cuda.empty_cache()
+    return cases
+
+
+def check_causal_conv_bwd(gen) -> list:
+    """The backward kernel and its tile sum against autograd of the fp32
+    plain version: dx and dstate by :func:`compare_ulp` at 1e-5, dw and db
+    (sums over B x S) at 1e-4; every call again, bit for bit."""
+    cases = []
+    for tag, m, dtype in CONV_CASES:
+        x, w, bias, st, dout = conv_inputs(**m, dtype=dtype, gen=gen)
+        got = causal_conv_bwd(x, w, bias, st, dout, m["state"])
+        want = causal_conv_bwd_plain(
+            *(t.float() if t is not None else None
+              for t in (x, w, bias, st, dout)), m["state"])
+        res = {"case": tag, "shape": [m["b"], m["s"], m["c"]],
+               "width": m["width"], "state": m["state"],
+               "dtype": str(dtype).split(".")[-1]}
+        for name, g, e in zip(("dx", "dw", "db", "dstate"), got, want):
+            if e is not None:
+                res[name] = compare_ulp(g, e, 1e-4 if name in ("dw", "db")
+                                        else 1e-5)
+        res["max_abs_err"] = max(v["max_abs_err"] for v in res.values()
+                                 if isinstance(v, dict))
+        res["rerun_bit_identical"] = repeats(got, lambda: causal_conv_bwd(
+            x, w, bias, st, dout, m["state"]), dtype)
+        cases.append(res)
+        del x, w, bias, st, dout, got, want
+    torch.cuda.empty_cache()
+    return cases
+
+
+def conv_library(x, w, bias, state):
+    """The conv by PyTorch's library: ``F.conv1d`` (depthwise, groups = C)
+    over ``[state | x]`` (zeros for the state where there is none) along
+    the last axis, ``F.silu``, and the ``[B, S, C]`` layout the model reads
+    back."""
+    b, s, c = x.shape
+    head = (state if state is not None
+            else x.new_zeros((b, w.shape[0] - 1, c)))
+    xt = torch.cat([head, x], dim=1).transpose(1, 2)
+    y = F.conv1d(xt, w.t().unsqueeze(1), bias, groups=c)
+    return F.silu(y).transpose(1, 2).contiguous()
+
+
 def device_kernel_ms(fn) -> dict:
     """Device milliseconds of each CUDA kernel one call of ``fn`` runs, by
     torch.profiler (after a warm-up call)."""
@@ -1570,8 +1744,28 @@ def time_kernels(gen) -> dict:
         mm[name] = entry
         del x, w, x32, w32
         torch.cuda.empty_cache()
+    conv = {}
+    for name, m in (("train", CONV_TRAIN), ("prefill", CONV_PREFILL)):
+        x, w, bias, st, _ = conv_inputs(**m, dtype=torch.bfloat16, gen=gen)
+        conv[name] = {
+            "ms": time_ms(lambda: causal_conv(x, w, bias, st), 50, 3),
+            "plain_ms": time_ms(lambda: _causal_conv(x, w, bias, st), 20, 3),
+            "plain_note": "mamba._causal_conv in bf16, the model's route "
+                          "without the kernel",
+            "library_ms": time_ms(lambda: conv_library(x, w, bias, st),
+                                  20, 3),
+            "library_note": "F.conv1d (depthwise) over [state | x], F.silu, "
+                            "back to [B,S,C]: four calls and a concatenation",
+            "shape": f"x [{m['b']},{m['s']},{m['c']}] bf16 in place in a "
+                     f"[{m['b']},{m['s']},{m['proj']}] projection, W "
+                     f"{m['width']}, {'with' if m['state'] else 'no'} state",
+            **conv_bound_ms(**m, dtype=torch.bfloat16)}
+        conv[name]["ratio_to_library"] = (conv[name]["ms"]
+                                          / conv[name]["library_ms"])
+        del x, w, bias, st
+    torch.cuda.empty_cache()
     return {"flash_attention": flash, "tsmm_upper": tsmm, "ssd_scan": ssd,
-            "matmul_epilogue": mm}
+            "matmul_epilogue": mm, "causal_conv": conv}
 
 
 def flash_bwd_bound_ms(b, hq, hkv, s, d, causal, window, dtype) -> dict:
@@ -1695,6 +1889,30 @@ def time_bwd_kernels(gen) -> dict:
             del args32
         del xbar, log_a, bm, cm, dy, args
         torch.cuda.empty_cache()
+    m = CONV_TRAIN
+    x, w, bias, st, dout = conv_inputs(**m, dtype=torch.bfloat16, gen=gen)
+    leaves = [t.detach().requires_grad_() for t in (x, w, bias)]
+    plain_out, _ = _causal_conv(*leaves, st)
+    lib_out = conv_library(*leaves, st)
+    out["causal_conv_bwd"] = {
+        "ms": time_ms(lambda: causal_conv_bwd(x, w, bias, st, dout, False),
+                      50, 3),
+        "plain_ms": time_ms(lambda: torch.autograd.grad(
+            plain_out, leaves, dout, retain_graph=True), 20, 3),
+        "plain_note": "autograd's backward of mamba._causal_conv in bf16 "
+                      "alone, forward excluded",
+        "library_ms": time_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, dout, retain_graph=True), 20, 3),
+        "library_note": "the backward alone of the forward's library "
+                        "calls (F.conv1d, F.silu)",
+        "shape": f"x [{m['b']},{m['s']},{m['c']}] bf16 in place in a "
+                 f"[{m['b']},{m['s']},{m['proj']}] projection, W "
+                 f"{m['width']}, no state",
+        **conv_bound_ms(**m, dtype=torch.bfloat16, backward=True)}
+    out["causal_conv_bwd"]["ratio_to_library"] = (
+        out["causal_conv_bwd"]["ms"] / out["causal_conv_bwd"]["library_ms"])
+    del x, w, bias, st, dout, leaves, plain_out, lib_out
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1833,13 +2051,15 @@ def expected_launches(cfg, rounds: int, steps: int) -> dict:
     dense MLP (:func:`_n_gate`: a moe layer's experts are plain batched
     products) and once for the head.  Per decode step: the MLP gates and
     the head (decode attention, cross-attention and the one-token SSM step
-    are plain)."""
+    are plain).  Per round and per decode step: the causal conv once for
+    each Mamba2 layer."""
     n_attn = _n_flash(cfg)
     n_ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
     n_gate = _n_gate(cfg)
     return {"flash_attention": n_attn * rounds, "flash_attention_bwd": 0,
             "tsmm_upper": 0, "ssd_scan": n_ssd * rounds, "ssd_scan_bwd": 0,
-            "matmul_epilogue": (n_gate + 1) * (rounds + steps)}
+            "matmul_epilogue": (n_gate + 1) * (rounds + steps),
+            "causal_conv": n_ssd * (rounds + steps), "causal_conv_bwd": 0}
 
 
 def expected_flash_masks(cfg, expected: dict) -> dict:
@@ -2477,11 +2697,11 @@ def expected_train_launches(cfg, remat: str, batch: int, seq: int,
                             steps: int) -> dict:
     """Launches of each kernel that ``steps`` train steps of ``cfg``'s
     kernel path must make.  A step: each attention layer's flash forward
-    and backward, each Mamba2 layer's SSD scan forward and backward, each
-    gated dense MLP's gate (:func:`_n_gate`; forward, and again in its
-    backward to recompute the pre-activation) and each CE chunk's head
-    through the epilogue kernel, and with an MTP head each chunk of its CE
-    (over S - 2 positions) too.
+    and backward, each Mamba2 layer's SSD scan and causal conv forward and
+    backward, each gated dense MLP's gate (:func:`_n_gate`; forward, and
+    again in its backward to recompute the pre-activation) and each CE
+    chunk's head through the epilogue kernel, and with an MTP head each
+    chunk of its CE (over S - 2 positions) too.
     A forward that a checkpoint reruns in the backward launches again:
     every layer's under remat ``full`` or ``selective``, and every CE
     chunk's head (each chunk is checkpointed)."""
@@ -2494,7 +2714,8 @@ def expected_train_launches(cfg, remat: str, batch: int, seq: int,
     per_step = {"flash_attention": n_attn * again,
                 "flash_attention_bwd": n_attn, "tsmm_upper": 0,
                 "ssd_scan": n_ssd * again, "ssd_scan_bwd": n_ssd,
-                "matmul_epilogue": n_gate * (again + 1) + 2 * heads}
+                "matmul_epilogue": n_gate * (again + 1) + 2 * heads,
+                "causal_conv": n_ssd * again, "causal_conv_bwd": n_ssd}
     return {k: v * steps for k, v in per_step.items()}
 
 
@@ -3792,6 +4013,8 @@ def main() -> None:
     ssd_control = check_ssd_control(gen)
     flash_bwd_cases, ssd_bwd_cases = check_flash_bwd(gen), check_ssd_bwd(gen)
     ssd_bwd_control = check_ssd_bwd_control(gen)
+    conv_cases = check_causal_conv(gen)
+    conv_bwd_cases = check_causal_conv_bwd(gen)
     times = time_kernels(gen)
     bwd_times = time_bwd_kernels(gen)
     emit({"phase": "kernels", "flash_attention": flash_cases,
@@ -3801,7 +4024,9 @@ def main() -> None:
           "ssd_scan_control": ssd_control,
           "ssd_scan_bwd_control": ssd_bwd_control,
           "matmul_epilogue": mm_cases,
-          "matmul_epilogue_controls": control_cases, "times": times,
+          "matmul_epilogue_controls": control_cases,
+          "causal_conv": conv_cases, "causal_conv_bwd": conv_bwd_cases,
+          "times": times,
           "bwd_times": bwd_times})
     if args.stop_after == "kernels":
         return
@@ -3969,6 +4194,22 @@ def main() -> None:
                     "max_abs_err": err_of(ssd_bwd_cases, "zamba2 main path"),
                     "launches": train["zamba2-2.7b"]["launches"][
                         "ssd_scan_bwd"]}},
+        {"name": "causal_conv", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/causal_conv.cu",
+         "replaces": None,
+         "replaces_note": "no TPU kernel: the reference runs _causal_conv "
+                          "(src/repro/models/mamba.py) as array ops",
+         "launches": path_launches("causal_conv"),
+         "max_abs_err": err_of(conv_cases, "main path"),
+         **times["causal_conv"]["train"],
+         "prefill": {**times["causal_conv"]["prefill"],
+                     "max_abs_err": err_of(conv_cases, "prefill main path")}},
+        {"name": "causal_conv_bwd", "route": "cuda", "backward": True,
+         "source": "src/repro_torch/kernels/csrc/causal_conv.cu",
+         "replaces": None,
+         "launches": path_launches("causal_conv_bwd"),
+         "max_abs_err": err_of(conv_bwd_cases, "main path"),
+         **bwd_times["causal_conv_bwd"]},
     ]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})

@@ -24,7 +24,7 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("flash_attention", "flash_attention_bwd", "tsmm", "ssd_scan",
-           "ssd_scan_bwd", "matmul_epilogue")
+           "ssd_scan_bwd", "matmul_epilogue", "causal_conv")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 

@@ -5,9 +5,9 @@ Each wrapper dispatches on the device of the tensor it is given: a CUDA
 tensor launches the kernel (or raises), a CPU tensor takes the kernel's plain
 PyTorch version.  Each kernel's wrapper counts its launches; the backward
 kernels of flash attention and of the SSD scan count theirs apart
-(``flash_attention_bwd``, ``ssd_scan_bwd``).  Flash attention, the SSD scan
-and the matmul epilogue are differentiable through their autograd
-Functions.
+(``flash_attention_bwd``, ``ssd_scan_bwd``), as do the causal conv's
+(``causal_conv_bwd``).  Flash attention, the SSD scan, the causal conv and
+the matmul epilogue are differentiable through their autograd Functions.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import causal_conv as _cc
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import matmul_epilogue as _mme
 from repro_torch.kernels import ssd_scan as _ssd
@@ -25,7 +26,9 @@ _WRAPPERS = {"flash_attention": _fa.flash_attention,
              "tsmm_upper": _tsmm.tsmm_upper,
              "ssd_scan": _ssd.ssd_scan,
              "ssd_scan_bwd": _ssd.ssd_scan_bwd,
-             "matmul_epilogue": _mme.matmul_epilogue}
+             "matmul_epilogue": _mme.matmul_epilogue,
+             "causal_conv": _cc.causal_conv,
+             "causal_conv_bwd": _cc.causal_conv_bwd}
 
 
 def tsmm(x: torch.Tensor, *, reg: float = 0.0) -> torch.Tensor:
@@ -66,6 +69,24 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     y, state = _ssd.ssd_scan(xbar, log_a, B, C, chunk=chunk,
                              init_state=init_state)
     return y + x * D.to(x.dtype)[None, None, :, None], state
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                state: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba2 block's depthwise causal conv, bias and SiLU through the
+    hand-written kernel (the models' API), differentiable on both devices.
+
+    x: [B,S,C] (any batch and row strides); w: [W,C], 2 <= W <= 4; b: [C];
+    state: [B,W-1,C] or None (zeros); x, w, b and state float32 or bfloat16
+    of one type.  Returns (silu(conv + b) [B,S,C], new_state [B,W-1,C]), as
+    ``mamba._causal_conv``, with the sum and the SiLU in fp32 and one
+    rounding to ``x.dtype``.  Anything else raises, on either device.
+    """
+    _cc.check(x, w, b, state)
+    want = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, w, b, state))
+    return _cc.CausalConvFn.apply(x, w, b, state, want)
 
 
 # The reference's signature without its block sizes; any m, n and k.

@@ -197,6 +197,11 @@ def _causal_conv(xc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(out + b), new_state
 
 
+def _conv_kernel(xc, w, b, state):
+    from repro_torch.kernels import ops as kops
+    return kops.causal_conv(xc, w, b, state)
+
+
 def _ssd_kernel(xh, dt, A_log, Bh, Ch, D, init, *, chunk: int):
     from repro_torch.kernels import ops as kops
     return kops.ssd_scan(xh, dt, A_log, Bh, Ch, D, chunk=chunk,
@@ -216,8 +221,10 @@ def mamba_block_apply(params: Dict[str, torch.Tensor], x: torch.Tensor, ssm,
     """x: [B, S, d_model].  cache: {"conv": [B,W-1,C], "state": [B,H,P,N]}.
 
     Returns (out, new_cache); the cache given is not written (the layer
-    stack copies the new one into it).  ``use_kernel=True`` routes the scan
-    to :func:`repro_torch.kernels.ops.ssd_scan` **with the cache's state as
+    stack copies the new one into it).  ``use_kernel=True`` routes the conv
+    to :func:`repro_torch.kernels.ops.causal_conv` (its sum and SiLU in
+    fp32, rounded once) and the scan to
+    :func:`repro_torch.kernels.ops.ssd_scan` **with the cache's state as
     its initial state**; the reference drops it on that path.
     """
     bsz, s, d = x.shape
@@ -232,8 +239,16 @@ def mamba_block_apply(params: Dict[str, torch.Tensor], x: torch.Tensor, ssm,
     dt = proj[..., 2 * di + 2 * g * n:]
     conv_state = cache.get("conv") if cache else None
     with tracing.span("mamba.conv"):
-        conv_out, new_conv = _causal_conv(conv_in, params["conv_w"],
-                                          params["conv_b"], conv_state)
+        if use_kernel:  # on the local shards, batch and channels kept
+            bc = {0: "b", 2: "c"}
+            conv_out, new_conv = local_call(
+                _conv_kernel,
+                (conv_in, params["conv_w"], params["conv_b"], conv_state),
+                (bc, {1: "c"}, {0: "c"}, bc),
+                (("b", None, "c"), ("b", None, "c")))
+        else:
+            conv_out, new_conv = _causal_conv(conv_in, params["conv_w"],
+                                              params["conv_b"], conv_state)
     xh = conv_out[..., :di].reshape(bsz, s, h, ssm.head_dim)
     Bh = conv_out[..., di:di + g * n].reshape(bsz, s, g, n)
     Ch = conv_out[..., di + g * n:].reshape(bsz, s, g, n)

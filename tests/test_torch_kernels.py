@@ -558,10 +558,14 @@ def test_cpu_tensors_launch_nothing():
     y.sum().backward()
     ops.matmul_epilogue(torch.ones(4, 8, requires_grad=True), torch.ones(8, 3),
                         epilogue="silu").sum().backward()
+    y, _ = ops.causal_conv(torch.ones(1, 8, 16, requires_grad=True),
+                           torch.ones(4, 16), torch.zeros(16))
+    y.sum().backward()
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "flash_attention_bwd": 0, "tsmm_upper": 0,
                                    "ssd_scan": 0, "ssd_scan_bwd": 0,
-                                   "matmul_epilogue": 0}
+                                   "matmul_epilogue": 0, "causal_conv": 0,
+                                   "causal_conv_bwd": 0}
 
 
 # ------------------------------------------------- matmul_epilogue bodies

@@ -2,9 +2,9 @@
 counts the train and serve phases hold the card's launches to, against the
 calls the port's kernel path makes on the CPU.  On CPU tensors every kernel wrapper takes its plain version (and
 counts nothing), so each plain version that stands in for a launch is
-counted here instead: the forward and backward of flash attention and of
-the SSD scan, and the matmul epilogue's forward and its backward's
-recompute of z.  zamba2 is the train path this count was not yet held to
+counted here instead: the forward and backward of flash attention, of
+the SSD scan and of the causal conv, and the matmul epilogue's forward and
+its backward's recompute of z.  zamba2 is the train path this count was not yet held to
 (its shared blocks applied ``n_layers // attn_every`` times, each under
 remat ``full``); qwen and mamba2 are held to it beside it, and so are the
 dense archs qwen1.5-4b, stablelm-12b and qwen1.5-110b at the depth each
@@ -20,7 +20,8 @@ the heads' alone, and so is deepseek-v3-671b (MLA, so no flash launch at
 all; its dense layers' and shared experts' gates and, in training, the
 MTP head's CE chunks on the epilogue kernel, the MTP block's gate plain).  The serve count is held over a ``generate`` of static
 and of continuous batching (static only with a frontend, which is
-single-admission)."""
+single-admission), and so is the Mamba2 archs' (the causal conv launches
+in every decode step too)."""
 import dataclasses
 import sys
 from pathlib import Path
@@ -39,6 +40,7 @@ from repro_torch.runtime.serve_engine import (EngineConfig,  # noqa: E402
                                               Request, ServeEngine)
 from repro_torch.configs import get_config                     # noqa: E402
 from repro_torch.core import ShardingPlan                      # noqa: E402
+from repro_torch.kernels import causal_conv as cc              # noqa: E402
 from repro_torch.kernels import flash_attention as fa          # noqa: E402
 from repro_torch.kernels import matmul_epilogue as mme         # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd                # noqa: E402
@@ -52,7 +54,9 @@ STAND_INS = [(fa, "flash_attention_plain", "flash_attention"),
              (fa, "flash_attention_bwd_plain", "flash_attention_bwd"),
              (ssd, "ssd_scan_plain", "ssd_scan"),
              (ssd, "ssd_scan_bwd_plain", "ssd_scan_bwd"),
-             (mme, "matmul_epilogue_plain", "matmul_epilogue")]
+             (mme, "matmul_epilogue_plain", "matmul_epilogue"),
+             (cc, "causal_conv_plain", "causal_conv"),
+             (cc, "causal_conv_bwd_plain", "causal_conv_bwd")]
 
 
 DENSE = ("qwen1.5-4b", "stablelm-12b", "qwen1.5-110b", "gemma3-12b",
@@ -76,7 +80,8 @@ def count_stand_ins(monkeypatch, windows=None) -> dict:
     ones also by window into ``windows`` (keyed as the wrappers count)."""
     calls = dict.fromkeys(("flash_attention", "flash_attention_bwd",
                            "tsmm_upper", "ssd_scan", "ssd_scan_bwd",
-                           "matmul_epilogue"), 0)
+                           "matmul_epilogue", "causal_conv",
+                           "causal_conv_bwd"), 0)
 
     def counted(fn, kernel):
         def wrapper(*args, **kwargs):
@@ -224,6 +229,32 @@ def test_expected_launches_match_the_serve_path(arch, batching,
         assert calls["flash_attention"] == 0 < calls["matmul_epilogue"]
     else:
         assert calls["flash_attention"] == (cfg.n_layers + enc) * rounds > 0
+
+
+@pytest.mark.parametrize("batching", ["static", "continuous"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
+def test_expected_launches_match_the_mamba_serve_path(arch, batching,
+                                                      monkeypatch):
+    """The Mamba2 layers' serve path: the SSD scan once a layer each
+    admission round (the one-token step is plain), the causal conv once a
+    layer each round and each decode step, as ``expected_launches`` counts
+    them; zamba2's shared blocks' flash and gates beside them."""
+    cfg = small(arch, "serve")
+    model = build_model(cfg, device="cpu")
+    engine = ServeEngine(model, model.init(0), EngineConfig(
+        max_len=48, batching=batching, slots=2), use_kernel=True)
+    rng = torch.Generator().manual_seed(1)
+    reqs = [Request(prompt=torch.randint(1, cfg.vocab_size, (n,),
+                                         generator=rng).tolist(),
+                    max_new_tokens=4) for n in (9, 16, 5, 12, 7)]
+    calls = count_stand_ins(monkeypatch)
+    outs = engine.generate(reqs)
+    assert all(len(o.tokens) == 4 for o in outs)
+    rounds, steps = (engine.stats["admission_rounds"],
+                     engine.stats["decode_steps"])
+    assert calls == expected_launches(cfg, rounds, steps)
+    assert calls["causal_conv"] == cfg.n_layers * (rounds + steps) > 0
+    assert calls["ssd_scan"] == cfg.n_layers * rounds
 
 
 def test_routing_recorder_reads_every_moe_layer():
